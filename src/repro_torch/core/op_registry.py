@@ -1,0 +1,379 @@
+"""Operator registry — the declarations the deploy passes dispatch on.
+
+Counterpart of ``repro/core/op_registry.py``, holding the op types the
+CaloClusterNet graph uses: ``input``/``output``, ``linear``/``dense``,
+``relu``, ``concat``, ``slice``, ``retile``, ``gravnet_aggregate``,
+``gravnet_block`` and ``cps``. Each :class:`OpSpec` says whether the
+op's access pattern is regular (MXU-eligible), which template it maps
+to per target, how to infer its output feature dim, its analytic cost,
+and how the kernel-opt pass binds its launch knobs. The specs, cost
+formulas and binders are the reference's, so the port's passes emit the
+reference's graphs. The reference's tuning-cache lookups are left out:
+the port has no tuning cache yet, so every binding is the heuristic.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+
+class GraphVerificationError(ValueError):
+    """A graph failed shape/legality checks (see passes/verify.py)."""
+
+
+class UnknownOperatorError(GraphVerificationError):
+    """An op type absent from the registry — no pass can handle it."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BindContext:
+    """What the kernel-opt pass knows when binding launch knobs."""
+    n_rows: int
+    batch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class OpSpec:
+    """Declarative description of one op type, consumed by the passes.
+
+    ``infer(op, dims, g)``     -> output feature dim (verify pass)
+    ``cost(op, n_hits, pb)``   -> (flops, act_bytes, weight_bytes)
+    ``mxu_eff(op, rows, n)``   -> fraction of MXU peak (matmuls only)
+    ``bind(op, ctx)``          -> write launch knobs into op.attrs_opt
+    """
+    op_type: str
+    regular: bool = False            # statically scheduled -> MXU-eligible
+    tpu_native_regular: bool = False  # regular under tpu_native_gravnet
+    templates: dict[str, str] = dataclasses.field(default_factory=dict)
+    infer: Callable | None = None
+    cost: Callable | None = None
+    mxu_matmul: bool = False         # cost model treats it as a matmul
+    mxu_eff: Callable | None = None
+    bind: Callable | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionRule:
+    """One registered subgraph rewrite, replayed by ``fuse()`` in
+    registration order. ``opt_in`` rules run only when the caller
+    enables them by name; ``fixpoint`` rules iterate until the graph
+    stops shrinking."""
+    name: str
+    fn: Callable  # Graph -> Graph
+    opt_in: bool = False
+    fixpoint: bool = False
+
+
+_REGISTRY: dict[str, OpSpec] = {}
+_FUSION_RULES: list[FusionRule] = []
+
+
+def register_op(spec: OpSpec) -> OpSpec:
+    if spec.op_type in _REGISTRY:
+        raise ValueError(f"op type {spec.op_type!r} already registered")
+    _REGISTRY[spec.op_type] = spec
+    return spec
+
+
+def require_spec(op) -> OpSpec:
+    """Spec for ``op`` (an Operator), or the canonical unknown-op error."""
+    spec = _REGISTRY.get(op.op_type)
+    if spec is None:
+        raise UnknownOperatorError(
+            f"{op.name}: unknown op {op.op_type!r}")
+    return spec
+
+
+def is_regular(op, *, tpu_native_gravnet: bool = False) -> bool:
+    spec = require_spec(op)
+    return spec.regular or (tpu_native_gravnet and spec.tpu_native_regular)
+
+
+def register_fusion_rule(name: str, fn: Callable, *, opt_in: bool = False,
+                         fixpoint: bool = False) -> FusionRule:
+    if any(r.name == name for r in _FUSION_RULES):
+        raise ValueError(f"fusion rule {name!r} already registered")
+    rule = FusionRule(name, fn, opt_in=opt_in, fixpoint=fixpoint)
+    _FUSION_RULES.append(rule)
+    return rule
+
+
+def fusion_rules() -> tuple[FusionRule, ...]:
+    return tuple(_FUSION_RULES)
+
+
+# ------------------------------------------------------------------------
+# template layouts: MXU templates exchange ``lane128`` tensors (feature
+# dim zero-padded to 128 lanes), everything else ``compact`` tensors.
+LANE = 128
+TEMPLATE_LAYOUT = {"fused_dense": "lane128", "gravnet_kernel": "lane128",
+                   "gravnet_block_kernel": "lane128",
+                   "xla_gravnet_block": "lane128"}
+
+
+def template_layout(template: str | None) -> str:
+    return TEMPLATE_LAYOUT.get(template, "compact")
+
+
+# ========================================================================
+# shape inference (verify pass arms)
+# ========================================================================
+def _infer_input(op, dims, g):
+    if op.out_dim is None:
+        raise GraphVerificationError(f"{op.name}: input needs out_dim")
+    return op.out_dim
+
+
+def _infer_dense(op, dims, g):
+    if not op.params or "w" not in op.params:
+        raise GraphVerificationError(f"{op.name}: missing weight")
+    d_in, d_out = op.params["w"].shape
+    got = dims[op.inputs[0]]
+    if got != d_in:
+        raise GraphVerificationError(
+            f"{op.name}: weight expects d_in={d_in}, producer "
+            f"{op.inputs[0]!r} provides {got}")
+    if "b" in op.params and tuple(op.params["b"].shape) != (d_out,):
+        raise GraphVerificationError(f"{op.name}: bias shape "
+                                     f"{tuple(op.params['b'].shape)}")
+    return d_out
+
+
+def _infer_same(op, dims, g):
+    return dims[op.inputs[0]]
+
+
+def _infer_retile(op, dims, g):
+    return op.out_dim or dims[op.inputs[0]]
+
+
+def _infer_concat(op, dims, g):
+    return sum(dims[i] for i in op.inputs)
+
+
+def _infer_slice(op, dims, g):
+    st, sz = op.attrs["start"], op.attrs["size"]
+    if st + sz > dims[op.inputs[0]]:
+        raise GraphVerificationError(
+            f"{op.name}: slice [{st}:{st + sz}] exceeds producer "
+            f"dim {dims[op.inputs[0]]}")
+    return sz
+
+
+def _infer_gravnet_aggregate(op, dims, g):
+    ins = op.inputs
+    if len(ins) != 3:
+        raise GraphVerificationError(
+            f"{op.name}: needs (s, f, mask) inputs")
+    ds, df = op.attrs.get("d_s"), op.attrs.get("d_f")
+    if dims[ins[0]] != ds or dims[ins[1]] != df:
+        raise GraphVerificationError(
+            f"{op.name}: S/FLR dims ({dims[ins[0]]},{dims[ins[1]]})"
+            f" != attrs ({ds},{df})")
+    return 2 * df
+
+
+def _infer_gravnet_block(op, dims, g):
+    ins = op.inputs
+    if len(ins) != 2:
+        raise GraphVerificationError(
+            f"{op.name}: needs (x, mask) inputs")
+    need = ("ws", "bs", "wf", "bf", "wo", "bo")
+    if not op.params or any(p not in op.params for p in need):
+        raise GraphVerificationError(
+            f"{op.name}: gravnet_block needs params {need}")
+    dh = op.attrs.get("d_hidden")
+    ds, df = op.attrs.get("d_s"), op.attrs.get("d_f")
+    if dims[ins[0]] != dh:
+        raise GraphVerificationError(
+            f"{op.name}: x provides {dims[ins[0]]}, expects "
+            f"d_hidden={dh}")
+    if tuple(op.params["ws"].shape) != (dh, ds):
+        raise GraphVerificationError(
+            f"{op.name}: ws shape {tuple(op.params['ws'].shape)} != "
+            f"({dh},{ds})")
+    if tuple(op.params["wf"].shape) != (dh, df):
+        raise GraphVerificationError(
+            f"{op.name}: wf shape {tuple(op.params['wf'].shape)} != "
+            f"({dh},{df})")
+    dcat = (dh + 2 * df if op.attrs.get("concat_x", True)
+            else 2 * df)
+    if op.params["wo"].shape[0] != dcat:
+        raise GraphVerificationError(
+            f"{op.name}: wo expects {op.params['wo'].shape[0]} "
+            f"inputs, block provides {dcat}")
+    return int(op.params["wo"].shape[1])
+
+
+def _infer_cps(op, dims, g):
+    heads = op.attrs.get("head_names", [])
+    if len(op.inputs) != len(heads) + 1:
+        raise GraphVerificationError(
+            f"{op.name}: expects {len(heads)} heads + mask, got "
+            f"{len(op.inputs)} inputs")
+    return op.out_dim or 1
+
+
+def _infer_output(op, dims, g):
+    return sum(dims[i] for i in op.inputs
+               if g[i].op_type != "cps")
+
+
+# ========================================================================
+# analytic cost model (parallelize pass arms): (flops, act, wb) / event
+# ========================================================================
+def _cost_dense(op, n_hits, pb):
+    d_out = op.out_dim or 1
+    d_in = op.params["w"].shape[0] if op.params else d_out
+    flops = 2.0 * n_hits * d_in * d_out
+    act = n_hits * (d_in + d_out) * pb
+    wb = d_in * d_out * pb
+    return flops, act, wb
+
+
+def _cost_gravnet_aggregate(op, n_hits, pb):
+    d_out = op.out_dim or 1
+    ds = op.attrs.get("d_s", 4)
+    df = op.attrs.get("d_f", d_out // 2)
+    k = op.attrs.get("k", 8)
+    flops = 2.0 * n_hits * n_hits * (ds + k * df) + 10.0 * n_hits * k
+    act = n_hits * (ds + df + d_out) * pb
+    return flops, act, 0.0
+
+
+def _cost_gravnet_block(op, n_hits, pb):
+    d_out = op.out_dim or 1
+    dh = op.attrs.get("d_hidden", 64)
+    ds = op.attrs.get("d_s", 4)
+    df = op.attrs.get("d_f", d_out // 2)
+    k = op.attrs.get("k", 8)
+    dcat = dh + 2 * df if op.attrs.get("concat_x", True) else 2 * df
+    flops = (2.0 * n_hits * dh * (ds + df)              # prologue
+             + 2.0 * n_hits * n_hits * (ds + k * df)    # aggregate
+             + 10.0 * n_hits * k
+             + 2.0 * n_hits * dcat * d_out)             # epilogue
+    act = n_hits * (dh + d_out) * pb
+    wb = (dh * (ds + df) + dcat * d_out) * pb
+    return flops, act, wb
+
+
+def _cost_cps(op, n_hits, pb):
+    kmax = op.attrs.get("k_max", 8)
+    flops = 20.0 * n_hits * kmax + 10.0 * n_hits * math.log2(max(n_hits, 2))
+    act = n_hits * 8.0 * pb
+    return flops, act, 0.0
+
+
+def _cost_eltwise_like(op, n_hits, pb):
+    d_out = op.out_dim or 1
+    flops = 1.0 * n_hits * d_out
+    act = 2.0 * n_hits * d_out * pb
+    return flops, act, 0.0
+
+
+def default_cost(op, n_hits, pb):
+    return 0.0, n_hits * (op.out_dim or 1) * pb, 0.0
+
+
+# MXU-efficiency factors (fraction of systolic-array peak a matmul of
+# this size can use; consulted only for mxu-targeted matmul ops)
+def _eff_dense(op, n_rows, n_hits):
+    d_in = op.params["w"].shape[0] if op.params else 128
+    d_out = op.out_dim or 128
+    return (min(d_in, 128) / 128.0) * (min(d_out, 128) / 128.0) * \
+        min(1.0, n_rows / 8.0)
+
+
+def _eff_gravnet(op, n_rows, n_hits):
+    df = op.attrs.get("d_f", 32)
+    return (min(n_hits, 128) / 128.0) * (min(df, 128) / 128.0)
+
+
+# ========================================================================
+# kernel-opt binders
+# ========================================================================
+def _bind_fused_dense(op, ctx: BindContext):
+    """Variant selection / block shape for the fused_dense template —
+    see passes/kernel_opt.py."""
+    from repro_torch.core.passes.kernel_opt import (FLATTEN_DIM,
+                                                    FLATTEN_ROWS,
+                                                    _pick_block,
+                                                    fused_dense_shape)
+    if op.template != "fused_dense":
+        return
+    rows, d_in, d_out = fused_dense_shape(op, ctx.n_rows, ctx.batch)
+    if rows <= FLATTEN_ROWS and max(d_in, d_out) <= FLATTEN_DIM:
+        op.attrs_opt["variant"] = "flattened"
+    else:
+        op.attrs_opt["variant"] = "looped"
+        op.attrs_opt["bm"] = _pick_block(rows, 512)
+        op.attrs_opt["bn"] = _pick_block(d_out, 512)
+        op.attrs_opt["bk"] = _pick_block(d_in, 2048)
+
+
+# templates whose binder is picked by the *template* the mapper chose,
+# not the op type (a dense on the xla target binds nothing)
+TEMPLATE_BINDERS = {"fused_dense": _bind_fused_dense}
+
+
+def bind_kernels(op, ctx: BindContext) -> None:
+    """Kernel-opt dispatch for one op: template binder first, then the
+    op-type binder from its spec."""
+    binder = TEMPLATE_BINDERS.get(op.template)
+    if binder is not None:
+        binder(op, ctx)
+        return
+    spec = require_spec(op)
+    if spec.bind is not None:
+        spec.bind(op, ctx)
+
+
+# ========================================================================
+# the registry
+# ========================================================================
+def _both(template: str) -> dict[str, str]:
+    return {"mxu": template, "xla": template}
+
+
+register_op(OpSpec(
+    "input", templates={"xla": "io"}, infer=_infer_input))
+register_op(OpSpec(
+    "output", templates={"xla": "io"}, infer=_infer_output))
+register_op(OpSpec(
+    "linear", regular=True,
+    templates={"mxu": "fused_dense", "xla": "xla_dense"},
+    infer=_infer_dense, cost=_cost_dense, mxu_matmul=True,
+    mxu_eff=_eff_dense))
+register_op(OpSpec(
+    "dense", regular=True,
+    templates={"mxu": "fused_dense", "xla": "xla_dense"},
+    infer=_infer_dense, cost=_cost_dense, mxu_matmul=True,
+    mxu_eff=_eff_dense))
+register_op(OpSpec(
+    "relu", regular=True, templates=_both("xla_eltwise"),
+    infer=_infer_same, cost=_cost_eltwise_like))
+register_op(OpSpec(
+    "concat", regular=True, templates=_both("xla_concat"),
+    infer=_infer_concat, cost=_cost_eltwise_like))
+register_op(OpSpec(
+    "slice", regular=True, templates=_both("xla_slice"),
+    infer=_infer_slice, cost=_cost_eltwise_like))
+register_op(OpSpec(
+    "retile", regular=True, templates=_both("xla_retile"),
+    infer=_infer_retile, cost=_cost_eltwise_like))
+register_op(OpSpec(
+    "gravnet_aggregate", tpu_native_regular=True,
+    templates={"mxu": "gravnet_kernel", "xla": "xla_gravnet"},
+    infer=_infer_gravnet_aggregate, cost=_cost_gravnet_aggregate,
+    mxu_matmul=True, mxu_eff=_eff_gravnet))
+register_op(OpSpec(
+    # the fused dense→aggregate→dense block carries the aggregation's
+    # data-dependent selection, so it classifies like gravnet_aggregate
+    "gravnet_block", tpu_native_regular=True,
+    templates={"mxu": "gravnet_block_kernel", "xla": "xla_gravnet_block"},
+    infer=_infer_gravnet_block, cost=_cost_gravnet_block,
+    mxu_matmul=True, mxu_eff=_eff_gravnet))
+register_op(OpSpec(
+    "cps", templates=_both("xla_cps"),
+    infer=_infer_cps, cost=_cost_cps))

@@ -1,0 +1,111 @@
+"""Build the CUDA sources under ``csrc/`` at first use and load them.
+
+Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` into a shared
+library with a plain C interface, loaded with ``ctypes`` (a few seconds
+a file; a source that includes PyTorch's headers takes minutes). The
+libraries go to ``build/repro_torch/`` at the root of the checkout,
+named by a hash of the sources and flags, so an edited source rebuilds
+and an unchanged one loads from disk. Nothing builds when a module is
+imported: the first launch of a kernel builds its library, and
+:func:`build_all` builds every source at once, one ``nvcc`` each, all
+started together.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+# -fmad=false: no mul+add is contracted into an FMA, so the plain
+# PyTorch versions (separate, rounded products and sums in the kernels'
+# order) reproduce the kernels' bits — see kernels/ref.py.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "on a machine with the CUDA toolkit")
+    return nvcc
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (popen, tmp_path, lib_path),
+    or None when the library is already built."""
+    lib = _lib_path(name)
+    if lib.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, lib
+
+
+def _finish(name: str, started) -> str:
+    """Wait for one nvcc; move its library into place; return its log."""
+    proc, tmp, lib = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, lib)      # atomic: a concurrent loader sees all or none
+    (lib.with_suffix(".log")).write_text(log)
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Build every source in parallel; returns {name: compiler log}
+    ("" for a library that was already built)."""
+    with _LOCK:
+        started = {n: _start(n) for n in sources()}
+        return {n: ("" if s is None else _finish(n, s))
+                for n, s in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            started = _start(name)
+            if started is not None:
+                _finish(name, started)
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _LIBS[name] = lib
+        return lib
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if code != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with "
+                           f"cudaError_t {code}")

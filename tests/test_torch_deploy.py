@@ -1,0 +1,164 @@
+"""The port's design flow and deployed pipeline against the JAX
+package's, on the CPU: the same graphs op for op, heads within the
+float32 row and CPS decisions bitwise on the same weights and events.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+from _numerics import assert_bitwise, assert_close
+
+from repro.core import caloclusternet as jccn
+from repro.core.passes.fusion import fuse as jfuse
+from repro.core.passes.parallelize import Requirements as JReq
+from repro.core.passes.partition import partition as jpartition
+from repro.core.pipeline import deploy as jdeploy
+from repro.core.quantization import apply_precision_policy as jpolicy
+from repro.data import belle2 as jbelle2
+from repro_torch.convert import from_jax_params
+from repro_torch.core import caloclusternet as tccn
+from repro_torch.core.passes.fusion import fuse as tfuse
+from repro_torch.core.passes.partition import partition as tpartition
+from repro_torch.core.pipeline import Requirements as TReq
+from repro_torch.core.pipeline import deploy as tdeploy
+from repro_torch.core.quantization import apply_precision_policy as tpolicy
+from repro_torch.data import belle2 as tbelle2
+
+N_EVENTS = 8
+
+
+def _req_kw(dp, cfg, policy="fp"):
+    return dict(design_point=dp, platform="cpu", precision_policy=policy,
+                n_hits=cfg.n_hits, target_throughput=1e5,
+                max_latency_s=2e-3)
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jccn.CCNConfig(n_hits=32)
+    tcfg = tccn.CCNConfig(n_hits=32)
+    params = jccn.init(jax.random.PRNGKey(3), jcfg)
+    params_np = jax.tree_util.tree_map(np.asarray, params)
+    tparams = from_jax_params(params_np, tcfg, device="cpu")
+    return (jcfg, jccn.to_graph(params, jcfg),
+            tcfg, tccn.to_graph(tparams, tcfg))
+
+
+@pytest.fixture(scope="module")
+def events():
+    gen = jbelle2.current_detector()
+    ev = jbelle2.generate(gen, N_EVENTS, seed=11)
+    ev_t = tbelle2.generate(tbelle2.current_detector(), N_EVENTS, seed=11)
+    return ev, ev_t
+
+
+def _op_rows(g):
+    return [(op.name, op.op_type, op.target, op.segment, op.precision,
+             op.attrs_opt.get("P"), op.attrs_opt.get("variant"))
+            for op in g]
+
+
+@pytest.fixture(scope="module", params=[2, 3])
+def deployed(request, model):
+    dp = request.param
+    jcfg, jg, tcfg, tg = model
+    jpipe = jdeploy(jg, JReq(**_req_kw(dp, jcfg)))
+    tpipe = tdeploy(tg, TReq(**_req_kw(dp, tcfg)), device="cpu")
+    return dp, jpipe, tpipe
+
+
+def test_belle2_copies_are_byte_equal(events):
+    ev, ev_t = events
+    assert set(ev) == set(ev_t)
+    for k in ev:
+        assert ev[k].dtype == ev_t[k].dtype
+        assert ev[k].tobytes() == ev_t[k].tobytes(), k
+
+
+def test_deployed_graphs_equal(deployed):
+    dp, jpipe, tpipe = deployed
+    assert _op_rows(tpipe.graph) == _op_rows(jpipe.graph)
+    assert (tpipe.graph.meta["parallelization"]["microbatch"]
+            == jpipe.graph.meta["parallelization"]["microbatch"])
+    assert tpipe.microbatch == jpipe.microbatch
+    # the merged head dense carries the same (concatenated) weights
+    for op in jpipe.graph:
+        if op.params:
+            for k, v in op.params.items():
+                assert_bitwise(tpipe.graph[op.name].params[k].numpy(),
+                               np.asarray(v), context=f"{op.name}/{k}")
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+def test_heads_close_and_cps_bitwise(deployed, model, events, backend):
+    dp, jpipe, tpipe = deployed
+    jcfg, jg, _, _ = model
+    if backend != "xla":
+        jpipe = jdeploy(jg, JReq(**_req_kw(dp, jcfg)),
+                        kernel_backend=backend)
+    ev = events[0]
+    feeds = {"hits": ev["feats"], "mask": ev["mask"]}
+    jout = jax.tree_util.tree_map(np.asarray, jpipe(feeds))
+    tout = tpipe(feeds)
+    for h in ("beta", "coords", "energy", "cls"):
+        assert_close(tout[h].numpy(), jout[h], dtype="float32", context=h)
+    jc, tc = jout["cps"], {k: v.numpy() for k, v in tout["cps"].items()}
+    for k in ("n_clusters", "trigger", "cluster_valid"):
+        assert tc[k].dtype == jc[k].dtype, k
+        assert_bitwise(tc[k], jc[k], context=k)
+    for k in ("cluster_xy", "cluster_e", "cluster_beta"):
+        assert_close(tc[k], jc[k], dtype="float32", context=k)
+
+
+def test_precision_policies_match_reference(model):
+    """Both branches of apply_precision_policy set the reference's
+    precisions on the fused, partitioned graph."""
+    _, jg, _, tg = model
+    jp = jpartition(jfuse(jg, gravnet_block=True))
+    tp = tpartition(tfuse(tg, gravnet_block=True))
+    for policy in ("fp", "mixed"):
+        assert ([(o.name, o.precision) for o in tpolicy(tp, policy=policy)]
+                == [(o.name, o.precision) for o in jpolicy(jp,
+                                                           policy=policy)])
+
+
+def test_mixed_precision_raises(model):
+    _, _, tcfg, tg = model
+    with pytest.raises(NotImplementedError, match="int8"):
+        tdeploy(tg, TReq(**_req_kw(3, tcfg, "mixed")), device="cpu")
+
+
+def test_design_point_1_raises_naming_the_kernel(model):
+    _, _, tcfg, tg = model
+    with pytest.raises(NotImplementedError, match="gravnet_aggregate"):
+        tdeploy(tg, TReq(**_req_kw(1, tcfg)), device="cpu")
+
+
+def test_unfusable_block_raises_naming_the_kernel(model):
+    """A GravNet chain the fusion pass must leave unfused (here: the
+    aggregate has a second consumer) is refused, never run plainly."""
+    _, _, tcfg, tg = model
+    g = tg.clone()
+    out = g["out"]
+    g.ops["out"] = dataclasses.replace(out, inputs=out.inputs[:-1]
+                                       + ["gn0_agg", "cps"])
+    g.ops["out"].attrs = dict(out.attrs, head_names=list(
+        out.attrs["head_names"]) + ["tap"])
+    with pytest.raises(NotImplementedError, match="gravnet_aggregate"):
+        tdeploy(g, TReq(**_req_kw(3, tcfg)), device="cpu")
+
+
+def test_block_without_concat_raises(model):
+    """A fused block whose output dense reads the aggregate alone
+    (concat_x=False) has no kernel in the port: running it raises,
+    never falls back to a plain version."""
+    _, _, tcfg, tg = model
+    pipe = tdeploy(tg, TReq(**_req_kw(3, tcfg)), device="cpu")
+    blocks = [op for op in pipe.graph if op.op_type == "gravnet_block"]
+    assert blocks and all(op.attrs["concat_x"] for op in blocks)
+    blocks[0].attrs["concat_x"] = False
+    gen = tbelle2.current_detector()
+    ev = tbelle2.generate(gen, pipe.microbatch, seed=1)
+    with pytest.raises(NotImplementedError, match="concat_x"):
+        pipe({"hits": ev["feats"], "mask": ev["mask"]})

@@ -1,0 +1,130 @@
+"""The port stands alone: importing any module of ``repro_torch`` loads
+neither JAX nor the JAX package, no source of the port or of
+``chip_smoke.py`` imports them, nothing builds at import time, and an
+entry point asked for no device on a host without CUDA raises instead
+of running on the CPU.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "src" / "repro_torch"
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    return env
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import _build\n"
+        "assert not _build._LIBS, 'a kernel library loaded at import'\n"
+        "print(len(mods))\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) == len(_modules()) >= 20
+
+
+@pytest.mark.parametrize("path", [
+    *(p.relative_to(REPO).as_posix() for p in sorted(PKG.rglob("*.py"))),
+    "chip_smoke.py"])
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    src = (REPO / path).read_text()
+    assert not _FORBIDDEN.findall(src), path
+
+
+def test_every_kernel_source_has_its_note():
+    """Each CUDA source names the Pallas function it replaces and what
+    bounds it on the card."""
+    for cu in sorted((PKG / "kernels" / "csrc").glob("*.cu")):
+        head = cu.read_text()[:3000]
+        assert "Replaces: repro/kernels/" in head, cu.name
+        assert "Bound on this card:" in head, cu.name
+        assert "Design:" in head, cu.name
+
+
+def test_kernel_libraries_are_named_by_their_sources(tmp_path,
+                                                     monkeypatch):
+    """Every csrc/*.cu is a kernel source; its library goes under the
+    git-ignored build/ directory and its name changes with the sources,
+    so an edited kernel never loads a stale build."""
+    from repro_torch.kernels import _build
+    assert _build.sources() == ["fused_dense", "gravnet_block"]
+    lib = _build._lib_path("gravnet_block")
+    assert lib.parent == REPO / "build" / "repro_torch"
+    assert "build/" in (REPO / ".gitignore").read_text().splitlines()
+    fake = tmp_path / "csrc"
+    fake.mkdir()
+    for p in _build.CSRC.iterdir():
+        (fake / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", fake)
+    assert _build._lib_path("gravnet_block") == lib
+    with open(fake / "gravnet_cell.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build._lib_path("gravnet_block") != lib
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch):
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
+
+
+def test_default_device_without_cuda_raises():
+    from repro_torch.core import caloclusternet as ccn
+    from repro_torch.core.pipeline import Requirements, deploy
+    from repro_torch.device import resolve_device
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid")
+    cfg = ccn.CCNConfig(n_hits=16)
+    g = ccn.to_graph(ccn.init(torch.Generator().manual_seed(0), cfg), cfg)
+    req = Requirements(design_point=3, platform="cpu",
+                       precision_policy="fp", n_hits=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deploy(g, req)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result line on a
+    host without CUDA, and in a directory holding nothing else of the
+    repository."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    for script, cwd in ((REPO / "chip_smoke.py", REPO), (alone, tmp_path)):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        r = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0, (script, r.stdout, r.stderr)
+        assert '"ok"' not in r.stdout
