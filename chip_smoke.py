@@ -9,18 +9,28 @@ Phases, each of which exits non-zero when it fails:
 2. build every kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
 3. hold every kernel against its plain PyTorch version on the card, at
-   every shape the main path launches it with (one micro-batch chunk),
-   at 16 events and at the 64-event calibration batch, with TF32 off;
-   time kernel, plain version and, for ``fused_dense``, the library call
-   ``torch.addmm`` (+ ``relu``) that computes the same function;
-4. deploy the upgrade-width CaloClusterNet (random weights from a seed)
-   at design point 3 under the fp policy on the card, serve 256 events
-   through the port's in-order serving loop with every launch counter
-   at 0, check that each chunk launched 5 ``fused_dense`` and 2
-   ``gravnet_block`` kernels, and that the heads and trigger decisions
-   equal those of the same pipeline with the plain versions substituted;
-   print events/s, decision latency p50/p99 and the device's idle share;
-5. print ``{"kernels": [...]}`` with every kernel of the port, then
+   every shape its path launches it with (one micro-batch chunk), at 16
+   events and at the 64-event calibration batch, with TF32 off; time
+   kernel, plain version and, where one PyTorch call computes the same
+   function, that library call (``torch.addmm`` + ``relu`` for
+   ``fused_dense``; ``torch._int_mm``, the int8 product alone without
+   the epilogue, for ``fused_dense_int8`` at the shapes it accepts);
+4. the main path, as ``python -m repro_torch.launch.serve`` runs by
+   default: deploy the upgrade-width CaloClusterNet (random weights from
+   a seed) at design point 3 under the **mixed** policy, calibrated on
+   the card, serve 256 events through the in-order loop with every
+   launch counter at 0, check 5 ``fused_dense_int8`` and 2
+   ``gravnet_block_int8`` launches per chunk and no f32 dense, block or
+   aggregate launch, and that the heads and trigger decisions equal
+   bitwise those of the same deployment with the plain versions
+   substituted, calibration included; print events/s, decision latency
+   p50/p99, the device's idle share and the host time per op type;
+5. the other paths, each with the counters at 0 just before it: the fp
+   policy at design point 3 (64 events; 5 ``fused_dense`` and 2
+   ``gravnet_block`` per chunk), design point 1 under fp and design
+   point 3 under mixed with ``fuse_int8=False`` (16 events each; both
+   launch ``gravnet_aggregate``), each held against its plain versions;
+6. print ``{"kernels": [...]}`` with every kernel of the port, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -41,9 +51,12 @@ OUT = ROOT / "chiprun_out" / "chip_smoke"
 # the float32 row of tests/_numerics.py: |got - want| <= ATOL + RTOL·|want|
 RTOL, ATOL = 1e-5, 1e-5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-F32_FLOPS = 67e12               # H100 SXM, f32 outside the tensor cores
-SERVE_EVENTS = 256
-CHECK_BATCHES = (2, 16, 64)     # main-path chunk, serve batch, calibration
+RATES = {"f32": 67e12,          # H100 SXM, f32 outside the tensor cores
+         "int8": 1979e12}       # H100 SXM, int8 tensor cores, dense
+SERVE_EVENTS = 256              # the main path
+FP_EVENTS = 64                  # the fp path of the first slice
+SHORT_EVENTS = 16               # design point 1, and mixed without fuse_int8
+CHECK_BATCHES = (2, 16, 64)     # one chunk, serve batch, calibration
 
 KERNELS = {
     "fused_dense": {
@@ -56,16 +69,48 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/gravnet_block.cu",
         "replaces": "src/repro/kernels/gravnet_block.py:208",
     },
+    "fused_dense_int8": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_dense_int8.cu",
+        "replaces": "src/repro/kernels/fused_dense.py:221",
+    },
+    "gravnet_aggregate": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gravnet_aggregate.cu",
+        "replaces": "src/repro/kernels/gravnet.py:142",
+    },
+    "gravnet_block_int8": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gravnet_block_int8.cu",
+        "replaces": "src/repro/kernels/gravnet_block.py:427",
+    },
 }
+# leading arguments of each kernel that carry the events (stacked to
+# check a kernel at more events than one chunk)
+EVENT_ARGS = {"fused_dense": 1, "fused_dense_int8": 1, "gravnet_block": 2,
+              "gravnet_block_int8": 2, "gravnet_aggregate": 3}
+
+
+LOG: list[str] = []
+
+
+def _save_log() -> None:
+    """Keep the whole output under chiprun_out/, whose tail alone comes
+    back from a chip run."""
+    if OUT.is_dir():
+        (OUT / "log.txt").write_text("".join(LOG))
 
 
 def fail(msg: str) -> None:
-    print(f"[chip_smoke] FAIL: {msg}", flush=True)
+    say(f"FAIL: {msg}")
+    _save_log()
     sys.exit(1)
 
 
 def say(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    line = f"[chip_smoke] {msg}"
+    LOG.append(line + "\n")
+    print(line, flush=True)
 
 
 # --------------------------------------------------------------- timing ----
@@ -102,34 +147,81 @@ class Timer:
         return a.elapsed_time(b) / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+# ------------------------------------------------------------------ cost ----
+# Bytes and operations of one launch, each input read once and each
+# output written once. Operations are counted by type: products and sums
+# as one each, an argmin round as n compares per row, each round's exp,
+# each quantization's division and rounding, and each dequantization's
+# multiply as one f32 operation; int8 products and sums at the int8
+# tensor-core rate. The bound is the largest of the byte time and each
+# type's operation time.
+def bound(nbytes: float, ops: dict) -> tuple[float, str]:
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = max(n / RATES[kind] for kind, n in ops.items())
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
-def dense_cost(x, w):
-    m, k = x.shape
-    n = w.shape[1]
-    return 4.0 * (m * k + k * n + n + m * n), 2.0 * m * k * n
+def _numel(*ts):
+    return float(sum(t.numel() for t in ts if t is not None))
 
 
-def block_cost(x, w):
-    """Bytes and operations of one block launch, each counted once: the
-    prologue once per event (the kernel recomputes it in every row block
-    of the event; that repeat is not work the function needs), each
-    argmin round as n compares per row, and the exp of each round's
-    weight as one operation."""
+def _cell_ops(n, ds, df, k):
+    """f32 operations of the GravNet cell per query row."""
+    return n * (2.0 * ds + 3.0) + k * (n + 1.0 + 3.0 * df)
+
+
+def cost(name, args, kw):
+    if name == "fused_dense":
+        x, w, b = args[:3]
+        m, kd = x.shape
+        n = w.shape[1]
+        return 4.0 * (_numel(x, w, b) + m * n), {"f32": 2.0 * m * kd * n}
+    if name == "fused_dense_int8":
+        x, w, b, _, ws = args[:5]
+        m, kd = x.shape
+        n = w.shape[1]
+        out8 = kw.get("out_int8", False)
+        nbytes = _numel(x, w) + 4.0 * _numel(b, ws) + m * n * (
+            1.0 if out8 else 4.0)
+        return nbytes, {"int8": 2.0 * m * kd * n,
+                        "f32": m * n * (3.0 + (2.0 if out8 else 0.0)) + n}
+    if name == "gravnet_aggregate":
+        s, f, mask = args[:3]
+        b, n, ds = s.shape
+        df = f.shape[2]
+        nbytes = 4.0 * (_numel(s, f, mask) + b * n * 2 * df)
+        return nbytes, {"f32": b * n * (2.0 * ds
+                                        + _cell_ops(n, ds, df, kw["k"]))}
+    x = args[0]
     b, n, dh = x.shape
-    ds, df = w["ws"].shape[1], w["wf"].shape[1]
-    dcat, dout = w["wo"].shape
-    k = w["k"]
-    nbytes = 4.0 * (x.numel() + b * n + sum(w[p].numel() for p in
-                    ("ws", "bs", "wf", "bf", "wo", "bo")) + b * n * dout)
-    flops = b * n * (2.0 * dh * (ds + df)          # S/F prologue
-                     + n * (2.0 * ds + 3.0)        # distances
-                     + k * (n + 1.0 + 3.0 * df)    # k argmin rounds
-                     + 2.0 * dcat * dout)          # epilogue
-    return nbytes, flops
+    ws, bs, wf, bf, wo, bo = args[2:8]
+    ds, df = ws.shape[1], wf.shape[1]
+    dcat, dout = wo.shape
+    if name == "gravnet_block":
+        # the S/F prologue once per event (the kernel recomputes it in
+        # each row block of an event; the repeat is not counted)
+        nbytes = 4.0 * (_numel(x, *args[1:8]) + b * n * dout)
+        return nbytes, {"f32": b * n * (2.0 * dh * (ds + df)
+                                        + _cell_ops(n, ds, df, kw["k"])
+                                        + 2.0 * dcat * dout)}
+    nbytes = (4.0 * _numel(x, args[1], bs, bf, bo, *args[8:11])
+              + _numel(ws, wf, wo) + 4.0 * b * n * dout)
+    return nbytes, {
+        "int8": b * n * (2.0 * dh * (ds + df) + 2.0 * dcat * dout),
+        "f32": b * n * (2.0 * dh + 3.0 * (ds + df)
+                        + _cell_ops(n, ds, df, kw["k"]) + 4.0 * 2 * df
+                        + 2.0 * dh + 3.0 * dout)}
+
+
+def shape_of(name, args, kw):
+    if name in ("fused_dense", "fused_dense_int8"):
+        x, w = args[0], args[1]
+        tag = f"({x.shape[0]},{x.shape[1]})->{w.shape[1]} " \
+              f"{kw.get('activation', 'relu')}"
+        return tag + (" int8 out" if kw.get("out_int8") else "")
+    if name == "gravnet_aggregate":
+        return f"s{tuple(args[0].shape)} f{tuple(args[1].shape)} k={kw['k']}"
+    return f"x{tuple(args[0].shape)} k={kw['k']}"
 
 
 # ----------------------------------------------------------------- main ----
@@ -149,8 +241,11 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_dense import fused_dense_cuda
-    from repro_torch.kernels.gravnet_block import gravnet_block_cuda
+    from repro_torch.kernels.fused_dense import (fused_dense_cuda,
+                                                 fused_dense_int8_cuda)
+    from repro_torch.kernels.gravnet import gravnet_aggregate_cuda
+    from repro_torch.kernels.gravnet_block import (gravnet_block_cuda,
+                                                   gravnet_block_int8_cuda)
     from repro_torch.launch import serve
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -158,6 +253,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
 
     # 1. the card --------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -166,6 +262,7 @@ def main() -> int:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    LOG.append(card + "\n")
     print(card, flush=True)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -177,6 +274,8 @@ def main() -> int:
         logs = _build.build_all()
     except RuntimeError as e:
         fail(f"kernel build: {e}")
+    if sorted(logs) != sorted(KERNELS):
+        fail(f"built {sorted(logs)}, expected {sorted(KERNELS)}")
     say(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
     for name, log in logs.items():
         (OUT / f"nvcc_{name}.log").write_text(log)
@@ -184,155 +283,250 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
 
-    plain_fns = {"fused_dense_cuda": ref.fused_dense_ref,
-                 "gravnet_block_cuda": ref.gravnet_block_ref}
+    wrappers = {"fused_dense": fused_dense_cuda,
+                "gravnet_block": gravnet_block_cuda,
+                "fused_dense_int8": fused_dense_int8_cuda,
+                "gravnet_aggregate": gravnet_aggregate_cuda,
+                "gravnet_block_int8": gravnet_block_int8_cuda}
+    plain_fns = {"fused_dense": ref.fused_dense_ref,
+                 "gravnet_block": ref.gravnet_block_ref,
+                 "fused_dense_int8": ref.fused_dense_int8_ref,
+                 "gravnet_aggregate": ref.gravnet_aggregate_ref,
+                 "gravnet_block_int8": ref.gravnet_block_int8_ref}
 
     @contextmanager
-    def substituted(make):
+    def substituted(fns):
         """Swap the kernel wrappers that kernels/ops.py calls for
-        ``make(name, plain_fn)``; restore them afterwards."""
-        saved = {n: getattr(kops, n) for n in plain_fns}
+        ``fns[name]``; restore them afterwards."""
+        saved = {n: getattr(kops, f"{n}_cuda") for n in fns}
         try:
-            for n, fn in plain_fns.items():
-                setattr(kops, n, make(n, fn))
+            for n, fn in fns.items():
+                setattr(kops, f"{n}_cuda", fn)
             yield
         finally:
             for n, fn in saved.items():
-                setattr(kops, n, fn)
+                setattr(kops, f"{n}_cuda", fn)
 
-    # the main path's deployment, used by phases 3 and 4
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {n: w.launches for n, w in wrappers.items()}
+
     cfg = ccn.CCNConfig()
     gen_cfg = Belle2Config()
-    pipe = serve.build_pipeline(cfg, design_point=3, precision="fp",
-                                device=dev)
-    mb = pipe.microbatch
-    say(f"deployed upgrade CaloClusterNet (n_hits={cfg.n_hits}, "
-        f"d_hidden={cfg.d_hidden}) at design point 3, fp: "
-        f"segments={len(pipe.segments)} microbatch={mb}")
+
+    def deploy(**kw):
+        pipe = serve.build_pipeline(cfg, gen_cfg, device=dev, **kw)
+        say(f"deployed upgrade CaloClusterNet (n_hits={cfg.n_hits}, "
+            f"d_hidden={cfg.d_hidden}) {kw}: segments={len(pipe.segments)}"
+            f" microbatch={pipe.microbatch}")
+        return pipe
+
+    # the paths: (name, deploy kwargs)
+    paths = {
+        "mixed": dict(design_point=3, precision="mixed"),
+        "fp": dict(design_point=3, precision="fp"),
+        "mixed_no_fuse_int8": dict(design_point=3, precision="mixed",
+                                   fuse_int8=False),
+        "fp_dp1": dict(design_point=1, precision="fp"),
+    }
+    reset_counts()
+    pipes = {name: deploy(**kw) for name, kw in paths.items()}
+    calib_launches = read_counts()
+    say(f"launches while deploying and calibrating on the card: "
+        f"{calib_launches}")
 
     # 3. kernels against their plain versions ----------------------------
     calib = generate(gen_cfg, 64, seed=123)
-    calls: list[tuple[str, tuple, dict]] = []
+    calib_feeds = {"hits": calib["feats"], "mask": calib["mask"]}
 
-    def recorder(name, fn):
-        def rec(*args, **kw):
-            calls.append((name, args, kw))
-            return fn(*args, **kw)
-        return rec
+    def record(pipe):
+        """The kernel calls of ``pipe`` over the 64-event batch, made
+        with the plain versions; returns (calls, calls per chunk)."""
+        calls: list[tuple[str, tuple, dict]] = []
 
-    with substituted(recorder):
-        pipe({"hits": calib["feats"], "mask": calib["mask"]})
-    per_chunk = len(calls) // (64 // mb)
-    chunk_calls = calls[:per_chunk]
-    names = [c[0] for c in chunk_calls]
-    if (names.count("fused_dense_cuda"), names.count("gravnet_block_cuda")) \
-            != (5, 2):
-        fail(f"a main-path chunk calls {names}, expected 5 fused_dense and "
-             "2 gravnet_block")
+        def recorder(name):
+            def rec(*args, **kw):
+                calls.append((name, args, kw))
+                return plain_fns[name](*args, **kw)
+            return rec
 
-    def batched_args(pos, n_events):
-        """The pos-th call of a chunk, with the inputs of the first
-        n_events events (whole chunks) stacked."""
+        with substituted({n: recorder(n) for n in plain_fns}):
+            pipe(calib_feeds)
+        n_chunks = 64 // pipe.microbatch
+        if len(calls) % n_chunks:
+            fail(f"{len(calls)} kernel calls over {n_chunks} chunks")
+        return calls, len(calls) // n_chunks
+
+    def stacked(calls, per_chunk, mb, pos, n_events):
+        """The pos-th call of a chunk, with the event inputs of the
+        first n_events events (whole chunks) stacked."""
         parts = [calls[c * per_chunk + pos] for c in range(n_events // mb)]
         name, args0, kw = parts[0]
-        args = [torch.cat([p[1][0] for p in parts]), *args0[1:]]
-        if name == "gravnet_block_cuda":
-            args[1] = torch.cat([p[1][1] for p in parts])
+        args = list(args0)
+        for i in range(EVENT_ARGS[name]):
+            args[i] = torch.cat([p[1][i] for p in parts])
         return name, args, kw
 
     timer = Timer(torch)
     results = {k: {"max_abs_err": 0.0, "per_launch": []} for k in KERNELS}
-    for pos in range(per_chunk):
-        for n_ev in CHECK_BATCHES:
-            name, args, kw = batched_args(pos, n_ev)
-            kname = name.removesuffix("_cuda")
-            kern = fused_dense_cuda if kname == "fused_dense" \
-                else gravnet_block_cuda
-            plain = plain_fns[name]
-            try:
-                got = kern(*args, **kw)
-                torch.cuda.synchronize()
-            except (RuntimeError, ValueError, TypeError) as e:
-                fail(f"{kname} did not launch: {e}")
-            want = plain(*args, **kw)
-            err = (got - want).abs()
-            excess = (err - (ATOL + RTOL * want.abs())).max().item()
-            max_err = err.max().item()
-            exact = (got == want).float().mean().item()
-            if not np.isfinite(max_err) or excess > 0:
-                fail(f"{kname} at {tuple(args[0].shape)} disagrees with "
-                     f"its plain version: max|err|={max_err:.3e} "
-                     f"(tolerance {ATOL:g} + {RTOL:g}·|want|)")
-            if kname == "fused_dense":
-                x, w, b = args[0], args[1], args[2]
-                nbytes, flops = dense_cost(x, w)
-                act = kw.get("activation", "relu")
-                shape = f"({x.shape[0]},{x.shape[1]})->{w.shape[1]} {act}"
 
-                def lib(x=x, w=w, b=b, act=act):
-                    y = torch.addmm(b, x, w)
-                    return torch.relu_(y) if act == "relu" else y
-                lib_ms = timer.device_ms(lib, 200)
+    def check(path, pos, n_events, name, args, kw):
+        kern, plain = wrappers[name], plain_fns[name]
+        try:
+            got = kern(*args, **kw)
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError, TypeError) as e:
+            fail(f"{name} did not launch: {e}")
+        want = plain(*args, **kw)
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{name}: kernel gives {got.dtype} {tuple(got.shape)}, "
+                 f"plain version {want.dtype} {tuple(want.shape)}")
+        g64, w64 = got.double(), want.double()
+        err = (g64 - w64).abs()
+        excess = (err - (ATOL + RTOL * w64.abs())).max().item()
+        max_err = err.max().item()
+        exact = (got == want).float().mean().item()
+        shape = shape_of(name, args, kw)
+        if not np.isfinite(max_err) or excess > 0:
+            fail(f"{name} at {shape} disagrees with its plain version: "
+                 f"max|err|={max_err:.3e} (tolerance {ATOL:g} + "
+                 f"{RTOL:g}·|want|)")
+        lib_ms, lib_name = None, None
+        if name == "fused_dense":
+            x, w, b = args[:3]
+            act = kw.get("activation", "relu")
+
+            def lib(x=x, w=w, b=b, act=act):
+                y = torch.addmm(b, x, w)
+                return torch.relu_(y) if act == "relu" else y
+            lib_ms, lib_name = timer.device_ms(lib, 200), "addmm+relu"
+        elif name == "fused_dense_int8":
+            x, w = args[0], args[1]
+            try:
+                torch._int_mm(x, w)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                lib_name = "torch._int_mm refuses this shape"
             else:
-                x = args[0]
-                nbytes, flops = block_cost(x, {
-                    "ws": args[2], "bs": args[3], "wf": args[4],
-                    "bf": args[5], "wo": args[6], "bo": args[7],
-                    "k": kw["k"]})
-                shape = f"x{tuple(x.shape)} k={kw['k']}"
-                lib_ms = None
-            ms = timer.device_ms(lambda: kern(*args, **kw), 200)
-            plain_ms = timer.device_ms(lambda: plain(*args, **kw), 3)
-            b_ms, b_by = bound(nbytes, flops)
-            row = {"op": pos, "events": n_ev, "shape": shape,
-                   "max_abs_err": max_err, "exact_share": exact, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                   "flops": flops}
-            results[kname]["per_launch"].append(row)
-            results[kname]["max_abs_err"] = max(
-                results[kname]["max_abs_err"], max_err)
-            say(f"{kname} events={n_ev} {shape}: max|err|={max_err:.3e} "
-                f"(tol {ATOL:g}+{RTOL:g}|want|, {exact:.1%} bitwise) "
-                f"ms={ms:.5f} plain_ms={plain_ms:.5f} "
-                f"library_ms={'n/a' if lib_ms is None else f'{lib_ms:.5f}'}"
-                f" bound_ms={b_ms:.6f} ({b_by})")
-    del calls
+                lib_ms = timer.device_ms(lambda: torch._int_mm(x, w), 200)
+                lib_name = "torch._int_mm (int8 product only, no epilogue)"
+        ms = timer.device_ms(lambda: kern(*args, **kw), 200)
+        plain_ms = timer.device_ms(lambda: plain(*args, **kw), 3)
+        nbytes, ops = cost(name, args, kw)
+        b_ms, b_by = bound(nbytes, ops)
+        row = {"path": path, "op": pos, "events": n_events, "shape": shape,
+               "max_abs_err": max_err, "exact_share": exact, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": lib_name, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "ops": ops}
+        results[name]["per_launch"].append(row)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           max_err)
+        say(f"{name} [{path}] events={n_events} {shape}: "
+            f"max|err|={max_err:.3e} ({exact:.1%} bitwise) ms={ms:.5f} "
+            f"plain_ms={plain_ms:.5f} library_ms="
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.5f}'} "
+            f"bound_ms={b_ms:.7f} ({b_by})")
+
+    # (path, which kernels, event counts to check them at: one chunk of
+    # the path, a 16-event dispatch, the 64-event calibration batch)
+    plan = [("mixed", None, CHECK_BATCHES),
+            ("fp", None, CHECK_BATCHES),
+            ("mixed_no_fuse_int8", {"fused_dense_int8"}, CHECK_BATCHES[:1]),
+            ("mixed_no_fuse_int8", {"gravnet_aggregate"}, CHECK_BATCHES),
+            ("fp_dp1", {"gravnet_aggregate"}, CHECK_BATCHES[:2])]
+    per_chunk_calls = {}
+    recorded = {}
+    for path, only, batches in plan:
+        pipe = pipes[path]
+        if path not in recorded:
+            recorded[path] = record(pipe)
+        calls, per_chunk = recorded[path]
+        per_chunk_calls[path] = [c[0] for c in calls[:per_chunk]]
+        for pos in range(per_chunk):
+            if only is not None and calls[pos][0] not in only:
+                continue
+            for n_ev in (pipe.microbatch, *batches[1:]):
+                check(path, pos, n_ev,
+                      *stacked(calls, per_chunk, pipe.microbatch, pos, n_ev))
+    del recorded
+    main_chunk = per_chunk_calls["mixed"]
+    if (main_chunk.count("fused_dense_int8"),
+            main_chunk.count("gravnet_block_int8"),
+            len(main_chunk)) != (5, 2, 7):
+        fail(f"a main-path chunk calls {main_chunk}, expected 5 "
+             "fused_dense_int8 and 2 gravnet_block_int8")
+    say(f"phase 3 done at {time.perf_counter() - t_start:.1f}s")
+
+    def heads_and_cps(res, want, n_events, label, bitwise):
+        for h in ("beta", "coords", "energy", "cls"):
+            got, ref_ = res[h], want[h]
+            if not np.isfinite(got).all() or got.shape != (
+                    n_events, cfg.n_hits, cfg.head_dims[h]):
+                fail(f"{label} head {h}: shape {got.shape} or non-finite")
+            err = np.abs(got - ref_)
+            if (not np.array_equal(got, ref_)) if bitwise else (
+                    err > ATOL + RTOL * np.abs(ref_)).any():
+                fail(f"{label} head {h}: kernels vs plain versions "
+                     f"max|err|={err.max():.3e}")
+            say(f"{label} head {h}: kernels vs plain max|err|="
+                f"{err.max():.3e}")
+        for k in ("trigger", "n_clusters", "cluster_valid"):
+            if not np.array_equal(res["cps"][k], want["cps"][k]):
+                fail(f"{label} cps {k} differs between kernels and plain "
+                     "versions")
+
+    def run_path(path, n_events, seed):
+        """Serve n_events of the path with every counter at 0 just
+        before; returns (results, latencies, elapsed, launches, feeds,
+        events)."""
+        pipe = pipes[path]
+        events = generate(gen_cfg, n_events, seed=seed)
+        feeds = {"hits": events["feats"], "mask": events["mask"]}
+        serve.serve_events(pipe, {k: v[:32] for k, v in feeds.items()})
+        torch.cuda.synchronize()
+        reset_counts()
+        res, lat, elapsed = serve.serve_events(pipe, feeds)
+        launches = read_counts()
+        batch = max(pipe.microbatch, serve.MIN_SERVE_BATCH)
+        n_chunks = sum(-(-min(batch, n_events - s) // pipe.microbatch)
+                       for s in range(0, n_events, batch))
+        say(f"[{path}] served {n_events} events in {n_chunks} chunks of "
+            f"{pipe.microbatch}: launches {launches}")
+        return res, lat, elapsed, launches, n_chunks, feeds, events
+
+    path_launches = {}
 
     # 4. the main path on the card ----------------------------------------
-    events = generate(gen_cfg, SERVE_EVENTS, seed=7)
-    feeds = {"hits": events["feats"], "mask": events["mask"]}
-    serve.serve_events(pipe, {k: v[:32] for k, v in feeds.items()})  # warm
-    torch.cuda.synchronize()
-    fused_dense_cuda.launches = 0
-    gravnet_block_cuda.launches = 0
-    res, lat, elapsed = serve.serve_events(pipe, feeds)
-    launches = {"fused_dense": fused_dense_cuda.launches,
-                "gravnet_block": gravnet_block_cuda.launches}
-    batch = max(mb, serve.MIN_SERVE_BATCH)
-    n_chunks = sum(-(-min(batch, SERVE_EVENTS - s) // mb)
-                   for s in range(0, SERVE_EVENTS, batch))
-    say(f"served {SERVE_EVENTS} events in {n_chunks} chunks of {mb}: "
-        f"launches {launches}")
-    if launches != {"fused_dense": 5 * n_chunks,
-                    "gravnet_block": 2 * n_chunks}:
-        fail(f"launch counts {launches} != 5 and 2 per chunk "
-             f"({n_chunks} chunks)")
-    with substituted(lambda n, fn: fn):
-        plain_res, _, _ = serve.serve_events(pipe, feeds)
-    for h in ("beta", "coords", "energy", "cls"):
-        got, want = res[h], plain_res[h]
-        if not np.isfinite(got).all() or got.shape != (
-                SERVE_EVENTS, cfg.n_hits, cfg.head_dims[h]):
-            fail(f"head {h}: shape {got.shape} or non-finite values")
-        err = np.abs(got - want)
-        if (err > ATOL + RTOL * np.abs(want)).any():
-            fail(f"head {h}: kernels vs plain versions max|err|="
-                 f"{err.max():.3e}")
-        say(f"head {h}: kernels vs plain max|err|={err.max():.3e}")
-    for k in ("trigger", "n_clusters", "cluster_valid"):
-        if not np.array_equal(res["cps"][k], plain_res["cps"][k]):
-            fail(f"cps {k} differs between kernels and plain versions")
+    res, lat, elapsed, launches, n_chunks, feeds, events = run_path(
+        "mixed", SERVE_EVENTS, seed=7)
+    path_launches["mixed"] = launches
+    want = dict.fromkeys(wrappers, 0)
+    want.update(fused_dense_int8=5 * n_chunks, gravnet_block_int8=2 * n_chunks)
+    if launches != want:
+        fail(f"main path launch counts {launches} != {want} (5 "
+             f"fused_dense_int8 and 2 gravnet_block_int8 per chunk, no fp "
+             f"dense, block or aggregate)")
+    pipe = pipes["mixed"]
+    with substituted(plain_fns):
+        plain_pipe = serve.build_pipeline(cfg, gen_cfg, device=dev,
+                                          **paths["mixed"])
+        plain_res, _, _ = serve.serve_events(plain_pipe, feeds)
+    for op in pipe.graph:
+        pop = plain_pipe.graph[op.name]
+        for a in op.attrs:
+            if a.endswith("_scale") and op.attrs[a] != pop.attrs[a]:
+                fail(f"calibration: {op.name}.{a} {op.attrs[a]!r} with the "
+                     f"kernels, {pop.attrs[a]!r} with the plain versions")
+        for p in op.params or {}:
+            if not torch.equal(op.params[p], pop.params[p]):
+                fail(f"calibration: {op.name}/{p} differs")
+    say("calibration on the card: every activation scale and quantized "
+        "weight equal to the plain versions'")
+    heads_and_cps(res, plain_res, SERVE_EVENTS, "mixed", bitwise=True)
     # CPS on the card against CPS on the CPU, on the card's heads
     cpu_cps = ccn.cps({"beta_logit": torch.from_numpy(res["beta"][..., 0]),
                        "coords": torch.from_numpy(res["coords"]),
@@ -343,11 +537,12 @@ def main() -> int:
             fail(f"cps {k} on the card differs from cps on the CPU")
     eff, fake = serve.trigger_rates(res["cps"]["trigger"],
                                     events["trigger_truth"])
-    say(f"trigger decisions equal to the plain path on all "
+    batch = max(pipe.microbatch, serve.MIN_SERVE_BATCH)
+    say(f"mixed: trigger decisions bitwise equal to the plain path on all "
         f"{SERVE_EVENTS} events (efficiency={eff:.3f} fake={fake:.3f}, "
         "random weights)")
-    say(f"serve: {SERVE_EVENTS / elapsed:.1f} events/s, latency "
-        f"p50={np.percentile(lat, 50) * 1e6:.1f}us "
+    say(f"serve (mixed, design point 3): {SERVE_EVENTS / elapsed:.1f} "
+        f"events/s, latency p50={np.percentile(lat, 50) * 1e6:.1f}us "
         f"p99={np.percentile(lat, 99) * 1e6:.1f}us "
         f"({batch} events per dispatch, {card})")
 
@@ -375,7 +570,7 @@ def main() -> int:
         say(f"device busy {busy_us:.1f}us of {wall_us:.1f}us wall over 4 "
             f"served micro-batches (profiler on): idle share "
             f"{1 - busy_us / wall_us:.4f}")
-        for name, (us, n) in top[:8]:
+        for name, (us, n) in top[:10]:
             say(f"  device {us:10.1f}us  calls {n:6d}  {name[:70]}")
     else:
         say("idle share: not measured (the profiler recorded no device "
@@ -384,10 +579,10 @@ def main() -> int:
     ex = pipe._ex
     run_op = ex.run_op
 
-    def timed(op, vals, feeds_):
+    def timed(op, vals, feeds_, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = run_op(op, vals, feeds_)
+        out = run_op(op, vals, feeds_, **kw)
         torch.cuda.synchronize()
         host[op.op_type] = host.get(op.op_type, 0.0) + \
             time.perf_counter() - t
@@ -401,30 +596,96 @@ def main() -> int:
     say("per op type, one served micro-batch, synchronized after each op: "
         + ", ".join(f"{k}={v * 1e6:.1f}us ({v / total:.1%})"
                     for k, v in sorted(host.items(), key=lambda kv: -kv[1])))
+    say(f"phase 4 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 5. the kernel line and the result ------------------------------------
+    # 5. the other paths ----------------------------------------------------
+    def other_path(path, n_events, per_chunk, redeploy):
+        res, lat, elapsed, launches, n_chunks, feeds, _ = run_path(
+            path, n_events, seed=17)
+        path_launches[path] = launches
+        want = dict.fromkeys(wrappers, 0)
+        want.update({n: c * n_chunks for n, c in per_chunk.items()})
+        if launches != want:
+            fail(f"[{path}] launch counts {launches} != {want}")
+        with substituted(plain_fns):
+            pipe_ = (serve.build_pipeline(cfg, gen_cfg, device=dev,
+                                          **paths[path])
+                     if redeploy else pipes[path])
+            plain_res, _, _ = serve.serve_events(pipe_, feeds)
+        heads_and_cps(res, plain_res, n_events, path, bitwise=True)
+        say(f"serve ({path}): {n_events / elapsed:.1f} events/s, latency "
+            f"p50={np.percentile(lat, 50) * 1e6:.1f}us "
+            f"p99={np.percentile(lat, 99) * 1e6:.1f}us")
+
+    def per_chunk_of(path):
+        calls = per_chunk_calls[path]
+        return {n: calls.count(n) for n in set(calls)}
+
+    if per_chunk_of("fp") != {"fused_dense": 5, "gravnet_block": 2}:
+        fail(f"an fp chunk calls {per_chunk_calls['fp']}")
+    other_path("fp", FP_EVENTS, per_chunk_of("fp"), redeploy=False)
+    for path in ("fp_dp1", "mixed_no_fuse_int8"):
+        pc = per_chunk_of(path)
+        if pc.get("gravnet_aggregate") != 2 or "gravnet_block" in pc \
+                or "gravnet_block_int8" in pc:
+            fail(f"a {path} chunk calls {per_chunk_calls[path]}")
+        other_path(path, SHORT_EVENTS, pc,
+                   redeploy=paths[path]["precision"] == "mixed")
+    say(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 6. the kernel line and the result ------------------------------------
+    # each kernel's numbers per chunk of the path it serves: its launches
+    # from that path's run, its times at that path's micro-batch
+    home = {"fused_dense": ["fp"], "gravnet_block": ["fp"],
+            "fused_dense_int8": ["mixed"], "gravnet_block_int8": ["mixed"],
+            "gravnet_aggregate": ["mixed_no_fuse_int8", "fp_dp1"]}
     line = []
     for name, meta in KERNELS.items():
-        rows_ = [r for r in results[name]["per_launch"] if r["events"] == mb]
-        lib = [r["library_ms"] for r in rows_]
+        path = home[name][0]
+        mb = pipes[path].microbatch
+        rows_ = [r for r in results[name]["per_launch"]
+                 if r["path"] == path and r["events"] == mb]
+        # a library call's time where it covers every launch of the
+        # chunk; torch._int_mm, which covers the int8 product alone,
+        # summed over the launches whose shapes it accepts
+        lib = [r["library_ms"] for r in rows_ if r["library_ms"] is not None]
+        lib_ms = sum(lib) if lib and (len(lib) == len(rows_)
+                                      or name == "fused_dense_int8") else None
+        lib_label = sorted({r["library"] for r in rows_ if r["library"]})
+        if name == "fused_dense_int8":
+            lib_label = [f"torch._int_mm, int8 product only (no epilogue), "
+                         f"at {len(lib)} of {len(rows_)} launches; it "
+                         "refuses K or N not a multiple of 8"]
         nbytes = sum(r["bytes"] for r in rows_)
-        flops = sum(r["flops"] for r in rows_)
-        b_ms, b_by = bound(nbytes, flops)
+        ops: dict[str, float] = {}
+        for r in rows_:
+            for kind, n in r["ops"].items():
+                ops[kind] = ops.get(kind, 0.0) + n
+        b_ms, b_by = bound(nbytes, ops)
+        n_launch = sum(path_launches[p][name] for p in home[name])
+        if n_launch == 0:
+            fail(f"{name} was launched no time on its path {home[name]}")
         line.append({
             "name": name, **meta, "status": "ported",
-            "launches": launches[name],
+            "launches": n_launch,
+            "launches_from": {p: path_launches[p][name] for p in home[name]},
             "max_abs_err": results[name]["max_abs_err"],
             "tolerance": f"|err| <= {ATOL:g} + {RTOL:g}*|plain|",
-            "per": f"one main-path chunk ({len(rows_)} launches, "
+            "per": f"one chunk of the {path} path ({len(rows_)} launches, "
                    f"{mb} events)",
             "ms": sum(r["ms"] for r in rows_),
             "plain_ms": sum(r["plain_ms"] for r in rows_),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if None in lib else sum(lib),
+            "library_ms": lib_ms, "library": lib_label or None,
             "per_launch": results[name]["per_launch"],
         })
     (OUT / "kernels.json").write_text(json.dumps(line, indent=1))
-    print(json.dumps({"kernels": line}), flush=True)
+    say(f"done in {time.perf_counter() - t_start:.1f}s")
+    _save_log()
+    # each launch's row stays in kernels.json; the line keeps the totals
+    print(json.dumps({"kernels": [
+        {k: v for k, v in e.items() if k != "per_launch"} for e in line]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

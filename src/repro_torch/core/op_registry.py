@@ -41,6 +41,8 @@ class OpSpec:
     ``cost(op, n_hits, pb)``   -> (flops, act_bytes, weight_bytes)
     ``mxu_eff(op, rows, n)``   -> fraction of MXU peak (matmuls only)
     ``bind(op, ctx)``          -> write launch knobs into op.attrs_opt
+    ``int8_passthrough``       -> an int8 producer may hand this op its
+                                  output in int8 (kernel-opt step 3)
     """
     op_type: str
     regular: bool = False            # statically scheduled -> MXU-eligible
@@ -51,6 +53,7 @@ class OpSpec:
     mxu_matmul: bool = False         # cost model treats it as a matmul
     mxu_eff: Callable | None = None
     bind: Callable | None = None
+    int8_passthrough: bool = False   # int8 chain fusion may emit through it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,16 +352,16 @@ register_op(OpSpec(
     "dense", regular=True,
     templates={"mxu": "fused_dense", "xla": "xla_dense"},
     infer=_infer_dense, cost=_cost_dense, mxu_matmul=True,
-    mxu_eff=_eff_dense))
+    mxu_eff=_eff_dense, int8_passthrough=True))
 register_op(OpSpec(
     "relu", regular=True, templates=_both("xla_eltwise"),
-    infer=_infer_same, cost=_cost_eltwise_like))
+    infer=_infer_same, cost=_cost_eltwise_like, int8_passthrough=True))
 register_op(OpSpec(
     "concat", regular=True, templates=_both("xla_concat"),
-    infer=_infer_concat, cost=_cost_eltwise_like))
+    infer=_infer_concat, cost=_cost_eltwise_like, int8_passthrough=True))
 register_op(OpSpec(
     "slice", regular=True, templates=_both("xla_slice"),
-    infer=_infer_slice, cost=_cost_eltwise_like))
+    infer=_infer_slice, cost=_cost_eltwise_like, int8_passthrough=True))
 register_op(OpSpec(
     "retile", regular=True, templates=_both("xla_retile"),
     infer=_infer_retile, cost=_cost_eltwise_like))

@@ -11,8 +11,10 @@ rewrites, replayed by ``fuse()`` in registration order:
    onto the block kernel. Chains it cannot fuse losslessly stay
    unfused: an extra consumer of a projection or the aggregate,
    activations on the projections, missing biases, or mixed member
-   precisions. Quantized (int8) blocks wait for the mixed-precision
-   slice, so an int8 chain stays unfused here.
+   precisions. A uniform int8 chain fuses only when it is calibrated
+   (quantized weights and activation scales present), and then carries
+   them onto the block, which lowers onto the quantized kernel; an
+   uncalibrated int8 chain stays unfused.
 3. **Parallel-Dense merge**: sibling denses reading the same single
    input with the same activation and precision merge into one wide
    dense (weights concatenated by column); consumers read ``slice``
@@ -102,10 +104,22 @@ def _match_gravnet_block(g: Graph, agg: Operator):
             or not out_op.params or "w" not in out_op.params
             or "b" not in out_op.params):
         return None
+    # a chain is fusable when its members run ONE precision; a uniform
+    # int8 chain only when every dense member is calibrated, since an
+    # uncalibrated one runs op by op in fp and fusing it would freeze
+    # that into one kernel
     precs = {s_op.precision, f_op.precision, agg.precision,
              out_op.precision}
-    if len(precs) != 1 or precs == {"int8"}:
+    if len(precs) != 1:
         return None
+    if precs == {"int8"}:
+        calibrated = (all("w_q" in (o.params or {})
+                          for o in (s_op, f_op, out_op))
+                      and "act_scale" in agg.attrs
+                      and "in_scale" in s_op.attrs
+                      and "in_scale" in out_op.attrs)
+        if not calibrated:
+            return None
     return s_op, f_op, out_op, concat_x, members
 
 
@@ -151,6 +165,19 @@ def _fuse_gravnet_block(g: Graph) -> Graph:
                 out_dim=out_op.out_dim,
                 precision=out_op.precision,
             )
+            if out_op.precision == "int8" and "w_q" in out_op.params:
+                # an already-calibrated chain carries its quantized
+                # weights and scales, so the block runs without
+                # calibrating again (in deploy, fusion runs before
+                # calibration and calibrate derives these instead)
+                for src, nm in ((s_op, "ws"), (f_op, "wf"), (out_op, "wo")):
+                    fused.params[nm + "_q"] = src.params["w_q"]
+                    fused.params[nm + "_scale"] = src.params["w_scale"]
+                fused.attrs["in_scale"] = s_op.attrs["in_scale"]
+                fused.attrs["agg_scale"] = agg.attrs["act_scale"]
+                fused.attrs["h_scale"] = out_op.attrs["in_scale"]
+                if "act_scale" in out_op.attrs:
+                    fused.attrs["act_scale"] = out_op.attrs["act_scale"]
             out.add(fused)
             renamed[out_op.name] = fused.name
         elif op.name in drop:

@@ -1,7 +1,7 @@
 """Kernel-level optimization pass (paper §III-A "Kernel-Level
 Optimizations").
 
-Counterpart of ``repro/core/passes/kernel_opt.py``, two of its steps:
+Counterpart of ``repro/core/passes/kernel_opt.py``, three of its steps:
 
 1. **Kernel binding** through the registry (``op_registry.bind_kernels``):
    a small MXU dense binds the 'flattened' variant, a large one the
@@ -11,15 +11,19 @@ Counterpart of ``repro/core/passes/kernel_opt.py``, two of its steps:
    launch; it is kept for when the variants differ on the card.
 2. **Retile cancellation**: adjacent retiles that undo each other are
    bypassed.
+3. **Int8 chain fusion**: inside an 8-bit partition, a dense whose
+   consumers all declare an 8-bit passthrough (``OpSpec.int8_passthrough``)
+   emits int8 straight from its epilogue (``emit_int8``), requantized
+   with its own calibrated scale, instead of f32.
 
-The reference's int8 chain fusion waits for the mixed-precision slice,
-and its whole-pipeline ``jax.jit`` has no counterpart here: the port
-runs the segments eagerly (CUDA graphs are later work).
+The reference's whole-pipeline ``jax.jit`` has no counterpart here: the
+port runs the segments eagerly (CUDA graphs are later work).
 """
 from __future__ import annotations
 
 from repro_torch.core.graph_ir import Graph
-from repro_torch.core.op_registry import BindContext, bind_kernels
+from repro_torch.core.op_registry import (BindContext, bind_kernels,
+                                          require_spec)
 
 FLATTEN_ROWS = 512        # rows (hits × microbatch) below which we flatten
 FLATTEN_DIM = 1024        # max feature dim for the flattened variant
@@ -70,4 +74,15 @@ def kernel_optimize(g: Graph, *, n_rows: int = 128, batch: int = 1) -> Graph:
                     g.remove(src.name)
                 changed = True
                 break
+
+    # 3. int8 chain fusion: a dense may emit int8 straight into
+    # consumers whose specs declare an 8-bit passthrough
+    for op in g:
+        if op.precision != "int8" or op.op_type != "dense":
+            continue
+        succ = g.successors(op.name)
+        if succ and all(s.precision == "int8"
+                        and require_spec(s).int8_passthrough
+                        for s in succ):
+            op.attrs_opt["emit_int8"] = True
     return g

@@ -1,28 +1,40 @@
 """Deployment pipeline: run the design flow's passes and emit an
 executable.
 
-Counterpart of ``repro/core/pipeline.py`` for the fp policy:
-``deploy(graph, Requirements, device=...)`` runs verify → fuse (with the
-GravNet block) → partition → precision → mapping → parallelize →
-kernel_opt and returns a :class:`CompiledPipeline`, which runs
-micro-batch chunks of ``graph.meta["parallelization"]["microbatch"]``
-events through the graph's segments. Design points ② and ③ are
-supported; they differ only in the dense variant the kernel-opt pass
-binds, and on the card both variants launch the same ``fused_dense``
-kernel.
+Counterpart of ``repro/core/pipeline.py``: ``deploy(graph, Requirements,
+device=...)`` runs verify → fuse → partition → precision → mapping →
+parallelize → kernel_opt and returns a :class:`CompiledPipeline`, which
+runs micro-batch chunks of ``graph.meta["parallelization"]["microbatch"]``
+events through the graph's segments. The three design points are
+supported:
+
+  ① no fusion, P = 1, micro-batch 1: the GravNet chain stays unfused
+    and runs the ``gravnet_aggregate`` kernel;
+  ② + operator fusion (the GravNet block included) + the P search;
+  ③ + kernel-level optimizations (kernel binding, retile cancellation,
+    int8 chain fusion).
+
+Both precision policies are supported. 'fp' runs everything in f32.
+'mixed' (the reference's serve default) runs the interior segments in
+int8: ``calibrate`` runs the calibration batch once in f32, takes each
+op's activation scale from its max-abs, quantizes the weights per
+output channel and bakes the fused blocks' three scales; thereafter
+every dense launches ``fused_dense_int8`` and every fused block
+``gravnet_block_int8``, and an int8 activation travels between ops as a
+:class:`QTensor`. The boundary segments are tagged bf16 but hold only
+``input``, ``cps`` and ``output``, which compute in f32 as in the
+reference; a bf16 dense has no kernel in the port and raises.
 
 What the reference compiles, the port runs eagerly: the P-chunking
 ``lax.map`` is a Python loop, the whole-pipeline ``jax.jit`` is a plain
-call of the segments in order (CUDA graphs are later work). Not ported
-yet, and refused with ``NotImplementedError``: the mixed precision
-policy (its int8 kernels and calibration), graphs that keep an
-unfused ``gravnet_aggregate`` (design point ①), whose kernel is not
-ported, and fused blocks whose output dense reads the aggregate alone
-(``concat_x=False``; no graph of CaloClusterNet has one).
+call of the segments in order (CUDA graphs are later work). Fused
+blocks whose output dense reads the aggregate alone (``concat_x=False``;
+no graph of CaloClusterNet has one) are refused with
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,11 +48,26 @@ from repro_torch.core.passes.mapping import map_templates
 from repro_torch.core.passes.parallelize import Requirements, parallelize
 from repro_torch.core.passes.partition import partition, segments
 from repro_torch.core.passes.verify import verify
-from repro_torch.core.quantization import apply_precision_policy
+from repro_torch.core.quantization import (QMAX, activation_scale,
+                                           apply_precision_policy, f32,
+                                           quantize_act, quantize_weight)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
-__all__ = ["CompiledPipeline", "Requirements", "deploy"]
+__all__ = ["CompiledPipeline", "QTensor", "Requirements", "deploy"]
+
+
+class QTensor(NamedTuple):
+    """An int8 activation and its dequantization scale (a Python float)."""
+    q: torch.Tensor
+    scale: float
+
+
+def _as_fp(v):
+    """The f32 value of an activation: a QTensor is dequantized."""
+    if isinstance(v, QTensor):
+        return v.q.float() * f32(v.scale)
+    return v.float()
 
 
 def _tree_map(fn, v):
@@ -57,6 +84,10 @@ def _tree_cat(parts):
     return torch.cat(parts, dim=0)
 
 
+def _pad_lane(v):
+    return F.pad(v, (0, (-v.shape[-1]) % LANE))
+
+
 # --------------------------------------------------------------- executor ----
 class _Executor:
     """Runs single operators of a deployed graph on the pipeline's
@@ -65,44 +96,84 @@ class _Executor:
     def __init__(self, cfg):
         self.cfg = cfg
 
-    def run_op(self, op, vals, feeds):
+    def run_op(self, op, vals, feeds, *, force_fp=False, record=None):
+        """One op. ``force_fp`` runs an int8 op in f32 (calibration);
+        ``record`` collects each activation's max-abs by op name."""
         t = op.op_type
-        if op.precision != "fp":
-            raise NotImplementedError(
-                f"{op.name}: precision {op.precision!r} is not ported")
+        prec = "fp" if force_fp else op.precision
         if t == "input":
-            return feeds[op.attrs["feature"]]
-        if t in ("dense", "linear"):
-            return self._dense(op, vals[0])
-        if t == "relu":
-            return torch.relu(vals[0])
-        if t == "concat":
-            return torch.cat(vals, dim=-1)
-        if t == "slice":
+            out = feeds[op.attrs["feature"]]
+        elif t in ("dense", "linear"):
+            out = self._dense(op, vals[0], prec)
+        elif t == "relu":
+            v = vals[0]
+            out = (QTensor(torch.clamp_min(v.q, 0), v.scale)
+                   if isinstance(v, QTensor) else torch.relu(v))
+        elif t == "concat":
+            if (all(isinstance(v, QTensor) for v in vals)
+                    and len({v.scale for v in vals}) == 1):
+                out = QTensor(torch.cat([v.q for v in vals], dim=-1),
+                              vals[0].scale)
+            else:
+                out = torch.cat([_as_fp(v) for v in vals], dim=-1)
+        elif t == "slice":
             st, sz = op.attrs["start"], op.attrs["size"]
-            return vals[0][..., st:st + sz]
-        if t == "retile":
+            v = vals[0]
+            out = (QTensor(v.q[..., st:st + sz], v.scale)
+                   if isinstance(v, QTensor) else v[..., st:st + sz])
+        elif t == "retile":
             v = vals[0]
             if op.attrs["to"] == "lane128":
-                return F.pad(v, (0, (-v.shape[-1]) % LANE))
-            return v[..., :op.out_dim]
-        if t == "gravnet_block":
-            return self._gravnet_block(op, vals)
-        if t == "cps":
-            return self._cps(op, vals)
-        if t == "output":
+                out = (QTensor(_pad_lane(v.q), v.scale)
+                       if isinstance(v, QTensor) else _pad_lane(v))
+            else:
+                d = op.out_dim
+                out = (QTensor(v.q[..., :d], v.scale)
+                       if isinstance(v, QTensor) else v[..., :d])
+        elif t == "gravnet_aggregate":
+            out = self._gravnet(op, vals, prec)
+        elif t == "gravnet_block":
+            out = self._gravnet_block(op, vals, prec)
+        elif t == "cps":
+            out = self._cps(op, vals)
+        elif t == "output":
             names = op.attrs["head_names"]
-            out = {n: vals[i] for i, n in enumerate(names)}
+            out = {n: _as_fp(vals[i]) for i, n in enumerate(names)}
             if len(vals) > len(names):  # cps result dict
                 out["cps"] = vals[len(names)]
-            return out
-        raise NotImplementedError(
-            f"no executor for op {op.name!r} ({t!r}) in the port")
+        else:
+            raise NotImplementedError(
+                f"no executor for op {op.name!r} ({t!r}) in the port")
+        if record is not None and t not in ("cps", "output", "input"):
+            record[op.name] = _as_fp(out).abs().max().item()
+        return out
 
-    def _dense(self, op, x):
+    def _dense(self, op, x, prec):
         w = op.params["w"]
         b = op.params.get("b")
         act = op.attrs.get("activation", "none")
+        if prec == "int8" and "w_q" in op.params:
+            if isinstance(x, QTensor):
+                xq, in_scale = x.q, x.scale
+            else:
+                in_scale = op.attrs["in_scale"]
+                xq = quantize_act(x, in_scale)
+            wq = op.params["w_q"]
+            if xq.shape[-1] > wq.shape[0]:   # lane128-padded input
+                wq = F.pad(wq, (0, 0, 0, xq.shape[-1] - wq.shape[0]))
+            emit8 = op.attrs_opt.get("emit_int8", False)
+            out_scale = op.attrs.get("act_scale", 1.0)
+            # one launch for the micro-batch, its events row-packed
+            y = kops.fused_dense_int8(
+                xq.reshape(-1, xq.shape[-1]).contiguous(), wq, b, in_scale,
+                op.params["w_scale"], activation=act, out_int8=emit8,
+                out_scale=out_scale).reshape(*xq.shape[:-1], -1)
+            return QTensor(y, out_scale) if emit8 else y
+        # float path (fp, or an int8 op not calibrated yet)
+        if prec == "bf16":
+            raise NotImplementedError(
+                f"{op.name}: a bf16 dense has no kernel in the port")
+        x = _as_fp(x)
         if x.shape[-1] > w.shape[0]:   # lane128-padded input
             w = F.pad(w, (0, 0, 0, x.shape[-1] - w.shape[0]))
         x = x.contiguous()
@@ -110,28 +181,63 @@ class _Executor:
             return kops.fused_dense_batched(x, w, b, activation=act)
         return kops.fused_dense(x, w, b, activation=act)
 
-    def _gravnet_block(self, op, vals):
-        """One fused GravNet block, one launch for the micro-batch."""
+    def _gravnet(self, op, vals, prec):
+        """The unfused aggregation, one launch for the micro-batch; an
+        int8 op snaps its output to the int8 grid of its scale."""
+        s, f, mask = vals
+        sf = _as_fp(s)[..., :op.attrs["d_s"]].contiguous()
+        ff = _as_fp(f)[..., :op.attrs["d_f"]].contiguous()
+        agg = kops.gravnet_aggregate_batched(sf, ff, mask, k=op.attrs["k"],
+                                             scale=op.attrs["scale"])
+        if prec == "int8" and "act_scale" in op.attrs:
+            sc = f32(op.attrs["act_scale"])
+            agg = torch.clamp(torch.round(agg / sc), -QMAX, QMAX) * sc
+        return agg
+
+    def _gravnet_block(self, op, vals, prec):
+        """One fused GravNet block, one launch for the micro-batch: the
+        quantized kernel with its baked scales for a calibrated int8
+        block, the f32 kernel otherwise."""
         if not op.attrs.get("concat_x", True):
             raise NotImplementedError(
                 f"{op.name}: a gravnet_block whose output dense reads the "
                 "aggregate alone (concat_x=False) is not ported; the port's "
-                "kernel computes act(concat(x, agg) @ wo + bo)")
+                "kernels compute act(concat(x, agg) @ wo + bo)")
         x, mask = vals
-        p = op.params
-        xf = x[..., :p["ws"].shape[0]].contiguous()  # lane128 producer
+        p, a = op.params, op.attrs
+        xf = _as_fp(x)[..., :p["ws"].shape[0]].contiguous()  # lane128
+        kw = dict(k=a["k"], scale=a["scale"],
+                  activation=a.get("activation", "none"))
+        if prec == "int8" and "ws_q" in p:
+            return kops.gravnet_block_int8_batched(
+                xf, mask, p["ws_q"], p["bs"], p["wf_q"], p["bf"], p["wo_q"],
+                p["bo"], p["ws_scale"], p["wf_scale"], p["wo_scale"],
+                x_scale=a["in_scale"], agg_scale=a["agg_scale"],
+                h_scale=a["h_scale"], **kw)
         return kops.gravnet_block_batched(
             xf, mask, p["ws"], p["bs"], p["wf"], p["bf"], p["wo"], p["bo"],
-            k=op.attrs["k"], scale=op.attrs["scale"],
-            activation=op.attrs.get("activation", "none"))
+            **kw)
 
     def _cps(self, op, vals):
         names = op.attrs["head_names"]
-        hv = {n: vals[i] for i, n in enumerate(names)}
+        hv = {n: _as_fp(vals[i]) for i, n in enumerate(names)}
         outputs = {"beta_logit": hv["beta"][..., 0],
                    "coords": hv["coords"],
                    "energy": hv["energy"][..., 0]}
         return ccn.cps(outputs, vals[-1], self.cfg)
+
+    def run(self, graph, feeds, *, force_fp=False, record=None):
+        """Every op of ``graph`` in order over the whole batch of
+        ``feeds``, with no chunking; returns (output, env)."""
+        env: dict[str, Any] = {}
+        result = None
+        for op in graph:
+            vals = [env[i] for i in op.inputs]
+            env[op.name] = self.run_op(op, vals, feeds, force_fp=force_fp,
+                                       record=record)
+            if op.op_type == "output":
+                result = env[op.name]
+        return result, env
 
 
 # -------------------------------------------------------- compiled object ----
@@ -146,8 +252,9 @@ class CompiledPipeline:
         self.graph = graph.clone()
         for op in self.graph:   # weights move to the device once
             if op.params:
-                op.params = {k: v.to(device, torch.float32).contiguous()
-                             for k, v in op.params.items()}
+                op.params = {k: v.to(device, torch.float32 if
+                                     v.is_floating_point() else v.dtype)
+                             .contiguous() for k, v in op.params.items()}
         self.segments = segments(self.graph)
         self.microbatch = int(
             self.graph.meta["parallelization"]["microbatch"])
@@ -201,9 +308,58 @@ class CompiledPipeline:
                 plan, {i: env[i] for i in plan[1] if i in env}, feeds))
         return env[self._out]
 
+    def _on_device(self, feeds):
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in feeds.items()}
+
+    # calibration + weight quantization ------------------------------------
+    def calibrate(self, feeds):
+        """Run the whole calibration batch once in f32 through every op
+        (no chunking), set each op's activation scale from its max-abs,
+        quantize the int8 denses' weights per output channel and bake
+        the int8 blocks' scales."""
+        record: dict[str, float] = {}
+        _, env = self._ex.run(self.graph, self._on_device(feeds),
+                              force_fp=True, record=record)
+        for op in self.graph:
+            if op.name in record:
+                op.attrs["act_scale"] = activation_scale(record[op.name])
+        for op in self.graph:
+            if op.op_type in ("dense", "linear") and op.precision == "int8":
+                op.attrs["in_scale"] = self.graph[op.inputs[0]].attrs.get(
+                    "act_scale", 1.0)
+                op.params["w_q"], op.params["w_scale"] = quantize_weight(
+                    op.params["w"])
+            elif op.op_type == "gravnet_block" and op.precision == "int8":
+                self._calibrate_block(op, env)
+
+    def _calibrate_block(self, op, env):
+        """The fused int8 block's three baked scales from the f32
+        calibration run. The block hides the chain's interior tensors
+        from the recording, so S, F and the aggregate are recomputed
+        here from the block's f32 input through the kernels' entry
+        points: ``in_scale`` is the producer's activation scale,
+        ``agg_scale`` the aggregate's and ``h_scale`` that of
+        ``concat(x, agg)``, as the unfused chain's ops record them.
+        Weights quantize per output channel."""
+        a, p = op.attrs, op.params
+        prod = op.inputs[0]
+        a["in_scale"] = self.graph[prod].attrs.get("act_scale", 1.0)
+        x = _as_fp(env[prod])[..., :p["ws"].shape[0]].contiguous()
+        mask = _as_fp(env[op.inputs[1]])
+        s = kops.fused_dense_batched(x, p["ws"], p["bs"], activation="none")
+        f = kops.fused_dense_batched(x, p["wf"], p["bf"], activation="none")
+        agg = kops.gravnet_aggregate_batched(s, f, mask, k=a["k"],
+                                             scale=a["scale"])
+        a["agg_scale"] = activation_scale(agg.abs().max().item())
+        h = torch.cat([x, agg], dim=-1) if a.get("concat_x", True) else agg
+        a["h_scale"] = activation_scale(h.abs().max().item())
+        for nm in ("ws", "wf", "wo"):
+            p[nm + "_q"], p[nm + "_scale"] = quantize_weight(p[nm])
+
+    # inference -------------------------------------------------------------
     def __call__(self, feeds):
-        feeds = {k: torch.as_tensor(v).to(self.device)
-                 for k, v in feeds.items()}
+        feeds = self._on_device(feeds)
         b = next(iter(feeds.values())).shape[0]
         mb = self.microbatch
         pad = (-b) % mb
@@ -217,34 +373,46 @@ class CompiledPipeline:
 
 
 # ----------------------------------------------------------------- deploy ----
-def deploy(model_graph: Graph, req: Requirements, *, device=None):
+def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
+           fuse_gravnet_block: bool = True, fuse_int8: bool = True,
+           device=None):
     """Run the design flow and emit one executable on ``device``
-    (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA)."""
+    (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA).
+
+    ``fuse_gravnet_block`` (default on) collapses every fusable GravNet
+    chain into one ``gravnet_block`` at design points ≥ 2; ``False``
+    keeps the unfused chain, whose aggregation runs the
+    ``gravnet_aggregate`` kernel. The mixed policy needs
+    ``calibration_feeds`` (``{"hits", "mask"}``) and then fuses its
+    blocks into the quantized kernel; ``fuse_int8=False`` keeps the
+    unfused calibrated int8 chain under mixed while fp still fuses."""
     device = resolve_device(device)
-    if req.precision_policy == "mixed":
-        raise NotImplementedError(
-            "the mixed precision policy needs the fused_dense_int8 and "
-            "gravnet_block_int8 kernels and calibration, not ported yet; "
-            "deploy with precision_policy='fp'")
-    if req.precision_policy != "fp":
+    if req.precision_policy not in ("fp", "mixed"):
         raise ValueError(f"unknown precision policy "
                          f"{req.precision_policy!r}")
-    if req.design_point < 2:
-        raise NotImplementedError(
-            "design point 1 runs the unfused GravNet chain, which needs the "
-            "gravnet_aggregate kernel, not ported yet")
+    mixed = req.precision_policy == "mixed"
+    if mixed and calibration_feeds is None:
+        raise ValueError("mixed precision requires calibration_feeds")
     verify(model_graph)  # legality check before any rewrite
-    g = fuse(model_graph, gravnet_block=True)
-    verify(g)
-    unfused = [op.name for op in g if op.op_type == "gravnet_aggregate"]
-    if unfused:
-        raise NotImplementedError(
-            f"{unfused} stay unfused: they need the gravnet_aggregate "
-            "kernel, not ported yet")
+    g = model_graph
+    if req.design_point >= 2:
+        g = fuse(g, gravnet_block=fuse_gravnet_block
+                 and (not mixed or fuse_int8))
+        verify(g)        # fusion must preserve well-formedness
     g = partition(g, tpu_native_gravnet=req.tpu_native_gravnet)
-    g = apply_precision_policy(g, policy="fp")
+    g = apply_precision_policy(g, policy=req.precision_policy)
     g = map_templates(g)
-    g = parallelize(g, req)
+    if req.design_point >= 2:
+        g = parallelize(g, req)
+    else:
+        for op in g:
+            op.attrs_opt["P"] = 1
+        g.meta["parallelization"] = {"P_mxu": 1, "P_xla": 1, "microbatch": 1,
+                                     "model_throughput_ev_s": None,
+                                     "target": req.target_throughput}
     if req.design_point >= 3:
         g = kernel_optimize(g, n_rows=req.n_hits)
-    return CompiledPipeline(g, device)
+    pipe = CompiledPipeline(g, device)
+    if mixed:
+        pipe.calibrate(calibration_feeds)
+    return pipe

@@ -1,12 +1,57 @@
-"""The paper's precision policy for the deployment flow.
+"""The paper's precision policy and the int8 quantizers of the deployment
+flow.
 
-Counterpart of ``repro/core/quantization.py:apply_precision_policy``,
-both branches, so that the port's graphs carry the reference's
-precisions. Weight and activation quantization (``quantize_weight``,
-``activation_scale``) come with the mixed-precision slice; until then
-``deploy`` refuses the mixed policy.
+Counterpart of ``repro/core/quantization.py``:
+
+- ``quantize_weight``       : per-output-channel int8 weights + f32 scales.
+- ``activation_scale``      : the per-tensor activation scale of a
+                              calibrated max-abs (a Python float).
+- ``apply_precision_policy``: the paper's mixed policy — first/last
+                              pipeline segments bf16, interior int8.
+
+``fake_quant`` (quantization-aware training) comes with the training
+slice.
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
+
+QMAX = 127.0
+
+
+def f32(v: float) -> float:
+    """``v`` rounded to the nearest float32, as a Python float. A scale
+    is kept in double (as the reference keeps it) and becomes float32
+    only where it is used: a float32 tensor divided or multiplied by an
+    f32-exact Python float gives the float32 result whether PyTorch
+    computes in float or in double."""
+    return float(np.float32(v))
+
+
+def quantize_weight(w: torch.Tensor, *, bits: int = 8):
+    """Per-output-channel symmetric int8 quantization. w: (d_in, d_out)
+    f32 -> (w_q int8 (d_in, d_out), scale f32 (d_out,)); rounds half to
+    even and clips to ±(2^(bits-1) - 1)."""
+    qmax = 2.0 ** (bits - 1) - 1.0
+    w = w.float()
+    scale = torch.clamp_min(w.abs().amax(dim=0), f32(1e-8)) / qmax
+    w_q = torch.clamp(torch.round(w / scale[None, :]), -qmax, qmax)
+    return w_q.to(torch.int8), scale
+
+
+def activation_scale(absmax: float, *, bits: int = 8) -> float:
+    """``max(absmax, 1e-8) / (2^(bits-1) - 1)`` in double."""
+    qmax = 2.0 ** (bits - 1) - 1.0
+    return max(float(absmax), 1e-8) / qmax
+
+
+def quantize_act(v: torch.Tensor, scale: float) -> torch.Tensor:
+    """f32 activations -> int8 on the grid of ``scale``: ``v / scale``
+    (a division, as the reference quantizes), rounded half to even,
+    clipped to ±127."""
+    q = torch.clamp(torch.round(v.float() / f32(scale)), -QMAX, QMAX)
+    return q.to(torch.int8)
 
 
 def apply_precision_policy(g, *, policy: str = "mixed"):

@@ -1,10 +1,18 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-- ``fused_dense``   : act(x @ w + b), f32 (``csrc/fused_dense.cu``).
-- ``gravnet_block`` : the fused GravNet block — S/F prologue, kNN cell,
-                      output-dense epilogue — in one launch
-                      (``csrc/gravnet_block.cu``, ``csrc/gravnet_cell.cuh``).
+- ``fused_dense``        : act(x @ w + b), f32 (``csrc/fused_dense.cu``).
+- ``fused_dense_int8``   : the quantized dense — int8 × int8 into exact
+                           int32 sums, dequant, bias, activation, optional
+                           int8 requant (``csrc/fused_dense_int8.cu``).
+- ``gravnet_aggregate``  : the unfused GravNet kNN aggregation
+                           (``csrc/gravnet_aggregate.cu``).
+- ``gravnet_block``      : the fused GravNet block — S/F prologue, kNN
+                           cell, output-dense epilogue — in one launch
+                           (``csrc/gravnet_block.cu``).
+- ``gravnet_block_int8`` : its quantized form, the serve default's block
+                           (``csrc/gravnet_block_int8.cu``).
 
+The three GravNet kernels share the cell in ``csrc/gravnet_cell.cuh``.
 ``ops.py`` routes by device (CPU tensor -> plain version in ``ref.py``,
 CUDA tensor -> kernel); ``_build.py`` compiles ``csrc/`` with ``nvcc``
 at first use. Nothing builds when a module is imported.

@@ -1,10 +1,12 @@
-"""Hopper kernel: fused dense = matmul + bias + activation, f32.
+"""Hopper kernels: fused dense = matmul + bias + activation, in f32 and
+in int8.
 
 Counterpart of ``repro/kernels/fused_dense.py`` (``fused_dense_pallas``,
-``fused_dense_batched_pallas``). The CUDA source is
-``csrc/fused_dense.cu``; the plain version is
-``kernels/ref.py:fused_dense_ref``. The TPU kernel's two variants
-(one whole-operand cell, or a grid looped over K) were ways to fill the
+``fused_dense_batched_pallas``, ``fused_dense_int8_pallas``). The CUDA
+sources are ``csrc/fused_dense.cu`` and ``csrc/fused_dense_int8.cu``;
+the plain versions are ``kernels/ref.py:fused_dense_ref`` and
+``fused_dense_int8_ref``. The TPU kernel's two variants (one
+whole-operand cell, or a grid looped over K) were ways to fill the
 TPU's matrix unit; on the card one tiled kernel serves both, and the
 batched form row-packs its events into the same launch.
 """
@@ -18,6 +20,7 @@ from repro_torch.kernels import _build
 
 _ACT = {None: 0, "none": 0, "linear": 0, "relu": 1}
 _lib = None
+_lib_int8 = None
 
 
 def _kernel():
@@ -30,6 +33,20 @@ def _kernel():
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib.fused_dense_f32
+
+
+def _kernel_int8():
+    global _lib_int8
+    if _lib_int8 is None:
+        lib = _build.load("fused_dense_int8")
+        fn = lib.fused_dense_int8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float,
+                                                ctypes.c_void_p]
+                       + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                               ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib_int8 = lib
+    return _lib_int8.fused_dense_int8
 
 
 def act_code(activation) -> int:
@@ -75,3 +92,50 @@ def fused_dense_cuda(x, w, b=None, *, activation="relu"):
 
 
 fused_dense_cuda.launches = 0
+
+
+def fused_dense_int8_cuda(x_q, w_q, b, x_scale, w_scale, *,
+                          activation="relu", out_int8=False, out_scale=1.0):
+    """The quantized dense on the card: int8 x_q:(M,K) by int8 w_q:(K,N)
+    into exact int32 sums, ``y = act(acc·(x_scale·w_scale[c]) + b)``,
+    returned as f32, or requantized to int8 with ``out_scale`` when
+    ``out_int8``. b:(N,) f32 or None, w_scale:(N,) f32; x_scale and
+    out_scale are Python floats, passed as float32. Adds one to
+    ``fused_dense_int8_cuda.launches`` per launch."""
+    act = act_code(activation)
+    ops = [x_q, w_q, w_scale] + ([] if b is None else [b])
+    if any(not t.is_cuda or t.device != x_q.device for t in ops):
+        raise ValueError("fused_dense_int8_cuda takes CUDA tensors on one "
+                         "device")
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError("fused_dense_int8_cuda takes int8 x_q and w_q "
+                        f"(got {x_q.dtype}, {w_q.dtype})")
+    if w_scale.dtype != torch.float32 or (
+            b is not None and b.dtype != torch.float32):
+        raise TypeError("fused_dense_int8_cuda takes float32 w_scale and b")
+    if any(not t.is_contiguous() for t in ops):
+        raise ValueError("fused_dense_int8_cuda takes contiguous operands")
+    if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"fused_dense_int8_cuda: x {tuple(x_q.shape)} @ w "
+                         f"{tuple(w_q.shape)}")
+    m, kdim = x_q.shape
+    n = w_q.shape[1]
+    for nm, t in (("w_scale", w_scale), ("b", b)):
+        if t is not None and tuple(t.shape) != (n,):
+            raise ValueError(f"fused_dense_int8_cuda: {nm} "
+                             f"{tuple(t.shape)} for {n} outputs")
+    y = torch.empty((m, n), dtype=torch.int8 if out_int8 else torch.float32,
+                    device=x_q.device)
+    fn = _kernel_int8()
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x_q.data_ptr(), w_q.data_ptr(),
+                  None if b is None else b.data_ptr(), w_scale.data_ptr(),
+                  float(x_scale), y.data_ptr(), m, kdim, n, act,
+                  int(out_int8), float(out_scale), stream)
+    _build.check(code, "fused_dense_int8")
+    fused_dense_int8_cuda.launches += 1
+    return y
+
+
+fused_dense_int8_cuda.launches = 0

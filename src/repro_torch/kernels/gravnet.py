@@ -1,0 +1,77 @@
+"""Hopper kernel: the standalone GravNet kNN aggregation, f32.
+
+Counterpart of ``repro/kernels/gravnet.py``
+(``gravnet_aggregate_batched_pallas``; ``gravnet_aggregate_pallas`` is
+the same kernel at B = 1). The CUDA source is
+``csrc/gravnet_aggregate.cu``, which includes the cell
+``csrc/gravnet_cell.cuh`` that the fused blocks share; the plain
+version is ``kernels/ref.py:gravnet_aggregate_ref``. It runs where the
+GravNet block stays unfused.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.gravnet_block import BM, SMEM_LIMIT
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("gravnet_aggregate")
+        lib.gravnet_aggregate_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.gravnet_aggregate_smem_bytes.restype = ctypes.c_longlong
+        fn = lib.gravnet_aggregate_f32
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0):
+    """GravNet aggregation on the card for a micro-batch.
+    s:(B,N,ds), f:(B,N,df), mask:(B,N) f32 -> (B,N,2·df) =
+    concat(mean, max) over each row's k nearest valid rows of its own
+    event. Raises on a shape whose shared-memory plan exceeds the card's
+    227 KB. Adds one to ``gravnet_aggregate_cuda.launches`` per launch."""
+    if s.ndim != 3 or f.ndim != 3:
+        raise ValueError(f"gravnet_aggregate_cuda: s {tuple(s.shape)}, f "
+                         f"{tuple(f.shape)} are not (B, N, d)")
+    bsz, n, ds = s.shape
+    df = f.shape[2]
+    if f.shape[:2] != s.shape[:2] or tuple(mask.shape) != (bsz, n):
+        raise ValueError(f"gravnet_aggregate_cuda: s {tuple(s.shape)}, f "
+                         f"{tuple(f.shape)}, mask {tuple(mask.shape)}")
+    mask = mask.to(torch.float32).contiguous()
+    ops = [s, f, mask]
+    if any(not t.is_cuda or t.device != s.device for t in ops):
+        raise ValueError("gravnet_aggregate_cuda takes CUDA tensors on one "
+                         "device")
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError("gravnet_aggregate_cuda takes float32 operands")
+    if any(not t.is_contiguous() for t in ops):
+        raise ValueError("gravnet_aggregate_cuda takes contiguous operands")
+    lib = _library()
+    smem = lib.gravnet_aggregate_smem_bytes(n, ds, df)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"gravnet_aggregate_cuda: n={n}, d_s={ds}, "
+                         f"d_f={df} needs {smem} B of shared memory > "
+                         f"{SMEM_LIMIT} B")
+    y = torch.empty((bsz, n, 2 * df), dtype=torch.float32, device=s.device)
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.gravnet_aggregate_f32(
+            s.data_ptr(), f.data_ptr(), mask.data_ptr(), y.data_ptr(), bsz,
+            n, ds, df, int(k), float(scale), min(n, BM), stream)
+    _build.check(code, "gravnet_aggregate")
+    gravnet_aggregate_cuda.launches += 1
+    return y
+
+
+gravnet_aggregate_cuda.launches = 0

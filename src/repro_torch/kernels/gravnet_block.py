@@ -1,10 +1,14 @@
-"""Hopper kernel: one whole GravNet block per launch, f32.
+"""Hopper kernels: one whole GravNet block per launch, in f32 and
+quantized (int8).
 
 Counterpart of ``repro/kernels/gravnet_block.py``
-(``gravnet_block_batched_pallas``; ``gravnet_block_pallas`` is the same
-kernel at B = 1). The CUDA source is ``csrc/gravnet_block.cu`` with the
-cell in ``csrc/gravnet_cell.cuh``; the plain version is
-``kernels/ref.py:gravnet_block_ref``.
+(``gravnet_block_batched_pallas`` and
+``gravnet_block_int8_batched_pallas``; the per-event
+``gravnet_block_pallas`` and ``gravnet_block_int8_pallas`` are the same
+kernels at B = 1). The CUDA sources are ``csrc/gravnet_block.cu`` and
+``csrc/gravnet_block_int8.cu``, both with the cell in
+``csrc/gravnet_cell.cuh``; the plain versions are
+``kernels/ref.py:gravnet_block_ref`` and ``gravnet_block_int8_ref``.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ SMEM_LIMIT = 232448
 #: query rows per CTA: 4 CTAs per event at the main path's 128 hits
 BM = 32
 _lib = None
+_lib_int8 = None
 
 
 def _library():
@@ -91,3 +96,86 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
 
 
 gravnet_block_cuda.launches = 0
+
+
+def _library_int8():
+    global _lib_int8
+    if _lib_int8 is None:
+        lib = _build.load("gravnet_block_int8")
+        lib.gravnet_block_int8_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.gravnet_block_int8_smem_bytes.restype = ctypes.c_longlong
+        fn = lib.gravnet_block_int8
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib_int8 = lib
+    return _lib_int8
+
+
+def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
+                            wf_scale, wo_scale, *, x_scale, agg_scale,
+                            h_scale, k=8, scale=10.0, activation="relu"):
+    """One quantized GravNet block on the card for a micro-batch:
+    quantize x with ``x_scale``, int8 S/F dots, the f32 cell, snap the
+    aggregate to ``agg_scale``'s grid, quantize concat(x, agg) with
+    ``h_scale``, int8 output dot with dequant, bias and activation.
+
+    x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out) f32. ws_q:(dh,ds)
+    wf_q:(dh,df) wo_q:(dh+2df, d_out) int8; bs, bf, bo and the
+    per-channel ``*_scale`` vectors f32 of the matching output widths.
+    The three activation scales are Python floats, passed as float32.
+    Raises on a shape whose shared-memory plan exceeds the card's
+    227 KB. Adds one to ``gravnet_block_int8_cuda.launches`` per
+    launch."""
+    act = act_code(activation)
+    if x.ndim != 3:
+        raise ValueError(f"gravnet_block_int8_cuda: x {tuple(x.shape)} is "
+                         "not (B, N, d_hidden)")
+    bsz, n, dh = x.shape
+    ds, df = ws_q.shape[1], wf_q.shape[1]
+    dout = wo_q.shape[1]
+    want = {"mask": (bsz, n), "ws_q": (dh, ds), "bs": (ds,),
+            "wf_q": (dh, df), "bf": (df,), "wo_q": (dh + 2 * df, dout),
+            "bo": (dout,), "ws_scale": (ds,), "wf_scale": (df,),
+            "wo_scale": (dout,)}
+    got = {"mask": mask, "ws_q": ws_q, "bs": bs, "wf_q": wf_q, "bf": bf,
+           "wo_q": wo_q, "bo": bo, "ws_scale": ws_scale,
+           "wf_scale": wf_scale, "wo_scale": wo_scale}
+    for nm, t in got.items():
+        if tuple(t.shape) != want[nm]:
+            raise ValueError(f"gravnet_block_int8_cuda: {nm} "
+                             f"{tuple(t.shape)}, expected {want[nm]}")
+    mask = mask.to(torch.float32).contiguous()
+    ops = [x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale, wf_scale,
+           wo_scale]
+    if any(not t.is_cuda or t.device != x.device for t in ops):
+        raise ValueError("gravnet_block_int8_cuda takes CUDA tensors on one "
+                         "device")
+    if any(t.dtype != (torch.int8 if nm.endswith("_q") else torch.float32)
+           for nm, t in zip(["x", *got], ops)):
+        raise TypeError("gravnet_block_int8_cuda takes int8 weights and "
+                        "float32 activations, biases and scales")
+    if any(not t.is_contiguous() for t in ops):
+        raise ValueError("gravnet_block_int8_cuda takes contiguous operands")
+    bm = min(n, BM)
+    lib = _library_int8()
+    smem = lib.gravnet_block_int8_smem_bytes(n, dh, ds, df, dout, bm)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"gravnet_block_int8_cuda: n={n}, d_hidden={dh}, d_f={df}, "
+            f"d_out={dout}, bm={bm} needs {smem} B of shared memory "
+            f"> {SMEM_LIMIT} B")
+    y = torch.empty((bsz, n, dout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.gravnet_block_int8(
+            *(t.data_ptr() for t in ops), y.data_ptr(), bsz, n, dh, ds, df,
+            dout, int(k), float(scale), float(x_scale), float(agg_scale),
+            float(h_scale), act, bm, stream)
+    _build.check(code, "gravnet_block_int8")
+    gravnet_block_int8_cuda.launches += 1
+    return y
+
+
+gravnet_block_int8_cuda.launches = 0

@@ -10,8 +10,11 @@ ragged shapes themselves, so no wrapper pads.
 from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.fused_dense import fused_dense_cuda
-from repro_torch.kernels.gravnet_block import gravnet_block_cuda
+from repro_torch.kernels.fused_dense import (fused_dense_cuda,
+                                             fused_dense_int8_cuda)
+from repro_torch.kernels.gravnet import gravnet_aggregate_cuda
+from repro_torch.kernels.gravnet_block import (gravnet_block_cuda,
+                                               gravnet_block_int8_cuda)
 
 
 def fused_dense(x, w, b=None, *, activation="relu"):
@@ -28,6 +31,38 @@ def fused_dense_batched(x, w, b=None, *, activation="relu"):
     bsz, m, kdim = x.shape
     y = fused_dense(x.reshape(bsz * m, kdim), w, b, activation=activation)
     return y.reshape(bsz, m, -1)
+
+
+def fused_dense_int8(x_q, w_q, b, x_scale, w_scale, *, activation="relu",
+                     out_int8=False, out_scale=1.0):
+    """The quantized dense: act(x_q @ w_q · (x_scale·w_scale) + b), f32,
+    or requantized to int8 with ``out_scale`` when ``out_int8``.
+    x_q:(M,K) int8, w_q:(K,N) int8, b:(N,)|None, w_scale:(N,) ->
+    (M,N)."""
+    if x_q.device.type == "cpu":
+        return _ref.fused_dense_int8_ref(x_q, w_q, b, x_scale, w_scale,
+                                         activation=activation,
+                                         out_int8=out_int8,
+                                         out_scale=out_scale)
+    return fused_dense_int8_cuda(x_q, w_q, b, x_scale, w_scale,
+                                 activation=activation, out_int8=out_int8,
+                                 out_scale=out_scale)
+
+
+def gravnet_aggregate_batched(s, f, mask, *, k=8, scale=10.0):
+    """GravNet aggregation over a micro-batch, one launch.
+    s:(B,N,ds), f:(B,N,df), mask:(B,N) -> (B,N,2·df) = concat(mean, max)
+    over each row's k nearest valid rows of its own event."""
+    if s.device.type == "cpu":
+        return _ref.gravnet_aggregate_ref(s, f, mask, k=k, scale=scale)
+    return gravnet_aggregate_cuda(s, f, mask, k=k, scale=scale)
+
+
+def gravnet_aggregate(s, f, mask, *, k=8, scale=10.0):
+    """GravNet aggregation for one event: the batched kernel at B = 1.
+    s:(N,ds), f:(N,df), mask:(N,) -> (N, 2·df)."""
+    return gravnet_aggregate_batched(s[None], f[None], mask[None], k=k,
+                                     scale=scale)[0]
 
 
 def gravnet_block_batched(x, mask, ws, bs, wf, bf, wo, bo, *, k=8,
@@ -49,3 +84,28 @@ def gravnet_block(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
     return gravnet_block_batched(x[None], mask[None], ws, bs, wf, bf, wo,
                                  bo, k=k, scale=scale,
                                  activation=activation)[0]
+
+
+def gravnet_block_int8_batched(x, mask, ws_q, bs, wf_q, bf, wo_q, bo,
+                               ws_scale, wf_scale, wo_scale, *, x_scale,
+                               agg_scale, h_scale, k=8, scale=10.0,
+                               activation="relu"):
+    """One quantized GravNet block over a micro-batch, one launch.
+    x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out) f32; int8 weights with
+    per-channel scales, the three calibrated activation scales as
+    Python floats."""
+    args = (x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale, wf_scale,
+            wo_scale)
+    kw = dict(x_scale=x_scale, agg_scale=agg_scale, h_scale=h_scale, k=k,
+              scale=scale, activation=activation)
+    if x.device.type == "cpu":
+        return _ref.gravnet_block_int8_ref(*args, **kw)
+    return gravnet_block_int8_cuda(*args, **kw)
+
+
+def gravnet_block_int8(x, mask, *weights, **kw):
+    """One quantized GravNet block for one event: the batched kernel at
+    B = 1. x:(N,dh), mask:(N,) -> (N,d_out); the other arguments as
+    :func:`gravnet_block_int8_batched`'s."""
+    return gravnet_block_int8_batched(x[None], mask[None], *weights,
+                                      **kw)[0]

@@ -7,11 +7,17 @@ order of every f32 sum: products and sums are separate, rounded
 operations taken in the kernel's order (the kernels are built with
 ``-fmad=false``), so on the card a plain version reproduces its kernel's
 bits wherever ``exp`` agrees. The sums are written as loops for that
-reason; ``torch.matmul`` would leave their order to the library.
+reason; ``torch.matmul`` would leave their order to the library. The
+int8 kernels' int32 sums are exact in any order, so their plain
+versions take them from a float64 product, which is exact at these
+sizes; every f32 step around them (dequantization, requantization by
+division, rounding half to even) keeps the kernels' order.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.quantization import QMAX, f32, quantize_act
 
 BIG = 1e30
 
@@ -42,6 +48,31 @@ def fused_dense_ref(x, w, b=None, *, activation="relu"):
     if b is not None:
         y = y + b.float()
     return _activate(y, activation).to(x.dtype)
+
+
+def _int_dot(xq, wq):
+    """int8 x int8 -> exact int32 sums over the last axis of xq. Every
+    partial sum is an integer far below 2^53, so a float64 product is
+    exact in any order of summation, as the kernels' int32 sums are."""
+    return (xq.double() @ wq.double()).to(torch.int32)
+
+
+def _dequant(acc, b, x_scale, w_scale):
+    """``acc·(x_scale·w_scale[c]) + b`` in f32, in the kernels' order."""
+    y = acc.float() * (f32(x_scale) * w_scale.float())
+    return y if b is None else y + b.float()
+
+
+def fused_dense_int8_ref(x_q, w_q, b, x_scale, w_scale, *,
+                         activation="relu", out_int8=False, out_scale=1.0):
+    """Quantized fused dense: int8 x_q:(..., K) by int8 w_q:(K, N) into
+    exact int32 sums, then ``y = acc·(x_scale·w_scale[c]) + b``, the
+    activation, and for ``out_int8`` a requantization
+    ``clip(round(y / out_scale), ±127)`` to int8; else f32.
+    ``x_scale`` and ``out_scale`` are Python floats, used as float32."""
+    y = _activate(_dequant(_int_dot(x_q, w_q), b, x_scale, w_scale),
+                  activation)
+    return quantize_act(y, out_scale) if out_int8 else y
 
 
 # ---------------------------------------------------------------- gravnet ----
@@ -93,6 +124,14 @@ def gravnet_cell_ref(s, f, mask, *, k=8, scale=10.0):
     return torch.cat([mean, maxv], dim=2)
 
 
+def gravnet_aggregate_ref(s, f, mask, *, k=8, scale=10.0):
+    """The standalone GravNet aggregation over a micro-batch: the cell
+    fed S and F from memory. s:(B,n,ds), f:(B,n,df), mask:(B,n) ->
+    (B, n, 2·df) f32."""
+    return gravnet_cell_ref(s.float(), f.float(), mask.float(), k=k,
+                            scale=scale)
+
+
 # ---------------------------------------------------------- gravnet block ----
 def gravnet_block_ref(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
                       activation="relu"):
@@ -105,3 +144,24 @@ def gravnet_block_ref(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
     agg = gravnet_cell_ref(s, f, mask.float(), k=k, scale=scale)
     h = torch.cat([xf, agg], dim=-1)
     return fused_dense_ref(h, wo, bo, activation=activation).to(x.dtype)
+
+
+def gravnet_block_int8_ref(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
+                           wf_scale, wo_scale, *, x_scale, agg_scale,
+                           h_scale, k=8, scale=10.0, activation="relu"):
+    """The quantized GravNet block over a micro-batch, in the kernel's
+    order: quantize x with ``x_scale``; int8 S/F dots dequantized as
+    ``acc·(x_scale·w_scale[c]) + b`` (no output snap); the f32 cell;
+    snap ``agg`` to the ``agg_scale`` grid; quantize
+    ``h = concat(x, agg)`` with ``h_scale``; the int8 output dot with
+    dequant, bias and activation. x:(B,N,dh) f32 -> (B,N,d_out) f32."""
+    xf = x.float()
+    xq = quantize_act(xf, x_scale)
+    s = _dequant(_int_dot(xq, ws_q), bs, x_scale, ws_scale)
+    f = _dequant(_int_dot(xq, wf_q), bf, x_scale, wf_scale)
+    agg = gravnet_cell_ref(s, f, mask.float(), k=k, scale=scale)
+    agg = torch.clamp(torch.round(agg / f32(agg_scale)), -QMAX,
+                      QMAX) * f32(agg_scale)
+    hq = quantize_act(torch.cat([xf, agg], dim=-1), h_scale)
+    return fused_dense_int8_ref(hq, wo_q, bo, h_scale, wo_scale,
+                                activation=activation)

@@ -16,9 +16,12 @@ width there — one after another, and brings each one's decisions to
 the host before it dispatches the next, so results come back in
 submission order. An
 event's decision latency is the time from the dispatch of its
-micro-batch to its decisions being on the host. The serving layer, the
-mixed precision policy (``--precision mixed`` raises), training,
-occupancy buckets and the other models are not ported yet.
+micro-batch to its decisions being on the host. As in the reference,
+``--precision`` defaults to ``mixed`` (int8 interior, calibrated on 64
+events of seed 123), design points 1 to 3 deploy, and
+``--no-fuse-gravnet-block`` / ``--no-fuse-int8`` keep the GravNet chain
+unfused. The serving layer, training, occupancy buckets and the other
+models are not ported yet.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -49,17 +52,29 @@ def detector_configs(detector: str):
     raise ValueError(f"unknown detector {detector!r}")
 
 
-def build_pipeline(cfg: ccn.CCNConfig, *, design_point: int = 3,
-                   precision: str = "fp", device=None):
+def calibration_feeds(gen_cfg) -> dict:
+    """The calibration batch of repro/launch/serve.py: 64 events of
+    seed 123."""
+    calib = generate(gen_cfg, 64, seed=123)
+    return {"hits": calib["feats"], "mask": calib["mask"]}
+
+
+def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
+                   precision: str = "mixed", fuse_gravnet_block: bool = True,
+                   fuse_int8: bool = True, device=None):
     """Random CaloClusterNet weights from seed 0, exported and
     deployed as repro/launch/serve.py deploys it (its CPU cost
-    constants, so the design flow picks the same P and micro-batch)."""
+    constants, so the design flow picks the same P and micro-batch;
+    its calibration batch from ``gen_cfg``)."""
     params = ccn.init(torch.Generator().manual_seed(0), cfg)
     req = Requirements(design_point=design_point, platform="cpu",
                        precision_policy=precision, n_hits=cfg.n_hits,
                        target_throughput=TARGET_THROUGHPUT,
                        max_latency_s=2e-3)
-    return deploy(ccn.to_graph(params, cfg), req, device=device)
+    return deploy(ccn.to_graph(params, cfg), req,
+                  calibration_feeds=calibration_feeds(gen_cfg),
+                  fuse_gravnet_block=fuse_gravnet_block,
+                  fuse_int8=fuse_int8, device=device)
 
 
 def _to_host(out) -> dict:
@@ -108,26 +123,36 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--detector", choices=["current", "upgrade"],
                     default="upgrade")
-    ap.add_argument("--design-point", type=int, default=3, choices=[2, 3])
-    ap.add_argument("--precision", choices=["fp", "mixed"], default="fp",
-                    help="'mixed' is not ported yet and raises")
+    ap.add_argument("--design-point", type=int, default=3,
+                    choices=[1, 2, 3])
+    ap.add_argument("--precision", choices=["fp", "mixed"],
+                    default="mixed")
+    ap.add_argument("--no-fuse-gravnet-block", action="store_true",
+                    help="keep the unfused dense→aggregate→dense GravNet "
+                         "chains instead of the fused block")
+    ap.add_argument("--no-fuse-int8", action="store_true",
+                    help="under --precision mixed, keep the unfused "
+                         "calibrated int8 chain instead of the quantized "
+                         "block; fp deployments still fuse")
     ap.add_argument("--events", type=int, default=512)
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: cuda (raises when CUDA is absent)")
     args = ap.parse_args(argv)
 
     cfg, gen_cfg = detector_configs(args.detector)
-    pipe = build_pipeline(cfg, design_point=args.design_point,
-                          precision=args.precision, device=args.device)
+    pipe = build_pipeline(cfg, gen_cfg, design_point=args.design_point,
+                          precision=args.precision,
+                          fuse_gravnet_block=not args.no_fuse_gravnet_block,
+                          fuse_int8=not args.no_fuse_int8,
+                          device=args.device)
     dev = pipe.device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"[serve] deployed design point {args.design_point} on {dev} "
-          f"({name}): segments={len(pipe.segments)} "
-          f"microbatch={pipe.microbatch}")
-    calib = generate(gen_cfg, 64, seed=123)
-    warm = {"hits": calib["feats"], "mask": calib["mask"]}
-    serve_events(pipe, warm)                     # first launches, builds
+    print(f"[serve] deployed design point {args.design_point}, "
+          f"{args.precision} on {dev} ({name}): "
+          f"segments={len(pipe.segments)} microbatch={pipe.microbatch} "
+          f"blocks={sum(op.op_type == 'gravnet_block' for op in pipe.graph)}")
+    serve_events(pipe, calibration_feeds(gen_cfg))   # first launches
 
     events = generate(gen_cfg, args.events, seed=7)
     feeds = {"hits": events["feats"], "mask": events["mask"]}

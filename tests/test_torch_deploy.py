@@ -7,7 +7,8 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-from _numerics import assert_bitwise, assert_close
+from _numerics import (assert_bitwise, assert_calibration_close,
+                       assert_close, int8_flip_tolerance)
 
 from repro.core import caloclusternet as jccn
 from repro.core.passes.fusion import fuse as jfuse
@@ -123,30 +124,80 @@ def test_precision_policies_match_reference(model):
                                                            policy=policy)])
 
 
-def test_mixed_precision_raises(model):
-    _, _, tcfg, tg = model
-    with pytest.raises(NotImplementedError, match="int8"):
-        tdeploy(tg, TReq(**_req_kw(3, tcfg, "mixed")), device="cpu")
+def _compare_with_reference(jpipe, tpipe, events, heads, quantum=None):
+    """Graph rows and micro-batch equal; heads to the float32 row (or to
+    calibration tolerance when ``quantum`` is given); CPS integer
+    outputs bitwise."""
+    assert _op_rows(tpipe.graph) == _op_rows(jpipe.graph)
+    assert tpipe.microbatch == jpipe.microbatch
+    ev = events[0]
+    feeds = {"hits": ev["feats"], "mask": ev["mask"]}
+    jout = jax.tree_util.tree_map(np.asarray, jpipe(feeds))
+    tout = tpipe(feeds)
+    for h in heads:
+        if quantum is None:
+            assert_close(tout[h].numpy(), jout[h], dtype="float32",
+                         context=h)
+        else:
+            assert_calibration_close(tout[h].numpy(), jout[h],
+                                     quantum=quantum, context=h)
+    for k in ("n_clusters", "trigger", "cluster_valid"):
+        assert_bitwise(tout["cps"][k].numpy(), jout["cps"][k], context=k)
 
 
-def test_design_point_1_raises_naming_the_kernel(model):
-    _, _, tcfg, tg = model
-    with pytest.raises(NotImplementedError, match="gravnet_aggregate"):
-        tdeploy(tg, TReq(**_req_kw(1, tcfg)), device="cpu")
+def test_mixed_precision_deploys_at_design_point_2(model, events):
+    """The mixed policy (the reference's serve default) deploys at
+    design point 2 too, calibrated, with quantized blocks, and agrees
+    with the reference."""
+    jcfg, jg, tcfg, tg = model
+    ev = events[0]
+    calib = {"hits": ev["feats"], "mask": ev["mask"]}
+    jpipe = jdeploy(jg, JReq(**_req_kw(2, jcfg, "mixed")),
+                    calibration_feeds=calib)
+    tpipe = tdeploy(tg, TReq(**_req_kw(2, tcfg, "mixed")),
+                    calibration_feeds=calib, device="cpu")
+    blocks = [op for op in tpipe.graph if op.op_type == "gravnet_block"]
+    assert len(blocks) == 2 and all("ws_q" in b.params for b in blocks)
+    quantum = max(int8_flip_tolerance(b.attrs["h_scale"],
+                                      b.params["wo_scale"].numpy(), flips=4)
+                  for b in blocks)
+    _compare_with_reference(jpipe, tpipe, events,
+                            ("beta", "coords", "energy", "cls"), quantum)
 
 
-def test_unfusable_block_raises_naming_the_kernel(model):
+def test_design_point_1_runs_gravnet_aggregate(model, events):
+    """Design point 1 keeps the GravNet chain unfused and runs the
+    gravnet_aggregate kernel's entry point; it matches the reference."""
+    jcfg, jg, tcfg, tg = model
+    jpipe = jdeploy(jg, JReq(**_req_kw(1, jcfg)))
+    tpipe = tdeploy(tg, TReq(**_req_kw(1, tcfg)), device="cpu")
+    assert tpipe.microbatch == 1
+    assert sum(op.op_type == "gravnet_aggregate" for op in tpipe.graph) == 2
+    _compare_with_reference(jpipe, tpipe, events,
+                            ("beta", "coords", "energy", "cls"))
+
+
+def test_unfusable_block_runs_gravnet_aggregate(model, events):
     """A GravNet chain the fusion pass must leave unfused (here: the
-    aggregate has a second consumer) is refused, never run plainly."""
-    _, _, tcfg, tg = model
-    g = tg.clone()
-    out = g["out"]
-    g.ops["out"] = dataclasses.replace(out, inputs=out.inputs[:-1]
-                                       + ["gn0_agg", "cps"])
-    g.ops["out"].attrs = dict(out.attrs, head_names=list(
-        out.attrs["head_names"]) + ["tap"])
-    with pytest.raises(NotImplementedError, match="gravnet_aggregate"):
-        tdeploy(g, TReq(**_req_kw(3, tcfg)), device="cpu")
+    aggregate has a second consumer) runs the gravnet_aggregate kernel's
+    entry point and matches the reference, tapped aggregate included."""
+    jcfg, jg, tcfg, tg = model
+    graphs = []
+    for g0 in (jg, tg):
+        g = g0.clone()
+        out = g["out"]
+        g.ops["out"] = dataclasses.replace(out, inputs=out.inputs[:-1]
+                                           + ["gn0_agg", "cps"])
+        g.ops["out"].attrs = dict(out.attrs, head_names=list(
+            out.attrs["head_names"]) + ["tap"])
+        graphs.append(g)
+    jpipe = jdeploy(graphs[0], JReq(**_req_kw(3, jcfg)))
+    tpipe = tdeploy(graphs[1], TReq(**_req_kw(3, tcfg)), device="cpu")
+    kinds = [op.op_type for op in tpipe.graph]
+    assert kinds.count("gravnet_aggregate") == 1
+    assert kinds.count("gravnet_block") == 1
+    _compare_with_reference(jpipe, tpipe, events,
+                            ("beta", "coords", "energy", "cls", "tap"))
 
 
 def test_block_without_concat_raises(model):

@@ -74,7 +74,9 @@ def test_kernel_libraries_are_named_by_their_sources(tmp_path,
     git-ignored build/ directory and its name changes with the sources,
     so an edited kernel never loads a stale build."""
     from repro_torch.kernels import _build
-    assert _build.sources() == ["fused_dense", "gravnet_block"]
+    assert _build.sources() == ["fused_dense", "fused_dense_int8",
+                                "gravnet_aggregate", "gravnet_block",
+                                "gravnet_block_int8"]
     lib = _build._lib_path("gravnet_block")
     assert lib.parent == REPO / "build" / "repro_torch"
     assert "build/" in (REPO / ".gitignore").read_text().splitlines()
@@ -84,9 +86,13 @@ def test_kernel_libraries_are_named_by_their_sources(tmp_path,
         (fake / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", fake)
     assert _build._lib_path("gravnet_block") == lib
+    libs = {n: _build._lib_path(n) for n in _build.sources()}
     with open(fake / "gravnet_cell.cuh", "a") as f:
         f.write("// edited\n")
     assert _build._lib_path("gravnet_block") != lib
+    # every kernel that includes the shared cell rebuilds with it
+    for n in ("gravnet_aggregate", "gravnet_block_int8"):
+        assert _build._lib_path(n) != libs[n]
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):

@@ -7,6 +7,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 from _numerics import assert_bitwise
 
 from repro_torch.data.belle2 import current_detector, generate
@@ -15,20 +16,36 @@ from repro_torch.launch import serve
 REPO = Path(__file__).resolve().parent.parent
 
 
-def test_cli_answers_every_event():
+def _serve_cli(*flags):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device",
-         "cpu", "--detector", "current", "--events", "16"],
+         "cpu", "--detector", "current", "--events", "16", *flags],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "answered=16 in-order=True" in r.stdout
-    assert "ev/s" in r.stdout and "p99=" in r.stdout
+    return r.stdout
+
+
+def test_cli_answers_every_event():
+    out = _serve_cli()
+    assert "ev/s" in out and "p99=" in out
+    # the reference's default: mixed precision, fused quantized blocks
+    assert "design point 3, mixed" in out and "blocks=2" in out
+
+
+@pytest.mark.parametrize("flags,want", [
+    (("--design-point", "1"), "design point 1, mixed"),
+    (("--no-fuse-int8",), "blocks=0"),
+    (("--no-fuse-gravnet-block",), "blocks=0"),
+    (("--precision", "fp", "--no-fuse-int8"), "blocks=2")])
+def test_cli_design_points_and_escape_hatches(flags, want):
+    assert want in _serve_cli(*flags)
 
 
 def test_serve_loop_returns_results_in_submission_order():
     cfg, gen_cfg = serve.detector_configs("current")
-    pipe = serve.build_pipeline(cfg, device="cpu")
+    pipe = serve.build_pipeline(cfg, gen_cfg, device="cpu")
     ev = generate(current_detector(), 20, seed=4)
     feeds = {"hits": ev["feats"], "mask": ev["mask"]}
     res, lat, elapsed = serve.serve_events(pipe, feeds)   # 16 + 4 events
