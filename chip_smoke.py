@@ -30,7 +30,21 @@ Phases, each of which exits non-zero when it fails:
    ``gravnet_block`` per chunk), design point 1 under fp and design
    point 3 under mixed with ``fuse_int8=False`` (16 events each; both
    launch ``gravnet_aggregate``), each held against its plain versions;
-6. print ``{"kernels": [...]}`` with every kernel of the port, then
+6. the padding-free ragged path, as ``deploy(ragged=True)`` serves it:
+   the upgrade-width CaloClusterNet at design point 3, fp, 8 bins of 128
+   rows per launch, serving 128 events whose occupancy spreads over a
+   quarter to three quarters of the readout (so bins hold 1–3 events),
+   16 per call, with the counters at 0 just before: 2 ``knn_build``, 2
+   ``knn_aggregate`` and the graph's ``fused_dense`` count per launch,
+   no GravNet block or aggregate launch; heads and every CPS output
+   bitwise equal to the plain-substituted deployment; real rows within
+   the float32 row of the padded fp path on the same events, with the
+   same trigger decisions; events/s and latency of ragged and padded in
+   turns, and the idle share; then the same at design point 1 (16
+   events, the kNN pair as graph ops). Phase 3 holds both kNN kernels
+   against their plain versions at 1, 8 and 16 bins of this path, with
+   segment ids from its real bin packing;
+7. print ``{"kernels": [...]}`` with every kernel of the port, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -57,6 +71,12 @@ SERVE_EVENTS = 256              # the main path
 FP_EVENTS = 64                  # the fp path of the first slice
 SHORT_EVENTS = 16               # design point 1, and mixed without fuse_int8
 CHECK_BATCHES = (2, 16, 64)     # one chunk, serve batch, calibration
+RAGGED_EVENTS = 128             # the ragged path
+RAGGED_BINS = 8                 # bins per launch (benchmarks/batching.py)
+RAGGED_OCCUPANCY = (33, 65, 97)  # a quarter to three quarters of 128
+RAGGED_CHECK_BINS = (1, 8, 16)  # the kNN kernels' checks
+DISPATCH = 16                   # events per call of the serving loop on
+                                # every path here: max(microbatch, 16)
 
 KERNELS = {
     "fused_dense": {
@@ -84,11 +104,22 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/gravnet_block_int8.cu",
         "replaces": "src/repro/kernels/gravnet_block.py:427",
     },
+    "knn_build": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/knn_build.cu",
+        "replaces": "src/repro/kernels/knn_build.py:172",
+    },
+    "knn_aggregate": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/knn_aggregate.cu",
+        "replaces": "src/repro/kernels/knn_build.py:242",
+    },
 }
 # leading arguments of each kernel that carry the events (stacked to
 # check a kernel at more events than one chunk)
 EVENT_ARGS = {"fused_dense": 1, "fused_dense_int8": 1, "gravnet_block": 2,
-              "gravnet_block_int8": 2, "gravnet_aggregate": 3}
+              "gravnet_block_int8": 2, "gravnet_aggregate": 3,
+              "knn_build": 2, "knn_aggregate": 3}
 
 
 LOG: list[str] = []
@@ -170,7 +201,33 @@ def _cell_ops(n, ds, df, k):
     return n * (2.0 * ds + 3.0) + k * (n + 1.0 + 3.0 * df)
 
 
+def _segment_sizes(seg):
+    """Per packed row, the rows of its own event (itself included); 0
+    on padding rows."""
+    same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] >= 0)
+    return same.sum(dim=2).double()
+
+
 def cost(name, args, kw):
+    # the kNN pair's work depends on the packing: count the distances
+    # and argmin rounds a real row needs against its own event's rows,
+    # and the aggregation's valid slots, not the whole bin
+    if name == "knn_build":
+        s, seg = args[:2]
+        b, n, ds = s.shape
+        k = kw["k"]
+        c = _segment_sizes(seg)
+        cand = (c - 1).clamp_min(0)
+        nbytes = 4.0 * (_numel(s, seg) + 2.0 * b * n * k)
+        return nbytes, {"f32": float(((c > 0) * 2.0 * ds + cand * (
+            2.0 * ds + 3.0) + k * cand).sum())}
+    if name == "knn_aggregate":
+        f, idx, d2 = args[:3]
+        b, n, df = f.shape
+        valid = float((d2 < 0.5e30).sum())
+        rows = float((d2[..., 0] < 0.5e30).sum())
+        nbytes = 4.0 * (_numel(f, idx, d2) + b * n * 2 * df)
+        return nbytes, {"f32": valid * (2.0 + 3.0 * df) + rows * 2.0 * df}
     if name == "fused_dense":
         x, w, b = args[:3]
         m, kd = x.shape
@@ -214,6 +271,10 @@ def cost(name, args, kw):
 
 
 def shape_of(name, args, kw):
+    if name == "knn_build":
+        return f"s{tuple(args[0].shape)} k={kw['k']}"
+    if name == "knn_aggregate":
+        return f"f{tuple(args[0].shape)} k={args[1].shape[2]}"
     if name in ("fused_dense", "fused_dense_int8"):
         x, w = args[0], args[1]
         tag = f"({x.shape[0]},{x.shape[1]})->{w.shape[1]} " \
@@ -237,7 +298,8 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import caloclusternet as ccn
-    from repro_torch.data.belle2 import Belle2Config, generate
+    from repro_torch.data.belle2 import (Belle2Config, generate,
+                                         with_occupancy)
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
@@ -246,6 +308,8 @@ def main() -> int:
     from repro_torch.kernels.gravnet import gravnet_aggregate_cuda
     from repro_torch.kernels.gravnet_block import (gravnet_block_cuda,
                                                    gravnet_block_int8_cuda)
+    from repro_torch.kernels.knn_build import (knn_aggregate_cuda,
+                                               knn_build_cuda)
     from repro_torch.launch import serve
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -287,12 +351,16 @@ def main() -> int:
                 "gravnet_block": gravnet_block_cuda,
                 "fused_dense_int8": fused_dense_int8_cuda,
                 "gravnet_aggregate": gravnet_aggregate_cuda,
-                "gravnet_block_int8": gravnet_block_int8_cuda}
+                "gravnet_block_int8": gravnet_block_int8_cuda,
+                "knn_build": knn_build_cuda,
+                "knn_aggregate": knn_aggregate_cuda}
     plain_fns = {"fused_dense": ref.fused_dense_ref,
                  "gravnet_block": ref.gravnet_block_ref,
                  "fused_dense_int8": ref.fused_dense_int8_ref,
                  "gravnet_aggregate": ref.gravnet_aggregate_ref,
-                 "gravnet_block_int8": ref.gravnet_block_int8_ref}
+                 "gravnet_block_int8": ref.gravnet_block_int8_ref,
+                 "knn_build": ref.knn_build_ref,
+                 "knn_aggregate": ref.knn_aggregate_ref}
 
     @contextmanager
     def substituted(fns):
@@ -320,8 +388,7 @@ def main() -> int:
     def deploy(**kw):
         pipe = serve.build_pipeline(cfg, gen_cfg, device=dev, **kw)
         say(f"deployed upgrade CaloClusterNet (n_hits={cfg.n_hits}, "
-            f"d_hidden={cfg.d_hidden}) {kw}: segments={len(pipe.segments)}"
-            f" microbatch={pipe.microbatch}")
+            f"d_hidden={cfg.d_hidden}) {kw}: microbatch={pipe.microbatch}")
         return pipe
 
     # the paths: (name, deploy kwargs)
@@ -331,6 +398,10 @@ def main() -> int:
         "mixed_no_fuse_int8": dict(design_point=3, precision="mixed",
                                    fuse_int8=False),
         "fp_dp1": dict(design_point=1, precision="fp"),
+        "ragged": dict(design_point=3, precision="fp", ragged=True,
+                       batch=RAGGED_BINS),
+        "ragged_dp1": dict(design_point=1, precision="fp", ragged=True,
+                           batch=RAGGED_BINS),
     }
     reset_counts()
     pipes = {name: deploy(**kw) for name, kw in paths.items()}
@@ -374,6 +445,9 @@ def main() -> int:
     results = {k: {"max_abs_err": 0.0, "per_launch": []} for k in KERNELS}
 
     def check(path, pos, n_events, name, args, kw):
+        """One kernel call against its plain version on the same inputs:
+        every float output within the float32 row, every integer output
+        (knn_build's idx) bitwise; then the times and the bound."""
         kern, plain = wrappers[name], plain_fns[name]
         try:
             got = kern(*args, **kw)
@@ -381,19 +455,27 @@ def main() -> int:
         except (RuntimeError, ValueError, TypeError) as e:
             fail(f"{name} did not launch: {e}")
         want = plain(*args, **kw)
-        if got.dtype != want.dtype or got.shape != want.shape:
-            fail(f"{name}: kernel gives {got.dtype} {tuple(got.shape)}, "
-                 f"plain version {want.dtype} {tuple(want.shape)}")
-        g64, w64 = got.double(), want.double()
-        err = (g64 - w64).abs()
-        excess = (err - (ATOL + RTOL * w64.abs())).max().item()
-        max_err = err.max().item()
-        exact = (got == want).float().mean().item()
+        gots = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
         shape = shape_of(name, args, kw)
-        if not np.isfinite(max_err) or excess > 0:
-            fail(f"{name} at {shape} disagrees with its plain version: "
-                 f"max|err|={max_err:.3e} (tolerance {ATOL:g} + "
-                 f"{RTOL:g}·|want|)")
+        max_err, n_equal, n_all = 0.0, 0, 0
+        for g_, w_ in zip(gots, wants, strict=True):
+            if g_.dtype != w_.dtype or g_.shape != w_.shape:
+                fail(f"{name}: kernel gives {g_.dtype} {tuple(g_.shape)}, "
+                     f"plain version {w_.dtype} {tuple(w_.shape)}")
+            g64, w64 = g_.double(), w_.double()
+            err = (g64 - w64).abs()
+            excess = (err - (ATOL + RTOL * w64.abs())).max().item()
+            if not g_.is_floating_point() and not torch.equal(g_, w_):
+                excess = 1.0       # integer outputs are held bitwise
+            max_err = max(max_err, err.max().item())
+            n_equal += int((g_ == w_).sum().item())
+            n_all += g_.numel()
+            if not np.isfinite(max_err) or excess > 0:
+                fail(f"{name} at {shape} disagrees with its plain version: "
+                     f"max|err|={max_err:.3e} (tolerance {ATOL:g} + "
+                     f"{RTOL:g}·|want|, integer outputs bitwise)")
+        exact = n_equal / max(n_all, 1)
         lib_ms, lib_name = None, None
         if name == "fused_dense":
             x, w, b = args[:3]
@@ -453,6 +535,62 @@ def main() -> int:
                 check(path, pos, n_ev,
                       *stacked(calls, per_chunk, pipe.microbatch, pos, n_ev))
     del recorded
+
+    # the ragged path: its kernel calls while serving its events, made
+    # with the plain versions (whose results phase 6 holds the kernels'
+    # to); the kNN pair checked at 1, 8 and 16 bins of real packing
+    rg_events = generate(with_occupancy(gen_cfg, RAGGED_OCCUPANCY),
+                         RAGGED_EVENTS, seed=7)
+    rg_feeds = {"hits": rg_events["feats"], "mask": rg_events["mask"]}
+    rg_counts = rg_events["mask"].sum(axis=1).astype(int)
+
+    def ragged_launches(pipe, n_events):
+        """Launches of the ragged executable while serve_events serves
+        the first n_events, max(microbatch, 16) per call."""
+        step = max(pipe.microbatch, serve.MIN_SERVE_BATCH)
+        return sum(len(pipe._plan_launches(
+            rg_counts[s:min(s + step, n_events)]))
+            for s in range(0, n_events, step))
+
+    def record_ragged(path, n_events):
+        calls: list[tuple[str, tuple, dict]] = []
+
+        def recorder(name):
+            def rec(*args, **kw):
+                calls.append((name, args, kw))
+                return plain_fns[name](*args, **kw)
+            return rec
+
+        with substituted({n: recorder(n) for n in plain_fns}):
+            res, _, _ = serve.serve_events(
+                pipes[path], {k: v[:n_events] for k, v in rg_feeds.items()})
+        n_launch = ragged_launches(pipes[path], n_events)
+        if len(calls) % n_launch:
+            fail(f"[{path}] {len(calls)} kernel calls over {n_launch} "
+                 "launches")
+        per_launch = len(calls) // n_launch
+        per_chunk_calls[path] = [c[0] for c in calls[:per_launch]]
+        return calls, per_launch, res
+
+    rg_plain = {}
+    for path, n_ev in (("ragged", RAGGED_EVENTS),
+                       ("ragged_dp1", SHORT_EVENTS)):
+        calls, per_launch, rg_plain[path] = record_ragged(path, n_ev)
+        for pos in range(per_launch):
+            name = calls[pos][0]
+            if not name.startswith("knn") and path != "ragged":
+                continue
+            for nb in (RAGGED_CHECK_BINS if name.startswith("knn")
+                       and path == "ragged" else (RAGGED_BINS,)):
+                if nb < RAGGED_BINS:
+                    _, args, kw = calls[pos]
+                    args = [a[:nb] if i < EVENT_ARGS[name] else a
+                            for i, a in enumerate(args)]
+                else:
+                    _, args, kw = stacked(calls, per_launch, RAGGED_BINS,
+                                          pos, nb)
+                check(path, pos, nb, name, args, kw)
+        del calls
     main_chunk = per_chunk_calls["mixed"]
     if (main_chunk.count("fused_dense_int8"),
             main_chunk.count("gravnet_block_int8"),
@@ -461,7 +599,8 @@ def main() -> int:
              "fused_dense_int8 and 2 gravnet_block_int8")
     say(f"phase 3 done at {time.perf_counter() - t_start:.1f}s")
 
-    def heads_and_cps(res, want, n_events, label, bitwise):
+    def heads_and_cps(res, want, n_events, label, bitwise,
+                      every_cps=False):
         for h in ("beta", "coords", "energy", "cls"):
             got, ref_ = res[h], want[h]
             if not np.isfinite(got).all() or got.shape != (
@@ -474,7 +613,8 @@ def main() -> int:
                      f"max|err|={err.max():.3e}")
             say(f"{label} head {h}: kernels vs plain max|err|="
                 f"{err.max():.3e}")
-        for k in ("trigger", "n_clusters", "cluster_valid"):
+        for k in (sorted(want["cps"]) if every_cps
+                  else ("trigger", "n_clusters", "cluster_valid")):
             if not np.array_equal(res["cps"][k], want["cps"][k]):
                 fail(f"{label} cps {k} differs between kernels and plain "
                      "versions")
@@ -546,35 +686,43 @@ def main() -> int:
         f"p99={np.percentile(lat, 99) * 1e6:.1f}us "
         f"({batch} events per dispatch, {card})")
 
+    def idle_share(serve_once, label, tag):
+        """The device's busy time and idle share over 4 calls of
+        ``serve_once`` under torch.profiler; kernel sums go to
+        profile{tag}.txt."""
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                serve_once()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels_us: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                k = kernels_us.setdefault(e.name, [0.0, 0])
+                k[0] += e.time_range.elapsed_us()
+                k[1] += 1
+        busy_us = sum(v[0] for v in kernels_us.values())
+        top = sorted(kernels_us.items(), key=lambda kv: -kv[1][0])
+        (OUT / f"profile{tag}.txt").write_text("".join(
+            f"{us:12.1f} us {n:7d} calls  {name}\n"
+            for name, (us, n) in top))
+        if busy_us > 0:
+            say(f"device busy {busy_us:.1f}us of {wall_us:.1f}us wall over "
+                f"4 {label} (profiler on): idle share "
+                f"{1 - busy_us / wall_us:.4f}")
+            for name, (us, n) in top[:10]:
+                say(f"  device {us:10.1f}us  calls {n:6d}  {name[:70]}")
+        else:
+            say("idle share: not measured (the profiler recorded no "
+                "device time)")
+
     # where one served micro-batch's time goes, and the device idle share
     prof_feeds = {k: v[:batch] for k, v in feeds.items()}
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(4):
-            serve.serve_events(pipe, prof_feeds)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels_us: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels_us.setdefault(e.name, [0.0, 0])
-            k[0] += e.time_range.elapsed_us()
-            k[1] += 1
-    busy_us = sum(v[0] for v in kernels_us.values())
-    top = sorted(kernels_us.items(), key=lambda kv: -kv[1][0])
-    (OUT / "profile.txt").write_text("".join(
-        f"{us:12.1f} us {n:7d} calls  {name}\n" for name, (us, n) in top))
-    if busy_us > 0:
-        say(f"device busy {busy_us:.1f}us of {wall_us:.1f}us wall over 4 "
-            f"served micro-batches (profiler on): idle share "
-            f"{1 - busy_us / wall_us:.4f}")
-        for name, (us, n) in top[:10]:
-            say(f"  device {us:10.1f}us  calls {n:6d}  {name[:70]}")
-    else:
-        say("idle share: not measured (the profiler recorded no device "
-            "time)")
+    idle_share(lambda: serve.serve_events(pipe, prof_feeds),
+               "served micro-batches", "")
     host = {}
     ex = pipe._ex
     run_op = ex.run_op
@@ -633,12 +781,99 @@ def main() -> int:
                    redeploy=paths[path]["precision"] == "mixed")
     say(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 6. the kernel line and the result ------------------------------------
-    # each kernel's numbers per chunk of the path it serves: its launches
-    # from that path's run, its times at that path's micro-batch
+    # 6. the ragged path ----------------------------------------------------
+    heads = ("beta", "coords", "energy", "cls")
+
+    def ragged_path(path, n_events):
+        """Serve the first n_events of the ragged events, DISPATCH per
+        call, with every counter at 0 just before; check the launch
+        counts and hold heads and every CPS output bitwise to the
+        plain-substituted run of phase 3."""
+        pipe = pipes[path]
+        feeds = {k: v[:n_events] for k, v in rg_feeds.items()}
+        serve.serve_events(pipe, {k: v[:DISPATCH] for k, v in feeds.items()})
+        torch.cuda.synchronize()
+        reset_counts()
+        res, lat, elapsed = serve.serve_events(pipe, feeds)
+        launches = read_counts()
+        path_launches[path] = launches
+        n_launch = ragged_launches(pipe, n_events)
+        g = pipe.pipe.graph
+        dense = (sum(op.op_type in ("dense", "linear") for op in g)
+                 + 3 * sum(op.op_type == "gravnet_block" for op in g))
+        want = dict.fromkeys(wrappers, 0)
+        want.update(fused_dense=dense * n_launch, knn_build=2 * n_launch,
+                    knn_aggregate=2 * n_launch)
+        if launches != want or per_chunk_calls[path].count("knn_build") != 2:
+            fail(f"[{path}] launch counts {launches} != {want} ({dense} "
+                 f"fused_dense, 2 knn_build, 2 knn_aggregate per launch)")
+        say(f"[{path}] served {n_events} events in {n_launch} launches of "
+            f"{RAGGED_BINS} bins: launches {launches}")
+        heads_and_cps(res, rg_plain[path], n_events, path, bitwise=True,
+                      every_cps=True)
+        return res, lat, elapsed
+
+    def against_padded(res, padded, n_events, label):
+        """The real rows of every event within the float32 row of the
+        padded path's, the rest zero; identical trigger decisions."""
+        worst = 0.0
+        for h in heads:
+            for e, c in enumerate(rg_counts[:n_events]):
+                got, want = res[h][e, :c], padded[h][e, :c]
+                err = np.abs(got.astype(np.float64) - want)
+                if (err > ATOL + RTOL * np.abs(want)).any() \
+                        or res[h][e, c:].any():
+                    fail(f"{label} head {h} event {e}: max|err| "
+                         f"{err.max():.3e} against the padded fp path")
+                worst = max(worst, float(err.max(initial=0.0)))
+        if not np.array_equal(res["cps"]["trigger"],
+                              padded["cps"]["trigger"][:n_events]):
+            fail(f"{label}: trigger decisions differ from the padded path")
+        say(f"{label} vs padded fp (design point 3) on {n_events} events: "
+            f"real rows max|err|={worst:.3e}, trigger decisions identical")
+
+    def rate(label, n_events, lat, elapsed):
+        say(f"serve ({label}): {n_events / elapsed:.1f} events/s, latency "
+            f"p50={np.percentile(lat, 50) * 1e6:.1f}us "
+            f"p99={np.percentile(lat, 99) * 1e6:.1f}us ({DISPATCH} events "
+            f"per call, {card})")
+
+    rpipe = pipes["ragged"]
+    res, lat, elapsed = ragged_path("ragged", RAGGED_EVENTS)
+    serve.serve_events(pipes["fp"], {k: v[:DISPATCH] for k, v in
+                                     rg_feeds.items()})
+    padded, plat, pelapsed = serve.serve_events(pipes["fp"], rg_feeds)
+    against_padded(res, padded, RAGGED_EVENTS, "ragged")
+    # in turns: ragged, padded (above), padded, ragged
+    _, plat2, pelapsed2 = serve.serve_events(pipes["fp"], rg_feeds)
+    _, lat2, elapsed2 = serve.serve_events(rpipe, rg_feeds)
+    for label, lt, el in (("ragged, design point 3, run 1", lat, elapsed),
+                          ("padded fp, design point 3, run 1", plat,
+                           pelapsed),
+                          ("padded fp, design point 3, run 2", plat2,
+                           pelapsed2),
+                          ("ragged, design point 3, run 2", lat2, elapsed2)):
+        rate(label, RAGGED_EVENTS, lt, el)
+    say(f"ragged occupancy: {int(rg_counts.sum())} hits in "
+        f"{RAGGED_EVENTS} events, {ragged_launches(rpipe, RAGGED_EVENTS)} "
+        f"launches of {RAGGED_BINS}x{cfg.n_hits} rows")
+    idle_share(lambda: serve.serve_events(
+        rpipe, {k: v[:DISPATCH] for k, v in rg_feeds.items()}),
+        "ragged calls of 16 events", "_ragged")
+    res1, lat1, elapsed1 = ragged_path("ragged_dp1", SHORT_EVENTS)
+    against_padded(res1, padded, SHORT_EVENTS, "ragged_dp1")
+    rate("ragged, design point 1", SHORT_EVENTS, lat1, elapsed1)
+    say(f"phase 6 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 7. the kernel line and the result ------------------------------------
+    # each kernel's numbers per chunk (per launch of the ragged
+    # executable) of the path it serves: its launches from that path's
+    # run, its times at that path's micro-batch (bins)
     home = {"fused_dense": ["fp"], "gravnet_block": ["fp"],
             "fused_dense_int8": ["mixed"], "gravnet_block_int8": ["mixed"],
-            "gravnet_aggregate": ["mixed_no_fuse_int8", "fp_dp1"]}
+            "gravnet_aggregate": ["mixed_no_fuse_int8", "fp_dp1"],
+            "knn_build": ["ragged", "ragged_dp1"],
+            "knn_aggregate": ["ragged", "ragged_dp1"]}
     line = []
     for name, meta in KERNELS.items():
         path = home[name][0]
@@ -656,6 +891,8 @@ def main() -> int:
             lib_label = [f"torch._int_mm, int8 product only (no epilogue), "
                          f"at {len(lib)} of {len(rows_)} launches; it "
                          "refuses K or N not a multiple of 8"]
+        if not lib_label:
+            lib_label = ["none (no single PyTorch call)"]
         nbytes = sum(r["bytes"] for r in rows_)
         ops: dict[str, float] = {}
         for r in rows_:
@@ -671,8 +908,10 @@ def main() -> int:
             "launches_from": {p: path_launches[p][name] for p in home[name]},
             "max_abs_err": results[name]["max_abs_err"],
             "tolerance": f"|err| <= {ATOL:g} + {RTOL:g}*|plain|",
-            "per": f"one chunk of the {path} path ({len(rows_)} launches, "
-                   f"{mb} events)",
+            "per": (f"one launch of the {path} executable ({len(rows_)} "
+                    f"launches, {mb} bins)" if name.startswith("knn") else
+                    f"one chunk of the {path} path ({len(rows_)} launches, "
+                    f"{mb} events)"),
             "ms": sum(r["ms"] for r in rows_),
             "plain_ms": sum(r["plain_ms"] for r in rows_),
             "bound_ms": b_ms, "bound_by": b_by,

@@ -3,7 +3,8 @@
 Counterpart of ``repro/core/op_registry.py``, holding the op types the
 CaloClusterNet graph uses: ``input``/``output``, ``linear``/``dense``,
 ``relu``, ``concat``, ``slice``, ``retile``, ``gravnet_aggregate``,
-``gravnet_block`` and ``cps``. Each :class:`OpSpec` says whether the
+``gravnet_block``, ``cps`` and the ragged path's ``knn_build`` and
+``knn_aggregate``. Each :class:`OpSpec` says whether the
 op's access pattern is regular (MXU-eligible), which template it maps
 to per target, how to infer its output feature dim, its analytic cost,
 and how the kernel-opt pass binds its launch knobs. The specs, cost
@@ -211,9 +212,12 @@ def _infer_gravnet_block(op, dims, g):
 
 def _infer_cps(op, dims, g):
     heads = op.attrs.get("head_names", [])
-    if len(op.inputs) != len(heads) + 1:
+    # ragged form (passes/ragged.py) consumes (heads..., segids, slots)
+    aux = 2 if op.attrs.get("ragged") else 1
+    if len(op.inputs) != len(heads) + aux:
         raise GraphVerificationError(
-            f"{op.name}: expects {len(heads)} heads + mask, got "
+            f"{op.name}: expects {len(heads)} heads + "
+            f"{'segids/slots' if aux == 2 else 'mask'}, got "
             f"{len(op.inputs)} inputs")
     return op.out_dim or 1
 
@@ -221,6 +225,33 @@ def _infer_cps(op, dims, g):
 def _infer_output(op, dims, g):
     return sum(dims[i] for i in op.inputs
                if g[i].op_type != "cps")
+
+
+def _infer_knn_build(op, dims, g):
+    if len(op.inputs) != 2:
+        raise GraphVerificationError(
+            f"{op.name}: needs (s, segids) inputs")
+    ds = op.attrs.get("d_s")
+    if dims[op.inputs[0]] != ds:
+        raise GraphVerificationError(
+            f"{op.name}: S dim {dims[op.inputs[0]]} != attrs d_s={ds}")
+    return op.attrs["k"]
+
+
+def _infer_knn_aggregate(op, dims, g):
+    if len(op.inputs) != 2:
+        raise GraphVerificationError(
+            f"{op.name}: needs (f, knn) inputs")
+    df = op.attrs.get("d_f")
+    if dims[op.inputs[0]] != df:
+        raise GraphVerificationError(
+            f"{op.name}: FLR dim {dims[op.inputs[0]]} != attrs "
+            f"d_f={df}")
+    if g[op.inputs[1]].op_type != "knn_build":
+        raise GraphVerificationError(
+            f"{op.name}: neighbor input {op.inputs[1]!r} must be a "
+            "knn_build op")
+    return 2 * df
 
 
 # ========================================================================
@@ -265,6 +296,27 @@ def _cost_cps(op, n_hits, pb):
     kmax = op.attrs.get("k_max", 8)
     flops = 20.0 * n_hits * kmax + 10.0 * n_hits * math.log2(max(n_hits, 2))
     act = n_hits * 8.0 * pb
+    return flops, act, 0.0
+
+
+def _cost_knn_build(op, n_hits, pb):
+    # gravnet_aggregate's selection half: the (n, n) distances plus k
+    # argmin/knockout sweeps
+    ds = op.attrs.get("d_s", 4)
+    k = op.attrs.get("k", 8)
+    flops = 2.0 * n_hits * n_hits * ds + 10.0 * n_hits * k
+    act = n_hits * (ds + 2.0 * k) * pb
+    return flops, act, 0.0
+
+
+def _cost_knn_aggregate(op, n_hits, pb):
+    # gravnet_aggregate's aggregation half, costed as the reference's
+    # k one-hot (n, n) @ (n, df) selection products plus the weighting
+    d_out = op.out_dim or 1
+    df = op.attrs.get("d_f", d_out // 2)
+    k = op.attrs.get("k", 8)
+    flops = 2.0 * n_hits * n_hits * k * df + 10.0 * n_hits * k
+    act = n_hits * (df + d_out + 2.0 * k) * pb
     return flops, act, 0.0
 
 
@@ -380,3 +432,19 @@ register_op(OpSpec(
 register_op(OpSpec(
     "cps", templates=_both("xla_cps"),
     infer=_infer_cps, cost=_cost_cps))
+
+# --- the ragged, padding-free path (passes/ragged.py) -------------------
+# Both kNN ops classify like gravnet_aggregate. Their templates exchange
+# compact tensors on both targets: knn_build's value is an (idx, d2)
+# tuple, on which no retile may ever land. They bind no launch knob (the
+# reference's binders only read a tuning cache, which the port lacks).
+register_op(OpSpec(
+    "knn_build", tpu_native_regular=True,
+    templates={"mxu": "knn_build_kernel", "xla": "xla_knn_build"},
+    infer=_infer_knn_build, cost=_cost_knn_build,
+    mxu_matmul=True, mxu_eff=_eff_gravnet))
+register_op(OpSpec(
+    "knn_aggregate", tpu_native_regular=True,
+    templates={"mxu": "knn_agg_kernel", "xla": "xla_knn_agg"},
+    infer=_infer_knn_aggregate, cost=_cost_knn_aggregate,
+    mxu_matmul=True, mxu_eff=_eff_gravnet))

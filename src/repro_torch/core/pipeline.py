@@ -25,17 +25,24 @@ every dense launches ``fused_dense_int8`` and every fused block
 ``input``, ``cps`` and ``output``, which compute in f32 as in the
 reference; a bf16 dense has no kernel in the port and raises.
 
+``deploy(..., ragged=True)`` (fp only) emits the padding-free path: a
+:class:`RaggedPipeline` that first-fit packs whole events into
+``n_hits``-row bins and runs a batch-packed executable whose GravNet
+aggregations are the ``knn_build``/``knn_aggregate`` kernel pair with
+segment masking, and whose CPS scatters the packed rows back per event.
+
 What the reference compiles, the port runs eagerly: the P-chunking
 ``lax.map`` is a Python loop, the whole-pipeline ``jax.jit`` is a plain
 call of the segments in order (CUDA graphs are later work). Fused
-blocks whose output dense reads the aggregate alone (``concat_x=False``;
-no graph of CaloClusterNet has one) are refused with
-``NotImplementedError``.
+blocks, padded or ragged, whose output dense reads the aggregate alone
+(``concat_x=False``; no graph of CaloClusterNet has one) are refused
+with ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,14 +54,18 @@ from repro_torch.core.passes.kernel_opt import kernel_optimize
 from repro_torch.core.passes.mapping import map_templates
 from repro_torch.core.passes.parallelize import Requirements, parallelize
 from repro_torch.core.passes.partition import partition, segments
+from repro_torch.core.passes.ragged import raggedize
 from repro_torch.core.passes.verify import verify
 from repro_torch.core.quantization import (QMAX, activation_scale,
                                            apply_precision_policy, f32,
                                            quantize_act, quantize_weight)
+from repro_torch.data.ragged import (RaggedBatch, bin_pack, pack_events,
+                                     unpack_binned)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
-__all__ = ["CompiledPipeline", "QTensor", "Requirements", "deploy"]
+__all__ = ["CompiledPipeline", "QTensor", "RaggedPipeline", "Requirements",
+           "deploy"]
 
 
 class QTensor(NamedTuple):
@@ -93,8 +104,9 @@ class _Executor:
     """Runs single operators of a deployed graph on the pipeline's
     device; kernels are reached through ``kernels/ops.py``."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, max_events=None):
         self.cfg = cfg
+        self.max_events = max_events    # a ragged graph's CPS capacity
 
     def run_op(self, op, vals, feeds, *, force_fp=False, record=None):
         """One op. ``force_fp`` runs an int8 op in f32 (calibration);
@@ -132,6 +144,10 @@ class _Executor:
                        if isinstance(v, QTensor) else v[..., :d])
         elif t == "gravnet_aggregate":
             out = self._gravnet(op, vals, prec)
+        elif t == "knn_build":
+            out = self._knn_build(op, vals)
+        elif t == "knn_aggregate":
+            out = self._knn_aggregate(op, vals)
         elif t == "gravnet_block":
             out = self._gravnet_block(op, vals, prec)
         elif t == "cps":
@@ -194,17 +210,43 @@ class _Executor:
             agg = torch.clamp(torch.round(agg / sc), -QMAX, QMAX) * sc
         return agg
 
+    def _knn_build(self, op, vals):
+        """Ragged neighbour selection over a micro-batch of packed bins,
+        one launch; returns the (idx, d2) tuple its knn_aggregate
+        consumes."""
+        s, segids = vals
+        sf = _as_fp(s)[..., :op.attrs["d_s"]].contiguous()  # lane128
+        return kops.knn_build_batched(sf, segids, k=op.attrs["k"])
+
+    def _knn_aggregate(self, op, vals):
+        """The aggregation over a knn_build's (idx, d2). The ragged path
+        is fp only, so there is no int8 snap here (deploy refuses
+        ragged=True under mixed)."""
+        f, (idx, d2) = vals
+        ff = _as_fp(f)[..., :op.attrs["d_f"]].contiguous()
+        return kops.knn_aggregate_batched(ff, idx, d2,
+                                          scale=op.attrs["scale"])
+
     def _gravnet_block(self, op, vals, prec):
         """One fused GravNet block, one launch for the micro-batch: the
         quantized kernel with its baked scales for a calibrated int8
-        block, the f32 kernel otherwise."""
+        block, the f32 kernel otherwise. A raggedized block (its mask
+        input carries segment ids) runs the ragged chain instead: the
+        S/F denses, knn_build, knn_aggregate and the output dense."""
         if not op.attrs.get("concat_x", True):
             raise NotImplementedError(
                 f"{op.name}: a gravnet_block whose output dense reads the "
                 "aggregate alone (concat_x=False) is not ported; the port's "
                 "kernels compute act(concat(x, agg) @ wo + bo)")
-        x, mask = vals
         p, a = op.params, op.attrs
+        if a.get("ragged"):
+            x, segids = vals
+            return kops.gravnet_block_ragged(
+                _as_fp(x)[..., :p["ws"].shape[0]].contiguous(), segids,
+                p["ws"], p["bs"], p["wf"], p["bf"], p["wo"], p["bo"],
+                k=a["k"], scale=a["scale"],
+                activation=a.get("activation", "none"))
+        x, mask = vals
         xf = _as_fp(x)[..., :p["ws"].shape[0]].contiguous()  # lane128
         kw = dict(k=a["k"], scale=a["scale"],
                   activation=a.get("activation", "none"))
@@ -221,10 +263,37 @@ class _Executor:
     def _cps(self, op, vals):
         names = op.attrs["head_names"]
         hv = {n: _as_fp(vals[i]) for i, n in enumerate(names)}
+        if op.attrs.get("ragged"):
+            return self._cps_ragged(hv, vals[-2], vals[-1])
         outputs = {"beta_logit": hv["beta"][..., 0],
                    "coords": hv["coords"],
                    "energy": hv["energy"][..., 0]}
         return ccn.cps(outputs, vals[-1], self.cfg)
+
+    def _cps_ragged(self, hv, segids, slots):
+        """Scatter the packed rows back to the per-event layout
+        (max_events, n_hits) — a bin is n_hits rows wide, so every slot
+        fits — then run the unchanged per-event condensation. Padding
+        rows (segid −1) would wrap around as negative indices, so they
+        are sent to an extra event row max_events, which is dropped."""
+        e_max = int(self.max_events)
+        n = segids.shape[1]
+        seg = segids.reshape(-1).long()
+        seg = torch.where(seg < 0, e_max, seg)
+        slot = slots.reshape(-1).long()
+
+        def scatter(h):
+            h2 = h.reshape(-1, *h.shape[2:])
+            out = h2.new_zeros((e_max + 1, n, *h2.shape[1:]))
+            out[seg, slot] = h2
+            return out[:e_max]
+
+        mask = scatter(torch.ones(segids.shape, dtype=torch.float32,
+                                  device=segids.device))
+        outputs = {"beta_logit": scatter(hv["beta"])[..., 0],
+                   "coords": scatter(hv["coords"]),
+                   "energy": scatter(hv["energy"])[..., 0]}
+        return ccn.cps(outputs, mask, self.cfg)
 
     def run(self, graph, feeds, *, force_fp=False, record=None):
         """Every op of ``graph`` in order over the whole batch of
@@ -245,9 +314,14 @@ class CompiledPipeline:
     """A deployed graph bound to a device. ``pipe(feeds)`` takes
     ``{"hits": (B,N,d_in), "mask": (B,N)}`` as numpy arrays or tensors
     and returns the per-hit heads and the CPS dict as tensors on the
-    pipeline's device."""
+    pipeline's device.
 
-    def __init__(self, graph: Graph, device: torch.device):
+    ``batch > 1`` pins a batch-packed executable: ``batch`` events per
+    chunk, each segment running the whole chunk at once (no P-chunking).
+    """
+
+    def __init__(self, graph: Graph, device: torch.device, *,
+                 batch: int = 1):
         self.device = device
         self.graph = graph.clone()
         for op in self.graph:   # weights move to the device once
@@ -256,9 +330,11 @@ class CompiledPipeline:
                                      v.is_floating_point() else v.dtype)
                              .contiguous() for k, v in op.params.items()}
         self.segments = segments(self.graph)
-        self.microbatch = int(
-            self.graph.meta["parallelization"]["microbatch"])
-        self._ex = _Executor(self.graph.meta.get("config"))
+        self.batch_packed = batch > 1
+        self.microbatch = (batch if self.batch_packed else int(
+            self.graph.meta["parallelization"]["microbatch"]))
+        self._ex = _Executor(self.graph.meta.get("config"),
+                             self.graph.meta.get("ragged_max_events"))
         self._plans = [self._plan(seg) for seg in self.segments]
         self._out = self.graph.outputs()[0].name
 
@@ -290,7 +366,7 @@ class CompiledPipeline:
                 env[op.name] = self._ex.run_op(op, vals, feeds)
             return {o: env[o] for o in outs}
 
-        if p_seg >= mb:
+        if self.batch_packed or p_seg >= mb:
             return body(env_in, feeds)
         # a segment with P < microbatch drains the micro-batch in
         # mb / P sequential chunks (the reference's lax.map)
@@ -375,7 +451,8 @@ class CompiledPipeline:
 # ----------------------------------------------------------------- deploy ----
 def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
            fuse_gravnet_block: bool = True, fuse_int8: bool = True,
-           device=None):
+           batch: int = 1, ragged: bool = False,
+           max_events: int | None = None, device=None):
     """Run the design flow and emit one executable on ``device``
     (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA).
 
@@ -385,12 +462,30 @@ def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
     ``gravnet_aggregate`` kernel. The mixed policy needs
     ``calibration_feeds`` (``{"hits", "mask"}``) and then fuses its
     blocks into the quantized kernel; ``fuse_int8=False`` keeps the
-    unfused calibrated int8 chain under mixed while fp still fuses."""
+    unfused calibrated int8 chain under mixed while fp still fuses.
+
+    ``batch > 1`` emits a batch-packed executable: kernels are bound for
+    the shapes one whole micro-batch of ``batch`` events launches, and
+    every segment runs it at once (no P-chunking).
+
+    ``ragged=True`` emits a padding-free executable (fp only, as in the
+    reference): after fusion the graph is raggedized
+    (``passes/ragged.py``) to take whole events first-fit packed into
+    ``req.n_hits``-row bins (``data/ragged.py``), neighbours chosen by
+    the ``knn_build`` kernel with segment masking and aggregated by
+    ``knn_aggregate``. ``batch`` then counts bins per launch, and
+    ``max_events`` (default ``2 * batch``) the events one launch's CPS
+    holds; a call with more is split into launches, never truncated.
+    Returns a :class:`RaggedPipeline`."""
     device = resolve_device(device)
     if req.precision_policy not in ("fp", "mixed"):
         raise ValueError(f"unknown precision policy "
                          f"{req.precision_policy!r}")
     mixed = req.precision_policy == "mixed"
+    if ragged and mixed:
+        raise NotImplementedError(
+            "deploy(ragged=True) does not support the mixed precision "
+            "policy (the reference has no quantized ragged block)")
     if mixed and calibration_feeds is None:
         raise ValueError("mixed precision requires calibration_feeds")
     verify(model_graph)  # legality check before any rewrite
@@ -399,6 +494,10 @@ def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
         g = fuse(g, gravnet_block=fuse_gravnet_block
                  and (not mixed or fuse_int8))
         verify(g)        # fusion must preserve well-formedness
+    if ragged:
+        g = raggedize(g)
+        verify(g)        # so must the ragged rewrite
+        g.meta["ragged_max_events"] = int(max_events or 2 * batch)
     g = partition(g, tpu_native_gravnet=req.tpu_native_gravnet)
     g = apply_precision_policy(g, policy=req.precision_policy)
     g = map_templates(g)
@@ -411,8 +510,126 @@ def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
                                      "model_throughput_ev_s": None,
                                      "target": req.target_throughput}
     if req.design_point >= 3:
-        g = kernel_optimize(g, n_rows=req.n_hits)
-    pipe = CompiledPipeline(g, device)
+        g = kernel_optimize(g, n_rows=req.n_hits, batch=batch)
+    pipe = CompiledPipeline(g, device, batch=batch)
     if mixed:
         pipe.calibrate(calibration_feeds)
+    if ragged:
+        return RaggedPipeline(pipe, max_events=g.meta["ragged_max_events"],
+                              capacity=req.n_hits,
+                              example_feeds=calibration_feeds)
     return pipe
+
+
+# ------------------------------------------------------ ragged deployment ----
+class RaggedPipeline:
+    """Padding-free, bin-packed deployment (``deploy(ragged=True)``).
+
+    Wraps one raggedized ``CompiledPipeline`` whose launch is a fixed
+    number of ``capacity``-row bins (its micro-batch). ``__call__`` takes
+    a ``data.ragged.RaggedBatch`` (concatenated hits and CSR offsets) or
+    the padded ``{"hits", "mask"}`` feeds; it first-fit packs whole
+    events into bins, caps each launch at the executable's bin count and
+    at ``max_events`` events (the CPS scatter's capacity: more events
+    split into more launches, never truncate), and scatters the results
+    back per event: ``{head: (n_events, capacity, d), "cps": {...:
+    (n_events, ...)}}`` as numpy arrays, an event's hits in its first
+    rows.
+    """
+
+    def __init__(self, pipe: CompiledPipeline, *, max_events: int,
+                 capacity: int, example_feeds: dict | None = None):
+        if not pipe.graph.meta.get("ragged"):
+            raise ValueError("RaggedPipeline needs a raggedized graph "
+                             "(deploy(ragged=True) builds one)")
+        self.pipe = pipe
+        # bins per launch = the executable's micro-batch, so every launch
+        # is exactly one chunk (a zero pad bin would alias segment id 0)
+        self.microbatch = int(pipe.microbatch)
+        self.max_events = int(max_events)
+        self.capacity = int(capacity)
+        self._example = example_feeds
+
+    def _plan_launches(self, counts) -> list[tuple[int, int]]:
+        """Split the events into contiguous ``[i, j)`` launch ranges by
+        replaying ``bin_pack``'s first-fit packing, closing a launch when
+        the next event would need a ``microbatch+1``-th bin or exceed
+        ``max_events``."""
+        launches = []
+        start, n_ev, free = 0, 0, []
+        for e, c in enumerate(counts):
+            c = int(c)
+            if c > self.capacity:
+                raise ValueError(
+                    f"event {e} has {c} hits > bin capacity "
+                    f"{self.capacity} — it cannot be packed")
+            placed = False
+            for i, f in enumerate(free):
+                if c <= f:
+                    free[i] -= c
+                    placed = True
+                    break
+            needs_bin = not placed
+            if (needs_bin and len(free) == self.microbatch) \
+                    or n_ev == self.max_events:
+                launches.append((start, e))
+                start, n_ev, free = e, 0, []
+                needs_bin = True
+            if needs_bin:
+                free.append(self.capacity - c)
+            n_ev += 1
+        if n_ev or not launches:
+            launches.append((start, start + n_ev))
+        return launches
+
+    def __call__(self, feeds):
+        if isinstance(feeds, RaggedBatch):
+            rb = feeds
+        else:
+            rb = pack_events(np.asarray(feeds["hits"]),
+                             np.asarray(feeds["mask"]))
+        offs = np.asarray(rb.offsets)
+        parts = []
+        for i, j in self._plan_launches(rb.counts()):
+            sub = RaggedBatch(feats=rb.feats[offs[i]:offs[j]],
+                              offsets=offs[i:j + 1] - offs[i])
+            bp = bin_pack(sub, self.capacity, n_bins=self.microbatch)
+            out = self.pipe({"hits": bp.feats,
+                             "mask": (bp.segids >= 0).astype(np.float32),
+                             "segids": bp.segids, "slots": bp.slots})
+            n_ev = j - i
+            part = {}
+            for name, v in out.items():
+                if name == "cps":
+                    part[name] = {k: a[:n_ev].cpu().numpy()
+                                  for k, a in v.items()}
+                else:
+                    part[name] = unpack_binned(v.cpu().numpy(), bp.segids,
+                                               bp.slots, n_ev,
+                                               self.capacity)
+            parts.append(part)
+        if len(parts) == 1:
+            return parts[0]
+
+        def cat(*xs):
+            if isinstance(xs[0], dict):
+                return {k: cat(*(x[k] for x in xs)) for k in xs[0]}
+            return np.concatenate(xs, axis=0)
+        return cat(*parts)
+
+    def warmup(self) -> int:
+        """One call on the example feeds (the calibration batch given to
+        ``deploy``), else on a synthetic full-occupancy batch, so the
+        first real call pays no first-use cost (kernel builds, the
+        allocator's first blocks). Returns 1."""
+        if self._example is not None:
+            feeds = {k: np.asarray(v) for k, v in self._example.items()
+                     if k in ("hits", "mask")}
+        else:
+            rng = np.random.default_rng(0)
+            shape = (self.microbatch, self.capacity)
+            d = self.pipe.graph["hits"].out_dim
+            feeds = {"hits": rng.normal(size=(*shape, d)).astype(np.float32),
+                     "mask": np.ones(shape, np.float32)}
+        self(feeds)
+        return 1

@@ -1,8 +1,8 @@
 """Synthetic Belle II ECL trigger events.
 
 A copy of ``repro/data/belle2.py`` (numpy only), so that the same seed
-gives byte-identical events in both packages. The ragged (CSR) emitters
-of the original wait for the port's ragged path.
+gives byte-identical events in both packages, padded or ragged (CSR,
+``generate_ragged`` and ``event_stream_ragged``).
 
 The detector is modeled as a cylindrical crystal grid (θ × φ); the current
 trigger reads 576 cells (24×24), the upgraded detector 8736 (56×156).
@@ -40,6 +40,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from repro_torch.data.ragged import pack_events
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,3 +154,33 @@ def event_stream(cfg: Belle2Config, batch: int, *, seed0: int = 0):
         yield generate(cfg, batch, seed0 + step)
         step += 1
 
+
+
+def generate_ragged(cfg: Belle2Config, batch: int, seed: int):
+    """One ragged (CSR) batch: the padded batch with its padding
+    stripped. Returns ``{"ragged": RaggedBatch, "trigger_truth": (B,)}``
+    plus the per-hit truth arrays concatenated in the same CSR order
+    (``object_id``, ``energy``, ``cls`` — each ``(R,)``).
+
+    ``ragged.unpack_events(out["ragged"], cfg.n_hits)`` reproduces
+    ``generate(...)``'s feats/mask bit for bit, because generated
+    events are hit-prefix-packed already.
+    """
+    data = generate(cfg, batch, seed)
+    rb = pack_events(data["feats"], data["mask"])
+    ev, hit = np.nonzero(data["mask"] > 0)
+    return {"ragged": rb,
+            "object_id": data["object_id"][ev, hit],
+            "energy": data["energy"][ev, hit],
+            "cls": data["cls"][ev, hit],
+            "trigger_truth": data["trigger_truth"]}
+
+
+def event_stream_ragged(cfg: Belle2Config, batch: int, *, seed0: int = 0):
+    """Ragged (CSR) companion of :func:`event_stream`: yields
+    :func:`generate_ragged` batches. Seeded identically, so stream step
+    ``t`` here is the padded stream's step ``t`` minus its padding."""
+    step = 0
+    while True:
+        yield generate_ragged(cfg, batch, seed0 + step)
+        step += 1

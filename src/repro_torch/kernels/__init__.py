@@ -11,8 +11,14 @@
                            (``csrc/gravnet_block.cu``).
 - ``gravnet_block_int8`` : its quantized form, the serve default's block
                            (``csrc/gravnet_block_int8.cu``).
+- ``knn_build``          : the ragged path's segment-masked kNN selection
+                           over bin-packed events (``csrc/knn_build.cu``).
+- ``knn_aggregate``      : the ragged path's mean/max over the selected
+                           rows (``csrc/knn_aggregate.cu``).
 
-The three GravNet kernels share the cell in ``csrc/gravnet_cell.cuh``.
+The five GravNet and kNN kernels share the cell in
+``csrc/gravnet_cell.cuh``: the whole of it, or its selection or its
+accumulation half.
 ``ops.py`` routes by device (CPU tensor -> plain version in ``ref.py``,
 CUDA tensor -> kernel); ``_build.py`` compiles ``csrc/`` with ``nvcc``
 at first use. Nothing builds when a module is imported.

@@ -9,12 +9,15 @@ ragged shapes themselves, so no wrapper pads.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fused_dense import (fused_dense_cuda,
                                              fused_dense_int8_cuda)
 from repro_torch.kernels.gravnet import gravnet_aggregate_cuda
 from repro_torch.kernels.gravnet_block import (gravnet_block_cuda,
                                                gravnet_block_int8_cuda)
+from repro_torch.kernels.knn_build import knn_aggregate_cuda, knn_build_cuda
 
 
 def fused_dense(x, w, b=None, *, activation="relu"):
@@ -63,6 +66,57 @@ def gravnet_aggregate(s, f, mask, *, k=8, scale=10.0):
     s:(N,ds), f:(N,df), mask:(N,) -> (N, 2·df)."""
     return gravnet_aggregate_batched(s[None], f[None], mask[None], k=k,
                                      scale=scale)[0]
+
+
+def knn_build_batched(s, segids, *, k=8):
+    """Ragged kNN selection over a micro-batch of packed bins, one
+    launch. s:(B,N,ds) f32, segids:(B,N) int event ids (−1 padding) ->
+    (idx:(B,N,k) int32, d2:(B,N,k) f32): per row, the k nearest rows of
+    its own event (ties to the lowest column, self excluded); a slot
+    with no candidate left has d2 = 1e30 (consumers gate on d2)."""
+    if s.device.type == "cpu":
+        return _ref.knn_build_ref(s, segids, k=k)
+    return knn_build_cuda(s, segids, k=k)
+
+
+def knn_build(s, segids, *, k=8):
+    """Ragged kNN selection for one packed bin: the batched kernel at
+    B = 1. s:(N,ds), segids:(N,) -> (idx:(N,k), d2:(N,k))."""
+    idx, d2 = knn_build_batched(s[None], segids[None], k=k)
+    return idx[0], d2[0]
+
+
+def knn_aggregate_batched(f, idx, d2, *, scale=10.0):
+    """Gaussian-potential mean/max over built neighbours, one launch.
+    f:(B,N,df), idx/d2:(B,N,k) from ``knn_build_batched`` ->
+    (B,N,2·df) — the GravNet cell's accumulation."""
+    if f.device.type == "cpu":
+        return _ref.knn_aggregate_ref(f, idx, d2, scale=scale)
+    return knn_aggregate_cuda(f, idx, d2, scale=scale)
+
+
+def knn_aggregate(f, idx, d2, *, scale=10.0):
+    """Aggregation for one packed bin: the batched kernel at B = 1.
+    f:(N,df), idx/d2:(N,k) -> (N, 2·df)."""
+    return knn_aggregate_batched(f[None], idx[None], d2[None],
+                                 scale=scale)[0]
+
+
+def gravnet_block_ragged(x, segids, ws, bs, wf, bf, wo, bo, *, k=8,
+                         scale=10.0, activation="relu"):
+    """One GravNet block over bin-packed events: S/F projections
+    (``fused_dense``), the segment-masked kNN graph (``knn_build``),
+    the aggregation over it (``knn_aggregate``), then the output dense
+    of concat(x, agg). x:(B,N,dh) packed hidden activations,
+    segids:(B,N) int event ids (−1 padding) -> (B,N,d_out), the
+    padding rows zeroed."""
+    s = fused_dense_batched(x, ws, bs, activation="none")
+    f = fused_dense_batched(x, wf, bf, activation="none")
+    idx, d2 = knn_build_batched(s, segids, k=k)
+    agg = knn_aggregate_batched(f, idx, d2, scale=scale)
+    h = torch.cat([x, agg], dim=-1)
+    y = fused_dense_batched(h.contiguous(), wo, bo, activation=activation)
+    return y * (segids >= 0).to(y.dtype)[..., None]
 
 
 def gravnet_block_batched(x, mask, ws, bs, wf, bf, wo, bo, *, k=8,

@@ -76,11 +76,65 @@ def fused_dense_int8_ref(x_q, w_q, b, x_scale, w_scale, *,
 
 
 # ---------------------------------------------------------------- gravnet ----
+# The GravNet cell in three steps, shared by the fused blocks, the
+# standalone aggregation and the ragged kNN pair, as the CUDA kernels
+# share csrc/gravnet_cell.cuh.
 def _sqnorm(s):
     acc = torch.zeros(s.shape[:-1], dtype=torch.float32, device=s.device)
     for d in range(s.shape[-1]):
         acc = acc + s[..., d] * s[..., d]
     return acc
+
+
+def _pairwise_d2(s):
+    """(|s_i|² + |s_j|²) − 2·s_i·s_j over the rows of each event, the dot
+    summed over d in order, clamped at 0. s:(B,n,ds) -> (B,n,n)."""
+    bsz, n, ds = s.shape
+    dot = torch.zeros((bsz, n, n), dtype=torch.float32, device=s.device)
+    for d in range(ds):
+        dot = dot + s[:, :, d, None] * s[:, None, :, d]
+    sq = _sqnorm(s)
+    return torch.clamp_min((sq[:, :, None] + sq[:, None, :]) - 2.0 * dot,
+                           0.0)
+
+
+def _select(d2):
+    """One selection round: each row's minimum (ties to the lowest
+    column) and its column, which is then knocked out. Returns
+    (amin:(B,n,1) int64, dmin:(B,n), d2)."""
+    amin = torch.argmin(d2, dim=2, keepdim=True)             # first min
+    dmin = torch.gather(d2, 2, amin)[..., 0]
+    big = torch.full((), BIG, dtype=torch.float32, device=d2.device)
+    return amin, dmin, d2.scatter(2, amin, big.expand(*d2.shape[:2], 1))
+
+
+def _accumulate(mean_acc, max_acc, dmin, fsel, scale):
+    """Adds one neighbour (distance dmin, features fsel) with weight
+    exp(−scale·dmin); a slot with dmin >= 0.5e30 weighs 0 and is left
+    out of the max."""
+    valid = dmin < BIG * 0.5
+    w = torch.where(valid, torch.exp(-scale * dmin), 0.0)
+    wf = w[..., None] * fsel
+    return mean_acc + wf, torch.maximum(
+        max_acc, torch.where(valid[..., None], wf, -BIG))
+
+
+def _aggregate(f, rounds, k, scale, n):
+    """mean/max for n query rows over ``rounds`` (k pairs of
+    (amin:(B,n,1), dmin:(B,n))) of the rows of f:(B,m,df) ->
+    (B, n, 2·df)."""
+    bsz, _, df = f.shape
+    mean_acc = torch.zeros((bsz, n, df), dtype=torch.float32,
+                           device=f.device)
+    max_acc = torch.full((bsz, n, df), -BIG, dtype=torch.float32,
+                         device=f.device)
+    for amin, dmin in rounds:
+        fsel = torch.gather(f, 1, amin.expand(bsz, n, df))
+        mean_acc, max_acc = _accumulate(mean_acc, max_acc, dmin, fsel,
+                                        scale)
+    mean = mean_acc / k
+    maxv = torch.where(max_acc <= -BIG * 0.5, 0.0, max_acc)
+    return torch.cat([mean, maxv], dim=2)
 
 
 def gravnet_cell_ref(s, f, mask, *, k=8, scale=10.0):
@@ -92,36 +146,16 @@ def gravnet_cell_ref(s, f, mask, *, k=8, scale=10.0):
 
     s:(B,n,ds), f:(B,n,df), mask:(B,n) -> (B, n, 2·df).
     """
-    bsz, n, ds = s.shape
-    df = f.shape[2]
-    dev = s.device
-    dot = torch.zeros((bsz, n, n), dtype=torch.float32, device=dev)
-    for d in range(ds):
-        dot = dot + s[:, :, d, None] * s[:, None, :, d]
-    sq = _sqnorm(s)
-    d2 = (sq[:, :, None] + sq[:, None, :]) - 2.0 * dot
-    idx = torch.arange(n, device=dev)
+    n = s.shape[1]
+    idx = torch.arange(n, device=s.device)
     invalid = (mask[:, None, :] <= 0) | (idx[None, :] == idx[:, None])
-    big = torch.full((), BIG, dtype=torch.float32, device=dev)
-    d2 = torch.where(invalid, big, torch.clamp_min(d2, 0.0))
+    d2 = torch.where(invalid, BIG, _pairwise_d2(s))
 
-    mean_acc = torch.zeros((bsz, n, df), dtype=torch.float32, device=dev)
-    max_acc = torch.full((bsz, n, df), -BIG, dtype=torch.float32,
-                         device=dev)
-    for _ in range(k):
-        amin = torch.argmin(d2, dim=2, keepdim=True)         # first min
-        dmin = torch.gather(d2, 2, amin)[..., 0]
-        fsel = torch.gather(f, 1, amin.expand(bsz, n, df))
-        valid = dmin < BIG * 0.5
-        w = torch.where(valid, torch.exp(-scale * dmin), 0.0)
-        wf = w[..., None] * fsel
-        mean_acc = mean_acc + wf
-        max_acc = torch.maximum(
-            max_acc, torch.where(valid[..., None], wf, -big))
-        d2 = d2.scatter(2, amin, big.expand(bsz, n, 1))
-    mean = mean_acc / k
-    maxv = torch.where(max_acc <= -BIG * 0.5, 0.0, max_acc)
-    return torch.cat([mean, maxv], dim=2)
+    def rounds(d2):
+        for _ in range(k):
+            amin, dmin, d2 = _select(d2)
+            yield amin, dmin
+    return _aggregate(f, rounds(d2), k, scale, n)
 
 
 def gravnet_aggregate_ref(s, f, mask, *, k=8, scale=10.0):
@@ -130,6 +164,45 @@ def gravnet_aggregate_ref(s, f, mask, *, k=8, scale=10.0):
     (B, n, 2·df) f32."""
     return gravnet_cell_ref(s.float(), f.float(), mask.float(), k=k,
                             scale=scale)
+
+
+# ------------------------------------------------------------- ragged kNN ----
+def knn_build_ref(s, segids, *, k=8):
+    """Segment-masked neighbour selection over bin-packed events (the
+    selection half of the cell). A candidate j is valid for row i iff
+    ``seg[j] == seg[i]``, ``j != i`` and ``seg[j] >= 0``; k rounds of row
+    argmin with knockout, ties to the lowest column. A slot with no
+    candidate left has d2 = 1e30 and idx = 0 (the argmin of an all-1e30
+    row). s:(B,n,ds) f32, segids:(B,n) int -> (idx:(B,n,k) int32,
+    d2:(B,n,k) f32)."""
+    seg = segids.to(torch.int32)
+    n = s.shape[1]
+    col = torch.arange(n, device=s.device)
+    invalid = ((seg[:, None, :] != seg[:, :, None])
+               | (col[None, :] == col[:, None]) | (seg[:, None, :] < 0))
+    d2 = torch.where(invalid, BIG, _pairwise_d2(s.float()))
+    idx_cols, d2_cols = [], []
+    for _ in range(k):
+        amin, dmin, d2 = _select(d2)
+        idx_cols.append(amin[..., 0].to(torch.int32))
+        d2_cols.append(dmin)
+    return torch.stack(idx_cols, dim=2), torch.stack(d2_cols, dim=2)
+
+
+def knn_aggregate_ref(f, idx, d2, *, scale=10.0):
+    """Gaussian-potential mean/max over prebuilt neighbours (the
+    accumulation half of the cell), in slot order. f:(B,n,df) f32,
+    idx/d2:(B,n,k) -> (B, n, 2·df); a slot with d2 >= 0.5e30 weighs 0
+    and is left out of the max; a max that stays at −1e30 becomes 0; an
+    index outside [0, n) selects a row of zeros."""
+    bsz, n, k = idx.shape
+    # an index outside [0, n) selects a row of zeros (the TPU kernel's
+    # one-hot product): row n of the padded features
+    fz = torch.cat([f.float(), f.new_zeros((bsz, 1, f.shape[2]),
+                                           dtype=torch.float32)], dim=1)
+    idx = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    rounds = ((idx[..., t, None], d2[..., t].float()) for t in range(k))
+    return _aggregate(fz, rounds, k, scale, n)
 
 
 # ---------------------------------------------------------- gravnet block ----

@@ -21,7 +21,9 @@ micro-batch to its decisions being on the host. As in the reference,
 events of seed 123), design points 1 to 3 deploy, and
 ``--no-fuse-gravnet-block`` / ``--no-fuse-int8`` keep the GravNet chain
 unfused. The serving layer, training, occupancy buckets and the other
-models are not ported yet.
+models are not ported yet. The padding-free ragged path has no flag
+here, as in the reference: ``build_pipeline(..., ragged=True,
+batch=8)`` deploys it and ``serve_events`` serves it.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -61,11 +63,14 @@ def calibration_feeds(gen_cfg) -> dict:
 
 def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
                    precision: str = "mixed", fuse_gravnet_block: bool = True,
-                   fuse_int8: bool = True, device=None):
+                   fuse_int8: bool = True, batch: int = 1,
+                   ragged: bool = False, device=None):
     """Random CaloClusterNet weights from seed 0, exported and
     deployed as repro/launch/serve.py deploys it (its CPU cost
     constants, so the design flow picks the same P and micro-batch;
-    its calibration batch from ``gen_cfg``)."""
+    its calibration batch from ``gen_cfg``). ``batch`` and ``ragged``
+    are ``deploy``'s: ``ragged=True`` returns the padding-free
+    ``RaggedPipeline`` with ``batch`` bins per launch."""
     params = ccn.init(torch.Generator().manual_seed(0), cfg)
     req = Requirements(design_point=design_point, platform="cpu",
                        precision_policy=precision, n_hits=cfg.n_hits,
@@ -74,19 +79,22 @@ def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
     return deploy(ccn.to_graph(params, cfg), req,
                   calibration_feeds=calibration_feeds(gen_cfg),
                   fuse_gravnet_block=fuse_gravnet_block,
-                  fuse_int8=fuse_int8, device=device)
+                  fuse_int8=fuse_int8, batch=batch, ragged=ragged,
+                  device=device)
 
 
 def _to_host(out) -> dict:
     if isinstance(out, dict):
         return {k: _to_host(v) for k, v in out.items()}
-    return out.cpu().numpy()
+    return out if isinstance(out, np.ndarray) else out.cpu().numpy()
 
 
 def serve_events(pipe, feeds: dict):
     """Answer every event of ``feeds`` ({"hits": (E,N,d), "mask": (E,N)}
     numpy) in submission order, ``max(pipe.microbatch, 16)`` events per
-    dispatch.
+    dispatch. ``pipe`` is a deployed pipeline, or a ``RaggedPipeline``
+    (its micro-batch is its bins per launch), which returns numpy
+    already.
 
     Returns (results, latencies_s, elapsed_s): the pipeline's outputs
     for all E events as numpy arrays, in order, each event's decision

@@ -76,7 +76,8 @@ def test_kernel_libraries_are_named_by_their_sources(tmp_path,
     from repro_torch.kernels import _build
     assert _build.sources() == ["fused_dense", "fused_dense_int8",
                                 "gravnet_aggregate", "gravnet_block",
-                                "gravnet_block_int8"]
+                                "gravnet_block_int8", "knn_aggregate",
+                                "knn_build"]
     lib = _build._lib_path("gravnet_block")
     assert lib.parent == REPO / "build" / "repro_torch"
     assert "build/" in (REPO / ".gitignore").read_text().splitlines()
@@ -91,7 +92,8 @@ def test_kernel_libraries_are_named_by_their_sources(tmp_path,
         f.write("// edited\n")
     assert _build._lib_path("gravnet_block") != lib
     # every kernel that includes the shared cell rebuilds with it
-    for n in ("gravnet_aggregate", "gravnet_block_int8"):
+    for n in ("gravnet_aggregate", "gravnet_block_int8", "knn_build",
+              "knn_aggregate"):
         assert _build._lib_path(n) != libs[n]
 
 
@@ -118,6 +120,24 @@ def test_default_device_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_ragged_deploy_without_cuda_raises():
+    """The ragged path's entry point follows the same rule: asked for no
+    device on a host without CUDA, deploy(ragged=True) raises before it
+    runs anything."""
+    from repro_torch.core import caloclusternet as ccn
+    from repro_torch.core.pipeline import Requirements, deploy
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid")
+    cfg = ccn.CCNConfig(n_hits=16)
+    g = ccn.to_graph(ccn.init(torch.Generator().manual_seed(0), cfg), cfg)
+    req = Requirements(design_point=3, platform="cpu",
+                       precision_policy="fp", n_hits=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deploy(g, req, batch=8, ragged=True)
+    assert type(deploy(g, req, batch=8, ragged=True,
+                       device="cpu")).__name__ == "RaggedPipeline"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
