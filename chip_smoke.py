@@ -14,7 +14,10 @@ Phases, each of which exits non-zero when it fails:
    kernel, plain version and, where one PyTorch call computes the same
    function, that library call (``torch.addmm`` + ``relu`` for
    ``fused_dense``; ``torch._int_mm``, the int8 product alone without
-   the epilogue, for ``fused_dense_int8`` at the shapes it accepts);
+   the epilogue, for ``fused_dense_int8`` at the shapes it accepts;
+   ``index_add_`` for ``edge_aggregate``'s sum and, over 0/1 masks,
+   ``index_reduce_('mean')`` for its mean), checked once against the
+   plain version before it is timed;
 4. the main path, as ``python -m repro_torch.launch.serve`` runs by
    default: deploy the upgrade-width CaloClusterNet (random weights from
    a seed) at design point 3 under the **mixed** policy, calibrated on
@@ -44,7 +47,24 @@ Phases, each of which exits non-zero when it fails:
    events, the kNN pair as graph ops). Phase 3 holds both kNN kernels
    against their plain versions at 1, 8 and 16 bins of this path, with
    segment ids from its real bin packing;
-7. print ``{"kernels": [...]}`` with every kernel of the port, then
+7. the edge-based GNNs, as ``python -m repro_torch.launch.serve --model
+   gatedgcn graphsage`` deploys them but at their published widths:
+   GatedGCN 16 layers × 70 and GraphSAGE 2 layers × 128 (random weights
+   from generator seeds 1 and 2) on the serve routes' graphs of 64 nodes
+   and 256 edges, design point 3, fp. Each serves 128 events (graphs of
+   seed 7) with the counters at 0 just before: exactly 2 ``edge_aggregate``
+   per layer and chunk, the graph's ``fused_dense`` count, no other
+   kernel; logits bitwise equal to the plain-substituted deployment on
+   the card, and within the float32 row of the same deployment with
+   ``device="cpu"``; events/s, latency and the idle share. The kernel
+   calls of each path (graphs of seed 17) are held against their plain
+   versions, ``edge_aggregate`` bitwise at one graph, the path's
+   micro-batch and 16 graphs; so is ``edge_aggregate`` on synthetic
+   graphs of the routes' size with masked edges and destinations outside
+   [0, N), for sum and mean, at d 16, 32, 70 and 128 and 1, 8 and 16
+   graphs. Then ``launch.serve.main`` serves ``--model ccn gatedgcn
+   graphsage`` and every route must answer every event;
+8. print ``{"kernels": [...]}`` with every kernel of the port, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -52,11 +72,13 @@ output (compiler logs, profiler tables) goes to ``chiprun_out/chip_smoke/``.
 """
 from __future__ import annotations
 
+import io
 import json
+import re
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -77,6 +99,9 @@ RAGGED_OCCUPANCY = (33, 65, 97)  # a quarter to three quarters of 128
 RAGGED_CHECK_BINS = (1, 8, 16)  # the kNN kernels' checks
 DISPATCH = 16                   # events per call of the serving loop on
                                 # every path here: max(microbatch, 16)
+GNN_EVENTS = 128                # the edge-based GNNs' served graphs
+EDGE_WIDTHS = (16, 32, 70, 128)  # edge_aggregate's synthetic checks
+EDGE_BATCHES = (1, 8, 16)
 
 KERNELS = {
     "fused_dense": {
@@ -114,12 +139,17 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/knn_aggregate.cu",
         "replaces": "src/repro/kernels/knn_build.py:242",
     },
+    "edge_aggregate": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/edge_aggregate.cu",
+        "replaces": "src/repro/kernels/edge_aggregate.py:117",
+    },
 }
 # leading arguments of each kernel that carry the events (stacked to
 # check a kernel at more events than one chunk)
 EVENT_ARGS = {"fused_dense": 1, "fused_dense_int8": 1, "gravnet_block": 2,
               "gravnet_block_int8": 2, "gravnet_aggregate": 3,
-              "knn_build": 2, "knn_aggregate": 3}
+              "knn_build": 2, "knn_aggregate": 3, "edge_aggregate": 3}
 
 
 LOG: list[str] = []
@@ -208,6 +238,14 @@ def _segment_sizes(seg):
     return same.sum(dim=2).double()
 
 
+def _real_k(w):
+    """The dense's own K, its weight's nonzero rows: the executor pads w
+    with zero rows to meet a lane-padded input (``core/pipeline.py``),
+    and those rows and x's padding columns are no work the function
+    needs."""
+    return int((w != 0).any(dim=1).sum().item())
+
+
 def cost(name, args, kw):
     # the kNN pair's work depends on the packing: count the distances
     # and argmin rounds a real row needs against its own event's rows,
@@ -228,17 +266,28 @@ def cost(name, args, kw):
         rows = float((d2[..., 0] < 0.5e30).sum())
         nbytes = 4.0 * (_numel(f, idx, d2) + b * n * 2 * df)
         return nbytes, {"f32": valid * (2.0 + 3.0 * df) + rows * 2.0 * df}
+    if name == "edge_aggregate":
+        # only edges whose dst lies in [0, n) are summed
+        msg, dst, mask = args[:3]
+        b, e, d = msg.shape
+        n = kw["n_nodes"]
+        valid = float(((dst >= 0) & (dst < n)).sum())
+        nbytes = 4.0 * (_numel(msg, dst, mask) + b * n * d)
+        mean = kw.get("reduce", "sum") == "mean"
+        return nbytes, {"f32": 2.0 * valid * d + (
+            valid + b * n * d if mean else 0.0)}
     if name == "fused_dense":
         x, w, b = args[:3]
-        m, kd = x.shape
+        m, kd = x.shape[0], _real_k(w)
         n = w.shape[1]
-        return 4.0 * (_numel(x, w, b) + m * n), {"f32": 2.0 * m * kd * n}
+        return 4.0 * ((m + n) * kd + _numel(b) + m * n), {
+            "f32": 2.0 * m * kd * n}
     if name == "fused_dense_int8":
         x, w, b, _, ws = args[:5]
-        m, kd = x.shape
+        m, kd = x.shape[0], _real_k(w)
         n = w.shape[1]
         out8 = kw.get("out_int8", False)
-        nbytes = _numel(x, w) + 4.0 * _numel(b, ws) + m * n * (
+        nbytes = (m + n) * kd + 4.0 * _numel(b, ws) + m * n * (
             1.0 if out8 else 4.0)
         return nbytes, {"int8": 2.0 * m * kd * n,
                         "f32": m * n * (3.0 + (2.0 if out8 else 0.0)) + n}
@@ -271,6 +320,9 @@ def cost(name, args, kw):
 
 
 def shape_of(name, args, kw):
+    if name == "edge_aggregate":
+        return (f"msg{tuple(args[0].shape)} n={kw['n_nodes']} "
+                f"{kw.get('reduce', 'sum')}")
     if name == "knn_build":
         return f"s{tuple(args[0].shape)} k={kw['k']}"
     if name == "knn_aggregate":
@@ -310,7 +362,9 @@ def main() -> int:
                                                    gravnet_block_int8_cuda)
     from repro_torch.kernels.knn_build import (knn_aggregate_cuda,
                                                knn_build_cuda)
+    from repro_torch.kernels.edge_aggregate import edge_aggregate_cuda
     from repro_torch.launch import serve
+    from repro_torch.models.gnn import gatedgcn, graphsage
 
     OUT.mkdir(parents=True, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -353,14 +407,16 @@ def main() -> int:
                 "gravnet_aggregate": gravnet_aggregate_cuda,
                 "gravnet_block_int8": gravnet_block_int8_cuda,
                 "knn_build": knn_build_cuda,
-                "knn_aggregate": knn_aggregate_cuda}
+                "knn_aggregate": knn_aggregate_cuda,
+                "edge_aggregate": edge_aggregate_cuda}
     plain_fns = {"fused_dense": ref.fused_dense_ref,
                  "gravnet_block": ref.gravnet_block_ref,
                  "fused_dense_int8": ref.fused_dense_int8_ref,
                  "gravnet_aggregate": ref.gravnet_aggregate_ref,
                  "gravnet_block_int8": ref.gravnet_block_int8_ref,
                  "knn_build": ref.knn_build_ref,
-                 "knn_aggregate": ref.knn_aggregate_ref}
+                 "knn_aggregate": ref.knn_aggregate_ref,
+                 "edge_aggregate": ref.edge_aggregate_ref}
 
     @contextmanager
     def substituted(fns):
@@ -413,9 +469,10 @@ def main() -> int:
     calib = generate(gen_cfg, 64, seed=123)
     calib_feeds = {"hits": calib["feats"], "mask": calib["mask"]}
 
-    def record(pipe):
-        """The kernel calls of ``pipe`` over the 64-event batch, made
-        with the plain versions; returns (calls, calls per chunk)."""
+    def record(pipe, feeds=calib_feeds):
+        """The kernel calls of ``pipe`` over ``feeds`` (the 64-event
+        calibration batch unless given), made with the plain versions;
+        returns (calls, calls per chunk)."""
         calls: list[tuple[str, tuple, dict]] = []
 
         def recorder(name):
@@ -425,8 +482,8 @@ def main() -> int:
             return rec
 
         with substituted({n: recorder(n) for n in plain_fns}):
-            pipe(calib_feeds)
-        n_chunks = 64 // pipe.microbatch
+            pipe(feeds)
+        n_chunks = len(next(iter(feeds.values()))) // pipe.microbatch
         if len(calls) % n_chunks:
             fail(f"{len(calls)} kernel calls over {n_chunks} chunks")
         return calls, len(calls) // n_chunks
@@ -444,10 +501,11 @@ def main() -> int:
     timer = Timer(torch)
     results = {k: {"max_abs_err": 0.0, "per_launch": []} for k in KERNELS}
 
-    def check(path, pos, n_events, name, args, kw):
+    def check(path, pos, n_events, name, args, kw, bitwise=False):
         """One kernel call against its plain version on the same inputs:
-        every float output within the float32 row, every integer output
-        (knn_build's idx) bitwise; then the times and the bound."""
+        every float output within the float32 row (every element equal
+        when ``bitwise``), every integer output (knn_build's idx)
+        bitwise; then the times and the bound."""
         kern, plain = wrappers[name], plain_fns[name]
         try:
             got = kern(*args, **kw)
@@ -476,6 +534,10 @@ def main() -> int:
                      f"max|err|={max_err:.3e} (tolerance {ATOL:g} + "
                      f"{RTOL:g}·|want|, integer outputs bitwise)")
         exact = n_equal / max(n_all, 1)
+        if bitwise and n_equal != n_all:
+            fail(f"{name} at {shape} is not bitwise equal to its plain "
+                 f"version: {exact:.2%} of elements equal, max|err|="
+                 f"{max_err:.3e}")
         lib_ms, lib_name = None, None
         if name == "fused_dense":
             x, w, b = args[:3]
@@ -495,6 +557,48 @@ def main() -> int:
             else:
                 lib_ms = timer.device_ms(lambda: torch._int_mm(x, w), 200)
                 lib_name = "torch._int_mm (int8 product only, no epilogue)"
+        elif name == "edge_aggregate":
+            # one call on the edges filtered (and, for sum, weighted)
+            # beforehand, untimed: index_add_ of mask·msg for sum; for
+            # mean, where every mask is 0 or 1, index_reduce_('mean',
+            # include_self=False) of the unmasked edges, which leaves a
+            # node without edges at 0 as max(count, 1) does
+            msg, dst, mask = args[:3]
+            n, mean = kw["n_nodes"], kw.get("reduce") == "mean"
+            keep = (dst >= 0) & (dst < n)
+            if mean:
+                keep &= mask > 0
+            rows = (dst.long() + n * torch.arange(
+                msg.shape[0], device=dev)[:, None])[keep]
+            acc = torch.zeros((msg.shape[0] * n, msg.shape[2]), device=dev)
+            lib = None
+            if not mean:
+                wmsg = (mask[..., None] * msg)[keep]
+
+                def lib():
+                    return acc.index_add_(0, rows, wmsg)
+                lib_name = ("Tensor.index_add_ of the mask-weighted "
+                            "messages (atomic, no fixed order; the "
+                            "weighting not timed)")
+            elif bool(((mask == 0) | (mask == 1)).all()):
+                kmsg = msg[keep]
+
+                def lib():
+                    return acc.index_reduce_(0, rows, kmsg, "mean",
+                                             include_self=False)
+                lib_name = ("Tensor.index_reduce_('mean', include_self="
+                            "False) of the unmasked messages (atomic, no "
+                            "fixed order; the filtering not timed)")
+            else:
+                lib_name = ("none for mean over fractional masks (no "
+                            "single PyTorch call)")
+            if lib is not None:
+                lib_err = (lib().view_as(want) - want).abs()
+                if not bool((lib_err <= ATOL + RTOL * want.abs()).all()):
+                    fail(f"{name} at {shape}: the library call timed "
+                         f"beside it computes another function (max|err|="
+                         f"{lib_err.max().item():.3e})")
+                lib_ms = timer.device_ms(lib, 200)
         ms = timer.device_ms(lambda: kern(*args, **kw), 200)
         plain_ms = timer.device_ms(lambda: plain(*args, **kw), 3)
         nbytes, ops = cost(name, args, kw)
@@ -865,7 +969,133 @@ def main() -> int:
     rate("ragged, design point 1", SHORT_EVENTS, lat1, elapsed1)
     say(f"phase 6 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 7. the kernel line and the result ------------------------------------
+    # 7. the edge-based GNNs at their published widths ---------------------
+    gnn_cfgs = {  # src/repro/configs/gatedgcn.py, graphsage_reddit.py
+        "gatedgcn": gatedgcn.GatedGCNConfig(n_layers=16, d_hidden=70,
+                                            d_in=8, d_edge_in=4,
+                                            n_classes=2),
+        "graphsage": graphsage.GraphSAGEConfig(n_layers=2, d_hidden=128,
+                                               d_in=16, n_classes=5)}
+    card_args = serve.parse_args(["--device", "cuda"])
+    cpu_args = serve.parse_args(["--device", "cpu"])
+    for gname, gcfg in gnn_cfgs.items():
+        route = serve.MODELS[gname](card_args, gcfg)
+        pipe = pipes[gname] = route.pipe
+        mb = pipe.microbatch
+        n_agg = sum(op.op_type == "edge_aggregate" for op in pipe.graph)
+        if n_agg != (2 if gname == "gatedgcn" else 1) * gcfg.n_layers:
+            fail(f"{gname}: {n_agg} edge_aggregate ops for "
+                 f"{gcfg.n_layers} layers")
+        say(f"deployed {gname} ({gcfg.n_layers} layers x {gcfg.d_hidden}, "
+            f"d_in {gcfg.d_in}, {gcfg.n_classes} classes; graphs of "
+            f"{serve._EDGE_N} nodes, {serve._EDGE_E} edges) at design "
+            f"point 3, fp: microbatch={mb} segments={len(pipe.segments)}")
+        # the path's kernel calls against their plain versions
+        calls, per_chunk = record(pipe, route.events(16, 17)[0])
+        per_chunk_calls[gname] = [c[0] for c in calls[:per_chunk]]
+        for pos in range(per_chunk):
+            name = calls[pos][0]
+            for nb in (sorted({1, mb, 16}) if name == "edge_aggregate"
+                       else (mb,)):
+                if nb < mb:
+                    _, args, kw = calls[pos]
+                    args = [a[:nb] if i < EVENT_ARGS[name] else a
+                            for i, a in enumerate(args)]
+                else:
+                    _, args, kw = stacked(calls, per_chunk, mb, pos, nb)
+                check(gname, pos, nb, name, args, kw,
+                      bitwise=name == "edge_aggregate")
+        del calls
+        pc = {n: per_chunk_calls[gname].count(n)
+              for n in set(per_chunk_calls[gname])}
+        if set(pc) != {"fused_dense", "edge_aggregate"} \
+                or pc["edge_aggregate"] != n_agg:
+            fail(f"a {gname} chunk calls {pc}, expected {n_agg} "
+                 "edge_aggregate and fused_dense only")
+        # serve with every counter at 0 just before
+        feeds = route.events(GNN_EVENTS, 7)[0]
+        serve.serve_events(pipe, {k: v[:DISPATCH] for k, v in feeds.items()})
+        torch.cuda.synchronize()
+        reset_counts()
+        res, lat, elapsed = serve.serve_events(pipe, feeds)
+        launches = path_launches[gname] = read_counts()
+        batch = max(mb, serve.MIN_SERVE_BATCH)
+        n_chunks = sum(-(-min(batch, GNN_EVENTS - s) // mb)
+                       for s in range(0, GNN_EVENTS, batch))
+        want = dict.fromkeys(wrappers, 0)
+        want.update({n: c * n_chunks for n, c in pc.items()})
+        if launches != want:
+            fail(f"[{gname}] launch counts {launches} != {want}")
+        say(f"[{gname}] served {GNN_EVENTS} graphs in {n_chunks} chunks of "
+            f"{mb}: launches {launches} ({pc['edge_aggregate']} "
+            f"edge_aggregate and {pc['fused_dense']} fused_dense per chunk)")
+        logits = res["logits"]
+        if logits.shape != (GNN_EVENTS, serve._EDGE_N, gcfg.n_classes) \
+                or not np.isfinite(logits).all():
+            fail(f"{gname} logits: shape {logits.shape} or non-finite")
+        with substituted(plain_fns):
+            plain_res, _, _ = serve.serve_events(pipe, feeds)
+        if not np.array_equal(logits, plain_res["logits"]):
+            err = np.abs(logits - plain_res["logits"]).max()
+            fail(f"{gname} logits: kernels vs plain versions max|err|="
+                 f"{err:.3e}, not bitwise")
+        cpu_res, _, _ = serve.serve_events(
+            serve.MODELS[gname](cpu_args, gcfg).pipe, feeds)
+        want_cpu = cpu_res["logits"].astype(np.float64)
+        err = np.abs(logits - want_cpu)
+        if (err > ATOL + RTOL * np.abs(want_cpu)).any():
+            fail(f"{gname} logits: max|err| {err.max():.3e} against the "
+                 f"same deployment on the CPU (tolerance {ATOL:g} + "
+                 f"{RTOL:g}·|cpu|)")
+        say(f"{gname}: logits of {GNN_EVENTS} graphs bitwise equal to the "
+            f"plain-substituted deployment on the card; max|err| "
+            f"{err.max():.3e} against device='cpu' (tolerance {ATOL:g} + "
+            f"{RTOL:g}·|cpu|)")
+        rate(f"{gname}, design point 3, fp", GNN_EVENTS, lat, elapsed)
+        idle_share(lambda pipe=pipe, feeds=feeds: serve.serve_events(
+            pipe, {k: v[:batch] for k, v in feeds.items()}),
+            f"{gname} dispatches of {batch} graphs", f"_{gname}")
+
+    # edge_aggregate on synthetic graphs of the routes' size: masked and
+    # fractional edge weights, destinations outside [0, N)
+    gen = torch.Generator().manual_seed(5)
+    n_nodes, n_edges = serve._EDGE_N, serve._EDGE_E
+    stray = torch.tensor([-1, n_nodes, n_nodes + 5, -n_nodes],
+                         dtype=torch.int32)
+    for d in EDGE_WIDTHS:
+        for reduce in ("sum", "mean"):
+            for nb in EDGE_BATCHES:
+                msg = torch.randn(nb, n_edges, d, generator=gen)
+                dst = torch.randint(0, n_nodes, (nb, n_edges), generator=gen,
+                                    dtype=torch.int32)
+                dst[:, ::16] = stray.repeat(n_edges // 64)
+                mask = (torch.rand(nb, n_edges, generator=gen)
+                        < 0.7).float()
+                mask[:, 1::16] = 0.5
+                check("synthetic", 0, nb, "edge_aggregate",
+                      [msg.to(dev), dst.to(dev), mask.to(dev)],
+                      {"n_nodes": n_nodes, "reduce": reduce}, bitwise=True)
+
+    # the three routes through the serve entry point
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            rc = serve.main(["--model", "ccn", "gatedgcn", "graphsage",
+                             "--events", "48"])
+    except SystemExit as e:
+        rc = e.code
+    for line in buf.getvalue().splitlines():
+        say(f"  {line}")
+    answered = [m for m in ("ccn", "gatedgcn", "graphsage")
+                if f"route {m}: 16 events" in buf.getvalue()
+                and re.search(rf"route {m}: .*answered=16 in-order=True",
+                              buf.getvalue())]
+    if rc != 0 or len(answered) != 3:
+        fail(f"serve --model ccn gatedgcn graphsage: exit {rc}, routes that "
+             f"answered all 16 of their events: {answered}")
+    say(f"phase 7 done at {time.perf_counter() - t_start:.1f}s")
+
+    # 8. the kernel line and the result ------------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)
@@ -873,7 +1103,8 @@ def main() -> int:
             "fused_dense_int8": ["mixed"], "gravnet_block_int8": ["mixed"],
             "gravnet_aggregate": ["mixed_no_fuse_int8", "fp_dp1"],
             "knn_build": ["ragged", "ragged_dp1"],
-            "knn_aggregate": ["ragged", "ragged_dp1"]}
+            "knn_aggregate": ["ragged", "ragged_dp1"],
+            "edge_aggregate": ["gatedgcn", "graphsage"]}
     line = []
     for name, meta in KERNELS.items():
         path = home[name][0]

@@ -24,7 +24,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from repro_torch.core.graph_ir import Graph, Operator
+from repro_torch.core.graph_ir import Graph, Operator, register_exporter
 from repro_torch.kernels.ref import gravnet_cell_ref
 from repro_torch.nn.layers import Dense, dense_init
 
@@ -225,3 +225,6 @@ def to_graph(params, cfg: CCNConfig) -> Graph:
     g.validate()
     g.meta["config"] = cfg
     return g
+
+
+register_exporter("caloclusternet", to_graph)

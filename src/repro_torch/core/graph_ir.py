@@ -4,14 +4,17 @@ Counterpart of ``repro/core/graph_ir.py``: nodes are operators (single
 layers), edges are data dependencies, and every pass of the design flow
 rewrites this graph until ``core/pipeline.py`` executes it. Operator
 params hold torch tensors. Op types are declared in
-``core/op_registry.py``. The exporter registry of the reference waits
-for a second model; ``caloclusternet.to_graph`` is called directly.
+``core/op_registry.py``. A model joins the flow by registering its
+``to_graph`` under a name (:func:`register_exporter`); ``export_graph``
+calls it and refuses a graph with op types the registry lacks.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
+
+from repro_torch.core import op_registry as _reg
 
 
 @dataclass
@@ -95,3 +98,37 @@ class Graph:
                 if inp not in seen:
                     raise ValueError(f"{op.name} reads {inp} before def")
             seen.add(op.name)
+
+
+# ------------------------------------------------------------------------
+# exporter registry: how a model joins the deploy flow
+_EXPORTERS: dict[str, Callable] = {}
+
+
+def register_exporter(name: str, fn: Callable) -> Callable:
+    """Register a model's ``to_graph(params, cfg) -> Graph`` under a
+    stable name. The graph it returns is validated, uses registered op
+    types only and sets ``g.meta["config"]``."""
+    if name in _EXPORTERS:
+        raise ValueError(f"exporter {name!r} already registered")
+    _EXPORTERS[name] = fn
+    return fn
+
+
+def exporters() -> tuple[str, ...]:
+    return tuple(sorted(_EXPORTERS))
+
+
+def export_graph(name: str, params: Any, cfg: Any) -> Graph:
+    """Export a registered model to graph IR, rejecting graphs with op
+    types no pass recognizes (the same preflight ``deploy()`` runs)."""
+    if name not in _EXPORTERS:
+        raise KeyError(f"no exporter {name!r}; registered: "
+                       f"{', '.join(exporters()) or '(none)'}")
+    g = _EXPORTERS[name](params, cfg)
+    bad = _reg.unknown_ops(g)
+    if bad:
+        listing = ", ".join(f"{n} ({t!r})" for n, t in bad)
+        raise _reg.UnknownOperatorError(
+            f"exporter {name!r} emitted unregistered op types: {listing}")
+    return g

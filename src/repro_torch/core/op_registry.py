@@ -1,13 +1,15 @@
 """Operator registry — the declarations the deploy passes dispatch on.
 
 Counterpart of ``repro/core/op_registry.py``, holding the op types the
-CaloClusterNet graph uses: ``input``/``output``, ``linear``/``dense``,
+port's graphs use: ``input``/``output``, ``linear``/``dense``,
 ``relu``, ``concat``, ``slice``, ``retile``, ``gravnet_aggregate``,
-``gravnet_block``, ``cps`` and the ragged path's ``knn_build`` and
-``knn_aggregate``. Each :class:`OpSpec` says whether the
-op's access pattern is regular (MXU-eligible), which template it maps
-to per target, how to infer its output feature dim, its analytic cost,
-and how the kernel-opt pass binds its launch knobs. The specs, cost
+``gravnet_block``, ``cps``, the ragged path's ``knn_build`` and
+``knn_aggregate``, and the edge-based GNNs' ``gather_edge``,
+``edge_aggregate``, ``eltwise`` and ``batchnorm``. Each
+:class:`OpSpec` says whether the op's access pattern is regular
+(MXU-eligible), which template it maps to per target, how to infer its
+output feature dim, its analytic cost, and how the kernel-opt pass
+binds its launch knobs. The specs, cost
 formulas and binders are the reference's, so the port's passes emit the
 reference's graphs. The reference's tuning-cache lookups are left out:
 the port has no tuning cache yet, so every binding is the heuristic.
@@ -92,6 +94,12 @@ def require_spec(op) -> OpSpec:
 def is_regular(op, *, tpu_native_gravnet: bool = False) -> bool:
     spec = require_spec(op)
     return spec.regular or (tpu_native_gravnet and spec.tpu_native_regular)
+
+
+def unknown_ops(g) -> list[tuple[str, str]]:
+    """(node name, op type) for every op the registry does not know."""
+    return [(op.name, op.op_type) for op in g
+            if op.op_type not in _REGISTRY]
 
 
 def register_fusion_rule(name: str, fn: Callable, *, opt_in: bool = False,
@@ -254,6 +262,57 @@ def _infer_knn_aggregate(op, dims, g):
     return 2 * df
 
 
+def _infer_gather_edge(op, dims, g):
+    if len(op.inputs) != 2:
+        raise GraphVerificationError(
+            f"{op.name}: needs (nodes, edge_index) inputs")
+    if op.attrs.get("endpoint") not in ("src", "dst"):
+        raise GraphVerificationError(
+            f"{op.name}: endpoint must be 'src' or 'dst', got "
+            f"{op.attrs.get('endpoint')!r}")
+    return dims[op.inputs[0]]
+
+
+def _infer_edge_aggregate(op, dims, g):
+    if len(op.inputs) not in (2, 3):
+        raise GraphVerificationError(
+            f"{op.name}: needs (messages, edge_index[, edge_mask]) "
+            "inputs")
+    if op.attrs.get("reduce", "sum") not in ("sum", "mean"):
+        raise GraphVerificationError(
+            f"{op.name}: reduce must be 'sum' or 'mean', got "
+            f"{op.attrs.get('reduce')!r}")
+    return dims[op.inputs[0]]
+
+
+_ELTWISE_FNS = ("add", "mul", "div", "sigmoid", "relu", "mask",
+                "add_const", "l2norm")
+
+
+def _infer_eltwise(op, dims, g):
+    fn = op.attrs.get("fn")
+    if fn not in _ELTWISE_FNS:
+        raise GraphVerificationError(
+            f"{op.name}: eltwise fn must be one of {_ELTWISE_FNS}, "
+            f"got {fn!r}")
+    if fn in ("add", "mul", "div"):
+        if len({dims[i] for i in op.inputs}) != 1:
+            raise GraphVerificationError(
+                f"{op.name}: eltwise {fn} operand dims differ: "
+                f"{[dims[i] for i in op.inputs]}")
+    if fn == "mask" and len(op.inputs) != 2:
+        raise GraphVerificationError(
+            f"{op.name}: eltwise mask needs (x, mask) inputs")
+    return dims[op.inputs[0]]
+
+
+def _infer_batchnorm(op, dims, g):
+    if len(op.inputs) != 2:
+        raise GraphVerificationError(
+            f"{op.name}: needs (x, mask) inputs")
+    return dims[op.inputs[0]]
+
+
 # ========================================================================
 # analytic cost model (parallelize pass arms): (flops, act, wb) / event
 # ========================================================================
@@ -323,6 +382,35 @@ def _cost_knn_aggregate(op, n_hits, pb):
 def _cost_eltwise_like(op, n_hits, pb):
     d_out = op.out_dim or 1
     flops = 1.0 * n_hits * d_out
+    act = 2.0 * n_hits * d_out * pb
+    return flops, act, 0.0
+
+
+def _n_edges(op, n_hits):
+    # exporters record the padded edge count; fall back to a sparse
+    # power-law-ish estimate when absent
+    return int(op.attrs.get("n_edges") or 4 * n_hits)
+
+
+def _cost_gather_edge(op, n_hits, pb):
+    d_out = op.out_dim or 1
+    e = _n_edges(op, n_hits)
+    flops = 1.0 * e * d_out
+    act = (n_hits * d_out + e * (d_out + 2.0)) * pb
+    return flops, act, 0.0
+
+
+def _cost_edge_aggregate(op, n_hits, pb):
+    d_out = op.out_dim or 1
+    e = _n_edges(op, n_hits)
+    flops = 2.0 * e * d_out + 1.0 * n_hits * d_out
+    act = (e * d_out + n_hits * d_out) * pb
+    return flops, act, 0.0
+
+
+def _cost_batchnorm(op, n_hits, pb):
+    d_out = op.out_dim or 1
+    flops = 10.0 * n_hits * d_out
     act = 2.0 * n_hits * d_out * pb
     return flops, act, 0.0
 
@@ -448,3 +536,26 @@ register_op(OpSpec(
     templates={"mxu": "knn_agg_kernel", "xla": "xla_knn_agg"},
     infer=_infer_knn_aggregate, cost=_cost_knn_aggregate,
     mxu_matmul=True, mxu_eff=_eff_gravnet))
+
+# --- edge-based message passing (GatedGCN / GraphSAGE) ------------------
+register_op(OpSpec(
+    # data-dependent gather of node rows by an explicit edge list —
+    # irregular, like the kNN gather
+    "gather_edge", templates=_both("xla_gather"),
+    infer=_infer_gather_edge, cost=_cost_gather_edge))
+register_op(OpSpec(
+    # masked segment sum/mean of per-edge messages into node slots (the
+    # edge_aggregate kernel on either target); like gravnet_aggregate it
+    # reclassifies as regular under tpu_native_gravnet. The reference's
+    # binder reads only the tuning cache (bm, be), which the port lacks,
+    # so it binds nothing.
+    "edge_aggregate", tpu_native_regular=True,
+    templates={"mxu": "edge_aggregate_kernel",
+               "xla": "xla_edge_aggregate"},
+    infer=_infer_edge_aggregate, cost=_cost_edge_aggregate))
+register_op(OpSpec(
+    "eltwise", regular=True, templates=_both("xla_eltwise"),
+    infer=_infer_eltwise, cost=_cost_eltwise_like))
+register_op(OpSpec(
+    "batchnorm", regular=True, templates=_both("xla_batchnorm"),
+    infer=_infer_batchnorm, cost=_cost_batchnorm))

@@ -31,6 +31,12 @@ reference; a bf16 dense has no kernel in the port and raises.
 aggregations are the ``knn_build``/``knn_aggregate`` kernel pair with
 segment masking, and whose CPS scatters the packed rows back per event.
 
+The edge-based GNNs (``models/gnn/``: GatedGCN, GraphSAGE) deploy
+through the same flow, fp: their graphs' ``gather_edge``, ``eltwise``
+and ``batchnorm`` ops run in plain PyTorch (the reference's XLA
+templates), every ``edge_aggregate`` launches the ``edge_aggregate``
+kernel over the micro-batch, with ``req.n_hits`` nodes per graph.
+
 What the reference compiles, the port runs eagerly: the P-chunking
 ``lax.map`` is a Python loop, the whole-pipeline ``jax.jit`` is a plain
 call of the segments in order (CUDA graphs are later work). Fused
@@ -104,9 +110,11 @@ class _Executor:
     """Runs single operators of a deployed graph on the pipeline's
     device; kernels are reached through ``kernels/ops.py``."""
 
-    def __init__(self, cfg, max_events=None):
+    def __init__(self, cfg, max_events=None, n_hits=None):
         self.cfg = cfg
         self.max_events = max_events    # a ragged graph's CPS capacity
+        self.n_hits = n_hits            # nodes per graph (req.n_hits)
+        self._ei = None                 # (edge_index, src, dst) as int64
 
     def run_op(self, op, vals, feeds, *, force_fp=False, record=None):
         """One op. ``force_fp`` runs an int8 op in f32 (calibration);
@@ -150,6 +158,14 @@ class _Executor:
             out = self._knn_aggregate(op, vals)
         elif t == "gravnet_block":
             out = self._gravnet_block(op, vals, prec)
+        elif t == "gather_edge":
+            out = self._gather_edge(op, vals)
+        elif t == "edge_aggregate":
+            out = self._edge_aggregate(op, vals)
+        elif t == "eltwise":
+            out = self._eltwise(op, vals)
+        elif t == "batchnorm":
+            out = self._batchnorm(op, vals)
         elif t == "cps":
             out = self._cps(op, vals)
         elif t == "output":
@@ -260,6 +276,73 @@ class _Executor:
             xf, mask, p["ws"], p["bs"], p["wf"], p["bf"], p["wo"], p["bo"],
             **kw)
 
+    def _endpoints(self, ei):
+        """(src, dst) of an edge list (B,2,E) as int64 gather indices,
+        made once per edge list (every gather of a call shares it)."""
+        if self._ei is None or self._ei[0] is not ei:
+            self._ei = (ei, ei[:, 0].long(), ei[:, 1].long())
+        return self._ei[1:]
+
+    def _gather_edge(self, op, vals):
+        """Endpoint gather by the edge list: x:(B,N,d), ei:(B,2,E) ->
+        (B,E,d). Data-dependent, a plain PyTorch gather (the reference's
+        ``xla_gather``)."""
+        x, ei = vals
+        xf = _as_fp(x)[..., :op.out_dim]        # lane128-padded producer
+        src, dst = self._endpoints(ei)
+        idx = src if op.attrs["endpoint"] == "src" else dst
+        return torch.gather(xf, 1, idx[..., None].expand(-1, -1,
+                                                         xf.shape[-1]))
+
+    def _edge_aggregate(self, op, vals):
+        """Masked segment sum/mean of per-edge messages into nodes, one
+        ``edge_aggregate`` launch for the micro-batch."""
+        msgs, ei = vals[0], vals[1]
+        mask = _as_fp(vals[2]) if len(vals) > 2 else None
+        mf = _as_fp(msgs)[..., :op.out_dim].contiguous()
+        n_nodes = int(op.attrs.get("n_nodes") or self.n_hits)
+        return kops.edge_aggregate_batched(
+            mf, ei, n_nodes, mask, reduce=op.attrs.get("reduce", "sum"))
+
+    def _eltwise(self, op, vals):
+        """N-ary elementwise algebra; ``fn`` picks the operation."""
+        fn = op.attrs["fn"]
+        d = op.out_dim
+        if fn == "mask":                # x:(B,R,d) * mask:(B,R)
+            x, m = _as_fp(vals[0])[..., :d], _as_fp(vals[1])
+            return x * m[..., None]
+        xs = [_as_fp(v)[..., :d] for v in vals]
+        if fn in ("add", "mul"):
+            y = xs[0]
+            for v in xs[1:]:
+                y = y + v if fn == "add" else y * v
+            return y
+        if fn == "div":
+            return xs[0] / xs[1]
+        if fn == "sigmoid":
+            return torch.sigmoid(xs[0])
+        if fn == "relu":
+            return torch.relu(xs[0])
+        if fn == "add_const":
+            return xs[0] + op.attrs["const"]
+        if fn == "l2norm":
+            return xs[0] / torch.clamp_min(torch.linalg.vector_norm(
+                xs[0], dim=-1, keepdim=True), 1e-6)
+        raise ValueError(f"{op.name}: unknown eltwise fn {fn!r}")
+
+    def _batchnorm(self, op, vals):
+        """Masked per-graph batch normalization (the benchmarking-gnns
+        training-mode statistics, over each graph of the micro-batch):
+        x:(B,R,d), mask:(B,R)."""
+        x, mask = vals
+        xf = _as_fp(x)[..., :op.out_dim]
+        m = _as_fp(mask)[..., None]
+        n = torch.clamp_min(m.sum(dim=1, keepdim=True), 1.0)
+        mu = (xf * m).sum(dim=1, keepdim=True) / n
+        var = (((xf - mu) ** 2) * m).sum(dim=1, keepdim=True) / n
+        eps = op.attrs.get("eps", 1e-5)
+        return (xf - mu) * torch.rsqrt(var + eps) * m
+
     def _cps(self, op, vals):
         names = op.attrs["head_names"]
         hv = {n: _as_fp(vals[i]) for i, n in enumerate(names)}
@@ -311,10 +394,13 @@ class _Executor:
 
 # -------------------------------------------------------- compiled object ----
 class CompiledPipeline:
-    """A deployed graph bound to a device. ``pipe(feeds)`` takes
-    ``{"hits": (B,N,d_in), "mask": (B,N)}`` as numpy arrays or tensors
-    and returns the per-hit heads and the CPS dict as tensors on the
-    pipeline's device.
+    """A deployed graph bound to a device. ``pipe(feeds)`` takes one
+    array per ``input`` op's feature, each with the events on its
+    leading axis, as numpy arrays or tensors (CaloClusterNet:
+    ``{"hits": (B,N,d_in), "mask": (B,N)}``; the edge-based GNNs:
+    ``nodes``, ``edge_index`` (B,2,E), ``node_mask``, ``edge_mask`` and
+    GatedGCN's ``edges``), and returns the graph's output heads (and
+    CaloClusterNet's CPS dict) as tensors on the pipeline's device.
 
     ``batch > 1`` pins a batch-packed executable: ``batch`` events per
     chunk, each segment running the whole chunk at once (no P-chunking).
@@ -334,7 +420,8 @@ class CompiledPipeline:
         self.microbatch = (batch if self.batch_packed else int(
             self.graph.meta["parallelization"]["microbatch"]))
         self._ex = _Executor(self.graph.meta.get("config"),
-                             self.graph.meta.get("ragged_max_events"))
+                             self.graph.meta.get("ragged_max_events"),
+                             self.graph.meta.get("n_hits"))
         self._plans = [self._plan(seg) for seg in self.segments]
         self._out = self.graph.outputs()[0].name
 
@@ -511,6 +598,7 @@ def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
                                      "target": req.target_throughput}
     if req.design_point >= 3:
         g = kernel_optimize(g, n_rows=req.n_hits, batch=batch)
+    g.meta["n_hits"] = req.n_hits   # nodes per graph of edge_aggregate
     pipe = CompiledPipeline(g, device, batch=batch)
     if mixed:
         pipe.calibrate(calibration_feeds)

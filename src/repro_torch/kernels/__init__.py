@@ -15,6 +15,9 @@
                            over bin-packed events (``csrc/knn_build.cu``).
 - ``knn_aggregate``      : the ragged path's mean/max over the selected
                            rows (``csrc/knn_aggregate.cu``).
+- ``edge_aggregate``     : the edge-based GNNs' masked segment sum/mean
+                           of edge messages into their destination nodes
+                           (``csrc/edge_aggregate.cu``).
 
 The five GravNet and kNN kernels share the cell in
 ``csrc/gravnet_cell.cuh``: the whole of it, or its selection or its

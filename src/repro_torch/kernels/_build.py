@@ -33,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
+#: shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232448
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -109,3 +112,23 @@ def check(code: int, kernel: str) -> None:
     if code != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with "
                            f"cudaError_t {code}")
+
+
+def check_cuda(name: str, tensors, dtypes) -> None:
+    """Raise unless ``tensors`` are contiguous CUDA tensors on one device
+    with the given dtypes (a wrapper's operand check before its launch)."""
+    dev = tensors[0].device
+    if any(not t.is_cuda or t.device != dev for t in tensors):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    for t, dt in zip(tensors, dtypes):
+        if t.dtype != dt:
+            raise TypeError(f"{name} takes {dt} here, got {t.dtype}")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous operands")
+
+
+def check_smem(name: str, smem: int, shape: str) -> None:
+    """Raise when a launch's shared-memory plan exceeds :data:`SMEM_LIMIT`."""
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: {shape} needs {smem} B of shared "
+                         f"memory > {SMEM_LIMIT} B")

@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gravnet_block import BM, SMEM_LIMIT
+from repro_torch.kernels.gravnet_block import BM
 
 _lib = None
 
@@ -59,10 +59,10 @@ def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0):
         raise ValueError("gravnet_aggregate_cuda takes contiguous operands")
     lib = _library()
     smem = lib.gravnet_aggregate_smem_bytes(n, ds, df)
-    if smem > SMEM_LIMIT:
+    if smem > _build.SMEM_LIMIT:
         raise ValueError(f"gravnet_aggregate_cuda: n={n}, d_s={ds}, "
                          f"d_f={df} needs {smem} B of shared memory > "
-                         f"{SMEM_LIMIT} B")
+                         f"{_build.SMEM_LIMIT} B")
     y = torch.empty((bsz, n, 2 * df), dtype=torch.float32, device=s.device)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream

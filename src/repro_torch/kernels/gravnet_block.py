@@ -19,8 +19,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_dense import act_code
 
-#: shared memory one block may use on Hopper (227 KB)
-SMEM_LIMIT = 232448
 #: query rows per CTA: 4 CTAs per event at the main path's 128 hits
 BM = 32
 _lib = None
@@ -79,11 +77,11 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
     bm = min(n, BM)
     lib = _library()
     smem = lib.gravnet_block_smem_bytes(n, dh, ds, df, dout, bm)
-    if smem > SMEM_LIMIT:
+    if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"gravnet_block_cuda: n={n}, d_hidden={dh}, d_f={df}, "
             f"d_out={dout}, bm={bm} needs {smem} B of shared memory "
-            f"> {SMEM_LIMIT} B")
+            f"> {_build.SMEM_LIMIT} B")
     y = torch.empty((bsz, n, dout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -161,11 +159,11 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
     bm = min(n, BM)
     lib = _library_int8()
     smem = lib.gravnet_block_int8_smem_bytes(n, dh, ds, df, dout, bm)
-    if smem > SMEM_LIMIT:
+    if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"gravnet_block_int8_cuda: n={n}, d_hidden={dh}, d_f={df}, "
             f"d_out={dout}, bm={bm} needs {smem} B of shared memory "
-            f"> {SMEM_LIMIT} B")
+            f"> {_build.SMEM_LIMIT} B")
     y = torch.empty((bsz, n, dout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gravnet_block import BM, SMEM_LIMIT
+from repro_torch.kernels.gravnet_block import BM
 
 _lib_build = None
 _lib_agg = None
@@ -50,23 +50,6 @@ def _library_agg():
     return _lib_agg
 
 
-def _check_cuda(name, tensors, dtypes):
-    dev = tensors[0].device
-    if any(not t.is_cuda or t.device != dev for t in tensors):
-        raise ValueError(f"{name} takes CUDA tensors on one device")
-    for t, dt in zip(tensors, dtypes):
-        if t.dtype != dt:
-            raise TypeError(f"{name} takes {dt} here, got {t.dtype}")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} takes contiguous operands")
-
-
-def _smem_or_raise(name, smem, shape):
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: {shape} needs {smem} B of shared "
-                         f"memory > {SMEM_LIMIT} B")
-
-
 def knn_build_cuda(s, segids, *, k=8):
     """Segment-masked kNN selection on the card for a micro-batch of
     bins. s:(B,N,ds) f32, segids:(B,N) int (−1 on padding) ->
@@ -82,11 +65,11 @@ def knn_build_cuda(s, segids, *, k=8):
         raise ValueError(f"knn_build_cuda: k={k}")
     bsz, n, ds = s.shape
     segids = segids.to(torch.int32).contiguous()
-    _check_cuda("knn_build_cuda", [s, segids],
-                [torch.float32, torch.int32])
+    _build.check_cuda("knn_build_cuda", [s, segids],
+                      [torch.float32, torch.int32])
     lib = _library_build()
-    _smem_or_raise("knn_build_cuda", lib.knn_build_smem_bytes(n, ds),
-                   f"n={n}, d_s={ds}")
+    _build.check_smem("knn_build_cuda", lib.knn_build_smem_bytes(n, ds),
+                      f"n={n}, d_s={ds}")
     idx = torch.empty((bsz, n, k), dtype=torch.int32, device=s.device)
     d2 = torch.empty((bsz, n, k), dtype=torch.float32, device=s.device)
     with torch.cuda.device(s.device):
@@ -116,11 +99,11 @@ def knn_aggregate_cuda(f, idx, d2, *, scale=10.0):
     k = idx.shape[2]
     if k < 1:
         raise ValueError("knn_aggregate_cuda: no neighbour slot")
-    _check_cuda("knn_aggregate_cuda", [f, idx, d2],
-                [torch.float32, torch.int32, torch.float32])
+    _build.check_cuda("knn_aggregate_cuda", [f, idx, d2],
+                      [torch.float32, torch.int32, torch.float32])
     lib = _library_agg()
-    _smem_or_raise("knn_aggregate_cuda", lib.knn_aggregate_smem_bytes(n, df),
-                   f"n={n}, d_f={df}")
+    _build.check_smem("knn_aggregate_cuda",
+                      lib.knn_aggregate_smem_bytes(n, df), f"n={n}, d_f={df}")
     y = torch.empty((bsz, n, 2 * df), dtype=torch.float32, device=f.device)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.edge_aggregate import edge_aggregate_cuda
 from repro_torch.kernels.fused_dense import (fused_dense_cuda,
                                              fused_dense_int8_cuda)
 from repro_torch.kernels.gravnet import gravnet_aggregate_cuda
@@ -163,3 +164,33 @@ def gravnet_block_int8(x, mask, *weights, **kw):
     :func:`gravnet_block_int8_batched`'s."""
     return gravnet_block_int8_batched(x[None], mask[None], *weights,
                                       **kw)[0]
+
+
+def edge_aggregate_batched(messages, edge_index, n_nodes, edge_mask=None, *,
+                           reduce="sum"):
+    """Masked segment sum / mean of per-edge messages into their
+    destination nodes over a micro-batch of graphs, one launch.
+    messages:(B,E,d) f32, edge_index:(B,2,E) int (src, dst),
+    edge_mask:(B,E)|None -> (B, n_nodes, d); each graph's edges reach
+    only its own nodes, and a dst outside [0, n_nodes) contributes
+    nothing."""
+    bsz, e, _ = messages.shape
+    dst = edge_index[:, 1].to(torch.int32).contiguous()
+    mask = (torch.ones((bsz, e), dtype=torch.float32,
+                       device=messages.device) if edge_mask is None
+            else edge_mask.to(torch.float32).contiguous())
+    if messages.device.type == "cpu":
+        return _ref.edge_aggregate_ref(messages, dst, mask, n_nodes=n_nodes,
+                                       reduce=reduce)
+    return edge_aggregate_cuda(messages, dst, mask, n_nodes=n_nodes,
+                               reduce=reduce)
+
+
+def edge_aggregate(messages, edge_index, n_nodes, edge_mask=None, *,
+                   reduce="sum"):
+    """Edge aggregation for one graph: the batched kernel at B = 1.
+    messages:(E,d), edge_index:(2,E), edge_mask:(E,)|None ->
+    (n_nodes, d)."""
+    mask = None if edge_mask is None else edge_mask[None]
+    return edge_aggregate_batched(messages[None], edge_index[None], n_nodes,
+                                  mask, reduce=reduce)[0]

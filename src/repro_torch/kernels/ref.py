@@ -238,3 +238,43 @@ def gravnet_block_int8_ref(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
     hq = quantize_act(torch.cat([xf, agg], dim=-1), h_scale)
     return fused_dense_int8_ref(hq, wo_q, bo, h_scale, wo_scale,
                                 activation=activation)
+
+
+# --------------------------------------------------------- edge aggregate ----
+def edge_aggregate_ref(messages, dst, mask, *, n_nodes, reduce="sum"):
+    """Masked segment sum / mean of per-edge messages into their
+    destination nodes, in the kernel's order. messages:(B,E,d) f32,
+    dst:(B,E) int, mask:(B,E) f32 -> (B, n_nodes, d).
+
+    Each node sums ``mask[e]·msg[e]`` over its edges in increasing e,
+    each product and sum rounded on its own; ``mean`` divides by
+    ``max(Σ mask[e], 1)``, summed in the same order. An edge whose dst
+    lies outside [0, n_nodes) contributes nothing. A stable sort by dst
+    lays the edges out in per-node segments, padded with zeros to the
+    largest in-degree (adding +0.0 leaves a sum unchanged), and the sums
+    run over the segments' slots: no scatter (``index_add_`` sums in no
+    fixed order on the card)."""
+    if reduce not in ("sum", "mean"):
+        raise ValueError(f"reduce must be 'sum' or 'mean', got {reduce!r}")
+    bsz, e, d = messages.shape
+    dev = messages.device
+    key = dst.long()
+    # out-of-range destinations go to an extra segment n_nodes, never read
+    key = torch.where((key >= 0) & (key < n_nodes), key, n_nodes)
+    skey, perm = torch.sort(key, dim=1, stable=True)
+    nodes = torch.arange(n_nodes, device=dev).expand(bsz, n_nodes)
+    start = torch.searchsorted(skey, nodes.contiguous())
+    deg = torch.searchsorted(skey, nodes.contiguous(), right=True) - start
+    mask = mask.float()
+    w = mask[..., None] * messages.float()
+    acc = torch.zeros((bsz, n_nodes, d), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((bsz, n_nodes), dtype=torch.float32, device=dev)
+    for j in range(int(deg.max()) if deg.numel() else 0):
+        valid = deg > j
+        edge = torch.gather(perm, 1, torch.where(valid, start + j, 0))
+        wj = torch.gather(w, 1, edge[..., None].expand(bsz, n_nodes, d))
+        acc = acc + torch.where(valid[..., None], wj, 0.0)
+        cnt = cnt + torch.where(valid, torch.gather(mask, 1, edge), 0.0)
+    if reduce == "mean":
+        acc = acc / torch.clamp_min(cnt, 1.0)[..., None]
+    return acc

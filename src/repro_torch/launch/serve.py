@@ -1,29 +1,38 @@
 """Serving entry point: ``python -m repro_torch.launch.serve [...]``.
 
-Counterpart of the single-model CaloClusterNet path of
-``repro/launch/serve.py`` run with ``--train-steps 0 --replicas 1``:
-synthetic Belle II events, CaloClusterNet with random weights from a
-seed, exported to the IR and deployed through the whole design flow
-(``core/pipeline.py:deploy``), micro-batch chunks through the deployed
-pipeline, CPS for the trigger bit, and a report of throughput, decision
-latency and trigger efficiency / fake rate against the events' truth.
+Counterpart of ``repro/launch/serve.py`` run with ``--train-steps 0
+--replicas 1``: each model named by ``--model`` (default ``ccn``) is a
+route of the serve-side registry ``MODELS``. A route deploys its model
+through the whole design flow (``core/pipeline.py:deploy``; the model
+joins through its ``core.graph_ir`` exporter) and makes its own
+synthetic events:
+
+- ``ccn``: CaloClusterNet with random weights from seed 0 on synthetic
+  Belle II events, CPS for the trigger bit, and a report of trigger
+  efficiency / fake rate against the events' truth. As in the
+  reference, ``--precision`` defaults to ``mixed`` (int8 interior,
+  calibrated on 64 events of seed 123), and ``--no-fuse-gravnet-block``
+  / ``--no-fuse-int8`` keep the GravNet chain unfused;
+- ``gatedgcn`` and ``graphsage``: the reference's route configs of the
+  edge-based GNNs (weights from generator seeds 1 and 2), fp, on random
+  graphs of 64 nodes and 256 edges.
+
+Design points 1 to 3 deploy every route. The events are split over the
+routes (route i gets seed 7 + i), as the reference splits them.
 
 The JAX package's ``launch/serve.py`` serves through
-``ShardedTriggerService`` (router, replica threads, in-order release).
-This one is a plain in-order loop instead: it dispatches micro-batches
-of ``max(pipe.microbatch, 16)`` events — the service's micro-batch
-width there — one after another, and brings each one's decisions to
-the host before it dispatches the next, so results come back in
-submission order. An
-event's decision latency is the time from the dispatch of its
-micro-batch to its decisions being on the host. As in the reference,
-``--precision`` defaults to ``mixed`` (int8 interior, calibrated on 64
-events of seed 123), design points 1 to 3 deploy, and
-``--no-fuse-gravnet-block`` / ``--no-fuse-int8`` keep the GravNet chain
-unfused. The serving layer, training, occupancy buckets and the other
-models are not ported yet. The padding-free ragged path has no flag
-here, as in the reference: ``build_pipeline(..., ragged=True,
-batch=8)`` deploys it and ``serve_events`` serves it.
+``ShardedTriggerService`` (router, per-route replica groups, in-order
+release). This one is a plain in-order loop instead: it dispatches
+micro-batches of ``max(pipe.microbatch, 16)`` events — the service's
+micro-batch width there — one route after another in turn, as the
+reference interleaves its routes' streams, and brings each dispatch's
+results to the host before it sends the next, so every route's results
+come back in submission order. An event's decision latency is the time
+from the dispatch of its micro-batch to its results being on the host.
+The serving layer, training, occupancy buckets and the padding-free
+ragged path's flag are not ported: ``build_pipeline(..., ragged=True,
+batch=8)`` deploys the ragged path (the reference has no flag for it
+either) and ``serve_events`` serves it.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -31,13 +40,16 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import caloclusternet as ccn
+from repro_torch.core.graph_ir import export_graph
 from repro_torch.core.pipeline import Requirements, deploy
 from repro_torch.data.belle2 import Belle2Config, current_detector, generate
+from repro_torch.models.gnn import gatedgcn, graphsage
 
 #: the serving micro-batch floor of repro/launch/serve.py
 MIN_SERVE_BATCH = 16
@@ -76,46 +88,168 @@ def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
                        precision_policy=precision, n_hits=cfg.n_hits,
                        target_throughput=TARGET_THROUGHPUT,
                        max_latency_s=2e-3)
-    return deploy(ccn.to_graph(params, cfg), req,
+    return deploy(export_graph("caloclusternet", params, cfg), req,
                   calibration_feeds=calibration_feeds(gen_cfg),
                   fuse_gravnet_block=fuse_gravnet_block,
                   fuse_int8=fuse_int8, batch=batch, ragged=ragged,
                   device=device)
 
 
+# ------------------------------------------------------------ model zoo ----
+class Servable(NamedTuple):
+    """One deployed route: the pipeline, and its synthetic events
+    ``events(n, seed) -> (feeds, trigger_truth)``: the feeds as numpy
+    arrays with the events on the leading axis, the truth of CCN's
+    trigger bit per event (None for a route without one)."""
+    name: str
+    pipe: Callable
+    events: Callable
+
+
+_EDGE_N, _EDGE_E = 64, 256     # E = 4N, the registry's edge budget
+
+
+def _edge_events(d_in, d_edge_in=None):
+    """The reference's random graphs, drawn in its order, event after
+    event, and stacked."""
+    def events(n, seed):
+        rng = np.random.default_rng(seed)
+        evs = []
+        for _ in range(n):
+            ev = {
+                "nodes": rng.normal(
+                    size=(_EDGE_N, d_in)).astype(np.float32),
+                "edge_index": rng.integers(
+                    0, _EDGE_N, size=(2, _EDGE_E)).astype(np.int32),
+                "node_mask": (rng.uniform(size=(_EDGE_N,)) < 0.8)
+                .astype(np.float32),
+                "edge_mask": (rng.uniform(size=(_EDGE_E,)) < 0.7)
+                .astype(np.float32),
+            }
+            if d_edge_in is not None:
+                ev["edges"] = rng.normal(
+                    size=(_EDGE_E, d_edge_in)).astype(np.float32)
+            evs.append(ev)
+        return {k: np.stack([ev[k] for ev in evs]) for k in evs[0]}, None
+    return events
+
+
+def _edge_req(design_point: int) -> Requirements:
+    return Requirements(design_point=design_point, platform="cpu",
+                        precision_policy="fp", n_hits=_EDGE_N,
+                        target_throughput=TARGET_THROUGHPUT,
+                        max_latency_s=2e-3)
+
+
+def _ccn_servable(args, cfg=None) -> Servable:
+    """CaloClusterNet of ``--detector`` (or ``cfg`` on that detector's
+    events) under ``--precision``."""
+    det_cfg, gen_cfg = detector_configs(args.detector)
+    pipe = build_pipeline(cfg or det_cfg, gen_cfg,
+                          design_point=args.design_point,
+                          precision=args.precision,
+                          fuse_gravnet_block=not args.no_fuse_gravnet_block,
+                          fuse_int8=not args.no_fuse_int8,
+                          device=args.device)
+
+    def events(n, seed):
+        ev = generate(gen_cfg, n, seed=seed)
+        return {"hits": ev["feats"], "mask": ev["mask"]}, ev["trigger_truth"]
+
+    return Servable("ccn", pipe, events)
+
+
+def _gatedgcn_servable(args, cfg=None) -> Servable:
+    """The reference's GatedGCN route (4 layers × 32), or ``cfg``."""
+    cfg = cfg or gatedgcn.GatedGCNConfig(n_layers=4, d_hidden=32, d_in=8,
+                                         d_edge_in=4, n_classes=2)
+    params = gatedgcn.init(torch.Generator().manual_seed(1), cfg)
+    pipe = deploy(export_graph("gatedgcn", params, cfg),
+                  _edge_req(args.design_point), device=args.device)
+    return Servable("gatedgcn", pipe, _edge_events(cfg.d_in, cfg.d_edge_in))
+
+
+def _graphsage_servable(args, cfg=None) -> Servable:
+    """The reference's GraphSAGE route (2 layers × 32), or ``cfg``."""
+    cfg = cfg or graphsage.GraphSAGEConfig(n_layers=2, d_hidden=32, d_in=16,
+                                           n_classes=5)
+    params = graphsage.init(torch.Generator().manual_seed(2), cfg)
+    pipe = deploy(export_graph("graphsage", params, cfg),
+                  _edge_req(args.design_point), device=args.device)
+    return Servable("graphsage", pipe, _edge_events(cfg.d_in))
+
+
+MODELS: dict[str, Callable] = {
+    "ccn": _ccn_servable,
+    "gatedgcn": _gatedgcn_servable,
+    "graphsage": _graphsage_servable,
+}
+
+
+# ---------------------------------------------------------------- serving ----
 def _to_host(out) -> dict:
     if isinstance(out, dict):
         return {k: _to_host(v) for k, v in out.items()}
     return out if isinstance(out, np.ndarray) else out.cpu().numpy()
 
 
+def _cat(*xs):
+    if isinstance(xs[0], dict):
+        return {k: _cat(*(x[k] for x in xs)) for k in xs[0]}
+    return np.concatenate(xs, axis=0)
+
+
+def serve_routes(routes: dict) -> tuple[dict, float]:
+    """Answer every event of every route: ``routes`` maps a name to
+    ``(pipe, feeds)`` (feeds as numpy, the events on the leading axis of
+    every array). Dispatches ``max(pipe.microbatch, 16)`` events of one
+    route after another in turn until all are answered; each dispatch's
+    results reach the host before the next is sent.
+
+    Returns ``({name: (results, latencies_s, busy_s)}, elapsed_s)``: per
+    route its outputs for all its events in submission order, each
+    event's decision latency and the time spent in its dispatches; and
+    the wall time of the whole loop."""
+    todo = {}
+    for name, (pipe, feeds) in routes.items():
+        n = len(next(iter(feeds.values())))
+        todo[name] = dict(n=n, next=0, parts=[], lat=np.empty(n), busy=0.0,
+                          batch=max(pipe.microbatch, MIN_SERVE_BATCH))
+    live = list(todo)
+    t0 = time.perf_counter()
+    while live:
+        for name in list(live):
+            pipe, feeds = routes[name]
+            st = todo[name]
+            s, batch = st["next"], st["batch"]
+            t_disp = time.perf_counter()
+            out = _to_host(pipe({k: v[s:s + batch]
+                                 for k, v in feeds.items()}))
+            dt = time.perf_counter() - t_disp
+            st["lat"][s:s + batch] = dt
+            st["busy"] += dt
+            st["parts"].append(out)
+            st["next"] = s + batch
+            if st["next"] >= st["n"]:
+                live.remove(name)
+    elapsed = time.perf_counter() - t0
+    return {name: (_cat(*st["parts"]), st["lat"], st["busy"])
+            for name, st in todo.items()}, elapsed
+
+
 def serve_events(pipe, feeds: dict):
-    """Answer every event of ``feeds`` ({"hits": (E,N,d), "mask": (E,N)}
-    numpy) in submission order, ``max(pipe.microbatch, 16)`` events per
-    dispatch. ``pipe`` is a deployed pipeline, or a ``RaggedPipeline``
-    (its micro-batch is its bins per launch), which returns numpy
-    already.
+    """Answer every event of ``feeds`` (numpy, the events on the leading
+    axis of every array) in submission order, ``max(pipe.microbatch,
+    16)`` events per dispatch. ``pipe`` is a deployed pipeline, or a
+    ``RaggedPipeline`` (its micro-batch is its bins per launch), which
+    returns numpy already.
 
     Returns (results, latencies_s, elapsed_s): the pipeline's outputs
-    for all E events as numpy arrays, in order, each event's decision
+    for all events as numpy arrays, in order, each event's decision
     latency, and the wall time of the whole loop."""
-    batch = max(pipe.microbatch, MIN_SERVE_BATCH)
-    n_events = len(feeds["mask"])
-    parts, lat = [], np.empty(n_events)
-    t0 = time.perf_counter()
-    for s in range(0, n_events, batch):
-        t_disp = time.perf_counter()
-        out = _to_host(pipe({k: v[s:s + batch] for k, v in feeds.items()}))
-        lat[s:s + batch] = time.perf_counter() - t_disp
-        parts.append(out)
-    elapsed = time.perf_counter() - t0
-
-    def cat(*xs):
-        if isinstance(xs[0], dict):
-            return {k: cat(*(x[k] for x in xs)) for k in xs[0]}
-        return np.concatenate(xs, axis=0)
-
-    return cat(*parts), lat, elapsed
+    res, elapsed = serve_routes({"": (pipe, feeds)})
+    results, lat, _ = res[""]
+    return results, lat, elapsed
 
 
 def trigger_rates(trigger, truth):
@@ -127,14 +261,21 @@ def trigger_rates(trigger, truth):
     return eff, fake
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", nargs="+", default=["ccn"],
+                    choices=sorted(MODELS), metavar="NAME",
+                    help="registered model route(s) to serve, one "
+                         f"dispatch of each in turn: {sorted(MODELS)} "
+                         "(default ccn)")
     ap.add_argument("--detector", choices=["current", "upgrade"],
                     default="upgrade")
     ap.add_argument("--design-point", type=int, default=3,
                     choices=[1, 2, 3])
     ap.add_argument("--precision", choices=["fp", "mixed"],
-                    default="mixed")
+                    default="mixed",
+                    help="the ccn route's policy; the edge-based GNNs "
+                         "deploy fp, as in the reference")
     ap.add_argument("--no-fuse-gravnet-block", action="store_true",
                     help="keep the unfused dense→aggregate→dense GravNet "
                          "chains instead of the fused block")
@@ -142,38 +283,60 @@ def main(argv=None):
                     help="under --precision mixed, keep the unfused "
                          "calibrated int8 chain instead of the quantized "
                          "block; fp deployments still fuse")
-    ap.add_argument("--events", type=int, default=512)
+    ap.add_argument("--events", type=int, default=512,
+                    help="events in all, split over the routes")
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: cuda (raises when CUDA is absent)")
     args = ap.parse_args(argv)
+    if args.events < len(args.model):
+        ap.error(f"--events {args.events} leaves a route of "
+                 f"{args.model} without events")
+    return args
 
-    cfg, gen_cfg = detector_configs(args.detector)
-    pipe = build_pipeline(cfg, gen_cfg, design_point=args.design_point,
-                          precision=args.precision,
-                          fuse_gravnet_block=not args.no_fuse_gravnet_block,
-                          fuse_int8=not args.no_fuse_int8,
-                          device=args.device)
-    dev = pipe.device
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu")
-    print(f"[serve] deployed design point {args.design_point}, "
-          f"{args.precision} on {dev} ({name}): "
-          f"segments={len(pipe.segments)} microbatch={pipe.microbatch} "
-          f"blocks={sum(op.op_type == 'gravnet_block' for op in pipe.graph)}")
-    serve_events(pipe, calibration_feeds(gen_cfg))   # first launches
 
-    events = generate(gen_cfg, args.events, seed=7)
-    feeds = {"hits": events["feats"], "mask": events["mask"]}
-    res, lat, dt = serve_events(pipe, feeds)
-    eff, fake = trigger_rates(res["cps"]["trigger"],
-                              events["trigger_truth"])
-    print(f"[serve] {args.events} events in {dt:.3f}s -> "
-          f"{args.events / dt:,.0f} ev/s ({name}, in-order loop, "
-          f"{max(pipe.microbatch, MIN_SERVE_BATCH)} events per dispatch)")
-    print(f"[serve] latency p50={np.percentile(lat, 50) * 1e6:.0f}us "
-          f"p99={np.percentile(lat, 99) * 1e6:.0f}us")
-    print(f"[serve] trigger efficiency={eff:.3f} fake rate={fake:.3f} "
-          f"answered={len(res['cps']['trigger'])} in-order=True")
+def main(argv=None):
+    args = parse_args(argv)
+    servables = [MODELS[m](args) for m in args.model]
+    routes, truth = {}, {}
+    dev = servables[0].pipe.device
+    dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else "cpu")
+    for i, sv in enumerate(servables):
+        pipe = sv.pipe
+        precision = args.precision if sv.name == "ccn" else "fp"
+        print(f"[serve] deployed {sv.name}: design point "
+              f"{args.design_point}, {precision} on {dev} ({dev_name}): "
+              f"segments={len(pipe.segments)} "
+              f"microbatch={pipe.microbatch} blocks="
+              f"{sum(op.op_type == 'gravnet_block' for op in pipe.graph)}")
+        batch = max(pipe.microbatch, MIN_SERVE_BATCH)
+        serve_events(pipe, sv.events(batch, 99)[0])      # first launches
+        n = args.events // len(servables) + (i < args.events % len(servables))
+        feeds, truth[sv.name] = sv.events(n, 7 + i)
+        routes[sv.name] = (pipe, feeds)
+
+    res, dt = serve_routes(routes)
+    total = sum(len(r[1]) for r in res.values())
+    print(f"[serve] {total} events in {dt:.3f}s -> {total / dt:,.0f} ev/s "
+          f"({dev_name}, in-order loop, one dispatch per route in turn: "
+          f"{', '.join(routes)})")
+    for rname, (out, lat, busy) in res.items():
+        pipe = routes[rname][0]
+        n = len(lat)
+        answered = len(next(iter(out.values())))
+        print(f"[serve] route {rname}: {n} events, "
+              f"{max(pipe.microbatch, MIN_SERVE_BATCH)} per dispatch, "
+              f"{n / busy:,.0f} ev/s in its dispatches, latency "
+              f"p50={np.percentile(lat, 50) * 1e6:.0f}us "
+              f"p99={np.percentile(lat, 99) * 1e6:.0f}us "
+              f"answered={answered} in-order=True")
+        if answered != n:
+            raise SystemExit(f"route {rname} answered {answered} of {n} "
+                             "events")
+        if truth[rname] is not None:
+            eff, fake = trigger_rates(out["cps"]["trigger"], truth[rname])
+            print(f"[serve] route {rname}: trigger efficiency={eff:.3f} "
+                  f"fake rate={fake:.3f}")
     return 0
 
 

@@ -74,10 +74,10 @@ def test_kernel_libraries_are_named_by_their_sources(tmp_path,
     git-ignored build/ directory and its name changes with the sources,
     so an edited kernel never loads a stale build."""
     from repro_torch.kernels import _build
-    assert _build.sources() == ["fused_dense", "fused_dense_int8",
-                                "gravnet_aggregate", "gravnet_block",
-                                "gravnet_block_int8", "knn_aggregate",
-                                "knn_build"]
+    assert _build.sources() == ["edge_aggregate", "fused_dense",
+                                "fused_dense_int8", "gravnet_aggregate",
+                                "gravnet_block", "gravnet_block_int8",
+                                "knn_aggregate", "knn_build"]
     lib = _build._lib_path("gravnet_block")
     assert lib.parent == REPO / "build" / "repro_torch"
     assert "build/" in (REPO / ".gitignore").read_text().splitlines()

@@ -16,15 +16,20 @@ from repro_torch.launch import serve
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _serve_cli(*flags):
+def _run_cli(*flags):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device",
          "cpu", "--detector", "current", "--events", "16", *flags],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert "answered=16 in-order=True" in r.stdout
     return r.stdout
+
+
+def _serve_cli(*flags):
+    out = _run_cli(*flags)
+    assert "answered=16 in-order=True" in out
+    return out
 
 
 def test_cli_answers_every_event():
@@ -41,6 +46,59 @@ def test_cli_answers_every_event():
     (("--precision", "fp", "--no-fuse-int8"), "blocks=2")])
 def test_cli_design_points_and_escape_hatches(flags, want):
     assert want in _serve_cli(*flags)
+
+
+@pytest.mark.parametrize("models", [("gatedgcn", "graphsage"),
+                                    ("ccn", "gatedgcn"),
+                                    ("ccn", "gatedgcn", "graphsage")])
+def test_cli_serves_every_route(models):
+    """``--model`` serves each named route; the 16 events are split over
+    the routes as the reference splits them, and each route answers all
+    of its own; only the ccn route reports trigger rates."""
+    out = _run_cli("--model", *models)
+    for i, name in enumerate(models):
+        n = 16 // len(models) + (i < 16 % len(models))
+        policy = "mixed" if name == "ccn" else "fp"
+        assert f"deployed {name}: design point 3, {policy}" in out
+        assert f"route {name}: {n} events" in out
+        assert any(ln.startswith(f"[serve] route {name}: ")
+                   and f"answered={n} in-order=True" in ln
+                   for ln in out.splitlines()), name
+    assert ("trigger efficiency" in out) == ("ccn" in models)
+    assert "16 events in" in out and "one dispatch per route in turn" in out
+
+
+def test_routes_interleave_one_dispatch_each_in_turn():
+    """serve_routes sends one dispatch of each route in turn and counts a
+    route's events by the leading axis of its feeds, whatever their
+    names."""
+    calls = []
+
+    class Echo:
+        microbatch = 1
+
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, feeds):
+            calls.append(self.name)
+            return {"y": np.asarray(feeds["x"]) * 2}
+
+    routes = {"a": (Echo("a"), {"x": np.arange(40.0)}),
+              "b": (Echo("b"), {"x": np.arange(20.0)})}
+    res, elapsed = serve.serve_routes(routes)
+    assert calls == ["a", "b", "a", "b", "a"]   # 16 + 16 + 8, 16 + 4
+    for name, n in (("a", 40), ("b", 20)):
+        out, lat, busy = res[name]
+        assert_bitwise(out["y"], 2 * np.arange(float(n)))
+        assert lat.shape == (n,) and (lat > 0).all() and busy > 0
+    assert elapsed >= res["a"][2] + res["b"][2]
+
+
+def test_cli_refuses_a_route_without_events():
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--events", "1", "--model", "ccn", "graphsage"])
+    assert serve.parse_args([]).model == ["ccn"]
 
 
 def test_serve_loop_returns_results_in_submission_order():
