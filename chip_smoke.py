@@ -64,7 +64,29 @@ Phases, each of which exits non-zero when it fails:
    [0, N), for sum and mean, at d 16, 32, 70 and 128 and 1, 8 and 16
    graphs. Then ``launch.serve.main`` serves ``--model ccn gatedgcn
    graphsage`` and every route must answer every event;
-8. print ``{"kernels": [...]}`` with every kernel of the port, then
+8. the ``attention`` op and the tuning layer: ``flash_attention`` held
+   bitwise against its plain version (``flash_attention_blocked_ref``)
+   at the reference's LM prefill tuning cell (8, 512, 512, 64), its
+   regression bench's (8, 1024, 1024, 64) and OLMo-1B's heads at 4096
+   tokens (16, 4096, 4096, 128), causal; at (8, 512, 512, 64) not
+   causal; at S = 1000 padded to the blocks; and at every (bq, bk) that
+   ``tuning/candidates.py`` keeps at (8, 512, 512, 64), whose shared
+   memory plans must agree with the library's own; times beside
+   ``F.scaled_dot_product_attention`` on the same inputs (its max |err|
+   printed, the port never calls it). Then an ``attention`` graph (q, k,
+   v denses of random weights from numpy seed 0 at scale 1/√64)
+   deployed at design point 3, fp, ``batch=8``, n 512, d 64, serving 32
+   events with the counters at 0 just before: one ``flash_attention``
+   and one ``fused_dense`` per dense of the deployed graph (the fusion
+   pass merges q, k and v into one) per micro-batch of 8, its output
+   bitwise equal to the plain-substituted deployment and within the
+   float32 row of ``device="cpu"``. Then ``autotune_graph`` over that deployment and
+   over the main path's, a redeploy with the cache whose attention op
+   binds the cached (bq, bk) and launches it, a ``save``/``load`` round
+   trip and ``warm_from_cache`` of every entry; then ``serve.main`` with
+   ``--tune --tuning-cache`` and again on the saved cache alone, which
+   binds every problem without searching;
+9. print ``{"kernels": [...]}`` with every kernel of the port, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -102,6 +124,14 @@ DISPATCH = 16                   # events per call of the serving loop on
 GNN_EVENTS = 128                # the edge-based GNNs' served graphs
 EDGE_WIDTHS = (16, 32, 70, 128)  # edge_aggregate's synthetic checks
 EDGE_BATCHES = (1, 8, 16)
+# flash_attention's (BH, S, T, D), causal: the reference's LM prefill
+# tuning cell (benchmarks/tuning_bench.py), its regression bench's
+# (benchmarks/regression.py) and OLMo-1B's 16 heads of 128 at the
+# train_4k length (src/repro/configs/olmo_1b.py, lm_common.py)
+ATTN_SHAPES = ((8, 512, 512, 64), (8, 1024, 1024, 64),
+               (16, 4096, 4096, 128))
+ATTN_N, ATTN_D, ATTN_BATCH = 512, 64, 8  # the deployed attention graph
+ATTN_EVENTS = 32
 
 KERNELS = {
     "fused_dense": {
@@ -143,6 +173,11 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/edge_aggregate.cu",
         "replaces": "src/repro/kernels/edge_aggregate.py:117",
+    },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:78",
     },
 }
 # leading arguments of each kernel that carry the events (stacked to
@@ -188,6 +223,17 @@ class Timer:
         b.record()
         b.synchronize()
         self.cycles_per_ms = 20_000_000 / a.elapsed_time(b)
+
+    def once_ms(self, fn) -> float:
+        """Device time of one call, after one untimed call."""
+        torch = self.torch
+        fn()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
 
     def device_ms(self, fn, reps: int) -> float:
         torch = self.torch
@@ -247,6 +293,17 @@ def _real_k(w):
 
 
 def cost(name, args, kw):
+    if name == "flash_attention":
+        # each unmasked (row, key) pair: D products and sums for its
+        # score, D for its share of p·v, one exp; under causal only the
+        # pairs with key <= row (about half); q, k, v read, o written
+        q, k = args[0], args[1]
+        bh, s, d = q.shape
+        t = k.shape[1]
+        pairs = float(bh * (sum(min(r + 1, t) for r in range(s))
+                            if kw.get("causal", True) else s * t))
+        return 4.0 * (2.0 * _numel(q) + 2.0 * _numel(k)), {
+            "f32": pairs * (4.0 * d + 1.0)}
     # the kNN pair's work depends on the packing: count the distances
     # and argmin rounds a real row needs against its own event's rows,
     # and the aggregation's valid slots, not the whole bin
@@ -320,6 +377,10 @@ def cost(name, args, kw):
 
 
 def shape_of(name, args, kw):
+    if name == "flash_attention":
+        return (f"q{tuple(args[0].shape)} T={args[1].shape[1]} "
+                f"{'causal' if kw.get('causal', True) else 'full'} "
+                f"bq={kw['bq']} bk={kw['bk']}")
     if name == "edge_aggregate":
         return (f"msg{tuple(args[0].shape)} n={kw['n_nodes']} "
                 f"{kw.get('reduce', 'sum')}")
@@ -343,6 +404,7 @@ def main() -> int:
         fail(f"{ROOT} is not a checkout of the repository (no "
              "src/repro_torch): run chip_smoke.py from its root")
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs "
              "an NVIDIA card")
@@ -363,6 +425,9 @@ def main() -> int:
     from repro_torch.kernels.knn_build import (knn_aggregate_cuda,
                                                knn_build_cuda)
     from repro_torch.kernels.edge_aggregate import edge_aggregate_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     library_smem_bytes,
+                                                     smem_bytes)
     from repro_torch.launch import serve
     from repro_torch.models.gnn import gatedgcn, graphsage
 
@@ -408,7 +473,8 @@ def main() -> int:
                 "gravnet_block_int8": gravnet_block_int8_cuda,
                 "knn_build": knn_build_cuda,
                 "knn_aggregate": knn_aggregate_cuda,
-                "edge_aggregate": edge_aggregate_cuda}
+                "edge_aggregate": edge_aggregate_cuda,
+                "flash_attention": flash_attention_cuda}
     plain_fns = {"fused_dense": ref.fused_dense_ref,
                  "gravnet_block": ref.gravnet_block_ref,
                  "fused_dense_int8": ref.fused_dense_int8_ref,
@@ -416,7 +482,8 @@ def main() -> int:
                  "gravnet_block_int8": ref.gravnet_block_int8_ref,
                  "knn_build": ref.knn_build_ref,
                  "knn_aggregate": ref.knn_aggregate_ref,
-                 "edge_aggregate": ref.edge_aggregate_ref}
+                 "edge_aggregate": ref.edge_aggregate_ref,
+                 "flash_attention": ref.flash_attention_blocked_ref}
 
     @contextmanager
     def substituted(fns):
@@ -434,6 +501,7 @@ def main() -> int:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        flash_attention_cuda.launches_by_blocks.clear()
 
     def read_counts():
         return {n: w.launches for n, w in wrappers.items()}
@@ -599,7 +667,31 @@ def main() -> int:
                          f"beside it computes another function (max|err|="
                          f"{lib_err.max().item():.3e})")
                 lib_ms = timer.device_ms(lib, 200)
-        ms = timer.device_ms(lambda: kern(*args, **kw), 200)
+        reps = 200
+        if name == "flash_attention":
+            # up to 17 ms a launch: ~0.4 s of launches per timing
+            reps = max(5, min(200, int(400.0 / timer.once_ms(
+                lambda: kern(*args, **kw)))))
+            # SDPA, top-left causal like the reference where S == T; a
+            # yardstick only: its f32 path may round otherwise, so it is
+            # held to 1e-3 (it computes the same function) and its error
+            # printed
+            q, k, v = args[:3]
+            causal = kw.get("causal", True)
+            if q.shape[1] == k.shape[1] or not causal:
+                def lib(q=q, k=k, v=v, causal=causal):
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal)
+                lib_err = (lib() - want).abs().max().item()
+                if not lib_err <= 1e-3:
+                    fail(f"{name} at {shape}: scaled_dot_product_attention "
+                         f"computes another function (max|err|="
+                         f"{lib_err:.3e})")
+                lib_ms = timer.device_ms(lib, reps)
+                lib_name = (f"F.scaled_dot_product_attention(is_causal="
+                            f"{causal}), f32, max|err| {lib_err:.3e} "
+                            "against the plain version")
+        ms = timer.device_ms(lambda: kern(*args, **kw), reps)
         plain_ms = timer.device_ms(lambda: plain(*args, **kw), 3)
         nbytes, ops = cost(name, args, kw)
         b_ms, b_by = bound(nbytes, ops)
@@ -1095,7 +1187,228 @@ def main() -> int:
              f"answered all 16 of their events: {answered}")
     say(f"phase 7 done at {time.perf_counter() - t_start:.1f}s")
 
-    # 8. the kernel line and the result ------------------------------------
+    # 8. the attention op and the tuning layer ------------------------------
+    from repro_torch.core.graph_ir import Graph, Operator
+    from repro_torch.core.pipeline import Requirements
+    from repro_torch.core.pipeline import deploy as deploy_graph
+    from repro_torch.tuning import (TuningCache, autotune_graph,
+                                    flash_attention_key,
+                                    graph_kernel_problems, warm_from_cache)
+    from repro_torch.tuning.candidates import flash_attention_candidates
+    t8 = time.perf_counter()
+    gen = torch.Generator().manual_seed(11)
+
+    def qkv(bh, s_len, t_len, d):
+        return [torch.randn(bh, n, d, generator=gen).to(dev)
+                for n in (s_len, t_len, t_len)]
+
+    def padded(q, k, v, bq, bk):
+        bq, bk = min(bq, q.shape[1]), min(bk, k.shape[1])
+        return ([kops._pad_rows(q, bq).contiguous(),
+                 kops._pad_rows(k, bk).contiguous(),
+                 kops._pad_rows(v, bk).contiguous()], bq, bk)
+
+    # (a) the kernel against its plain version, bitwise
+    for bh, s_len, t_len, d in ATTN_SHAPES:
+        args, bq, bk = padded(*qkv(bh, s_len, t_len, d), 128, 128)
+        check("shapes", 0, bh, "flash_attention", args,
+              {"causal": True, "bq": bq, "bk": bk}, bitwise=True)
+    base = qkv(8, 512, 512, 64)
+    check("shapes", 0, 8, "flash_attention", base,
+          {"causal": False, "bq": 128, "bk": 128}, bitwise=True)
+    q, k, v = qkv(8, 1000, 1000, 64)
+    args, bq, bk = padded(q, k, v, 128, 128)
+    check("shapes", 0, 8, "flash_attention", args,
+          {"causal": True, "bq": bq, "bk": bk}, bitwise=True)
+    cut = kops.flash_attention(q, k, v)
+    if not torch.equal(cut, ref.flash_attention_blocked_ref(
+            *args, bq=bq, bk=bk)[:, :1000]):
+        fail("ops.flash_attention at S = 1000: the padded kernel's output "
+             "cut to S differs from the plain version's")
+    cands = flash_attention_candidates(512, 512, 64)
+    for c in cands:
+        check("candidates", 0, 8, "flash_attention", base,
+              {"causal": True, **c}, bitwise=True)
+    for d in (64, 128):
+        for bq in (64, 128, 256):
+            for bk in (64, 128, 256):
+                if library_smem_bytes(bq, bk, d) != smem_bytes(bq, bk, d):
+                    fail(f"flash_attention_smem_bytes({bq}, {bk}, {d}) = "
+                         f"{library_smem_bytes(bq, bk, d)} in the library, "
+                         f"{smem_bytes(bq, bk, d)} in Python")
+    say(f"flash_attention: bitwise at {len(ATTN_SHAPES) + 2} shapes and "
+        f"{len(cands)} block plans {[(c['bq'], c['bk']) for c in cands]}; "
+        "shared-memory plans agree with the library")
+
+    # (b) the deployed attention graph
+    def attention_graph():
+        rng = np.random.default_rng(0)
+        g = Graph()
+        g.add(Operator(name="tok", op_type="input", out_dim=ATTN_D,
+                       attrs={"feature": "tok"}))
+        for nm in ("q", "k", "v"):
+            w = rng.normal(size=(ATTN_D, ATTN_D)) / np.sqrt(ATTN_D)
+            g.add(Operator(name=nm, op_type="linear", inputs=["tok"],
+                           params={"w": torch.tensor(w, dtype=torch.float32),
+                                   "b": torch.zeros(ATTN_D)},
+                           out_dim=ATTN_D))
+        g.add(Operator(name="attn", op_type="attention",
+                       inputs=["q", "k", "v"], attrs={"causal": True},
+                       out_dim=ATTN_D))
+        g.add(Operator(name="out", op_type="output", inputs=["attn"],
+                       attrs={"head_names": ["y"]}, out_dim=ATTN_D))
+        return g
+
+    attn_req = Requirements(design_point=3, platform="cpu",
+                            precision_policy="fp", n_hits=ATTN_N,
+                            target_throughput=1e3)
+
+    def deploy_attention(device=dev, cache=None):
+        return deploy_graph(attention_graph(), attn_req, batch=ATTN_BATCH,
+                            tuning_cache=cache, device=device)
+
+    apipe = pipes["attention"] = deploy_attention()
+    tok = np.random.default_rng(1).normal(
+        size=(ATTN_EVENTS, ATTN_N, ATTN_D)).astype(np.float32)
+    afeeds = {"tok": tok}
+    # the fusion pass merges the q, k, v denses, siblings on one input,
+    # into one wider dense and slices, as the reference's does
+    n_dense = sum(op.op_type in ("dense", "linear") for op in apipe.graph)
+    calls, per_chunk = record(apipe, {"tok": tok[:2 * ATTN_BATCH]})
+    per_chunk_calls["attention"] = [c[0] for c in calls[:per_chunk]]
+    if sorted(per_chunk_calls["attention"]) != ["flash_attention"] + [
+            "fused_dense"] * n_dense or n_dense == 0:
+        fail(f"an attention chunk calls {per_chunk_calls['attention']}, "
+             f"the graph has {n_dense} denses")
+    for pos in range(per_chunk):
+        check("attention", pos, ATTN_BATCH, *calls[pos],
+              bitwise=calls[pos][0] == "flash_attention")
+    del calls
+    serve.serve_events(apipe, {"tok": tok[:DISPATCH]})
+    torch.cuda.synchronize()
+    reset_counts()
+    ares, alat, aelapsed = serve.serve_events(apipe, afeeds)
+    launches = path_launches["attention"] = read_counts()
+    n_chunks = ATTN_EVENTS // ATTN_BATCH
+    want = dict.fromkeys(wrappers, 0)
+    want.update(flash_attention=n_chunks, fused_dense=n_dense * n_chunks)
+    by_blocks = dict(flash_attention_cuda.launches_by_blocks)
+    if launches != want or by_blocks != {(128, 128): n_chunks}:
+        fail(f"[attention] launch counts {launches} {by_blocks} != {want} "
+             f"(one flash_attention at (128, 128) and {n_dense} fused_dense "
+             "per micro-batch)")
+    y = ares["y"]
+    if y.shape != (ATTN_EVENTS, ATTN_N, ATTN_D) or not np.isfinite(y).all():
+        fail(f"attention output: shape {y.shape} or non-finite")
+    with substituted(plain_fns):
+        plain_y = serve.serve_events(apipe, afeeds)[0]["y"]
+    if not np.array_equal(y, plain_y):
+        fail(f"attention output: kernels vs plain versions max|err|="
+             f"{np.abs(y - plain_y).max():.3e}, not bitwise")
+    cpu_y = serve.serve_events(deploy_attention("cpu"), afeeds)[0]["y"]
+    err = np.abs(y - cpu_y.astype(np.float64))
+    if (err > ATOL + RTOL * np.abs(cpu_y)).any():
+        fail(f"attention output: max|err| {err.max():.3e} against "
+             f"device='cpu' (tolerance {ATOL:g} + {RTOL:g}·|cpu|)")
+    say(f"[attention] served {ATTN_EVENTS} events (n {ATTN_N}, d {ATTN_D}) "
+        f"in {n_chunks} micro-batches of {ATTN_BATCH}: launches {launches}; "
+        f"output bitwise equal to the plain-substituted deployment, max|err|"
+        f" {err.max():.3e} against device='cpu'")
+    rate("attention, design point 3, fp, batch 8", ATTN_EVENTS, alat,
+         aelapsed)
+    idle_share(lambda: serve.serve_events(apipe, {"tok": tok[:DISPATCH]}),
+               f"attention dispatches of {DISPATCH} events", "_attention")
+
+    # (c) tuning: search, bind, launch, persist, warm
+    cache = TuningCache()
+    buf = io.StringIO()
+    t_tune = time.perf_counter()
+    with redirect_stdout(buf):
+        n_att = autotune_graph(apipe.graph, n_rows=ATTN_N, backend="cuda",
+                               cache=cache, batch=ATTN_BATCH, verbose=True)
+        n_ccn = autotune_graph(pipes["mixed"].graph, n_rows=cfg.n_hits,
+                               backend="cuda", cache=cache, verbose=True)
+    for line in buf.getvalue().splitlines():
+        say(f"  {line}")
+    keys = (graph_kernel_problems(apipe.graph, n_rows=ATTN_N,
+                                  backend="cuda", batch=ATTN_BATCH)
+            + graph_kernel_problems(pipes["mixed"].graph,
+                                    n_rows=cfg.n_hits, backend="cuda"))
+    if n_att + n_ccn != len(set(keys)) or set(cache.entries()) != set(keys):
+        fail(f"autotune_graph tuned {n_att} + {n_ccn} problems, the "
+             f"deployments emit {len(set(keys))}")
+    fkey = flash_attention_key(ATTN_BATCH, ATTN_N, ATTN_N, ATTN_D,
+                               "float32", "cuda")
+    fentry = cache.entry(fkey)
+    if fentry is None or fentry.candidates != len(cands):
+        fail(f"flash_attention's entry {fentry} did not search the "
+             f"{len(cands)} kept plans")
+    winner = (fentry.config["bq"], fentry.config["bk"])
+    say(f"tuned {len(cache)} problems in {time.perf_counter() - t_tune:.1f}s"
+        f"; flash_attention {fkey.encode()}: winner bq,bk={winner} "
+        f"{fentry.us:.1f}us against the default's {fentry.default_us:.1f}us "
+        f"(host clock, synchronized; {fentry.candidates} plans)")
+    tpipe = deploy_attention(cache=cache)
+    knobs = tpipe.graph["attn"].attrs_opt
+    if (knobs.get("bq"), knobs.get("bk")) != winner:
+        fail(f"the redeployed attention op binds {knobs}, the cache's "
+             f"winner is {winner}")
+    reset_counts()
+    ty = serve.serve_events(tpipe, {"tok": tok[:DISPATCH]})[0]["y"]
+    by_blocks = dict(flash_attention_cuda.launches_by_blocks)
+    if by_blocks != {winner: DISPATCH // ATTN_BATCH}:
+        fail(f"the tuned deployment launched {by_blocks}, not the winner "
+             f"{winner}")
+    terr = np.abs(ty - y[:DISPATCH].astype(np.float64))
+    if (terr > ATOL + RTOL * np.abs(y[:DISPATCH])).any():
+        fail(f"the tuned deployment's output: max|err| {terr.max():.3e} "
+             "against the untuned one")
+    cache_path = OUT / "tuning_cache.json"
+    cache.save(cache_path)
+    back = TuningCache.load(cache_path)
+    if back.load_error or {k: e.to_json() for k, e in back.entries().items()} \
+            != {k: e.to_json() for k, e in cache.entries().items()}:
+        fail(f"tuning cache round trip: {back.load_error or 'entries differ'}")
+    warmed = warm_from_cache(back)
+    if warmed != len(back):
+        fail(f"warm_from_cache warmed {warmed} of {len(back)} entries")
+    say(f"the redeployed attention op binds and launches {winner} "
+        f"({by_blocks}); output within the float32 row of the untuned "
+        f"deployment (max|err| {terr.max():.3e}); cache saved to "
+        f"{cache_path.relative_to(ROOT)} and loaded back equal; "
+        f"warm_from_cache warmed {warmed} of {len(back)}")
+
+    # (d) the serve entry point: tune and save, then bind from the file
+    serve_cache = OUT / "serve_tuning_cache.json"
+    serve_cache.unlink(missing_ok=True)
+    outs = []
+    for extra in (["--tune"], []):
+        buf = io.StringIO()
+        try:
+            with redirect_stdout(buf):
+                rc = serve.main(extra + ["--tuning-cache", str(serve_cache),
+                                         "--events", str(ATTN_EVENTS)])
+        except SystemExit as e:
+            rc = e.code
+        for line in buf.getvalue().splitlines():
+            say(f"  {line}")
+        if rc != 0 or f"answered={ATTN_EVENTS} in-order=True" \
+                not in buf.getvalue():
+            fail(f"serve {' '.join(extra)} --tuning-cache: exit {rc}, not "
+                 f"every one of {ATTN_EVENTS} events answered")
+        outs.append(buf.getvalue())
+    n_saved = len(TuningCache.load(serve_cache))
+    if not re.search(r"autotuned [1-9]\d* kernel problem", outs[0]) \
+            or "autotuned" in outs[1] or "[tune]" in outs[1] \
+            or f"{n_saved} of {n_saved} kernel problems bound" not in outs[1]:
+        fail("serve --tune then --tuning-cache: the first run must search "
+             "and save, the second bind every problem without searching")
+    say(f"serve: --tune searched and saved {n_saved} problems; the run on "
+        "the saved cache bound all of them without searching")
+    say(f"phase 8 done at {time.perf_counter() - t_start:.1f}s "
+        f"({time.perf_counter() - t8:.1f}s)")
+
+    # 9. the kernel line and the result ------------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)
@@ -1104,7 +1417,8 @@ def main() -> int:
             "gravnet_aggregate": ["mixed_no_fuse_int8", "fp_dp1"],
             "knn_build": ["ragged", "ragged_dp1"],
             "knn_aggregate": ["ragged", "ragged_dp1"],
-            "edge_aggregate": ["gatedgcn", "graphsage"]}
+            "edge_aggregate": ["gatedgcn", "graphsage"],
+            "flash_attention": ["attention"]}
     line = []
     for name, meta in KERNELS.items():
         path = home[name][0]

@@ -3,22 +3,25 @@
 Counterpart of ``repro/core/op_registry.py``, holding the op types the
 port's graphs use: ``input``/``output``, ``linear``/``dense``,
 ``relu``, ``concat``, ``slice``, ``retile``, ``gravnet_aggregate``,
-``gravnet_block``, ``cps``, the ragged path's ``knn_build`` and
-``knn_aggregate``, and the edge-based GNNs' ``gather_edge``,
-``edge_aggregate``, ``eltwise`` and ``batchnorm``. Each
+``gravnet_block``, ``cps``, ``attention``, the ragged path's
+``knn_build`` and ``knn_aggregate``, and the edge-based GNNs'
+``gather_edge``, ``edge_aggregate``, ``eltwise`` and ``batchnorm``. Each
 :class:`OpSpec` says whether the op's access pattern is regular
 (MXU-eligible), which template it maps to per target, how to infer its
-output feature dim, its analytic cost, and how the kernel-opt pass
-binds its launch knobs. The specs, cost
-formulas and binders are the reference's, so the port's passes emit the
-reference's graphs. The reference's tuning-cache lookups are left out:
-the port has no tuning cache yet, so every binding is the heuristic.
+output feature dim, its analytic cost, how the kernel-opt pass binds its
+launch knobs and which tuning-cache key its launch has. The specs, cost
+formulas, binders and keys are the reference's, so the port's passes
+emit the reference's graphs and tuning problems: a cached winner
+(``repro_torch.tuning``) beats the heuristic, and a miss keeps the
+heuristic binding, so an empty cache binds exactly what no cache does.
+The port's keys carry the backend ``"cuda"`` or ``"cpu"``, so entries
+that the reference tuned for its own backends never bind here.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Any, Callable
 
 
 class GraphVerificationError(ValueError):
@@ -34,6 +37,8 @@ class BindContext:
     """What the kernel-opt pass knows when binding launch knobs."""
     n_rows: int
     batch: int = 1
+    cache: Any = None        # repro_torch.tuning.cache.TuningCache | None
+    backend: str = "cuda"    # the key's backend: 'cuda' | 'cpu'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +49,7 @@ class OpSpec:
     ``cost(op, n_hits, pb)``   -> (flops, act_bytes, weight_bytes)
     ``mxu_eff(op, rows, n)``   -> fraction of MXU peak (matmuls only)
     ``bind(op, ctx)``          -> write launch knobs into op.attrs_opt
+    ``tuning_key(op, n, be, b)``-> KernelKey | None (autotuner problems)
     ``int8_passthrough``       -> an int8 producer may hand this op its
                                   output in int8 (kernel-opt step 3)
     """
@@ -56,6 +62,7 @@ class OpSpec:
     mxu_matmul: bool = False         # cost model treats it as a matmul
     mxu_eff: Callable | None = None
     bind: Callable | None = None
+    tuning_key: Callable | None = None
     int8_passthrough: bool = False   # int8 chain fusion may emit through it
 
 
@@ -218,6 +225,18 @@ def _infer_gravnet_block(op, dims, g):
     return int(op.params["wo"].shape[1])
 
 
+def _infer_attention(op, dims, g):
+    ins = op.inputs
+    if len(ins) != 3:
+        raise GraphVerificationError(
+            f"{op.name}: needs (q, k, v) inputs")
+    if len({dims[i] for i in ins}) != 1:
+        raise GraphVerificationError(
+            f"{op.name}: q/k/v dims differ: "
+            f"{[dims[i] for i in ins]}")
+    return dims[ins[0]]
+
+
 def _infer_cps(op, dims, g):
     heads = op.attrs.get("head_names", [])
     # ragged form (passes/ragged.py) consumes (heads..., segids, slots)
@@ -351,6 +370,13 @@ def _cost_gravnet_block(op, n_hits, pb):
     return flops, act, wb
 
 
+def _cost_attention(op, n_hits, pb):
+    d = op.out_dim or 1
+    flops = 4.0 * n_hits * n_hits * d + 10.0 * n_hits * n_hits
+    act = n_hits * 4.0 * d * pb
+    return flops, act, 0.0
+
+
 def _cost_cps(op, n_hits, pb):
     kmax = op.attrs.get("k_max", 8)
     flops = 20.0 * n_hits * kmax + 10.0 * n_hits * math.log2(max(n_hits, 2))
@@ -433,20 +459,36 @@ def _eff_gravnet(op, n_rows, n_hits):
     return (min(n_hits, 128) / 128.0) * (min(df, 128) / 128.0)
 
 
+def _eff_attention(op, n_rows, n_hits):
+    d = op.out_dim or 128
+    return (min(n_hits, 128) / 128.0) * (min(d, 128) / 128.0)
+
+
 # ========================================================================
-# kernel-opt binders
+# kernel-opt binders + tuning-cache problem keys
 # ========================================================================
 def _bind_fused_dense(op, ctx: BindContext):
-    """Variant selection / block shape for the fused_dense template —
-    see passes/kernel_opt.py."""
+    """Variant selection / block shape for the fused_dense template
+    (cached winner > heuristic) — see passes/kernel_opt.py. On the card
+    one ``fused_dense`` kernel serves every variant, so the binding
+    changes the graph (and the reference's graph equality holds) but
+    not the launch."""
     from repro_torch.core.passes.kernel_opt import (FLATTEN_DIM,
                                                     FLATTEN_ROWS,
+                                                    _FUSED_DENSE_KNOBS,
                                                     _pick_block,
                                                     fused_dense_shape)
     if op.template != "fused_dense":
         return
     rows, d_in, d_out = fused_dense_shape(op, ctx.n_rows, ctx.batch)
-    if rows <= FLATTEN_ROWS and max(d_in, d_out) <= FLATTEN_DIM:
+    tuned = None if ctx.cache is None else ctx.cache.lookup(
+        _key_fused_dense(op, ctx.n_rows, ctx.backend, ctx.batch))
+    if tuned is not None:
+        for knob in _FUSED_DENSE_KNOBS:
+            if knob in tuned:
+                op.attrs_opt[knob] = tuned[knob]
+        op.attrs_opt["tuned"] = True     # provenance, as the reference's
+    elif rows <= FLATTEN_ROWS and max(d_in, d_out) <= FLATTEN_DIM:
         op.attrs_opt["variant"] = "flattened"
     else:
         op.attrs_opt["variant"] = "looped"
@@ -455,9 +497,109 @@ def _bind_fused_dense(op, ctx: BindContext):
         op.attrs_opt["bk"] = _pick_block(d_in, 2048)
 
 
-# templates whose binder is picked by the *template* the mapper chose,
-# not the op type (a dense on the xla target binds nothing)
+def _bind_cached(op, ctx, key, knobs):
+    """Copy ``knobs`` of the cached winner for ``key`` into attrs_opt; a
+    miss (or no cache) leaves attrs_opt untouched."""
+    tuned = ctx.cache.lookup(key) if ctx.cache is not None else None
+    if tuned is not None:
+        for knob in knobs:
+            if knob in tuned:
+                op.attrs_opt[knob] = tuned[knob]
+
+
+def _bind_gravnet_aggregate(op, ctx: BindContext):
+    # cache-only: the kernel's own default is the heuristic
+    _bind_cached(op, ctx, _key_gravnet_aggregate(op, ctx.n_rows, ctx.backend,
+                                                 ctx.batch), ("bm",))
+
+
+def _bind_gravnet_block(op, ctx: BindContext):
+    # cache-only (bm, bn, bk); an int8 block keys with its own
+    # gravnet_block_int8 family, so f32 and int8 winners never cross
+    _bind_cached(op, ctx, _key_gravnet_block(op, ctx.n_rows, ctx.backend,
+                                             ctx.batch), ("bm", "bn", "bk"))
+
+
+def _bind_attention(op, ctx: BindContext):
+    # cache-only (bq, bk); a miss keeps ops.flash_attention's (128, 128)
+    _bind_cached(op, ctx, _key_attention(op, ctx.n_rows, ctx.backend,
+                                         ctx.batch), ("bq", "bk"))
+
+
+def _bind_edge_aggregate(op, ctx: BindContext):
+    _bind_cached(op, ctx, _key_edge_aggregate(op, ctx.n_rows, ctx.backend,
+                                              ctx.batch), ("bm", "be"))
+
+
+def _bind_knn_build(op, ctx: BindContext):
+    _bind_cached(op, ctx, _key_knn_build(op, ctx.n_rows, ctx.backend,
+                                         ctx.batch), ("bm",))
+
+
+def _bind_knn_aggregate(op, ctx: BindContext):
+    _bind_cached(op, ctx, _key_knn_aggregate(op, ctx.n_rows, ctx.backend,
+                                             ctx.batch), ("bm",))
+
+
+def _key_fused_dense(op, n_rows, backend, batch):
+    from repro_torch.core.passes.kernel_opt import (fused_dense_dtype,
+                                                    fused_dense_shape)
+    from repro_torch.tuning.cache import fused_dense_key
+    rows, d_in, d_out = fused_dense_shape(op, n_rows, batch)
+    return fused_dense_key(rows, d_in, d_out, fused_dense_dtype(op),
+                           backend)
+
+
+def _key_gravnet_aggregate(op, n_rows, backend, batch):
+    from repro_torch.tuning.cache import gravnet_key
+    return gravnet_key(n_rows, op.attrs["d_s"], op.attrs["d_f"],
+                       op.attrs["k"], "float32", backend, batch=batch)
+
+
+def _key_gravnet_block(op, n_rows, backend, batch):
+    from repro_torch.tuning.cache import (gravnet_block_int8_key,
+                                          gravnet_block_key)
+    if op.precision == "int8":
+        return gravnet_block_int8_key(n_rows, op.attrs["d_hidden"],
+                                      op.attrs["d_f"], op.attrs["k"],
+                                      backend, batch=batch)
+    return gravnet_block_key(n_rows, op.attrs["d_hidden"],
+                             op.attrs["d_f"], op.attrs["k"],
+                             "float32", backend, batch=batch)
+
+
+def _key_attention(op, n_rows, backend, batch):
+    # the executor launches one (B, N, d) flash call per micro-batch:
+    # bh = the packed batch, s = t = n_rows
+    from repro_torch.tuning.cache import flash_attention_key
+    return flash_attention_key(batch, n_rows, n_rows, op.out_dim or 128,
+                               "float32", backend)
+
+
+def _key_edge_aggregate(op, n_rows, backend, batch):
+    from repro_torch.tuning.cache import edge_aggregate_key
+    return edge_aggregate_key(n_rows, _n_edges(op, n_rows),
+                              op.out_dim or 1, "float32", backend,
+                              batch=batch)
+
+
+def _key_knn_build(op, n_rows, backend, batch):
+    from repro_torch.tuning.cache import knn_build_key
+    return knn_build_key(n_rows, op.attrs["d_s"], op.attrs["k"],
+                         "float32", backend, batch=batch)
+
+
+def _key_knn_aggregate(op, n_rows, backend, batch):
+    from repro_torch.tuning.cache import knn_aggregate_key
+    return knn_aggregate_key(n_rows, op.attrs["d_f"], op.attrs["k"],
+                             "float32", backend, batch=batch)
+
+
+# templates whose binder / tuning key is picked by the *template* the
+# mapper chose, not the op type (a dense on the xla target binds nothing
+# and has no tuning problem)
 TEMPLATE_BINDERS = {"fused_dense": _bind_fused_dense}
+TEMPLATE_TUNING_KEYS = {"fused_dense": _key_fused_dense}
 
 
 def bind_kernels(op, ctx: BindContext) -> None:
@@ -470,6 +612,17 @@ def bind_kernels(op, ctx: BindContext) -> None:
     spec = require_spec(op)
     if spec.bind is not None:
         spec.bind(op, ctx)
+
+
+def tuning_problem(op, *, n_rows: int, backend: str, batch: int = 1):
+    """The tuning-cache key this op's bound kernel launches with, or
+    None for ops with no searchable launch config."""
+    keyer = TEMPLATE_TUNING_KEYS.get(op.template)
+    if keyer is None:
+        keyer = require_spec(op).tuning_key
+    if keyer is None:
+        return None
+    return keyer(op, n_rows, backend, batch)
 
 
 # ========================================================================
@@ -506,17 +659,25 @@ register_op(OpSpec(
     "retile", regular=True, templates=_both("xla_retile"),
     infer=_infer_retile, cost=_cost_eltwise_like))
 register_op(OpSpec(
+    "attention", regular=True,
+    templates={"mxu": "flash_attention", "xla": "xla_attention"},
+    infer=_infer_attention, cost=_cost_attention, mxu_matmul=True,
+    mxu_eff=_eff_attention, bind=_bind_attention,
+    tuning_key=_key_attention))
+register_op(OpSpec(
     "gravnet_aggregate", tpu_native_regular=True,
     templates={"mxu": "gravnet_kernel", "xla": "xla_gravnet"},
     infer=_infer_gravnet_aggregate, cost=_cost_gravnet_aggregate,
-    mxu_matmul=True, mxu_eff=_eff_gravnet))
+    mxu_matmul=True, mxu_eff=_eff_gravnet,
+    bind=_bind_gravnet_aggregate, tuning_key=_key_gravnet_aggregate))
 register_op(OpSpec(
     # the fused dense→aggregate→dense block carries the aggregation's
     # data-dependent selection, so it classifies like gravnet_aggregate
     "gravnet_block", tpu_native_regular=True,
     templates={"mxu": "gravnet_block_kernel", "xla": "xla_gravnet_block"},
     infer=_infer_gravnet_block, cost=_cost_gravnet_block,
-    mxu_matmul=True, mxu_eff=_eff_gravnet))
+    mxu_matmul=True, mxu_eff=_eff_gravnet,
+    bind=_bind_gravnet_block, tuning_key=_key_gravnet_block))
 register_op(OpSpec(
     "cps", templates=_both("xla_cps"),
     infer=_infer_cps, cost=_cost_cps))
@@ -524,18 +685,19 @@ register_op(OpSpec(
 # --- the ragged, padding-free path (passes/ragged.py) -------------------
 # Both kNN ops classify like gravnet_aggregate. Their templates exchange
 # compact tensors on both targets: knn_build's value is an (idx, d2)
-# tuple, on which no retile may ever land. They bind no launch knob (the
-# reference's binders only read a tuning cache, which the port lacks).
+# tuple, on which no retile may ever land. Their binders are cache-only.
 register_op(OpSpec(
     "knn_build", tpu_native_regular=True,
     templates={"mxu": "knn_build_kernel", "xla": "xla_knn_build"},
     infer=_infer_knn_build, cost=_cost_knn_build,
-    mxu_matmul=True, mxu_eff=_eff_gravnet))
+    mxu_matmul=True, mxu_eff=_eff_gravnet,
+    bind=_bind_knn_build, tuning_key=_key_knn_build))
 register_op(OpSpec(
     "knn_aggregate", tpu_native_regular=True,
     templates={"mxu": "knn_agg_kernel", "xla": "xla_knn_agg"},
     infer=_infer_knn_aggregate, cost=_cost_knn_aggregate,
-    mxu_matmul=True, mxu_eff=_eff_gravnet))
+    mxu_matmul=True, mxu_eff=_eff_gravnet,
+    bind=_bind_knn_aggregate, tuning_key=_key_knn_aggregate))
 
 # --- edge-based message passing (GatedGCN / GraphSAGE) ------------------
 register_op(OpSpec(
@@ -546,13 +708,13 @@ register_op(OpSpec(
 register_op(OpSpec(
     # masked segment sum/mean of per-edge messages into node slots (the
     # edge_aggregate kernel on either target); like gravnet_aggregate it
-    # reclassifies as regular under tpu_native_gravnet. The reference's
-    # binder reads only the tuning cache (bm, be), which the port lacks,
-    # so it binds nothing.
+    # reclassifies as regular under tpu_native_gravnet. Cache-only (bm,
+    # be) binder.
     "edge_aggregate", tpu_native_regular=True,
     templates={"mxu": "edge_aggregate_kernel",
                "xla": "xla_edge_aggregate"},
-    infer=_infer_edge_aggregate, cost=_cost_edge_aggregate))
+    infer=_infer_edge_aggregate, cost=_cost_edge_aggregate,
+    bind=_bind_edge_aggregate, tuning_key=_key_edge_aggregate))
 register_op(OpSpec(
     "eltwise", regular=True, templates=_both("xla_eltwise"),
     infer=_infer_eltwise, cost=_cost_eltwise_like))

@@ -8,7 +8,13 @@ Counterpart of ``repro/core/passes/kernel_opt.py``, three of its steps:
    'looped' variant with (bm, bn, bk) blocks. On the card one
    ``fused_dense`` kernel serves both variants, so the binding changes
    the graph (and the reference's graph equality holds) but not the
-   launch; it is kept for when the variants differ on the card.
+   launch; it is kept for when the variants differ on the card. With a
+   tuning cache (``repro_torch.tuning``), a cached winner for the exact
+   (kernel, shape, dtype, backend) problem beats the heuristic: the
+   dense's variant and blocks, the attention op's (bq, bk), which the
+   executor hands to the flash kernel, and the other kernels' knobs,
+   which their CUDA sources do not read yet. A miss keeps the heuristic,
+   so an empty cache binds exactly what no cache does.
 2. **Retile cancellation**: adjacent retiles that undo each other are
    bypassed.
 3. **Int8 chain fusion**: inside an 8-bit partition, a dense whose
@@ -27,6 +33,8 @@ from repro_torch.core.op_registry import (BindContext, bind_kernels,
 
 FLATTEN_ROWS = 512        # rows (hits × microbatch) below which we flatten
 FLATTEN_DIM = 1024        # max feature dim for the flattened variant
+
+_FUSED_DENSE_KNOBS = ("variant", "bm", "bn", "bk")
 
 
 def _pick_block(v: int, cap: int) -> int:
@@ -48,11 +56,26 @@ def fused_dense_shape(op, n_rows: int, batch: int = 1) -> tuple[int, int, int]:
     return rows, d_in, d_out
 
 
-def kernel_optimize(g: Graph, *, n_rows: int = 128, batch: int = 1) -> Graph:
+def fused_dense_dtype(op) -> str:
+    """The dtype the executor runs this dense in (its tuning key's)."""
+    if op.precision == "int8":
+        return "int8"
+    if op.precision == "bf16":
+        return "bf16"
+    return "float32"
+
+
+def kernel_optimize(g: Graph, *, n_rows: int = 128, batch: int = 1,
+                    tuning_cache=None, backend: str = "cuda") -> Graph:
+    """``n_rows`` is the per-event graph size, ``batch`` the packed
+    micro-batch width (1 = per-event shapes and keys); ``backend`` is
+    the tuning keys' ('cuda' or 'cpu')."""
     g = g.clone()
 
-    # 1. per-op kernel binding, dispatched through the registry
-    ctx = BindContext(n_rows=n_rows, batch=batch)
+    # 1. per-op kernel binding, dispatched through the registry (cached
+    # winner > heuristic; a miss leaves the heuristic binding)
+    ctx = BindContext(n_rows=n_rows, batch=batch, cache=tuning_cache,
+                      backend=backend)
     for op in g:
         bind_kernels(op, ctx)
 

@@ -37,6 +37,13 @@ and ``batchnorm`` ops run in plain PyTorch (the reference's XLA
 templates), every ``edge_aggregate`` launches the ``edge_aggregate``
 kernel over the micro-batch, with ``req.n_hits`` nodes per graph.
 
+An ``attention`` op (q, k, v) launches the ``flash_attention`` kernel
+once per micro-batch, over the graph's (events, rows, d) tensors, with
+the (bq, bk) blocks that kernel_opt bound (a tuning cache's winner) or
+the kernel's defaults. ``deploy(..., tuning_cache=...)`` binds every
+cached winner whose key matches (``repro_torch.tuning``); the
+executable's ``backend`` ("cuda" or "cpu") is the backend of its keys.
+
 What the reference compiles, the port runs eagerly: the P-chunking
 ``lax.map`` is a Python loop, the whole-pipeline ``jax.jit`` is a plain
 call of the segments in order (CUDA graphs are later work). Fused
@@ -158,6 +165,8 @@ class _Executor:
             out = self._knn_aggregate(op, vals)
         elif t == "gravnet_block":
             out = self._gravnet_block(op, vals, prec)
+        elif t == "attention":
+            out = self._attention(op, vals)
         elif t == "gather_edge":
             out = self._gather_edge(op, vals)
         elif t == "edge_aggregate":
@@ -275,6 +284,17 @@ class _Executor:
         return kops.gravnet_block_batched(
             xf, mask, p["ws"], p["bs"], p["wf"], p["bf"], p["wo"], p["bo"],
             **kw)
+
+    def _attention(self, op, vals):
+        """Blockwise attention over the micro-batch, one launch: q, k, v
+        are (B, N, d) in f32, the op's bound (bq, bk) if any."""
+        d = op.out_dim
+        q, k, v = (_as_fp(t)[..., :d].contiguous() for t in vals)
+        kw = {kn: op.attrs_opt[kn] for kn in ("bq", "bk")
+              if kn in op.attrs_opt}
+        return kops.flash_attention(q, k, v,
+                                    causal=op.attrs.get("causal", True),
+                                    **kw)
 
     def _endpoints(self, ei):
         """(src, dst) of an edge list (B,2,E) as int64 gather indices,
@@ -404,11 +424,14 @@ class CompiledPipeline:
 
     ``batch > 1`` pins a batch-packed executable: ``batch`` events per
     chunk, each segment running the whole chunk at once (no P-chunking).
+    ``backend`` names the kernels' route for the tuning layer: "cuda"
+    (the hand-written kernels) or "cpu" (their plain versions).
     """
 
     def __init__(self, graph: Graph, device: torch.device, *,
                  batch: int = 1):
         self.device = device
+        self.backend = backend_of(device)
         self.graph = graph.clone()
         for op in self.graph:   # weights move to the device once
             if op.params:
@@ -536,9 +559,15 @@ class CompiledPipeline:
 
 
 # ----------------------------------------------------------------- deploy ----
+def backend_of(device: torch.device) -> str:
+    """The tuning-key backend of a device: the kernels on ``cuda``,
+    their plain versions on the CPU."""
+    return "cuda" if device.type == "cuda" else "cpu"
+
+
 def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
-           fuse_gravnet_block: bool = True, fuse_int8: bool = True,
-           batch: int = 1, ragged: bool = False,
+           tuning_cache=None, fuse_gravnet_block: bool = True,
+           fuse_int8: bool = True, batch: int = 1, ragged: bool = False,
            max_events: int | None = None, device=None):
     """Run the design flow and emit one executable on ``device``
     (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA).
@@ -563,7 +592,12 @@ def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
     ``knn_aggregate``. ``batch`` then counts bins per launch, and
     ``max_events`` (default ``2 * batch``) the events one launch's CPS
     holds; a call with more is split into launches, never truncated.
-    Returns a :class:`RaggedPipeline`."""
+    Returns a :class:`RaggedPipeline`.
+
+    ``tuning_cache`` (a ``repro_torch.tuning.TuningCache``) binds, at
+    design point 3, every cached winner whose key (kernel, shape, dtype,
+    and the backend of ``device``) matches an op's launch; a miss keeps
+    the heuristic binding."""
     device = resolve_device(device)
     if req.precision_policy not in ("fp", "mixed"):
         raise ValueError(f"unknown precision policy "
@@ -597,7 +631,9 @@ def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
                                      "model_throughput_ev_s": None,
                                      "target": req.target_throughput}
     if req.design_point >= 3:
-        g = kernel_optimize(g, n_rows=req.n_hits, batch=batch)
+        g = kernel_optimize(g, n_rows=req.n_hits, batch=batch,
+                            tuning_cache=tuning_cache,
+                            backend=backend_of(device))
     g.meta["n_hits"] = req.n_hits   # nodes per graph of edge_aggregate
     pipe = CompiledPipeline(g, device, batch=batch)
     if mixed:
@@ -631,6 +667,7 @@ class RaggedPipeline:
             raise ValueError("RaggedPipeline needs a raggedized graph "
                              "(deploy(ragged=True) builds one)")
         self.pipe = pipe
+        self.backend = pipe.backend
         # bins per launch = the executable's micro-batch, so every launch
         # is exactly one chunk (a zero pad bin would alias segment id 0)
         self.microbatch = int(pipe.microbatch)

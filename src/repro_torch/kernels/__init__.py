@@ -18,6 +18,9 @@
 - ``edge_aggregate``     : the edge-based GNNs' masked segment sum/mean
                            of edge messages into their destination nodes
                            (``csrc/edge_aggregate.cu``).
+- ``flash_attention``    : blockwise streaming-softmax attention, the
+                           ``attention`` op's kernel, its (bq, bk) blocks
+                           tunable (``csrc/flash_attention.cu``).
 
 The five GravNet and kNN kernels share the cell in
 ``csrc/gravnet_cell.cuh``: the whole of it, or its selection or its

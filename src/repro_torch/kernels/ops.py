@@ -5,14 +5,18 @@ The device of the tensors decides the route, and nothing else does: a
 CPU tensor goes to the plain PyTorch version (``kernels/ref.py``), a
 CUDA tensor to the hand-written kernel, which raises on what it does
 not take. There is no backend switch and no fallback. The kernels mask
-ragged shapes themselves, so no wrapper pads.
+ragged shapes themselves, so no wrapper pads, except
+:func:`flash_attention`, which pads S and T to its blocks as the
+reference's wrapper does.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.edge_aggregate import edge_aggregate_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_dense import (fused_dense_cuda,
                                              fused_dense_int8_cuda)
 from repro_torch.kernels.gravnet import gravnet_aggregate_cuda
@@ -194,3 +198,32 @@ def edge_aggregate(messages, edge_index, n_nodes, edge_mask=None, *,
     mask = None if edge_mask is None else edge_mask[None]
     return edge_aggregate_batched(messages[None], edge_index[None], n_nodes,
                                   mask, reduce=reduce)[0]
+
+
+def _pad_rows(x, block):
+    """Zero-pad axis 1 of x:(BH, L, D) up to a multiple of ``block``."""
+    return F.pad(x, (0, 0, 0, (-x.shape[1]) % block))
+
+
+def flash_attention(q, k, v, *, causal=True, bq=128, bk=128):
+    """Blockwise (flash) attention. q:(BH,S,D), k/v:(BH,T,D) f32 ->
+    (BH,S,D). The reference wrapper's contract: the blocks shrink to
+    ``min(bq, S)`` and ``min(bk, T)``, q, k and v are zero-padded to them
+    and the output is cut back to S; a non-causal call whose T is not a
+    multiple of bk raises ``ValueError``. Under causal the padded keys
+    are not masked beyond the causal rule, as in the reference: where
+    S > T, a padded key whose index is at most the row's joins that
+    row's softmax with score 0 and value 0."""
+    s, t = q.shape[1], k.shape[1]
+    bq, bk = min(bq, s), min(bk, t)
+    if t % bk and not causal:
+        raise ValueError("non-causal flash requires T % bk == 0")
+    qp = _pad_rows(q, bq).contiguous()
+    kp = _pad_rows(k, bk).contiguous()
+    vp = _pad_rows(v, bk).contiguous()
+    if q.device.type == "cpu":
+        y = _ref.flash_attention_blocked_ref(qp, kp, vp, causal=causal,
+                                             bq=bq, bk=bk)
+    else:
+        y = flash_attention_cuda(qp, kp, vp, causal=causal, bq=bq, bk=bk)
+    return y[:, :s]

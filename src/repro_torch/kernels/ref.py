@@ -16,6 +16,7 @@ division, rounding half to even) keeps the kernels' order.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.quantization import QMAX, f32, quantize_act
 
@@ -278,3 +279,96 @@ def edge_aggregate_ref(messages, dst, mask, *, n_nodes, reduce="sum"):
     if reduce == "mean":
         acc = acc / torch.clamp_min(cnt, 1.0)[..., None]
     return acc
+
+
+# -------------------------------------------------------- flash attention ----
+def flash_attention_ref(q, k, v, *, causal=True):
+    """Plain softmax attention over the whole score matrix, the
+    reference's oracle. q:(BH,S,D), k/v:(BH,T,D) -> (BH,S,D); under
+    ``causal`` key t joins row s when t <= s (top-left aligned), a masked
+    score is -1e30."""
+    d = q.shape[-1]
+    s = torch.einsum("bsd,btd->bst", q.float(), k.float()) / torch.sqrt(
+        torch.tensor(d, dtype=torch.float32))
+    if causal:
+        sq, t = q.shape[1], k.shape[1]
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None])
+        s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
+
+
+def _lane_butterfly(x):
+    """The warp's xor butterfly (16, 8, 4, 2, 1) over the last axis of 32
+    lane partials: each step adds a lane and its partner, which both
+    then hold the same sum."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def flash_attention_blocked_ref(q, k, v, *, causal=True, bq=128, bk=128):
+    """Blockwise attention in the kernel's order (``csrc/
+    flash_attention.cu``). q:(BH,S,D), k/v:(BH,T,D) f32 with S % bq == 0
+    and T % bk == 0 -> (BH,S,D).
+
+    Per q block, the kv blocks of bk keys in increasing order, skipping
+    under ``causal`` those with ki*bk > qi*bq + bq - 1, carrying the
+    running max m (from -1e30), the denominator l and the accumulator:
+    scores as d-ordered sums of separately rounded products, times
+    f32(1/√D), the causal fill -1e30; m_new = max(m, rowmax);
+    p = exp(s - m_new); l = l·exp(m - m_new) + Σp, where Σp sums each
+    lane's keys (c, c + 32, ...) in order and then the 32 lanes by the
+    warp's butterfly; acc = acc·exp(m - m_new) + Σ_c p_c v_c in c order;
+    out = acc / max(l, 1e-30). The q blocks that a kv block reaches are
+    a suffix of the rows, so each kv block updates that suffix at once.
+    The blocks change the rounding, so they are arguments."""
+    bh, s_len, d = q.shape
+    t_len = k.shape[1]
+    if s_len % bq or t_len % bk:
+        raise ValueError(f"S={s_len}, T={t_len} are not multiples of "
+                         f"bq={bq}, bk={bk}")
+    dev = q.device
+    q, k, v = q.float(), k.float(), v.float()
+    scale = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32, device=dev)
+    lanes = -(-bk // 32) * 32
+    m = torch.full((bh, s_len), -1e30, dtype=torch.float32, device=dev)
+    den = torch.zeros((bh, s_len), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bh, s_len, d), dtype=torch.float32, device=dev)
+    rows = torch.arange(s_len, device=dev)
+    for ki in range(t_len // bk):
+        col0 = ki * bk
+        # the first q block that reaches this kv block
+        r0 = (max(0, -(-(col0 - bq + 1) // bq)) * bq) if causal else 0
+        if r0 >= s_len:
+            break
+        qa = q[:, r0:]
+        kt, vt = k[:, col0:col0 + bk], v[:, col0:col0 + bk]
+        sc = torch.zeros((bh, s_len - r0, bk), dtype=torch.float32,
+                         device=dev)
+        for dd in range(d):
+            sc = sc + qa[:, :, dd, None] * kt[:, None, :, dd]
+        sc = sc * scale
+        if causal:
+            cols = torch.arange(col0, col0 + bk, device=dev)
+            sc = torch.where(cols[None, :] <= rows[r0:, None], sc, -1e30)
+        m_prev = m[:, r0:]
+        m_new = torch.maximum(m_prev, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m_prev - m_new)
+        pp = F.pad(p, (0, lanes - bk)).reshape(bh, s_len - r0, -1, 32)
+        part = torch.zeros((bh, s_len - r0, 32), dtype=torch.float32,
+                           device=dev)
+        for j in range(pp.shape[2]):
+            part = part + pp[:, :, j]
+        psum = _lane_butterfly(part)
+        pv = torch.zeros((bh, s_len - r0, d), dtype=torch.float32,
+                         device=dev)
+        for c in range(bk):
+            pv = pv + p[:, :, c, None] * vt[:, None, c, :]
+        acc[:, r0:] = acc[:, r0:] * alpha[..., None] + pv
+        den[:, r0:] = den[:, r0:] * alpha + psum
+        m[:, r0:] = m_new
+    return acc / torch.clamp_min(den, 1e-30)[..., None]

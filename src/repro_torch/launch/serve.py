@@ -20,6 +20,15 @@ synthetic events:
 Design points 1 to 3 deploy every route. The events are split over the
 routes (route i gets seed 7 + i), as the reference splits them.
 
+``--tuning-cache PATH`` loads a kernel-tuning cache
+(``repro_torch.tuning``) whose winners every route's deployment binds;
+an unreadable or stale file prints a warning and leaves the heuristic
+defaults. ``--tune`` first times the kernel problems of every route's
+deployment that the cache lacks (``autotune_graph``), saves the cache to
+``--tuning-cache`` when given, and redeploys with the winners bound, as
+the reference's non-bucketed path does. When the cache holds entries,
+they are replayed once (``make_warmup``) before the timed dispatches.
+
 The JAX package's ``launch/serve.py`` serves through
 ``ShardedTriggerService`` (router, per-route replica groups, in-order
 release). This one is a plain in-order loop instead: it dispatches
@@ -29,8 +38,9 @@ reference interleaves its routes' streams, and brings each dispatch's
 results to the host before it sends the next, so every route's results
 come back in submission order. An event's decision latency is the time
 from the dispatch of its micro-batch to its results being on the host.
-The serving layer, training, occupancy buckets and the padding-free
-ragged path's flag are not ported: ``build_pipeline(..., ragged=True,
+The serving layer, training, occupancy buckets (and with them the
+bucketed deployment's tuning branch) and the padding-free ragged path's
+flag are not ported: ``build_pipeline(..., ragged=True,
 batch=8)`` deploys the ragged path (the reference has no flag for it
 either) and ``serve_events`` serves it.
 
@@ -50,6 +60,8 @@ from repro_torch.core.graph_ir import export_graph
 from repro_torch.core.pipeline import Requirements, deploy
 from repro_torch.data.belle2 import Belle2Config, current_detector, generate
 from repro_torch.models.gnn import gatedgcn, graphsage
+from repro_torch.tuning import (TuningCache, autotune_graph,
+                                graph_kernel_problems, make_warmup)
 
 #: the serving micro-batch floor of repro/launch/serve.py
 MIN_SERVE_BATCH = 16
@@ -76,13 +88,13 @@ def calibration_feeds(gen_cfg) -> dict:
 def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
                    precision: str = "mixed", fuse_gravnet_block: bool = True,
                    fuse_int8: bool = True, batch: int = 1,
-                   ragged: bool = False, device=None):
+                   ragged: bool = False, tuning_cache=None, device=None):
     """Random CaloClusterNet weights from seed 0, exported and
     deployed as repro/launch/serve.py deploys it (its CPU cost
     constants, so the design flow picks the same P and micro-batch;
-    its calibration batch from ``gen_cfg``). ``batch`` and ``ragged``
-    are ``deploy``'s: ``ragged=True`` returns the padding-free
-    ``RaggedPipeline`` with ``batch`` bins per launch."""
+    its calibration batch from ``gen_cfg``). ``batch``, ``ragged`` and
+    ``tuning_cache`` are ``deploy``'s: ``ragged=True`` returns the
+    padding-free ``RaggedPipeline`` with ``batch`` bins per launch."""
     params = ccn.init(torch.Generator().manual_seed(0), cfg)
     req = Requirements(design_point=design_point, platform="cpu",
                        precision_policy=precision, n_hits=cfg.n_hits,
@@ -90,6 +102,7 @@ def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
                        max_latency_s=2e-3)
     return deploy(export_graph("caloclusternet", params, cfg), req,
                   calibration_feeds=calibration_feeds(gen_cfg),
+                  tuning_cache=tuning_cache,
                   fuse_gravnet_block=fuse_gravnet_block,
                   fuse_int8=fuse_int8, batch=batch, ragged=ragged,
                   device=device)
@@ -141,7 +154,7 @@ def _edge_req(design_point: int) -> Requirements:
                         max_latency_s=2e-3)
 
 
-def _ccn_servable(args, cfg=None) -> Servable:
+def _ccn_servable(args, cfg=None, tuning_cache=None) -> Servable:
     """CaloClusterNet of ``--detector`` (or ``cfg`` on that detector's
     events) under ``--precision``."""
     det_cfg, gen_cfg = detector_configs(args.detector)
@@ -150,7 +163,7 @@ def _ccn_servable(args, cfg=None) -> Servable:
                           precision=args.precision,
                           fuse_gravnet_block=not args.no_fuse_gravnet_block,
                           fuse_int8=not args.no_fuse_int8,
-                          device=args.device)
+                          tuning_cache=tuning_cache, device=args.device)
 
     def events(n, seed):
         ev = generate(gen_cfg, n, seed=seed)
@@ -159,23 +172,25 @@ def _ccn_servable(args, cfg=None) -> Servable:
     return Servable("ccn", pipe, events)
 
 
-def _gatedgcn_servable(args, cfg=None) -> Servable:
+def _gatedgcn_servable(args, cfg=None, tuning_cache=None) -> Servable:
     """The reference's GatedGCN route (4 layers × 32), or ``cfg``."""
     cfg = cfg or gatedgcn.GatedGCNConfig(n_layers=4, d_hidden=32, d_in=8,
                                          d_edge_in=4, n_classes=2)
     params = gatedgcn.init(torch.Generator().manual_seed(1), cfg)
     pipe = deploy(export_graph("gatedgcn", params, cfg),
-                  _edge_req(args.design_point), device=args.device)
+                  _edge_req(args.design_point), tuning_cache=tuning_cache,
+                  device=args.device)
     return Servable("gatedgcn", pipe, _edge_events(cfg.d_in, cfg.d_edge_in))
 
 
-def _graphsage_servable(args, cfg=None) -> Servable:
+def _graphsage_servable(args, cfg=None, tuning_cache=None) -> Servable:
     """The reference's GraphSAGE route (2 layers × 32), or ``cfg``."""
     cfg = cfg or graphsage.GraphSAGEConfig(n_layers=2, d_hidden=32, d_in=16,
                                            n_classes=5)
     params = graphsage.init(torch.Generator().manual_seed(2), cfg)
     pipe = deploy(export_graph("graphsage", params, cfg),
-                  _edge_req(args.design_point), device=args.device)
+                  _edge_req(args.design_point), tuning_cache=tuning_cache,
+                  device=args.device)
     return Servable("graphsage", pipe, _edge_events(cfg.d_in))
 
 
@@ -184,6 +199,44 @@ MODELS: dict[str, Callable] = {
     "gatedgcn": _gatedgcn_servable,
     "graphsage": _graphsage_servable,
 }
+
+
+# ----------------------------------------------------------------- tuning ----
+def load_tuning_cache(args):
+    """The cache of ``--tuning-cache`` (a fresh one for ``--tune``
+    alone), or None without either flag. A file that cannot be used
+    prints a warning and loads empty: the heuristic defaults stay."""
+    if not (args.tuning_cache or args.tune):
+        return None
+    cache = (TuningCache.load(args.tuning_cache) if args.tuning_cache
+             else TuningCache())
+    if cache.load_error:
+        print(f"[serve] WARNING: {cache.load_error}; falling back to "
+              "heuristic kernel defaults")
+    return cache
+
+
+def _tune_and_rebind(cache, args, problems, redeploy):
+    """Autotune the given (graph, n_rows, batch, backend) problems,
+    persist the winners, and redeploy with them bound; returns the fresh
+    deployment, or None when nothing new was searched."""
+    n_new = sum(autotune_graph(g, n_rows=nr, batch=bt, backend=be,
+                               cache=cache, verbose=True)
+                for g, nr, bt, be in problems)
+    print(f"[serve] autotuned {n_new} kernel problem(s), "
+          f"cache holds {len(cache)}")
+    if args.tuning_cache:
+        cache.save(args.tuning_cache)
+        print(f"[serve] tuning cache -> {args.tuning_cache}")
+    return redeploy() if n_new else None   # rebind fresh winners
+
+
+def cache_hits(pipe, cache) -> tuple[int, int]:
+    """(problems of ``pipe``'s graph that ``cache`` holds, problems)."""
+    g = pipe.graph
+    keys = graph_kernel_problems(g, n_rows=g.meta["n_hits"],
+                                 backend=pipe.backend)
+    return sum(k in cache for k in keys), len(keys)
 
 
 # ---------------------------------------------------------------- serving ----
@@ -287,6 +340,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="events in all, split over the routes")
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: cuda (raises when CUDA is absent)")
+    ap.add_argument("--tuning-cache", default=None, metavar="PATH",
+                    help="JSON kernel-tuning cache consulted when binding "
+                         "kernels and warming up (absent/corrupt -> "
+                         "heuristic defaults)")
+    ap.add_argument("--tune", action="store_true",
+                    help="autotune every route's kernel problems before "
+                         "serving; winners are saved to --tuning-cache "
+                         "when given")
     args = ap.parse_args(argv)
     if args.events < len(args.model):
         ap.error(f"--events {args.events} leaves a route of "
@@ -296,7 +357,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
-    servables = [MODELS[m](args) for m in args.model]
+    cache = load_tuning_cache(args)
+    servables = []
+    for m in args.model:
+        sv = MODELS[m](args, tuning_cache=cache)
+        if args.tune:
+            g = sv.pipe.graph
+            fresh = _tune_and_rebind(
+                cache, args, [(g, g.meta["n_hits"], 1, sv.pipe.backend)],
+                lambda m=m: MODELS[m](args, tuning_cache=cache))
+            if fresh is not None:
+                sv = fresh
+        servables.append(sv)
     routes, truth = {}, {}
     dev = servables[0].pipe.device
     dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -309,11 +381,19 @@ def main(argv=None):
               f"segments={len(pipe.segments)} "
               f"microbatch={pipe.microbatch} blocks="
               f"{sum(op.op_type == 'gravnet_block' for op in pipe.graph)}")
+        if cache is not None:
+            hits, n_keys = cache_hits(pipe, cache)
+            print(f"[serve] route {sv.name}: {hits} of {n_keys} kernel "
+                  "problems bound from the tuning cache")
         batch = max(pipe.microbatch, MIN_SERVE_BATCH)
         serve_events(pipe, sv.events(batch, 99)[0])      # first launches
         n = args.events // len(servables) + (i < args.events % len(servables))
         feeds, truth[sv.name] = sv.events(n, 7 + i)
         routes[sv.name] = (pipe, feeds)
+    if cache is not None and len(cache):
+        warmed = make_warmup(cache, backend=servables[0].pipe.backend)()
+        print(f"[serve] warmed {warmed} cached kernel shape(s) before "
+              "serving")
 
     res, dt = serve_routes(routes)
     total = sum(len(r[1]) for r in res.values())

@@ -74,10 +74,11 @@ def test_kernel_libraries_are_named_by_their_sources(tmp_path,
     git-ignored build/ directory and its name changes with the sources,
     so an edited kernel never loads a stale build."""
     from repro_torch.kernels import _build
-    assert _build.sources() == ["edge_aggregate", "fused_dense",
-                                "fused_dense_int8", "gravnet_aggregate",
-                                "gravnet_block", "gravnet_block_int8",
-                                "knn_aggregate", "knn_build"]
+    assert _build.sources() == ["edge_aggregate", "flash_attention",
+                                "fused_dense", "fused_dense_int8",
+                                "gravnet_aggregate", "gravnet_block",
+                                "gravnet_block_int8", "knn_aggregate",
+                                "knn_build"]
     lib = _build._lib_path("gravnet_block")
     assert lib.parent == REPO / "build" / "repro_torch"
     assert "build/" in (REPO / ".gitignore").read_text().splitlines()
@@ -154,3 +155,20 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0, (script, r.stdout, r.stderr)
         assert '"ok"' not in r.stdout
+
+
+def test_tuning_entry_points_without_cuda_raise():
+    """The tuner's default backend is the card: asked for no backend on a
+    host without CUDA it raises; warm-up skips a card entry there
+    instead of failing."""
+    from repro_torch.tuning import (TuningCache, flash_attention_key,
+                                    tune_flash_attention, warm_from_cache)
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default backend is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune_flash_attention(1, 16, 16, 8)
+    cache = TuningCache()
+    cache.put(flash_attention_key(1, 16, 16, 8, "float32", "cuda"),
+              {"bq": 16, "bk": 16})
+    with pytest.warns(RuntimeWarning, match="CUDA is not available"):
+        assert warm_from_cache(cache) == 0

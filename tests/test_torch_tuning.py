@@ -1,0 +1,391 @@
+"""The port's kernel-tuning layer (``repro_torch/tuning/``) against the
+JAX package's, on the CPU: the tuning problems that every deployment
+emits, with the backend ``xla`` mapped to ``cpu``; the bindings a cache
+with the same winners makes; an empty cache changing no graph; the
+cache file's schema, round trip and load errors; the reference's TPU
+entries never binding in the port; the tuner, the warm-up and the serve
+loop's ``--tune`` / ``--tuning-cache``. Graphs and bindings are compared
+exactly; times are not compared.
+"""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import caloclusternet as jccn
+from repro.core.graph_ir import export_graph as jexport
+from repro.core.passes.parallelize import Requirements as JReq
+from repro.core.pipeline import deploy as jdeploy
+from repro.data import belle2 as jbelle2
+from repro.models.gnn import gatedgcn as jgatedgcn
+from repro.models.gnn import graphsage as jgraphsage
+from repro.tuning import autotune as jautotune
+from repro.tuning import cache as jcache
+from repro_torch.convert import from_jax_gnn_params, from_jax_params
+from repro_torch.core import caloclusternet as tccn
+from repro_torch.core.graph_ir import export_graph
+from repro_torch.core.pipeline import Requirements as TReq
+from repro_torch.core.pipeline import deploy as tdeploy
+from repro_torch.launch import serve as tserve
+from repro_torch.models.gnn import gatedgcn, graphsage
+from repro_torch.tuning import (TuningCache, autotune_graph,
+                                flash_attention_key, graph_kernel_problems,
+                                tune_flash_attention, warm_from_cache)
+from repro_torch.tuning import cache as tcache
+from repro_torch.tuning import candidates as cand
+from repro_torch.tuning.autotune import device_of
+from test_torch_attention import _attention_graphs
+
+DEPLOYMENTS = ["attention", "ccn_fp", "ccn_mixed", "ccn_mixed_unfused",
+               "gatedgcn", "graphsage", "ragged"]
+
+
+def _req(mod, dp=3, policy="fp", n=32, tp=1e5):
+    return mod(design_point=dp, platform="cpu", precision_policy=policy,
+               n_hits=n, target_throughput=tp, max_latency_s=2e-3)
+
+
+@pytest.fixture(scope="module")
+def setups():
+    """name -> (deploy_jax(cache), deploy_port(cache), n_rows, batch):
+    each deployment built in both packages from the same weights."""
+    out = {}
+    ja, ta = _attention_graphs()
+    out["attention"] = (
+        lambda c: jdeploy(ja, _req(JReq, n=16, tp=1e3), batch=2,
+                          tuning_cache=c, kernel_backend="xla"),
+        lambda c: tdeploy(ta, _req(TReq, n=16, tp=1e3), batch=2,
+                          tuning_cache=c, device="cpu"), 16, 2)
+    jcfg, tcfg = jccn.CCNConfig(n_hits=32), tccn.CCNConfig(n_hits=32)
+    params = jccn.init(jax.random.PRNGKey(3), jcfg)
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
+                              tcfg, device="cpu")
+    jg, tg = jccn.to_graph(params, jcfg), tccn.to_graph(tparams, tcfg)
+    ev = jbelle2.generate(jbelle2.current_detector(), 16, seed=123)
+    calib = {"hits": ev["feats"], "mask": ev["mask"]}
+    for name, policy, kw in (("ccn_fp", "fp", {}),
+                             ("ccn_mixed", "mixed", {}),
+                             ("ccn_mixed_unfused", "mixed",
+                              {"fuse_int8": False})):
+        ckw = dict(kw, calibration_feeds=calib) if policy == "mixed" else kw
+        out[name] = (
+            lambda c, p=policy, k=ckw: jdeploy(
+                jg, _req(JReq, policy=p), tuning_cache=c,
+                kernel_backend="xla", **k),
+            lambda c, p=policy, k=ckw: tdeploy(
+                tg, _req(TReq, policy=p), tuning_cache=c, device="cpu", **k),
+            32, 1)
+    out["ragged"] = (
+        lambda c: jdeploy(jg, _req(JReq, tp=5e4), batch=4, ragged=True,
+                          tuning_cache=c, kernel_backend="xla").pipe,
+        lambda c: tdeploy(tg, _req(TReq, tp=5e4), batch=4, ragged=True,
+                          tuning_cache=c, device="cpu").pipe, 32, 4)
+    for name, jm, tm, cfg_kw in (
+            ("gatedgcn", jgatedgcn, gatedgcn,
+             dict(n_layers=2, d_hidden=16, d_in=8, d_edge_in=4,
+                  n_classes=4)),
+            ("graphsage", jgraphsage, graphsage,
+             dict(n_layers=2, d_hidden=16, d_in=12, n_classes=5))):
+        cls = "GatedGCNConfig" if name == "gatedgcn" else "GraphSAGEConfig"
+        jc, tc = getattr(jm, cls)(**cfg_kw), getattr(tm, cls)(**cfg_kw)
+        jp = jm.init(jax.random.PRNGKey(1), jc)
+        tp = from_jax_gnn_params(jax.tree_util.tree_map(np.asarray, jp), tc,
+                                 device="cpu")
+        jgn, tgn = jexport(name, jp, jc), export_graph(name, tp, tc)
+        out[name] = (
+            lambda c, g=jgn: jdeploy(g, _req(JReq, tp=1e4), tuning_cache=c,
+                                     kernel_backend="xla"),
+            lambda c, g=tgn: tdeploy(g, _req(TReq, tp=1e4), tuning_cache=c,
+                                     device="cpu"), 32, 1)
+    return out
+
+
+def _shape_keys(keys):
+    return [(k.kernel, k.shape, k.dtype) for k in keys]
+
+
+def _bindings(g):
+    return [(op.name, sorted(op.attrs_opt.items())) for op in g]
+
+
+# a non-default winner per kernel family, as one cache entry would hold it
+WINNERS = {"fused_dense": {"variant": "looped", "bm": 8, "bn": 128,
+                           "bk": 128},
+           "gravnet": {"bm": 8}, "gravnet_block": {"bm": 8, "bn": 32},
+           "gravnet_block_int8": {"bm": 8, "bk": 32},
+           "edge_aggregate": {"bm": 8, "be": 64}, "knn_build": {"bm": 8},
+           "knn_aggregate": {"bm": 16}, "flash_attention": {"bq": 8,
+                                                            "bk": 16}}
+
+
+@pytest.mark.parametrize("name", DEPLOYMENTS)
+def test_tuning_problems_match_reference(setups, name):
+    """graph_kernel_problems: the reference's keys, kernel, shape and
+    dtype, with the port's backend in place of 'xla'."""
+    dj, dt, n_rows, batch = setups[name]
+    jkeys = jautotune.graph_kernel_problems(dj(None).graph, n_rows=n_rows,
+                                            backend="xla", batch=batch)
+    tkeys = graph_kernel_problems(dt(None).graph, n_rows=n_rows,
+                                  backend="cpu", batch=batch)
+    assert jkeys and _shape_keys(tkeys) == _shape_keys(jkeys)
+    assert {k.backend for k in tkeys} == {"cpu"}
+    assert [k.encode() for k in tkeys] == [
+        k.encode().replace("|xla", "|cpu") for k in jkeys]
+
+
+@pytest.mark.parametrize("name", DEPLOYMENTS)
+def test_same_winners_bind_the_same_knobs(setups, name):
+    """A cache holding the same winner for every problem binds the same
+    attrs_opt on every op in both packages, and differs from the
+    untuned binding."""
+    dj, dt, n_rows, batch = setups[name]
+    jkeys = jautotune.graph_kernel_problems(dj(None).graph, n_rows=n_rows,
+                                            backend="xla", batch=batch)
+    jc, tc = jcache.TuningCache(), TuningCache()
+    for k in jkeys:
+        jc.put(k, WINNERS[k.kernel])
+        tc.put(tcache.KernelKey(k.kernel, k.shape, k.dtype, "cpu"),
+               WINNERS[k.kernel])
+    tpipe = dt(tc)
+    assert _bindings(tpipe.graph) == _bindings(dj(jc).graph)
+    assert _bindings(tpipe.graph) != _bindings(dt(None).graph)
+
+
+@pytest.mark.parametrize("name", DEPLOYMENTS)
+def test_empty_cache_changes_no_graph(setups, name):
+    _, dt, _, _ = setups[name]
+    base, empty = dt(None).graph, dt(TuningCache()).graph
+    assert _bindings(empty) == _bindings(base)
+    assert [(op.name, op.op_type, op.template, list(op.inputs))
+            for op in empty] == [(op.name, op.op_type, op.template,
+                                  list(op.inputs)) for op in base]
+
+
+def test_reference_backends_never_bind(setups, tmp_path):
+    """A cache that the reference wrote for its TPU ('pallas') and XLA
+    backends loads in the port (same schema and encoding) but binds
+    nothing, neither on 'cpu' nor on 'cuda' keys."""
+    dj, dt, n_rows, batch = setups["attention"]
+    jc = jcache.TuningCache()
+    for be in ("pallas", "xla"):
+        for k in jautotune.graph_kernel_problems(
+                dj(None).graph, n_rows=n_rows, backend=be, batch=batch):
+            jc.put(k, WINNERS[k.kernel], us=3.0)
+    path = jc.save(tmp_path / "ref.json")
+    tc = TuningCache.load(path)
+    assert tc.load_error is None and len(tc) == len(jc) == 4
+    assert _bindings(dt(tc).graph) == _bindings(dt(None).graph)
+    for be in ("cpu", "cuda"):
+        assert tc.lookup(flash_attention_key(2, 16, 16, 8, "float32",
+                                             be)) is None
+    assert tc.lookup(flash_attention_key(2, 16, 16, 8, "float32",
+                                         "pallas")) == WINNERS[
+                                             "flash_attention"]
+
+
+def test_key_encodings_match_reference():
+    for fn, args in (("fused_dense_key", (256, 64, 32, "int8")),
+                     ("gravnet_key", (128, 4, 22, 8, "float32")),
+                     ("gravnet_block_key", (128, 64, 22, 8, "float32")),
+                     ("edge_aggregate_key", (64, 256, 70, "float32")),
+                     ("knn_build_key", (128, 4, 8, "float32")),
+                     ("knn_aggregate_key", (128, 22, 8, "float32")),
+                     ("flash_attention_key", (8, 512, 512, 64, "float32"))):
+        for batch in ((), (8,)) if fn not in ("fused_dense_key",
+                                              "flash_attention_key") \
+                else ((),):
+            kw = {"batch": batch[0]} if batch else {}
+            t = getattr(tcache, fn)(*args, "cuda", **kw)
+            j = getattr(jcache, fn)(*args, "cuda", **kw)
+            assert t.encode() == j.encode()
+            assert tcache.KernelKey.decode(t.encode()) == t
+    for batch in (1, 8):
+        assert tcache.gravnet_block_int8_key(
+            128, 64, 22, 8, "cpu", batch=batch).encode() == \
+            jcache.gravnet_block_int8_key(128, 64, 22, 8, "cpu",
+                                          batch=batch).encode()
+
+
+def test_cache_file_round_trip_matches_reference_bytes(tmp_path):
+    """save/load keep every entry; the port writes the reference's
+    bytes for the same entries."""
+    tc, jc = TuningCache(), jcache.TuningCache()
+    for c, mod in ((tc, tcache), (jc, jcache)):
+        c.put(mod.flash_attention_key(8, 512, 512, 64, "float32", "cuda"),
+              {"bq": 64, "bk": 128}, us=301.5, default_us=624.25,
+              candidates=8)
+        c.put(mod.fused_dense_key(256, 64, 64, "int8", "cuda"),
+              {"variant": "looped", "bm": 128, "bn": 128, "bk": 512},
+              us=6.0, default_us=6.0, candidates=1)
+    p = tc.save(tmp_path / "port.json")
+    jc.save(tmp_path / "ref.json")
+    assert (tmp_path / "port.json").read_bytes() == \
+        (tmp_path / "ref.json").read_bytes()
+    back = TuningCache.load(p)
+    assert back.load_error is None
+    assert {k: e.to_json() for k, e in back.entries().items()} == \
+        {k: e.to_json() for k, e in tc.entries().items()}
+    assert not TuningCache.load(tmp_path / "missing.json").load_error
+
+
+@pytest.mark.parametrize("content,why", [
+    ("{not json", "unreadable"), ("[1, 2]", "not a JSON object"),
+    ('{"schema": 2, "entries": {}}', "stale"),
+    ('{"schema": 1, "entries": []}', "not a dict")])
+def test_load_error_leaves_an_empty_cache(tmp_path, content, why):
+    p = tmp_path / "cache.json"
+    p.write_text(content)
+    c = TuningCache.load(p)
+    assert why in c.load_error and len(c) == 0
+    jc_ = jcache.TuningCache.load(p)
+    assert jc_.load_error == c.load_error
+
+
+def test_malformed_entry_is_dropped_alone(tmp_path):
+    p = tmp_path / "cache.json"
+    good = flash_attention_key(1, 16, 16, 8, "float32", "cpu").encode()
+    p.write_text(json.dumps({"schema": 1, "entries": {
+        good: {"config": {"bq": 16}}, "no-separators": {"config": {}},
+        "x|1|float32|cpu": {"nope": 1}}}))
+    c = TuningCache.load(p)
+    assert c.load_error is None and len(c) == 1
+
+
+@pytest.mark.parametrize("name", ["attention", "ccn_mixed", "graphsage"])
+def test_autotune_graph_on_cpu_records_one_inert_candidate(setups, name):
+    """On 'cpu' the plain versions ignore every knob: one measurement per
+    problem, the default recorded, and a redeploy hits every entry."""
+    _, dt, n_rows, batch = setups[name]
+    g = dt(None).graph
+    keys = graph_kernel_problems(g, n_rows=n_rows, backend="cpu",
+                                 batch=batch)
+    cache = TuningCache()
+    assert autotune_graph(g, n_rows=n_rows, backend="cpu", cache=cache,
+                          batch=batch, iters=1) == len(keys)
+    assert set(cache.entries()) == set(keys)
+    for k, e in cache.entries().items():
+        assert e.candidates == 1 and e.us > 0 and e.us == e.default_us
+        if k.kernel == "flash_attention":
+            assert e.config == cand.default_flash_attention()
+    # entries are kept unless forced
+    assert autotune_graph(g, n_rows=n_rows, backend="cpu", cache=cache,
+                          batch=batch, iters=1) == 0
+    tuned = dt(cache).graph
+    assert graph_kernel_problems(tuned, n_rows=n_rows, backend="cpu",
+                                 batch=batch) == keys
+
+
+def test_flash_candidates_keep_only_plans_that_fit():
+    """The default first, then the reference's (bq, bk) grid, less every
+    plan above 227 KB of shared memory at the head width."""
+    d64 = cand.flash_attention_candidates(512, 512, 64)
+    assert d64[0] == {"bq": 128, "bk": 128} and len(d64) == 8
+    assert [(c["bq"], c["bk"]) for c in d64] == [
+        (128, 128), (64, 64), (64, 128), (64, 256), (128, 64), (128, 256),
+        (256, 64), (256, 128)]
+    d128 = cand.flash_attention_candidates(4096, 4096, 128)
+    assert [(c["bq"], c["bk"]) for c in d128] == [
+        (128, 128), (64, 64), (64, 128), (128, 64), (256, 64)]
+    assert cand.flash_attention_candidates(16, 16, 8) == [
+        {"bq": 128, "bk": 128}, {"bq": 16, "bk": 16}]
+    # the other families take no knob on the card yet: the default alone
+    assert cand.knn_build_candidates(128, batch=8) == [{"bm": 128}]
+    assert cand.gravnet_block_int8_candidates(128, 64, 22, 64) == [
+        {"bm": 128}]
+
+
+def test_tune_flash_attention_on_cpu():
+    cache = TuningCache()
+    cfg = tune_flash_attention(2, 16, 16, 8, backend="cpu", cache=cache,
+                               iters=1)
+    assert cfg == {"bq": 128, "bk": 128}
+    e = cache.entry(flash_attention_key(2, 16, 16, 8, "float32", "cpu"))
+    assert e.candidates == 1 and e.config == cfg
+
+
+def test_tuning_backends_are_the_ports():
+    assert device_of("cpu") == torch.device("cpu")
+    for be in ("xla", "pallas", "pallas_interpret"):
+        with pytest.raises(ValueError, match="cuda' or 'cpu"):
+            device_of(be)
+
+
+def test_warm_from_cache_skips_stale_entries():
+    cache = TuningCache()
+    cache.put(flash_attention_key(1, 16, 16, 8, "float32", "cpu"),
+              {"bq": 16, "bk": 16})
+    cache.put(tcache.knn_build_key(16, 4, 4, "float32", "cpu", batch=2),
+              {"bm": 16})
+    # a knob the kernel does not know, a reference backend, a kernel
+    # family the port lacks: skipped, not fatal
+    cache.put(flash_attention_key(1, 32, 32, 8, "float32", "cpu"),
+              {"bq": 16, "bm": 4})
+    cache.put(flash_attention_key(1, 16, 16, 8, "float32", "pallas"),
+              {"bq": 16})
+    cache.put(tcache.KernelKey("conv2d", (3, 3), "float32", "cpu"), {})
+    with pytest.warns(RuntimeWarning, match="skipped") as rec:
+        assert warm_from_cache(cache) == 2
+    assert sorted(str(w.message).split()[3] for w in rec) == sorted([
+        "conv2d|3x3|float32|cpu:", "flash_attention|1x16x16x8|float32|"
+        "pallas:", "flash_attention|1x32x32x8|float32|cpu:"])
+    with pytest.warns(RuntimeWarning):
+        assert warm_from_cache(cache, backend="cpu") == 2
+    assert warm_from_cache(cache, kernels=("knn_build",)) == 1
+
+
+def test_serve_tunes_then_binds_from_the_saved_cache(tmp_path, capsys):
+    """``--tune --tuning-cache`` times the route's problems and saves
+    them; a second run on the saved cache binds every problem without
+    searching, warms them and answers every event."""
+    path = str(tmp_path / "tuning.json")
+    argv = ["--device", "cpu", "--detector", "current", "--events", "8",
+            "--tuning-cache", path]
+    assert tserve.main(argv + ["--tune"]) == 0
+    first = capsys.readouterr().out
+    assert "[serve] autotuned 5 kernel problem(s), cache holds 5" in first
+    assert "answered=8 in-order=True" in first
+    assert len(TuningCache.load(path)) == 5
+    assert tserve.main(argv) == 0
+    second = capsys.readouterr().out
+    assert "autotuned" not in second and "[tune]" not in second
+    assert "route ccn: 5 of 5 kernel problems bound" in second
+    assert "warmed 5 cached kernel shape(s)" in second
+    assert "answered=8 in-order=True" in second
+
+
+def test_serve_warns_on_an_unusable_cache(tmp_path, capsys):
+    path = tmp_path / "tuning.json"
+    path.write_text('{"schema": 0}')
+    assert tserve.main(["--device", "cpu", "--detector", "current",
+                        "--events", "4", "--model", "graphsage",
+                        "--tuning-cache", str(path)]) == 0
+    out = capsys.readouterr().out
+    assert "WARNING" in out and "stale" in out
+    assert "0 of" in out and "answered=4 in-order=True" in out
+
+
+def test_tuned_attention_deployment_matches_reference_output(setups):
+    """The same winner bound in both packages: outputs within the
+    float32 row (the reference's interpret-mode kernel at the bound
+    blocks against the port's plain version at the same blocks)."""
+    from _numerics import assert_close
+    ja, ta = _attention_graphs()
+    key = (2, 16, 16, 8, "float32")
+    jc, tc = jcache.TuningCache(), TuningCache()
+    jc.put(jcache.flash_attention_key(*key, "pallas_interpret"),
+           {"bq": 8, "bk": 8})
+    tc.put(flash_attention_key(*key, "cpu"), {"bq": 8, "bk": 8})
+    tok = np.random.default_rng(5).normal(size=(4, 16, 8)).astype(
+        np.float32)
+    want = jdeploy(ja, _req(JReq, n=16, tp=1e3), batch=2, tuning_cache=jc,
+                   kernel_backend="pallas_interpret")({"tok": jnp.asarray(
+                       tok)})["y"]
+    tpipe = tdeploy(ta, _req(TReq, n=16, tp=1e3), batch=2, tuning_cache=tc,
+                    device="cpu")
+    assert tpipe.graph["attn"].attrs_opt == {"P": tpipe.graph[
+        "attn"].attrs_opt["P"], "bq": 8, "bk": 8}
+    assert_close(tpipe({"tok": tok})["y"].numpy(), np.asarray(want),
+                 dtype="float32")
