@@ -26,12 +26,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-# -fmad=false: no mul+add is contracted into an FMA, so the plain
-# PyTorch versions (separate, rounded products and sums in the kernels'
-# order) reproduce the kernels' bits — see kernels/ref.py.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: sources whose products and sums are FMAs, held to the float32 row of
+#: their plain versions rather than to their bits
+FMA_SOURCES = frozenset({"flash_attention"})
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The flags of ``csrc/<name>.cu``. Every source but those of
+    :data:`FMA_SOURCES` adds ``-fmad=false``: no mul+add is contracted
+    into an FMA, so the plain PyTorch versions (separate, rounded
+    products and sums in the kernels' order) reproduce the kernels'
+    bits — see kernels/ref.py."""
+    return NVCC_FLAGS if name in FMA_SOURCES else (*NVCC_FLAGS,
+                                                   "-fmad=false")
 
 #: shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
@@ -54,7 +63,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -68,7 +77,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib

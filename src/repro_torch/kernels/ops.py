@@ -206,8 +206,9 @@ def _pad_rows(x, block):
 
 
 def flash_attention(q, k, v, *, causal=True, bq=128, bk=128):
-    """Blockwise (flash) attention. q:(BH,S,D), k/v:(BH,T,D) f32 ->
-    (BH,S,D). The reference wrapper's contract: the blocks shrink to
+    """Blockwise (flash) attention. q:(BH,S,D), k/v:(BH,T,D), all f32 or
+    all bf16 (computed in f32) -> (BH,S,D) of their dtype. The reference
+    wrapper's contract: the blocks shrink to
     ``min(bq, S)`` and ``min(bk, T)``, q, k and v are zero-padded to them
     and the output is cut back to S; a non-causal call whose T is not a
     multiple of bk raises ``ValueError``. Under causal the padded keys

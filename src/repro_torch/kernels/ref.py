@@ -11,7 +11,10 @@ reason; ``torch.matmul`` would leave their order to the library. The
 int8 kernels' int32 sums are exact in any order, so their plain
 versions take them from a float64 product, which is exact at these
 sizes; every f32 step around them (dequantization, requantization by
-division, rounding half to even) keeps the kernels' order.
+division, rounding half to even) keeps the kernels' order. The
+exception is ``flash_attention``, whose kernel runs on FMAs: its plain
+version keeps an order of its own, and the kernel is held to the
+float32 row against it.
 """
 from __future__ import annotations
 
@@ -310,21 +313,24 @@ def _lane_butterfly(x):
 
 
 def flash_attention_blocked_ref(q, k, v, *, causal=True, bq=128, bk=128):
-    """Blockwise attention in the kernel's order (``csrc/
-    flash_attention.cu``). q:(BH,S,D), k/v:(BH,T,D) f32 with S % bq == 0
-    and T % bk == 0 -> (BH,S,D).
+    """Blockwise attention, the plain version of ``csrc/
+    flash_attention.cu``. q:(BH,S,D), k/v:(BH,T,D) f32 or bf16 with
+    S % bq == 0 and T % bk == 0 -> (BH,S,D) of q's dtype, computed in f32.
 
-    Per q block, the kv blocks of bk keys in increasing order, skipping
-    under ``causal`` those with ki*bk > qi*bq + bq - 1, carrying the
-    running max m (from -1e30), the denominator l and the accumulator:
-    scores as d-ordered sums of separately rounded products, times
-    f32(1/√D), the causal fill -1e30; m_new = max(m, rowmax);
-    p = exp(s - m_new); l = l·exp(m - m_new) + Σp, where Σp sums each
-    lane's keys (c, c + 32, ...) in order and then the 32 lanes by the
-    warp's butterfly; acc = acc·exp(m - m_new) + Σ_c p_c v_c in c order;
+    Its order of operations is its own; the kernel takes another, with
+    FMAs, and is held to the float32 row against it. Per q block, the kv
+    blocks of bk keys in increasing order, skipping under ``causal``
+    those with ki*bk > qi*bq + bq - 1, carrying the running max m (from
+    -1e30), the denominator l and the accumulator: scores as d-ordered
+    sums of separately rounded products, times f32(1/√D), the causal
+    fill -1e30; m_new = max(m, rowmax); p = exp(s - m_new);
+    l = l·exp(m - m_new) + Σp, where Σp sums the keys c, c + 32, ... of
+    each of 32 lanes in order and then the lanes by an xor butterfly;
+    acc = acc·exp(m - m_new) + Σ_c p_c v_c in c order;
     out = acc / max(l, 1e-30). The q blocks that a kv block reaches are
     a suffix of the rows, so each kv block updates that suffix at once.
     The blocks change the rounding, so they are arguments."""
+    out_dtype = q.dtype
     bh, s_len, d = q.shape
     t_len = k.shape[1]
     if s_len % bq or t_len % bk:
@@ -371,4 +377,4 @@ def flash_attention_blocked_ref(q, k, v, *, causal=True, bq=128, bk=128):
         acc[:, r0:] = acc[:, r0:] * alpha[..., None] + pv
         den[:, r0:] = den[:, r0:] * alpha + psum
         m[:, r0:] = m_new
-    return acc / torch.clamp_min(den, 1e-30)[..., None]
+    return (acc / torch.clamp_min(den, 1e-30)[..., None]).to(out_dtype)

@@ -1,18 +1,26 @@
 """Serving entry point: ``python -m repro_torch.launch.serve [...]``.
 
-Counterpart of ``repro/launch/serve.py`` run with ``--train-steps 0
---replicas 1``: each model named by ``--model`` (default ``ccn``) is a
-route of the serve-side registry ``MODELS``. A route deploys its model
-through the whole design flow (``core/pipeline.py:deploy``; the model
-joins through its ``core.graph_ir`` exporter) and makes its own
+Counterpart of ``repro/launch/serve.py`` run with ``--replicas 1``: each
+model named by ``--model`` (default ``ccn``) is a route of the
+serve-side registry ``MODELS``. A route deploys its model through the
+whole design flow (``core/pipeline.py:deploy``; the model joins through
+its ``core.graph_ir`` exporter, with ``--target-throughput`` and
+``--tpu-native-gravnet`` in its ``Requirements``) and makes its own
 synthetic events:
 
-- ``ccn``: CaloClusterNet with random weights from seed 0 on synthetic
-  Belle II events, CPS for the trigger bit, and a report of trigger
-  efficiency / fake rate against the events' truth. As in the
-  reference, ``--precision`` defaults to ``mixed`` (int8 interior,
-  calibrated on 64 events of seed 123), and ``--no-fuse-gravnet-block``
-  / ``--no-fuse-int8`` keep the GravNet chain unfused;
+- ``ccn``: CaloClusterNet on synthetic Belle II events, CPS for the
+  trigger bit, and a report of trigger efficiency / fake rate against
+  the events' truth. Its weights are random from seed 0; served alone
+  (``--model ccn``, the default), it first warm-trains them as the
+  reference does, ``--train-steps`` steps (default 40) of the
+  condensation loss with AdamW (weight decay 0.01) on a cosine warm-up
+  schedule (peak 2e-3, 10 warm-up steps), each on 32 events of seed
+  500 + step, with autograd through ``CaloClusterNet.forward`` on the
+  pipeline's device; ``--train-steps 0`` serves the random weights. As
+  in the reference, ``--precision`` defaults to ``mixed`` (int8
+  interior, calibrated on 64 events of seed 123), and
+  ``--no-fuse-gravnet-block`` / ``--no-fuse-int8`` keep the GravNet
+  chain unfused;
 - ``gatedgcn`` and ``graphsage``: the reference's route configs of the
   edge-based GNNs (weights from generator seeds 1 and 2), fp, on random
   graphs of 64 nodes and 256 edges.
@@ -31,16 +39,18 @@ they are replayed once (``make_warmup``) before the timed dispatches.
 
 The JAX package's ``launch/serve.py`` serves through
 ``ShardedTriggerService`` (router, per-route replica groups, in-order
-release). This one is a plain in-order loop instead: it dispatches
-micro-batches of ``max(pipe.microbatch, 16)`` events — the service's
-micro-batch width there — one route after another in turn, as the
-reference interleaves its routes' streams, and brings each dispatch's
-results to the host before it sends the next, so every route's results
-come back in submission order. An event's decision latency is the time
-from the dispatch of its micro-batch to its results being on the host.
-The serving layer, training, occupancy buckets (and with them the
-bucketed deployment's tuning branch) and the padding-free ragged path's
-flag are not ported: ``build_pipeline(..., ragged=True,
+release). This one is a plain in-order loop instead, at the service's
+micro-batch width there: ``max(pipe.microbatch, 16)`` events per
+dispatch for ``ccn`` alone; for any other ``--model`` selection
+``max(8, *microbatches)`` over the routes, each route first warmed with
+that many events of seed 99. It dispatches one route after another in
+turn, as the reference interleaves its routes' streams, and brings each
+dispatch's results to the host before it sends the next, so every
+route's results come back in submission order. An event's decision
+latency is the time from the dispatch of its micro-batch to its results
+being on the host. The serving layer, occupancy buckets (and with them
+the bucketed deployment's tuning branch) and the padding-free ragged
+path's flag are not ported: ``build_pipeline(..., ragged=True,
 batch=8)`` deploys the ragged path (the reference has no flag for it
 either) and ``serve_events`` serves it.
 
@@ -56,17 +66,26 @@ import numpy as np
 import torch
 
 from repro_torch.core import caloclusternet as ccn
+from repro_torch.core.condensation import condensation_loss
 from repro_torch.core.graph_ir import export_graph
 from repro_torch.core.pipeline import Requirements, deploy
 from repro_torch.data.belle2 import Belle2Config, current_detector, generate
+from repro_torch.device import resolve_device
 from repro_torch.models.gnn import gatedgcn, graphsage
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               cosine_warmup)
+from repro_torch.optim.adamw import tree_map
 from repro_torch.tuning import (TuningCache, autotune_graph,
                                 graph_kernel_problems, make_warmup)
 
-#: the serving micro-batch floor of repro/launch/serve.py
+#: the serving micro-batch floor of repro/launch/serve.py (ccn alone)
 MIN_SERVE_BATCH = 16
+#: its floor on the shared micro-batch of several routes
+MIN_ROUTES_BATCH = 8
 #: its default throughput target for the design flow's P search, events/s
 TARGET_THROUGHPUT = 1e5
+#: its default number of warm-training steps before ccn alone is served
+TRAIN_STEPS = 40
 
 
 def detector_configs(detector: str):
@@ -88,24 +107,86 @@ def calibration_feeds(gen_cfg) -> dict:
 def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
                    precision: str = "mixed", fuse_gravnet_block: bool = True,
                    fuse_int8: bool = True, batch: int = 1,
-                   ragged: bool = False, tuning_cache=None, device=None):
-    """Random CaloClusterNet weights from seed 0, exported and
-    deployed as repro/launch/serve.py deploys it (its CPU cost
-    constants, so the design flow picks the same P and micro-batch;
-    its calibration batch from ``gen_cfg``). ``batch``, ``ragged`` and
-    ``tuning_cache`` are ``deploy``'s: ``ragged=True`` returns the
-    padding-free ``RaggedPipeline`` with ``batch`` bins per launch."""
-    params = ccn.init(torch.Generator().manual_seed(0), cfg)
+                   ragged: bool = False, tuning_cache=None,
+                   target_throughput: float = TARGET_THROUGHPUT,
+                   tpu_native_gravnet: bool = False, params=None,
+                   device=None):
+    """CaloClusterNet weights ``params`` (default: random from seed 0),
+    exported and deployed as repro/launch/serve.py deploys it (its CPU
+    cost constants, so the design flow picks the same P and
+    micro-batch; its calibration batch from ``gen_cfg``).
+    ``target_throughput`` and ``tpu_native_gravnet`` are the
+    ``Requirements``'; ``batch``, ``ragged`` and ``tuning_cache`` are
+    ``deploy``'s: ``ragged=True`` returns the padding-free
+    ``RaggedPipeline`` with ``batch`` bins per launch."""
+    if params is None:
+        params = ccn.init(torch.Generator().manual_seed(0), cfg)
     req = Requirements(design_point=design_point, platform="cpu",
                        precision_policy=precision, n_hits=cfg.n_hits,
-                       target_throughput=TARGET_THROUGHPUT,
-                       max_latency_s=2e-3)
+                       target_throughput=target_throughput,
+                       max_latency_s=2e-3,
+                       tpu_native_gravnet=tpu_native_gravnet)
     return deploy(export_graph("caloclusternet", params, cfg), req,
                   calibration_feeds=calibration_feeds(gen_cfg),
                   tuning_cache=tuning_cache,
                   fuse_gravnet_block=fuse_gravnet_block,
                   fuse_int8=fuse_int8, batch=batch, ragged=ragged,
                   device=device)
+
+
+# --------------------------------------------------------- warm-training ----
+def train_batch(gen_cfg, n: int, seed: int, device=None) -> dict:
+    """``n`` generated events of ``seed`` as tensors on ``device``:
+    feats, mask, object_id, energy, cls."""
+    raw = generate(gen_cfg, n, seed=seed)
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(raw[k]).to(dev)
+            for k in ("feats", "mask", "object_id", "energy", "cls")}
+
+
+def train_step(params, opt, batch, *, cfg: ccn.CCNConfig,
+               ocfg: AdamWConfig, lr):
+    """One step of the warm-training: the condensation loss of
+    ``CaloClusterNet.forward`` on ``batch``, its gradients by autograd,
+    one AdamW update at rate ``lr``. Returns (new params, new optimizer
+    state, loss); ``params`` and ``opt`` are left as they are."""
+    model = ccn.CaloClusterNet(params, cfg)
+    leaves = {name: {key: getattr(model.layers[name], key) for key in p}
+              for name, p in params.items()}
+    flat = [t for p in leaves.values() for t in p.values()]
+    for t in flat:
+        t.requires_grad_(True)
+    out = model(batch["feats"], batch["mask"])
+    labels = {k: batch[k] for k in ("object_id", "energy", "cls")}
+    loss, _ = condensation_loss(out, labels, batch["mask"],
+                                k_max=cfg.k_max)
+    it = iter(torch.autograd.grad(loss, flat))
+    grads = {name: {key: next(it) for key in p}
+             for name, p in leaves.items()}
+    new_params, new_opt, _ = adamw_update(grads, opt, params, lr=lr,
+                                          cfg=ocfg)
+    return new_params, new_opt, loss.detach()
+
+
+def warm_train(cfg: ccn.CCNConfig, gen_cfg, steps: int, *, device=None):
+    """The reference's warm-training of the default serve run: random
+    weights from seed 0, then ``steps`` AdamW steps (weight decay 0.01,
+    ``cosine_warmup(peak_lr=2e-3, warmup_steps=10, total_steps=steps)``)
+    on 32 events of seed 500 + step each, on ``device``. Returns (params
+    on ``device``, each step's loss as a 0-dim tensor)."""
+    dev = resolve_device(device)
+    params = tree_map(lambda t: t.to(dev),
+                      ccn.init(torch.Generator().manual_seed(0), cfg))
+    ocfg = AdamWConfig(weight_decay=0.01)
+    lrf = cosine_warmup(peak_lr=2e-3, warmup_steps=10, total_steps=steps)
+    opt = adamw_init(params, ocfg)
+    losses = []
+    for st in range(steps):
+        batch = train_batch(gen_cfg, 32, 500 + st, device=dev)
+        params, opt, loss = train_step(params, opt, batch, cfg=cfg,
+                                       ocfg=ocfg, lr=lrf(opt["step"]))
+        losses.append(loss)
+    return params, losses
 
 
 # ------------------------------------------------------------ model zoo ----
@@ -147,23 +228,29 @@ def _edge_events(d_in, d_edge_in=None):
     return events
 
 
-def _edge_req(design_point: int) -> Requirements:
-    return Requirements(design_point=design_point, platform="cpu",
+def _edge_req(args) -> Requirements:
+    return Requirements(design_point=args.design_point, platform="cpu",
                         precision_policy="fp", n_hits=_EDGE_N,
-                        target_throughput=TARGET_THROUGHPUT,
-                        max_latency_s=2e-3)
+                        target_throughput=args.target_throughput,
+                        max_latency_s=2e-3,
+                        tpu_native_gravnet=args.tpu_native_gravnet)
 
 
-def _ccn_servable(args, cfg=None, tuning_cache=None) -> Servable:
+def _ccn_servable(args, cfg=None, tuning_cache=None,
+                  params=None) -> Servable:
     """CaloClusterNet of ``--detector`` (or ``cfg`` on that detector's
-    events) under ``--precision``."""
+    events) under ``--precision``, with weights ``params`` (default:
+    random from seed 0)."""
     det_cfg, gen_cfg = detector_configs(args.detector)
     pipe = build_pipeline(cfg or det_cfg, gen_cfg,
                           design_point=args.design_point,
                           precision=args.precision,
                           fuse_gravnet_block=not args.no_fuse_gravnet_block,
                           fuse_int8=not args.no_fuse_int8,
-                          tuning_cache=tuning_cache, device=args.device)
+                          tuning_cache=tuning_cache,
+                          target_throughput=args.target_throughput,
+                          tpu_native_gravnet=args.tpu_native_gravnet,
+                          params=params, device=args.device)
 
     def events(n, seed):
         ev = generate(gen_cfg, n, seed=seed)
@@ -178,7 +265,7 @@ def _gatedgcn_servable(args, cfg=None, tuning_cache=None) -> Servable:
                                          d_edge_in=4, n_classes=2)
     params = gatedgcn.init(torch.Generator().manual_seed(1), cfg)
     pipe = deploy(export_graph("gatedgcn", params, cfg),
-                  _edge_req(args.design_point), tuning_cache=tuning_cache,
+                  _edge_req(args), tuning_cache=tuning_cache,
                   device=args.device)
     return Servable("gatedgcn", pipe, _edge_events(cfg.d_in, cfg.d_edge_in))
 
@@ -189,7 +276,7 @@ def _graphsage_servable(args, cfg=None, tuning_cache=None) -> Servable:
                                            n_classes=5)
     params = graphsage.init(torch.Generator().manual_seed(2), cfg)
     pipe = deploy(export_graph("graphsage", params, cfg),
-                  _edge_req(args.design_point), tuning_cache=tuning_cache,
+                  _edge_req(args), tuning_cache=tuning_cache,
                   device=args.device)
     return Servable("graphsage", pipe, _edge_events(cfg.d_in))
 
@@ -252,12 +339,14 @@ def _cat(*xs):
     return np.concatenate(xs, axis=0)
 
 
-def serve_routes(routes: dict) -> tuple[dict, float]:
+def serve_routes(routes: dict, width: int | None = None
+                 ) -> tuple[dict, float]:
     """Answer every event of every route: ``routes`` maps a name to
     ``(pipe, feeds)`` (feeds as numpy, the events on the leading axis of
-    every array). Dispatches ``max(pipe.microbatch, 16)`` events of one
-    route after another in turn until all are answered; each dispatch's
-    results reach the host before the next is sent.
+    every array). Dispatches ``width`` events (default: per route
+    ``max(pipe.microbatch, 16)``) of one route after another in turn
+    until all are answered; each dispatch's results reach the host
+    before the next is sent.
 
     Returns ``({name: (results, latencies_s, busy_s)}, elapsed_s)``: per
     route its outputs for all its events in submission order, each
@@ -267,7 +356,8 @@ def serve_routes(routes: dict) -> tuple[dict, float]:
     for name, (pipe, feeds) in routes.items():
         n = len(next(iter(feeds.values())))
         todo[name] = dict(n=n, next=0, parts=[], lat=np.empty(n), busy=0.0,
-                          batch=max(pipe.microbatch, MIN_SERVE_BATCH))
+                          batch=width or max(pipe.microbatch,
+                                             MIN_SERVE_BATCH))
     live = list(todo)
     t0 = time.perf_counter()
     while live:
@@ -338,6 +428,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "block; fp deployments still fuse")
     ap.add_argument("--events", type=int, default=512,
                     help="events in all, split over the routes")
+    ap.add_argument("--target-throughput", type=float,
+                    default=TARGET_THROUGHPUT,
+                    help="events/s target for the design flow's P search "
+                         "(CPU scale)")
+    ap.add_argument("--tpu-native-gravnet", action="store_true",
+                    help="partition the GravNet aggregation onto the "
+                         "kernel target (Requirements.tpu_native_gravnet)")
+    ap.add_argument("--train-steps", type=int, default=TRAIN_STEPS,
+                    help="warm-training steps before --model ccn alone is "
+                         "deployed (0: serve the random weights)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: cuda (raises when CUDA is absent)")
     ap.add_argument("--tuning-cache", default=None, metavar="PATH",
@@ -358,17 +458,35 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     args = parse_args(argv)
     cache = load_tuning_cache(args)
+    single = args.model == ["ccn"]
+    trained = None
+    if single and args.train_steps > 0:
+        cfg, gen_cfg = detector_configs(args.detector)
+        trained, losses = warm_train(cfg, gen_cfg, args.train_steps,
+                                     device=args.device)
+        print(f"[serve] warm-trained {args.train_steps} steps, "
+              f"loss {float(losses[-1]):.3f}")
+
+    def servable(m):
+        if m == "ccn" and trained is not None:
+            return _ccn_servable(args, tuning_cache=cache, params=trained)
+        return MODELS[m](args, tuning_cache=cache)
+
     servables = []
     for m in args.model:
-        sv = MODELS[m](args, tuning_cache=cache)
+        sv = servable(m)
         if args.tune:
             g = sv.pipe.graph
             fresh = _tune_and_rebind(
                 cache, args, [(g, g.meta["n_hits"], 1, sv.pipe.backend)],
-                lambda m=m: MODELS[m](args, tuning_cache=cache))
+                lambda m=m: servable(m))
             if fresh is not None:
                 sv = fresh
         servables.append(sv)
+    # the service's micro-batch: ccn alone, its own; several routes, one
+    # width for all
+    width = None if single else max(
+        MIN_ROUTES_BATCH, *(sv.pipe.microbatch for sv in servables))
     routes, truth = {}, {}
     dev = servables[0].pipe.device
     dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -385,17 +503,22 @@ def main(argv=None):
             hits, n_keys = cache_hits(pipe, cache)
             print(f"[serve] route {sv.name}: {hits} of {n_keys} kernel "
                   "problems bound from the tuning cache")
-        batch = max(pipe.microbatch, MIN_SERVE_BATCH)
-        serve_events(pipe, sv.events(batch, 99)[0])      # first launches
+        if width is None:
+            batch = max(pipe.microbatch, MIN_SERVE_BATCH)
+            serve_events(pipe, sv.events(batch, 99)[0])  # first launches
+        else:
+            pipe(sv.events(width, 99)[0])    # one warm-up call per route
         n = args.events // len(servables) + (i < args.events % len(servables))
         feeds, truth[sv.name] = sv.events(n, 7 + i)
         routes[sv.name] = (pipe, feeds)
+    if width is not None:
+        print(f"[serve] routes {list(routes)}: microbatch={width}")
     if cache is not None and len(cache):
         warmed = make_warmup(cache, backend=servables[0].pipe.backend)()
         print(f"[serve] warmed {warmed} cached kernel shape(s) before "
               "serving")
 
-    res, dt = serve_routes(routes)
+    res, dt = serve_routes(routes, width)
     total = sum(len(r[1]) for r in res.values())
     print(f"[serve] {total} events in {dt:.3f}s -> {total / dt:,.0f} ev/s "
           f"({dev_name}, in-order loop, one dispatch per route in turn: "
@@ -405,8 +528,8 @@ def main(argv=None):
         n = len(lat)
         answered = len(next(iter(out.values())))
         print(f"[serve] route {rname}: {n} events, "
-              f"{max(pipe.microbatch, MIN_SERVE_BATCH)} per dispatch, "
-              f"{n / busy:,.0f} ev/s in its dispatches, latency "
+              f"{width or max(pipe.microbatch, MIN_SERVE_BATCH)} per "
+              f"dispatch, {n / busy:,.0f} ev/s in its dispatches, latency "
               f"p50={np.percentile(lat, 50) * 1e6:.0f}us "
               f"p99={np.percentile(lat, 99) * 1e6:.0f}us "
               f"answered={answered} in-order=True")

@@ -45,4 +45,7 @@ class Dense(nn.Module):
         return p
 
     def forward(self, x):
-        return dense_apply(self.params(), x)
+        # the Parameters themselves (not .data), so that a caller that
+        # sets requires_grad gets gradients through the layer
+        p = {"w": self.w} if self.b is None else {"w": self.w, "b": self.b}
+        return dense_apply(p, x)

@@ -341,12 +341,14 @@ def tune_flash_attention(bh: int, s: int, t: int, d: int, *,
                          backend: str = "cuda",
                          cache: TuningCache | None = None, iters: int = 5,
                          min_gain: float = MIN_GAIN, seed: int = 0) -> dict:
-    """Time the kept (bq, bk) plans at one (bh, s, t, d) problem."""
+    """Time the kept (bq, bk) plans at one (bh, s, t, d) problem, on
+    q, k, v of ``dtype`` (``"bf16"`` or f32)."""
     from repro_torch.kernels import ops
     r = _Inputs(seed, backend)
-    q = r.normal((bh, s, d))
-    k = r.normal((bh, t, d))
-    v = r.normal((bh, t, d))
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = r.t(r.rng.normal(size=(bh, s, d)), dt)
+    k = r.t(r.rng.normal(size=(bh, t, d)), dt)
+    v = r.t(r.rng.normal(size=(bh, t, d)), dt)
 
     def call(cfg):
         return ops.flash_attention(q, k, v, causal=causal, **cfg)

@@ -7,9 +7,10 @@ more than ``autotune.MIN_GAIN``, so a noisy timing cannot make a
 deployment slower than untuned.
 
 Of the port's CUDA sources, only ``csrc/flash_attention.cu`` takes a
-launch knob yet: its ``(bq, bk)`` blocks, searched over the reference's
-grid of powers of two from 64 to 256, less every pair whose shared
-memory plan (``kernels/flash_attention.py:smem_bytes``, the source's
+launch knob yet: its ``(bq, bk)`` blocks, which pick its tiles of query
+rows and keys (``kernels/flash_attention.py:plan_block``). They are
+searched over the kernel's own tiles, 32, 64 and 128, less every pair
+whose shared memory plan (``smem_bytes``, the source's
 ``flash_attention_smem_bytes``) exceeds the card's 227 KB at the
 problem's head width, so no refused plan is ever launched. The other
 kernels (``fused_dense``, ``fused_dense_int8``, ``gravnet_aggregate``,
@@ -23,16 +24,8 @@ gives it a Hopper candidate space here.
 from __future__ import annotations
 
 from repro_torch.core.passes import kernel_opt as _ko
+from repro_torch.kernels.flash_attention import PLAN_BLOCKS as _FLASH_TILES
 from repro_torch.kernels.flash_attention import fits as _flash_fits
-
-
-def _pow2_range(lo: int, hi: int) -> list[int]:
-    out = []
-    v = lo
-    while v <= hi:
-        out.append(v)
-        v *= 2
-    return out
 
 
 def _dedup_keep_order(cands: list[dict]) -> list[dict]:
@@ -127,12 +120,13 @@ def default_flash_attention() -> dict:
 
 
 def flash_attention_candidates(s: int, t: int, d: int, *,
-                               max_candidates: int = 8) -> list[dict]:
-    """The default, then every (bq, bk) of 64, 128, 256 cut to (s, t) as
-    the wrapper cuts them, whose plan fits the card at head width d."""
+                               max_candidates: int = 10) -> list[dict]:
+    """The default, then every (bq, bk) of the kernel's tiles 32, 64,
+    128, cut to (s, t) as the wrapper cuts them, whose plan fits the card
+    at head width d."""
     cands = [default_flash_attention()]
-    for bq in _pow2_range(64, 256):
-        for bk in _pow2_range(64, 256):
+    for bq in _FLASH_TILES:
+        for bk in _FLASH_TILES:
             c = {"bq": min(bq, s), "bk": min(bk, t)}
             if _flash_fits(c["bq"], c["bk"], d):
                 cands.append(c)

@@ -108,8 +108,10 @@ def _replay(key, config) -> None:
             t(rng.uniform(0.0, 4.0, size=(batch, n, k))), scale=scale)
     elif key.kernel == "flash_attention":
         bh, s, tt, d = shape
-        ops.flash_attention(normal(bh, s, d), normal(bh, tt, d),
-                            normal(bh, tt, d), **cfg)
+        dt = torch.bfloat16 if key.dtype == "bf16" else torch.float32
+        ops.flash_attention(normal(bh, s, d).to(dt),
+                            normal(bh, tt, d).to(dt),
+                            normal(bh, tt, d).to(dt), **cfg)
     else:
         raise ValueError(f"no replay for kernel {key.kernel!r}")
     if dev.type == "cuda":

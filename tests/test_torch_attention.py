@@ -1,13 +1,14 @@
 """The port's flash attention and its deployed ``attention`` op against
 the JAX package's, on the CPU: the kernel's plain version
-(``kernels/ref.py:flash_attention_blocked_ref``, in the CUDA kernel's
-block order) through ``kernels/ops.py:flash_attention`` against the
+(``kernels/ref.py:flash_attention_blocked_ref``) through
+``kernels/ops.py:flash_attention``, in f32 and bf16, against the
 reference's Pallas body in interpret mode and its softmax oracle, at the
 shapes and blocks of ``tests/test_kernels_flash.py``; the reference
 wrapper's padding contract, the padded keys under causal S > T
 included; and the ``attention`` graph of ``tests/test_fusion_block.py``
-deployed by both packages. Tolerances: the ``float32`` row of
-``tests/_numerics.py``.
+deployed by both packages; the kernel's shared-memory plans and kv
+split, which are Python. Tolerances: the ``float32`` row of
+``tests/_numerics.py`` (``bfloat16`` for bf16 inputs).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +29,8 @@ from repro_torch.core.pipeline import deploy as tdeploy
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda, fits,
+                                                 kv_split, plan_block,
+                                                 plan_stages, plan_width,
                                                  smem_bytes)
 
 # (s, t, d, bq, bk) of tests/test_kernels_flash.py, 48 the padded case
@@ -137,6 +140,31 @@ def test_blocked_ref_refuses_unpadded_shapes():
         tref.flash_attention_blocked_ref(q, q, q, bq=16, bk=16)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_plain_version_matches_reference(causal):
+    """bf16 q, k, v: the port widens them, computes in f32 and rounds the
+    output to bf16, as the reference's Pallas body does; within the
+    bfloat16 row of it (interpret mode) on the same bf16 inputs."""
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, 2, 64, 64, 16)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = tops.flash_attention(tq, tk, tv, causal=causal, bq=32, bk=32)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 64, 16)
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (tq, tk, tv))
+    want = jops.flash_attention(jq, jk, jv, causal=causal, bq=32, bk=32,
+                                backend="pallas_interpret")
+    assert want.dtype == jnp.bfloat16
+    assert_close(got.float().numpy(), np.asarray(want, np.float32),
+                 dtype="bfloat16")
+
+
+def test_cuda_wrapper_refuses_other_dtypes():
+    q = torch.zeros((1, 16, 8), dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_cuda(q, q, q, bq=16, bk=16)
+
+
 def test_cuda_wrapper_never_falls_back_to_the_cpu():
     """The kernel's wrapper takes CUDA tensors only: given CPU tensors
     it raises instead of running the plain version."""
@@ -145,17 +173,44 @@ def test_cuda_wrapper_never_falls_back_to_the_cpu():
         flash_attention_cuda(q, q, q, bq=16, bk=16)
 
 
-@pytest.mark.parametrize("bq,bk,d,fit", [
-    (128, 128, 128, True), (256, 64, 128, True), (128, 256, 128, False),
-    (256, 128, 128, False), (64, 256, 128, False), (256, 256, 64, True),
-    (128, 128, 160, False), (16, 512, 8, False)])
-def test_shared_memory_plan(bq, bk, d, fit):
-    """The plan the kernel's source allocates: the K tile at row stride
-    d + 1, the V tile, the accumulator and two row vectors, all f32;
-    refused above the card's 227 KB, a bk above 256 or a d above 128."""
-    assert smem_bytes(bq, bk, d) == 4 * (bk * (d + 1) + bk * d + bq * d
-                                         + 2 * bq)
+@pytest.mark.parametrize("bq,bk,d,plan,fit", [
+    (128, 128, 128, (128, 128, 128, 1), True),
+    (128, 128, 64, (128, 128, 64, 2), True),
+    (64, 64, 64, (64, 64, 64, 2), True),
+    (256, 64, 128, (128, 64, 128, 2), True),
+    (64, 256, 128, (64, 128, 128, 1), True),
+    (16, 512, 8, (32, 128, 64, 2), True),
+    (128, 128, 160, (128, 128, 128, 1), False),
+    (0, 64, 64, (32, 64, 64, 2), False)])
+def test_shared_memory_plan(bq, bk, d, plan, fit):
+    """The plan the kernel's source allocates for a request: tiles of 32,
+    64 or 128 rows and keys, the head width laid out as 64 or 128; the Q
+    tile and the K tiles at row stride D + 4, the V tiles, and 32 keys
+    of p at row stride BQ + 4, all f32, with two K/V stages where they
+    fit 227 KB, else one. Refused for a d above 128 or a block below 1."""
+    pq, pk, dp, stages = plan
+    assert (plan_block(bq), plan_block(bk), plan_width(d),
+            plan_stages(bq, bk, d)) == plan
+    assert smem_bytes(bq, bk, d) == 4 * (pq * (dp + 4)
+                                         + stages * pk * (dp + 4)
+                                         + stages * pk * dp
+                                         + 32 * (pq + 4))
     assert fits(bq, bk, d) is fit
+
+
+@pytest.mark.parametrize("shape,blocks,want", [
+    ((8, 512, 512), (128, 128), (1, 4)),     # 32 q tiles: 4 splits
+    ((8, 512, 512), (64, 64), (4, 2)),       # 64 q tiles: 2 splits
+    ((8, 512, 512), (32, 64), (8, 1)),       # 128 q tiles fill the SMs
+    ((16, 4096, 4096), (128, 128), (32, 1)),
+    ((1, 64, 1000), (64, 32), (2, 16)),      # at most 16 splits
+    ((1, 16, 16), (16, 16), (1, 1))])        # one kv tile
+def test_kv_split_fills_the_sms(shape, blocks, want):
+    """(chunk, nsplit) on a card of 132 SMs: the kv tiles of a q tile are
+    split over CTAs only while the q tiles are fewer than the SMs."""
+    bh, s, t = shape
+    bq, bk = blocks
+    assert kv_split(bh, s, t, bq=bq, bk=bk, n_sm=132) == want
 
 
 # ------------------------------------------------------------- deployment ----

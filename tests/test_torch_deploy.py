@@ -213,3 +213,28 @@ def test_block_without_concat_raises(model):
     ev = tbelle2.generate(gen, pipe.microbatch, seed=1)
     with pytest.raises(NotImplementedError, match="concat_x"):
         pipe({"hits": ev["feats"], "mask": ev["mask"]})
+
+
+@pytest.mark.parametrize("dp", [1, 2, 3])
+@pytest.mark.parametrize("policy", ["fp", "mixed"])
+def test_tpu_native_gravnet_matches_reference(model, events, dp, policy):
+    """``Requirements.tpu_native_gravnet=True`` (serve's
+    ``--tpu-native-gravnet``) partitions the GravNet aggregation onto
+    the kernel target: the deployed graphs equal the reference's op for
+    op, the heads within the float32 row (under mixed both packages
+    quantize on the same calibrated grid) and CPS decisions bitwise."""
+    jcfg, jg, tcfg, tg = model
+    ev = events[0]
+    calib = ({"hits": ev["feats"], "mask": ev["mask"]}
+             if policy == "mixed" else None)
+    kw = dict(_req_kw(dp, jcfg, policy), tpu_native_gravnet=True)
+    jpipe = jdeploy(jg, JReq(**kw), calibration_feeds=calib)
+    tpipe = tdeploy(tg, TReq(**kw), calibration_feeds=calib, device="cpu")
+    plain = tdeploy(tg, TReq(**_req_kw(dp, tcfg, policy)),
+                    calibration_feeds=calib, device="cpu")
+    agg = [op for op in tpipe.graph if op.op_type == "gravnet_aggregate"]
+    assert all(op.target == "mxu" for op in agg)
+    if agg:   # the flag moves the aggregation off the host target
+        assert _op_rows(tpipe.graph) != _op_rows(plain.graph)
+    _compare_with_reference(jpipe, tpipe, events,
+                            ("beta", "coords", "energy", "cls"))

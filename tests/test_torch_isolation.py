@@ -98,6 +98,17 @@ def test_kernel_libraries_are_named_by_their_sources(tmp_path,
         assert _build._lib_path(n) != libs[n]
 
 
+def test_only_the_fma_kernel_builds_without_fmad_false():
+    """Every source keeps -fmad=false (its plain version replays its
+    bits) except flash_attention, which runs on FMAs and is held to the
+    float32 row; each library's name follows its own flags."""
+    from repro_torch.kernels import _build
+    for name in _build.sources():
+        flags = _build.nvcc_flags(name)
+        assert ("-fmad=false" in flags) == (name != "flash_attention"), name
+        assert "arch=compute_90a,code=sm_90a" in flags
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch):
     from repro_torch.kernels import _build
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
@@ -121,6 +132,21 @@ def test_default_device_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_warm_training_without_cuda_raises():
+    """The optimizer package is part of the port, and the serve loop's
+    warm-training, asked for no device on a host without CUDA, raises
+    instead of training on the CPU."""
+    from repro_torch.launch import serve
+    assert {"repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.schedule",
+            "repro_torch.core.condensation"} <= set(_modules())
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid")
+    cfg, gen_cfg = serve.detector_configs("current")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.warm_train(cfg, gen_cfg, 1)
 
 
 def test_ragged_deploy_without_cuda_raises():

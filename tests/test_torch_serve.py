@@ -120,3 +120,122 @@ def test_trigger_rates():
     eff, fake = serve.trigger_rates(np.array([1, 0, 1, 1], bool),
                                     np.array([1.0, 1.0, 0.0, 0.0]))
     assert (eff, fake) == (0.5, 1.0)
+
+
+def _spy_main(monkeypatch, argv):
+    """Run ``serve.main`` in-process, recording the Requirements every
+    deployment gets, the servables' event draws, the weights the ccn
+    route deploys and the serve loop's width; returns that record."""
+    rec = {"reqs": [], "draws": [], "params": [], "width": [], "res": []}
+    real_deploy, real_routes = serve.deploy, serve.serve_routes
+    real_ccn = serve._ccn_servable
+
+    def deploy(graph, req, **kw):
+        rec["reqs"].append(req)
+        return real_deploy(graph, req, **kw)
+
+    def routes(r, batch=None):
+        rec["width"].append(batch)
+        out = real_routes(r, batch)
+        rec["res"].append(out[0])
+        return out
+
+    def ccn(args, cfg=None, tuning_cache=None, params=None):
+        rec["params"].append(params)
+        return real_ccn(args, cfg, tuning_cache, params)
+
+    def recording(make):
+        def servable(*a, **kw):
+            sv = make(*a, **kw)
+
+            def events(n, seed, sv=sv):
+                rec["draws"].append((sv.name, n, seed))
+                return sv.events(n, seed)
+            rec.setdefault("pipes", {})[sv.name] = sv.pipe
+            return serve.Servable(sv.name, sv.pipe, events)
+        return servable
+
+    monkeypatch.setattr(serve, "deploy", deploy)
+    monkeypatch.setattr(serve, "serve_routes", routes)
+    monkeypatch.setattr(serve, "_ccn_servable", recording(ccn))
+    monkeypatch.setitem(serve.MODELS, "ccn", recording(ccn))
+    for name in ("gatedgcn", "graphsage"):
+        monkeypatch.setitem(serve.MODELS, name,
+                            recording(serve.MODELS[name]))
+    assert serve.main(["--device", "cpu", "--detector", "current",
+                       *argv]) == 0
+    return rec
+
+
+@pytest.mark.parametrize("models", [("ccn", "gatedgcn"),
+                                    ("gatedgcn", "graphsage")])
+def test_routes_share_the_reference_dispatch_width(monkeypatch, capsys,
+                                                   models):
+    """Several routes: one width for all, ``max(8, *microbatches)`` as
+    the reference's service takes it, and each route warmed with that
+    many events of seed 99 before its served events (seed 7 + i); no
+    warm-training on this path."""
+    rec = _spy_main(monkeypatch, ["--events", "12", "--model", *models])
+    width = max(8, *(rec["pipes"][m].microbatch for m in models))
+    assert rec["width"] == [width]
+    for i, m in enumerate(models):
+        assert rec["draws"].index((m, width, 99)) < rec["draws"].index(
+            (m, 6, 7 + i))
+    assert rec["params"] in ([], [None])
+    out = capsys.readouterr().out
+    assert "warm-trained" not in out
+    assert f"microbatch={width}" in out
+    for m in models:
+        assert f"route {m}: 6 events, {width} per dispatch" in out
+
+
+def test_deploy_flags_reach_requirements(monkeypatch):
+    """``--target-throughput`` and ``--tpu-native-gravnet`` reach every
+    deployment's Requirements; their defaults are the reference's."""
+    rec = _spy_main(monkeypatch, ["--events", "4", "--train-steps", "0",
+                                  "--target-throughput", "2.5e4",
+                                  "--tpu-native-gravnet", "--model", "ccn",
+                                  "graphsage"])
+    assert len(rec["reqs"]) == 2
+    for req in rec["reqs"]:
+        assert req.target_throughput == 2.5e4 and req.tpu_native_gravnet
+    args = serve.parse_args([])
+    assert args.target_throughput == 1e5 and not args.tpu_native_gravnet
+    assert args.train_steps == 40
+
+
+def test_train_steps_0_serves_the_untrained_deployment(monkeypatch, capsys):
+    """``--train-steps 0`` is the run without training: the seed-0
+    weights, no training line, and the served decisions of
+    ``build_pipeline``'s deployment on the events of seed 7."""
+    rec = _spy_main(monkeypatch, ["--events", "20", "--train-steps", "0"])
+    # the warm-up dispatch and the served loop, both at ccn's own width
+    assert rec["params"] == [None] and rec["width"] == [None, None]
+    assert "warm-trained" not in capsys.readouterr().out
+    got = rec["res"][-1]["ccn"][0]
+    cfg, gen_cfg = serve.detector_configs("current")
+    pipe = serve.build_pipeline(cfg, gen_cfg, device="cpu")
+    ev = generate(gen_cfg, 20, seed=7)
+    want, _, _ = serve.serve_events(pipe, {"hits": ev["feats"],
+                                           "mask": ev["mask"]})
+    for k in ("n_clusters", "trigger", "cluster_valid"):
+        assert_bitwise(got["cps"][k], want["cps"][k], context=k)
+    assert_bitwise(got["beta"], want["beta"])
+
+
+def test_default_run_warm_trains_then_serves_the_trained_weights(
+        monkeypatch, capsys):
+    """ccn alone trains first (here 3 steps) and deploys exactly the
+    weights ``warm_train`` gives, and prints the reference's line."""
+    rec = _spy_main(monkeypatch, ["--events", "4", "--train-steps", "3"])
+    cfg, gen_cfg = serve.detector_configs("current")
+    want, losses = serve.warm_train(cfg, gen_cfg, 3, device="cpu")
+    (got,) = rec["params"]
+    for n in want:
+        for k in want[n]:
+            assert_bitwise(got[n][k].numpy(), want[n][k].numpy(),
+                           context=f"{n}/{k}")
+    out = capsys.readouterr().out
+    assert len(losses) == 3
+    assert f"warm-trained 3 steps, loss {float(losses[-1]):.3f}" in out
+    assert "answered=4 in-order=True" in out

@@ -279,18 +279,21 @@ def test_autotune_graph_on_cpu_records_one_inert_candidate(setups, name):
 
 
 def test_flash_candidates_keep_only_plans_that_fit():
-    """The default first, then the reference's (bq, bk) grid, less every
-    plan above 227 KB of shared memory at the head width."""
+    """The default first, then the kernel's (bq, bk) tiles of 32, 64 and
+    128, less every plan above 227 KB of shared memory at the head width
+    (none: a plan whose two K/V stages do not fit keeps one) and every
+    head width above 128."""
+    grid = [(128, 128), (32, 32), (32, 64), (32, 128), (64, 32), (64, 64),
+            (64, 128), (128, 32), (128, 64)]
     d64 = cand.flash_attention_candidates(512, 512, 64)
-    assert d64[0] == {"bq": 128, "bk": 128} and len(d64) == 8
-    assert [(c["bq"], c["bk"]) for c in d64] == [
-        (128, 128), (64, 64), (64, 128), (64, 256), (128, 64), (128, 256),
-        (256, 64), (256, 128)]
+    assert d64[0] == {"bq": 128, "bk": 128}
+    assert [(c["bq"], c["bk"]) for c in d64] == grid
     d128 = cand.flash_attention_candidates(4096, 4096, 128)
-    assert [(c["bq"], c["bk"]) for c in d128] == [
-        (128, 128), (64, 64), (64, 128), (128, 64), (256, 64)]
+    assert [(c["bq"], c["bk"]) for c in d128] == grid
     assert cand.flash_attention_candidates(16, 16, 8) == [
         {"bq": 128, "bk": 128}, {"bq": 16, "bk": 16}]
+    assert cand.flash_attention_candidates(64, 64, 160) == [
+        {"bq": 128, "bk": 128}]
     # the other families take no knob on the card yet: the default alone
     assert cand.knn_build_candidates(128, batch=8) == [{"bm": 128}]
     assert cand.gravnet_block_int8_candidates(128, 64, 22, 64) == [
@@ -304,6 +307,47 @@ def test_tune_flash_attention_on_cpu():
     assert cfg == {"bq": 128, "bk": 128}
     e = cache.entry(flash_attention_key(2, 16, 16, 8, "float32", "cpu"))
     assert e.candidates == 1 and e.config == cfg
+
+
+def test_tune_flash_attention_times_bf16_inputs(monkeypatch):
+    """A bf16 problem is timed on bf16 q, k, v (and filed under its bf16
+    key), as the reference draws them; f32 on f32."""
+    from repro_torch.kernels import ops
+    seen = []
+    real = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", spy)
+    cache = TuningCache()
+    for dtype, want in (("bf16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        seen.clear()
+        tune_flash_attention(1, 16, 16, 8, dtype=dtype, backend="cpu",
+                             cache=cache, iters=1)
+        assert seen and set(seen) == {(want,) * 3}
+        assert flash_attention_key(1, 16, 16, 8, dtype, "cpu") in cache
+
+
+def test_warm_up_replays_bf16_flash_keys_on_bf16(monkeypatch):
+    from repro_torch.kernels import ops
+    seen = []
+    real = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append(q.dtype)
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", spy)
+    cache = TuningCache()
+    cache.put(flash_attention_key(1, 16, 16, 8, "bf16", "cpu"),
+              {"bq": 16, "bk": 16})
+    cache.put(flash_attention_key(1, 32, 32, 8, "float32", "cpu"),
+              {"bq": 16, "bk": 16})
+    assert warm_from_cache(cache) == 2
+    assert sorted(map(str, seen)) == ["torch.bfloat16", "torch.float32"]
 
 
 def test_tuning_backends_are_the_ports():
