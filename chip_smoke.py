@@ -17,7 +17,14 @@ Phases, each of which exits non-zero when it fails:
    the epilogue, for ``fused_dense_int8`` at the shapes it accepts;
    ``index_add_`` for ``edge_aggregate``'s sum and, over 0/1 masks,
    ``index_reduce_('mean')`` for its mean), checked once against the
-   plain version before it is timed;
+   plain version before it is timed. The int8 pair (``fused_dense_int8``,
+   ``gravnet_block_int8``) is held bitwise everywhere: at the main
+   path's shapes, at the current detector's (its mixed deployment's
+   calls, 32 hits, at one chunk, 16 and 64 events), and on the inputs of
+   ``kernels/int8_cases.py`` (exact distance ties, 32 and 50 hits, fewer
+   valid hits than k, rows off the tile, K = 4 and N = 7 in both output
+   forms, K past one staged slice, x quantized on the hard quotients of
+   ``int8_cases.quotient_edges``);
 4. the main path, as ``python -m repro_torch.launch.serve
    --train-steps 0`` runs it: deploy the upgrade-width CaloClusterNet
    (random weights from a seed) at design point 3 under the **mixed**
@@ -192,6 +199,12 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention.py:78",
     },
 }
+# kernels held bitwise to their plain versions at every phase-3 shape
+BITWISE = {"fused_dense_int8", "gravnet_block_int8"}
+# the int8 block's widths on the edge inputs: the served model's and the
+# reference's smoke config's (repro/configs/caloclusternet.py)
+INT8_WIDTHS = dict(dh=64, ds=4, df=22, dout=64)
+SMOKE_WIDTHS = dict(dh=24, ds=3, df=8, dout=24)
 # leading arguments of each kernel that carry the events (stacked to
 # check a kernel at more events than one chunk)
 EVENT_ARGS = {"fused_dense": 1, "fused_dense_int8": 1, "gravnet_block": 2,
@@ -429,7 +442,7 @@ def main() -> int:
     from repro_torch.core import caloclusternet as ccn
     from repro_torch.data.belle2 import (Belle2Config, generate,
                                          with_occupancy)
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, int8_cases
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_dense import (fused_dense_cuda,
@@ -595,6 +608,7 @@ def main() -> int:
         integer output (knn_build's idx) bitwise; then the times and the
         bound. ``splits`` in ``kw`` goes to the kernel alone."""
         kern, plain = wrappers[name], plain_fns[name]
+        bitwise = bitwise or name in BITWISE
         plain_kw = {k_: v_ for k_, v_ in kw.items() if k_ != "splits"}
         try:
             got = kern(*args, **kw)
@@ -756,6 +770,50 @@ def main() -> int:
                 check(path, pos, n_ev,
                       *stacked(calls, per_chunk, pipe.microbatch, pos, n_ev))
     del recorded
+
+    # the int8 pair at the current detector's shapes (32 hits: its mixed
+    # deployment's calls on its own calibration batch) and on the inputs
+    # that stress their designs (kernels/int8_cases.py), bitwise
+    cur_cfg, cur_gen = serve.detector_configs("current")
+    cur_pipe = serve.build_pipeline(cur_cfg, cur_gen, device=dev,
+                                    design_point=3, precision="mixed")
+    say(f"deployed current-detector CaloClusterNet (n_hits="
+        f"{cur_cfg.n_hits}, mixed, design point 3): microbatch="
+        f"{cur_pipe.microbatch}")
+    cur_calls, cur_per_chunk = record(
+        cur_pipe, serve.calibration_feeds(cur_gen))
+    for pos in range(cur_per_chunk):
+        for n_ev in (cur_pipe.microbatch, *CHECK_BATCHES[1:]):
+            check("mixed_current", pos, n_ev, *stacked(
+                cur_calls, cur_per_chunk, cur_pipe.microbatch, pos, n_ev))
+    del cur_calls
+
+    def as_args(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                if isinstance(a, np.ndarray) else a for a in arrays]
+
+    for case, (b, n, n_valid, dup) in int8_cases.BLOCK_CASES.items():
+        for tag, widths, k_ in (("", INT8_WIDTHS, cfg.k),
+                                (" smoke widths", SMOKE_WIDTHS, 4)):
+            ops_, scales = int8_cases.block_inputs(
+                b, n, **widths, seed=len(case), n_valid=n_valid, dup=dup)
+            check(f"edge:{case}{tag}", 0, b, "gravnet_block_int8",
+                  as_args(ops_), dict(scales, k=k_))
+    # x's quantizations (into xq and into h) on the quotients where the
+    # kernels' division-free quotient (csrc/int8_quant.cuh) could round
+    # otherwise than the division: ties of rint, float midpoints,
+    # subnormal quotients (its division fallback), the clip, ±inf
+    for tag, widths, k_ in (("", INT8_WIDTHS, cfg.k),
+                            (" smoke widths", SMOKE_WIDTHS, 4)):
+        ops_, scales = int8_cases.quotient_edges(*int8_cases.block_inputs(
+            2, cfg.n_hits, **widths, seed=5, n_valid=cfg.n_hits * 3 // 4),
+            seed=5)
+        check(f"edge:quotients{tag}", 0, 2, "gravnet_block_int8",
+              as_args(ops_), dict(scales, k=k_))
+    for case, (m, kd, n, act, out8) in int8_cases.DENSE_CASES.items():
+        ops_, out_scale = int8_cases.dense_inputs(m, kd, n, seed=len(case))
+        check(f"edge:{case}", 0, 1, "fused_dense_int8", as_args(ops_),
+              dict(activation=act, out_int8=out8, out_scale=out_scale))
 
     # the ragged path: its kernel calls while serving its events, made
     # with the plain versions (whose results phase 6 holds the kernels'
@@ -1546,9 +1604,10 @@ def main() -> int:
             "launches": n_launch,
             "launches_from": {p: path_launches[p][name] for p in home[name]},
             "max_abs_err": results[name]["max_abs_err"],
-            "tolerance": f"|err| <= {ATOL:g} + {RTOL:g}*|plain|" + (
-                f" (bf16: {BF16_ATOL:g} + {BF16_RTOL:g}*|plain|)"
-                if name == "flash_attention" else ""),
+            "tolerance": "bitwise" if name in BITWISE else (
+                f"|err| <= {ATOL:g} + {RTOL:g}*|plain|" + (
+                    f" (bf16: {BF16_ATOL:g} + {BF16_RTOL:g}*|plain|)"
+                    if name == "flash_attention" else "")),
             "per": (f"one launch of the {path} executable ({len(rows_)} "
                     f"launches, {mb} bins)" if name.startswith("knn") else
                     f"one chunk of the {path} path ({len(rows_)} launches, "

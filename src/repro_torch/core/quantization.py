@@ -46,11 +46,19 @@ def activation_scale(absmax: float, *, bits: int = 8) -> float:
     return max(float(absmax), 1e-8) / qmax
 
 
+def div_f32(v: torch.Tensor, s: float) -> torch.Tensor:
+    """``v / f32(s)`` rounded as the IEEE float32 division, on every
+    device. PyTorch's CUDA kernels divide by a Python scalar as a product
+    with its float reciprocal, which misses the quotient's last bit on
+    some inputs; a divisor tensor on v's device keeps the division."""
+    return v / torch.full((), f32(s), dtype=torch.float32, device=v.device)
+
+
 def quantize_act(v: torch.Tensor, scale: float) -> torch.Tensor:
     """f32 activations -> int8 on the grid of ``scale``: ``v / scale``
     (a division, as the reference quantizes), rounded half to even,
     clipped to ±127."""
-    q = torch.clamp(torch.round(v.float() / f32(scale)), -QMAX, QMAX)
+    q = torch.clamp(torch.round(div_f32(v.float(), scale)), -QMAX, QMAX)
     return q.to(torch.int8)
 
 

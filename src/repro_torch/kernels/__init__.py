@@ -22,9 +22,14 @@
                            ``attention`` op's kernel, its (bq, bk) blocks
                            tunable (``csrc/flash_attention.cu``).
 
-The five GravNet and kNN kernels share the cell in
-``csrc/gravnet_cell.cuh``: the whole of it, or its selection or its
-accumulation half.
+Four GravNet and kNN kernels share the cell in ``csrc/gravnet_cell.cuh``:
+the whole of it, or its selection or its accumulation half;
+``gravnet_block_int8`` runs the same cell with its distance row in
+registers (``csrc/gravnet_cell_reg.cuh``). The two int8 kernels share
+the tensor-core product (``csrc/mma_s8.cuh``) and the division-free
+quantization (``csrc/int8_quant.cuh``). ``int8_cases.py`` makes the
+inputs that stress them; ``phase_split.py`` times the int8 block's
+phases on the card.
 ``ops.py`` routes by device (CPU tensor -> plain version in ``ref.py``,
 CUDA tensor -> kernel); ``_build.py`` compiles ``csrc/`` with ``nvcc``
 at first use. Nothing builds when a module is imported.

@@ -8,119 +8,162 @@
 // looped grid with an int32 VMEM accumulator and the dequant/requant
 // epilogue), for the flattened and the row-packed batched forms alike.
 //
-// Bound on this card: memory. The paths' products are (128-256, K) by
-// (K, N<=64) int8 with K = 4, 32, 64, or 128 (the unfused chain's
-// lane-padded concat): at most 2*M*K*N = 2.1 M integer operations (1 ns
-// at the 1,979 TOPS int8 tensor-core rate) against 9-87 KB moved
-// (3-26 ns at 3.35 TB/s); each launch costs microseconds, so the launch
-// and one CTA's dependent chain are what it pays.
+// Bound on this card: latency. The paths' products are (128-256, K) by
+// (K, N <= 64) int8 with K = 4, 32, 64 or 128: at most 2*M*K*N = 2.1 M
+// integer operations (1 ns at the 1,979 TOPS int8 tensor-core rate)
+// against 9-87 KB moved (3-26 ns at 3.35 TB/s), while a launch costs
+// microseconds. The first version (32x64 output tiles, 8 CTAs for a
+// (256, K)->64 product; each 32-deep K tile gathered byte by byte and
+// transposed into words between two barriers; __dp4a) took 3.7-7.9 us
+// a launch, up to twice torch._int_mm's product alone.
 //
-// Design: the f32 fused_dense's tiling (one CTA of 256 threads per 32x64
-// output tile, each thread a 2x4 block of outputs), with 32-deep K tiles
-// of int8 staged in shared memory as packed 32-bit words — four
-// consecutive k of a row of x, and four consecutive k of a column of w
-// (the w tile is transposed on its way in) — and summed with __dp4a,
-// four int8 products per instruction. Any M, K, N: loads outside the
-// operands read 0, so K is zero-padded in shared memory up to the tile
-// depth, and stores outside are skipped (the merged head has N = 7).
-// Integer sums are exact in any order, so the accumulators equal the
-// plain version's (kernels/ref.py:fused_dense_int8_ref) bitwise. The
-// epilogue keeps the reference's order of rounded f32 operations —
-// scale = x_scale * w_scale[c], y = (float)acc * scale, y + b, the
-// activation, then rintf(y / out_scale) (ties to even, an IEEE
-// division) clamped to +-127 — and the build's -fmad=false keeps the
-// product and the bias add apart. int8 tensor cores (mma.sync s8) are
-// for a later, faster version.
+// Design: 32x16 output tiles, one CTA of 4 warps each, every warp one
+// 16x8 tile of the int8 tensor cores (mma.sync m16n8k32, mma_s8.cuh):
+// 32 CTAs for a (256, K)->64 product. A narrow output (the merged
+// head's N = 7) keeps 8 CTAs for 256 rows: 16-row tiles, twice the
+// CTAs, measured slower. A CTA stages up to 128 of K in one
+// round trip: its 32 rows of x as 16-byte vectors where K is a multiple
+// of 16 (else words, else bytes), and its 16 columns of w as one 16-byte
+// vector per k where N is a multiple of 16 (else bytes), as w lies in
+// device memory; the weights' fragments are gathered from there with
+// every k >= K and column >= N read as 0, which zero-pads K to the MMA's
+// depth of 32 (x's padding is never written: it meets those zeros). The
+// scales and biases of a lane's two columns load while the operands do.
+// Any M, K, N: a longer K loops over 128-deep slices, rows and columns
+// past M and N are not stored (the merged head has N = 7). Integer sums
+// are exact in any order, so the accumulators equal the plain version's
+// (kernels/ref.py:fused_dense_int8_ref) bitwise. The epilogue keeps the
+// reference's order of rounded f32 operations — scale = x_scale *
+// w_scale[c], y = (float)acc * scale, y + b, the activation, then
+// rint(y / out_scale) (ties to even; the quotient rounded as the IEEE
+// division rounds it, int8_quant.cuh) clamped to +-127 — and the build's
+// -fmad=false keeps the product and the bias add apart.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_quant.cuh"
+#include "mma_s8.cuh"
+
 namespace {
 
-constexpr int BM = 32;
-constexpr int BN = 64;
-constexpr int BK = 32;          // int8 values of K per tile
-constexpr int BKW = BK / 4;     // packed words per tile row
-constexpr int TM = 2;
-constexpr int TN = 4;
+using repro_torch::mma_gather_b;
+using repro_torch::mma_load_a;
+using repro_torch::mma_s8_16x8x32;
+using repro_torch::quotient;
+using repro_torch::quotient_exact;
+using repro_torch::round_clip_s8;
 
-__device__ inline int pack4(int8_t a, int8_t b, int8_t c, int8_t d) {
-  return (int)((uint32_t)(uint8_t)a | ((uint32_t)(uint8_t)b << 8) |
-               ((uint32_t)(uint8_t)c << 16) | ((uint32_t)(uint8_t)d << 24));
+constexpr int BM = 32;          // rows of a CTA's tile
+constexpr int BN = 16;          // columns of a CTA's tile
+constexpr int KC = 128;         // depth staged per round trip
+constexpr int LDX = KC + 16;    // x tile's row stride: 16 mod 32 bytes
+constexpr int kThreads = 128;   // 4 warps: 2x2 MMA tiles of 16x8
+
+__device__ inline bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 fused_dense_int8_kernel(const int8_t* __restrict__ x,
                         const int8_t* __restrict__ w,
                         const float* __restrict__ b,
                         const float* __restrict__ w_scale, float x_scale,
                         void* __restrict__ y, int M, int K, int N, int relu,
                         int out_int8, float out_scale) {
-  __shared__ int xs[BM][BKW + 1];
-  __shared__ int wt[BN][BKW + 1];
+  __shared__ __align__(16) int8_t xs[BM * LDX];
+  __shared__ __align__(16) int8_t wsm[KC * BN];
   const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int rows = min(BM, M - row0), cols = min(BN, N - col0);
+  const int mt = warp >> 1, nt = warp & 1;
 
-  int acc[TM][TN];
+  // this lane's two output columns: scale and bias
+  float sc[2], bias[2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    {  // x tile: BM*BKW = 256 words, one per thread
-      const int r = tid / BKW, kw = tid % BKW;
-      const int gr = row0 + r, gk = k0 + 4 * kw;
-      int8_t v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        v[q] = (gr < M && gk + q < K) ? x[(size_t)gr * K + gk + q] : 0;
-      xs[r][kw] = pack4(v[0], v[1], v[2], v[3]);
-    }
-    // w tile, transposed: BN*BKW = 512 words, two per thread
-    for (int e = tid; e < BN * BKW; e += 256) {
-      const int c = e % BN, kw = e / BN;
-      const int gc = col0 + c, gk = k0 + 4 * kw;
-      int8_t v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        v[q] = (gc < N && gk + q < K) ? w[(size_t)(gk + q) * N + gc] : 0;
-      wt[c][kw] = pack4(v[0], v[1], v[2], v[3]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kw = 0; kw < BKW; ++kw) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int a = xs[tr + 16 * i][kw];
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          acc[i][j] = __dp4a(a, wt[tc + 16 * j][kw], acc[i][j]);
-      }
-    }
-    __syncthreads();
+  for (int jj = 0; jj < 2; ++jj) {
+    const int c = nt * 8 + 2 * t + jj;
+    sc[jj] = c < cols ? x_scale * w_scale[col0 + c] : 0.0f;
+    bias[jj] = (b != nullptr && c < cols) ? b[col0 + c] : 0.0f;
   }
 
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = row0 + tr + 16 * i;
-    if (gr >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = col0 + tc + 16 * j;
-      if (gc >= N) continue;
-      const float sc = x_scale * w_scale[gc];
-      float v = (float)acc[i][j] * sc;
-      if (b != nullptr) v = v + b[gc];
-      if (relu) v = v > 0.0f ? v : 0.0f;
-      const size_t o = (size_t)gr * N + gc;
-      if (out_int8) {
-        const float q = fminf(fmaxf(rintf(v / out_scale), -127.0f), 127.0f);
-        static_cast<int8_t*>(y)[o] = (int8_t)(int)q;
-      } else {
-        static_cast<float*>(y)[o] = v;
+  const bool x16 = K % 16 == 0 && aligned(x, 16);
+  const bool x4 = K % 4 == 0 && aligned(x, 4);
+  const bool w16 = N % 16 == 0 && aligned(w, 16);
+  int acc[4] = {0, 0, 0, 0};
+  for (int kc = 0; kc < K; kc += KC) {
+    const int kw = min(KC, K - kc);
+    if (kc > 0) __syncthreads();      // the last slice's fragments are read
+    const int8_t* xg = x + (size_t)row0 * K + kc;
+    if (x16) {
+      const int per = kw / 16;
+      for (int e = tid; e < rows * per; e += kThreads) {
+        const int r = e / per, v = e - r * per;
+        *reinterpret_cast<int4*>(xs + r * LDX + 16 * v) =
+            __ldg(reinterpret_cast<const int4*>(xg + (size_t)r * K) + v);
+      }
+    } else if (x4) {
+      const int per = kw / 4;
+      for (int e = tid; e < rows * per; e += kThreads) {
+        const int r = e / per, v = e - r * per;
+        *reinterpret_cast<int*>(xs + r * LDX + 4 * v) =
+            __ldg(reinterpret_cast<const int*>(xg + (size_t)r * K) + v);
+      }
+    } else {
+      for (int e = tid; e < rows * kw; e += kThreads) {
+        const int r = e / kw, c = e - r * kw;
+        xs[r * LDX + c] = xg[(size_t)r * K + c];
       }
     }
+    const int8_t* wg = w + (size_t)kc * N + col0;
+    if (w16) {
+      for (int kk = tid; kk < kw; kk += kThreads)
+        *reinterpret_cast<int4*>(wsm + kk * BN) =
+            __ldg(reinterpret_cast<const int4*>(wg + (size_t)kk * N));
+    } else {
+      for (int e = tid; e < kw * cols; e += kThreads) {
+        const int kk = e / cols, c = e - kk * cols;
+        wsm[kk * BN + c] = wg[(size_t)kk * N + c];
+      }
+    }
+    __syncthreads();
+    for (int k0 = 0; k0 < kw; k0 += 32) {
+      uint32_t a[4], bf[2];
+      mma_load_a(a, xs, LDX, 16 * mt, k0);
+      mma_gather_b(bf, wsm, BN, kw, cols, k0, 8 * nt);
+      mma_s8_16x8x32(acc, a, bf);
+    }
+  }
+
+  // the epilogue: dequantize, bias, activation; requantize as
+  // int8_quant.cuh does, or by f32 divisions where its quotient is out of
+  // range
+  const double rd = 1.0 / (double)out_scale;
+  float v[4], q[4];
+  bool ok = true;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int jj = e & 1;
+    v[e] = (float)acc[e] * sc[jj];
+    if (b != nullptr) v[e] = v[e] + bias[jj];
+    if (relu) v[e] = v[e] > 0.0f ? v[e] : 0.0f;
+    q[e] = quotient(v[e], rd);
+    ok = ok && quotient_exact(v[e], q[e]);
+  }
+  if (out_int8 && !ok) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) q[e] = v[e] / out_scale;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = 16 * mt + g + 8 * (e >> 1), c = 8 * nt + 2 * t + (e & 1);
+    if (r >= rows || c >= cols) continue;
+    const size_t o = (size_t)(row0 + r) * N + col0 + c;
+    if (out_int8)
+      static_cast<int8_t*>(y)[o] = round_clip_s8(q[e]);
+    else
+      static_cast<float*>(y)[o] = v[e];
   }
 }
 
@@ -136,7 +179,7 @@ extern "C" int fused_dense_int8(const int8_t* x, const int8_t* w,
                                 void* stream) {
   if (M > 0 && N > 0) {
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    fused_dense_int8_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+    fused_dense_int8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         x, w, b, w_scale, x_scale, y, M, K, N, act, out_int8, out_scale);
   }
   return (int)cudaGetLastError();

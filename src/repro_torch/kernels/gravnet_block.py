@@ -6,9 +6,11 @@ Counterpart of ``repro/kernels/gravnet_block.py``
 ``gravnet_block_int8_batched_pallas``; the per-event
 ``gravnet_block_pallas`` and ``gravnet_block_int8_pallas`` are the same
 kernels at B = 1). The CUDA sources are ``csrc/gravnet_block.cu`` and
-``csrc/gravnet_block_int8.cu``, both with the cell in
-``csrc/gravnet_cell.cuh``; the plain versions are
-``kernels/ref.py:gravnet_block_ref`` and ``gravnet_block_int8_ref``.
+``csrc/gravnet_block_int8.cu``, the first with the shared-memory cell of
+``csrc/gravnet_cell.cuh``, the second with the register-resident cell of
+``csrc/gravnet_cell_reg.cuh`` and int8 tensor-core products; the plain
+versions are ``kernels/ref.py:gravnet_block_ref`` and
+``gravnet_block_int8_ref``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,13 @@ from repro_torch.kernels.fused_dense import act_code
 
 #: query rows per CTA: 4 CTAs per event at the main path's 128 hits
 BM = 32
+#: query rows per CTA of the int8 block, one per warp: 8 CTAs per event
+#: at the main path's 128 hits (the kernel takes at most 16)
+BM_INT8 = 16
+#: the int8 block's cell keeps a row's distances and outputs in
+#: registers: at most 16 candidates and 4 feature columns per lane
+MAX_HITS_INT8 = 512
+MAX_DF_INT8 = 128
 _lib = None
 _lib_int8 = None
 
@@ -123,8 +132,9 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
     wf_q:(dh,df) wo_q:(dh+2df, d_out) int8; bs, bf, bo and the
     per-channel ``*_scale`` vectors f32 of the matching output widths.
     The three activation scales are Python floats, passed as float32.
-    Raises on a shape whose shared-memory plan exceeds the card's
-    227 KB. Adds one to ``gravnet_block_int8_cuda.launches`` per
+    Raises on more than 512 hits, on d_f above 128 (the cell's
+    registers) and on a shape whose shared-memory plan exceeds the
+    card's 227 KB. Adds one to ``gravnet_block_int8_cuda.launches`` per
     launch."""
     act = act_code(activation)
     if x.ndim != 3:
@@ -156,7 +166,11 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
                         "float32 activations, biases and scales")
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_block_int8_cuda takes contiguous operands")
-    bm = min(n, BM)
+    if n > MAX_HITS_INT8 or df > MAX_DF_INT8:
+        raise ValueError(
+            f"gravnet_block_int8_cuda: n={n}, d_f={df}: the cell takes at "
+            f"most {MAX_HITS_INT8} hits and d_f <= {MAX_DF_INT8}")
+    bm = min(n, BM_INT8)
     lib = _library_int8()
     smem = lib.gravnet_block_int8_smem_bytes(n, dh, ds, df, dout, bm)
     if smem > _build.SMEM_LIMIT:

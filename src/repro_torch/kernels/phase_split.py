@@ -1,0 +1,235 @@
+"""Where a CTA of ``gravnet_block_int8`` spends its time, phase by phase.
+
+    python -m repro_torch.kernels.phase_split [--source FILE.cu --bm N]
+
+Builds a copy of the kernel's source (by default
+``csrc/gravnet_block_int8.cu``; ``--source`` takes another version of
+it, such as an earlier commit's, with the same C entry point) in which
+thread 0 of every CTA reads ``clock64()`` at the kernel's start, after
+every ``__syncthreads()`` and at its end, and runs it at the main path's
+widths (128 hits, d_hidden 64, d_s 4, d_f 22, k 8; inputs from
+``int8_cases.block_inputs``, three quarters of the hits valid) on the
+card at 2, 16 and 64 events. Prints, per event count, the mean and the
+largest time of each phase over the CTAs in microseconds at the SM clock
+read right after the launches, the phase labelled by the first comment
+line inside it, the device time of one launch of the stamped and of the package's kernel
+(CUDA events around 200 back-to-back launches), with the card's name
+and power limit. The whole report also goes to
+``chiprun_out/phase_split/<source>.json``. ``--bm`` is the query rows per
+CTA the source's wrapper chose (the package's ``BM_INT8``; 32 for the
+first version). Needs a card and ``nvcc``.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import re
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+
+from repro_torch.kernels import _build, int8_cases
+from repro_torch.kernels.gravnet_block import BM_INT8
+
+MAIN = dict(dh=64, ds=4, df=22, dout=64)
+N_HITS, K = 128, 8
+MAX_STAMPS = 16
+_PRELUDE = (
+    "__device__ long long* repro_phase_stamps;\n"
+    'extern "C" int repro_set_phase_stamps(long long* p) {\n'
+    "  return (int)cudaMemcpyToSymbol(repro_phase_stamps, &p, sizeof(p));\n"
+    "}\n")
+
+
+def _skip_comment(src: str, i: int) -> int:
+    if src.startswith("//", i):
+        return src.index("\n", i)
+    if src.startswith("/*", i):
+        return src.index("*/", i) + 1
+    return i
+
+
+def _kernel_body(src: str) -> tuple[int, int]:
+    """Offsets of the opening and closing brace of the ``__global__``
+    function's body."""
+    i = src.index("__global__")
+    depth, start = 0, None
+    while True:
+        i = _skip_comment(src, i)
+        c = src[i]
+        if c == "(":
+            depth += 1
+        elif c == ")":
+            depth -= 1
+        elif c == "{" and depth == 0:
+            start = i
+            break
+        i += 1
+    depth = 0
+    while True:
+        i = _skip_comment(src, i)
+        if src[i] == "{":
+            depth += 1
+        elif src[i] == "}":
+            depth -= 1
+            if depth == 0:
+                return start, i
+        i += 1
+
+
+def stamped_source(src: str) -> tuple[str, list[str]]:
+    """The source with the stamps, and each phase's label."""
+    open_, close = _kernel_body(src)
+    body = src[open_ + 1:close]
+    parts = body.split("__syncthreads();")
+    labels = []
+    for part in parts:
+        m = re.search(r"//\s*(.+)", part)
+        code = [ln.strip() for ln in part.splitlines() if ln.strip()]
+        labels.append(m.group(1).strip() if m else code[0][:60])
+    stamp = "repro_st[repro_ns++] = clock64();"
+    body = ("\n  long long repro_st[%d]; int repro_ns = 0;\n"
+            "  __syncthreads(); %s" % (MAX_STAMPS, stamp)
+            + ("__syncthreads(); " + stamp).join(parts)
+            + "  __syncthreads(); " + stamp + "\n"
+            "  if (threadIdx.x == 0) {\n"
+            "    const int cta = blockIdx.y * gridDim.x + blockIdx.x;\n"
+            "    for (int i = 0; i < repro_ns; ++i)\n"
+            "      repro_phase_stamps[cta * %d + i] = repro_st[i];\n"
+            "  }\n" % MAX_STAMPS)
+    first_ns = src.index("\nnamespace") + 1
+    out = (src[:first_ns] + _PRELUDE + src[first_ns:open_ + 1] + body
+           + src[close:])
+    return out, labels
+
+
+def _device_ms(torch, fn, cycles_per_ms: float, reps: int = 200) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(cycles_per_ms * (1.5 * host_ms + 1.0)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from repro_torch.kernels.gravnet_block import gravnet_block_int8_cuda
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--source", type=Path,
+                    default=_build.CSRC / "gravnet_block_int8.cu")
+    ap.add_argument("--bm", type=int, default=BM_INT8)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_split needs a CUDA card")
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(card)
+
+    src, labels = stamped_source(args.source.read_text())
+    out_dir = _build.BUILD_DIR.parents[1] / "chiprun_out" / "phase_split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = (args.source.stem + "_"
+           + hashlib.sha256(args.source.read_bytes()).hexdigest()[:8])
+    cu = _build.BUILD_DIR / f"stamped_{tag}.cu"
+    cu.write_text(src)
+    so = cu.with_suffix(".so")
+    flags = _build.nvcc_flags("gravnet_block_int8")
+    res = subprocess.run([_build._nvcc(), *flags, "-I",
+                          str(args.source.resolve().parent), "-I",
+                          str(_build.CSRC), "-o", str(so), str(cu)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise SystemExit(f"nvcc failed for the stamped {args.source}:\n"
+                         f"{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    fn = lib.gravnet_block_int8
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.repro_set_phase_stamps.argtypes = [ctypes.c_void_p]
+
+    def sm_cycles_per_ms() -> float:
+        """The SM clock, from a spin of 10^8 cycles timed by events (read
+        right after the launches it converts, while the clock is up)."""
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(100_000_000)
+        b.record()
+        b.synchronize()
+        return 100_000_000 / a.elapsed_time(b)
+
+    report = {"card": card, "source": str(args.source), "bm": args.bm,
+              "labels": labels, "runs": []}
+    print(f"source {args.source}, bm {args.bm}")
+    for bsz in (2, 16, 64):
+        ops, scales = int8_cases.block_inputs(
+            bsz, N_HITS, **MAIN, seed=0, n_valid=N_HITS * 3 // 4)
+        t = [torch.from_numpy(np.ascontiguousarray(o)).to(dev) for o in ops]
+        y = torch.empty((bsz, N_HITS, MAIN["dout"]), device=dev)
+        ctas = -(-N_HITS // args.bm) * bsz
+        stamps = torch.zeros(ctas * MAX_STAMPS, dtype=torch.int64,
+                             device=dev)
+        _build.check(lib.repro_set_phase_stamps(stamps.data_ptr()),
+                     "repro_set_phase_stamps")
+
+        def call():
+            return fn(*(x.data_ptr() for x in t), y.data_ptr(), bsz, N_HITS,
+                      MAIN["dh"], MAIN["ds"], MAIN["df"], MAIN["dout"], K,
+                      10.0, scales["x_scale"], scales["agg_scale"],
+                      scales["h_scale"], 1, args.bm,
+                      torch.cuda.current_stream().cuda_stream)
+
+        cycles_per_ms = sm_cycles_per_ms()
+        stamped_ms = _device_ms(torch, call, cycles_per_ms)
+        package_ms = _device_ms(
+            torch, lambda: gravnet_block_int8_cuda(*t, **scales, k=K),
+            cycles_per_ms)
+        _build.check(call(), "stamped gravnet_block_int8")
+        torch.cuda.synchronize()
+        cycles_per_ms = sm_cycles_per_ms()
+        st = stamps.view(ctas, MAX_STAMPS)[:, :len(labels) + 1]
+        us = np.diff(st.cpu().numpy().astype(np.float64), axis=1) / (
+            cycles_per_ms / 1e3)
+        want = gravnet_block_int8_cuda(*t, **scales, k=K)
+        same = bool(torch.equal(want, y))
+        run = {"events": bsz, "ctas": ctas, "same_as_package": same,
+               "sm_mhz": cycles_per_ms / 1e3,
+               "phase_us_mean": us.mean(axis=0).tolist(),
+               "phase_us_max": us.max(axis=0).tolist(),
+               "cta_us_mean": float(us.sum(axis=1).mean()),
+               "stamped_ms": stamped_ms, "package_ms": package_ms}
+        report["runs"].append(run)
+        print(f"events {bsz}: {ctas} CTAs, SM clock {run['sm_mhz']:.1f} "
+              f"MHz, a CTA {run['cta_us_mean']:.3f} us, stamped launch "
+              f"{stamped_ms:.5f} ms, package kernel {package_ms:.5f} ms, "
+              f"outputs equal: {same}")
+        for lab, mean, mx in zip(labels, run["phase_us_mean"],
+                                 run["phase_us_max"]):
+            print(f"  {mean:9.3f} us (max {mx:9.3f})  {lab}")
+    (out_dir / f"{tag}.json").write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quantization import QMAX, f32, quantize_act
+from repro_torch.core.quantization import QMAX, div_f32, f32, quantize_act
 
 BIG = 1e30
 
@@ -136,7 +136,7 @@ def _aggregate(f, rounds, k, scale, n):
         fsel = torch.gather(f, 1, amin.expand(bsz, n, df))
         mean_acc, max_acc = _accumulate(mean_acc, max_acc, dmin, fsel,
                                         scale)
-    mean = mean_acc / k
+    mean = div_f32(mean_acc, k)
     maxv = torch.where(max_acc <= -BIG * 0.5, 0.0, max_acc)
     return torch.cat([mean, maxv], dim=2)
 
@@ -237,7 +237,7 @@ def gravnet_block_int8_ref(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
     s = _dequant(_int_dot(xq, ws_q), bs, x_scale, ws_scale)
     f = _dequant(_int_dot(xq, wf_q), bf, x_scale, wf_scale)
     agg = gravnet_cell_ref(s, f, mask.float(), k=k, scale=scale)
-    agg = torch.clamp(torch.round(agg / f32(agg_scale)), -QMAX,
+    agg = torch.clamp(torch.round(div_f32(agg, agg_scale)), -QMAX,
                       QMAX) * f32(agg_scale)
     hq = quantize_act(torch.cat([xf, agg], dim=-1), h_scale)
     return fused_dense_int8_ref(hq, wo_q, bo, h_scale, wo_scale,
