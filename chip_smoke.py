@@ -17,7 +17,12 @@ Phases, each of which exits non-zero when it fails:
    the epilogue, for ``fused_dense_int8`` at the shapes it accepts;
    ``index_add_`` for ``edge_aggregate``'s sum and, over 0/1 masks,
    ``index_reduce_('mean')`` for its mean), checked once against the
-   plain version before it is timed. The int8 pair (``fused_dense_int8``,
+   plain version before it is timed. ``fused_dense`` and
+   ``edge_aggregate`` are held bitwise at every shape checked, the f32
+   dense also on the inputs of ``kernels/f32_cases.py`` (K from 1 past
+   its staging limit, row-strided x, N and M off every tile, with and
+   without bias), with each tile's shared-memory plan against the
+   library's own. The int8 pair (``fused_dense_int8``,
    ``gravnet_block_int8``) is held bitwise everywhere: at the main
    path's shapes, at the current detector's (its mixed deployment's
    calls, 32 hits, at one chunk, 16 and 64 events), and on the inputs of
@@ -71,11 +76,18 @@ Phases, each of which exits non-zero when it fails:
    plain-substituted deployment on the card, and within the float32 row
    of the same deployment with ``device="cpu"``; events/s, latency and
    the idle share. The kernel calls of each path (graphs of seed 17) are
-   held against their plain versions, ``edge_aggregate`` bitwise at one
-   graph, the path's micro-batch and 16 graphs; so is ``edge_aggregate``
-   on synthetic graphs of the routes' size with masked edges and
+   held against their plain versions, bitwise (``edge_aggregate`` at one
+   graph, the path's micro-batch and 16 graphs, the denses on the
+   row-strided own-K views the executor gives them), and the device time
+   of a chunk is printed: the two kernels' timed launches beside the
+   library calls', and the profiled busy time; so is ``edge_aggregate``
+   held on synthetic graphs of the routes' size with masked edges and
    destinations outside [0, N), for sum and mean, at d 16, 32, 70 and
-   128 and 1, 8 and 16 graphs. Then ``launch.serve.main`` serves
+   128 and 1, 8 and 16 graphs, and on the inputs of
+   ``kernels/f32_cases.py`` (E from 1 to the largest a launch takes, one
+   node taking every edge, every edge masked, every dst out of range, d
+   1 to 129), with its shared-memory plans against the library's own.
+   Then ``launch.serve.main`` serves
    ``--model ccn gatedgcn graphsage`` and every route must answer every
    event;
 8. the ``attention`` op and the tuning layer: ``flash_attention`` (FMA
@@ -199,8 +211,9 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention.py:78",
     },
 }
-# kernels held bitwise to their plain versions at every phase-3 shape
-BITWISE = {"fused_dense_int8", "gravnet_block_int8"}
+# kernels held bitwise to their plain versions at every shape checked
+BITWISE = {"fused_dense", "fused_dense_int8", "gravnet_block_int8",
+           "edge_aggregate"}
 # the int8 block's widths on the edge inputs: the served model's and the
 # reference's smoke config's (repro/configs/caloclusternet.py)
 INT8_WIDTHS = dict(dh=64, ds=4, df=22, dout=64)
@@ -310,10 +323,10 @@ def _segment_sizes(seg):
 
 
 def _real_k(w):
-    """The dense's own K, its weight's nonzero rows: the executor pads w
-    with zero rows to meet a lane-padded input (``core/pipeline.py``),
-    and those rows and x's padding columns are no work the function
-    needs."""
+    """The dense's own K, its weight's nonzero rows: the executor pads an
+    int8 w with zero rows to meet a lane-padded input
+    (``core/pipeline.py``), and those rows and x's padding columns are
+    no work the function needs (the f32 dense reads its own K)."""
     return int((w != 0).any(dim=1).sum().item())
 
 
@@ -442,7 +455,9 @@ def main() -> int:
     from repro_torch.core import caloclusternet as ccn
     from repro_torch.data.belle2 import (Belle2Config, generate,
                                          with_occupancy)
-    from repro_torch.kernels import _build, int8_cases
+    from repro_torch.kernels import _build, f32_cases, int8_cases
+    from repro_torch.kernels import edge_aggregate as edge_mod
+    from repro_torch.kernels import fused_dense as dense_mod
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_dense import (fused_dense_cuda,
@@ -593,6 +608,8 @@ def main() -> int:
         first n_events events (whole chunks) stacked."""
         parts = [calls[c * per_chunk + pos] for c in range(n_events // mb)]
         name, args0, kw = parts[0]
+        if len(parts) == 1:   # as the path gave them (a strided x stays)
+            return name, list(args0), kw
         args = list(args0)
         for i in range(EVENT_ARGS[name]):
             args[i] = torch.cat([p[1][i] for p in parts])
@@ -601,14 +618,15 @@ def main() -> int:
     timer = Timer(torch)
     results = {k: {"max_abs_err": 0.0, "per_launch": []} for k in KERNELS}
 
-    def check(path, pos, n_events, name, args, kw, bitwise=False):
+    def check(path, pos, n_events, name, args, kw):
         """One kernel call against its plain version on the same inputs:
         every float output within the float32 row (the bfloat16 row for
-        bf16 outputs; every element equal when ``bitwise``), every
-        integer output (knn_build's idx) bitwise; then the times and the
-        bound. ``splits`` in ``kw`` goes to the kernel alone."""
+        bf16 outputs; every element equal for the kernels of
+        ``BITWISE``), every integer output (knn_build's idx) bitwise; then
+        the times and the bound. ``splits`` in ``kw`` goes to the kernel
+        alone."""
         kern, plain = wrappers[name], plain_fns[name]
-        bitwise = bitwise or name in BITWISE
+        bitwise = name in BITWISE
         plain_kw = {k_: v_ for k_, v_ in kw.items() if k_ != "splits"}
         try:
             got = kern(*args, **kw)
@@ -650,7 +668,7 @@ def main() -> int:
             act = kw.get("activation", "relu")
 
             def lib(x=x, w=w, b=b, act=act):
-                y = torch.addmm(b, x, w)
+                y = x @ w if b is None else torch.addmm(b, x, w)
                 return torch.relu_(y) if act == "relu" else y
             lib_ms, lib_name = timer.device_ms(lib, 200), "addmm+relu"
         elif name == "fused_dense_int8":
@@ -699,8 +717,13 @@ def main() -> int:
                 lib_name = ("none for mean over fractional masks (no "
                             "single PyTorch call)")
             if lib is not None:
+                # an atomic sum in another order differs by rounding steps
+                # of its partial sums: held to the float32 row of the
+                # terms' magnitudes summed (the largest-E input sums ~225
+                # terms a node, some near 0), the kernel itself bitwise
                 lib_err = (lib().view_as(want) - want).abs()
-                if not bool((lib_err <= ATOL + RTOL * want.abs()).all()):
+                scale = plain(msg.abs(), dst, mask.abs(), **plain_kw)
+                if not bool((lib_err <= ATOL + RTOL * scale).all()):
                     fail(f"{name} at {shape}: the library call timed "
                          f"beside it computes another function (max|err|="
                          f"{lib_err.max().item():.3e})")
@@ -814,6 +837,26 @@ def main() -> int:
         ops_, out_scale = int8_cases.dense_inputs(m, kd, n, seed=len(case))
         check(f"edge:{case}", 0, 1, "fused_dense_int8", as_args(ops_),
               dict(activation=act, out_int8=out8, out_scale=out_scale))
+    # the f32 dense on the inputs that stress its design
+    # (kernels/f32_cases.py): K past the staging limit, row-strided x,
+    # N and M off every tile; and each tile's shared-memory plan against
+    # the built library's own
+    for case, (m, kd, n, ldx, act, bias) in f32_cases.DENSE_CASES.items():
+        x, w, b = as_args(f32_cases.dense_inputs(m, kd, n, ldx=ldx,
+                                                 bias=bias, seed=len(case)))
+        check(f"edge:{case}", 0, 1, "fused_dense", [x[:, :kd], w, b],
+              dict(activation=act))
+    plan_ks = sorted({c[1] for c in f32_cases.DENSE_CASES.values()}
+                     | {4, 8, 32, 64, 108, 192})
+    for v in range(len(dense_mod.TILES)):
+        for kd in plan_ks:
+            if dense_mod.library_smem_bytes(v, kd) != dense_mod.smem_bytes(
+                    v, kd):
+                fail(f"fused_dense: tile {v} at K={kd} plans "
+                     f"{dense_mod.smem_bytes(v, kd)} B of shared memory, "
+                     f"the library {dense_mod.library_smem_bytes(v, kd)}")
+    say(f"fused_dense: the {len(dense_mod.TILES)} tiles' shared-memory "
+        f"plans equal the library's at K {plan_ks}")
 
     # the ragged path: its kernel calls while serving its events, made
     # with the plain versions (whose results phase 6 holds the kernels'
@@ -987,7 +1030,8 @@ def main() -> int:
     def idle_share(serve_once, label, tag):
         """The device's busy time and idle share over 4 calls of
         ``serve_once`` under torch.profiler; kernel sums go to
-        profile{tag}.txt."""
+        profile{tag}.txt. Returns the busy µs and {kernel name: [µs,
+        calls]}."""
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -1016,6 +1060,7 @@ def main() -> int:
         else:
             say("idle share: not measured (the profiler recorded no "
                 "device time)")
+        return busy_us, kernels_us
 
     # where one served micro-batch's time goes, and the device idle share
     prof_feeds = {k: v[:batch] for k, v in feeds.items()}
@@ -1196,6 +1241,7 @@ def main() -> int:
                                             n_classes=2),
         "graphsage": graphsage.GraphSAGEConfig(n_layers=2, d_hidden=128,
                                                d_in=16, n_classes=5)}
+    gnn_chunk_ms = {}
     card_args = serve.parse_args(["--device", "cuda"])
     cpu_args = serve.parse_args(["--device", "cpu"])
     for gname, gcfg in gnn_cfgs.items():
@@ -1223,8 +1269,7 @@ def main() -> int:
                             for i, a in enumerate(args)]
                 else:
                     _, args, kw = stacked(calls, per_chunk, mb, pos, nb)
-                check(gname, pos, nb, name, args, kw,
-                      bitwise=name == "edge_aggregate")
+                check(gname, pos, nb, name, args, kw)
         del calls
         pc = {n: per_chunk_calls[gname].count(n)
               for n in set(per_chunk_calls[gname])}
@@ -1278,9 +1323,36 @@ def main() -> int:
             f"{RTOL:g}·|cpu|)")
         rate(f"{gname}, design point 3, fp", GNN_EVENTS, lat, elapsed,
              batch)
-        idle_share(lambda pipe=pipe, feeds=feeds: serve.serve_events(
-            pipe, {k: v[:batch] for k, v in feeds.items()}),
+        busy_us, by_kernel = idle_share(
+            lambda pipe=pipe, feeds=feeds: serve.serve_events(
+                pipe, {k: v[:batch] for k, v in feeds.items()}),
             f"{gname} dispatches of {batch} graphs", f"_{gname}")
+        # a chunk's device time: the two kernels' launches timed one by
+        # one above (events at the path's micro-batch), beside the
+        # library calls; and the profiled busy time of a served chunk
+        rows_ = [r for n_ in ("fused_dense", "edge_aggregate")
+                 for r in results[n_]["per_launch"]
+                 if r["path"] == gname and r["events"] == mb]
+        per = {n_: sum(r["ms"] for r in rows_
+                       if per_chunk_calls[gname][r["op"]] == n_)
+               for n_ in pc}
+        lib_chunk = {n_: sum(r["library_ms"] or 0.0 for r in rows_
+                             if per_chunk_calls[gname][r["op"]] == n_)
+                     for n_ in pc}
+        prof_chunks = 4 * -(-batch // mb)
+        prof = {n_: sum(v[0] for k, v in by_kernel.items()
+                        if f"{n_}_kernel" in k) / prof_chunks for n_ in pc}
+        gnn_chunk_ms[gname] = {
+            "kernels_ms": per, "library_ms": lib_chunk,
+            "busy_ms": busy_us / prof_chunks / 1e3,
+            "profiled_kernels_ms": {k: v / 1e3 for k, v in prof.items()}}
+        say(f"[{gname}] device time per chunk of {mb} graphs: "
+            + ", ".join(f"{n_} {per[n_]:.5f} ms ({pc[n_]} launches; "
+                        f"library {lib_chunk[n_]:.5f})" for n_ in pc)
+            + f" = {sum(per.values()):.5f} ms; profiled busy time "
+            f"{busy_us / prof_chunks / 1e3:.5f} ms per chunk, of it "
+            + ", ".join(f"{n_} {prof[n_] / 1e3:.5f}" for n_ in pc)
+            + f" ({card})")
 
     # edge_aggregate on synthetic graphs of the routes' size: masked and
     # fractional edge weights, destinations outside [0, N)
@@ -1300,7 +1372,29 @@ def main() -> int:
                 mask[:, 1::16] = 0.5
                 check("synthetic", 0, nb, "edge_aggregate",
                       [msg.to(dev), dst.to(dev), mask.to(dev)],
-                      {"n_nodes": n_nodes, "reduce": reduce}, bitwise=True)
+                      {"n_nodes": n_nodes, "reduce": reduce})
+    # and on the inputs that stress its design (kernels/f32_cases.py):
+    # E past one warp round and past the staged plans, one node taking
+    # every edge, every edge masked, every dst out of range, odd widths;
+    # the shared-memory plans against the built library's own
+    e_max = edge_mod.max_edges()
+    for case, (nb, e, d, kind) in f32_cases.EDGE_CASES.items():
+        for reduce in ("sum", "mean"):
+            check(f"edge:{case}", 0, nb, "edge_aggregate", as_args(
+                f32_cases.edge_inputs(nb, e or e_max, d, kind,
+                                      seed=len(case))),
+                  {"n_nodes": f32_cases.EDGE_NODES, "reduce": reduce})
+    for e in (0, 1, 33, 256, 1000, e_max):
+        for cw in (1, 2, 8, 16, 32):
+            for staged in (False, True):
+                if edge_mod.library_smem_bytes(e, cw, staged) \
+                        != edge_mod.smem_bytes(e, cw, staged):
+                    fail(f"edge_aggregate: E={e} cw={cw} staged={staged} "
+                         f"plans {edge_mod.smem_bytes(e, cw, staged)} B, "
+                         f"the library "
+                         f"{edge_mod.library_smem_bytes(e, cw, staged)}")
+    say(f"edge_aggregate: shared-memory plans equal the library's; the "
+        f"largest E a launch takes: {e_max}")
 
     # the three routes through the serve entry point
     buf = io.StringIO()
@@ -1619,6 +1713,7 @@ def main() -> int:
             "per_launch": results[name]["per_launch"],
         })
     (OUT / "kernels.json").write_text(json.dumps(line, indent=1))
+    (OUT / "gnn_chunks.json").write_text(json.dumps(gnn_chunk_ms, indent=1))
     say(f"done in {time.perf_counter() - t_start:.1f}s")
     _save_log()
     # each launch's row stays in kernels.json; the line keeps the totals

@@ -214,10 +214,11 @@ class _Executor:
         if prec == "bf16":
             raise NotImplementedError(
                 f"{op.name}: a bf16 dense has no kernel in the port")
-        x = _as_fp(x)
-        if x.shape[-1] > w.shape[0]:   # lane128-padded input
-            w = F.pad(w, (0, 0, 0, x.shape[-1] - w.shape[0]))
-        x = x.contiguous()
+        # a lane128-padded input: the dense reads its own K through the
+        # row stride (a view, no copy) with the unpadded w
+        x = _as_fp(x).contiguous()
+        if x.shape[-1] > w.shape[0]:
+            x = x[..., :w.shape[0]]
         if x.ndim == 3:   # row-packs the micro-batch into one launch
             return kops.fused_dense_batched(x, w, b, activation=act)
         return kops.fused_dense(x, w, b, activation=act)

@@ -11,49 +11,170 @@
 // taken over e in increasing order. An edge whose dst lies outside
 // [0, n) contributes nothing, as the TPU kernel's one-hot rows do. A
 // masked edge is multiplied by its 0, not skipped, as in the reference.
-// No atomics: every sum has one fixed order.
+// No atomics on floats: every sum has one fixed order.
 //
 // Bound on this card: latency, far from either roofline. Per event of
 // the serve routes (E = 256 edges, n = 64 nodes, d = 70) a launch moves
 // E*d*4 + E*8 + n*d*4 = 92 KB (0.027 us at 3.35 TB/s) and does 2*E*d
-// f32 operations (0.0005 us at 67 TFLOP/s). What it pays is one warp's
-// sweep over the event's edges and each thread's short dependent chain
-// of loads along its node's segment.
+// f32 operations (0.0005 us at 67 TFLOP/s). What it pays is its
+// dependent round trips to device memory and its barriers.
 //
-// Design: the TPU kernel's (bm, E) one-hot slab times the (E, d)
-// messages becomes a segment reduction over a CSR that each CTA builds
-// in shared memory. One CTA of 256 threads per (block of bm destination
-// rows, event). Warp 0 sweeps the event's dst 32 edges at a time, twice:
-// __match_any_sync groups the lanes that share a destination row, and
-// the group's lowest lane adds the group's size to that row's counter
-// (first sweep: counts, then a warp scan into row offsets; second sweep:
-// each edge goes to its row's offset + the edges of that row already
-// placed + its rank among the lower lanes of its group). So each row's
-// edges lie in increasing e, a counting sort with no atomics. The CTA's
-// threads then take (row, column) pairs and walk their row's segment:
-// acc = acc + mask[e] * msg[e, c], each product and sum rounded on its
-// own (-fmad=false), the count likewise; mean divides by max(count, 1).
+// Design: one CTA of 256 threads per (block of cw columns, block of bm
+// destination rows, event); the plan (kernels/edge_aggregate.py:plan)
+// picks cw and bm. Every CTA
+//   1. loads the event's dst, as a row key (-1 off this CTA's rows), and
+//      mask into shared memory, all threads, coalesced, in one round
+//      trip, and issues cp.async copies of its column slice of the
+//      event's messages (E x cw, when it fits in shared memory; else the
+//      walk reads them from device memory), which land while it sorts;
+//   2. counting-sorts the edges by row, all 8 warps at once: warp w owns
+//      the contiguous edges [w*L, (w+1)*L) and takes them 32 a round.
+//      __match_any_sync groups the lanes of one row; each edge's rank is
+//      the count of its row's earlier edges in the warp, tab[row][w]
+//      before this round, plus its rank among the lower lanes of its
+//      group; the group's lowest lane then adds the group's size to
+//      tab[row][w] (only warp w writes that entry). One exclusive scan of
+//      tab in (row, warp) order makes each entry the first slot of warp
+//      w's edges of that row, and each row's segment [tab[row][0],
+//      tab[row+1][0]): warp 0 alone, each lane two rows' 16 counts in
+//      registers (16-byte loads and stores), one shuffle scan over the
+//      lanes' totals. Every thread then places its edges at
+//      tab[row][w] + rank. Warp order is e order and ranks follow
+//      lanes, so each row's edges lie in increasing e; no global load
+//      inside the sort;
+//   3. walks the segments: each thread takes one (row, column pair) (a
+//      float2 where d is even, else one column), its edge ids and masks
+//      from shared memory, four edges' loads issued before their sums:
+//      acc = acc + mask[e] * msg[e, c], each product and sum rounded on
+//      its own (-fmad=false), the count likewise; mean divides by
+//      max(count, 1).
 // kernels/ref.py:edge_aggregate_ref replays that order.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Dynamic shared memory, in 4-byte words: perm and mask (e each), the
-// row offsets (bm + 1) and the running counters (bm).
-__host__ __device__ inline long long smem_words(int e, int bm) {
-  return 2LL * e + 2LL * bm + 1;
+constexpr int kMaxRows = 64;  // destination rows of a CTA, at most
+
+// Dynamic shared memory, in 4-byte words: the count table (kMaxRows x
+// kWarps + 4: the scan's rows and its total, 16-byte aligned), the staged
+// messages (e x cw), then keys, masks, ranks and the sorted edge ids (e
+// each).
+__host__ __device__ inline long long smem_words(int e, int cw, int staged) {
+  return kMaxRows * kWarps + 4 + (staged ? (long long)e * cw : 0) + 4LL * e;
 }
 
-// The row of edge e within this CTA's block, or -1: past the edge list,
-// or a dst outside [row0, row0 + rows).
-__device__ inline int row_key(const int* dst, int e, int e_count, int row0,
-                              int rows) {
-  if (e >= e_count) return -1;
-  const int v = dst[e];
-  return (v >= row0 && v < row0 + rows) ? v - row0 : -1;
+template <int BYTES>
+__device__ inline void cp_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+
+// e x cols of g (row stride d) into s (row stride cw), V floats a copy.
+template <int V>
+__device__ inline void stage(float* s, int cw, const float* g, int d, int e,
+                             int cols) {
+  const int per_row = cols / V;
+  for (int i = threadIdx.x; i < e * per_row; i += kThreads) {
+    const int r = i / per_row;
+    const int c = (i - r * per_row) * V;
+    cp_async<4 * V>(s + r * cw + c, g + (long long)r * d + c);
+  }
+}
+
+// In-place exclusive scan of the count table tab[row][kWarps] in (row,
+// warp) order by one warp: lane l holds rows 2l and 2l + 1 (kMaxRows in
+// all; rows past the CTA's hold zeros), so the entry after the last row,
+// tab[rows][0], receives the total.
+__device__ inline void scan_table(int* tab) {
+  static_assert(kWarps == 8 && kMaxRows == 64, "two rows of 8 per lane");
+  const int lane = threadIdx.x & 31;
+  int4* t4 = reinterpret_cast<int4*>(tab) + lane * 4;
+  int c[16];  // row 2l's 8 counts, then row 2l + 1's
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int4 v = t4[i];
+    c[4 * i] = v.x;
+    c[4 * i + 1] = v.y;
+    c[4 * i + 2] = v.z;
+    c[4 * i + 3] = v.w;
+  }
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int t = c[i];
+    c[i] = s;
+    s += t;
+  }
+  int incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const int base = incl - s;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    t4[i] = make_int4(base + c[4 * i], base + c[4 * i + 1],
+                      base + c[4 * i + 2], base + c[4 * i + 3]);
+  if (lane == 31) tab[kMaxRows * kWarps] = incl;
+}
+
+template <int P>
+__device__ inline void load_p(float (&v)[P], const float* p) {
+  if constexpr (P == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// Step 3: each (row, column group of P) of the CTA's tile sums its
+// segment in e order. src(e) is the address of edge e's first column of
+// this CTA's slice; the next columns follow it.
+template <int P, typename Src>
+__device__ inline void walk(const int* perm, const float* km,
+                            const int* tab, Src src, float* out, int d,
+                            int rows, int cols, int mean) {
+  const int per_row = cols / P;
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
+    const int r = idx / per_row;
+    const int c = (idx - r * per_row) * P;
+    float acc[P], cnt = 0.0f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) acc[j] = 0.0f;
+    const int hi = tab[(r + 1) * kWarps];
+    for (int p = tab[r * kWarps]; p < hi; p += 4) {
+      float v[4][P], m[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (p + u < hi) {
+          const int e = perm[p + u];
+          m[u] = km[e];
+          load_p<P>(v[u], src(e) + c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (p + u < hi) {
+#pragma unroll
+          for (int j = 0; j < P; ++j) acc[j] = acc[j] + m[u] * v[u][j];
+          cnt = cnt + m[u];
+        }
+      }
+    }
+    float* o = out + (long long)r * d + c;
+#pragma unroll
+    for (int j = 0; j < P; ++j) o[j] = mean ? acc[j] / fmaxf(cnt, 1.0f) : acc[j];
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -61,104 +182,111 @@ edge_aggregate_kernel(const float* __restrict__ msg,
                       const int* __restrict__ dst,
                       const float* __restrict__ mask,
                       float* __restrict__ out, int e_count, int n, int d,
-                      int bm, int mean) {
-  extern __shared__ int smem[];
-  int* perm = smem;                                        // e_count
-  float* km = reinterpret_cast<float*>(smem + e_count);    // e_count
-  int* off = smem + 2 * e_count;                           // bm + 1
-  int* run = off + bm + 1;                                 // bm
+                      int bm, int cw, int staged, int mean) {
+  extern __shared__ float4 smem4[];
+  int* tab = reinterpret_cast<int*>(smem4);               // 64*W + 4
+  float* ms = reinterpret_cast<float*>(tab + kMaxRows * kWarps + 4);
+  int* key = reinterpret_cast<int*>(ms) + (staged ? e_count * cw : 0);
+  float* km = reinterpret_cast<float*>(key + e_count);  // e
+  int* rank = key + 2 * e_count;                          // e
+  int* perm = key + 3 * e_count;                          // e
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * bm;
-  const int rows = min(bm, n - row0);
-  const int* dst_b = dst + (size_t)b * e_count;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.y * bm, c0 = blockIdx.x * cw;
+  const int rows = min(bm, n - row0), cols = min(cw, d - c0);
+  const float* msg_b = msg + (long long)b * e_count * d + c0;
+  const int* dst_b = dst + (long long)b * e_count;
+  const float* mask_b = mask + (long long)b * e_count;
 
-  for (int e = tid; e < e_count; e += kThreads)
-    km[e] = mask[(size_t)b * e_count + e];
-  for (int r = tid; r < rows; r += kThreads) run[r] = 0;
+  // 1. one round trip: keys and masks, the message slice
+  for (int e = tid; e < e_count; e += kThreads) {
+    const int v = dst_b[e];
+    const float m = mask_b[e];
+    key[e] = (v >= row0 && v < row0 + rows) ? v - row0 : -1;
+    km[e] = m;
+  }
+  if (staged) {
+    if (d % 4 == 0 && cw % 4 == 0)
+      stage<4>(ms, cw, msg_b, d, e_count, cols);
+    else if (d % 2 == 0 && cw % 2 == 0)
+      stage<2>(ms, cw, msg_b, d, e_count, cols);
+    else
+      stage<1>(ms, cw, msg_b, d, e_count, cols);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int i = tid; i < kMaxRows * kWarps + 4; i += kThreads) tab[i] = 0;
   __syncthreads();
 
-  if (tid < 32) {
-    // sweep 1: edges per row
-    for (int base = 0; base < e_count; base += 32) {
-      const int key = row_key(dst_b, base + lane, e_count, row0, rows);
-      const unsigned grp = __match_any_sync(kFull, key);
-      if (key >= 0 && lane == __ffs(grp) - 1) run[key] += __popc(grp);
-      __syncwarp();
-    }
-    // exclusive scan of the counts into row offsets
-    int carry = 0;
-    for (int base = 0; base < rows; base += 32) {
-      const int r = base + lane;
-      const int c = r < rows ? run[r] : 0;
-      int incl = c;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += t;
-      }
-      if (r < rows) off[r] = carry + incl - c;
-      carry += __shfl_sync(kFull, incl, 31);
-    }
-    if (lane == 0) off[rows] = carry;
+  // 2. the counting sort: warp w's edges [lo, hi), 32 a round
+  const int span = (e_count + 32 * kWarps - 1) / (32 * kWarps) * 32;
+  const int lo = warp * span, hi = min(lo + span, e_count);
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = lo; base < hi; base += 32) {
+    const int e = base + lane;
+    const int k = e < hi ? key[e] : -1;
+    const unsigned grp = __match_any_sync(kFull, k);
+    if (k >= 0) rank[e] = tab[k * kWarps + warp] + __popc(grp & below);
     __syncwarp();
-    for (int r = lane; r < rows; r += 32) run[r] = off[r];
+    if (k >= 0 && lane == __ffs(grp) - 1) tab[k * kWarps + warp] += __popc(grp);
     __syncwarp();
-    // sweep 2: each edge after the earlier edges of its row
-    for (int base = 0; base < e_count; base += 32) {
-      const int e = base + lane;
-      const int key = row_key(dst_b, e, e_count, row0, rows);
-      const unsigned grp = __match_any_sync(kFull, key);
-      if (key >= 0) perm[run[key] + __popc(grp & ((1u << lane) - 1u))] = e;
-      __syncwarp();
-      if (key >= 0 && lane == __ffs(grp) - 1) run[key] += __popc(grp);
-      __syncwarp();
-    }
   }
   __syncthreads();
+  if (warp == 0) scan_table(tab);
+  __syncthreads();
+  for (int e = tid; e < e_count; e += kThreads) {
+    const int k = key[e];
+    if (k >= 0) perm[tab[k * kWarps + e / span] + rank[e]] = e;
+  }
+  if (staged) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
 
-  const float* msg_b = msg + (size_t)b * e_count * d;
-  float* out_b = out + ((size_t)b * n + row0) * d;
-  for (int idx = tid; idx < rows * d; idx += kThreads) {
-    const int r = idx / d;
-    const int c = idx - r * d;
-    float acc = 0.0f, cnt = 0.0f;
-    for (int p = off[r]; p < off[r + 1]; ++p) {
-      const int e = perm[p];
-      const float m = km[e];
-      acc = acc + m * msg_b[(size_t)e * d + c];
-      cnt = cnt + m;
-    }
-    out_b[idx] = mean ? acc / fmaxf(cnt, 1.0f) : acc;
+  // 3. the segment walk
+  float* out_b = out + ((long long)b * n + row0) * d + c0;
+  if (staged) {
+    auto src = [ms, cw](int e) { return ms + e * cw; };
+    if (d % 2 == 0)
+      walk<2>(perm, km, tab, src, out_b, d, rows, cols, mean);
+    else
+      walk<1>(perm, km, tab, src, out_b, d, rows, cols, mean);
+  } else {
+    auto src = [msg_b, d](int e) { return msg_b + (long long)e * d; };
+    if (d % 2 == 0)
+      walk<2>(perm, km, tab, src, out_b, d, rows, cols, mean);
+    else
+      walk<1>(perm, km, tab, src, out_b, d, rows, cols, mean);
   }
 }
 
 }  // namespace
 
 // Bytes of dynamic shared memory one CTA needs at these shapes.
-extern "C" long long edge_aggregate_smem_bytes(int e, int bm) {
-  return smem_words(e, bm) * 4LL;
+extern "C" long long edge_aggregate_smem_bytes(int e, int cw, int staged) {
+  return smem_words(e, cw, staged) * 4LL;
 }
 
 // msg:(B,e,d) f32, dst:(B,e) i32, mask:(B,e) f32 -> out:(B,n,d) f32;
-// all contiguous. mean != 0 divides by the masked in-degree.
+// all contiguous. bm <= 64 rows and cw columns per CTA (cw even where d
+// is);
+// staged != 0 stages each CTA's message slice in shared memory. mean != 0
+// divides by the masked in-degree.
 extern "C" int edge_aggregate_f32(const float* msg, const int* dst,
                                   const float* mask, float* out, int B,
-                                  int e, int n, int d, int bm, int mean,
-                                  void* stream) {
-  const long long smem = edge_aggregate_smem_bytes(e, bm);
+                                  int e, int n, int d, int bm, int cw,
+                                  int staged, int mean, void* stream) {
+  if (B <= 0 || n <= 0 || d <= 0) return (int)cudaGetLastError();
+  if (bm <= 0 || bm > kMaxRows || cw <= 0 || (d % 2 == 0 && cw % 2 != 0))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = edge_aggregate_smem_bytes(e, cw, staged);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         edge_aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  if (B > 0 && n > 0) {
-    dim3 grid((n + bm - 1) / bm, B);
-    edge_aggregate_kernel<<<grid, kThreads, (size_t)smem,
-                            (cudaStream_t)stream>>>(msg, dst, mask, out, e,
-                                                    n, d, bm, mean);
-  }
+  const dim3 grid((d + cw - 1) / cw, (n + bm - 1) / bm, B);
+  edge_aggregate_kernel<<<grid, kThreads, (size_t)smem,
+                          (cudaStream_t)stream>>>(msg, dst, mask, out, e, n,
+                                                  d, bm, cw, staged, mean);
   return (int)cudaGetLastError();
 }

@@ -4,101 +4,271 @@
 // flattened and looped variants) and fused_dense_batched_pallas, whose
 // batched form the wrapper row-packs into one (B*M, K) launch.
 //
-// Bound on this card: memory. The main path's products are (256, K<=108)
-// by (K, N<=64): about 2*M*K*N = 2.1 MFLOP against 40-150 KB moved, far
-// under the f32 rate's ridge, and each launch takes microseconds against
-// a bound of tens of nanoseconds, so the launch itself is the cost.
+// Bound on this card: latency. The paths' products are (64-4096, K <= 256)
+// by (K, N <= 192), mostly small (a GatedGCN dense is 2.5 MFLOP against
+// 40 KB moved, tens of nanoseconds at either roofline), while a launch
+// costs microseconds: what it pays is its round trips to device memory
+// and each output's chain of K dependent adds. The attention graph's
+// (4096, 64) -> 192 (0.1 GFLOP) is bound by operations, and there this
+// kernel issues two instructions a term (no FMA, below) where a library
+// GEMM issues one.
 //
-// Design: one CTA of 256 threads per 32x64 output tile, x and w tiles of
-// depth 16 staged in shared memory, each thread accumulating a 2x4
-// block in registers. Any M, K, N: the kernel masks the ragged edges
-// itself (loads outside the operands read 0, stores outside are
-// skipped, and the last K tile stops at K). Full f32, no TF32 and no
-// tensor cores: each output sums its K products in order k = 0..K-1,
-// then adds the bias and applies the activation in the epilogue. Built
-// with -fmad=false, so products and sums round separately, in the same
-// order as the plain version (kernels/ref.py:fused_dense_ref), which
-// therefore reproduces this kernel's bits. Tensor cores (wgmma) and a
-// persistent schedule are for a later, faster version.
+// Design: each CTA owns one output tile of (TR*TY) x (TC*TX), each thread
+// a TR x TC block of it with independent accumulator chains. The plan
+// (kernels/fused_dense.py:plan) picks the tile from (M, N): one output a
+// thread in 16x8 tiles for the small products (144 CTAs for (256, K) ->
+// 70), larger blocks once the CTAs would queue three deep on the SMs, and
+// 4x4 blocks in 64x64 tiles for the attention dense. A CTA stages its
+// whole x slab (tile rows x K) and w slab (K x tile columns) in one round
+// trip for every K up to kStage: cp.async copies of 16, 8 or 4 bytes, the
+// widest that the operand's alignment, row stride and row length allow
+// (a row of K = 70 floats is 8-byte aligned, not 16), nothing read past
+// an operand, then one barrier. A longer K walks slabs of kSlab, two
+// buffers deep (the next slab loads while this one is summed). x is read
+// through its row stride ldx >= K, so a row-strided view (the executor's
+// own-K view of a lane-padded input) launches without a copy. Rows and
+// columns past M and N are neither loaded nor stored.
+//
+// Numerics: full f32, no TF32, no tensor cores, no FMA (-fmad=false):
+// each output sums its K products in order k = 0..K-1 from 0, each
+// product and each sum rounded on its own, then adds the bias and applies
+// the activation — the order of the plain version
+// (kernels/ref.py:fused_dense_ref), which therefore reproduces this
+// kernel's bits.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BM = 32;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TM = 2;   // rows per thread
-constexpr int TN = 4;   // columns per thread (16 x 16 threads)
+constexpr int kStage = 256;  // K staged whole up to here
+constexpr int kSlab = 64;    // above it: slabs of this depth, two buffers
 
-__global__ void __launch_bounds__(256)
-fused_dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ b, float* __restrict__ y,
-                   int M, int K, int N, int relu) {
-  __shared__ float xs[BM][BK + 1];
-  __shared__ float ws[BK][BN];
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+// Depth of a staged slab, the x slab's row stride in shared memory (a
+// multiple of 4 floats for 16-byte rows and float4 reads along k), and
+// the floats of shared memory a CTA of a bm x bn tile needs.
+__host__ __device__ inline int slab_depth(int K) {
+  return K <= kStage ? K : kSlab;
+}
+__host__ __device__ inline int x_stride(int ks) { return ((ks + 3) & ~3) + 4; }
+__host__ __device__ inline long long smem_floats(int bm, int bn, int K) {
+  const int ks = slab_depth(K);
+  const long long nbuf = K <= kStage ? 1 : 2;
+  return nbuf * ((long long)bm * x_stride(ks) + (long long)ks * bn);
+}
 
-  float acc[TM][TN];
+template <int BYTES>
+__device__ inline void cp_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows x cols of g (row stride ldg) into s (row stride lds), V floats a
+// copy; cols is a multiple of V and every row start V-float aligned.
+template <int V, int NT>
+__device__ inline void stage(float* s, int lds, const float* g,
+                             long long ldg, int rows, int cols) {
+  const int per_row = cols / V;
+  for (int i = threadIdx.x; i < rows * per_row; i += NT) {
+    const int r = i / per_row;
+    const int c = (i - r * per_row) * V;
+    cp_async<4 * V>(s + r * lds + c, g + r * ldg + c);
+  }
+}
+
+template <int NT>
+__device__ inline void stage_v(int v, float* s, int lds, const float* g,
+                               long long ldg, int rows, int cols) {
+  if (v == 4)
+    stage<4, NT>(s, lds, g, ldg, rows, cols);
+  else if (v == 2)
+    stage<2, NT>(s, lds, g, ldg, rows, cols);
+  else
+    stage<1, NT>(s, lds, g, ldg, rows, cols);
+}
+
+template <int TC>
+__device__ inline void load_cols(float (&v)[TC], const float* p) {
+  if constexpr (TC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (TC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < TC; ++j) v[j] = p[j];
+  }
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile: BM*BK = 512 values, two per thread
-    for (int e = tid; e < BM * BK; e += 256) {
-      int r = e / BK, c = e % BK;
-      int gr = row0 + r, gc = k0 + c;
-      xs[r][c] = (gr < M && gc < K) ? x[(size_t)gr * K + gc] : 0.0f;
-    }
-    // w tile: BK*BN = 1024 values, four per thread
-    for (int e = tid; e < BK * BN; e += 256) {
-      int r = e / BN, c = e % BN;
-      int gr = k0 + r, gc = col0 + c;
-      ws[r][c] = (gr < K && gc < N) ? w[(size_t)gr * N + gc] : 0.0f;
+__device__ inline float lane_of(const float4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+template <int TR, int TC, int TY, int TX>
+__global__ void __launch_bounds__(TX * TY)
+fused_dense_kernel(const float* __restrict__ x, long long ldx,
+                   const float* __restrict__ w, const float* __restrict__ b,
+                   float* __restrict__ y, int M, int K, int N, int relu,
+                   int vx, int vw) {
+  constexpr int BM = TR * TY, BN = TC * TX, NT = TX * TY;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ks = slab_depth(K);
+  const int lds = x_stride(ks);
+  const int buf = BM * lds + ks * BN;  // floats of one buffer
+  const int nslab = K > 0 ? (K + ks - 1) / ks : 0;
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int rows = min(BM, M - row0), cols = min(BN, N - col0);
+  const float* xg = x + (long long)row0 * ldx;
+  const float* wg = w + col0;
+
+  // slab s into buffer s % 2: x rows [row0, +rows) x k [s*ks, +kt), w
+  // rows k [s*ks, +kt) x columns [col0, +cols)
+  auto load_slab = [&](int s) {
+    float* xs = smem + (s & 1) * buf;
+    const int k0 = s * ks, kt = min(ks, K - k0);
+    stage_v<NT>(vx, xs, lds, xg + k0, ldx, rows, kt);
+    stage_v<NT>(vw, xs + BM * lds, BN, wg + (long long)k0 * N, N, kt, cols);
+    cp_async_commit();
+  };
+
+  float acc[TR][TC];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
+
+  if (nslab > 0) load_slab(0);
+  for (int s = 0; s < nslab; ++s) {
+    if (s + 1 < nslab) {
+      load_slab(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    const int kt = min(BK, K - k0);
-    for (int kk = 0; kk < kt; ++kk) {
+    const float* xs = smem + (s & 1) * buf + ty * TR * lds;
+    const float* ws = smem + (s & 1) * buf + BM * lds + tx * TC;
+    const int kt = min(ks, K - s * ks);
+    int k = 0;
+    for (; k + 4 <= kt; k += 4) {
+      float4 a[TR];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float a = xs[tr + 16 * i][kk];
+      for (int i = 0; i < TR; ++i)
+        a[i] = *reinterpret_cast<const float4*>(xs + i * lds + k);
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += a * ws[kk][tc + 16 * j];
+      for (int u = 0; u < 4; ++u) {
+        float wv[TC];
+        load_cols<TC>(wv, ws + (k + u) * BN);
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float av = lane_of(a[i], u);
+#pragma unroll
+          for (int j = 0; j < TC; ++j) acc[i][j] = acc[i][j] + av * wv[j];
+        }
       }
     }
-    __syncthreads();
+    for (; k < kt; ++k) {
+      float wv[TC];
+      load_cols<TC>(wv, ws + k * BN);
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const float av = xs[i * lds + k];
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc[i][j] = acc[i][j] + av * wv[j];
+      }
+    }
+    if (s + 1 < nslab) __syncthreads();  // before slab s + 2 overwrites it
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = row0 + tr + 16 * i;
-    if (gr >= M) continue;
+  for (int i = 0; i < TR; ++i) {
+    const int r = ty * TR + i;
+    if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = col0 + tc + 16 * j;
-      if (gc >= N) continue;
+    for (int j = 0; j < TC; ++j) {
+      const int c = tx * TC + j;
+      if (c >= cols) continue;
       float v = acc[i][j];
-      if (b != nullptr) v += b[gc];
+      if (b != nullptr) v += b[col0 + c];
       if (relu) v = v > 0.0f ? v : 0.0f;
-      y[(size_t)gr * N + gc] = v;
+      y[(long long)(row0 + r) * N + col0 + c] = v;
     }
   }
 }
 
+// The tiles, indexed by the plan's variant: {TR, TC, TY, TX}.
+constexpr int kTiles[][4] = {{1, 2, 8, 16},   // 0:  8 x 32, 128 threads
+                             {2, 2, 8, 16},   // 1: 16 x 32, 128 threads
+                             {2, 2, 16, 16},  // 2: 32 x 32, 256 threads
+                             {4, 4, 16, 16},  // 3: 64 x 64, 256 threads
+                             {1, 1, 16, 8}};  // 4: 16 x  8, 128 threads
+constexpr int kVariants = sizeof(kTiles) / sizeof(kTiles[0]);
+
+// The widest copy (4, 2 or 1 floats) that keeps every vector of a row
+// inside the row and every source address aligned to its size.
+int copy_width(const void* p, long long ld, int len) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  for (int v = 4; v > 1; v /= 2)
+    if (a % (4 * v) == 0 && ld % v == 0 && len % v == 0) return v;
+  return 1;
+}
+
+template <int TR, int TC, int TY, int TX>
+int launch(const float* x, long long ldx, const float* w, const float* b,
+           float* y, int M, int K, int N, int relu, cudaStream_t stream) {
+  constexpr int BM = TR * TY, BN = TC * TX;
+  auto kern = fused_dense_kernel<TR, TC, TY, TX>;
+  const long long smem = 4 * smem_floats(BM, BN, K);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  kern<<<grid, TX * TY, (size_t)smem, stream>>>(
+      x, ldx, w, b, y, M, K, N, relu, copy_width(x, ldx, K),
+      copy_width(w, N, N));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x:(M,K) w:(K,N) b:(N,) or null, y:(M,N); all f32, contiguous, on the
-// device of `stream`. act: 0 = none, 1 = relu.
-extern "C" int fused_dense_f32(const float* x, const float* w,
+// Bytes of dynamic shared memory a CTA of `variant` needs at depth K
+// (the formula of kernels/fused_dense.py:smem_bytes).
+extern "C" long long fused_dense_smem_bytes(int variant, int K) {
+  if (variant < 0 || variant >= kVariants) return -1;
+  const int* t = kTiles[variant];
+  return 4 * smem_floats(t[0] * t[2], t[1] * t[3], K);
+}
+
+// x:(M,K) with row stride ldx >= K (any, for one row) and unit column
+// stride, w:(K,N), b:(N,) or null, y:(M,N); all f32, w, b and y
+// contiguous, on the device of `stream`. act: 0 = none, 1 = relu.
+// variant: the tile (kTiles).
+extern "C" int fused_dense_f32(const float* x, long long ldx, const float* w,
                                const float* b, float* y, int M, int K, int N,
-                               int act, void* stream) {
-  if (M > 0 && N > 0) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    fused_dense_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-        x, w, b, y, M, K, N, act);
+                               int act, int variant, void* stream) {
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (K < 0 || (M > 1 && ldx < K)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case 0: return launch<1, 2, 8, 16>(x, ldx, w, b, y, M, K, N, act, s);
+    case 1: return launch<2, 2, 8, 16>(x, ldx, w, b, y, M, K, N, act, s);
+    case 2: return launch<2, 2, 16, 16>(x, ldx, w, b, y, M, K, N, act, s);
+    case 3: return launch<4, 4, 16, 16>(x, ldx, w, b, y, M, K, N, act, s);
+    case 4: return launch<1, 1, 16, 8>(x, ldx, w, b, y, M, K, N, act, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

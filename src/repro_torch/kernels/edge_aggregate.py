@@ -3,9 +3,12 @@
 Counterpart of ``repro/kernels/edge_aggregate.py``
 (``edge_aggregate_batched_pallas``; the per-graph
 ``edge_aggregate_pallas`` is the same kernel at B = 1). The CUDA source
-is ``csrc/edge_aggregate.cu``, a counting sort by destination and a
-segment walk in shared memory; the plain version is
-``kernels/ref.py:edge_aggregate_ref``.
+is ``csrc/edge_aggregate.cu``: each CTA stages its column slice of the
+messages with the event's destinations and masks in one round trip,
+counting-sorts the edges by destination with all its warps, and walks
+each row's segment in shared memory; the plain version is
+``kernels/ref.py:edge_aggregate_ref``. :func:`plan` picks the CTA's
+rows and columns.
 """
 from __future__ import annotations
 
@@ -15,23 +18,69 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: destination rows per CTA: 8 CTAs per event at the routes' 64 nodes
-BM = 8
+#: destination rows per CTA, at most (``csrc/edge_aggregate.cu:kMaxRows``)
+BM = 64
+#: warps of a CTA (``csrc/edge_aggregate.cu:kWarps``)
+WARPS = 8
+#: a CTA's (rows, message columns), smallest first (:func:`plan`)
+TILES = ((16, 8), (32, 8), (64, 8), (64, 16), (64, 32))
+#: CTAs that fill the card: one per SM of the H100
+FILL_CTAS = 132
 _lib = None
+
+
+def plan(n_nodes: int, d: int, bsz: int = 1) -> tuple[int, int]:
+    """(bm, cw): the destination rows and message columns of one CTA,
+    which runs one (column block, row block, event): the smallest tile
+    of :data:`TILES` (cut to n_nodes and d) whose CTAs fill the card at
+    most once, else the largest. Measured on the H100 at the routes'
+    shapes, a CTA's time is one chain of round trip, sort and walk that
+    a smaller tile hardly shortens, while CTAs past one per SM queue.
+    cw is even where d is (the walk reads column pairs)."""
+    for bm, cw in TILES:
+        bm, cw = min(bm, n_nodes), min(cw, d)
+        if -(-d // cw) * -(-n_nodes // bm) * bsz <= FILL_CTAS:
+            break
+    return bm, cw
+
+
+def smem_bytes(e: int, cw: int, staged: bool) -> int:
+    """Shared memory of one CTA (the formula of the source's
+    ``edge_aggregate_smem_bytes``): the count table (BM x WARPS + 4),
+    the staged message slice (e x cw), and keys, masks, ranks and sorted
+    edge ids (e each)."""
+    return 4 * (BM * WARPS + 4 + (e * cw if staged else 0) + 4 * e)
+
+
+def staged(e: int, cw: int) -> bool:
+    """Whether a CTA stages its message slice: where the slice fits the
+    card's shared memory beside the sort, else the walk reads the
+    messages from device memory."""
+    return smem_bytes(e, cw, True) <= _build.SMEM_LIMIT
+
+
+def max_edges() -> int:
+    """The largest edge count one launch takes."""
+    return (_build.SMEM_LIMIT - smem_bytes(0, 1, False)) // 16
 
 
 def _library():
     global _lib
     if _lib is None:
         lib = _build.load("edge_aggregate")
-        lib.edge_aggregate_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.edge_aggregate_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.edge_aggregate_smem_bytes.restype = ctypes.c_longlong
         fn = lib.edge_aggregate_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def library_smem_bytes(e: int, cw: int, staged_: bool) -> int:
+    """The built library's own answer for :func:`smem_bytes`."""
+    return int(_library().edge_aggregate_smem_bytes(e, cw, int(staged_)))
 
 
 def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum"):
@@ -55,15 +104,17 @@ def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum"):
     _build.check_cuda("edge_aggregate_cuda", [messages, dst, mask],
                       [torch.float32, torch.int32, torch.float32])
     lib = _library()
-    _build.check_smem("edge_aggregate_cuda",
-                      lib.edge_aggregate_smem_bytes(e, BM), f"E={e}")
+    bm, cw = plan(int(n_nodes), d, bsz)
+    stage = staged(e, cw)
+    _build.check_smem("edge_aggregate_cuda", smem_bytes(e, cw, stage),
+                      f"E={e}")
     out = torch.empty((bsz, n_nodes, d), dtype=torch.float32,
                       device=messages.device)
     with torch.cuda.device(messages.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.edge_aggregate_f32(messages.data_ptr(), dst.data_ptr(),
                                       mask.data_ptr(), out.data_ptr(), bsz,
-                                      e, int(n_nodes), d, BM,
+                                      e, int(n_nodes), d, bm, cw, int(stage),
                                       int(reduce == "mean"), stream)
     _build.check(code, "edge_aggregate")
     edge_aggregate_cuda.launches += 1

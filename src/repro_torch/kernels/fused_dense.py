@@ -7,8 +7,11 @@ sources are ``csrc/fused_dense.cu`` and ``csrc/fused_dense_int8.cu``;
 the plain versions are ``kernels/ref.py:fused_dense_ref`` and
 ``fused_dense_int8_ref``. The TPU kernel's two variants (one
 whole-operand cell, or a grid looped over K) were ways to fill the
-TPU's matrix unit; on the card one tiled kernel serves both, and the
-batched form row-packs its events into the same launch.
+TPU's matrix unit; on the card one tiled kernel serves both, its tile
+chosen from the shape by :func:`plan`, and the batched form row-packs
+its events into the same launch. The f32 kernel reads x through a row
+stride, so a row-strided view (the executor's own-K view of a
+lane-padded input) launches without a copy.
 """
 from __future__ import annotations
 
@@ -19,8 +22,62 @@ import torch
 from repro_torch.kernels import _build
 
 _ACT = {None: 0, "none": 0, "linear": 0, "relu": 1}
+#: the f32 kernel's tiles, by variant (``csrc/fused_dense.cu:kTiles``):
+#: (TR, TC, TY, TX), a thread's block of TR x TC outputs and the CTA's
+#: TY x TX threads, so a CTA computes a (TR·TY) x (TC·TX) output tile
+TILES = ((1, 2, 8, 16), (2, 2, 8, 16), (2, 2, 16, 16), (4, 4, 16, 16),
+         (1, 1, 16, 8))
+#: K staged whole in one round trip up to here; above it, slabs of
+#: SLAB_K, two buffers deep
+STAGE_K = 256
+SLAB_K = 64
+#: CTAs per launch that the plan stays within where it can: three per
+#: SM of the H100
+MAX_CTAS = 3 * 132
+#: the tile of a narrow output (N at most its columns)
+NARROW = 4
+#: the variants from the smallest tile to the largest
+BY_SIZE = (4, 0, 1, 2, 3)
 _lib = None
 _lib_int8 = None
+
+
+def tile(variant: int) -> tuple[int, int]:
+    """(rows, columns) of a CTA's output tile."""
+    tr, tc, ty, tx = TILES[variant]
+    return tr * ty, tc * tx
+
+
+def ctas(variant: int, m: int, n: int) -> int:
+    """CTAs of a (m, ·) -> n product under ``variant``."""
+    bm, bn = tile(variant)
+    return -(-m // bm) * -(-n // bn)
+
+
+def plan(m: int, n: int) -> int:
+    """The tile of a (m, K) -> n product: 16 x 8 for a narrow output
+    (the heads' N of 2 to 7), else the smallest tile whose CTAs stay
+    within ``MAX_CTAS``, else the largest (64 x 64, 4 x 4 outputs a
+    thread). Measured on the H100 over the paths' shapes, a CTA's time
+    is its round trip and its outputs' chains of K adds, so more, smaller
+    CTAs win until they queue three deep on the SMs (16 x 8 tiles: 144
+    CTAs for (256, K) -> 70). K does not enter: every K up to ``STAGE_K``
+    stages whole, and each output's chain is K long in every tile."""
+    if n <= tile(NARROW)[1]:
+        return NARROW
+    return next((v for v in BY_SIZE if ctas(v, m, n) <= MAX_CTAS),
+                BY_SIZE[-1])
+
+
+def smem_bytes(variant: int, k: int) -> int:
+    """Shared memory of one CTA at depth k: its x slab (tile rows at a
+    row stride of K rounded up to 4, plus 4) and w slab (K x tile
+    columns), one buffer of the whole K up to ``STAGE_K``, else two of
+    ``SLAB_K`` — the formula of the source's ``fused_dense_smem_bytes``."""
+    bm, bn = tile(variant)
+    ks = k if k <= STAGE_K else SLAB_K
+    nbuf = 1 if k <= STAGE_K else 2
+    return 4 * nbuf * (bm * ((ks + 3) // 4 * 4 + 4) + ks * bn)
 
 
 def _kernel():
@@ -28,11 +85,20 @@ def _kernel():
     if _lib is None:
         lib = _build.load("fused_dense")
         fn = lib.fused_dense_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.fused_dense_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.fused_dense_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib.fused_dense_f32
+
+
+def library_smem_bytes(variant: int, k: int) -> int:
+    """The built library's own answer for :func:`smem_bytes`."""
+    _kernel()
+    return int(_lib.fused_dense_smem_bytes(variant, k))
 
 
 def _kernel_int8():
@@ -56,9 +122,20 @@ def act_code(activation) -> int:
     return _ACT[activation]
 
 
+def row_strided(x) -> bool:
+    """Whether the f32 kernel reads x:(M, K) as it lies: its columns
+    contiguous and its rows one stride of at least K apart (any stride
+    for a single row) — a contiguous matrix, or a column slice of one."""
+    m, kdim = x.shape
+    return (kdim <= 1 or x.stride(1) == 1) and (m <= 1
+                                                or x.stride(0) >= kdim)
+
+
 def fused_dense_cuda(x, w, b=None, *, activation="relu"):
-    """act(x @ w + b) on the card. x:(M,K) w:(K,N) b:(N,)|None, f32,
-    contiguous CUDA tensors -> (M,N). Adds one to
+    """act(x @ w + b) on the card. x:(M,K) w:(K,N) b:(N,)|None, f32 CUDA
+    tensors, w and b contiguous, x contiguous or row-strided
+    (:func:`row_strided`: a column slice of a contiguous matrix launches
+    without a copy) -> (M,N). The tile is :func:`plan`'s. Adds one to
     ``fused_dense_cuda.launches`` per launch."""
     act = act_code(activation)
     ops = [x, w] + ([] if b is None else [b])
@@ -69,23 +146,28 @@ def fused_dense_cuda(x, w, b=None, *, activation="relu"):
     if any(t.dtype != torch.float32 for t in ops):
         raise TypeError("fused_dense_cuda takes float32 operands "
                         f"(got {[t.dtype for t in ops]})")
-    if any(not t.is_contiguous() for t in ops):
-        raise ValueError("fused_dense_cuda takes contiguous operands")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fused_dense_cuda: x {tuple(x.shape)} @ w "
                          f"{tuple(w.shape)}")
+    if not row_strided(x) or any(not t.is_contiguous() for t in ops[1:]):
+        raise ValueError("fused_dense_cuda takes contiguous w and b and an "
+                         "x whose rows lie at one stride >= K with "
+                         f"contiguous columns (x strides {x.stride()})")
     m, kdim = x.shape
     n = w.shape[1]
     if b is not None and tuple(b.shape) != (n,):
         raise ValueError(f"fused_dense_cuda: bias {tuple(b.shape)} for "
                          f"{n} outputs")
+    variant = plan(m, n)
+    _build.check_smem("fused_dense_cuda", smem_bytes(variant, kdim),
+                      f"K={kdim}")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), w.data_ptr(),
-                  None if b is None else b.data_ptr(), y.data_ptr(),
-                  m, kdim, n, act, stream)
+        code = fn(x.data_ptr(), x.stride(0) if m > 1 else kdim,
+                  w.data_ptr(), None if b is None else b.data_ptr(),
+                  y.data_ptr(), m, kdim, n, act, variant, stream)
     _build.check(code, "fused_dense")
     fused_dense_cuda.launches += 1
     return y

@@ -35,7 +35,8 @@ def fused_dense(x, w, b=None, *, activation="relu"):
 def fused_dense_batched(x, w, b=None, *, activation="relu"):
     """act(x @ w + b) over a micro-batch x:(B,M,K) in one launch: the
     events are row-packed into one (B·M, K) product (a dense couples no
-    rows, so packing is exact)."""
+    rows, so packing is exact), a view where x's rows lie at one stride,
+    as in a column slice of a contiguous tensor."""
     bsz, m, kdim = x.shape
     y = fused_dense(x.reshape(bsz * m, kdim), w, b, activation=activation)
     return y.reshape(bsz, m, -1)

@@ -107,7 +107,10 @@ def stamped_source(src: str) -> tuple[str, list[str]]:
     return out, labels
 
 
-def _device_ms(torch, fn, cycles_per_ms: float, reps: int = 200) -> float:
+def device_ms(torch, fn, cycles_per_ms: float, reps: int = 200) -> float:
+    """Device time of one call of ``fn``: a sleep kernel of about 1.5×
+    the host's enqueue time holds the card while ``reps`` calls are
+    enqueued, and CUDA events bracket their device work."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -201,8 +204,8 @@ def main(argv=None) -> int:
                       torch.cuda.current_stream().cuda_stream)
 
         cycles_per_ms = sm_cycles_per_ms()
-        stamped_ms = _device_ms(torch, call, cycles_per_ms)
-        package_ms = _device_ms(
+        stamped_ms = device_ms(torch, call, cycles_per_ms)
+        package_ms = device_ms(
             torch, lambda: gravnet_block_int8_cuda(*t, **scales, k=K),
             cycles_per_ms)
         _build.check(call(), "stamped gravnet_block_int8")

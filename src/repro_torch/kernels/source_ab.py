@@ -1,0 +1,208 @@
+"""Device time of the f32 dense and the edge aggregation kernels against
+an earlier revision of their sources, in one call.
+
+    python -m repro_torch.kernels.source_ab --earlier DIR
+
+``DIR`` holds earlier ``fused_dense.cu`` and ``edge_aggregate.cu``
+whose C entries are the first design's: ``fused_dense_f32(x, w, b, y,
+M, K, N, act, stream)`` over a contiguous x, and ``edge_aggregate_f32(
+msg, dst, mask, out, B, E, n, d, bm, mean, stream)``, launched at bm = 8
+rows per CTA — for example an earlier commit's
+``src/repro_torch/kernels/csrc`` unpacked with ``git archive`` under
+``build/``. Both are built with this checkout's flags. Then, at every
+launch shape of a GatedGCN 16 × 70, a GraphSAGE 2 × 128 and a
+CaloClusterNet fp chunk (:data:`DENSE_SHAPES`, :data:`EDGE_SHAPES`),
+each kernel is held against its plain version bitwise and timed in
+turns, earlier, current, current, earlier (CUDA events around 200
+back-to-back launches behind a sleep kernel, as ``chip_smoke.py``
+times). Where the executor now hands the dense a row-strided own-K view
+of a lane-padded input, the earlier kernel gets what its executor gave
+it: the padded input, contiguous, and w padded with zero rows. Prints a
+line per shape and the sums per chunk with the card's name and power
+limit; the report also goes to ``chiprun_out/source_ab.json``. Needs a
+card and ``nvcc``.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from pathlib import Path
+
+from repro_torch.kernels.phase_split import device_ms
+
+#: (chunk, launches per chunk, M, own K, N, lane-padded K or None): the
+#: denses of a chunk, as chip_smoke.py records them (all timed with relu)
+DENSE_SHAPES = (
+    ("gatedgcn", 31, 256, 70, 70, 128),
+    ("gatedgcn", 16, 256, 70, 140, 128),
+    ("gatedgcn", 15, 64, 70, 70, 128),
+    ("gatedgcn", 1, 64, 8, 70, None),
+    ("gatedgcn", 1, 256, 4, 70, None),
+    ("gatedgcn", 1, 256, 70, 70, None),
+    ("gatedgcn", 1, 64, 70, 70, None),
+    ("gatedgcn", 1, 64, 70, 2, 128),
+    ("graphsage", 1, 512, 32, 128, 128),
+    ("graphsage", 1, 512, 256, 128, None),
+    ("graphsage", 1, 512, 128, 5, None),
+    ("ccn_fp", 1, 256, 4, 64, None),
+    ("ccn_fp", 2, 256, 64, 64, None),
+    ("ccn_fp", 1, 256, 64, 32, None),
+    ("ccn_fp", 1, 256, 32, 7, None),
+)
+#: (chunk, launches per chunk, graphs, E, d, reduce) on graphs of 64
+#: nodes
+EDGE_SHAPES = (
+    ("gatedgcn", 32, 1, 256, 70, "sum"),
+    ("graphsage", 1, 8, 256, 16, "mean"),
+    ("graphsage", 1, 8, 256, 128, "mean"),
+)
+NODES = 64
+EARLIER_BM = 8
+
+
+def _build_earlier(src: Path, name: str) -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+    so = _build.BUILD_DIR / f"lib{name}-earlier.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([_build._nvcc(), *_build.nvcc_flags(name), "-o",
+                          str(so), str(src)], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        raise SystemExit(f"nvcc failed for {src}:\n{res.stdout}"
+                         f"{res.stderr}")
+    return ctypes.CDLL(str(so))
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.edge_aggregate import edge_aggregate_cuda
+    from repro_torch.kernels.fused_dense import act_code, fused_dense_cuda
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--earlier", type=Path, required=True,
+                    help="directory of the earlier fused_dense.cu and "
+                    "edge_aggregate.cu")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("source_ab needs a CUDA card")
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(card)
+    old_dense = _build_earlier(args.earlier / "fused_dense.cu",
+                               "fused_dense").fused_dense_f32
+    old_dense.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    old_edge = _build_earlier(args.earlier / "edge_aggregate.cu",
+                              "edge_aggregate").edge_aggregate_f32
+    old_edge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(20_000_000)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 20_000_000 / a.elapsed_time(b)
+
+    def turns(earlier, current):
+        """Earlier, current, current, earlier; the mean of each pair."""
+        t = [device_ms(torch, fn, cycles_per_ms)
+             for fn in (earlier, current, current, earlier)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    gen = torch.Generator().manual_seed(0)
+    rows, sums = [], {}
+    for chunk, count, m, k, n, kpad in DENSE_SHAPES:
+        kin = kpad or k
+        xp = torch.zeros(m, kin)
+        xp[:, :k] = torch.randn(m, k, generator=gen)
+        xp = xp.to(dev)
+        w = (torch.randn(k, n, generator=gen) / k ** 0.5).to(dev)
+        bias = torch.randn(n, generator=gen).to(dev)
+        wp = torch.cat([w, torch.zeros(kin - k, n, device=dev)])
+        x = xp[:, :k]
+
+        def earlier(xp=xp, wp=wp, bias=bias, m=m, kin=kin, n=n):
+            y = torch.empty(m, n, device=dev)
+            old_dense(xp.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+                      y.data_ptr(), m, kin, n, act_code("relu"), stream())
+            return y
+
+        def current(x=x, w=w, bias=bias):
+            return fused_dense_cuda(x, w, bias)
+
+        for fn, want in ((earlier, ref.fused_dense_ref(xp, wp, bias)),
+                         (current, ref.fused_dense_ref(x, w, bias))):
+            if not bool((fn() == want).all()):
+                raise SystemExit(f"dense ({m},{k})->{n}: not bitwise equal "
+                                 "to its plain version")
+        t_old, t_new = turns(earlier, current)
+        rows.append({"kernel": "fused_dense", "chunk": chunk,
+                     "count": count, "shape": f"({m},{k})->{n}"
+                     + (f" of {kpad}" if kpad else ""),
+                     "earlier_ms": t_old, "current_ms": t_new})
+    for chunk, count, bsz, e, d, reduce in EDGE_SHAPES:
+        msg = torch.randn(bsz, e, d, generator=gen).to(dev)
+        dst = torch.randint(0, NODES, (bsz, e), generator=gen,
+                            dtype=torch.int32).to(dev)
+        mask = (torch.rand(bsz, e, generator=gen) < 0.9).float().to(dev)
+        mean = reduce == "mean"
+
+        def earlier(msg=msg, dst=dst, mask=mask, bsz=bsz, e=e, d=d,
+                    mean=mean):
+            out = torch.empty(bsz, NODES, d, device=dev)
+            old_edge(msg.data_ptr(), dst.data_ptr(), mask.data_ptr(),
+                     out.data_ptr(), bsz, e, NODES, d, EARLIER_BM,
+                     int(mean), stream())
+            return out
+
+        def current(msg=msg, dst=dst, mask=mask, reduce=reduce):
+            return edge_aggregate_cuda(msg, dst, mask, n_nodes=NODES,
+                                       reduce=reduce)
+
+        want = ref.edge_aggregate_ref(msg, dst, mask, n_nodes=NODES,
+                                      reduce=reduce)
+        for fn in (earlier, current):
+            if not bool((fn() == want).all()):
+                raise SystemExit(f"edge ({bsz},{e},{d}) {reduce}: not "
+                                 "bitwise equal to its plain version")
+        t_old, t_new = turns(earlier, current)
+        rows.append({"kernel": "edge_aggregate", "chunk": chunk,
+                     "count": count, "shape": f"({bsz},{e},{d}) {reduce}",
+                     "earlier_ms": t_old, "current_ms": t_new})
+    for r in rows:
+        key = (r["chunk"], r["kernel"])
+        s = sums.setdefault(key, [0, 0.0, 0.0])
+        s[0] += r["count"]
+        s[1] += r["count"] * r["earlier_ms"]
+        s[2] += r["count"] * r["current_ms"]
+        print(f"{r['kernel']} [{r['chunk']}] {r['shape']} x{r['count']}: "
+              f"earlier {r['earlier_ms']:.5f} ms, current "
+              f"{r['current_ms']:.5f} ms")
+    for (chunk, kernel), (n, old, new) in sums.items():
+        print(f"per {chunk} chunk, {kernel} ({n} launches): earlier "
+              f"{old:.5f} ms, current {new:.5f} ms ({card})")
+    out = Path(__file__).resolve().parents[3] / "chiprun_out"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "source_ab.json").write_text(json.dumps(
+        {"card": card, "earlier": str(args.earlier), "rows": rows,
+         "per_chunk": [{"chunk": c, "kernel": k, "launches": n,
+                        "earlier_ms": o, "current_ms": w_}
+                       for (c, k), (n, o, w_) in sums.items()]},
+        indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

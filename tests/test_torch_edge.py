@@ -2,9 +2,11 @@
 the ``kernels/ops.py`` entry points on CPU tensors) against the JAX
 package's ``ops.edge_aggregate`` / ``edge_aggregate_batched``, run as
 the Pallas body in interpret mode and through its jnp reference, on the
-same numpy inputs; and the plain version's order of summation against a
-loop over the edges. The CUDA kernel is held against the plain version
-on the card by ``chip_smoke.py`` (phase 7).
+same numpy inputs; the plain version's order of summation against a
+loop over the edges, also on ``kernels/f32_cases.py``'s edge inputs; and
+a numpy replica of the kernel's counting sort and its launch plan. The
+CUDA kernel is held against the plain version on the card by
+``chip_smoke.py`` (phase 7).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,8 @@ import torch
 from _numerics import assert_bitwise, assert_close
 
 from repro.kernels import ops as jops
+from repro_torch.kernels import edge_aggregate as ea
+from repro_torch.kernels import f32_cases
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.edge_aggregate import edge_aggregate_cuda
@@ -119,9 +123,21 @@ def test_plain_version_replays_the_kernels_order(reduce):
     msgs = rng.normal(size=(2, e, d)).astype(np.float32)
     dst = rng.integers(-2, n + 2, size=(2, e)).astype(np.int32)
     mask = rng.choice(np.float32([0, 0.25, 0.5, 1, 1.5]), size=(2, e))
-    want = np.zeros((2, n, d), np.float32)
-    cnt = np.zeros((2, n), np.float32)
-    for b in range(2):
+    got = tref.edge_aggregate_ref(torch.from_numpy(msgs),
+                                  torch.from_numpy(dst),
+                                  torch.from_numpy(mask), n_nodes=n,
+                                  reduce=reduce)
+    assert_bitwise(got.numpy(), _edge_loop(msgs, dst, mask, n, reduce))
+
+
+def _edge_loop(msgs, dst, mask, n, reduce):
+    """The kernel's order as a loop over the edges in increasing order:
+    each ``mask·msg`` product added to its node (and, for mean, each mask
+    to its node's count), every product and sum rounded to f32."""
+    bsz, e, d = msgs.shape
+    want = np.zeros((bsz, n, d), np.float32)
+    cnt = np.zeros((bsz, n), np.float32)
+    for b in range(bsz):
         for j in range(e):
             i = dst[b, j]
             if 0 <= i < n:
@@ -129,11 +145,30 @@ def test_plain_version_replays_the_kernels_order(reduce):
                 cnt[b, i] = cnt[b, i] + mask[b, j]
     if reduce == "mean":
         want = want / np.maximum(cnt, np.float32(1))[..., None]
+    return want
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("case", sorted(f32_cases.EDGE_CASES))
+def test_plain_version_on_the_kernels_edge_inputs(case, reduce):
+    """On the inputs that stress the kernel's design
+    (``kernels/f32_cases.py``: E from 1 to the largest a launch takes,
+    one node taking every edge, every edge masked, every dst out of
+    range, odd widths), the plain version equals the loop over the edges
+    bitwise and the JAX package's jnp reference within the float32
+    row."""
+    bsz, e, d, kind = f32_cases.EDGE_CASES[case]
+    msgs, dst, mask = f32_cases.edge_inputs(bsz, e or ea.max_edges(), d,
+                                            kind, seed=len(case))
+    n = f32_cases.EDGE_NODES
     got = tref.edge_aggregate_ref(torch.from_numpy(msgs),
                                   torch.from_numpy(dst),
                                   torch.from_numpy(mask), n_nodes=n,
-                                  reduce=reduce)
-    assert_bitwise(got.numpy(), want)
+                                  reduce=reduce).numpy()
+    assert_bitwise(got, _edge_loop(msgs, dst, mask, n, reduce))
+    ei = np.stack([np.zeros_like(dst), dst], axis=1)
+    assert_close(got, _jax(msgs, ei, n, mask, reduce, "xla"),
+                 dtype="float32", context=case)
 
 
 def test_ops_route_cpu_tensors_to_plain_version():
@@ -162,3 +197,93 @@ def test_wrapper_refuses_cpu_tensors_and_unknown_reduce():
     with pytest.raises(ValueError, match="reduce"):
         tref.edge_aggregate_ref(msgs, dst, mask, n_nodes=4, reduce="max")
     assert edge_aggregate_cuda.launches == before
+
+
+# ------------------------------------------------ the kernel's placement ----
+WARPS, MAX_ROWS = 8, 64     # csrc/edge_aggregate.cu: kWarps, kMaxRows
+
+
+def _kernel_placement(dst, row0, rows):
+    """numpy replica of one CTA's counting sort in
+    ``csrc/edge_aggregate.cu``: warp w owns the edges [w·span, (w+1)·span)
+    and takes them 32 a round; a lane's group is the round's lanes of its
+    row (``__match_any_sync``), its rank the warp's earlier edges of that
+    row (tab[row][w] before the round) plus the group's lanes below it;
+    warp 0 scans tab in (row, warp) order, lane l holding rows 2l and
+    2l + 1; each edge lands at tab[row][w] + rank. Returns (perm, the
+    rows' segment bounds)."""
+    e_count = len(dst)
+    key = np.where((dst >= row0) & (dst < row0 + rows), dst - row0, -1)
+    span = -(-e_count // (32 * WARPS)) * 32
+    tab = np.zeros(MAX_ROWS * WARPS + 4, np.int64)
+    rank = np.zeros(e_count, np.int64)
+    for w in range(WARPS):
+        lo, hi = w * span, min((w + 1) * span, e_count)
+        for base in range(lo, hi, 32):
+            lanes = [key[e] if e < hi else -1 for e in range(base, base + 32)]
+            for lane, k in enumerate(lanes):
+                if k >= 0:
+                    below = sum(lanes[j] == k for j in range(lane))
+                    rank[base + lane] = tab[k * WARPS + w] + below
+            for k in set(lanes) - {-1}:
+                tab[k * WARPS + w] += lanes.count(k)
+    counts = tab[:MAX_ROWS * WARPS].reshape(32, 16)   # lane: two rows
+    lane_total = counts.sum(axis=1)
+    base = np.cumsum(lane_total) - lane_total
+    tab[:MAX_ROWS * WARPS] = (base[:, None] + np.cumsum(counts, axis=1)
+                              - counts).ravel()
+    tab[MAX_ROWS * WARPS] = lane_total.sum()
+    perm = np.full(e_count, -1, np.int64)
+    for e in range(e_count):
+        if key[e] >= 0:
+            perm[tab[key[e] * WARPS + e // span] + rank[e]] = e
+    bounds = tab[np.arange(rows + 1) * WARPS]
+    return perm, bounds
+
+
+@pytest.mark.parametrize("e_count", [1, 31, 33, 100, 256, 257, 1000])
+@pytest.mark.parametrize("n,row0,rows", [(64, 0, 64), (64, 16, 16),
+                                         (100, 96, 4), (40, 32, 8)])
+def test_kernel_placement_is_a_stable_sort(e_count, n, row0, rows):
+    """The replica's placement equals a stable argsort of the CTA's
+    in-range keys, and each row's segment holds its edges in increasing
+    e: on random destinations with ids outside [0, n) and E not a
+    multiple of 32."""
+    rng = np.random.default_rng(e_count + n + row0)
+    dst = rng.integers(-3, n + 3, size=e_count)
+    perm, bounds = _kernel_placement(dst, row0, rows)
+    mine = (dst >= row0) & (dst < row0 + rows)
+    order = np.argsort(np.where(mine, dst, n + 9), kind="stable")
+    total = int(mine.sum())
+    assert bounds[-1] == total
+    assert (perm[:total] == order[:total]).all() and (perm[total:] == -1).all()
+    for r in range(rows):
+        seg = perm[bounds[r]:bounds[r + 1]]
+        assert (dst[seg] == row0 + r).all() and (np.diff(seg) > 0).all()
+        assert len(seg) == int((dst == row0 + r).sum())
+
+
+@pytest.mark.parametrize("e_count", [33, 1000])
+def test_kernel_placement_one_node_takes_every_edge(e_count):
+    dst = np.full(e_count, 5)
+    perm, bounds = _kernel_placement(dst, 0, 64)
+    assert (perm == np.arange(e_count)).all()
+    assert bounds[5] == 0 and bounds[6] == e_count and bounds[-1] == e_count
+
+
+def test_edge_plan_fits_and_tiles():
+    """The plan's CTA tile cuts to the graph, keeps cw even where d is,
+    stays one CTA per SM at the routes' shapes where a tile allows, and
+    every edge count up to ``max_edges`` fits the card's shared memory
+    (its message slice staged where it fits)."""
+    from repro_torch.kernels import _build
+    for bsz, d in [(1, 70), (8, 16), (8, 128), (16, 70), (1, 1), (16, 129)]:
+        bm, cw = ea.plan(64, d, bsz)
+        assert 1 <= bm <= ea.BM and 1 <= cw <= d and (d % 2 or cw % 2 == 0)
+        if bsz <= 8:
+            assert -(-d // cw) * -(-64 // bm) * bsz <= ea.FILL_CTAS
+    assert ea.plan(64, 70, 1) == (16, 8)
+    e_max = ea.max_edges()
+    assert ea.smem_bytes(e_max, 8, False) <= _build.SMEM_LIMIT
+    assert ea.smem_bytes(e_max + 1, 8, False) > _build.SMEM_LIMIT
+    assert ea.staged(256, 8) and not ea.staged(e_max, 8)
