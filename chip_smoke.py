@@ -29,7 +29,15 @@ Phases, each of which exits non-zero when it fails:
    ``kernels/int8_cases.py`` (exact distance ties, 32 and 50 hits, fewer
    valid hits than k, rows off the tile, K = 4 and N = 7 in both output
    forms, K past one staged slice, x quantized on the hard quotients of
-   ``int8_cases.quotient_edges``);
+   ``int8_cases.quotient_edges``). So is the f32 GravNet pair
+   (``gravnet_block``, ``gravnet_aggregate``): at the fp and unfused
+   paths' shapes (the block also at one event of its chunk), at the
+   current detector's fp deployment (its calls, 32 hits, at one chunk,
+   16 and 64 events), and on the inputs of ``kernels/f32_cases.py``
+   (exact distance ties, 1 to 600 hits, fewer valid hits than k, a
+   masked event, k past n, d_s 1 and 9, d_f 1 to 129, 1 to 64 events,
+   the register cell and the shared-memory cell past it), with each
+   shape's shared-memory plan against the library's own;
 4. the main path, as ``python -m repro_torch.launch.serve
    --train-steps 0`` runs it: deploy the upgrade-width CaloClusterNet
    (random weights from a seed) at design point 3 under the **mixed**
@@ -212,8 +220,8 @@ KERNELS = {
     },
 }
 # kernels held bitwise to their plain versions at every shape checked
-BITWISE = {"fused_dense", "fused_dense_int8", "gravnet_block_int8",
-           "edge_aggregate"}
+BITWISE = {"fused_dense", "fused_dense_int8", "gravnet_block",
+           "gravnet_block_int8", "gravnet_aggregate", "edge_aggregate"}
 # the int8 block's widths on the edge inputs: the served model's and the
 # reference's smoke config's (repro/configs/caloclusternet.py)
 INT8_WIDTHS = dict(dh=64, ds=4, df=22, dout=64)
@@ -458,6 +466,8 @@ def main() -> int:
     from repro_torch.kernels import _build, f32_cases, int8_cases
     from repro_torch.kernels import edge_aggregate as edge_mod
     from repro_torch.kernels import fused_dense as dense_mod
+    from repro_torch.kernels import gravnet as agg_mod
+    from repro_torch.kernels import gravnet_block as block_mod
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_dense import (fused_dense_cuda,
@@ -792,6 +802,12 @@ def main() -> int:
             for n_ev in (pipe.microbatch, *batches[1:]):
                 check(path, pos, n_ev,
                       *stacked(calls, per_chunk, pipe.microbatch, pos, n_ev))
+            if path == "fp" and calls[pos][0] == "gravnet_block":
+                # one event of the chunk: the per-event TPU kernel's form
+                name, args, kw = calls[pos]
+                check(path, pos, 1, name,
+                      [a[:1] if i < EVENT_ARGS[name] else a
+                       for i, a in enumerate(args)], kw)
     del recorded
 
     # the int8 pair at the current detector's shapes (32 hits: its mixed
@@ -803,13 +819,16 @@ def main() -> int:
     say(f"deployed current-detector CaloClusterNet (n_hits="
         f"{cur_cfg.n_hits}, mixed, design point 3): microbatch="
         f"{cur_pipe.microbatch}")
-    cur_calls, cur_per_chunk = record(
-        cur_pipe, serve.calibration_feeds(cur_gen))
-    for pos in range(cur_per_chunk):
-        for n_ev in (cur_pipe.microbatch, *CHECK_BATCHES[1:]):
-            check("mixed_current", pos, n_ev, *stacked(
-                cur_calls, cur_per_chunk, cur_pipe.microbatch, pos, n_ev))
-    del cur_calls
+    cur_fp = serve.build_pipeline(cur_cfg, cur_gen, device=dev,
+                                  design_point=3, precision="fp")
+    for tag, pipe in (("mixed_current", cur_pipe), ("fp_current", cur_fp)):
+        cur_calls, cur_per_chunk = record(
+            pipe, serve.calibration_feeds(cur_gen))
+        for pos in range(cur_per_chunk):
+            for n_ev in (pipe.microbatch, *CHECK_BATCHES[1:]):
+                check(tag, pos, n_ev, *stacked(
+                    cur_calls, cur_per_chunk, pipe.microbatch, pos, n_ev))
+        del cur_calls
 
     def as_args(arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -846,6 +865,33 @@ def main() -> int:
                                                  bias=bias, seed=len(case)))
         check(f"edge:{case}", 0, 1, "fused_dense", [x[:, :kd], w, b],
               dict(activation=act))
+    # the f32 GravNet pair on the inputs that stress their designs
+    # (kernels/f32_cases.py): ties, 1 to 600 hits, fewer valid hits than
+    # k, a masked event, k past n, d_s 1 and 9, d_f 1 to 129, 1 to 64
+    # events, both cells; and each shape's shared-memory plan against the
+    # built library's own
+    for case, (b, n, dh, ds, df, dout, k_, nv, dup,
+               masked) in f32_cases.GRAVNET_CASES.items():
+        kw_ = dict(seed=len(case), n_valid=nv, dup=dup, masked_event=masked)
+        check(f"edge:{case}", 0, b, "gravnet_block", as_args(
+            f32_cases.block_inputs(b, n, dh=dh, ds=ds, df=df, dout=dout,
+                                   **kw_)), {"k": k_})
+        check(f"edge:{case}", 0, b, "gravnet_aggregate", as_args(
+            f32_cases.aggregate_inputs(b, n, ds=ds, df=df, **kw_)),
+            {"k": k_})
+        bm, cell = block_mod.plan(n, dh, ds, df, dout)
+        want = block_mod.smem_bytes(n, dh, ds, df, dout, bm, cell)
+        if block_mod.library_smem_bytes(n, dh, ds, df, dout, bm) != want:
+            fail(f"gravnet_block: {case} plans {want} B of shared memory "
+                 f"({cell} cell, bm {bm}), the library "
+                 f"{block_mod.library_smem_bytes(n, dh, ds, df, dout, bm)}")
+        if agg_mod.library_smem_bytes(n, ds, df) != agg_mod.smem_bytes(
+                n, ds, df):
+            fail(f"gravnet_aggregate: {case} plans "
+                 f"{agg_mod.smem_bytes(n, ds, df)} B of shared memory, the "
+                 f"library {agg_mod.library_smem_bytes(n, ds, df)}")
+    say(f"gravnet_block, gravnet_aggregate: the shared-memory plans of the "
+        f"{len(f32_cases.GRAVNET_CASES)} edge cases equal the library's")
     plan_ks = sorted({c[1] for c in f32_cases.DENSE_CASES.values()}
                      | {4, 8, 32, 64, 108, 192})
     for v in range(len(dense_mod.TILES)):

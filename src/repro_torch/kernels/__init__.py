@@ -22,14 +22,17 @@
                            ``attention`` op's kernel, its (bq, bk) blocks
                            tunable (``csrc/flash_attention.cu``).
 
-Four GravNet and kNN kernels share the cell in ``csrc/gravnet_cell.cuh``:
-the whole of it, or its selection or its accumulation half;
-``gravnet_block_int8`` runs the same cell with its distance row in
-registers (``csrc/gravnet_cell_reg.cuh``). The two int8 kernels share
-the tensor-core product (``csrc/mma_s8.cuh``) and the division-free
-quantization (``csrc/int8_quant.cuh``). ``int8_cases.py`` makes the
-inputs that stress them; ``phase_split.py`` times the int8 block's
-phases on the card.
+The three kernels that run the whole GravNet cell (``gravnet_block``,
+``gravnet_block_int8``, ``gravnet_aggregate``) keep a row's distances in
+registers (``csrc/gravnet_cell_reg.cuh``) up to 512 hits and d_f 128;
+past those the two f32 ones, and always the ragged kNN pair (its
+selection or its accumulation half), run the shared-memory cell of
+``csrc/gravnet_cell.cuh``. The two int8 kernels share the tensor-core
+product (``csrc/mma_s8.cuh``) and the division-free quantization
+(``csrc/int8_quant.cuh``). ``int8_cases.py`` and ``f32_cases.py`` make
+the inputs that stress the kernels; ``phase_split.py`` times a GravNet
+kernel's phases on the card and ``source_ab.py`` times the f32 kernels
+against an earlier revision of their sources.
 ``ops.py`` routes by device (CPU tensor -> plain version in ``ref.py``,
 CUDA tensor -> kernel); ``_build.py`` compiles ``csrc/`` with ``nvcc``
 at first use. Nothing builds when a module is imported.

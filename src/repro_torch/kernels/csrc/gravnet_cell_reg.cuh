@@ -1,6 +1,9 @@
 // The GravNet aggregation cell with its distance row in registers, run
-// by one warp per query row. Used by gravnet_block_int8.cu alone; the
-// other kernels keep the shared-memory cell of gravnet_cell.cuh.
+// by one warp per query row. Used by the kernels that run the whole cell:
+// gravnet_block_int8.cu, gravnet_block.cu and gravnet_aggregate.cu, up to
+// 512 hits and d_f 128. Past those the two f32 kernels run the
+// shared-memory cell of gravnet_cell.cuh, which the ragged kNN pair
+// keeps.
 //
 // It computes what gravnet_cell.cuh's gravnet_cell_row computes, with
 // the same semantics (repro/kernels/gravnet.py:_gravnet_cell):
@@ -15,7 +18,8 @@
 //   out = [mean / k, (max <= -0.5e30 ? 0 : max)].
 // Every f32 operation is the shared-memory cell's, in its order, so the
 // two give the same bits; the division of the mean by k is left to the
-// caller, which divides as int8_quant.cuh does.
+// caller (the IEEE division in the f32 kernels, int8_quant.cuh's
+// quotient in the int8 block).
 //
 // What changes is the selection. Lane l keeps the candidates j = l + 32c
 // (c < CPL, n <= 32 CPL) as the unsigned bits of their distances, and

@@ -14,10 +14,18 @@ and stages a column slice of the messages where it fits. So the edge
 cases span E from 1 to past 32 edges a warp and past the staged plans,
 one node receiving every edge, every edge masked, every destination out
 of range, widths 1 to 129 (odd and even), sum and mean over fractional
-masks, and 1, 8 and 16 graphs. ``tests/test_torch_dense.py`` and
-``tests/test_torch_edge.py`` hold the plain versions and plans on these
-inputs on the CPU, and ``chip_smoke.py`` holds the kernels against the
-plain versions on the card, bitwise.
+masks, and 1, 8 and 16 graphs. ``csrc/gravnet_block.cu`` and
+``csrc/gravnet_aggregate.cu`` keep a query row's distances in registers,
+32 candidates to a round of lanes and 32 feature columns to a register,
+up to 512 hits and d_f 128 (past them, the shared-memory cell), break
+ties on the distance's bits and tile the block's S/F and output dense by
+registers. So the GravNet cases span exact distance ties (duplicated
+rows), hit counts from 1 to past 512, fewer valid hits than k, an
+all-masked event, k past n, d_s 1 and 9, d_f 1, 33, 128 and 129, and 1
+to 64 events. ``tests/test_torch_dense.py``, ``tests/test_torch_edge.py``
+and ``tests/test_torch_gravnet_f32.py`` hold the plain versions and
+plans on these inputs on the CPU, and ``chip_smoke.py`` holds the
+kernels against the plain versions on the card, bitwise.
 """
 from __future__ import annotations
 
@@ -96,3 +104,94 @@ def edge_inputs(bsz, e, d, kind, *, n=EDGE_NODES, seed):
     elif kind != "random":
         raise ValueError(f"edge_inputs: kind {kind!r}")
     return msg, dst, mask
+
+
+#: name -> (events, hits, d_hidden, d_s, d_f, d_out, k, valid hits or
+#: None, duplicated rows, masked event or None): the GravNet edge cases.
+#: The block reads all of them; the aggregation reads (events, hits,
+#: d_s, d_f, k, valid, duplicates, masked event). The one past 512 hits
+#: takes the smoke config's widths (repro/configs/caloclusternet.py),
+#: where the block's first design also took it.
+GRAVNET_CASES = {
+    "n1_k_past_n": (2, 1, 64, 4, 22, 64, 8, None, 0, None),
+    "n5_k_past_n": (2, 5, 24, 3, 8, 24, 8, None, 0, None),
+    "n17_ties": (2, 17, 64, 4, 22, 64, 8, None, 6, None),
+    "n32_b64": (64, 32, 64, 4, 22, 64, 8, 24, 2, None),
+    "n50_fewer_valid_than_k": (3, 50, 64, 4, 22, 64, 8, 5, 0, None),
+    "n128_all_masked_event": (2, 128, 64, 4, 22, 64, 8, 96, 4, 1),
+    "n128_b16": (16, 128, 64, 4, 22, 64, 8, 96, 0, None),
+    "n500": (1, 500, 64, 4, 22, 64, 8, 450, 3, None),
+    "n512": (1, 512, 32, 4, 22, 32, 8, None, 0, None),
+    "n600_past_the_register_cell": (1, 600, 24, 3, 8, 24, 4, 590, 2, None),
+    "ds1": (2, 64, 32, 1, 22, 32, 8, None, 4, None),
+    "ds9": (2, 64, 32, 9, 22, 32, 8, 60, 0, None),
+    "df1": (2, 40, 32, 4, 1, 32, 8, None, 0, None),
+    "df33": (2, 64, 32, 4, 33, 32, 8, None, 2, None),
+    "df128": (2, 64, 32, 4, 128, 32, 8, None, 0, None),
+    "df129_past_the_register_cell": (2, 64, 32, 4, 129, 32, 8, None, 0,
+                                     None),
+}
+
+
+def _valid_rows(b, n, n_valid, dup, masked_event):
+    """mask (B,n): rows at or past ``n_valid`` are padding, every row of
+    ``masked_event`` is masked (its features stay); the number of valid
+    rows; and the (source, copy) pairs of ``dup`` duplicated valid rows,
+    half spread over the event and half next to their source."""
+    nv = n if n_valid is None else n_valid
+    mask = np.ones((b, n), np.float32)
+    mask[:, nv:] = 0.0
+    if masked_event is not None:
+        mask[masked_event] = 0.0
+    pairs = []
+    for d in range(dup):
+        src = d % max(nv // 2, 1)
+        dst = src + 1 if d % 2 else nv - 1 - d // 2
+        if dst < nv and dst != src:
+            pairs.append((src, dst))
+    return mask, nv, pairs
+
+
+def block_inputs(b, n, *, dh, ds, df, dout, seed, n_valid=None, dup=0,
+                 masked_event=None):
+    """Operands of the f32 GravNet block: (x, mask, ws, bs, wf, bf, wo,
+    bo), float32 numpy arrays at the model's scales (LeCun-normal
+    weights, x a relu output, padding rows zero).
+
+    x, ws and bs lie on dyadic grids (x in steps of 1/4, ws and bs of
+    1/16 and 1/64), so S = x @ ws + bs, |s|² and every distance are
+    exact in float32 whatever the order of summation: any two
+    implementations choose the same neighbours, and exact ties (many, on
+    such a grid) go to the lowest column in both. F, the output dense
+    and the Gaussian weights round as the implementations do."""
+    rng = np.random.default_rng(seed)
+    mask, nv, pairs = _valid_rows(b, n, n_valid, dup, masked_event)
+    x = np.round(np.maximum(rng.normal(size=(b, n, dh)), 0.0) * 4) / 4
+    x[:, nv:] = 0.0
+    for src, dst in pairs:
+        x[:, dst] = x[:, src]
+    ws = np.round(rng.normal(size=(dh, ds)) / np.sqrt(dh) * 16) / 16
+    bs = np.round(rng.normal(size=(ds,)) * 0.1 * 64) / 64
+    wf = rng.normal(size=(dh, df)) / np.sqrt(dh)
+    bf = rng.normal(size=(df,)) * 0.1
+    wo = rng.normal(size=(dh + 2 * df, dout)) / np.sqrt(dh + 2 * df)
+    bo = rng.normal(size=(dout,)) * 0.1
+    return tuple(a.astype(np.float32)
+                 for a in (x, mask, ws, bs, wf, bf, wo, bo))
+
+
+def aggregate_inputs(b, n, *, ds, df, seed, n_valid=None, dup=0,
+                     masked_event=None):
+    """Operands of the f32 GravNet aggregation: (s (B,n,ds), f (B,n,df),
+    mask (B,n)) float32 numpy arrays, s of order 1 as the block's S is.
+    s lies on a grid of 1/8, so every distance is exact in float32 (see
+    :func:`block_inputs`); duplicated rows repeat s and f bit for
+    bit."""
+    rng = np.random.default_rng(seed)
+    mask, _, pairs = _valid_rows(b, n, n_valid, dup, masked_event)
+    s = np.round(rng.normal(size=(b, n, ds)) * 8) / 8
+    f = rng.normal(size=(b, n, df))
+    for src, dst in pairs:
+        s[:, dst] = s[:, src]
+        f[:, dst] = f[:, src]
+    return s.astype(np.float32), f.astype(np.float32), mask

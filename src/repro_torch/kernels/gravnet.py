@@ -3,10 +3,12 @@
 Counterpart of ``repro/kernels/gravnet.py``
 (``gravnet_aggregate_batched_pallas``; ``gravnet_aggregate_pallas`` is
 the same kernel at B = 1). The CUDA source is
-``csrc/gravnet_aggregate.cu``, which includes the cell
-``csrc/gravnet_cell.cuh`` that the fused blocks share; the plain
+``csrc/gravnet_aggregate.cu``, which includes the register-resident cell
+``csrc/gravnet_cell_reg.cuh`` that the fused blocks share (and, past its
+limits, the shared-memory cell ``csrc/gravnet_cell.cuh``); the plain
 version is ``kernels/ref.py:gravnet_aggregate_ref``. It runs where the
-GravNet block stays unfused.
+GravNet block stays unfused. :func:`plan` picks the rows per CTA and
+the cell.
 """
 from __future__ import annotations
 
@@ -15,9 +17,44 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gravnet_block import BM
+from repro_torch.kernels.gravnet_block import BM_SHARED, MAX_DF, MAX_HITS
 
+#: query rows per CTA on the register cell, one per warp, smallest first
+ROWS = (4, 8, 16)
+#: CTAs that fill the card: one per SM of the H100
+FILL_CTAS = 132
 _lib = None
+
+
+def plan(n: int, bsz: int = 1, df: int = 1) -> tuple[int, str]:
+    """(bm, cell) of a launch over bsz events of n hits: on the register
+    cell (n <= 512, d_f <= 128) the fewest rows of :data:`ROWS` whose
+    CTAs fill the card at most once, else the most. A CTA repeats only
+    the staging of its event, so smaller CTAs cost nothing but launches
+    past one per SM: 32 CTAs at one event of 128 hits, 8 at one of 32.
+    Past the register cell, the first design's 32 rows on the
+    shared-memory cell."""
+    if n > MAX_HITS or df > MAX_DF:
+        return min(n, BM_SHARED), "shared"
+    for bm in ROWS:
+        bm = min(bm, n)
+        if -(-n // bm) * bsz <= FILL_CTAS:
+            break
+    return bm, "register"
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def smem_bytes(n: int, ds: int, df: int) -> int:
+    """Shared memory of one CTA (the formula of the source's
+    ``gravnet_aggregate_smem_bytes``) on :func:`plan`'s cell. Register
+    cell: S, F and the mask, each 16-byte aligned; shared-memory cell: S,
+    F, |s|², the mask, and 8 warps' output and distance rows."""
+    if n <= MAX_HITS and df <= MAX_DF:
+        return 4 * (_round4(n * ds) + _round4(n * df) + _round4(n))
+    return 4 * (n * (ds + df + 2) + 8 * 2 * df + 8 * n)
 
 
 def _library():
@@ -34,12 +71,18 @@ def _library():
     return _lib
 
 
+def library_smem_bytes(n: int, ds: int, df: int) -> int:
+    """The built library's own answer for :func:`smem_bytes`."""
+    return int(_library().gravnet_aggregate_smem_bytes(n, ds, df))
+
+
 def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0):
     """GravNet aggregation on the card for a micro-batch.
     s:(B,N,ds), f:(B,N,df), mask:(B,N) f32 -> (B,N,2·df) =
     concat(mean, max) over each row's k nearest valid rows of its own
-    event. Raises on a shape whose shared-memory plan exceeds the card's
-    227 KB. Adds one to ``gravnet_aggregate_cuda.launches`` per launch."""
+    event. Raises on a shape whose shared-memory plan (:func:`plan`,
+    :func:`smem_bytes`) exceeds the card's 227 KB. Adds one to
+    ``gravnet_aggregate_cuda.launches`` per launch."""
     if s.ndim != 3 or f.ndim != 3:
         raise ValueError(f"gravnet_aggregate_cuda: s {tuple(s.shape)}, f "
                          f"{tuple(f.shape)} are not (B, N, d)")
@@ -58,7 +101,8 @@ def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0):
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_aggregate_cuda takes contiguous operands")
     lib = _library()
-    smem = lib.gravnet_aggregate_smem_bytes(n, ds, df)
+    bm, _ = plan(n, bsz, df)
+    smem = smem_bytes(n, ds, df)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"gravnet_aggregate_cuda: n={n}, d_s={ds}, "
                          f"d_f={df} needs {smem} B of shared memory > "
@@ -68,7 +112,7 @@ def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.gravnet_aggregate_f32(
             s.data_ptr(), f.data_ptr(), mask.data_ptr(), y.data_ptr(), bsz,
-            n, ds, df, int(k), float(scale), min(n, BM), stream)
+            n, ds, df, int(k), float(scale), bm, stream)
     _build.check(code, "gravnet_aggregate")
     gravnet_aggregate_cuda.launches += 1
     return y

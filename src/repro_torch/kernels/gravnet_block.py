@@ -6,11 +6,12 @@ Counterpart of ``repro/kernels/gravnet_block.py``
 ``gravnet_block_int8_batched_pallas``; the per-event
 ``gravnet_block_pallas`` and ``gravnet_block_int8_pallas`` are the same
 kernels at B = 1). The CUDA sources are ``csrc/gravnet_block.cu`` and
-``csrc/gravnet_block_int8.cu``, the first with the shared-memory cell of
-``csrc/gravnet_cell.cuh``, the second with the register-resident cell of
-``csrc/gravnet_cell_reg.cuh`` and int8 tensor-core products; the plain
-versions are ``kernels/ref.py:gravnet_block_ref`` and
-``gravnet_block_int8_ref``.
+``csrc/gravnet_block_int8.cu``, both with the register-resident cell of
+``csrc/gravnet_cell_reg.cuh`` (the f32 one, past that cell's limits,
+with the shared-memory cell of ``csrc/gravnet_cell.cuh``), the second
+with int8 tensor-core products; the plain versions are
+``kernels/ref.py:gravnet_block_ref`` and ``gravnet_block_int8_ref``.
+:func:`plan` picks the f32 block's rows per CTA and its cell.
 """
 from __future__ import annotations
 
@@ -21,17 +22,58 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_dense import act_code
 
-#: query rows per CTA: 4 CTAs per event at the main path's 128 hits
-BM = 32
+#: query rows per CTA of the f32 block on the register cell, one per
+#: warp: 16 CTAs at the fp chunk's 2 events of 128 hits
+BM = 16
+#: query rows per CTA of its shared-memory cell (the first design's)
+BM_SHARED = 32
 #: query rows per CTA of the int8 block, one per warp: 8 CTAs per event
 #: at the main path's 128 hits (the kernel takes at most 16)
 BM_INT8 = 16
-#: the int8 block's cell keeps a row's distances and outputs in
-#: registers: at most 16 candidates and 4 feature columns per lane
-MAX_HITS_INT8 = 512
-MAX_DF_INT8 = 128
+#: the register cell keeps a row's distances and outputs in registers:
+#: at most 16 candidates and 4 feature columns per lane
+#: (``csrc/gravnet_cell_reg.cuh``)
+MAX_HITS = 512
+MAX_DF = 128
 _lib = None
 _lib_int8 = None
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def smem_bytes(n: int, dh: int, ds: int, df: int, dout: int, bm: int,
+               cell: str) -> int:
+    """Shared memory of one CTA of the f32 block (the formulas of the
+    source's ``layout`` and ``shared_layout``). ``register``: x in rows
+    padded to 4 floats plus 4 (and to a multiple of 4 rows), S, F, the
+    mask, the weights in rows padded to 4 floats, the biases and 16 rows
+    of h, each 16-byte aligned; ``shared``: the first design's x, S, F,
+    |s|², mask, weights, bm rows of the aggregate and 8 warps' distance
+    rows."""
+    dcat = dh + 2 * df
+    if cell == "register":
+        return 4 * (_round4(n) * (_round4(dh) + 4)
+                    + _round4(n * ds) + _round4(n * df) + _round4(n)
+                    + dh * (_round4(ds) + _round4(df))
+                    + dcat * _round4(dout) + _round4(ds) + _round4(df)
+                    + _round4(dout) + BM * (_round4(dcat) + 4))
+    return 4 * (n * (dh + ds + df + 2) + dh * (ds + df) + ds + df
+                + dcat * dout + dout + bm * 2 * df + 8 * n)
+
+
+def plan(n: int, dh: int, ds: int, df: int, dout: int) -> tuple[int, str]:
+    """(bm, cell) of an f32 block launch at these widths: 16 query rows a
+    CTA on the register cell wherever it takes the shape (n <= 512, d_f
+    <= 128) and its shared memory fits the card, else the first design's
+    32 on the shared-memory cell. The source's ``register_cell`` applies
+    the same rule to the bm it is given."""
+    bm = min(n, BM)
+    if n <= MAX_HITS and df <= MAX_DF and smem_bytes(
+            n, dh, ds, df, dout, bm, "register") <= _build.SMEM_LIMIT:
+        return bm, "register"
+    return min(n, BM_SHARED), "shared"
 
 
 def _library():
@@ -49,6 +91,13 @@ def _library():
     return _lib
 
 
+def library_smem_bytes(n: int, dh: int, ds: int, df: int, dout: int,
+                       bm: int) -> int:
+    """The built library's own answer for :func:`smem_bytes` on the path
+    it takes at this bm."""
+    return int(_library().gravnet_block_smem_bytes(n, dh, ds, df, dout, bm))
+
+
 def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
                        activation="relu"):
     """One fused GravNet block on the card for a micro-batch:
@@ -56,8 +105,8 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
 
     x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out). ws:(dh,ds) bs:(ds,)
     wf:(dh,df) bf:(df,) wo:(dh+2df, d_out) bo:(d_out,). Raises on
-    a shape whose shared-memory plan exceeds the card's 227 KB. Adds one
-    to ``gravnet_block_cuda.launches`` per launch."""
+    a shape whose shared-memory plan (:func:`plan`) exceeds the card's
+    227 KB. Adds one to ``gravnet_block_cuda.launches`` per launch."""
     act = act_code(activation)
     if x.ndim != 3:
         raise ValueError(f"gravnet_block_cuda: x {tuple(x.shape)} is not "
@@ -83,9 +132,9 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
         raise TypeError("gravnet_block_cuda takes float32 operands")
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_block_cuda takes contiguous operands")
-    bm = min(n, BM)
+    bm, cell = plan(n, dh, ds, df, dout)
     lib = _library()
-    smem = lib.gravnet_block_smem_bytes(n, dh, ds, df, dout, bm)
+    smem = smem_bytes(n, dh, ds, df, dout, bm, cell)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"gravnet_block_cuda: n={n}, d_hidden={dh}, d_f={df}, "
@@ -166,10 +215,10 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
                         "float32 activations, biases and scales")
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_block_int8_cuda takes contiguous operands")
-    if n > MAX_HITS_INT8 or df > MAX_DF_INT8:
+    if n > MAX_HITS or df > MAX_DF:
         raise ValueError(
             f"gravnet_block_int8_cuda: n={n}, d_f={df}: the cell takes at "
-            f"most {MAX_HITS_INT8} hits and d_f <= {MAX_DF_INT8}")
+            f"most {MAX_HITS} hits and d_f <= {MAX_DF}")
     bm = min(n, BM_INT8)
     lib = _library_int8()
     smem = lib.gravnet_block_int8_smem_bytes(n, dh, ds, df, dout, bm)

@@ -16,7 +16,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gravnet_block import BM
+
+#: query rows (bins' rows) per CTA of both kernels: 4 CTAs per bin of 128
+#: rows, 8 warps of 4 rows each (``csrc/knn_build.cu``,
+#: ``csrc/knn_aggregate.cu``)
+BM = 32
 
 _lib_build = None
 _lib_agg = None

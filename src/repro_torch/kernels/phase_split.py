@@ -1,23 +1,29 @@
-"""Where a CTA of ``gravnet_block_int8`` spends its time, phase by phase.
+"""Where a CTA of a GravNet kernel spends its time, phase by phase.
 
-    python -m repro_torch.kernels.phase_split [--source FILE.cu --bm N]
+    python -m repro_torch.kernels.phase_split [--kernel NAME]
+        [--source FILE.cu --bm N]
 
-Builds a copy of the kernel's source (by default
-``csrc/gravnet_block_int8.cu``; ``--source`` takes another version of
-it, such as an earlier commit's, with the same C entry point) in which
-thread 0 of every CTA reads ``clock64()`` at the kernel's start, after
-every ``__syncthreads()`` and at its end, and runs it at the main path's
-widths (128 hits, d_hidden 64, d_s 4, d_f 22, k 8; inputs from
-``int8_cases.block_inputs``, three quarters of the hits valid) on the
-card at 2, 16 and 64 events. Prints, per event count, the mean and the
-largest time of each phase over the CTAs in microseconds at the SM clock
-read right after the launches, the phase labelled by the first comment
-line inside it, the device time of one launch of the stamped and of the package's kernel
-(CUDA events around 200 back-to-back launches), with the card's name
-and power limit. The whole report also goes to
-``chiprun_out/phase_split/<source>.json``. ``--bm`` is the query rows per
-CTA the source's wrapper chose (the package's ``BM_INT8``; 32 for the
-first version). Needs a card and ``nvcc``.
+``--kernel`` is ``gravnet_block_int8`` (the default), ``gravnet_block``
+or ``gravnet_aggregate``. Builds a copy of the kernel's source (by
+default ``csrc/<NAME>.cu``; ``--source`` takes another version of it,
+such as an earlier commit's, with the same C entry point) in which
+thread 0 of every CTA of the kernel's ``__global__`` function reads
+``clock64()`` at its start, after every ``__syncthreads()`` of its body
+and at its end, and runs it at the main path's widths (128 hits,
+d_hidden 64, d_s 4, d_f 22, k 8, three quarters of the hits valid;
+inputs from ``int8_cases.block_inputs`` for the int8 block,
+``f32_cases.block_inputs`` and ``aggregate_inputs`` for the f32 pair) on
+the card at 2, 16 and 64 events (the aggregation: 1, 16 and 64, its
+unfused chunk being one event). Prints, per event count, the mean and
+the largest time of each phase over the CTAs in microseconds at the SM
+clock read right after the launches, the phase labelled by the first
+comment line inside it, the device time of one launch of the stamped and
+of the package's kernel (CUDA events around 200 back-to-back launches),
+with the card's name and power limit. The whole report also goes to
+``chiprun_out/phase_split/<source>.json``. ``--bm`` is the query rows
+per CTA the source's wrapper chose (by default the package's: ``BM_INT8``
+for the int8 block, ``gravnet_block.plan`` and ``gravnet.plan`` for the
+f32 pair; 32 for every first design). Needs a card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -28,12 +34,14 @@ import json
 import re
 import subprocess
 import time
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 
-from repro_torch.kernels import _build, int8_cases
-from repro_torch.kernels.gravnet_block import BM_INT8
+from repro_torch.kernels import _build, f32_cases, gravnet, gravnet_block, \
+    int8_cases
 
 MAIN = dict(dh=64, ds=4, df=22, dout=64)
 N_HITS, K = 128, 8
@@ -53,10 +61,15 @@ def _skip_comment(src: str, i: int) -> int:
     return i
 
 
-def _kernel_body(src: str) -> tuple[int, int]:
-    """Offsets of the opening and closing brace of the ``__global__``
-    function's body."""
-    i = src.index("__global__")
+def _kernel_body(src: str, name: str | None) -> tuple[int, int]:
+    """Offsets of the opening and closing brace of the body of the
+    ``__global__`` function ``name`` (the first one when None)."""
+    pat = r"__global__" + ("" if name is None else
+                           r"[^;{]*?\b" + re.escape(name) + r"\s*\(")
+    m = re.search(pat, src)
+    if m is None:
+        raise ValueError(f"no __global__ function {name!r} in the source")
+    i = m.start()
     depth, start = 0, None
     while True:
         i = _skip_comment(src, i)
@@ -81,16 +94,19 @@ def _kernel_body(src: str) -> tuple[int, int]:
         i += 1
 
 
-def stamped_source(src: str) -> tuple[str, list[str]]:
-    """The source with the stamps, and each phase's label."""
-    open_, close = _kernel_body(src)
+def stamped_source(src: str, kernel: str | None = None
+                   ) -> tuple[str, list[str]]:
+    """The source with the stamps in the ``__global__`` function
+    ``kernel`` (the first one when None), and each phase's label."""
+    open_, close = _kernel_body(src, kernel)
     body = src[open_ + 1:close]
     parts = body.split("__syncthreads();")
     labels = []
     for part in parts:
         m = re.search(r"//\s*(.+)", part)
         code = [ln.strip() for ln in part.splitlines() if ln.strip()]
-        labels.append(m.group(1).strip() if m else code[0][:60])
+        labels.append(m.group(1).strip() if m else
+                      code[0][:60] if code else "(empty)")
     stamp = "repro_st[repro_ns++] = clock64();"
     body = ("\n  long long repro_st[%d]; int repro_ns = 0;\n"
             "  __syncthreads(); %s" % (MAX_STAMPS, stamp)
@@ -128,16 +144,74 @@ def device_ms(torch, fn, cycles_per_ms: float, reps: int = 200) -> float:
     return a.elapsed_time(b) / reps
 
 
+@dataclass(frozen=True)
+class Spec:
+    """How phase_split builds, feeds and calls one kernel."""
+    entry: str                        # C entry point
+    kernel: str                       # its __global__ function
+    argtypes: list
+    events: tuple[int, ...]
+    bm: Callable[[int], int]          # the package's rows per CTA at B
+    inputs: Callable                  # B -> (numpy operands, keywords)
+    out_width: int
+    #: (C entry, tensors, output, B, bm, stream) -> its return code
+    call: Callable
+    package: str                      # the wrapper's name in its module
+
+
+def _block_args(fn, t, y, bsz, bm, stream, kw):
+    return fn(*(x.data_ptr() for x in t), y.data_ptr(), bsz, N_HITS,
+              MAIN["dh"], MAIN["ds"], MAIN["df"], MAIN["dout"], K, 10.0,
+              *kw.values(), 1, bm, stream)
+
+
+SPECS = {
+    "gravnet_block_int8": Spec(
+        "gravnet_block_int8", "gravnet_block_int8_kernel",
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p], (2, 16, 64),
+        lambda bsz: gravnet_block.BM_INT8,
+        lambda bsz: int8_cases.block_inputs(bsz, N_HITS, **MAIN, seed=0,
+                                            n_valid=N_HITS * 3 // 4),
+        MAIN["dout"], _block_args, "gravnet_block_int8_cuda"),
+    "gravnet_block": Spec(
+        "gravnet_block_f32", "gravnet_block_kernel",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        (2, 16, 64),
+        lambda bsz: gravnet_block.plan(N_HITS, **MAIN)[0],
+        lambda bsz: (f32_cases.block_inputs(bsz, N_HITS, **MAIN, seed=0,
+                                            n_valid=N_HITS * 3 // 4), {}),
+        MAIN["dout"], _block_args, "gravnet_block_cuda"),
+    "gravnet_aggregate": Spec(
+        "gravnet_aggregate_f32", "gravnet_aggregate_kernel",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], (1, 16, 64),
+        lambda bsz: gravnet.plan(N_HITS, bsz, MAIN["df"])[0],
+        lambda bsz: (f32_cases.aggregate_inputs(
+            bsz, N_HITS, ds=MAIN["ds"], df=MAIN["df"], seed=0,
+            n_valid=N_HITS * 3 // 4), {}),
+        2 * MAIN["df"],
+        lambda fn, t, y, bsz, bm, stream, kw: fn(
+            *(x.data_ptr() for x in t), y.data_ptr(), bsz, N_HITS,
+            MAIN["ds"], MAIN["df"], K, 10.0, bm, stream),
+        "gravnet_aggregate_cuda"),
+}
+
+
 def main(argv=None) -> int:
     import torch
 
-    from repro_torch.kernels.gravnet_block import gravnet_block_int8_cuda
-
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(SPECS),
+                    default="gravnet_block_int8")
     ap.add_argument("--source", type=Path,
-                    default=_build.CSRC / "gravnet_block_int8.cu")
-    ap.add_argument("--bm", type=int, default=BM_INT8)
+                    help="default: csrc/<kernel>.cu")
+    ap.add_argument("--bm", type=int,
+                    help="query rows per CTA (default: the package's)")
     args = ap.parse_args(argv)
+    spec = SPECS[args.kernel]
+    source = args.source or _build.CSRC / f"{args.kernel}.cu"
     if not torch.cuda.is_available():
         raise SystemExit("phase_split needs a CUDA card")
     dev = torch.device("cuda:0")
@@ -147,30 +221,31 @@ def main(argv=None) -> int:
         text=True).stdout.strip().splitlines()[0]
     print(card)
 
-    src, labels = stamped_source(args.source.read_text())
+    src, labels = stamped_source(source.read_text(), spec.kernel)
     out_dir = _build.BUILD_DIR.parents[1] / "chiprun_out" / "phase_split"
     out_dir.mkdir(parents=True, exist_ok=True)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = (args.source.stem + "_"
-           + hashlib.sha256(args.source.read_bytes()).hexdigest()[:8])
+    tag = (source.stem + "_"
+           + hashlib.sha256(source.read_bytes()).hexdigest()[:8])
     cu = _build.BUILD_DIR / f"stamped_{tag}.cu"
     cu.write_text(src)
     so = cu.with_suffix(".so")
-    flags = _build.nvcc_flags("gravnet_block_int8")
+    flags = _build.nvcc_flags(args.kernel)
     res = subprocess.run([_build._nvcc(), *flags, "-I",
-                          str(args.source.resolve().parent), "-I",
+                          str(source.resolve().parent), "-I",
                           str(_build.CSRC), "-o", str(so), str(cu)],
                          capture_output=True, text=True)
     if res.returncode != 0:
-        raise SystemExit(f"nvcc failed for the stamped {args.source}:\n"
+        raise SystemExit(f"nvcc failed for the stamped {source}:\n"
                          f"{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
-    fn = lib.gravnet_block_int8
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+    fn = getattr(lib, spec.entry)
+    fn.argtypes = spec.argtypes
     fn.restype = ctypes.c_int
     lib.repro_set_phase_stamps.argtypes = [ctypes.c_void_p]
+    module = (gravnet if args.kernel == "gravnet_aggregate"
+              else gravnet_block)
+    package = getattr(module, spec.package)
 
     def sm_cycles_per_ms() -> float:
         """The SM clock, from a spin of 10^8 cycles timed by events (read
@@ -182,51 +257,47 @@ def main(argv=None) -> int:
         b.synchronize()
         return 100_000_000 / a.elapsed_time(b)
 
-    report = {"card": card, "source": str(args.source), "bm": args.bm,
+    report = {"card": card, "kernel": args.kernel, "source": str(source),
               "labels": labels, "runs": []}
-    print(f"source {args.source}, bm {args.bm}")
-    for bsz in (2, 16, 64):
-        ops, scales = int8_cases.block_inputs(
-            bsz, N_HITS, **MAIN, seed=0, n_valid=N_HITS * 3 // 4)
+    print(f"kernel {args.kernel}, source {source}")
+    for bsz in spec.events:
+        bm = args.bm or spec.bm(bsz)
+        ops, kw = spec.inputs(bsz)
         t = [torch.from_numpy(np.ascontiguousarray(o)).to(dev) for o in ops]
-        y = torch.empty((bsz, N_HITS, MAIN["dout"]), device=dev)
-        ctas = -(-N_HITS // args.bm) * bsz
+        y = torch.empty((bsz, N_HITS, spec.out_width), device=dev)
+        ctas = -(-N_HITS // bm) * bsz
         stamps = torch.zeros(ctas * MAX_STAMPS, dtype=torch.int64,
                              device=dev)
         _build.check(lib.repro_set_phase_stamps(stamps.data_ptr()),
                      "repro_set_phase_stamps")
 
         def call():
-            return fn(*(x.data_ptr() for x in t), y.data_ptr(), bsz, N_HITS,
-                      MAIN["dh"], MAIN["ds"], MAIN["df"], MAIN["dout"], K,
-                      10.0, scales["x_scale"], scales["agg_scale"],
-                      scales["h_scale"], 1, args.bm,
-                      torch.cuda.current_stream().cuda_stream)
+            return spec.call(fn, t, y, bsz, bm,
+                             torch.cuda.current_stream().cuda_stream, kw)
 
         cycles_per_ms = sm_cycles_per_ms()
         stamped_ms = device_ms(torch, call, cycles_per_ms)
-        package_ms = device_ms(
-            torch, lambda: gravnet_block_int8_cuda(*t, **scales, k=K),
-            cycles_per_ms)
-        _build.check(call(), "stamped gravnet_block_int8")
+        package_ms = device_ms(torch, lambda: package(*t, **kw, k=K),
+                               cycles_per_ms)
+        _build.check(call(), f"stamped {args.kernel}")
         torch.cuda.synchronize()
         cycles_per_ms = sm_cycles_per_ms()
         st = stamps.view(ctas, MAX_STAMPS)[:, :len(labels) + 1]
         us = np.diff(st.cpu().numpy().astype(np.float64), axis=1) / (
             cycles_per_ms / 1e3)
-        want = gravnet_block_int8_cuda(*t, **scales, k=K)
+        want = package(*t, **kw, k=K)
         same = bool(torch.equal(want, y))
-        run = {"events": bsz, "ctas": ctas, "same_as_package": same,
-               "sm_mhz": cycles_per_ms / 1e3,
+        run = {"events": bsz, "bm": bm, "ctas": ctas,
+               "same_as_package": same, "sm_mhz": cycles_per_ms / 1e3,
                "phase_us_mean": us.mean(axis=0).tolist(),
                "phase_us_max": us.max(axis=0).tolist(),
                "cta_us_mean": float(us.sum(axis=1).mean()),
                "stamped_ms": stamped_ms, "package_ms": package_ms}
         report["runs"].append(run)
-        print(f"events {bsz}: {ctas} CTAs, SM clock {run['sm_mhz']:.1f} "
-              f"MHz, a CTA {run['cta_us_mean']:.3f} us, stamped launch "
-              f"{stamped_ms:.5f} ms, package kernel {package_ms:.5f} ms, "
-              f"outputs equal: {same}")
+        print(f"events {bsz}: bm {bm}, {ctas} CTAs, SM clock "
+              f"{run['sm_mhz']:.1f} MHz, a CTA {run['cta_us_mean']:.3f} us, "
+              f"stamped launch {stamped_ms:.5f} ms, package kernel "
+              f"{package_ms:.5f} ms, outputs equal: {same}")
         for lab, mean, mx in zip(labels, run["phase_us_mean"],
                                  run["phase_us_max"]):
             print(f"  {mean:9.3f} us (max {mx:9.3f})  {lab}")

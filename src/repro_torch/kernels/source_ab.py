@@ -1,26 +1,34 @@
-"""Device time of the f32 dense and the edge aggregation kernels against
-an earlier revision of their sources, in one call.
+"""Device time of the port's f32 kernels against an earlier revision of
+their sources, in one call.
 
-    python -m repro_torch.kernels.source_ab --earlier DIR
+    python -m repro_torch.kernels.source_ab --earlier DIR [--kernels ...]
 
-``DIR`` holds earlier ``fused_dense.cu`` and ``edge_aggregate.cu``
-whose C entries are the first design's: ``fused_dense_f32(x, w, b, y,
-M, K, N, act, stream)`` over a contiguous x, and ``edge_aggregate_f32(
-msg, dst, mask, out, B, E, n, d, bm, mean, stream)``, launched at bm = 8
-rows per CTA — for example an earlier commit's
-``src/repro_torch/kernels/csrc`` unpacked with ``git archive`` under
-``build/``. Both are built with this checkout's flags. Then, at every
-launch shape of a GatedGCN 16 × 70, a GraphSAGE 2 × 128 and a
-CaloClusterNet fp chunk (:data:`DENSE_SHAPES`, :data:`EDGE_SHAPES`),
-each kernel is held against its plain version bitwise and timed in
-turns, earlier, current, current, earlier (CUDA events around 200
-back-to-back launches behind a sleep kernel, as ``chip_smoke.py``
-times). Where the executor now hands the dense a row-strided own-K view
-of a lane-padded input, the earlier kernel gets what its executor gave
-it: the padded input, contiguous, and w padded with zero rows. Prints a
-line per shape and the sums per chunk with the card's name and power
-limit; the report also goes to ``chiprun_out/source_ab.json``. Needs a
-card and ``nvcc``.
+``DIR`` holds the earlier sources of the kernels named by ``--kernels``
+(by default ``gravnet_block`` and ``gravnet_aggregate``), for example an
+earlier commit's ``src/repro_torch/kernels/csrc`` unpacked with ``git
+archive`` under ``build/``. Their C entries are the first designs':
+``gravnet_block_f32(x, mask, ws, bs, wf, bf, wo, bo, y, B, n, dh, ds,
+df, dout, k, scale, act, bm, stream)`` and ``gravnet_aggregate_f32(s, f,
+mask, out, B, n, ds, df, k, scale, bm, stream)``, launched at bm = 32
+query rows per CTA (the sources before the register cell);
+``fused_dense_f32(x, w, b, y, M, K, N, act, stream)`` over a contiguous
+x and ``edge_aggregate_f32(msg, dst, mask, out, B, E, n, d, bm, mean,
+stream)`` at bm = 8 (the sources before the tile plan). Each
+is built with this checkout's flags. Then, at every launch shape of its
+paths — a CaloClusterNet fp chunk (2 events, 2 blocks) and unfused chunk
+(1 event, 2 aggregations) and 16 and 64 events for the GravNet pair
+(:data:`GRAVNET_SHAPES`, inputs from ``kernels/f32_cases.py``); a
+GatedGCN 16 × 70, a GraphSAGE 2 × 128 and a CaloClusterNet fp chunk for
+the dense and the edge kernel (:data:`DENSE_SHAPES`,
+:data:`EDGE_SHAPES`) — each kernel is held against its plain version
+bitwise and timed in turns, earlier, current, current, earlier (CUDA
+events around 200 back-to-back launches behind a sleep kernel, as
+``chip_smoke.py`` times). Where the executor now hands the dense a
+row-strided own-K view of a lane-padded input, the earlier kernel gets
+what its executor gave it: the padded input, contiguous, and w padded
+with zero rows. Prints a line per shape and the sums per chunk with the
+card's name and power limit; the report also goes to
+``chiprun_out/source_ab.json``. Needs a card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -60,6 +68,41 @@ EDGE_SHAPES = (
 )
 NODES = 64
 EARLIER_BM = 8
+#: (kernel, chunk, launches per chunk, events): the GravNet pair at the
+#: CaloClusterNet fp chunk (2 blocks over 2 events), the unfused chunk (2
+#: aggregations over 1 event) and, outside any chunk, 16 and 64 events
+GRAVNET_SHAPES = (
+    ("gravnet_block", "ccn_fp", 2, 2),
+    ("gravnet_block", "16 events", 0, 16),
+    ("gravnet_block", "64 events", 0, 64),
+    ("gravnet_aggregate", "ccn_unfused", 2, 1),
+    ("gravnet_aggregate", "16 events", 0, 16),
+    ("gravnet_aggregate", "64 events", 0, 64),
+)
+#: query rows per CTA of the GravNet pair's first designs
+EARLIER_GRAVNET_BM = 32
+KERNELS = ("fused_dense", "edge_aggregate", "gravnet_block",
+           "gravnet_aggregate")
+#: each earlier C entry's argument types
+ARGTYPES = {
+    "fused_dense": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "edge_aggregate": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    "gravnet_block": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "gravnet_aggregate": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--earlier", type=Path, required=True,
+                    help="directory of the earlier sources")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=["gravnet_block", "gravnet_aggregate"])
+    return ap.parse_args(argv)
 
 
 def _build_earlier(src: Path, name: str) -> ctypes.CDLL:
@@ -78,15 +121,14 @@ def _build_earlier(src: Path, name: str) -> ctypes.CDLL:
 def main(argv=None) -> int:
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.core.caloclusternet import CCNConfig
+    from repro_torch.kernels import f32_cases, ref
     from repro_torch.kernels.edge_aggregate import edge_aggregate_cuda
     from repro_torch.kernels.fused_dense import act_code, fused_dense_cuda
+    from repro_torch.kernels.gravnet import gravnet_aggregate_cuda
+    from repro_torch.kernels.gravnet_block import gravnet_block_cuda
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--earlier", type=Path, required=True,
-                    help="directory of the earlier fused_dense.cu and "
-                    "edge_aggregate.cu")
-    args = ap.parse_args(argv)
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("source_ab needs a CUDA card")
     dev = torch.device("cuda:0")
@@ -96,14 +138,12 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(card)
-    old_dense = _build_earlier(args.earlier / "fused_dense.cu",
-                               "fused_dense").fused_dense_f32
-    old_dense.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    old_edge = _build_earlier(args.earlier / "edge_aggregate.cu",
-                              "edge_aggregate").edge_aggregate_f32
-    old_edge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    old = {}
+    for name in args.kernels:
+        entry = name + "_f32"
+        old[name] = getattr(_build_earlier(args.earlier / f"{name}.cu",
+                                           name), entry)
+        old[name].argtypes = ARGTYPES[name]
 
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
@@ -123,7 +163,9 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(0)
     rows, sums = [], {}
-    for chunk, count, m, k, n, kpad in DENSE_SHAPES:
+    dense_shapes = DENSE_SHAPES if "fused_dense" in old else ()
+    edge_shapes = EDGE_SHAPES if "edge_aggregate" in old else ()
+    for chunk, count, m, k, n, kpad in dense_shapes:
         kin = kpad or k
         xp = torch.zeros(m, kin)
         xp[:, :k] = torch.randn(m, k, generator=gen)
@@ -135,8 +177,9 @@ def main(argv=None) -> int:
 
         def earlier(xp=xp, wp=wp, bias=bias, m=m, kin=kin, n=n):
             y = torch.empty(m, n, device=dev)
-            old_dense(xp.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-                      y.data_ptr(), m, kin, n, act_code("relu"), stream())
+            old["fused_dense"](xp.data_ptr(), wp.data_ptr(),
+                               bias.data_ptr(), y.data_ptr(), m, kin, n,
+                               act_code("relu"), stream())
             return y
 
         def current(x=x, w=w, bias=bias):
@@ -152,7 +195,7 @@ def main(argv=None) -> int:
                      "count": count, "shape": f"({m},{k})->{n}"
                      + (f" of {kpad}" if kpad else ""),
                      "earlier_ms": t_old, "current_ms": t_new})
-    for chunk, count, bsz, e, d, reduce in EDGE_SHAPES:
+    for chunk, count, bsz, e, d, reduce in edge_shapes:
         msg = torch.randn(bsz, e, d, generator=gen).to(dev)
         dst = torch.randint(0, NODES, (bsz, e), generator=gen,
                             dtype=torch.int32).to(dev)
@@ -162,9 +205,9 @@ def main(argv=None) -> int:
         def earlier(msg=msg, dst=dst, mask=mask, bsz=bsz, e=e, d=d,
                     mean=mean):
             out = torch.empty(bsz, NODES, d, device=dev)
-            old_edge(msg.data_ptr(), dst.data_ptr(), mask.data_ptr(),
-                     out.data_ptr(), bsz, e, NODES, d, EARLIER_BM,
-                     int(mean), stream())
+            old["edge_aggregate"](msg.data_ptr(), dst.data_ptr(),
+                                  mask.data_ptr(), out.data_ptr(), bsz, e,
+                                  NODES, d, EARLIER_BM, int(mean), stream())
             return out
 
         def current(msg=msg, dst=dst, mask=mask, reduce=reduce):
@@ -181,25 +224,76 @@ def main(argv=None) -> int:
         rows.append({"kernel": "edge_aggregate", "chunk": chunk,
                      "count": count, "shape": f"({bsz},{e},{d}) {reduce}",
                      "earlier_ms": t_old, "current_ms": t_new})
+    cfg = CCNConfig()
+    widths = dict(dh=cfg.d_hidden, ds=cfg.d_s, df=cfg.d_flr,
+                  dout=cfg.d_hidden)
+    n, kk = cfg.n_hits, cfg.k
+    for kernel, chunk, count, bsz in GRAVNET_SHAPES:
+        if kernel not in old:
+            continue
+        fn = old[kernel]
+        if kernel == "gravnet_block":
+            ops = [torch.from_numpy(a).to(dev)
+                   for a in f32_cases.block_inputs(
+                       bsz, n, **widths, seed=bsz, n_valid=n * 3 // 4)]
+            want = ref.gravnet_block_ref(*ops, k=kk)
+
+            def earlier(ops=ops, bsz=bsz, fn=fn):
+                y = torch.empty(bsz, n, widths["dout"], device=dev)
+                fn(*(t.data_ptr() for t in ops), y.data_ptr(), bsz, n,
+                   *widths.values(), kk, 10.0, act_code("relu"),
+                   EARLIER_GRAVNET_BM, stream())
+                return y
+
+            def current(ops=ops):
+                return gravnet_block_cuda(*ops, k=kk)
+            shape = f"x({bsz},{n},{widths['dh']})"
+        else:
+            ops = [torch.from_numpy(a).to(dev)
+                   for a in f32_cases.aggregate_inputs(
+                       bsz, n, ds=widths["ds"], df=widths["df"], seed=bsz,
+                       n_valid=n * 3 // 4)]
+            want = ref.gravnet_aggregate_ref(*ops, k=kk)
+
+            def earlier(ops=ops, bsz=bsz, fn=fn):
+                y = torch.empty(bsz, n, 2 * widths["df"], device=dev)
+                fn(*(t.data_ptr() for t in ops), y.data_ptr(), bsz, n,
+                   widths["ds"], widths["df"], kk, 10.0, EARLIER_GRAVNET_BM,
+                   stream())
+                return y
+
+            def current(ops=ops):
+                return gravnet_aggregate_cuda(*ops, k=kk)
+            shape = f"s({bsz},{n},{widths['ds']}) f(.., {widths['df']})"
+        for f_ in (earlier, current):
+            if not bool((f_() == want).all()):
+                raise SystemExit(f"{kernel} {shape}: not bitwise equal to "
+                                 "its plain version")
+        t_old, t_new = turns(earlier, current)
+        rows.append({"kernel": kernel, "chunk": chunk, "count": count,
+                     "shape": shape, "earlier_ms": t_old,
+                     "current_ms": t_new})
     for r in rows:
+        print(f"{r['kernel']} [{r['chunk']}] {r['shape']} x{r['count']}: "
+              f"earlier {r['earlier_ms']:.5f} ms, current "
+              f"{r['current_ms']:.5f} ms")
+        if not r["count"]:
+            continue
         key = (r["chunk"], r["kernel"])
         s = sums.setdefault(key, [0, 0.0, 0.0])
         s[0] += r["count"]
         s[1] += r["count"] * r["earlier_ms"]
         s[2] += r["count"] * r["current_ms"]
-        print(f"{r['kernel']} [{r['chunk']}] {r['shape']} x{r['count']}: "
-              f"earlier {r['earlier_ms']:.5f} ms, current "
-              f"{r['current_ms']:.5f} ms")
-    for (chunk, kernel), (n, old, new) in sums.items():
-        print(f"per {chunk} chunk, {kernel} ({n} launches): earlier "
-              f"{old:.5f} ms, current {new:.5f} ms ({card})")
+    for (chunk, kernel), (cnt, t_old, t_new) in sums.items():
+        print(f"per {chunk} chunk, {kernel} ({cnt} launches): earlier "
+              f"{t_old:.5f} ms, current {t_new:.5f} ms ({card})")
     out = Path(__file__).resolve().parents[3] / "chiprun_out"
     out.mkdir(parents=True, exist_ok=True)
     (out / "source_ab.json").write_text(json.dumps(
         {"card": card, "earlier": str(args.earlier), "rows": rows,
-         "per_chunk": [{"chunk": c, "kernel": k, "launches": n,
+         "per_chunk": [{"chunk": c, "kernel": k, "launches": cnt,
                         "earlier_ms": o, "current_ms": w_}
-                       for (c, k), (n, o, w_) in sums.items()]},
+                       for (c, k), (cnt, o, w_) in sums.items()]},
         indent=1))
     return 0
 
