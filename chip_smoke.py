@@ -70,8 +70,16 @@ Phases, each of which exits non-zero when it fails:
    same trigger decisions; events/s and latency of ragged and padded in
    turns, and the idle share; then the same at design point 1 (16
    events, the kNN pair as graph ops). Phase 3 holds both kNN kernels
-   against their plain versions at 1, 8 and 16 bins of this path, with
-   segment ids from its real bin packing;
+   against their plain versions, bitwise, at 1, 8 and 16 bins of this
+   path, with segment ids from its real bin packing, and on the inputs
+   of ``kernels/f32_cases.py`` (bins of 1–3 events, spent slots, an
+   all-padding bin, coincident rows, exact ties, 40 to 600 rows, d_s 3
+   and 12, d_f 22 and 129, indices outside [0, n), k 40), with their
+   shared-memory plans against the library's own; it times each against
+   the first design (each source's second path, the kernel it
+   replaced) in turns at 1, 8 and 16 bins of packed events
+   (``kernels/source_ab.py``), and prints where a CTA of each spends its
+   time (``kernels/phase_split.py``);
 7. the edge-based GNNs, as ``python -m repro_torch.launch.serve --model
    gatedgcn graphsage`` deploys them but at their published widths:
    GatedGCN 16 layers × 70 and GraphSAGE 2 layers × 128 (random weights
@@ -221,7 +229,8 @@ KERNELS = {
 }
 # kernels held bitwise to their plain versions at every shape checked
 BITWISE = {"fused_dense", "fused_dense_int8", "gravnet_block",
-           "gravnet_block_int8", "gravnet_aggregate", "edge_aggregate"}
+           "gravnet_block_int8", "gravnet_aggregate", "edge_aggregate",
+           "knn_build", "knn_aggregate"}
 # the int8 block's widths on the edge inputs: the served model's and the
 # reference's smoke config's (repro/configs/caloclusternet.py)
 INT8_WIDTHS = dict(dh=64, ds=4, df=22, dout=64)
@@ -468,6 +477,8 @@ def main() -> int:
     from repro_torch.kernels import fused_dense as dense_mod
     from repro_torch.kernels import gravnet as agg_mod
     from repro_torch.kernels import gravnet_block as block_mod
+    from repro_torch.kernels import knn_build as knn_mod
+    from repro_torch.kernels import phase_split, source_ab
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_dense import (fused_dense_cuda,
@@ -650,6 +661,12 @@ def main() -> int:
         gots = got if isinstance(got, tuple) else (got,)
         wants = want if isinstance(want, tuple) else (want,)
         shape = shape_of(name, args, kw)
+        if name.startswith("knn"):
+            b_, n_ = args[0].shape[:2]
+            bm_, cell_ = (knn_mod.build_plan(n_, b_) if name == "knn_build"
+                          else knn_mod.aggregate_plan(n_, b_,
+                                                      args[0].shape[2]))
+            shape += f" (plan: {bm_} rows a CTA, {cell_} cell)"
         max_err, n_equal, n_all = 0.0, 0, 0
         for g_, w_ in zip(gots, wants, strict=True):
             if g_.dtype != w_.dtype or g_.shape != w_.shape:
@@ -959,6 +976,65 @@ def main() -> int:
                                           pos, nb)
                 check(path, pos, nb, name, args, kw)
         del calls
+    # the kNN pair on the inputs that stress their designs
+    # (kernels/f32_cases.py): bins of 1-3 events, spent slots, an
+    # all-padding bin, coincident rows, ties, 40 to 600 rows, d_s 3 and
+    # 12, d_f 22 and 129, indices outside [0, n), k 40; both paths of each
+    # source; and each shape's shared-memory plan against the built
+    # library's own
+    for case, (bins, n, ds, df, k_, values, dup,
+               corrupted) in f32_cases.KNN_CASES.items():
+        s_, seg = f32_cases.knn_build_inputs(bins, n, ds, k_, values, dup,
+                                             seed=len(case))
+        check(f"edge:{case}", 0, len(bins), "knn_build", as_args([s_, seg]),
+              {"k": k_})
+        idx, d2 = ref.knn_build_ref(torch.from_numpy(s_),
+                                    torch.from_numpy(seg), k=k_)
+        f_, idx = f32_cases.knn_aggregate_inputs(idx.numpy(), n, df,
+                                                 corrupted, seed=len(case))
+        check(f"edge:{case}", 0, len(bins), "knn_aggregate",
+              as_args([f_, idx, d2.numpy()]), {})
+        for name, mine, lib_ in (
+                ("knn_build", knn_mod.build_smem_bytes(n, ds),
+                 knn_mod.library_build_smem_bytes(n, ds)),
+                ("knn_aggregate", knn_mod.aggregate_smem_bytes(n, df),
+                 knn_mod.library_aggregate_smem_bytes(n, df))):
+            if mine != lib_:
+                fail(f"{name}: {case} plans {mine} B of shared memory, the "
+                     f"library {lib_}")
+    say(f"knn_build, knn_aggregate: the {len(f32_cases.KNN_CASES)} edge "
+        "cases bitwise; their shared-memory plans equal the library's")
+
+    def captured(tool, argv, label):
+        """Run a measuring tool's main in this process, its output into
+        the log; fail if it exits otherwise than with 0."""
+        buf = io.StringIO()
+        try:
+            with redirect_stdout(buf):
+                rc = tool.main(argv)
+        except SystemExit as e:
+            rc = e.code
+        for line in buf.getvalue().splitlines():
+            say(f"  [{label}] {line}")
+        if rc not in (0, None):
+            fail(f"{label} {' '.join(argv)}: {rc}")
+
+    # the kNN pair against the first design (the kernel it replaced,
+    # each source's second path: its C entry at 32 rows a CTA), both
+    # held bitwise, timed in turns at 1, 8 and 16 bins; then where a CTA
+    # of each spends its time (the launch counts are not read here)
+    captured(source_ab, ["--earlier", str(_build.CSRC), "--kernels",
+                         "knn_build", "knn_aggregate", "--out",
+                         str(OUT / "source_ab_knn.json")], "source_ab")
+    ab = json.loads((OUT / "source_ab_knn.json").read_text())["rows"]
+    for r in ab:
+        say(f"{r['kernel']} at {r['shape']}: first design "
+            f"{r['earlier_ms']:.5f} ms, register cell {r['current_ms']:.5f} "
+            f"ms ({r['earlier_ms'] / r['current_ms']:.2f}x, "
+            + ("faster)" if r["current_ms"] < r["earlier_ms"]
+               else "NOT faster)"))
+    for kname in ("knn_build", "knn_aggregate"):
+        captured(phase_split, ["--kernel", kname], f"phase_split {kname}")
     main_chunk = per_chunk_calls["mixed"]
     if (main_chunk.count("fused_dense_int8"),
             main_chunk.count("gravnet_block_int8"),

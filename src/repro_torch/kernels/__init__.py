@@ -24,15 +24,16 @@
 
 The three kernels that run the whole GravNet cell (``gravnet_block``,
 ``gravnet_block_int8``, ``gravnet_aggregate``) keep a row's distances in
-registers (``csrc/gravnet_cell_reg.cuh``) up to 512 hits and d_f 128;
-past those the two f32 ones, and always the ragged kNN pair (its
-selection or its accumulation half), run the shared-memory cell of
-``csrc/gravnet_cell.cuh``. The two int8 kernels share the tensor-core
-product (``csrc/mma_s8.cuh``) and the division-free quantization
+registers (``csrc/gravnet_cell_reg.cuh``) up to 512 hits and d_f 128,
+``knn_build`` runs its selection half up to 512 hits and
+``knn_aggregate`` its accumulation half up to d_f 128; past those the
+f32 ones run the shared-memory cell of ``csrc/gravnet_cell.cuh`` (the
+first designs). The two int8 kernels share the tensor-core product
+(``csrc/mma_s8.cuh``) and the division-free quantization
 (``csrc/int8_quant.cuh``). ``int8_cases.py`` and ``f32_cases.py`` make
 the inputs that stress the kernels; ``phase_split.py`` times a GravNet
-kernel's phases on the card and ``source_ab.py`` times the f32 kernels
-against an earlier revision of their sources.
+or kNN kernel's phases on the card and ``source_ab.py`` times the f32
+kernels against an earlier revision of their sources.
 ``ops.py`` routes by device (CPU tensor -> plain version in ``ref.py``,
 CUDA tensor -> kernel); ``_build.py`` compiles ``csrc/`` with ``nvcc``
 at first use. Nothing builds when a module is imported.

@@ -2,12 +2,13 @@
 //
 // Counterpart of repro/kernels/gravnet.py:_gravnet_cell and of its two
 // halves in repro/kernels/knn_build.py (_knn_select_cell,
-// _knn_agg_cell). The ragged knn_build kernel runs its selection steps,
-// knn_aggregate its accumulation steps. The f32 block and the standalone
-// aggregation run the whole cell (gravnet_cell_row) only past the limits
-// of the register-resident cell (gravnet_cell_reg.cuh: more than 512
-// hits or d_f above 128); below them they and the int8 block run that
-// one, which computes the same bits.
+// _knn_agg_cell). Every kernel runs it only past the limits of the
+// register-resident cell (gravnet_cell_reg.cuh), which computes the same
+// bits: the f32 block and the standalone aggregation the whole cell
+// (gravnet_cell_row) past 512 hits or d_f 128, the ragged knn_build its
+// selection steps past 512 hits, knn_aggregate its accumulation steps
+// past d_f 128. Below them they and the int8 block run the register
+// cell.
 //
 // The TPU kernel selected each neighbour with a one-hot matmul because
 // the TPU had no gather; here the selected row is a direct indexed load

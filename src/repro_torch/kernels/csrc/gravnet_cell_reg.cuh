@@ -1,9 +1,11 @@
 // The GravNet aggregation cell with its distance row in registers, run
 // by one warp per query row. Used by the kernels that run the whole cell:
 // gravnet_block_int8.cu, gravnet_block.cu and gravnet_aggregate.cu, up to
-// 512 hits and d_f 128. Past those the two f32 kernels run the
-// shared-memory cell of gravnet_cell.cuh, which the ragged kNN pair
-// keeps.
+// 512 hits and d_f 128; the ragged knn_build.cu runs its selection half
+// (load_row with a segment predicate, select_round) up to 512 hits, and
+// knn_aggregate.cu repeats cell_row's round body on knn_build's (idx, d2)
+// up to d_f 128. Past those the f32 kernels and the kNN pair run the
+// shared-memory cell of gravnet_cell.cuh.
 //
 // It computes what gravnet_cell.cuh's gravnet_cell_row computes, with
 // the same semantics (repro/kernels/gravnet.py:_gravnet_cell):
@@ -63,13 +65,13 @@ __device__ inline void lane_min(const uint32_t (&d)[CPL], uint32_t& lv,
     if (d[c] < lv) { lv = d[c]; lc = lane + 32 * c; }
 }
 
-// The row's candidates for query row i. s:(n,ds) msk:(n,) in shared
-// memory; sq_i = |s_i|^2. |s_j|^2 is summed here, in the order of
-// gravnet_cell.cuh's caller (0 + s0 s0 + s1 s1 + ...).
-template <int CPL>
+// The row's candidates for query row i: column j is a candidate where
+// valid(j) holds, else 1e30. s:(n,ds) in shared memory; sq_i = |s_i|^2.
+// |s_j|^2 is summed here, in the order of gravnet_cell.cuh's caller
+// (0 + s0 s0 + s1 s1 + ...).
+template <int CPL, typename Valid>
 __device__ inline void load_row(int i, int n, int ds,
-                                const float* __restrict__ s,
-                                const float* __restrict__ msk,
+                                const float* __restrict__ s, Valid valid,
                                 uint32_t (&d)[CPL]) {
   const int lane = threadIdx.x & 31;
   float si[kMaxDsInRegisters];
@@ -100,8 +102,19 @@ __device__ inline void load_row(int i, int n, int ds,
       sqj += sj * sj;
     }
     const float v = fmaxf((sqi + sqj) - 2.0f * dot, 0.0f);
-    d[c] = (msk[j] <= 0.0f || j == i) ? big : key_of(v);
+    d[c] = valid(j) ? key_of(v) : big;
   }
+}
+
+// The cell's form: j is a candidate where msk:(n,) (in shared memory) is
+// above 0 and j != i.
+template <int CPL>
+__device__ inline void load_row(int i, int n, int ds,
+                                const float* __restrict__ s,
+                                const float* __restrict__ msk,
+                                uint32_t (&d)[CPL]) {
+  load_row<CPL>(i, n, ds, s,
+                [msk, i](int j) { return !(msk[j] <= 0.0f || j == i); }, d);
 }
 
 // One round: (dmin, j) of the row minimum, ties to the lowest column,

@@ -16,49 +16,181 @@
 // shape, s (8,128,4) and 8 neighbours, a launch moves about 84 KB
 // (25 ns at 3.35 TB/s) and needs at most 2.5 M f32 operations (37 ns at
 // the 67 TFLOP/s rate outside the tensor cores) — less for the real
-// rows of this run's events. What it pays is k dependent rounds of a
-// warp argmin per row on 32 CTAs.
+// rows of this run's events. What it pays is one round trip to stage
+// the bin and k dependent rounds of a warp argmin per row. The first
+// version (one CTA of 8 warps per 32 query rows, 32 CTAs at that shape)
+// took 18 us: scalar staging, |s_j|^2 in a second pass behind a second
+// barrier, and gravnet_cell.cuh's shared-memory selection 4 rows a warp
+// in turn, each round a scan of the row, a 10-shuffle argmin and a
+// knockout store.
 //
-// Design: the selection half of the GravNet cell (gravnet_cell.cuh:
-// cell_d2, cell_select), with segment ids where the cell has its mask.
-// One CTA of 256 threads (8 warps) per (row block of bm query rows,
-// bin) stages the bin's S and segment ids in shared memory and computes
-// |s_j|^2 there; each warp takes one query row at a time, fills its
-// warp-private n-float distance row, and runs k rounds of the shuffle
-// argmin, lane 0 writing (j*, dmin) of each round. bm = 32 gives 4 CTAs
-// per bin at n = 128. Every sum runs in the plain version's order with
+// Design: the selection half of the register cell (gravnet_cell_reg.cuh,
+// included, not copied), with the segment predicate where the cell has
+// its mask. One CTA of bm warps per (bm query rows, bin), one warp per
+// row, bm from kernels/knn_build.py:build_plan (4 to 16: the fewest rows
+// whose CTAs still fit the card once; 8 rows and 128 CTAs at that
+// shape). A CTA stages the bin's S and segment ids in one round trip of
+// cp.async copies (16 bytes where the operand's alignment and length
+// allow, else 8 or 4); each warp keeps its row's distances in registers
+// as keys (|s_j|^2 summed there, no second pass), runs k rounds of two
+// __reduce_min_sync each, and lane t keeps round t's (j*, dmin) until
+// the rounds end (or 32 of them have), when lanes t < k write them in
+// one store each. The whole row is scanned, not the row's own event:
+// a spent round then finds column 0 at 1e30, as the plain version does,
+// and the candidates per lane are fixed at compile time by n anyway.
+// Past 512 hits (16 candidates a lane) the launch runs the first
+// version's kernel (knn_build_shared_kernel), a second hand-written path
+// chosen by shape. Every sum runs in the plain version's order with
 // products and sums rounded separately (-fmad=false), so
-// kernels/ref.py:knn_build_ref reproduces it.
+// kernels/ref.py:knn_build_ref reproduces both.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "gravnet_cell.cuh"
+#include "gravnet_cell_reg.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRows = 16;     // query rows (warps) per CTA
+constexpr int kMaxHits = 512;    // 16 candidates per lane
 
-struct Layout {     // offsets, in 4-byte words, into dynamic shared memory
-  int s, sq, seg, d2, total;
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// Whether a shape runs the register cell.
+__host__ __device__ inline bool register_cell(int n) { return n <= kMaxHits; }
+
+struct Layout {     // offsets, in 4-byte words (multiples of 4), into
+  int s, seg, total;        // dynamic shared memory
 };
 
 __host__ __device__ inline Layout layout(int n, int ds) {
   Layout L;
   int o = 0;
-  L.s = o;   o += n * ds;
-  L.sq = o;  o += n;
-  L.seg = o; o += n;
-  L.d2 = o;  o += kWarps * n;
+  L.s = o;   o += round4(n * ds);
+  L.seg = o; o += round4(n);
   L.total = o;
   return L;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int V>
+__device__ inline void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(4 * V) : "memory");
+}
+
+// count 4-byte words of g into s (16-byte aligned), V words a copy.
+template <int V, typename T>
+__device__ inline void stage(T* s, const T* g, int count) {
+  for (int i = threadIdx.x * V; i < count; i += blockDim.x * V)
+    cp_async<V>(s + i, g + i);
+}
+
+// The widest of 4, 2 and 1 words a copy that divides count and to whose
+// size g is aligned.
+template <typename T>
+__device__ inline void stage_flat(T* s, const T* g, int count) {
+  static_assert(sizeof(T) == 4, "4-byte words");
+  const uintptr_t a = reinterpret_cast<uintptr_t>(g);
+  if (a % 16 == 0 && count % 4 == 0)
+    stage<4>(s, g, count);
+  else if (a % 8 == 0 && count % 2 == 0)
+    stage<2>(s, g, count);
+  else
+    stage<1>(s, g, count);
+}
+
+// CPL: candidates per lane (n <= 32 CPL). bm warps a CTA.
+template <int CPL>
+__global__ void __launch_bounds__(32 * kMaxRows)
 knn_build_kernel(const float* __restrict__ s, const int* __restrict__ seg,
                  int* __restrict__ idx, float* __restrict__ d2, int n,
                  int ds, int k, int bm) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Layout L = layout(n, ds);
+  float* const S = smem + L.s;
+  int* const sg = reinterpret_cast<int*>(smem + L.seg);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bin = blockIdx.y;
+  const int i = blockIdx.x * bm + warp;
+
+  // staging, one round trip: S and the segment ids by cp.async
+  stage_flat(S, s + (size_t)bin * n * ds, n * ds);
+  stage_flat(sg, seg + (size_t)bin * n, n);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // the selection, one warp per query row; lane t keeps round t
+  if (i < n) {
+    const int si = sg[i];
+    uint32_t d[CPL];
+    repro_torch::regcell::load_row<CPL>(
+        i, n, ds, S,
+        [sg, si, i](int j) {
+          const int sj = sg[j];
+          return sj == si && j != i && sj >= 0;
+        },
+        d);
+    uint32_t lv;
+    int lc;
+    repro_torch::regcell::lane_min(d, lv, lc);
+    const size_t o = ((size_t)bin * n + i) * k;
+    int kept_j = 0;
+    float kept_d = 0.0f;
+    for (int t = 0; t < k; ++t) {
+      float dmin;
+      int j;
+      repro_torch::regcell::select_round(d, lv, lc, dmin, j);
+      const int slot = t & 31;
+      if (lane == slot) {
+        kept_j = j;
+        kept_d = dmin;
+      }
+      if ((slot == 31 || t == k - 1) && lane <= slot) {
+        idx[o + (t - slot) + lane] = kept_j;
+        d2[o + (t - slot) + lane] = kept_d;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// The first version, kept for the shapes the register cell does not
+// take: one CTA of 256 threads (8 warps) per (bm query rows, bin)
+// stages the bin's S and segment ids one scalar load a thread at a time,
+// computes |s_j|^2, and runs gravnet_cell.cuh's selection 4 rows a warp
+// (at bm = 32) with the row's distances in a warp-private n-float
+// buffer.
+constexpr int kSharedThreads = 256;
+constexpr int kSharedWarps = kSharedThreads / 32;
+
+struct SharedLayout {   // offsets, in 4-byte words, into dynamic shared
+  int s, sq, seg, d2, total;   // memory
+};
+
+__host__ __device__ inline SharedLayout shared_layout(int n, int ds) {
+  SharedLayout L;
+  int o = 0;
+  L.s = o;   o += n * ds;
+  L.sq = o;  o += n;
+  L.seg = o; o += n;
+  L.d2 = o;  o += kSharedWarps * n;
+  L.total = o;
+  return L;
+}
+
+__global__ void __launch_bounds__(kSharedThreads)
+knn_build_shared_kernel(const float* __restrict__ s,
+                        const int* __restrict__ seg, int* __restrict__ idx,
+                        float* __restrict__ d2, int n, int ds, int k,
+                        int bm) {
+  extern __shared__ float smem_shared[];
+  float* const smem = smem_shared;
+  const SharedLayout L = shared_layout(n, ds);
   float* S = smem + L.s;
   float* sq = smem + L.sq;
   int* sg = reinterpret_cast<int*>(smem + L.seg);
@@ -69,11 +201,11 @@ knn_build_kernel(const float* __restrict__ s, const int* __restrict__ seg,
   const int row0 = blockIdx.x * bm;
   const int rows = min(bm, n - row0);
 
-  for (int e = tid; e < n * ds; e += kThreads)
+  for (int e = tid; e < n * ds; e += kSharedThreads)
     S[e] = s[(size_t)bin * n * ds + e];
-  for (int e = tid; e < n; e += kThreads) sg[e] = seg[(size_t)bin * n + e];
+  for (int e = tid; e < n; e += kSharedThreads) sg[e] = seg[(size_t)bin * n + e];
   __syncthreads();
-  for (int j = tid; j < n; j += kThreads) {
+  for (int j = tid; j < n; j += kSharedThreads) {
     float acc = 0.0f;
     for (int d = 0; d < ds; ++d) acc += S[j * ds + d] * S[j * ds + d];
     sq[j] = acc;
@@ -81,7 +213,7 @@ knn_build_kernel(const float* __restrict__ s, const int* __restrict__ seg,
   __syncthreads();
 
   float* d2row = smem + L.d2 + warp * n;
-  for (int r = warp; r < rows; r += kWarps) {
+  for (int r = warp; r < rows; r += kSharedWarps) {
     const int i = row0 + r;
     const int si = sg[i];
     for (int j = lane; j < n; j += 32) {
@@ -103,32 +235,54 @@ knn_build_kernel(const float* __restrict__ s, const int* __restrict__ seg,
   }
 }
 
-}  // namespace
-
-// Bytes of dynamic shared memory one CTA needs at these shapes.
-extern "C" long long knn_build_smem_bytes(int n, int ds) {
-  return (long long)layout(n, ds).total * 4LL;
-}
-
-// s:(B,n,ds) f32, seg:(B,n) i32 -> idx:(B,n,k) i32, d2:(B,n,k) f32; all
-// contiguous.
-extern "C" int knn_build_f32(const float* s, const int* seg, int* idx,
-                             float* d2, int B, int n, int ds, int k, int bm,
-                             void* stream) {
-  const long long smem = knn_build_smem_bytes(n, ds);
+template <typename Kernel>
+int launch(Kernel kernel, int threads, long long smem, int B, int n,
+           int bm, cudaStream_t stream, const float* s, const int* seg,
+           int* idx, float* d2, int ds, int k) {
   // The opt-in above 48 KB holds per device, so it is set on every such
   // launch (a cheap call) rather than cached for the process.
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        knn_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  if (B > 0 && n > 0 && k > 0) {
-    dim3 grid((n + bm - 1) / bm, B);
-    knn_build_kernel<<<grid, kThreads, (size_t)smem,
-                       (cudaStream_t)stream>>>(s, seg, idx, d2, n, ds, k,
-                                               bm);
-  }
+  dim3 grid((n + bm - 1) / bm, B);
+  kernel<<<grid, threads, (size_t)smem, stream>>>(s, seg, idx, d2, n, ds,
+                                                  k, bm);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory one CTA needs at these shapes, on the
+// path knn_build_f32 takes for them with kernels/knn_build.py:build_plan's
+// bm (the mirror of knn_build.build_smem_bytes).
+extern "C" long long knn_build_smem_bytes(int n, int ds) {
+  return 4LL * (register_cell(n) ? layout(n, ds).total
+                                 : shared_layout(n, ds).total);
+}
+
+// s:(B,n,ds) f32, seg:(B,n) i32 -> idx:(B,n,k) i32, d2:(B,n,k) f32; all
+// contiguous. bm query rows per CTA: at most 16 runs the register cell
+// where the shape allows (n <= 512), else the first version.
+extern "C" int knn_build_f32(const float* s, const int* seg, int* idx,
+                             float* d2, int B, int n, int ds, int k, int bm,
+                             void* stream) {
+  if (B <= 0 || n <= 0 || k <= 0) return (int)cudaGetLastError();
+  if (bm < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!register_cell(n) || bm > kMaxRows)
+    return launch(knn_build_shared_kernel, kSharedThreads,
+                  4LL * shared_layout(n, ds).total, B, n, bm, st, s, seg,
+                  idx, d2, ds, k);
+  const long long smem = 4LL * layout(n, ds).total;
+#define REPRO_LAUNCH(CPL)                                                 \
+  return launch(knn_build_kernel<CPL>, 32 * bm, smem, B, n, bm, st, s, seg, \
+                idx, d2, ds, k)
+  if (n <= 32) REPRO_LAUNCH(1);
+  if (n <= 64) REPRO_LAUNCH(2);
+  if (n <= 128) REPRO_LAUNCH(4);
+  if (n <= 256) REPRO_LAUNCH(8);
+  REPRO_LAUNCH(16);
+#undef REPRO_LAUNCH
 }

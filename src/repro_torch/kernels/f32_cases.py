@@ -22,10 +22,20 @@ ties on the distance's bits and tile the block's S/F and output dense by
 registers. So the GravNet cases span exact distance ties (duplicated
 rows), hit counts from 1 to past 512, fewer valid hits than k, an
 all-masked event, k past n, d_s 1 and 9, d_f 1, 33, 128 and 129, and 1
-to 64 events. ``tests/test_torch_dense.py``, ``tests/test_torch_edge.py``
-and ``tests/test_torch_gravnet_f32.py`` hold the plain versions and
-plans on these inputs on the CPU, and ``chip_smoke.py`` holds the
-kernels against the plain versions on the card, bitwise.
+to 64 events. ``csrc/knn_build.cu`` runs the selection half of that
+cell over bins of packed events, with a segment predicate where the cell
+has its mask, and ``csrc/knn_aggregate.cu`` its accumulation half fed
+(idx, d2), the selected rows read from device memory. So the kNN cases
+span bins of 1 to 3 events at occupancies 33, 65 and 97, a one-hit
+event (every slot spent), events with fewer than k + 1 hits, an
+all-padding bin, coincident rows (d2 = 0), exact distance ties, 40 to
+600 rows a bin (past the register cell), d_s 3 and 12, d_f 22 and 129,
+indices out of range and negative, k past the 32 slots a warp holds at
+once, and draws whose k-th and (k+1)-th distances lie far apart. ``tests/test_torch_dense.py``,
+``tests/test_torch_edge.py``, ``tests/test_torch_gravnet_f32.py`` and
+``tests/test_torch_knn.py`` hold the plain versions and plans on these
+inputs on the CPU, and ``chip_smoke.py`` holds the kernels against the
+plain versions on the card, bitwise.
 """
 from __future__ import annotations
 
@@ -195,3 +205,132 @@ def aggregate_inputs(b, n, *, ds, df, seed, n_valid=None, dup=0,
         s[:, dst] = s[:, src]
         f[:, dst] = f[:, src]
     return s.astype(np.float32), f.astype(np.float32), mask
+
+
+#: name -> (bins, n, d_s, d_f, k, values, coincident rows per event,
+#: corrupted indices): the kNN edge cases. Each bin is a tuple of the
+#: sizes of the events packed into it in order, the rest of its n rows
+#: padding. ``values``: "grid" puts s on a grid of 1/8 (every distance
+#: exact in float32, any order of summation), "coarse" on a grid of 1/2
+#: in [-1, 1] (many exact ties), "separated" draws s from a normal
+#: distribution until every row's k-th and (k+1)-th distances lie apart
+#: by far more than rounding. The aggregation reads the (idx, d2) the
+#: plain selection gives, with one slot of every other row moved out of
+#: [0, n) (negative or past n) where ``corrupted``.
+KNN_CASES = {
+    "occupancy_33_65_97": (((33, 65), (97,), (33, 33, 33), (65,), (97, 1),
+                            (65, 33, 1)), 128, 4, 22, 8, "grid", 2, False),
+    "fewer_hits_than_k_plus_1": (((1, 2, 5, 8, 9, 3), (7,), (1,)), 40, 4,
+                                 22, 8, "grid", 0, False),
+    "all_padding_bin": (((), (20, 12), ()), 64, 4, 22, 8, "grid", 0,
+                        False),
+    "coincident_rows": (((64, 64), (33, 65)), 128, 4, 22, 8, "grid", 16,
+                        False),
+    "exact_ties": (((65, 33, 30), (97,)), 128, 4, 22, 8, "coarse", 0,
+                   False),
+    "separated": (((33, 65), (97,), (33, 33, 33), (65, 33)), 128, 4, 22, 8,
+                  "separated", 0, False),
+    "n100": (((40, 33, 27), (99,), (100,)), 100, 4, 22, 8, "grid", 1,
+             False),
+    "n500": (((250, 249), (500,)), 500, 4, 22, 8, "grid", 3, False),
+    "n600_past_the_register_cell": (((300, 290), (600,)), 600, 3, 8, 4,
+                                    "grid", 2, False),
+    "ds3": (((33, 65), (97, 1)), 128, 3, 8, 4, "grid", 2, False),
+    "ds12": (((33, 65), (97, 1)), 128, 12, 22, 8, "grid", 0, False),
+    "df129_past_the_register_path": (((33, 65), (97, 1)), 128, 4, 129, 8,
+                                     "grid", 0, False),
+    "out_of_range_indices": (((33, 65), (97, 1), ()), 128, 4, 22, 8,
+                             "grid", 0, True),
+    "k40_past_a_warp_of_slots": (((97,), (65, 33)), 128, 4, 22, 40,
+                                 "grid", 1, True),
+}
+
+
+def knn_segids(bins, n):
+    """segids (B,n) int32 of bins of packed events: each event's rows
+    carry its id (counted over all bins), padding rows -1."""
+    seg = np.full((len(bins), n), -1, np.int32)
+    e = 0
+    for b, sizes in enumerate(bins):
+        row = 0
+        for c in sizes:
+            seg[b, row:row + c] = e
+            row, e = row + c, e + 1
+        if row > n:
+            raise ValueError(f"knn_segids: bin {b} holds {row} > {n} rows")
+    return seg
+
+
+def knn_min_gap(s, seg, k):
+    """The smallest gap between a row's k-th and (k+1)-th distance to
+    the other rows of its event, relative to the (k+1)-th (at least 1),
+    over the rows with more than k candidates (inf if none)."""
+    s = s.astype(np.float64)
+    gap = np.inf
+    for b in range(s.shape[0]):
+        for i in np.flatnonzero(seg[b] >= 0):
+            cand = np.flatnonzero(seg[b] == seg[b, i])
+            cand = cand[cand != i]
+            if len(cand) <= k:
+                continue
+            d2 = np.sort(((s[b, cand] - s[b, i]) ** 2).sum(1))
+            gap = min(gap, (d2[k] - d2[k - 1]) / max(d2[k], 1.0))
+    return gap
+
+
+def knn_build_inputs(bins, n, ds, k, values, dup, *, seed):
+    """Operands of the kNN selection: (s (B,n,ds) f32, segids (B,n)
+    int32). Padding rows of s are zero, as the packing leaves them; in
+    each event of more than one hit, ``dup`` rows (from its second on)
+    repeat its first rows bit for bit, so their distance is exactly 0."""
+    seg = knn_segids(bins, n)
+    for attempt in range(50):
+        rng = np.random.default_rng(seed * 100 + attempt)
+        if values == "coarse":
+            s = rng.integers(-2, 3, size=(len(bins), n, ds)) / 2.0
+        elif values == "grid":
+            s = np.round(rng.normal(size=(len(bins), n, ds)) * 8) / 8
+        elif values == "separated":
+            s = rng.normal(size=(len(bins), n, ds))
+        else:
+            raise ValueError(f"knn_build_inputs: values {values!r}")
+        s[seg < 0] = 0.0
+        for b, sizes in enumerate(bins):
+            row = 0
+            for c in sizes:
+                for r in range(min(dup, c // 2)):
+                    s[b, row + c - 1 - r] = s[b, row + r]
+                row += c
+        s = s.astype(np.float32)
+        if values != "separated" or knn_min_gap(s, seg, k) > 1e-5:
+            return s, seg
+    raise ValueError("knn_build_inputs: no well-separated draw in 50")
+
+
+def knn_aggregate_inputs(idx, n, df, corrupted, *, seed):
+    """Features f (B,n,df) f32 for the aggregation over (idx (B,n,k),
+    from the plain selection) and that idx, where ``corrupted`` with one
+    slot of every other row (slot r mod k of the r-th such row) moved to
+    -1, -n, n or n + 5 in turn."""
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=(*idx.shape[:2], df)).astype(np.float32)
+    idx = np.array(idx, np.int32)
+    if corrupted:
+        rows = idx.reshape(-1, idx.shape[2])[::2]
+        r = np.arange(len(rows))
+        rows[r, r % idx.shape[2]] = np.array([-1, -n, n, n + 5],
+                                             np.int32)[r % 4]
+    return f, idx
+
+
+#: bins of the ragged path's events (occupancy 33, 65 and 97 of 128
+#: rows, first-fit packed: 1 to 3 events a bin), cycled over the bins of
+#: the kNN pair's timed launches (``phase_split.py``, ``source_ab.py``)
+PATH_BINS = ((33, 65), (97,), (33, 33, 33), (65, 33), (97,), (65, 33),
+             (33, 65), (97,))
+
+
+def knn_path_bins(bsz):
+    """The events of bsz bins of the ragged path, :data:`PATH_BINS`
+    in turn."""
+    return tuple(PATH_BINS[b % len(PATH_BINS)] for b in range(bsz))

@@ -26,21 +26,27 @@ FILL_CTAS = 132
 _lib = None
 
 
-def plan(n: int, bsz: int = 1, df: int = 1) -> tuple[int, str]:
-    """(bm, cell) of a launch over bsz events of n hits: on the register
-    cell (n <= 512, d_f <= 128) the fewest rows of :data:`ROWS` whose
-    CTAs fill the card at most once, else the most. A CTA repeats only
-    the staging of its event, so smaller CTAs cost nothing but launches
-    past one per SM: 32 CTAs at one event of 128 hits, 8 at one of 32.
-    Past the register cell, the first design's 32 rows on the
-    shared-memory cell."""
-    if n > MAX_HITS or df > MAX_DF:
-        return min(n, BM_SHARED), "shared"
+def fill_rows(n: int, bsz: int) -> int:
+    """Query rows per CTA of a one-warp-a-row kernel over bsz events of
+    n rows: the fewest of :data:`ROWS` whose CTAs fill the card at most
+    once, else the most (at most n)."""
     for bm in ROWS:
         bm = min(bm, n)
         if -(-n // bm) * bsz <= FILL_CTAS:
             break
-    return bm, "register"
+    return bm
+
+
+def plan(n: int, bsz: int = 1, df: int = 1) -> tuple[int, str]:
+    """(bm, cell) of a launch over bsz events of n hits: on the register
+    cell (n <= 512, d_f <= 128) the rows of :func:`fill_rows`. A CTA
+    repeats only the staging of its event, so smaller CTAs cost nothing
+    but launches past one per SM: 32 CTAs at one event of 128 hits, 8 at
+    one of 32. Past the register cell, the first design's 32 rows on the
+    shared-memory cell."""
+    if n > MAX_HITS or df > MAX_DF:
+        return min(n, BM_SHARED), "shared"
+    return fill_rows(n, bsz), "register"
 
 
 def _round4(v: int) -> int:

@@ -4,10 +4,14 @@ Counterpart of ``repro/kernels/knn_build.py``
 (``knn_build_batched_pallas`` and ``knn_aggregate_batched_pallas``; the
 per-bin ``knn_build_pallas`` and ``knn_aggregate_pallas`` are the same
 kernels at B = 1). The CUDA sources are ``csrc/knn_build.cu`` (the
-segment-masked selection) and ``csrc/knn_aggregate.cu`` (the
-Gaussian-potential mean/max over the selected rows), both built from
-the cell in ``csrc/gravnet_cell.cuh``; the plain versions are
-``kernels/ref.py:knn_build_ref`` and ``knn_aggregate_ref``.
+segment-masked selection, the selection half of the register cell in
+``csrc/gravnet_cell_reg.cuh``) and ``csrc/knn_aggregate.cu`` (the
+Gaussian-potential mean/max over the selected rows, its accumulation
+half); past the register cell's limits both run their first designs on
+the shared-memory cell of ``csrc/gravnet_cell.cuh``. The plain versions
+are ``kernels/ref.py:knn_build_ref`` and ``knn_aggregate_ref``.
+:func:`build_plan` and :func:`aggregate_plan` pick each launch's rows
+per CTA and its cell.
 """
 from __future__ import annotations
 
@@ -16,14 +20,58 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-
-#: query rows (bins' rows) per CTA of both kernels: 4 CTAs per bin of 128
-#: rows, 8 warps of 4 rows each (``csrc/knn_build.cu``,
-#: ``csrc/knn_aggregate.cu``)
-BM = 32
+from repro_torch.kernels.gravnet import fill_rows
+from repro_torch.kernels.gravnet_block import BM_SHARED, MAX_DF, MAX_HITS
 
 _lib_build = None
 _lib_agg = None
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def build_plan(n: int, bsz: int = 1) -> tuple[int, str]:
+    """(bm, cell) of a ``knn_build`` launch over bsz bins of n rows: on
+    the register cell (n <= 512: 16 candidates a lane) the rows of
+    ``gravnet.fill_rows``, one warp a row (8 rows, 128 CTAs at the
+    ragged path's 8 bins of 128); past it the first design's 32 rows on
+    the shared-memory cell."""
+    if n > MAX_HITS:
+        return min(n, BM_SHARED), "shared"
+    return fill_rows(n, bsz), "register"
+
+
+def aggregate_plan(n: int, bsz: int = 1, df: int = 1) -> tuple[int, str]:
+    """(bm, cell) of a ``knn_aggregate`` launch over bsz bins of n rows
+    and d_f columns: on the register path (d_f <= 128: 4 columns a lane;
+    any n, since nothing is staged) the rows of ``gravnet.fill_rows``;
+    past it the first design's 32 rows on the shared-memory cell."""
+    if df > MAX_DF:
+        return min(n, BM_SHARED), "shared"
+    return fill_rows(n, bsz), "register"
+
+
+def build_smem_bytes(n: int, ds: int) -> int:
+    """Shared memory of one ``knn_build`` CTA (the formula of the
+    source's ``knn_build_smem_bytes``) on :func:`build_plan`'s cell.
+    Register cell: S and the segment ids, each 16-byte aligned;
+    shared-memory cell: S, |s|², the segment ids and 8 warps' distance
+    rows."""
+    if n <= MAX_HITS:
+        return 4 * (_round4(n * ds) + _round4(n))
+    return 4 * (n * (ds + 2) + 8 * n)
+
+
+def aggregate_smem_bytes(n: int, df: int) -> int:
+    """Shared memory of one ``knn_aggregate`` CTA (the formula of the
+    source's ``knn_aggregate_smem_bytes``) on :func:`aggregate_plan`'s
+    cell: none on the register path (the selected rows are read from
+    device memory); the first design's F, a row of zeros and 8 warps'
+    output rows past it."""
+    if df <= MAX_DF:
+        return 0
+    return 4 * ((n + 1) * df + 8 * 2 * df)
 
 
 def _library_build():
@@ -54,6 +102,16 @@ def _library_agg():
     return _lib_agg
 
 
+def library_build_smem_bytes(n: int, ds: int) -> int:
+    """The built library's own answer for :func:`build_smem_bytes`."""
+    return int(_library_build().knn_build_smem_bytes(n, ds))
+
+
+def library_aggregate_smem_bytes(n: int, df: int) -> int:
+    """The built library's own answer for :func:`aggregate_smem_bytes`."""
+    return int(_library_agg().knn_aggregate_smem_bytes(n, df))
+
+
 def knn_build_cuda(s, segids, *, k=8):
     """Segment-masked kNN selection on the card for a micro-batch of
     bins. s:(B,N,ds) f32, segids:(B,N) int (−1 on padding) ->
@@ -72,7 +130,8 @@ def knn_build_cuda(s, segids, *, k=8):
     _build.check_cuda("knn_build_cuda", [s, segids],
                       [torch.float32, torch.int32])
     lib = _library_build()
-    _build.check_smem("knn_build_cuda", lib.knn_build_smem_bytes(n, ds),
+    bm, _ = build_plan(n, bsz)
+    _build.check_smem("knn_build_cuda", build_smem_bytes(n, ds),
                       f"n={n}, d_s={ds}")
     idx = torch.empty((bsz, n, k), dtype=torch.int32, device=s.device)
     d2 = torch.empty((bsz, n, k), dtype=torch.float32, device=s.device)
@@ -80,7 +139,7 @@ def knn_build_cuda(s, segids, *, k=8):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.knn_build_f32(s.data_ptr(), segids.data_ptr(),
                                  idx.data_ptr(), d2.data_ptr(), bsz, n, ds,
-                                 int(k), min(n, BM), stream)
+                                 int(k), bm, stream)
     _build.check(code, "knn_build")
     knn_build_cuda.launches += 1
     return idx, d2
@@ -106,14 +165,15 @@ def knn_aggregate_cuda(f, idx, d2, *, scale=10.0):
     _build.check_cuda("knn_aggregate_cuda", [f, idx, d2],
                       [torch.float32, torch.int32, torch.float32])
     lib = _library_agg()
-    _build.check_smem("knn_aggregate_cuda",
-                      lib.knn_aggregate_smem_bytes(n, df), f"n={n}, d_f={df}")
+    bm, _ = aggregate_plan(n, bsz, df)
+    _build.check_smem("knn_aggregate_cuda", aggregate_smem_bytes(n, df),
+                      f"n={n}, d_f={df}")
     y = torch.empty((bsz, n, 2 * df), dtype=torch.float32, device=f.device)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.knn_aggregate_f32(f.data_ptr(), idx.data_ptr(),
                                      d2.data_ptr(), y.data_ptr(), bsz, n,
-                                     df, k, float(scale), min(n, BM), stream)
+                                     df, k, float(scale), bm, stream)
     _build.check(code, "knn_aggregate")
     knn_aggregate_cuda.launches += 1
     return y

@@ -1,20 +1,24 @@
-"""Where a CTA of a GravNet kernel spends its time, phase by phase.
+"""Where a CTA of a GravNet or kNN kernel spends its time, phase by
+phase.
 
     python -m repro_torch.kernels.phase_split [--kernel NAME]
         [--source FILE.cu --bm N]
 
-``--kernel`` is ``gravnet_block_int8`` (the default), ``gravnet_block``
-or ``gravnet_aggregate``. Builds a copy of the kernel's source (by
-default ``csrc/<NAME>.cu``; ``--source`` takes another version of it,
-such as an earlier commit's, with the same C entry point) in which
-thread 0 of every CTA of the kernel's ``__global__`` function reads
-``clock64()`` at its start, after every ``__syncthreads()`` of its body
-and at its end, and runs it at the main path's widths (128 hits,
-d_hidden 64, d_s 4, d_f 22, k 8, three quarters of the hits valid;
-inputs from ``int8_cases.block_inputs`` for the int8 block,
-``f32_cases.block_inputs`` and ``aggregate_inputs`` for the f32 pair) on
-the card at 2, 16 and 64 events (the aggregation: 1, 16 and 64, its
-unfused chunk being one event). Prints, per event count, the mean and
+``--kernel`` is ``gravnet_block_int8`` (the default), ``gravnet_block``,
+``gravnet_aggregate``, ``knn_build`` or ``knn_aggregate``. Builds a copy
+of the kernel's source (by default ``csrc/<NAME>.cu``; ``--source``
+takes another version of it, such as an earlier commit's, with the same
+C entry point) in which thread 0 of every CTA of the kernel's
+``__global__`` function reads ``clock64()`` at its start, after every
+``__syncthreads()`` of its body and at its end, and runs it at the main
+path's widths (128 hits, d_hidden 64, d_s 4, d_f 22, k 8, three
+quarters of the hits valid; inputs from ``int8_cases.block_inputs`` for
+the int8 block, ``f32_cases.block_inputs`` and ``aggregate_inputs`` for
+the f32 pair) on the card at 2, 16 and 64 events (the aggregation: 1, 16
+and 64, its unfused chunk being one event), the kNN pair at the ragged
+path's 1, 8 and 16 bins of 128 rows of packed events
+(``f32_cases.knn_path_bins``, s on a grid of 1/8; the aggregation on the
+plain selection's (idx, d2)). Prints, per event count, the mean and
 the largest time of each phase over the CTAs in microseconds at the SM
 clock read right after the launches, the phase labelled by the first
 comment line inside it, the device time of one launch of the stamped and
@@ -23,7 +27,8 @@ with the card's name and power limit. The whole report also goes to
 ``chiprun_out/phase_split/<source>.json``. ``--bm`` is the query rows
 per CTA the source's wrapper chose (by default the package's: ``BM_INT8``
 for the int8 block, ``gravnet_block.plan`` and ``gravnet.plan`` for the
-f32 pair; 32 for every first design). Needs a card and ``nvcc``.
+f32 pair, ``knn_build.build_plan`` and ``aggregate_plan`` for the kNN
+pair; 32 for every first design). Needs a card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.kernels import _build, f32_cases, gravnet, gravnet_block, \
-    int8_cases
+    int8_cases, knn_build
 
 MAIN = dict(dh=64, ds=4, df=22, dout=64)
 N_HITS, K = 128, 8
@@ -153,16 +158,39 @@ class Spec:
     events: tuple[int, ...]
     bm: Callable[[int], int]          # the package's rows per CTA at B
     inputs: Callable                  # B -> (numpy operands, keywords)
-    out_width: int
-    #: (C entry, tensors, output, B, bm, stream) -> its return code
+    #: each output's last dimension and dtype name, (B, N_HITS, width)
+    outs: tuple[tuple[int, str], ...]
+    #: (C entry, tensors, outputs, B, bm, stream, keywords) -> its
+    #: return code
     call: Callable
-    package: str                      # the wrapper's name in its module
+    module: object                    # the wrapper's module
+    package: str                      # the wrapper's name in it
+    package_kw: tuple = (("k", K),)   # the wrapper's own keywords
 
 
-def _block_args(fn, t, y, bsz, bm, stream, kw):
-    return fn(*(x.data_ptr() for x in t), y.data_ptr(), bsz, N_HITS,
+def _block_args(fn, t, ys, bsz, bm, stream, kw):
+    return fn(*(x.data_ptr() for x in t), ys[0].data_ptr(), bsz, N_HITS,
               MAIN["dh"], MAIN["ds"], MAIN["df"], MAIN["dout"], K, 10.0,
               *kw.values(), 1, bm, stream)
+
+
+def _knn_build_inputs(bsz):
+    s, seg = f32_cases.knn_build_inputs(f32_cases.knn_path_bins(bsz),
+                                        N_HITS, MAIN["ds"], K, "grid", 0,
+                                        seed=0)
+    return (s, seg), {}
+
+
+def _knn_aggregate_inputs(bsz):
+    import torch
+
+    from repro_torch.kernels import ref
+    (s, seg), _ = _knn_build_inputs(bsz)
+    idx, d2 = ref.knn_build_ref(torch.from_numpy(s), torch.from_numpy(seg),
+                                k=K)
+    f, idx = f32_cases.knn_aggregate_inputs(idx.numpy(), N_HITS,
+                                            MAIN["df"], False, seed=0)
+    return (f, idx, d2.numpy()), {}
 
 
 SPECS = {
@@ -173,7 +201,8 @@ SPECS = {
         lambda bsz: gravnet_block.BM_INT8,
         lambda bsz: int8_cases.block_inputs(bsz, N_HITS, **MAIN, seed=0,
                                             n_valid=N_HITS * 3 // 4),
-        MAIN["dout"], _block_args, "gravnet_block_int8_cuda"),
+        ((MAIN["dout"], "float32"),), _block_args, gravnet_block,
+        "gravnet_block_int8_cuda"),
     "gravnet_block": Spec(
         "gravnet_block_f32", "gravnet_block_kernel",
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
@@ -182,7 +211,8 @@ SPECS = {
         lambda bsz: gravnet_block.plan(N_HITS, **MAIN)[0],
         lambda bsz: (f32_cases.block_inputs(bsz, N_HITS, **MAIN, seed=0,
                                             n_valid=N_HITS * 3 // 4), {}),
-        MAIN["dout"], _block_args, "gravnet_block_cuda"),
+        ((MAIN["dout"], "float32"),), _block_args, gravnet_block,
+        "gravnet_block_cuda"),
     "gravnet_aggregate": Spec(
         "gravnet_aggregate_f32", "gravnet_aggregate_kernel",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -191,11 +221,30 @@ SPECS = {
         lambda bsz: (f32_cases.aggregate_inputs(
             bsz, N_HITS, ds=MAIN["ds"], df=MAIN["df"], seed=0,
             n_valid=N_HITS * 3 // 4), {}),
-        2 * MAIN["df"],
-        lambda fn, t, y, bsz, bm, stream, kw: fn(
-            *(x.data_ptr() for x in t), y.data_ptr(), bsz, N_HITS,
+        ((2 * MAIN["df"], "float32"),),
+        lambda fn, t, ys, bsz, bm, stream, kw: fn(
+            *(x.data_ptr() for x in t), ys[0].data_ptr(), bsz, N_HITS,
             MAIN["ds"], MAIN["df"], K, 10.0, bm, stream),
-        "gravnet_aggregate_cuda"),
+        gravnet, "gravnet_aggregate_cuda"),
+    "knn_build": Spec(
+        "knn_build_f32", "knn_build_kernel",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        (1, 8, 16), lambda bsz: knn_build.build_plan(N_HITS, bsz)[0],
+        _knn_build_inputs, ((K, "int32"), (K, "float32")),
+        lambda fn, t, ys, bsz, bm, stream, kw: fn(
+            *(x.data_ptr() for x in (*t, *ys)), bsz, N_HITS, MAIN["ds"], K,
+            bm, stream),
+        knn_build, "knn_build_cuda"),
+    "knn_aggregate": Spec(
+        "knn_aggregate_f32", "knn_aggregate_kernel",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], (1, 8, 16),
+        lambda bsz: knn_build.aggregate_plan(N_HITS, bsz, MAIN["df"])[0],
+        _knn_aggregate_inputs, ((2 * MAIN["df"], "float32"),),
+        lambda fn, t, ys, bsz, bm, stream, kw: fn(
+            *(x.data_ptr() for x in t), ys[0].data_ptr(), bsz, N_HITS,
+            MAIN["df"], K, 10.0, bm, stream),
+        knn_build, "knn_aggregate_cuda", ()),
 }
 
 
@@ -243,9 +292,8 @@ def main(argv=None) -> int:
     fn.argtypes = spec.argtypes
     fn.restype = ctypes.c_int
     lib.repro_set_phase_stamps.argtypes = [ctypes.c_void_p]
-    module = (gravnet if args.kernel == "gravnet_aggregate"
-              else gravnet_block)
-    package = getattr(module, spec.package)
+    package = getattr(spec.module, spec.package)
+    package_kw = dict(spec.package_kw)
 
     def sm_cycles_per_ms() -> float:
         """The SM clock, from a spin of 10^8 cycles timed by events (read
@@ -264,7 +312,8 @@ def main(argv=None) -> int:
         bm = args.bm or spec.bm(bsz)
         ops, kw = spec.inputs(bsz)
         t = [torch.from_numpy(np.ascontiguousarray(o)).to(dev) for o in ops]
-        y = torch.empty((bsz, N_HITS, spec.out_width), device=dev)
+        ys = [torch.empty((bsz, N_HITS, w), dtype=getattr(torch, dt),
+                          device=dev) for w, dt in spec.outs]
         ctas = -(-N_HITS // bm) * bsz
         stamps = torch.zeros(ctas * MAX_STAMPS, dtype=torch.int64,
                              device=dev)
@@ -272,12 +321,13 @@ def main(argv=None) -> int:
                      "repro_set_phase_stamps")
 
         def call():
-            return spec.call(fn, t, y, bsz, bm,
+            return spec.call(fn, t, ys, bsz, bm,
                              torch.cuda.current_stream().cuda_stream, kw)
 
         cycles_per_ms = sm_cycles_per_ms()
         stamped_ms = device_ms(torch, call, cycles_per_ms)
-        package_ms = device_ms(torch, lambda: package(*t, **kw, k=K),
+        package_ms = device_ms(torch, lambda: package(*t, **kw,
+                                                      **package_kw),
                                cycles_per_ms)
         _build.check(call(), f"stamped {args.kernel}")
         torch.cuda.synchronize()
@@ -285,8 +335,10 @@ def main(argv=None) -> int:
         st = stamps.view(ctas, MAX_STAMPS)[:, :len(labels) + 1]
         us = np.diff(st.cpu().numpy().astype(np.float64), axis=1) / (
             cycles_per_ms / 1e3)
-        want = package(*t, **kw, k=K)
-        same = bool(torch.equal(want, y))
+        want = package(*t, **kw, **package_kw)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(bool(torch.equal(w, y)) for w, y in zip(want, ys,
+                                                           strict=True))
         run = {"events": bsz, "bm": bm, "ctas": ctas,
                "same_as_package": same, "sm_mhz": cycles_per_ms / 1e3,
                "phase_us_mean": us.mean(axis=0).tolist(),

@@ -9,26 +9,31 @@ earlier commit's ``src/repro_torch/kernels/csrc`` unpacked with ``git
 archive`` under ``build/``. Their C entries are the first designs':
 ``gravnet_block_f32(x, mask, ws, bs, wf, bf, wo, bo, y, B, n, dh, ds,
 df, dout, k, scale, act, bm, stream)`` and ``gravnet_aggregate_f32(s, f,
-mask, out, B, n, ds, df, k, scale, bm, stream)``, launched at bm = 32
-query rows per CTA (the sources before the register cell);
-``fused_dense_f32(x, w, b, y, M, K, N, act, stream)`` over a contiguous
-x and ``edge_aggregate_f32(msg, dst, mask, out, B, E, n, d, bm, mean,
-stream)`` at bm = 8 (the sources before the tile plan). Each
+mask, out, B, n, ds, df, k, scale, bm, stream)``, and the kNN pair's
+``knn_build_f32(s, seg, idx, d2, B, n, ds, k, bm, stream)`` and
+``knn_aggregate_f32(f, idx, d2, out, B, n, df, k, scale, bm, stream)``,
+launched at bm = 32 query rows per CTA (the sources before the register
+cell); ``fused_dense_f32(x, w, b, y, M, K, N, act, stream)`` over a
+contiguous x and ``edge_aggregate_f32(msg, dst, mask, out, B, E, n, d,
+bm, mean, stream)`` at bm = 8 (the sources before the tile plan). Each
 is built with this checkout's flags. Then, at every launch shape of its
 paths — a CaloClusterNet fp chunk (2 events, 2 blocks) and unfused chunk
 (1 event, 2 aggregations) and 16 and 64 events for the GravNet pair
-(:data:`GRAVNET_SHAPES`, inputs from ``kernels/f32_cases.py``); a
-GatedGCN 16 × 70, a GraphSAGE 2 × 128 and a CaloClusterNet fp chunk for
-the dense and the edge kernel (:data:`DENSE_SHAPES`,
-:data:`EDGE_SHAPES`) — each kernel is held against its plain version
-bitwise and timed in turns, earlier, current, current, earlier (CUDA
+(:data:`GRAVNET_SHAPES`, inputs from ``kernels/f32_cases.py``); a launch
+of the ragged executable (8 bins of packed events, 2 launches of each)
+and 1 and 16 bins for the kNN pair (:data:`KNN_SHAPES`,
+``f32_cases.knn_path_bins``); a GatedGCN 16 × 70, a GraphSAGE 2 × 128
+and a CaloClusterNet fp chunk for the dense and the edge kernel
+(:data:`DENSE_SHAPES`, :data:`EDGE_SHAPES`) — each kernel is held
+against its plain version bitwise (every output) and timed in turns,
+earlier, current, current, earlier (CUDA
 events around 200 back-to-back launches behind a sleep kernel, as
 ``chip_smoke.py`` times). Where the executor now hands the dense a
 row-strided own-K view of a lane-padded input, the earlier kernel gets
 what its executor gave it: the padded input, contiguous, and w padded
 with zero rows. Prints a line per shape and the sums per chunk with the
-card's name and power limit; the report also goes to
-``chiprun_out/source_ab.json``. Needs a card and ``nvcc``.
+card's name and power limit; the report also goes to ``--out``
+(``chiprun_out/source_ab.json`` by default). Needs a card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -79,10 +84,22 @@ GRAVNET_SHAPES = (
     ("gravnet_aggregate", "16 events", 0, 16),
     ("gravnet_aggregate", "64 events", 0, 64),
 )
-#: query rows per CTA of the GravNet pair's first designs
+#: query rows per CTA of the GravNet pair's and the kNN pair's first
+#: designs
 EARLIER_GRAVNET_BM = 32
+#: (kernel, chunk, launches per chunk, bins): the kNN pair at a launch of
+#: the ragged executable (8 bins of 128 rows, 2 launches of each) and,
+#: outside any launch, 1 and 16 bins
+KNN_SHAPES = (
+    ("knn_build", "ragged launch", 2, 8),
+    ("knn_build", "1 bin", 0, 1),
+    ("knn_build", "16 bins", 0, 16),
+    ("knn_aggregate", "ragged launch", 2, 8),
+    ("knn_aggregate", "1 bin", 0, 1),
+    ("knn_aggregate", "16 bins", 0, 16),
+)
 KERNELS = ("fused_dense", "edge_aggregate", "gravnet_block",
-           "gravnet_aggregate")
+           "gravnet_aggregate", "knn_build", "knn_aggregate")
 #: each earlier C entry's argument types
 ARGTYPES = {
     "fused_dense": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
@@ -93,6 +110,10 @@ ARGTYPES = {
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "gravnet_aggregate": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "knn_build": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "knn_aggregate": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -102,6 +123,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="directory of the earlier sources")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS,
                     default=["gravnet_block", "gravnet_aggregate"])
+    ap.add_argument("--out", type=Path,
+                    help="the report (default chiprun_out/source_ab.json)")
     return ap.parse_args(argv)
 
 
@@ -127,6 +150,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.fused_dense import act_code, fused_dense_cuda
     from repro_torch.kernels.gravnet import gravnet_aggregate_cuda
     from repro_torch.kernels.gravnet_block import gravnet_block_cuda
+    from repro_torch.kernels.knn_build import (knn_aggregate_cuda,
+                                               knn_build_cuda)
 
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -273,6 +298,59 @@ def main(argv=None) -> int:
         rows.append({"kernel": kernel, "chunk": chunk, "count": count,
                      "shape": shape, "earlier_ms": t_old,
                      "current_ms": t_new})
+
+    def equal(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        return all(bool(torch.equal(g, w)) for g, w in zip(got, want,
+                                                           strict=True))
+
+    ds, df = widths["ds"], widths["df"]
+    for kernel, chunk, count, bsz in KNN_SHAPES:
+        if kernel not in old:
+            continue
+        fn = old[kernel]
+        s_, seg = (torch.from_numpy(a).to(dev)
+                   for a in f32_cases.knn_build_inputs(
+                       f32_cases.knn_path_bins(bsz), n, ds, kk, "grid", 0,
+                       seed=bsz))
+        if kernel == "knn_build":
+            want = ref.knn_build_ref(s_, seg, k=kk)
+
+            def earlier(s_=s_, seg=seg, bsz=bsz, fn=fn):
+                idx = torch.empty(bsz, n, kk, dtype=torch.int32, device=dev)
+                d2 = torch.empty(bsz, n, kk, device=dev)
+                fn(s_.data_ptr(), seg.data_ptr(), idx.data_ptr(),
+                   d2.data_ptr(), bsz, n, ds, kk, EARLIER_GRAVNET_BM,
+                   stream())
+                return idx, d2
+
+            def current(s_=s_, seg=seg):
+                return knn_build_cuda(s_, seg, k=kk)
+            shape = f"s({bsz},{n},{ds}) k={kk}"
+        else:
+            idx, d2 = ref.knn_build_ref(s_, seg, k=kk)
+            f = torch.from_numpy(f32_cases.knn_aggregate_inputs(
+                idx.cpu().numpy(), n, df, False, seed=bsz)[0]).to(dev)
+            want = ref.knn_aggregate_ref(f, idx, d2)
+
+            def earlier(f=f, idx=idx, d2=d2, bsz=bsz, fn=fn):
+                y = torch.empty(bsz, n, 2 * df, device=dev)
+                fn(f.data_ptr(), idx.data_ptr(), d2.data_ptr(), y.data_ptr(),
+                   bsz, n, df, kk, 10.0, EARLIER_GRAVNET_BM, stream())
+                return y
+
+            def current(f=f, idx=idx, d2=d2):
+                return knn_aggregate_cuda(f, idx, d2)
+            shape = f"f({bsz},{n},{df}) k={kk}"
+        for f_ in (earlier, current):
+            if not equal(f_(), want):
+                raise SystemExit(f"{kernel} {shape}: not bitwise equal to "
+                                 "its plain version")
+        t_old, t_new = turns(earlier, current)
+        rows.append({"kernel": kernel, "chunk": chunk, "count": count,
+                     "shape": shape, "earlier_ms": t_old,
+                     "current_ms": t_new})
     for r in rows:
         print(f"{r['kernel']} [{r['chunk']}] {r['shape']} x{r['count']}: "
               f"earlier {r['earlier_ms']:.5f} ms, current "
@@ -287,9 +365,10 @@ def main(argv=None) -> int:
     for (chunk, kernel), (cnt, t_old, t_new) in sums.items():
         print(f"per {chunk} chunk, {kernel} ({cnt} launches): earlier "
               f"{t_old:.5f} ms, current {t_new:.5f} ms ({card})")
-    out = Path(__file__).resolve().parents[3] / "chiprun_out"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "source_ab.json").write_text(json.dumps(
+    out = args.out or (Path(__file__).resolve().parents[3] / "chiprun_out"
+                       / "source_ab.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(
         {"card": card, "earlier": str(args.earlier), "rows": rows,
          "per_chunk": [{"chunk": c, "kernel": k, "launches": cnt,
                         "earlier_ms": o, "current_ms": w_}

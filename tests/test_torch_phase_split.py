@@ -1,5 +1,5 @@
 """The source transform of ``repro_torch/kernels/phase_split.py`` (the
-phase timer of the GravNet kernels), on the CPU: a ``clock64()`` stamp
+phase timer of the GravNet and kNN kernels), on the CPU: a ``clock64()`` stamp
 after the named kernel's start, after each ``__syncthreads()`` of its
 body and at its end, each phase labelled by its first comment, and the
 kernel's own text otherwise untouched; each ``--kernel`` option's
@@ -114,26 +114,39 @@ def test_each_kernel_spec_matches_its_source_and_package(name):
     src = (_build.CSRC / f"{name}.cu").read_text()
     assert f'extern "C" int {spec.entry}(' in src
     out, labels = stamped_source(src, spec.kernel)
-    assert len(labels) >= 2 and out.count(STAMP) == len(labels) + 1
+    # the kNN aggregation has no barrier: one phase, the CTA's whole time
+    assert len(labels) >= (1 if name == "knn_aggregate" else 2)
+    assert out.count(STAMP) == len(labels) + 1
     for bsz in spec.events:
         ops, kw = spec.inputs(bsz)
         t = [torch.from_numpy(np.ascontiguousarray(o)) for o in ops]
         assert all(tuple(o.shape[:2]) == (bsz, phase_split.N_HITS)
                    for o in t[:2])
-        y = torch.empty(bsz, phase_split.N_HITS, spec.out_width)
+        ys = [torch.empty(bsz, phase_split.N_HITS, w,
+                          dtype=getattr(torch, dt)) for w, dt in spec.outs]
         seen = []
-        spec.call(lambda *a: seen.append(a) or 0, t, y, bsz,
+        spec.call(lambda *a: seen.append(a) or 0, t, ys, bsz,
                   spec.bm(bsz), 0, kw)
         assert len(seen[0]) == len(spec.argtypes)
+        if name.startswith("knn"):
+            # the plain version on these inputs gives outputs of these
+            # widths and dtypes
+            got = getattr(tref, name + "_ref")(*t, **dict(spec.package_kw))
+            got = got if isinstance(got, tuple) else (got,)
+            assert [(g.shape[2], str(g.dtype)[6:]) for g in got] == list(
+                spec.outs)
     assert spec.bm(2) == {"gravnet_block_int8": gravnet_block.BM_INT8,
-                          "gravnet_block": 16, "gravnet_aggregate": 4}[name]
+                          "gravnet_block": 16, "gravnet_aggregate": 4,
+                          "knn_build": 4, "knn_aggregate": 4}[name]
 
 
 def test_phase_split_needs_a_card():
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         phase_split.main(["--kernel", "gravnet_aggregate", "--bm", "32"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
         phase_split.main(["--kernel", "knn_build"])
+    with pytest.raises(SystemExit):
+        phase_split.main(["--kernel", "flash_attention"])
 
 
 def test_source_ab_options():
@@ -145,8 +158,12 @@ def test_source_ab_options():
     args = source_ab.parse_args(["--earlier", "d", "--kernels",
                                  "fused_dense", "edge_aggregate"])
     assert args.kernels == ["fused_dense", "edge_aggregate"]
+    args = source_ab.parse_args(["--earlier", "d", "--kernels",
+                                 "knn_build", "knn_aggregate"])
+    assert args.kernels == ["knn_build", "knn_aggregate"]
     with pytest.raises(SystemExit):
-        source_ab.parse_args(["--earlier", "d", "--kernels", "knn_build"])
+        source_ab.parse_args(["--earlier", "d", "--kernels",
+                              "flash_attention"])
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         source_ab.main(["--earlier", "build/parent"])
     assert set(source_ab.ARGTYPES) == set(source_ab.KERNELS)
