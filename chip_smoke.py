@@ -128,11 +128,32 @@ Phases, each of which exits non-zero when it fails:
    ``autotune_graph`` over that deployment and
    over the main path's, a redeploy with the cache whose attention op
    binds the cached (bq, bk) and launches it, a ``save``/``load`` round
-   trip and ``warm_from_cache`` of every entry; then ``serve.main`` with
+   trip and ``warm_from_cache`` of every entry; the tuner's row: the
+   bound (bq, bk)'s device time is at most the default's (the tuner
+   times on the card's clock); then ``serve.main`` with
    ``--tune --tuning-cache`` and again on the saved cache alone, which
    binds every problem without searching;
-9. print ``{"kernels": [...]}`` with every kernel of the port, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+9. the whole-pipeline compile: on eight paths (the served default
+   warm-trained, fp, fp at design point 1, mixed with
+   ``fuse_int8=False``, ragged, GatedGCN, GraphSAGE, attention) the
+   captured deployment (one CUDA graph replay per chunk, per segment at
+   design point 1, per launch on the ragged path) answers every output
+   bitwise as its eager ``run_chunk`` loop does; in turns (captured,
+   eager, eager, captured, captured, eager) the events/s, latency
+   p50/p99 and host wall per chunk of both, and their medians; the idle
+   share of both for the served default and GatedGCN, with a profiler
+   cross-check that each replay runs the default's 5 ``fused_dense_int8``
+   and 2 ``gravnet_block_int8``; and CPS alone on one chunk's heads, its
+   device time captured and eager (``capture.json``). Every phase above
+   serves through the captures too; the plain-substituted and the
+   recording runs go through ``run_eager``. A path's launch counts are
+   read from its counted run: its served events once more under
+   torch.profiler, every counter at 0 just before, each kernel's runs
+   on the card counted from the profiler's records (``counted``); the
+   counters, which a replay adds to by what its capture recorded, must
+   read the same, and the kernels line takes the profiler's counts;
+10. print ``{"kernels": [...]}`` with every kernel of the port, then
+    ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
 output (compiler logs, profiler tables) goes to ``chiprun_out/chip_smoke/``.
@@ -179,6 +200,7 @@ ATTN_SHAPES = ((8, 512, 512, 64), (8, 1024, 1024, 64),
                (16, 4096, 4096, 128))
 ATTN_N, ATTN_D, ATTN_BATCH = 512, 64, 8  # the deployed attention graph
 ATTN_EVENTS = 32
+CAPTURE_EVENTS = 128            # CaloClusterNet events of phase 9's paths
 
 KERNELS = {
     "fused_dense": {
@@ -262,6 +284,21 @@ def say(msg: str) -> None:
     line = f"[chip_smoke] {msg}"
     LOG.append(line + "\n")
     print(line, flush=True)
+
+
+class Eager:
+    """A deployment run without capture, for ``serve_events``: the eager
+    ``run_chunk`` loop (a ragged deployment's launches eagerly). The
+    runs with the plain versions substituted on the card go this way:
+    a replay would run the captured kernels, and the plain
+    ``edge_aggregate`` reads its loop length back to the host."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.microbatch = pipe.microbatch
+
+    def __call__(self, feeds):
+        return self.pipe.run_eager(feeds)
 
 
 # --------------------------------------------------------------- timing ----
@@ -493,6 +530,7 @@ def main() -> int:
                                                      kv_split,
                                                      library_smem_bytes,
                                                      smem_bytes)
+    from repro_torch.core.pipeline import RaggedPipeline
     from repro_torch.launch import serve
     from repro_torch.models.gnn import gatedgcn, graphsage
 
@@ -571,6 +609,54 @@ def main() -> int:
     def read_counts():
         return {n: w.launches for n, w in wrappers.items()}
 
+    # a kernel's records in the profiler: its __global__ function (or the
+    # shared-memory one), once per launch; flash_attention's template
+    # arguments name its (bq, bk), its combine launch is not counted
+    kernel_rx = {n: re.compile(rf"(?<!\w){n}(?:_shared)?_kernel(?!\w)")
+                 for n in wrappers}
+    flash_rx = re.compile(r"flash_attention_kernel<\w+, (\d+), (\d+),")
+
+    def counted(call, warm, label):
+        """The main path's counted run: ``call()`` under torch.profiler,
+        every counter at 0 just before it (a step of ``warm()`` first,
+        whose records are dropped: the tracer may lose its first ones).
+        Returns (its result, {kernel: launches}, {(bq, bk): launches} of
+        flash_attention) as the profiler saw the kernels run on the card;
+        fails unless the wrappers' counters, which a replay adds to by
+        what its capture recorded, read the same."""
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(
+                activities=acts, schedule=torch.profiler.schedule(
+                    wait=0, warmup=1, active=1, repeat=1)) as prof:
+            warm()
+            torch.cuda.synchronize()
+            prof.step()
+            reset_counts()
+            out = call()
+            torch.cuda.synchronize()
+            counters = read_counts()
+            by_blocks = dict(flash_attention_cuda.launches_by_blocks)
+            prof.step()
+        seen = dict.fromkeys(wrappers, 0)
+        seen_blocks: dict[tuple, int] = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for n, rx in kernel_rx.items():
+                seen[n] += bool(rx.search(e.name))
+            m = flash_rx.search(e.name)
+            if m:
+                bq_bk = (int(m[1]), int(m[2]))
+                seen_blocks[bq_bk] = seen_blocks.get(bq_bk, 0) + 1
+        if seen != counters or seen_blocks != by_blocks:
+            fail(f"[{label}] the profiler saw {seen} {seen_blocks} kernel "
+                 f"runs, the launch counters read {counters} {by_blocks}")
+        say(f"[{label}] profiler: kernel runs on the card equal the launch "
+            f"counters: {({n: c for n, c in seen.items() if c})}"
+            + (f" {seen_blocks}" if seen_blocks else ""))
+        return out, seen, seen_blocks
+
     cfg = ccn.CCNConfig()
     gen_cfg = Belle2Config()
 
@@ -618,7 +704,7 @@ def main() -> int:
             return rec
 
         with substituted({n: recorder(n) for n in plain_fns}):
-            pipe(feeds)
+            pipe.run_eager(feeds)
         n_chunks = len(next(iter(feeds.values()))) // pipe.microbatch
         if len(calls) % n_chunks:
             fail(f"{len(calls)} kernel calls over {n_chunks} chunks")
@@ -948,7 +1034,8 @@ def main() -> int:
 
         with substituted({n: recorder(n) for n in plain_fns}):
             res, _, _ = serve.serve_events(
-                pipes[path], {k: v[:n_events] for k, v in rg_feeds.items()})
+                Eager(pipes[path]),
+                {k: v[:n_events] for k, v in rg_feeds.items()})
         n_launch = ragged_launches(pipes[path], n_events)
         if len(calls) % n_launch:
             fail(f"[{path}] {len(calls)} kernel calls over {n_launch} "
@@ -1064,17 +1151,21 @@ def main() -> int:
                      "versions")
 
     def run_path(path, n_events, seed):
-        """Serve n_events of the path with every counter at 0 just
-        before; returns (results, latencies, elapsed, launches, feeds,
-        events)."""
+        """Serve n_events of the path, timed, then once more as its
+        counted run (``counted``); returns (the counted run's results,
+        the timed run's latencies and elapsed, the launches the profiler
+        saw, feeds, events)."""
         pipe = pipes[path]
         events = generate(gen_cfg, n_events, seed=seed)
         feeds = {"hits": events["feats"], "mask": events["mask"]}
-        serve.serve_events(pipe, {k: v[:32] for k, v in feeds.items()})
+
+        def warm():
+            serve.serve_events(pipe, {k: v[:32] for k, v in feeds.items()})
+        warm()
         torch.cuda.synchronize()
-        reset_counts()
-        res, lat, elapsed = serve.serve_events(pipe, feeds)
-        launches = read_counts()
+        _, lat, elapsed = serve.serve_events(pipe, feeds)
+        (res, _, _), launches, _ = counted(
+            lambda: serve.serve_events(pipe, feeds), warm, path)
         batch = max(pipe.microbatch, serve.MIN_SERVE_BATCH)
         n_chunks = sum(-(-min(batch, n_events - s) // pipe.microbatch)
                        for s in range(0, n_events, batch))
@@ -1108,7 +1199,7 @@ def main() -> int:
             plain_pipe = serve.build_pipeline(cfg, gen_cfg, device=dev,
                                               params=params,
                                               **paths["mixed"])
-            plain_res, _, _ = serve.serve_events(plain_pipe, feeds)
+            plain_res, _, _ = serve.serve_events(Eager(plain_pipe), feeds)
         for op in pipe.graph:
             pop = plain_pipe.graph[op.name]
             for a in op.attrs:
@@ -1156,15 +1247,28 @@ def main() -> int:
         calls]}."""
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        # one warm-up step first: the tracer's first activity records
+        # may be lost while it starts (2 kernels of 160 were, on a
+        # replayed chunk), so only the 4 calls after it are read
+        with torch.profiler.profile(
+                activities=acts, schedule=torch.profiler.schedule(
+                    wait=0, warmup=1, active=1, repeat=1)) as prof:
+            serve_once()
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.perf_counter()
             for _ in range(4):
                 serve_once()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
         kernels_us: dict[str, list] = {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            # the step's annotation spans the window on the device's
+            # timeline too: it is no kernel
+            if e.device_type == torch.autograd.DeviceType.CUDA and not (
+                    getattr(e, "is_user_annotation", False)
+                    or e.name.startswith("ProfilerStep")):
                 k = kernels_us.setdefault(e.name, [0.0, 0])
                 k[0] += e.time_range.elapsed_us()
                 k[1] += 1
@@ -1182,7 +1286,7 @@ def main() -> int:
         else:
             say("idle share: not measured (the profiler recorded no "
                 "device time)")
-        return busy_us, kernels_us
+        return busy_us, kernels_us, wall_us
 
     # where one served micro-batch's time goes, and the device idle share
     prof_feeds = {k: v[:batch] for k, v in feeds.items()}
@@ -1202,11 +1306,11 @@ def main() -> int:
         return out
     ex.run_op = timed
     try:
-        serve.serve_events(pipe, prof_feeds)
+        serve.serve_events(Eager(pipe), prof_feeds)
     finally:
         ex.run_op = run_op
     total = sum(host.values())
-    say("per op type, one served micro-batch, synchronized after each op: "
+    say("per op type, one eager dispatch, synchronized after each op: "
         + ", ".join(f"{k}={v * 1e6:.1f}us ({v / total:.1%})"
                     for k, v in sorted(host.items(), key=lambda kv: -kv[1])))
     say(f"phase 4 done at {time.perf_counter() - t_start:.1f}s")
@@ -1250,7 +1354,7 @@ def main() -> int:
             pipe_ = (serve.build_pipeline(cfg, gen_cfg, device=dev,
                                           **paths[path])
                      if redeploy else pipes[path])
-            plain_res, _, _ = serve.serve_events(pipe_, feeds)
+            plain_res, _, _ = serve.serve_events(Eager(pipe_), feeds)
         heads_and_cps(res, plain_res, n_events, path, bitwise=True)
         say(f"serve ({path}): {n_events / elapsed:.1f} events/s, latency "
             f"p50={np.percentile(lat, 50) * 1e6:.1f}us "
@@ -1282,11 +1386,15 @@ def main() -> int:
         plain-substituted run of phase 3."""
         pipe = pipes[path]
         feeds = {k: v[:n_events] for k, v in rg_feeds.items()}
-        serve.serve_events(pipe, {k: v[:DISPATCH] for k, v in feeds.items()})
+
+        def warm():
+            serve.serve_events(pipe, {k: v[:DISPATCH]
+                                      for k, v in feeds.items()})
+        warm()
         torch.cuda.synchronize()
-        reset_counts()
-        res, lat, elapsed = serve.serve_events(pipe, feeds)
-        launches = read_counts()
+        _, lat, elapsed = serve.serve_events(pipe, feeds)
+        (res, _, _), launches, _ = counted(
+            lambda: serve.serve_events(pipe, feeds), warm, path)
         path_launches[path] = launches
         n_launch = ragged_launches(pipe, n_events)
         g = pipe.pipe.graph
@@ -1363,7 +1471,7 @@ def main() -> int:
                                             n_classes=2),
         "graphsage": graphsage.GraphSAGEConfig(n_layers=2, d_hidden=128,
                                                d_in=16, n_classes=5)}
-    gnn_chunk_ms = {}
+    gnn_chunk_ms, gnn_feeds = {}, {}
     card_args = serve.parse_args(["--device", "cuda"])
     cpu_args = serve.parse_args(["--device", "cpu"])
     for gname, gcfg in gnn_cfgs.items():
@@ -1403,13 +1511,19 @@ def main() -> int:
         # at the width the reference's service serves its GNN routes
         # with: max(8, microbatch)
         batch = max(serve.MIN_ROUTES_BATCH, mb)
-        feeds = route.events(GNN_EVENTS, 7)[0]
-        pipe({k: v[:batch] for k, v in feeds.items()})
+        feeds = gnn_feeds[gname] = route.events(GNN_EVENTS, 7)[0]
+
+        def warm(pipe=pipe, feeds=feeds, batch=batch):
+            pipe({k: v[:batch] for k, v in feeds.items()})
+        warm()
         torch.cuda.synchronize()
-        reset_counts()
         routed, elapsed = serve.serve_routes({gname: (pipe, feeds)}, batch)
-        res, lat, _ = routed[gname]
-        launches = path_launches[gname] = read_counts()
+        lat = routed[gname][1]
+        (routed, _), launches, _ = counted(
+            lambda pipe=pipe, feeds=feeds, batch=batch: serve.serve_routes(
+                {gname: (pipe, feeds)}, batch), warm, gname)
+        res = routed[gname][0]
+        path_launches[gname] = launches
         n_chunks = sum(-(-min(batch, GNN_EVENTS - s) // mb)
                        for s in range(0, GNN_EVENTS, batch))
         want = dict.fromkeys(wrappers, 0)
@@ -1425,7 +1539,7 @@ def main() -> int:
                 or not np.isfinite(logits).all():
             fail(f"{gname} logits: shape {logits.shape} or non-finite")
         with substituted(plain_fns):
-            plain_res = serve.serve_routes({gname: (pipe, feeds)},
+            plain_res = serve.serve_routes({gname: (Eager(pipe), feeds)},
                                            batch)[0][gname][0]
         if not np.array_equal(logits, plain_res["logits"]):
             err = np.abs(logits - plain_res["logits"]).max()
@@ -1445,7 +1559,7 @@ def main() -> int:
             f"{RTOL:g}·|cpu|)")
         rate(f"{gname}, design point 3, fp", GNN_EVENTS, lat, elapsed,
              batch)
-        busy_us, by_kernel = idle_share(
+        busy_us, by_kernel, _ = idle_share(
             lambda pipe=pipe, feeds=feeds: serve.serve_events(
                 pipe, {k: v[:batch] for k, v in feeds.items()}),
             f"{gname} dispatches of {batch} graphs", f"_{gname}")
@@ -1649,15 +1763,18 @@ def main() -> int:
     for pos in range(per_chunk):
         check("attention", pos, ATTN_BATCH, *calls[pos])
     del calls
-    serve.serve_events(apipe, {"tok": tok[:DISPATCH]})
+
+    def awarm():
+        serve.serve_events(apipe, {"tok": tok[:DISPATCH]})
+    awarm()
     torch.cuda.synchronize()
-    reset_counts()
-    ares, alat, aelapsed = serve.serve_events(apipe, afeeds)
-    launches = path_launches["attention"] = read_counts()
+    _, alat, aelapsed = serve.serve_events(apipe, afeeds)
+    (ares, _, _), launches, by_blocks = counted(
+        lambda: serve.serve_events(apipe, afeeds), awarm, "attention")
+    path_launches["attention"] = launches
     n_chunks = ATTN_EVENTS // ATTN_BATCH
     want = dict.fromkeys(wrappers, 0)
     want.update(flash_attention=n_chunks, fused_dense=n_dense * n_chunks)
-    by_blocks = dict(flash_attention_cuda.launches_by_blocks)
     if launches != want or by_blocks != {(128, 128): n_chunks}:
         fail(f"[attention] launch counts {launches} {by_blocks} != {want} "
              f"(one flash_attention at (128, 128) and {n_dense} fused_dense "
@@ -1666,7 +1783,7 @@ def main() -> int:
     if y.shape != (ATTN_EVENTS, ATTN_N, ATTN_D) or not np.isfinite(y).all():
         fail(f"attention output: shape {y.shape} or non-finite")
     with substituted(plain_fns):
-        plain_y = serve.serve_events(apipe, afeeds)[0]["y"]
+        plain_y = serve.serve_events(Eager(apipe), afeeds)[0]["y"]
     perr = np.abs(y - plain_y.astype(np.float64))
     if (perr > ATOL + RTOL * np.abs(plain_y)).any():
         fail(f"attention output: kernels vs plain versions max|err|="
@@ -1714,15 +1831,39 @@ def main() -> int:
     say(f"tuned {len(cache)} problems in {time.perf_counter() - t_tune:.1f}s"
         f"; flash_attention {fkey.encode()}: winner bq,bk={winner} "
         f"{fentry.us:.1f}us against the default's {fentry.default_us:.1f}us "
-        f"(host clock, synchronized; {fentry.candidates} plans)")
+        f"(the card's clock: CUDA events around back-to-back calls; "
+        f"{fentry.candidates} plans)")
+    # the tuner's contract on the card: the bound winner's device time
+    # is at most the default's (timed here in turns, default, winner,
+    # winner, default, on the deployment's q, k, v shape)
+    tq = qkv(ATTN_BATCH, ATTN_N, ATTN_N, ATTN_D)
+    plans_ms = [timer.device_ms(lambda c=c: kops.flash_attention(
+        *tq, causal=True, bq=c[0], bk=c[1]), 200)
+        for c in ((128, 128), winner, winner, (128, 128))]
+    default_ms = (plans_ms[0] + plans_ms[3]) / 2
+    winner_ms = (plans_ms[1] + plans_ms[2]) / 2
+    if winner != (128, 128) and not winner_ms <= default_ms:
+        fail(f"the tuner bound {winner} at {winner_ms:.5f} ms of device "
+             f"time, slower than the default (128, 128) at "
+             f"{default_ms:.5f} ms")
+    tuner_row = {"winner": list(winner), "winner_ms": winner_ms,
+                 "default_ms": default_ms, "tuner_us": fentry.us,
+                 "tuner_default_us": fentry.default_us}
+    say(f"tuner row: the bound winner {winner} takes {winner_ms:.5f} ms of "
+        f"device time a call (ops.flash_attention), the default (128, 128) "
+        f"{default_ms:.5f} ms: "
+        + ("the winner is the default" if winner == (128, 128)
+           else "at most the default's") + f" ({card})")
     tpipe = deploy_attention(cache=cache)
     knobs = tpipe.graph["attn"].attrs_opt
     if (knobs.get("bq"), knobs.get("bk")) != winner:
         fail(f"the redeployed attention op binds {knobs}, the cache's "
              f"winner is {winner}")
-    reset_counts()
-    ty = serve.serve_events(tpipe, {"tok": tok[:DISPATCH]})[0]["y"]
-    by_blocks = dict(flash_attention_cuda.launches_by_blocks)
+    (tres, _, _), _, by_blocks = counted(
+        lambda: serve.serve_events(tpipe, {"tok": tok[:DISPATCH]}),
+        lambda: serve.serve_events(tpipe, {"tok": tok[:ATTN_BATCH]}),
+        "attention, tuned")
+    ty = tres["y"]
     if by_blocks != {winner: DISPATCH // ATTN_BATCH}:
         fail(f"the tuned deployment launched {by_blocks}, not the winner "
              f"{winner}")
@@ -1775,7 +1916,183 @@ def main() -> int:
     say(f"phase 8 done at {time.perf_counter() - t_start:.1f}s "
         f"({time.perf_counter() - t8:.1f}s)")
 
-    # 9. the kernel line and the result ------------------------------------
+    # 9. the whole-pipeline compile: captured chunks against eager ones ---
+    t9 = time.perf_counter()
+
+    def leaves(tree, pre=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{pre}/{k}")
+        else:
+            yield pre, tree
+
+    def host_ms(call, feeds_dev, n_chunks):
+        """Host wall per chunk of one dispatch: the call's time until it
+        returns (its work enqueued), over its chunks; then a sync."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call(feeds_dev)
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt * 1e3 / n_chunks
+
+    capture_rows = {}
+
+    def captured_vs_eager(path, pipe, feeds, width):
+        """Serve ``feeds`` through the captured deployment and through
+        its eager run_chunk loop: every output bitwise equal; then in
+        turns (captured, eager, eager, captured, captured, eager) the
+        events/s, latency p50/p99 and the host wall per chunk of one
+        dispatch (on device feeds; a ragged launch is its one chunk),
+        and their medians."""
+        n = len(next(iter(feeds.values())))
+        eager = Eager(pipe)
+        outs = [serve.serve_routes({path: (p, feeds)}, width)[0][path][0]
+                for p in (pipe, eager)]
+        a, b = (dict(leaves(o)) for o in outs)
+        diff = sorted(k for k in a if not np.array_equal(a[k], b.get(k)))
+        if set(a) != set(b) or diff:
+            fail(f"[{path}] captured outputs differ from the eager run_chunk "
+                 f"loop's: {diff or sorted(set(a) ^ set(b))}")
+        unit = "chunk"
+        if isinstance(pipe, RaggedPipeline):
+            one = []    # the first launch's feeds of one dispatch
+            pipe._launch({k: v[:width] for k, v in feeds.items()},
+                         lambda f: one.append(f) or pipe.pipe(f))
+            inner, hfeeds, chunks, unit = pipe.pipe, one[0], 1, "launch"
+        else:
+            inner, chunks = pipe, -(-width // pipe.microbatch)
+            hfeeds = {k: v[:width] for k, v in feeds.items()}
+        hfeeds = {k: torch.as_tensor(np.asarray(v)).to(dev)
+                  for k, v in hfeeds.items()}
+        calls = {"captured": (pipe, inner), "eager": (eager,
+                                                      inner.run_eager)}
+        stats = {"captured": [], "eager": []}
+        for mode in ("captured", "eager", "eager", "captured", "captured",
+                     "eager"):
+            routed, elapsed = serve.serve_routes(
+                {path: (calls[mode][0], feeds)}, width)
+            lat = routed[path][1]
+            stats[mode].append([
+                n / elapsed, np.percentile(lat, 50) * 1e6,
+                np.percentile(lat, 99) * 1e6,
+                host_ms(calls[mode][1], hfeeds, chunks)])
+        med = {m: dict(zip(("events_s", "p50_us", "p99_us",
+                            "host_ms_per_chunk"),
+                           np.median(np.array(v), axis=0).tolist()))
+               for m, v in stats.items()}
+        # of a captured chunk's host time, the replay of its graphs alone
+        cap = next(iter(inner._graphs._by_sig.values()))
+        med["captured"]["host_ms_replay"] = float(np.median([
+            host_ms(lambda _: [g.replay() for g in cap.graphs], None, 1)
+            for _ in range(5)]))
+        capture_rows[path] = {**med, "events": n, "width": width,
+                              "captures": pipe.captures,
+                              "graphs_per_chunk": len(cap.graphs),
+                              "runs": {m: v for m, v in stats.items()}}
+        for m in ("captured", "eager"):
+            r = med[m]
+            say(f"[{path}] {m}: {r['events_s']:.1f} events/s, latency "
+                f"p50={r['p50_us']:.1f}us p99={r['p99_us']:.1f}us, host "
+                f"{r['host_ms_per_chunk']:.4f} ms per {unit}"
+                + (f" (replaying its {len(cap.graphs)} graph(s) "
+                   f"{r['host_ms_replay']:.4f})" if m == "captured" else "")
+                + f" (median of 3; {n} events, {width} per dispatch, "
+                f"{card})")
+        return med
+
+    cev = generate(gen_cfg, CAPTURE_EVENTS, seed=7)
+    ccn_feeds = {"hits": cev["feats"], "mask": cev["mask"]}
+    # the served default (warm-trained) first, with the profiler's
+    # cross-check: its two kernels once per replay
+    captured_vs_eager("mixed_trained", pipes["mixed_trained"], ccn_feeds,
+                      DISPATCH)
+    mt = pipes["mixed_trained"]
+    disp = {k: v[:DISPATCH] for k, v in ccn_feeds.items()}
+    replays = 4 * DISPATCH // mt.microbatch
+    idle = {}
+    for mode, p in (("captured", mt), ("eager", Eager(mt))):
+        busy, by_kernel, wall = idle_share(
+            lambda p=p: serve.serve_events(p, disp),
+            f"{mode} dispatches of {DISPATCH} events (mixed, trained)",
+            f"_mixed_{mode}")
+        idle[mode] = {"busy_us": busy, "wall_us": wall,
+                      "idle_share": 1 - busy / wall if busy else None}
+        seen = {n_: sum(c for k, (_, c) in by_kernel.items()
+                        if re.search(rf"(?<!\w){n_}_kernel(?!\w)", k))
+                for n_ in ("fused_dense_int8", "gravnet_block_int8")}
+        if mode == "captured" and seen != {"fused_dense_int8": 5 * replays,
+                                           "gravnet_block_int8": 2 * replays}:
+            fail(f"[mixed_trained] the profiler saw {seen} kernel runs over "
+                 f"{replays} replays, expected 5 and 2 per replay")
+        say(f"[mixed_trained] profiler, {mode}: {seen} kernel runs over "
+            f"{replays} chunks")
+    capture_rows["mixed_trained"]["idle"] = idle
+    for path in ("fp", "fp_dp1", "mixed_no_fuse_int8"):
+        captured_vs_eager(path, pipes[path], ccn_feeds, DISPATCH)
+    captured_vs_eager("ragged", pipes["ragged"], rg_feeds, DISPATCH)
+    for gname, gfeeds in gnn_feeds.items():
+        width = max(serve.MIN_ROUTES_BATCH, pipes[gname].microbatch)
+        captured_vs_eager(gname, pipes[gname], gfeeds, width)
+        if gname == "gatedgcn":
+            gdisp = {k: v[:width] for k, v in gfeeds.items()}
+            idle_g = {}
+            for mode, p in (("captured", pipes[gname]),
+                            ("eager", Eager(pipes[gname]))):
+                busy, _, wall = idle_share(
+                    lambda p=p: serve.serve_events(p, gdisp),
+                    f"{mode} GatedGCN dispatches of {width} graphs",
+                    f"_gatedgcn_{mode}")
+                idle_g[mode] = {"busy_us": busy, "wall_us": wall,
+                                "idle_share": 1 - busy / wall if busy
+                                else None}
+            capture_rows[gname]["idle"] = idle_g
+    captured_vs_eager("attention", apipe, afeeds, DISPATCH)
+    # CPS alone on one chunk's heads of the served default: its device
+    # time eager and captured (one CUDA graph of its k_max steps)
+    cev = generate(gen_cfg, mt.microbatch, seed=7)
+    heads_ = mt({"hits": cev["feats"], "mask": cev["mask"]})
+    cps_in = ({"beta_logit": heads_["beta"][..., 0].contiguous(),
+               "coords": heads_["coords"].contiguous(),
+               "energy": heads_["energy"][..., 0].contiguous()},
+              torch.from_numpy(cev["mask"]).to(dev))
+    cps_want = ccn.cps(*cps_in, cfg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ccn.cps(*cps_in, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    cps_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cps_graph):
+        cps_got = ccn.cps(*cps_in, cfg)
+    cps_graph.replay()
+    torch.cuda.synchronize()
+    for k, v in cps_want.items():
+        if not torch.equal(cps_got[k], v):
+            fail(f"captured cps {k} differs from eager cps")
+    cps_rows = {
+        "captured_device_ms": timer.device_ms(cps_graph.replay, 200),
+        # few calls: ~100 launches each would fill the launch queue and
+        # pace the card by the host
+        "eager_device_ms": timer.device_ms(lambda: ccn.cps(*cps_in, cfg),
+                                           5),
+        "eager_host_ms": float(np.median([host_ms(
+            lambda _: ccn.cps(*cps_in, cfg), None, 1) for _ in range(5)])),
+        "captured_host_ms": float(np.median([host_ms(
+            lambda _: cps_graph.replay(), None, 1) for _ in range(5)])),
+        "events": mt.microbatch}
+    capture_rows["cps"] = cps_rows
+    say(f"cps alone on one chunk's heads ({mt.microbatch} events): device "
+        f"{cps_rows['captured_device_ms']:.5f} ms captured, "
+        f"{cps_rows['eager_device_ms']:.5f} ms eager; host "
+        f"{cps_rows['captured_host_ms']:.4f} ms to replay, "
+        f"{cps_rows['eager_host_ms']:.4f} ms to enqueue eagerly ({card})")
+    capture_rows["tuner"] = tuner_row
+    (OUT / "capture.json").write_text(json.dumps(capture_rows, indent=1))
+    say(f"phase 9 done at {time.perf_counter() - t_start:.1f}s "
+        f"({time.perf_counter() - t9:.1f}s)")
+
+    # 10. the kernel line and the result -----------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)

@@ -1,7 +1,7 @@
 """Kernel-level optimization pass (paper §III-A "Kernel-Level
 Optimizations").
 
-Counterpart of ``repro/core/passes/kernel_opt.py``, three of its steps:
+Counterpart of ``repro/core/passes/kernel_opt.py``, its four steps:
 
 1. **Kernel binding** through the registry (``op_registry.bind_kernels``):
    a small MXU dense binds the 'flattened' variant, a large one the
@@ -22,8 +22,14 @@ Counterpart of ``repro/core/passes/kernel_opt.py``, three of its steps:
    emits int8 straight from its epilogue (``emit_int8``), requantized
    with its own calibrated scale, instead of f32.
 
-The reference's whole-pipeline ``jax.jit`` has no counterpart here: the
-port runs the segments eagerly (CUDA graphs are later work).
+4. **Whole-pipeline compile**: ``g.meta["fuse_pipeline"] = True``, as
+   the reference sets it for its whole-graph ``jax.jit``. On ``cuda``
+   the ``CompiledPipeline`` of such a graph captures each micro-batch
+   chunk, every segment with its P-chunking, CPS and the output, as one
+   CUDA graph and replays it per chunk; a graph without the flag
+   (design points 1–2, which run no kernel-opt pass) is captured one
+   CUDA graph per segment, the reference's per-segment ``jax.jit``. On
+   the CPU both run eagerly (``core/pipeline.py``).
 """
 from __future__ import annotations
 
@@ -108,4 +114,7 @@ def kernel_optimize(g: Graph, *, n_rows: int = 128, batch: int = 1,
                         and require_spec(s).int8_passthrough
                         for s in succ):
             op.attrs_opt["emit_int8"] = True
+
+    # 4. whole-pipeline compile: each chunk captured as one CUDA graph
+    g.meta["fuse_pipeline"] = True
     return g

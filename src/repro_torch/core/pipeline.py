@@ -44,12 +44,27 @@ the kernel's defaults. ``deploy(..., tuning_cache=...)`` binds every
 cached winner whose key matches (``repro_torch.tuning``); the
 executable's ``backend`` ("cuda" or "cpu") is the backend of its keys.
 
-What the reference compiles, the port runs eagerly: the P-chunking
-``lax.map`` is a Python loop, the whole-pipeline ``jax.jit`` is a plain
-call of the segments in order (CUDA graphs are later work). Fused
-blocks, padded or ragged, whose output dense reads the aggregate alone
-(``concat_x=False``; no graph of CaloClusterNet has one) are refused
-with ``NotImplementedError``.
+What the reference compiles with ``jax.jit``, the port captures as CUDA
+graphs on ``cuda``. A graph that kernel_opt marked ``fuse_pipeline``
+(design point 3) runs each micro-batch chunk as one graph replay: every
+segment in order, the P-chunking loop (the reference's ``lax.map``),
+CPS and the output. A graph without the mark (design points 1–2) runs
+one replay per segment, the reference's per-segment ``jax.jit``, the
+segments handing each other static tensors. A chunk shape is captured
+at its first call (a warm-up call or the first request): it is run once
+eagerly on a side stream (which builds the kernels and answers that
+chunk), then captured; later chunks copy their feeds into the static
+buffers, replay, and are copied out into the call's result before the
+next replay. ``calibrate`` drops every capture, since the int8 scales
+and weights are baked into it. A capture that fails raises. What stays
+eager: the CPU (the kernels' plain versions, nothing to capture),
+``run_chunk`` and ``run_eager`` (calibration, the tests, a deployment
+with the plain versions substituted on the card, whose
+``edge_aggregate`` reads its loop length back to the host), and the
+ragged path's bin packing on the host. Fused blocks, padded or ragged,
+whose output dense reads the aggregate alone (``concat_x=False``; no
+graph of CaloClusterNet has one) are refused with
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -106,6 +121,17 @@ def _tree_cat(parts):
     if isinstance(parts[0], dict):
         return {k: _tree_cat([p[k] for p in parts]) for k in parts[0]}
     return torch.cat(parts, dim=0)
+
+
+def _tree_copy(dst, src, i):
+    """Copy ``src`` into the ``i``-th block of ``len(src)`` rows of
+    ``dst``, leaf by leaf (the ``i``-th chunk of a concatenation)."""
+    if isinstance(src, dict):
+        for k, v in src.items():
+            _tree_copy(dst[k], v, i)
+    else:
+        n = src.shape[0]
+        dst[i * n:(i + 1) * n].copy_(src)
 
 
 def _pad_lane(v):
@@ -413,6 +439,125 @@ class _Executor:
         return result, env
 
 
+# --------------------------------------------------------------- capture ----
+class _CudaGraphs:
+    """The capture backend on the card: ``torch.cuda`` graphs on the
+    pipeline's device, warmed up on a side stream of its own."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._side = None
+
+    def warmup(self, fn):
+        """``fn()`` eagerly on the side stream, ordered after and before
+        the current stream's work."""
+        cur = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            out = fn()
+        cur.wait_stream(self._side)
+        return out
+
+    def capture(self, fn, pool=None):
+        """(graph, static outputs) of ``fn`` captured into one CUDA graph;
+        graphs given the same ``pool`` share memory and replay in the
+        order they were captured."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+        return graph, out
+
+    @staticmethod
+    def pool(graph):
+        return graph.pool()
+
+    @staticmethod
+    def replay(graph):
+        graph.replay()
+
+
+class _Captured(NamedTuple):
+    feeds: dict       # static feed buffers, (microbatch, ...) each
+    graphs: list      # replayed in order: one (fused) or one per segment
+    out: Any          # static outputs, overwritten by the next replay
+    launches: dict    # the wrappers' launch counts one replay adds
+
+
+class _ChunkGraphs:
+    """A CompiledPipeline's chunk captured per feed signature (names,
+    shapes and dtypes): one graph for a ``fuse_pipeline`` graph, else
+    one per segment. ``backend`` is :class:`_CudaGraphs` on the card;
+    the tests inject a recording stand-in on the CPU."""
+
+    def __init__(self, pipe, backend):
+        self.pipe = pipe
+        self.backend = backend
+        self._by_sig: dict[tuple, _Captured] = {}
+
+    def __len__(self):
+        return len(self._by_sig)
+
+    def clear(self):
+        self._by_sig.clear()
+
+    def run(self, feeds):
+        """The outputs of one chunk: a replay of its captured graphs
+        (static tensors, valid until the next replay), or, the first
+        time its signature is seen, the eager warm-up run's."""
+        sig = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(feeds.items()))
+        cap = self._by_sig.get(sig)
+        if cap is None:
+            out, self._by_sig[sig] = self._capture(feeds)
+            return out
+        for k, v in feeds.items():
+            cap.feeds[k].copy_(v)
+        for graph in cap.graphs:
+            self.backend.replay(graph)
+        # a replay calls no wrapper: its launches are counted here
+        kops.add_launches(cap.launches)
+        return cap.out
+
+    def _capture(self, feeds):
+        pipe = self.pipe
+        static = {k: v.clone() for k, v in feeds.items()}
+        # builds the kernels and answers this chunk; its launches ran
+        out = self.backend.warmup(lambda: pipe.run_chunk(static))
+        before = kops.launch_counts()
+        # no cached (src, dst) crosses into or out of a graph's pool
+        pipe._ex._ei = None
+        try:
+            if pipe._fused:
+                graph, static_out = self.backend.capture(
+                    lambda: pipe.run_chunk(static))
+                graphs = [graph]
+            else:
+                graphs, env, pool = [], {}, None
+                for plan in pipe._plans:
+                    env_in = {i: env[i] for i in plan[1] if i in env}
+                    if pipe._feeds_only(plan):
+                        # launches nothing: its outputs are the feeds
+                        env.update(pipe._run_segment(plan, env_in, static))
+                        continue
+                    graph, seg_out = self.backend.capture(
+                        lambda plan=plan, env_in=env_in: pipe._run_segment(
+                            plan, env_in, static), pool)
+                    pool = pool or self.backend.pool(graph)
+                    graphs.append(graph)
+                    env.update(seg_out)
+                static_out = env[pipe._out]
+            after = kops.launch_counts()
+        finally:
+            pipe._ex._ei = None
+            # a capture records its launches without running them
+            kops.set_launch_counts(before)
+        launches = {k: n - before.get(k, 0) for k, n in after.items()
+                    if n != before.get(k, 0)}
+        return out, _Captured(static, graphs, static_out, launches)
+
+
 # -------------------------------------------------------- compiled object ----
 class CompiledPipeline:
     """A deployed graph bound to a device. ``pipe(feeds)`` takes one
@@ -427,6 +572,11 @@ class CompiledPipeline:
     chunk, each segment running the whole chunk at once (no P-chunking).
     ``backend`` names the kernels' route for the tuning layer: "cuda"
     (the hand-written kernels) or "cpu" (their plain versions).
+
+    On ``cuda`` a call replays each chunk's captured CUDA graphs (one
+    per chunk under ``fuse_pipeline``, else one per segment), capturing
+    a chunk shape the first time it is seen; ``captures`` counts the
+    shapes captured. ``run_eager`` runs the same chunks without capture.
     """
 
     def __init__(self, graph: Graph, device: torch.device, *,
@@ -448,6 +598,9 @@ class CompiledPipeline:
                              self.graph.meta.get("n_hits"))
         self._plans = [self._plan(seg) for seg in self.segments]
         self._out = self.graph.outputs()[0].name
+        self._fused = bool(self.graph.meta.get("fuse_pipeline"))
+        self._graphs = (_ChunkGraphs(self, _CudaGraphs(device))
+                        if device.type == "cuda" else None)
 
     def _plan(self, seg):
         g = self.graph
@@ -464,6 +617,14 @@ class CompiledPipeline:
             if op.name in names and op.name not in outs:
                 outs.append(op.name)
         return [g[n] for n in seg["ops"]], ins, outs
+
+    def _feeds_only(self, plan) -> bool:
+        """Whether a segment only hands on its feeds, as views (input
+        ops, no P-chunking loop that would concatenate them)."""
+        ops_ = plan[0]
+        return all(op.op_type == "input" for op in ops_) and (
+            self.batch_packed
+            or ops_[0].attrs_opt.get("P", 1) >= self.microbatch)
 
     def _run_segment(self, plan, env_in, feeds):
         ops_, _, outs = plan
@@ -486,9 +647,14 @@ class CompiledPipeline:
                  for c in range(0, mb, p_seg)]
         return _tree_cat(parts)
 
+    @property
+    def captures(self) -> int:
+        """Chunk shapes captured as CUDA graphs so far (0 on the CPU)."""
+        return 0 if self._graphs is None else len(self._graphs)
+
     def run_chunk(self, feeds):
         """One micro-batch chunk (exactly ``microbatch`` events, tensors
-        on the device) through every segment."""
+        on the device) through every segment, eagerly."""
         env: dict[str, Any] = {}
         for plan in self._plans:
             env.update(self._run_segment(
@@ -505,6 +671,8 @@ class CompiledPipeline:
         (no chunking), set each op's activation scale from its max-abs,
         quantize the int8 denses' weights per output channel and bake
         the int8 blocks' scales."""
+        if self._graphs is not None:   # the captures bake the scales in
+            self._graphs.clear()
         record: dict[str, float] = {}
         _, env = self._ex.run(self.graph, self._on_device(feeds),
                               force_fp=True, record=record)
@@ -545,7 +713,9 @@ class CompiledPipeline:
             p[nm + "_q"], p[nm + "_scale"] = quantize_weight(p[nm])
 
     # inference -------------------------------------------------------------
-    def __call__(self, feeds):
+    def _chunks(self, feeds):
+        """(events, padded events, the chunks' feeds): the feeds on the
+        device, zero-padded to whole micro-batches."""
         feeds = self._on_device(feeds)
         b = next(iter(feeds.values())).shape[0]
         mb = self.microbatch
@@ -553,10 +723,28 @@ class CompiledPipeline:
         if pad:
             feeds = {k: torch.cat([v, v.new_zeros((pad, *v.shape[1:]))])
                      for k, v in feeds.items()}
-        chunks = [self.run_chunk({k: v[s:s + mb] for k, v in feeds.items()})
-                  for s in range(0, b + pad, mb)]
-        out = _tree_cat(chunks)
-        return _tree_map(lambda a: a[:b], out) if pad else out
+        return b, b + pad, [{k: v[s:s + mb] for k, v in feeds.items()}
+                            for s in range(0, b + pad, mb)]
+
+    def run_eager(self, feeds):
+        """A call without capture: ``run_chunk`` per chunk."""
+        b, total, chunks = self._chunks(feeds)
+        out = _tree_cat([self.run_chunk(c) for c in chunks])
+        return _tree_map(lambda a: a[:b], out) if total > b else out
+
+    def __call__(self, feeds):
+        if self._graphs is None:
+            return self.run_eager(feeds)
+        b, total, chunks = self._chunks(feeds)
+        out = None
+        for i, chunk in enumerate(chunks):
+            part = self._graphs.run(chunk)
+            if out is None:
+                out = _tree_map(lambda a: a.new_empty(
+                    (len(chunks) * a.shape[0], *a.shape[1:])), part)
+            # out of the static outputs before the next replay
+            _tree_copy(out, part, i)
+        return _tree_map(lambda a: a[:b], out) if total > b else out
 
 
 # ----------------------------------------------------------------- deploy ----
@@ -708,7 +896,21 @@ class RaggedPipeline:
             launches.append((start, start + n_ev))
         return launches
 
+    @property
+    def captures(self) -> int:
+        """The inner executable's captured chunk shapes (one launch
+        layout: 1 once warm on the card, 0 on the CPU)."""
+        return self.pipe.captures
+
     def __call__(self, feeds):
+        return self._launch(feeds, self.pipe)
+
+    def run_eager(self, feeds):
+        """A call whose launches run without capture
+        (``CompiledPipeline.run_eager``)."""
+        return self._launch(feeds, self.pipe.run_eager)
+
+    def _launch(self, feeds, run):
         if isinstance(feeds, RaggedBatch):
             rb = feeds
         else:
@@ -720,9 +922,9 @@ class RaggedPipeline:
             sub = RaggedBatch(feats=rb.feats[offs[i]:offs[j]],
                               offsets=offs[i:j + 1] - offs[i])
             bp = bin_pack(sub, self.capacity, n_bins=self.microbatch)
-            out = self.pipe({"hits": bp.feats,
-                             "mask": (bp.segids >= 0).astype(np.float32),
-                             "segids": bp.segids, "slots": bp.slots})
+            out = run({"hits": bp.feats,
+                       "mask": (bp.segids >= 0).astype(np.float32),
+                       "segids": bp.segids, "slots": bp.slots})
             n_ev = j - i
             part = {}
             for name, v in out.items():
@@ -747,7 +949,9 @@ class RaggedPipeline:
         """One call on the example feeds (the calibration batch given to
         ``deploy``), else on a synthetic full-occupancy batch, so the
         first real call pays no first-use cost (kernel builds, the
-        allocator's first blocks). Returns 1."""
+        allocator's first blocks, and on the card the capture of the
+        launch layout, whose every launch then replays one CUDA graph).
+        Returns 1."""
         if self._example is not None:
             feeds = {k: np.asarray(v) for k, v in self._example.items()
                      if k in ("hits", "mask")}

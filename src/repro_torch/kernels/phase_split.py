@@ -128,6 +128,18 @@ def stamped_source(src: str, kernel: str | None = None
     return out, labels
 
 
+def sleep_cycles_per_ms(torch, cycles: int = 20_000_000) -> float:
+    """Cycles of ``torch.cuda._sleep`` per ms: a spin of ``cycles`` timed
+    by CUDA events (read right after the launches it converts, while the
+    clock is up)."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    return cycles / a.elapsed_time(b)
+
+
 def device_ms(torch, fn, cycles_per_ms: float, reps: int = 200) -> float:
     """Device time of one call of ``fn``: a sleep kernel of about 1.5×
     the host's enqueue time holds the card while ``reps`` calls are
@@ -295,16 +307,6 @@ def main(argv=None) -> int:
     package = getattr(spec.module, spec.package)
     package_kw = dict(spec.package_kw)
 
-    def sm_cycles_per_ms() -> float:
-        """The SM clock, from a spin of 10^8 cycles timed by events (read
-        right after the launches it converts, while the clock is up)."""
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        torch.cuda._sleep(100_000_000)
-        b.record()
-        b.synchronize()
-        return 100_000_000 / a.elapsed_time(b)
-
     report = {"card": card, "kernel": args.kernel, "source": str(source),
               "labels": labels, "runs": []}
     print(f"kernel {args.kernel}, source {source}")
@@ -324,14 +326,14 @@ def main(argv=None) -> int:
             return spec.call(fn, t, ys, bsz, bm,
                              torch.cuda.current_stream().cuda_stream, kw)
 
-        cycles_per_ms = sm_cycles_per_ms()
+        cycles_per_ms = sleep_cycles_per_ms(torch, 100_000_000)
         stamped_ms = device_ms(torch, call, cycles_per_ms)
         package_ms = device_ms(torch, lambda: package(*t, **kw,
                                                       **package_kw),
                                cycles_per_ms)
         _build.check(call(), f"stamped {args.kernel}")
         torch.cuda.synchronize()
-        cycles_per_ms = sm_cycles_per_ms()
+        cycles_per_ms = sleep_cycles_per_ms(torch, 100_000_000)
         st = stamps.view(ctas, MAX_STAMPS)[:, :len(labels) + 1]
         us = np.diff(st.cpu().numpy().astype(np.float64), axis=1) / (
             cycles_per_ms / 1e3)

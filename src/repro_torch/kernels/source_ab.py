@@ -43,7 +43,7 @@ import json
 import subprocess
 from pathlib import Path
 
-from repro_torch.kernels.phase_split import device_ms
+from repro_torch.kernels.phase_split import device_ms, sleep_cycles_per_ms
 
 #: (chunk, launches per chunk, M, own K, N, lane-padded K or None): the
 #: denses of a chunk, as chip_smoke.py records them (all timed with relu)
@@ -170,12 +170,7 @@ def main(argv=None) -> int:
                                            name), entry)
         old[name].argtypes = ARGTYPES[name]
 
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    torch.cuda._sleep(20_000_000)
-    b.record()
-    b.synchronize()
-    cycles_per_ms = 20_000_000 / a.elapsed_time(b)
+    cycles_per_ms = sleep_cycles_per_ms(torch)
 
     def turns(earlier, current):
         """Earlier, current, current, earlier; the mean of each pair."""

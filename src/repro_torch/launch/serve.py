@@ -54,7 +54,10 @@ path's flag are not ported: ``build_pipeline(..., ragged=True,
 batch=8)`` deploys the ragged path (the reference has no flag for it
 either) and ``serve_events`` serves it.
 
-Runs on ``cuda`` unless ``--device cpu`` is given.
+Runs on ``cuda`` unless ``--device cpu`` is given. On ``cuda`` each
+route's warm-up dispatch (events of seed 99) captures its chunk shapes
+as CUDA graphs (``core/pipeline.py``), so the timed loop replays the
+captured graphs only.
 """
 from __future__ import annotations
 
@@ -503,11 +506,13 @@ def main(argv=None):
             hits, n_keys = cache_hits(pipe, cache)
             print(f"[serve] route {sv.name}: {hits} of {n_keys} kernel "
                   "problems bound from the tuning cache")
+        # one warm-up dispatch per route: its first launches, and on the
+        # card the capture of every chunk shape it serves
         if width is None:
             batch = max(pipe.microbatch, MIN_SERVE_BATCH)
-            serve_events(pipe, sv.events(batch, 99)[0])  # first launches
+            serve_events(pipe, sv.events(batch, 99)[0])
         else:
-            pipe(sv.events(width, 99)[0])    # one warm-up call per route
+            pipe(sv.events(width, 99)[0])
         n = args.events // len(servables) + (i < args.events % len(servables))
         feeds, truth[sv.name] = sv.events(n, 7 + i)
         routes[sv.name] = (pipe, feeds)
@@ -517,6 +522,9 @@ def main(argv=None):
         warmed = make_warmup(cache, backend=servables[0].pipe.backend)()
         print(f"[serve] warmed {warmed} cached kernel shape(s) before "
               "serving")
+    print("[serve] chunk shapes captured as CUDA graphs before serving: "
+          + ", ".join(f"{name} {pipe.captures}"
+                      for name, (pipe, _) in routes.items()))
 
     res, dt = serve_routes(routes, width)
     total = sum(len(r[1]) for r in res.values())

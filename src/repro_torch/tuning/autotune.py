@@ -12,13 +12,16 @@ up), so a later ``deploy(..., tuning_cache=...)`` hits every entry.
 The backend names the device: ``"cuda"`` runs the hand-written kernels
 on the card, ``"cpu"`` their plain versions. The default candidate is
 measured first and dethroned only by a win of more than ``MIN_GAIN``.
-On the card a call is timed between two ``torch.cuda.synchronize()``,
-so the clock reads the kernels' work and not the launch's return. The
+On the card a candidate is timed on the card's clock: CUDA events around
+back-to-back calls, enqueued behind a sleep kernel that holds the card
+until the host has enqueued them all, so the events read the calls'
+device work and neither the host's enqueue nor a synchronization (a
+host clock would: a launch and its syncs outweigh a 30 µs kernel). The
 plain versions ignore every launch knob, so on ``"cpu"`` a search would
 time one program several times: there the default is measured alone,
-as the reference does on ``"xla"``; its entry still tells warm-up which
-shapes the deployment launches. Of the kernels, only ``flash_attention``
-takes a knob yet (``candidates.py``).
+on the host clock as the reference does on ``"xla"``; its entry still
+tells warm-up which shapes the deployment launches. Of the kernels, only
+``flash_attention`` takes a knob yet (``candidates.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.phase_split import device_ms, sleep_cycles_per_ms
 from repro_torch.tuning import candidates as cand
 from repro_torch.tuning.cache import (KernelKey, TuningCache,
                                       edge_aggregate_key,
@@ -52,23 +56,26 @@ def device_of(backend: str) -> torch.device:
     return resolve_device(backend)
 
 
-def _time_call(fn, *, warmup: int = 2, iters: int = 5,
-               sync: bool = False) -> float:
-    """Min seconds per call; with ``sync`` the card is synchronized
-    before and after each call, so the clock reads the kernels' work.
-    Min, not median: noise on a busy host only adds."""
+def _time_call(fn, *, warmup: int = 2, iters: int = 5) -> float:
+    """Min host seconds per call (the plain versions on the CPU). Min,
+    not median: noise on a busy host only adds."""
     for _ in range(warmup):
         fn()
     ts = []
     for _ in range(iters):
-        if sync:
-            torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
-        if sync:
-            torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
     return float(np.min(ts))
+
+
+def _device_time_call(fn, *, iters: int = 5, reps: int = 20) -> float:
+    """Min device seconds per call on the card: ``phase_split.device_ms``
+    (``reps`` calls back to back behind a sleep kernel, bracketed by CUDA
+    events) over ``iters`` runs."""
+    cycles_per_ms = sleep_cycles_per_ms(torch)
+    return min(device_ms(torch, fn, cycles_per_ms, reps)
+               for _ in range(iters)) * 1e-3
 
 
 def _pick(timed: list[tuple[dict, float]], *, min_gain: float):
@@ -97,9 +104,8 @@ def _finish(cache: TuningCache | None, key: KernelKey, timed,
 
 def _search(call, cands, backend, iters):
     if backend in _KNOB_INERT_BACKENDS:
-        cands = cands[:1]
-    return [(cfg, _time_call(lambda c=cfg: call(c), iters=iters,
-                             sync=backend == "cuda"))
+        return [(cands[0], _time_call(lambda: call(cands[0]), iters=iters))]
+    return [(cfg, _device_time_call(lambda c=cfg: call(c), iters=iters))
             for cfg in cands]
 
 

@@ -5,7 +5,10 @@ would otherwise pay every first use: a kernel library's build and load,
 the allocator's first blocks at each shape. The tuning cache knows which
 (kernel, shape, dtype, backend) problems the deployment launches, so
 ``warm_from_cache`` replays each cached winner once on synthetic inputs
-before the timed dispatches.
+before the timed dispatches. The reference's warm-up also fills its jit
+cache; the port's counterpart, the capture of a chunk as CUDA graphs
+(``core/pipeline.py``), happens at a deployment's first call, which
+``launch/serve.py`` makes once per route before traffic.
 
 Warm-up is best-effort: an entry that no longer matches the installed
 kernels (an unknown knob, an impossible shape) is skipped, and serving

@@ -433,3 +433,41 @@ def test_tuned_attention_deployment_matches_reference_output(setups):
         "attn"].attrs_opt["P"], "bq": 8, "bk": 8}
     assert_close(tpipe({"tok": tok})["y"].numpy(), np.asarray(want),
                  dtype="float32")
+
+
+def test_search_times_the_card_on_its_clock(monkeypatch):
+    """On ``cuda`` every candidate is timed by the device timer (CUDA
+    events behind a sleep kernel), never on the host clock; on ``cpu``
+    the default alone, on the host clock. A challenger then dethrones
+    the default only by more than ``MIN_GAIN``."""
+    from repro_torch.tuning import autotune as tautotune
+    device_times = iter([40e-6, 35e-6, 39e-6])   # default, then two
+    timers = []
+
+    def device(fn, *, iters):
+        timers.append("device")
+        fn()
+        return next(device_times)
+
+    def host(fn, *, iters):
+        timers.append("host")
+        fn()
+        return 1.0
+
+    monkeypatch.setattr(tautotune, "_device_time_call", device)
+    monkeypatch.setattr(tautotune, "_time_call", host)
+    cands = [{"bq": 128, "bk": 128}, {"bq": 64, "bk": 64},
+             {"bq": 32, "bk": 32}]
+    called = []
+    timed = tautotune._search(called.append, cands, "cuda", 5)
+    assert timers == ["device"] * 3 and called == cands
+    assert [t for _, t in timed] == [40e-6, 35e-6, 39e-6]
+    best, _, _ = tautotune._pick(timed, min_gain=tautotune.MIN_GAIN)
+    assert best == {"bq": 64, "bk": 64}
+    best, _, _ = tautotune._pick(timed, min_gain=0.2)
+    assert best == cands[0]
+    timers.clear()
+    called.clear()
+    assert tautotune._search(called.append, cands, "cpu", 5) == [
+        (cands[0], 1.0)]
+    assert timers == ["host"] and called == cands[:1]
