@@ -152,7 +152,26 @@ Phases, each of which exits non-zero when it fails:
    on the card counted from the profiler's records (``counted``); the
    counters, which a replay adds to by what its capture recorded, must
    read the same, and the kernels line takes the profiler's counts;
-10. print ``{"kernels": [...]}`` with every kernel of the port, then
+10. the serving layer: ``serve.run`` (``python -m
+    repro_torch.launch.serve``) through ``ShardedTriggerService``, each
+    replica on a lane of its own (a CUDA stream, captures and pinned
+    rings): (a) the default run (warm-trained mixed, design point 3, one
+    replica, the streaming loop, 512 events), (b) ``--replicas 2`` under
+    each policy, (c) ``--loop deadline``, (d) ``--model gatedgcn
+    graphsage``, (f) ``--replicas 2 --inject-faults
+    'fail:p=1.0,replica=1' --max-retries 2`` (0 client-visible
+    failures), and (e) a ``ragged=`` service over the ragged deployment,
+    16 events a launch. Every event released once, in submission order,
+    every output bitwise equal to ``serve_events`` on the same deployment
+    (the plain captured loop, timed right after it), each lane captured
+    before traffic and nothing during it; then a fresh service on the
+    same deployment serves the events once more as its counted run (the
+    profiler's kernel runs equal to the counters; on the mixed runs 5
+    ``fused_dense_int8`` and 2 ``gravnet_block_int8`` per chunk of every
+    launch that ran) and its idle share; events/s, p50/p99, the budget,
+    batches and padded events beside the plain loop's and phase 9's
+    (``service.json``). The kernel line's launches add these runs';
+11. print ``{"kernels": [...]}`` with every kernel of the port, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -201,6 +220,7 @@ ATTN_SHAPES = ((8, 512, 512, 64), (8, 1024, 1024, 64),
 ATTN_N, ATTN_D, ATTN_BATCH = 512, 64, 8  # the deployed attention graph
 ATTN_EVENTS = 32
 CAPTURE_EVENTS = 128            # CaloClusterNet events of phase 9's paths
+PROFILE_MARGIN_S = 0.02         # idle time at each edge of a profiled window
 
 KERNELS = {
     "fused_dense": {
@@ -632,11 +652,15 @@ def main() -> int:
             warm()
             torch.cuda.synchronize()
             prof.step()
+            # a margin at each edge of the active window: a kernel that
+            # ran just past its start was once dropped as before it
+            time.sleep(PROFILE_MARGIN_S)
             reset_counts()
             out = call()
             torch.cuda.synchronize()
             counters = read_counts()
             by_blocks = dict(flash_attention_cuda.launches_by_blocks)
+            time.sleep(PROFILE_MARGIN_S)
             prof.step()
         seen = dict.fromkeys(wrappers, 0)
         seen_blocks: dict[tuple, int] = {}
@@ -650,6 +674,13 @@ def main() -> int:
                 bq_bk = (int(m[1]), int(m[2]))
                 seen_blocks[bq_bk] = seen_blocks.get(bq_bk, 0) + 1
         if seen != counters or seen_blocks != by_blocks:
+            # every device record of the window, for the diagnosis
+            tag = re.sub(r"\W+", "_", label)
+            (OUT / f"profile_mismatch_{tag}.json").write_text(json.dumps([
+                 (e.name, e.time_range.start, e.time_range.end,
+                  e.device_index, str(e.device_type)) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA],
+                 indent=0))
             fail(f"[{label}] the profiler saw {seen} {seen_blocks} kernel "
                  f"runs, the launch counters read {counters} {by_blocks}")
         say(f"[{label}] profiler: kernel runs on the card equal the launch "
@@ -1256,11 +1287,13 @@ def main() -> int:
             serve_once()
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(PROFILE_MARGIN_S)    # as in ``counted``
             t0 = time.perf_counter()
             for _ in range(4):
                 serve_once()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(PROFILE_MARGIN_S)
             prof.step()
         kernels_us: dict[str, list] = {}
         for e in prof.events():
@@ -2092,7 +2125,228 @@ def main() -> int:
     say(f"phase 9 done at {time.perf_counter() - t_start:.1f}s "
         f"({time.perf_counter() - t9:.1f}s)")
 
-    # 10. the kernel line and the result -----------------------------------
+    # 10. the service: ShardedTriggerService, one lane per replica --------
+    t10 = time.perf_counter()
+    from repro_torch.serving import ShardedTriggerService
+    service_rows = {}
+
+    def leaves_equal(got, want, label):
+        """Every output leaf of the served events bitwise equal to the
+        plain captured loop's."""
+        a, b = dict(leaves(got)), dict(leaves(want))
+        diff = sorted(k for k in b if not np.array_equal(a.get(k), b[k]))
+        if set(a) != set(b) or diff:
+            fail(f"[{label}] served events differ from serve_events on the "
+                 f"same deployment: {diff or sorted(set(a) ^ set(b))}")
+
+    def released_once_in_order(served, summary, label, n):
+        """Every event released once, in submission order, answered."""
+        if served.order != list(range(n)) or served.failed \
+                or summary["completed"] != n \
+                or sum(r["completed"] for r in summary["per_replica"]) != n:
+            fail(f"[{label}] release: order {served.order[:8]}... of {n}, "
+                 f"{served.failed} failed, completed {summary['completed']}")
+
+    def lanes_captured_before_traffic(captures, label):
+        if not captures or any(c["captures"] != c["captured_at_start"]
+                               or c["captured_at_start"] < 1
+                               for c in captures):
+            fail(f"[{label}] lane captures {captures}: each lane must capture "
+                 "before traffic and nothing during it")
+
+    def profiled(label, make_svc, routed, expect=None):
+        """A fresh service on the same deployment: its counted run (every
+        counter at 0 just before, the profiler's kernel records equal to
+        the counters), its lanes' captures unchanged under traffic, and
+        the idle share over 4 calls of a quarter of the events."""
+        svc = make_svc()
+        try:
+            n = sum(len(next(iter(f.values()))) for f in routed.values())
+            part = {r: {k: v[:max(1, len(v) // 4)] for k, v in f.items()}
+                    for r, f in routed.items()}
+            ran = {}
+
+            def call():
+                ran["before"] = batches_ran(svc)
+                out = serve.submit_all(svc, routed)
+                ran["during"] = batches_ran(svc) - ran["before"]
+                return out
+            (served, launches, _) = counted(
+                call, lambda: serve.submit_all(svc, part),
+                f"service {label}")
+            if served.failed or served.order != list(range(n)):
+                fail(f"[service {label}] the counted run: {served.failed} "
+                     "failed or out of order")
+            if expect is not None and expect(svc, launches, ran["during"]):
+                fail(f"[service {label}] launches {launches}: "
+                     f"{expect(svc, launches, ran['during'])}")
+            busy, _, wall = idle_share(
+                lambda: serve.submit_all(svc, part),
+                f"service calls of {label}",
+                "_service_" + label.replace(" ", "_"))
+            svc.drain()
+            lanes_captured_before_traffic(svc.capture_summary(),
+                                          f"service {label}, profiled")
+        finally:
+            svc.close()
+        path_launches[f"service {label}"] = launches
+        return launches, (1 - busy / wall) if busy else None
+
+    def plain_rate(report):
+        """The plain captured loop on the report's deployment and events,
+        timed right after the service: events/s, p50 and p99 µs."""
+        routes = {sv.name: (sv.pipe, report.feeds[sv.name])
+                  for sv in report.servables}
+        res, elapsed = serve.serve_routes(
+            routes, None if len(routes) == 1 else
+            serve.service_width(report.servables))
+        n = sum(len(r[1]) for r in res.values())
+        lat = np.concatenate([r[1] for r in res.values()])
+        return res, {"events_s": n / elapsed,
+                     "p50_us": float(np.percentile(lat, 50) * 1e6),
+                     "p99_us": float(np.percentile(lat, 99) * 1e6)}
+
+    def batches_ran(svc):
+        """Batches the service launched that ran (one failed by an
+        injected fault ran no kernel)."""
+        return sum(r.stats.batches for r in svc.replicas) - (
+            svc.faults.counts()["fail"] if svc.faults is not None else 0)
+
+    def mixed_launches(svc, launches, ran):
+        """5 fused_dense_int8 and 2 gravnet_block_int8 per chunk of every
+        launch that ran in the counted run, nothing else."""
+        chunks = ran * (svc.microbatch // svc.replicas[0].lane.microbatch)
+        want = dict.fromkeys(wrappers, 0)
+        want.update(fused_dense_int8=5 * chunks, gravnet_block_int8=2 * chunks)
+        return None if launches == want else f"expected {want}"
+
+    def row(label, served, s_, plain, idle, launches):
+        bud = s_["budget"]
+        n = sum(len(v) for v in served.results.values())
+        r = {"events": n, "events_s": n / served.elapsed_s,
+             "p50_us": s_["p50_us"], "p99_us": s_["p99_us"],
+             "budget_us": bud, "batches": s_["batches"],
+             "padded_events": s_["padded_events"], "idle_share": idle,
+             "plain_loop": plain, "launches": launches,
+             "per_replica": [{k: p[k] for k in ("replica_id", "completed",
+                                                "batches")}
+                             for p in s_["per_replica"]]}
+        service_rows[label] = r
+        say(f"[service {label}] {n} events: {r['events_s']:.1f} events/s, "
+            f"p50={r['p50_us']:.1f}us p99={r['p99_us']:.1f}us, budget "
+            f"queue_wait={bud['queue_wait_us_mean']:.1f}us dispatch="
+            f"{bud['dispatch_us_mean']:.1f}us compute="
+            f"{bud['compute_us_mean']:.1f}us, {r['batches']} batches, "
+            f"{r['padded_events']} padded events, idle share "
+            + ("not measured" if idle is None else f"{idle:.4f}")
+            + f"; the plain captured loop on the same deployment and events:"
+            f" {plain['events_s']:.1f} events/s, p50={plain['p50_us']:.1f}us"
+            f" p99={plain['p99_us']:.1f}us ({card})")
+
+    def serve_run(label, argv, expect=None):
+        """``serve.run(argv)`` (``python -m repro_torch.launch.serve``),
+        its output into the log; every event held bitwise against
+        serve_events on the same deployment, released once and in order,
+        the lanes captured before traffic only; then the counted and
+        profiled run of a fresh service on the same deployment."""
+        buf = io.StringIO()
+        try:
+            with redirect_stdout(buf):
+                report = serve.run(argv)
+        except SystemExit as e:
+            for line in buf.getvalue().splitlines():
+                say(f"  [{label}] {line}")
+            fail(f"serve {' '.join(argv)}: exit {e.code}")
+        for line in buf.getvalue().splitlines():
+            say(f"  [{label}] {line}")
+        n = sum(len(v) for v in report.served.results.values())
+        released_once_in_order(report.served, report.summary, label, n)
+        lanes_captured_before_traffic(report.captures, label)
+        res, plain = plain_rate(report)
+        for (route, got), sv in zip(report.served.results.items(),
+                                    report.servables):
+            leaves_equal(serve.stack_results(got), res[sv.name][0],
+                         f"{label} {sv.name}")
+        say(f"[service {label}] {n} events answered once each, in "
+            "submission order, bitwise equal to serve_events on the same "
+            "deployment; every lane captured before traffic and nothing "
+            "during it")
+        routed = {(None if len(report.servables) == 1 else sv.name):
+                  report.feeds[sv.name] for sv in report.servables}
+        with redirect_stdout(io.StringIO()):   # its chaos line, again
+            fk = serve.fault_kwargs(report.args)
+        launches, idle = profiled(label, lambda: serve.build_service(
+            report.args, report.servables, **fk), routed, expect)
+        row(label, report.served, report.summary, plain, idle, launches)
+        return report
+
+    # (a) the default run: warm-trained mixed, design point 3, one
+    # replica, the streaming loop, 512 events
+    serve_run("default", [], mixed_launches)
+    # (b) two replicas, each policy; (c) the deadline loop
+    for policy in ("round_robin", "least_loaded"):
+        serve_run(f"replicas 2 {policy}", ["--replicas", "2", "--policy",
+                                           policy], mixed_launches)
+    serve_run("deadline loop", ["--loop", "deadline"], mixed_launches)
+    # (d) the GNN routes
+    serve_run("routes", ["--model", "gatedgcn", "graphsage"])
+    # (f) a dead lane: replica 1 fails every batch, failover to replica 0
+    dead = serve_run("dead lane", ["--replicas", "2", "--inject-faults",
+                                   "fail:p=1.0,replica=1", "--max-retries",
+                                   "2"], mixed_launches)
+    ft = dead.fault_tolerance
+    if dead.served.failed or not ft["failed_over"] or \
+            dead.summary["per_replica"][1]["completed"]:
+        fail(f"[service dead lane] {dead.served.failed} client-visible "
+             f"failures, fault tolerance {ft}")
+    say(f"[service dead lane] 0 client-visible failures: retried="
+        f"{ft['retried']} failed_over={ft['failed_over']} breaker open="
+        f"{ft['breaker']['open']}")
+    # (e) a ragged= service over deploy(ragged=True, batch=8), 16 events a
+    # launch of the service, held against serve_events on the same
+    # deployment
+    rpipe = pipes["ragged"]
+
+    def ragged_service():
+        return ShardedTriggerService(ragged=rpipe, n_replicas=1,
+                                     microbatch=DISPATCH, window_s=2e-3,
+                                     loop="streaming")
+    svc = ragged_service()
+    try:
+        rcap = svc.capture_summary()
+        served = serve.submit_all(svc, {None: rg_feeds})
+        svc.drain()
+        rsum = svc.stats.summary()
+        rcaps = svc.capture_summary()
+    finally:
+        svc.close()
+    released_once_in_order(served, rsum, "ragged", RAGGED_EVENTS)
+    lanes_captured_before_traffic(rcaps, "ragged")
+    if rcap != rcaps:
+        fail(f"[service ragged] captures {rcap} -> {rcaps}")
+    rwant, rlat, relapsed = serve.serve_events(rpipe, rg_feeds)
+    leaves_equal(serve.stack_results(served.results[None]), rwant, "ragged")
+    rlaunch, ridle = profiled("ragged", ragged_service, {None: rg_feeds})
+    if not (rlaunch["knn_build"] and rlaunch["knn_aggregate"]
+            and rlaunch["knn_build"] == rlaunch["knn_aggregate"]):
+        fail(f"[service ragged] launches {rlaunch}")
+    row("ragged", served, rsum, {
+        "events_s": RAGGED_EVENTS / relapsed,
+        "p50_us": float(np.percentile(rlat, 50) * 1e6),
+        "p99_us": float(np.percentile(rlat, 99) * 1e6)}, ridle, rlaunch)
+    ph9 = capture_rows["mixed_trained"]["captured"]
+    say(f"[service] phase 9's captured plain loop of the warm-trained "
+        f"default ({CAPTURE_EVENTS} events, {DISPATCH} per dispatch): "
+        f"{ph9['events_s']:.1f} events/s, p50={ph9['p50_us']:.1f}us "
+        f"p99={ph9['p99_us']:.1f}us; the service's default: "
+        f"{service_rows['default']['events_s']:.1f} events/s ({card})")
+    service_rows["phase9_plain_default"] = ph9
+    (OUT / "service.json").write_text(json.dumps(service_rows, indent=1,
+                                                 default=str))
+    say(f"phase 10 done at {time.perf_counter() - t_start:.1f}s "
+        f"({time.perf_counter() - t10:.1f}s)")
+
+    # 11. the kernel line and the result -----------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)
@@ -2104,6 +2358,14 @@ def main() -> int:
             "knn_aggregate": ["ragged", "ragged_dp1"],
             "edge_aggregate": ["gatedgcn", "graphsage"],
             "flash_attention": ["attention"]}
+    # the service runs count on top (phase 10): the main path's pair from
+    # the default run, the routes' and the ragged path's kernels
+    home["fused_dense_int8"].append("service default")
+    home["gravnet_block_int8"].append("service default")
+    home["fused_dense"] += ["service routes", "service ragged"]
+    home["edge_aggregate"].append("service routes")
+    home["knn_build"].append("service ragged")
+    home["knn_aggregate"].append("service ragged")
     line = []
     for name, meta in KERNELS.items():
         path = home[name][0]

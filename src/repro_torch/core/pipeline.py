@@ -65,9 +65,19 @@ ragged path's bin packing on the host. Fused blocks, padded or ragged,
 whose output dense reads the aggregate alone (``concat_x=False``; no
 graph of CaloClusterNet has one) are refused with
 ``NotImplementedError``.
+
+The serving layer (``repro_torch/serving/``) runs a deployment from
+several threads at once, which a capture's static buffers do not allow:
+each of its replicas serves through a :class:`Lane` (``pipe.lane()``;
+``RaggedLane`` for the ragged path), which shares the weights and owns
+its executor, captures and CUDA stream, and returns an
+:class:`InFlight` result whose copies to the host do not block.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import threading
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -92,8 +102,8 @@ from repro_torch.data.ragged import (RaggedBatch, bin_pack, pack_events,
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
-__all__ = ["CompiledPipeline", "QTensor", "RaggedPipeline", "Requirements",
-           "deploy"]
+__all__ = ["CompiledPipeline", "InFlight", "Lane", "QTensor", "RaggedLane",
+           "RaggedPipeline", "Requirements", "deploy"]
 
 
 class QTensor(NamedTuple):
@@ -147,7 +157,9 @@ class _Executor:
         self.cfg = cfg
         self.max_events = max_events    # a ragged graph's CPS capacity
         self.n_hits = n_hits            # nodes per graph (req.n_hits)
-        self._ei = None                 # (edge_index, src, dst) as int64
+        # (edge_index, src, dst) as int64, per thread: concurrent callers
+        # of one executor never see each other's edge lists
+        self._local = threading.local()
 
     def run_op(self, op, vals, feeds, *, force_fp=False, record=None):
         """One op. ``force_fp`` runs an int8 op in f32 (calibration);
@@ -323,12 +335,20 @@ class _Executor:
                                     causal=op.attrs.get("causal", True),
                                     **kw)
 
+    def forget_endpoints(self):
+        """Drop the calling thread's cached (src, dst)."""
+        self._local.ei = None
+
     def _endpoints(self, ei):
         """(src, dst) of an edge list (B,2,E) as int64 gather indices,
-        made once per edge list (every gather of a call shares it)."""
-        if self._ei is None or self._ei[0] is not ei:
-            self._ei = (ei, ei[:, 0].long(), ei[:, 1].long())
-        return self._ei[1:]
+        made once per edge list and thread (every gather of a call
+        shares it); an edge list written since (a static feed buffer
+        refilled in place) is read anew."""
+        cached = getattr(self._local, "ei", None)
+        if cached is None or cached[0] is not ei or cached[1] != ei._version:
+            cached = self._local.ei = (ei, ei._version, ei[:, 0].long(),
+                                       ei[:, 1].long())
+        return cached[2:]
 
     def _gather_edge(self, op, vals):
         """Endpoint gather by the edge list: x:(B,N,d), ei:(B,2,E) ->
@@ -448,6 +468,10 @@ class _CudaGraphs:
         self.device = device
         self._side = None
 
+    def fork(self):
+        """A backend of its own for a lane (``Lane``) on the same card."""
+        return _CudaGraphs(self.device)
+
     def warmup(self, fn):
         """``fn()`` eagerly on the side stream, ordered after and before
         the current stream's work."""
@@ -525,9 +549,16 @@ class _ChunkGraphs:
         static = {k: v.clone() for k, v in feeds.items()}
         # builds the kernels and answers this chunk; its launches ran
         out = self.backend.warmup(lambda: pipe.run_chunk(static))
+        # the counters' lock is held from the save to the restore, so no
+        # other lane's replay adds into the window that is restored
+        with kops.COUNTS_LOCK:
+            return out, self._record(static)
+
+    def _record(self, static):
+        pipe = self.pipe
         before = kops.launch_counts()
         # no cached (src, dst) crosses into or out of a graph's pool
-        pipe._ex._ei = None
+        pipe._ex.forget_endpoints()
         try:
             if pipe._fused:
                 graph, static_out = self.backend.capture(
@@ -550,12 +581,12 @@ class _ChunkGraphs:
                 static_out = env[pipe._out]
             after = kops.launch_counts()
         finally:
-            pipe._ex._ei = None
+            pipe._ex.forget_endpoints()
             # a capture records its launches without running them
             kops.set_launch_counts(before)
         launches = {k: n - before.get(k, 0) for k, n in after.items()
                     if n != before.get(k, 0)}
-        return out, _Captured(static, graphs, static_out, launches)
+        return _Captured(static, graphs, static_out, launches)
 
 
 # -------------------------------------------------------- compiled object ----
@@ -662,8 +693,13 @@ class CompiledPipeline:
         return env[self._out]
 
     def _on_device(self, feeds):
-        return {k: torch.as_tensor(v).to(self.device)
-                for k, v in feeds.items()}
+        # from pinned host tensors (a lane's input ring) the copies do not
+        # block; from pageable memory they do, as before the lanes
+        out = {}
+        for k, v in feeds.items():
+            t = torch.as_tensor(v)
+            out[k] = t.to(self.device, non_blocking=t.is_pinned())
+        return out
 
     # calibration + weight quantization ------------------------------------
     def calibrate(self, feeds):
@@ -731,6 +767,11 @@ class CompiledPipeline:
         b, total, chunks = self._chunks(feeds)
         out = _tree_cat([self.run_chunk(c) for c in chunks])
         return _tree_map(lambda a: a[:b], out) if total > b else out
+
+    def lane(self, device=None) -> "Lane":
+        """A serving lane of this deployment (:class:`Lane`), on its
+        device or on ``device``."""
+        return Lane(self, device)
 
     def __call__(self, feeds):
         if self._graphs is None:
@@ -945,21 +986,181 @@ class RaggedPipeline:
             return np.concatenate(xs, axis=0)
         return cat(*parts)
 
-    def warmup(self) -> int:
-        """One call on the example feeds (the calibration batch given to
-        ``deploy``), else on a synthetic full-occupancy batch, so the
-        first real call pays no first-use cost (kernel builds, the
-        allocator's first blocks, and on the card the capture of the
-        launch layout, whose every launch then replays one CUDA graph).
-        Returns 1."""
+    def lane(self, device=None) -> "RaggedLane":
+        """A serving lane of this deployment (:class:`RaggedLane`)."""
+        return RaggedLane(self, device)
+
+    def warmup_feeds(self) -> dict:
+        """The example feeds (the calibration batch given to ``deploy``),
+        else a synthetic full-occupancy batch."""
         if self._example is not None:
-            feeds = {k: np.asarray(v) for k, v in self._example.items()
-                     if k in ("hits", "mask")}
-        else:
-            rng = np.random.default_rng(0)
-            shape = (self.microbatch, self.capacity)
-            d = self.pipe.graph["hits"].out_dim
-            feeds = {"hits": rng.normal(size=(*shape, d)).astype(np.float32),
-                     "mask": np.ones(shape, np.float32)}
-        self(feeds)
+            return {k: np.asarray(v) for k, v in self._example.items()
+                    if k in ("hits", "mask")}
+        rng = np.random.default_rng(0)
+        shape = (self.microbatch, self.capacity)
+        d = self.pipe.graph["hits"].out_dim
+        return {"hits": rng.normal(size=(*shape, d)).astype(np.float32),
+                "mask": np.ones(shape, np.float32)}
+
+    def warmup(self) -> int:
+        """One call on :meth:`warmup_feeds`, so the first real call pays
+        no first-use cost (kernel builds, the allocator's first blocks,
+        and on the card the capture of the launch layout, whose every
+        launch then replays one CUDA graph). Returns 1."""
+        self(self.warmup_feeds())
         return 1
+
+
+# ------------------------------------------------------------------ lanes ----
+class InFlight(NamedTuple):
+    """A lane's result while the card may still be writing it: ``out``,
+    a tree of host tensors that non-blocking copies fill, and ``done``,
+    the event recorded on the lane's stream behind those copies (None
+    when the result is complete, as on the CPU). The counterpart of a
+    jitted call's unfinished arrays and their ``is_ready()``."""
+    out: Any
+    done: Any = None
+
+    def ready(self) -> bool:
+        return self.done is None or self.done.query()
+
+    def wait(self):
+        """``out``, once the copies into it have landed."""
+        if self.done is not None:
+            self.done.synchronize()
+        return self.out
+
+
+def _to_host(dev, out):
+    """Non-blocking copies of the device tree ``dev`` into the host tree
+    ``out``; a leaf that is missing there or of another shape or dtype is
+    allocated pinned."""
+    if isinstance(dev, dict):
+        out = out if isinstance(out, dict) else {}
+        return {k: _to_host(v, out.get(k)) for k, v in dev.items()}
+    if out is None or out.shape != dev.shape or out.dtype != dev.dtype:
+        out = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+    return out.copy_(dev, non_blocking=True)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type == "cpu":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)
+
+
+class Lane:
+    """One serving lane of a deployed :class:`CompiledPipeline`.
+
+    The lane shares the pipeline's weights, plans and kernel bindings
+    (on another card, it holds a copy of them there). It owns what a call
+    mutates: its executor (the per-call caches), its captured chunk graphs
+    (static feeds and outputs, never shared with another lane) and, on
+    ``cuda``, a ``torch.cuda.Stream``. The lanes of one pipeline run side
+    by side on the card; the calls of one lane are serialized by its lock,
+    so two threads never interleave their copies into its static buffers.
+
+    ``lane(feeds, out=None)`` enqueues one call on the lane's stream and
+    returns an :class:`InFlight` at once: the feeds copied in (without
+    blocking from pinned host tensors), each chunk replayed, the outputs
+    copied out without blocking into ``out`` (host tensors, e.g. a slot
+    of the caller's output ring; pinned ones are allocated where it has
+    none) and an event recorded behind them. The calling thread enters
+    the stream itself (PyTorch's current stream is per thread). On the
+    CPU the call runs eagerly and its result is complete.
+
+    ``warmup()`` captures every chunk shape that the pipeline has
+    captured (the pipeline's warm-up call at the serving width decides
+    them). A capture in the default global mode fails if another thread
+    calls CUDA meanwhile, so the lanes of a service capture one after
+    another, before their replicas take traffic; a pipeline on the card
+    with no capture to give its lanes raises. Make lanes after
+    ``calibrate``: the captures bake its scales in.
+    """
+
+    def __init__(self, pipe: CompiledPipeline, device=None):
+        device = pipe.device if device is None else torch.device(device)
+        base = pipe if _same_device(device, pipe.device) else \
+            CompiledPipeline(pipe.graph, device, batch=pipe.microbatch
+                             if pipe.batch_packed else 1)
+        run = copy.copy(base)       # the weights, plans and bindings
+        run._ex = _Executor(base._ex.cfg, base._ex.max_events,
+                            base._ex.n_hits)
+        run._graphs = (None if base._graphs is None else
+                       _ChunkGraphs(run, base._graphs.backend.fork()))
+        self.parent = pipe
+        self.device = base.device
+        self.microbatch = pipe.microbatch
+        self._run = run
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self._lock = threading.Lock()
+
+    @property
+    def captures(self) -> int:
+        """Chunk shapes this lane has captured (0 on the CPU)."""
+        return 0 if self._run._graphs is None else len(self._run._graphs)
+
+    def _on_stream(self):
+        return (contextlib.nullcontext() if self.stream is None
+                else torch.cuda.stream(self.stream))
+
+    def warmup(self) -> int:
+        """Capture the pipeline's captured chunk shapes on this lane, on
+        the feeds its captures hold; returns :attr:`captures`."""
+        if self._run._graphs is None:
+            return 0
+        src = self.parent._graphs
+        if src is None or not len(src):
+            raise RuntimeError(
+                "the pipeline has captured no chunk shape for its lanes to "
+                "capture: call it once at the serving width first")
+        if self.stream is not None:      # the parent's last replay lands
+            torch.cuda.synchronize(self.parent.device)
+        with self._lock, self._on_stream():
+            for cap in list(src._by_sig.values()):
+                self._run._graphs.run({k: v.to(self.device)
+                                       for k, v in cap.feeds.items()})
+        return self.captures
+
+    def __call__(self, feeds, out=None) -> InFlight:
+        with self._lock, self._on_stream():
+            res = self._run(feeds)
+            if self.stream is None:
+                return InFlight(res)
+            host = _to_host(res, out)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return InFlight(host, done)
+
+
+class RaggedLane:
+    """One serving lane of a :class:`RaggedPipeline`: the pipeline's
+    packing on the host around a :class:`Lane` of its inner executable.
+    A call waits for each of its launches while it unpacks them, so its
+    :class:`InFlight` is complete (numpy per event, as the pipeline
+    returns). ``warmup()`` calls the lane once on the pipeline's warm-up
+    feeds, which captures its launch layout."""
+
+    def __init__(self, rp: RaggedPipeline, device=None):
+        self.parent = rp
+        self.lane = Lane(rp.pipe, device)
+        self.device, self.stream = self.lane.device, self.lane.stream
+        self.microbatch = rp.microbatch
+        self.capacity = rp.capacity
+
+    @property
+    def captures(self) -> int:
+        return self.lane.captures
+
+    def warmup(self) -> int:
+        self(self.parent.warmup_feeds())
+        return self.captures
+
+    def __call__(self, feeds, out=None) -> InFlight:
+        return InFlight(self.parent._launch(
+            feeds, lambda f: self.lane(f).wait()))

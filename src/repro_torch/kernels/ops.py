@@ -11,6 +11,8 @@ reference's wrapper does.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -29,6 +31,10 @@ WRAPPERS = (fused_dense_cuda, fused_dense_int8_cuda, gravnet_aggregate_cuda,
             gravnet_block_cuda, gravnet_block_int8_cuda, knn_build_cuda,
             knn_aggregate_cuda, edge_aggregate_cuda, flash_attention_cuda)
 _BY_NAME = {w.__name__: w for w in WRAPPERS}
+#: guards the counters against the serving lanes' threads: a replay's
+#: :func:`add_launches` on one lane and a capture's save and restore
+#: (``core/pipeline.py``, which holds it across the capture) on another
+COUNTS_LOCK = threading.RLock()
 
 
 def launch_counts() -> dict:
@@ -36,9 +42,11 @@ def launch_counts() -> dict:
     ``flash_attention_cuda.launches_by_blocks`` by ``(name, (bq, bk))``:
     what a captured chunk adds again on every replay, since a replay runs
     the launches without calling the wrappers."""
-    counts = {w.__name__: w.launches for w in WRAPPERS}
-    counts.update({(flash_attention_cuda.__name__, blocks): n for blocks, n
-                   in flash_attention_cuda.launches_by_blocks.items()})
+    with COUNTS_LOCK:
+        counts = {w.__name__: w.launches for w in WRAPPERS}
+        counts.update({(flash_attention_cuda.__name__, blocks): n
+                       for blocks, n
+                       in flash_attention_cuda.launches_by_blocks.items()})
     return counts
 
 
@@ -46,22 +54,24 @@ def add_launches(delta: dict) -> None:
     """Add ``delta`` (keys as :func:`launch_counts`') to the counters: a
     replay's launches, as its capture recorded them."""
     by = flash_attention_cuda.launches_by_blocks
-    for k, n in delta.items():
-        if isinstance(k, tuple):
-            by[k[1]] = by.get(k[1], 0) + n
-        else:
-            _BY_NAME[k].launches += n
+    with COUNTS_LOCK:
+        for k, n in delta.items():
+            if isinstance(k, tuple):
+                by[k[1]] = by.get(k[1], 0) + n
+            else:
+                _BY_NAME[k].launches += n
 
 
 def set_launch_counts(counts: dict) -> None:
     """Set every counter of :func:`launch_counts` to ``counts`` (a
     counter it does not name to 0)."""
-    for w in WRAPPERS:
-        w.launches = counts.get(w.__name__, 0)
     by = flash_attention_cuda.launches_by_blocks
-    by.clear()
-    by.update({k[1]: n for k, n in counts.items()
-               if isinstance(k, tuple) and n})
+    with COUNTS_LOCK:
+        for w in WRAPPERS:
+            w.launches = counts.get(w.__name__, 0)
+        by.clear()
+        by.update({k[1]: n for k, n in counts.items()
+                   if isinstance(k, tuple) and n})
 
 
 def fused_dense(x, w, b=None, *, activation="relu"):

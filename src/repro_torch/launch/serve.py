@@ -37,31 +37,41 @@ deployment that the cache lacks (``autotune_graph``), saves the cache to
 the reference's non-bucketed path does. When the cache holds entries,
 they are replayed once (``make_warmup``) before the timed dispatches.
 
-The JAX package's ``launch/serve.py`` serves through
-``ShardedTriggerService`` (router, per-route replica groups, in-order
-release). This one is a plain in-order loop instead, at the service's
-micro-batch width there: ``max(pipe.microbatch, 16)`` events per
-dispatch for ``ccn`` alone; for any other ``--model`` selection
-``max(8, *microbatches)`` over the routes, each route first warmed with
-that many events of seed 99. It dispatches one route after another in
-turn, as the reference interleaves its routes' streams, and brings each
-dispatch's results to the host before it sends the next, so every
-route's results come back in submission order. An event's decision
-latency is the time from the dispatch of its micro-batch to its results
-being on the host. The serving layer, occupancy buckets (and with them
-the bucketed deployment's tuning branch) and the padding-free ragged
-path's flag are not ported: ``build_pipeline(..., ragged=True,
-batch=8)`` deploys the ragged path (the reference has no flag for it
-either) and ``serve_events`` serves it.
+As the reference does, it serves through ``ShardedTriggerService``
+(``repro_torch/serving/``): ``ccn`` alone with the micro-batch
+``max(pipe.microbatch, 16)`` and a 2 ms window, any other ``--model``
+selection through one replica group per route with the shared
+micro-batch ``max(8, *microbatches)``, the routes' events submitted one
+of each in turn. ``--replicas`` replicas per route (thread-backed lanes
+on one card), ``--loop`` (``streaming``, the default, or ``deadline``),
+``--policy`` and the fault-tolerance flags ``--inject-faults``,
+``--fault-seed``, ``--breaker``, ``--max-retries`` and ``--shed`` are
+the reference's. It prints events/s, latency p50/p99 (an event's latency
+runs from its submission to its release), the latency budget
+(queue_wait, dispatch, compute), a line per replica and per route, and
+under faults the chaos line. Every future is waited for with a bound;
+the release order is checked against the submission order.
 
-Runs on ``cuda`` unless ``--device cpu`` is given. On ``cuda`` each
-route's warm-up dispatch (events of seed 99) captures its chunk shapes
-as CUDA graphs (``core/pipeline.py``), so the timed loop replays the
-captured graphs only.
+Runs on ``cuda`` unless ``--device cpu`` is given. Each route is first
+called once at the serving width (events of seed 99), which on ``cuda``
+captures its chunk shapes as CUDA graphs (``core/pipeline.py``); then
+every replica's lane captures those shapes for itself, before traffic,
+and nothing is captured under traffic (checked). Occupancy buckets
+(``--buckets``, and with them the bucketed deployment's tuning branch),
+the monitor (``--monitor-port``, ``--event-display``) and
+``--bench-out`` are not ported. The padding-free ragged path has no
+flag, as in the reference: ``build_pipeline(..., ragged=True, batch=8)``
+deploys it and ``ShardedTriggerService(ragged=...)`` serves it.
+
+``serve_routes`` and ``serve_events`` are the plain captured in-order
+loop (one dispatch of each route in turn, each dispatch's results on
+the host before the next is sent), which ``chip_smoke.py`` times the
+service against.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 from typing import Callable, NamedTuple
 
@@ -78,6 +88,7 @@ from repro_torch.models.gnn import gatedgcn, graphsage
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_warmup)
 from repro_torch.optim.adamw import tree_map
+from repro_torch.serving import POLICIES, FaultPlan, ShardedTriggerService
 from repro_torch.tuning import (TuningCache, autotune_graph,
                                 graph_kernel_problems, make_warmup)
 
@@ -89,6 +100,10 @@ MIN_ROUTES_BATCH = 8
 TARGET_THROUGHPUT = 1e5
 #: its default number of warm-training steps before ccn alone is served
 TRAIN_STEPS = 40
+#: its service's micro-batching window, seconds
+WINDOW_S = 2e-3
+#: its bound on the wait for one event's result, seconds
+RESULT_TIMEOUT_S = 120
 
 
 def detector_configs(detector: str):
@@ -407,13 +422,125 @@ def trigger_rates(trigger, truth):
     return eff, fake
 
 
+# ---------------------------------------------------------------- service ----
+def fault_kwargs(args) -> dict:
+    """The service's fault-tolerance arguments from the command line, as
+    the reference takes them: a seeded fault plan (``--inject-faults``
+    implies the breaker: injecting chaos without health tracking just
+    loses events), circuit breaking, bounded failover and shedding."""
+    faults = (FaultPlan.parse(args.inject_faults, seed=args.fault_seed)
+              if args.inject_faults else None)
+    if faults is not None:
+        print(f"[serve] chaos plan: {faults.describe()}")
+    return {"faults": faults, "breaker": args.breaker or faults is not None,
+            "max_retries": args.max_retries, "shed": args.shed}
+
+
+def print_chaos(ft: dict, failed: int) -> None:
+    """The reference's chaos line from a ``fault_tolerance_summary``."""
+    br = ft["breaker"]
+    print(f"[serve] chaos: {failed} client-visible failure(s), "
+          f"shed={ft['shed']} retried={ft['retried']} "
+          f"failed_over={ft['failed_over']} "
+          f"breaker open={br['open']} half_open={br['half_open']}")
+
+
+def service_width(servables) -> int:
+    """The service's micro-batch: ``max(pipe.microbatch, 16)`` for ccn
+    alone, ``max(8, *microbatches)`` over several routes."""
+    if [sv.name for sv in servables] == ["ccn"]:
+        return max(servables[0].pipe.microbatch, MIN_SERVE_BATCH)
+    return max(MIN_ROUTES_BATCH, *(sv.pipe.microbatch for sv in servables))
+
+
+def build_service(args, servables, *, warmup_fn=None, **fault_kw):
+    """The reference's service over the deployed routes: ccn alone as
+    ``infer_fn``, several routes as ``routes=``; each replica serves
+    through a lane of its route's pipeline, captured at construction."""
+    kw = dict(n_replicas=args.replicas, microbatch=service_width(servables),
+              window_s=WINDOW_S, hedge_after_s=None, policy=args.policy,
+              loop=args.loop, warmup_fn=warmup_fn, **fault_kw)
+    if [sv.name for sv in servables] == ["ccn"]:
+        return ShardedTriggerService(servables[0].pipe, **kw)
+    return ShardedTriggerService(routes={sv.name: sv.pipe
+                                         for sv in servables}, **kw)
+
+
+class Served(NamedTuple):
+    """What :func:`submit_all` saw: per route the results of its events
+    in submission order (None where an event failed), the failures, the
+    submission indices in the order their futures resolved, and the wall
+    time from the first submission to the last result."""
+    results: dict
+    failed: int
+    order: list
+    elapsed_s: float
+
+
+def submit_all(svc, feeds: dict) -> Served:
+    """Submit every event of ``feeds`` (route name, or None for a service
+    without routes, to stacked numpy feeds) to ``svc``, one event of each
+    route in turn, as the reference interleaves its routes' streams; then
+    wait for every future, each for at most ``RESULT_TIMEOUT_S``. A
+    callback on each future records when it resolved: registered before
+    the next event is submitted, so the recorded order is the release
+    order."""
+    counts = {r: len(next(iter(f.values()))) for r, f in feeds.items()}
+    stamp = itertools.count()
+    resolved: list[tuple[int, int]] = []
+    futs = []
+    t0 = time.perf_counter()
+    for i in range(max(counts.values())):
+        for route, f in feeds.items():
+            if i >= counts[route]:
+                continue
+            fut = svc.submit({k: v[i] for k, v in f.items()}, route=route)
+            fut.add_done_callback(lambda _f, n=len(futs): resolved.append(
+                (next(stamp), n)))
+            futs.append((route, fut))
+    results = {r: [] for r in feeds}
+    failed = 0
+    for route, fut in futs:
+        try:
+            results[route].append(fut.result(timeout=RESULT_TIMEOUT_S))
+        except Exception:  # noqa: BLE001 — only under injected chaos
+            results[route].append(None)
+            failed += 1
+    elapsed = time.perf_counter() - t0
+    return Served(results, failed, [n for _, n in sorted(resolved)],
+                  elapsed)
+
+
+def stack_results(results) -> dict:
+    """Per-event result trees stacked along a new leading axis."""
+    if isinstance(results[0], dict):
+        return {k: stack_results([r[k] for r in results])
+                for k in results[0]}
+    return np.stack(results)
+
+
+class Report(NamedTuple):
+    """One serve run, for callers that check it (``chip_smoke.py``):
+    the parsed arguments, the deployed routes, each route's served feeds
+    and trigger truth, what :func:`submit_all` saw, the service's
+    summary, its lanes' captures (``capture_summary``) and the fault
+    tolerance summary."""
+    args: argparse.Namespace
+    servables: list
+    feeds: dict
+    truth: dict
+    served: Served
+    summary: dict
+    captures: list
+    fault_tolerance: dict
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", nargs="+", default=["ccn"],
                     choices=sorted(MODELS), metavar="NAME",
-                    help="registered model route(s) to serve, one "
-                         f"dispatch of each in turn: {sorted(MODELS)} "
-                         "(default ccn)")
+                    help="registered model route(s) to serve, one replica "
+                         f"group each: {sorted(MODELS)} (default ccn)")
     ap.add_argument("--detector", choices=["current", "upgrade"],
                     default="upgrade")
     ap.add_argument("--design-point", type=int, default=3,
@@ -441,11 +568,41 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--train-steps", type=int, default=TRAIN_STEPS,
                     help="warm-training steps before --model ccn alone is "
                          "deployed (0: serve the random weights)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving replicas per route (thread-backed lanes "
+                         "on one card, placed on the cards when several "
+                         "are visible)")
+    ap.add_argument("--loop", choices=["streaming", "deadline"],
+                    default="streaming",
+                    help="replica hot loop: 'streaming' (default) runs the "
+                         "persistent dataflow pipeline — rolling batching "
+                         "into preallocated rings, no deadline tick; "
+                         "'deadline' is the original micro-batch deadline "
+                         "loop")
+    ap.add_argument("--policy", default="round_robin", choices=POLICIES)
+    ap.add_argument("--inject-faults", default=None, metavar="SPEC",
+                    help="deterministic chaos: seeded fault plan, e.g. "
+                         "'fail:p=0.05;stall:p=0.02,s=0.01' or "
+                         "'fail:p=1.0,replica=1' (dead lane); grammar in "
+                         "serving/faults.py. Implies --breaker")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for --inject-faults (bit-identical replay)")
+    ap.add_argument("--breaker", action="store_true",
+                    help="per-replica health tracking + circuit breaking "
+                         "(closed/open/half-open)")
+    ap.add_argument("--max-retries", type=int, default=0, metavar="N",
+                    help="failover: re-dispatch a failed batch's events to "
+                         "a healthy sibling up to N times before failing "
+                         "to the client")
+    ap.add_argument("--shed", action="store_true",
+                    help="load shedding: a full replica queue fails the "
+                         "event fast with ShedError instead of blocking "
+                         "submit()")
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: cuda (raises when CUDA is absent)")
     ap.add_argument("--tuning-cache", default=None, metavar="PATH",
                     help="JSON kernel-tuning cache consulted when binding "
-                         "kernels and warming up (absent/corrupt -> "
+                         "kernels and warming replicas (absent/corrupt -> "
                          "heuristic defaults)")
     ap.add_argument("--tune", action="store_true",
                     help="autotune every route's kernel problems before "
@@ -455,12 +612,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.events < len(args.model):
         ap.error(f"--events {args.events} leaves a route of "
                  f"{args.model} without events")
+    if args.replicas < 1:
+        ap.error("--replicas must be at least 1")
     return args
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    cache = load_tuning_cache(args)
+def deploy_routes(args, cache=None) -> list:
+    """Every ``--model`` route deployed (ccn alone warm-trained first,
+    ``--tune`` searched and rebound), each called once at the serving
+    width on events of seed 99 (on ``cuda`` this captures its chunk
+    shapes for the lanes to copy)."""
     single = args.model == ["ccn"]
     trained = None
     if single and args.train_steps > 0:
@@ -486,68 +647,117 @@ def main(argv=None):
             if fresh is not None:
                 sv = fresh
         servables.append(sv)
-    # the service's micro-batch: ccn alone, its own; several routes, one
-    # width for all
-    width = None if single else max(
-        MIN_ROUTES_BATCH, *(sv.pipe.microbatch for sv in servables))
-    routes, truth = {}, {}
-    dev = servables[0].pipe.device
-    dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                else "cpu")
-    for i, sv in enumerate(servables):
+    width = service_width(servables)
+    for sv in servables:
         pipe = sv.pipe
         precision = args.precision if sv.name == "ccn" else "fp"
         print(f"[serve] deployed {sv.name}: design point "
-              f"{args.design_point}, {precision} on {dev} ({dev_name}): "
-              f"segments={len(pipe.segments)} "
+              f"{args.design_point}, {precision} on {pipe.device} "
+              f"({device_name(pipe.device)}): segments={len(pipe.segments)} "
               f"microbatch={pipe.microbatch} blocks="
               f"{sum(op.op_type == 'gravnet_block' for op in pipe.graph)}")
         if cache is not None:
             hits, n_keys = cache_hits(pipe, cache)
             print(f"[serve] route {sv.name}: {hits} of {n_keys} kernel "
                   "problems bound from the tuning cache")
-        # one warm-up dispatch per route: its first launches, and on the
-        # card the capture of every chunk shape it serves
-        if width is None:
-            batch = max(pipe.microbatch, MIN_SERVE_BATCH)
-            serve_events(pipe, sv.events(batch, 99)[0])
-        else:
-            pipe(sv.events(width, 99)[0])
-        n = args.events // len(servables) + (i < args.events % len(servables))
-        feeds, truth[sv.name] = sv.events(n, 7 + i)
-        routes[sv.name] = (pipe, feeds)
-    if width is not None:
-        print(f"[serve] routes {list(routes)}: microbatch={width}")
-    if cache is not None and len(cache):
-        warmed = make_warmup(cache, backend=servables[0].pipe.backend)()
-        print(f"[serve] warmed {warmed} cached kernel shape(s) before "
-              "serving")
-    print("[serve] chunk shapes captured as CUDA graphs before serving: "
-          + ", ".join(f"{name} {pipe.captures}"
-                      for name, (pipe, _) in routes.items()))
+        pipe(sv.events(width, 99)[0])
+    if not single:
+        print(f"[serve] routes {[sv.name for sv in servables]}: "
+              f"microbatch={width}")
+    return servables
 
-    res, dt = serve_routes(routes, width)
-    total = sum(len(r[1]) for r in res.values())
+
+def device_name(dev) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def run(argv=None) -> Report:
+    """The command line's run: deploy, build the service, serve every
+    event through it, print the reference's lines; returns the
+    :class:`Report`. Raises ``SystemExit`` when the release order is not
+    the submission order, when a lane captured under traffic, or when,
+    without injected faults, an event went unanswered."""
+    args = parse_args(argv)
+    cache = load_tuning_cache(args)
+    servables = deploy_routes(args, cache)
+    dev = servables[0].pipe.device
+    warmup_fn = (make_warmup(cache, backend=servables[0].pipe.backend)
+                 if cache is not None and len(cache) else None)
+    fk = fault_kwargs(args)
+    svc = build_service(args, servables, warmup_fn=warmup_fn, **fk)
+    try:
+        if warmup_fn is not None:
+            print(f"[serve] replicas warmed "
+                  f"{sum(r.warmed for r in svc.replicas)} cached kernel "
+                  "shape(s) at startup")
+        start = svc.capture_summary()
+        print("[serve] lanes captured before traffic: " + ", ".join(
+            f"replica {c['replica_id']} {c['captured_at_start']}"
+            for c in start))
+        feeds, truth = {}, {}
+        for i, sv in enumerate(servables):
+            n = args.events // len(servables) + (
+                i < args.events % len(servables))
+            feeds[sv.name], truth[sv.name] = sv.events(n, 7 + i)
+        routed = {(None if args.model == ["ccn"] else name): f
+                  for name, f in feeds.items()}
+        served = submit_all(svc, routed)
+        svc.drain()
+        summary = svc.stats.summary()
+        route_rows = svc.route_summary()
+        captures = svc.capture_summary()
+        ft = svc.fault_tolerance_summary()
+    finally:
+        svc.close()
+    total = sum(len(v) for v in served.results.values())
+    dt = served.elapsed_s
     print(f"[serve] {total} events in {dt:.3f}s -> {total / dt:,.0f} ev/s "
-          f"({dev_name}, in-order loop, one dispatch per route in turn: "
-          f"{', '.join(routes)})")
-    for rname, (out, lat, busy) in res.items():
-        pipe = routes[rname][0]
-        n = len(lat)
-        answered = len(next(iter(out.values())))
-        print(f"[serve] route {rname}: {n} events, "
-              f"{width or max(pipe.microbatch, MIN_SERVE_BATCH)} per "
-              f"dispatch, {n / busy:,.0f} ev/s in its dispatches, latency "
-              f"p50={np.percentile(lat, 50) * 1e6:.0f}us "
-              f"p99={np.percentile(lat, 99) * 1e6:.0f}us "
-              f"answered={answered} in-order=True")
-        if answered != n:
-            raise SystemExit(f"route {rname} answered {answered} of {n} "
-                             "events")
-        if truth[rname] is not None:
-            eff, fake = trigger_rates(out["cps"]["trigger"], truth[rname])
-            print(f"[serve] route {rname}: trigger efficiency={eff:.3f} "
+          f"({device_name(dev)}, {args.replicas} replica(s) per route, "
+          f"{args.policy}, {args.loop} loop)")
+    print(f"[serve] latency p50={summary['p50_us']:.0f}us "
+          f"p99={summary['p99_us']:.0f}us batches={summary['batches']} "
+          f"padded={summary['padded_events']}")
+    bud = summary["budget"]
+    print(f"[serve] budget queue_wait={bud['queue_wait_us_mean']:.0f}us "
+          f"dispatch={bud['dispatch_us_mean']:.0f}us "
+          f"compute={bud['compute_us_mean']:.0f}us")
+    for rs in summary["per_replica"]:
+        print(f"[serve]   replica {rs['replica_id']}: {rs['completed']} "
+              f"events, {rs['batches']} batches, "
+              f"{rs['throughput_ev_s']:,.0f} ev/s")
+    for row in route_rows:
+        print(f"[serve]   route {row['route']}: {row['submitted']} "
+              f"submitted, {row['completed']} completed, {row['batches']} "
+              f"batches, {row['padded_events']} padded")
+    in_order = served.order == list(range(total))
+    for (route, res), sv in zip(served.results.items(), servables):
+        answered = sum(r is not None for r in res)
+        print(f"[serve] route {sv.name}: {len(res)} events, "
+              f"answered={answered} in-order={in_order}")
+        if truth[sv.name] is not None:
+            trig = np.asarray([bool(r["cps"]["trigger"]) if r is not None
+                               else False for r in res])
+            eff, fake = trigger_rates(trig, truth[sv.name])
+            print(f"[serve] route {sv.name}: trigger efficiency={eff:.3f} "
                   f"fake rate={fake:.3f}")
+    during = sum(c["captures"] - c["captured_at_start"] for c in captures)
+    print(f"[serve] lanes captured during traffic: {during}")
+    if fk["faults"] is not None:
+        print_chaos(ft, served.failed)
+    if not in_order:
+        raise SystemExit("results were released out of submission order")
+    if during:
+        raise SystemExit(f"lanes captured {during} chunk shape(s) under "
+                         "traffic")
+    if fk["faults"] is None and served.failed:
+        raise SystemExit(f"{served.failed} of {total} events went "
+                         "unanswered without injected faults")
+    return Report(args, servables, feeds, truth, served, summary, captures,
+                  ft)
+
+
+def main(argv=None):
+    run(argv)
     return 0
 
 

@@ -168,6 +168,14 @@ class FakeGraphs:
     def __init__(self):
         self.captured = 0
         self.replayed = 0
+        self.forks = []
+
+    def fork(self):
+        """A stand-in of its own for a lane (``Lane``), kept in
+        ``forks``."""
+        child = FakeGraphs()
+        self.forks.append(child)
+        return child
 
     @staticmethod
     def warmup(fn):
@@ -184,9 +192,12 @@ class FakeGraphs:
 
     def replay(self, graph):
         fn, out = graph
-        held = kops.launch_counts()
-        _copy_into(out, fn())
-        kops.set_launch_counts(held)
+        # the counters' lock is held across the re-run, so another lane's
+        # replay in another thread adds nothing that the restore undoes
+        with kops.COUNTS_LOCK:
+            held = kops.launch_counts()
+            _copy_into(out, fn())
+            kops.set_launch_counts(held)
         self.replayed += 1
 
 
@@ -364,9 +375,11 @@ def test_ragged_launches_replay_one_capture(ccn_graphs):
 @pytest.mark.parametrize("models", [("ccn",), ("gatedgcn", "graphsage")])
 def test_serve_warm_up_captures_each_route(models, monkeypatch, capsys):
     """``serve.main``'s warm-up dispatch of each route captures every
-    chunk shape its traffic takes, before the traffic: the timed loop
-    replays every route's captures and captures nothing, and the line
-    printed before serving names one capture per route."""
+    chunk shape its traffic takes, before the traffic; then each
+    replica's lane captures those shapes for itself while the service is
+    built. Under traffic each lane replays its own captures and captures
+    nothing, the routes' own pipelines are not called, and the line
+    printed before serving names one capture per lane."""
     from repro_torch.launch import serve
     fakes = []
     real_init = tpipeline.CompiledPipeline.__init__
@@ -376,26 +389,34 @@ def test_serve_warm_up_captures_each_route(models, monkeypatch, capsys):
         fakes.append(_inject(self))
 
     calls = []
-    real_routes = serve.serve_routes
+    real_submit = serve.submit_all
 
-    def routes(r, width=None):
-        before = [(f.captured, f.replayed) for f in fakes]
-        out = real_routes(r, width)
-        calls.append((before, [(f.captured, f.replayed) for f in fakes]))
+    def state():
+        return [(f.captured, f.replayed) for f in fakes], [
+            (c.captured, c.replayed) for f in fakes for c in f.forks]
+
+    def submit_all(svc, feeds):
+        before = state()
+        out = real_submit(svc, feeds)
+        calls.append((before, state()))
         return out
 
     monkeypatch.setattr(tpipeline.CompiledPipeline, "__init__", init)
-    monkeypatch.setattr(serve, "serve_routes", routes)
+    monkeypatch.setattr(serve, "submit_all", submit_all)
     assert serve.main(["--device", "cpu", "--detector", "current",
-                       "--train-steps", "0", "--events", "8", "--model",
-                       *models]) == 0
-    before, after = calls[-1]       # the timed loop
-    assert len(fakes) == len(models)
-    for (c0, r0), (c1, r1) in zip(before, after, strict=True):
-        assert c0 == c1 >= 1 and r1 > r0
-    line = next(ln for ln in capsys.readouterr().out.splitlines()
-                if "captured as CUDA graphs before serving" in ln)
-    assert line.endswith(", ".join(f"{m} 1" for m in models))
+                       "--train-steps", "0", "--events", "8", "--replicas",
+                       "2", "--model", *models]) == 0
+    (parents0, lanes0), (parents1, lanes1) = calls[-1]   # the traffic
+    assert len(fakes) == len(models) and len(lanes0) == 2 * len(models)
+    assert parents0 == parents1 and all(c >= 1 for c, _ in parents0)
+    for (c0, r0), (c1, r1) in zip(lanes0, lanes1, strict=True):
+        assert c0 == c1 == 1 and r1 > r0
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines()
+                if "lanes captured before traffic" in ln)
+    assert line.endswith(", ".join(f"replica {i} 1"
+                                   for i in range(2 * len(models))))
+    assert "lanes captured during traffic: 0" in out
 
 
 # --------------------------------------------- the CPU deploys eagerly ----

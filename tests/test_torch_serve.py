@@ -1,6 +1,10 @@
-"""The port's serving entry point on the CPU: the command line answers every
-event, and the in-order loop returns each event's result in submission
-order (equal to one direct call of the pipeline over all events)."""
+"""The port's serving entry point on the CPU: the command line serves every
+event through ``ShardedTriggerService`` (the reference's flags: replicas,
+loops, policies, injected faults), releases them in submission order and
+answers each as the plain in-order loop does; the plain loop
+(``serve_routes``/``serve_events``) returns each event's result in
+submission order (equal to one direct call of the pipeline over all
+events)."""
 import os
 import subprocess
 import sys
@@ -65,7 +69,9 @@ def test_cli_serves_every_route(models):
                    and f"answered={n} in-order=True" in ln
                    for ln in out.splitlines()), name
     assert ("trigger efficiency" in out) == ("ccn" in models)
-    assert "16 events in" in out and "one dispatch per route in turn" in out
+    assert "16 events in" in out
+    assert "1 replica(s) per route, round_robin, streaming loop" in out
+    assert "lanes captured during traffic: 0" in out
 
 
 def test_routes_interleave_one_dispatch_each_in_turn():
@@ -123,22 +129,22 @@ def test_trigger_rates():
 
 
 def _spy_main(monkeypatch, argv):
-    """Run ``serve.main`` in-process, recording the Requirements every
+    """Run ``serve.run`` in-process, recording the Requirements every
     deployment gets, the servables' event draws, the weights the ccn
-    route deploys and the serve loop's width; returns that record."""
-    rec = {"reqs": [], "draws": [], "params": [], "width": [], "res": []}
-    real_deploy, real_routes = serve.deploy, serve.serve_routes
+    route deploys and the service's micro-batch; returns that record,
+    the run's report under ``"report"``."""
+    rec = {"reqs": [], "draws": [], "params": [], "width": []}
+    real_deploy, real_build = serve.deploy, serve.build_service
     real_ccn = serve._ccn_servable
 
     def deploy(graph, req, **kw):
         rec["reqs"].append(req)
         return real_deploy(graph, req, **kw)
 
-    def routes(r, batch=None):
-        rec["width"].append(batch)
-        out = real_routes(r, batch)
-        rec["res"].append(out[0])
-        return out
+    def build(args, servables, **kw):
+        svc = real_build(args, servables, **kw)
+        rec["width"].append(svc.microbatch)
+        return svc
 
     def ccn(args, cfg=None, tuning_cache=None, params=None):
         rec["params"].append(params)
@@ -156,14 +162,14 @@ def _spy_main(monkeypatch, argv):
         return servable
 
     monkeypatch.setattr(serve, "deploy", deploy)
-    monkeypatch.setattr(serve, "serve_routes", routes)
+    monkeypatch.setattr(serve, "build_service", build)
     monkeypatch.setattr(serve, "_ccn_servable", recording(ccn))
     monkeypatch.setitem(serve.MODELS, "ccn", recording(ccn))
     for name in ("gatedgcn", "graphsage"):
         monkeypatch.setitem(serve.MODELS, name,
                             recording(serve.MODELS[name]))
-    assert serve.main(["--device", "cpu", "--detector", "current",
-                       *argv]) == 0
+    rec["report"] = serve.run(["--device", "cpu", "--detector", "current",
+                               *argv])
     return rec
 
 
@@ -171,10 +177,10 @@ def _spy_main(monkeypatch, argv):
                                     ("gatedgcn", "graphsage")])
 def test_routes_share_the_reference_dispatch_width(monkeypatch, capsys,
                                                    models):
-    """Several routes: one width for all, ``max(8, *microbatches)`` as
-    the reference's service takes it, and each route warmed with that
-    many events of seed 99 before its served events (seed 7 + i); no
-    warm-training on this path."""
+    """Several routes: one service micro-batch for all,
+    ``max(8, *microbatches)`` as the reference's service takes it, and
+    each route warmed with that many events of seed 99 before its served
+    events (seed 7 + i); no warm-training on this path."""
     rec = _spy_main(monkeypatch, ["--events", "12", "--model", *models])
     width = max(8, *(rec["pipes"][m].microbatch for m in models))
     assert rec["width"] == [width]
@@ -186,7 +192,8 @@ def test_routes_share_the_reference_dispatch_width(monkeypatch, capsys,
     assert "warm-trained" not in out
     assert f"microbatch={width}" in out
     for m in models:
-        assert f"route {m}: 6 events, {width} per dispatch" in out
+        assert f"route {m}: 6 events, answered=6 in-order=True" in out
+        assert f"route {m}: 6 submitted, 6 completed" in out
 
 
 def test_deploy_flags_reach_requirements(monkeypatch):
@@ -209,10 +216,11 @@ def test_train_steps_0_serves_the_untrained_deployment(monkeypatch, capsys):
     weights, no training line, and the served decisions of
     ``build_pipeline``'s deployment on the events of seed 7."""
     rec = _spy_main(monkeypatch, ["--events", "20", "--train-steps", "0"])
-    # the warm-up dispatch and the served loop, both at ccn's own width
-    assert rec["params"] == [None] and rec["width"] == [None, None]
+    # the service at ccn's own width, max(microbatch, 16)
+    assert rec["params"] == [None] and rec["width"] == [16]
+    assert ("ccn", 16, 99) in rec["draws"]
     assert "warm-trained" not in capsys.readouterr().out
-    got = rec["res"][-1]["ccn"][0]
+    got = serve.stack_results(rec["report"].served.results[None])
     cfg, gen_cfg = serve.detector_configs("current")
     pipe = serve.build_pipeline(cfg, gen_cfg, device="cpu")
     ev = generate(gen_cfg, 20, seed=7)
@@ -239,3 +247,103 @@ def test_default_run_warm_trains_then_serves_the_trained_weights(
     assert len(losses) == 3
     assert f"warm-trained 3 steps, loss {float(losses[-1]):.3f}" in out
     assert "answered=4 in-order=True" in out
+
+
+# ----------------------------------------------------- the service flags ----
+def _direct(n, seed=7):
+    """The plain in-order loop's answers for the events of ``seed``
+    through ``build_pipeline``'s random-weight deployment."""
+    cfg, gen_cfg = serve.detector_configs("current")
+    pipe = serve.build_pipeline(cfg, gen_cfg, device="cpu")
+    ev = generate(gen_cfg, n, seed=seed)
+    return serve.serve_events(pipe, {"hits": ev["feats"],
+                                     "mask": ev["mask"]})[0]
+
+
+def _same_as_plain_loop(report, n):
+    got = serve.stack_results(report.served.results[None])
+    want = _direct(n)
+    for k in ("n_clusters", "trigger", "cluster_valid"):
+        assert_bitwise(got["cps"][k], want["cps"][k], context=k)
+    for h in ("beta", "coords", "energy", "cls"):
+        assert_bitwise(got[h], want[h], context=h)
+
+
+@pytest.mark.parametrize("flags,line", [
+    (("--replicas", "2", "--policy", "least_loaded"),
+     "2 replica(s) per route, least_loaded, streaming loop"),
+    (("--loop", "deadline"),
+     "1 replica(s) per route, round_robin, deadline loop")])
+def test_cli_service_flags(flags, line, capsys):
+    """``--replicas``/``--policy`` and ``--loop`` reach the service: the
+    run names them, every replica that took traffic reports it, the
+    release order is the submission order, no lane captured under
+    traffic, and each event's answer equals the plain loop's bitwise."""
+    report = serve.run(["--device", "cpu", "--detector", "current",
+                        "--events", "24", "--train-steps", "0", *flags])
+    out = capsys.readouterr().out
+    assert line in out and "answered=24 in-order=True" in out
+    assert report.served.order == list(range(24))
+    assert report.summary["completed"] == 24
+    assert len(report.summary["per_replica"]) == report.args.replicas
+    assert all(c["captures"] == c["captured_at_start"]
+               for c in report.captures)
+    _same_as_plain_loop(report, 24)
+
+
+def test_cli_dead_lane_fails_over_without_client_failures(capsys):
+    """The reference's chaos recipe: replica 1 fails every batch; its
+    events fail over to replica 0 (at most 2 retries each), so every
+    event is answered once, in order, with 0 client-visible failures,
+    as the plain loop answers it."""
+    report = serve.run(["--device", "cpu", "--detector", "current",
+                        "--events", "32", "--train-steps", "0",
+                        "--replicas", "2", "--inject-faults",
+                        "fail:p=1.0,replica=1", "--max-retries", "2"])
+    out = capsys.readouterr().out
+    assert "chaos plan: fail:p=1,replica=1;seed=0" in out
+    assert "[serve] chaos: 0 client-visible failure(s)" in out
+    assert report.served.failed == 0
+    assert report.served.order == list(range(32))
+    ft = report.fault_tolerance
+    assert ft["failed_over"] > 0 and ft["retried"] >= ft["failed_over"]
+    assert report.summary["per_replica"][1]["completed"] == 0
+    _same_as_plain_loop(report, 32)
+
+
+def test_cli_flags_match_the_reference_table():
+    """The service flags and their defaults are the reference's."""
+    args = serve.parse_args([])
+    assert (args.replicas, args.loop, args.policy, args.inject_faults,
+            args.fault_seed, args.breaker, args.max_retries, args.shed) == (
+        1, "streaming", "round_robin", None, 0, False, 0, False)
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--loop", "bogus"])
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--replicas", "0"])
+
+
+def test_submit_all_interleaves_routes_and_records_release_order():
+    """``submit_all`` submits one event of each route in turn (a route
+    that runs out drops out) and records the order the futures resolve
+    in: the submission order, through the service's in-order release."""
+    from repro_torch.serving import ShardedTriggerService
+    seen = []
+
+    def echo(name):
+        def infer(feeds):
+            seen.append((name, [float(x) for x in feeds["x"]]))
+            return {"y": feeds["x"] * 2}
+        return infer
+
+    svc = ShardedTriggerService(routes={"a": echo("a"), "b": echo("b")},
+                                microbatch=1, devices=None)
+    try:
+        served = serve.submit_all(svc, {"a": {"x": np.arange(3.0)},
+                                        "b": {"x": np.arange(10.0, 12.0)}})
+    finally:
+        svc.close()
+    assert served.order == list(range(5)) and served.failed == 0
+    assert [float(r["y"]) for r in served.results["a"]] == [0.0, 2.0, 4.0]
+    assert [float(r["y"]) for r in served.results["b"]] == [20.0, 22.0]
+    assert [s[1][0] for s in seen if s[0] == "a"] == [0.0, 1.0, 2.0]
