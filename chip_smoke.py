@@ -25,7 +25,10 @@ Phases, each of which exits non-zero when it fails:
    library's own. The int8 pair (``fused_dense_int8``,
    ``gravnet_block_int8``) is held bitwise everywhere: at the main
    path's shapes, at the current detector's (its mixed deployment's
-   calls, 32 hits, at one chunk, 16 and 64 events), and on the inputs of
+   calls, 32 hits, at one chunk, 16 and 64 events), at the bucketed
+   mixed deployment's (its calls at buckets of 8, 16, 32, 64 and 128 hits,
+   8 events a launch: phase 11's shapes, n = k = 8 at the smallest), the
+   block also at one event of the main path's chunk, and on the inputs of
    ``kernels/int8_cases.py`` (exact distance ties, 32 and 50 hits, fewer
    valid hits than k, rows off the tile, K = 4 and N = 7 in both output
    forms, K past one staged slice, x quantized on the hard quotients of
@@ -171,7 +174,23 @@ Phases, each of which exits non-zero when it fails:
     launch that ran) and its idle share; events/s, p50/p99, the budget,
     batches and padded events beside the plain loop's and phase 9's
     (``service.json``). The kernel line's launches add these runs';
-11. print ``{"kernels": [...]}`` with every kernel of the port, then
+11. the rest of the serve entry point: (g) ``serve.run`` with
+    ``--buckets 32 64 128 --bucket-microbatch 8`` (the warm-trained
+    default, whose full events all take the largest bucket), checked as
+    in phase 10; then a bucketed service on the same deployment over 512
+    events of seed 7 spread over the buckets (``with_occupancy``): every
+    event bitwise equal to the same ``BucketedPipeline`` in the plain
+    captured loop and to its plain-substituted deployment, one lane a
+    bucket captured before traffic only, the counted run's 5
+    ``fused_dense_int8`` and 2 ``gravnet_block_int8`` per chunk, events/s,
+    p50/p99 and the per-bucket rows beside the padded default's service on
+    the same events (in turns, medians of 5); (h) ``serve.run`` with
+    ``--monitor-port 0 --event-display PATH``: ``/snapshot`` counts the
+    completed events, the snapshot's trigger rate is the released
+    results', the display file parses, and events/s and p50/p99 with the
+    monitor on and off in turns (medians of 5, with the taps' own host
+    time and the garbage collector's runs; ``phase11.json``);
+12. print ``{"kernels": [...]}`` with every kernel of the port, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -179,6 +198,7 @@ output (compiler logs, profiler tables) goes to ``chiprun_out/chip_smoke/``.
 """
 from __future__ import annotations
 
+import gc
 import io
 import json
 import re
@@ -220,6 +240,9 @@ ATTN_SHAPES = ((8, 512, 512, 64), (8, 1024, 1024, 64),
 ATTN_N, ATTN_D, ATTN_BATCH = 512, 64, 8  # the deployed attention graph
 ATTN_EVENTS = 32
 CAPTURE_EVENTS = 128            # CaloClusterNet events of phase 9's paths
+CHECK_BUCKETS = (8, 16, 32, 64, 128)  # the bucketed int8 pair's checks
+BUCKETS = (32, 64, 128)         # phase 11's occupancy buckets
+BUCKET_MICROBATCH = 8           # events a launch of each bucket
 PROFILE_MARGIN_S = 0.02         # idle time at each edge of a profiled window
 
 KERNELS = {
@@ -550,7 +573,7 @@ def main() -> int:
                                                      kv_split,
                                                      library_smem_bytes,
                                                      smem_bytes)
-    from repro_torch.core.pipeline import RaggedPipeline
+    from repro_torch.core.pipeline import RaggedPipeline, _cut_hits
     from repro_torch.launch import serve
     from repro_torch.models.gnn import gatedgcn, graphsage
 
@@ -936,7 +959,8 @@ def main() -> int:
             for n_ev in (pipe.microbatch, *batches[1:]):
                 check(path, pos, n_ev,
                       *stacked(calls, per_chunk, pipe.microbatch, pos, n_ev))
-            if path == "fp" and calls[pos][0] == "gravnet_block":
+            if (path, calls[pos][0]) in (("fp", "gravnet_block"),
+                                         ("mixed", "gravnet_block_int8")):
                 # one event of the chunk: the per-event TPU kernel's form
                 name, args, kw = calls[pos]
                 check(path, pos, 1, name,
@@ -963,6 +987,20 @@ def main() -> int:
                 check(tag, pos, n_ev, *stacked(
                     cur_calls, cur_per_chunk, pipe.microbatch, pos, n_ev))
         del cur_calls
+    # the int8 pair at the bucketed deployment's shapes (phase 11): the
+    # calls of the upgrade-width mixed deployment at buckets of 8 to 128
+    # hits, 8 events a launch (n = k = 8 at the smallest), on the
+    # calibration batch cut to each bucket; one launch each
+    bk_pipe = serve.build_pipeline(cfg, gen_cfg, device=dev, design_point=3,
+                                   precision="mixed", buckets=CHECK_BUCKETS,
+                                   batch=BUCKET_MICROBATCH)
+    for b, pipe in bk_pipe.pipes.items():
+        b_calls, b_per_chunk = record(pipe, _cut_hits(calib_feeds, b))
+        for pos in range(b_per_chunk):
+            check(f"mixed_bucket{b}", pos, pipe.microbatch, *stacked(
+                b_calls, b_per_chunk, pipe.microbatch, pos, pipe.microbatch))
+        del b_calls
+    del bk_pipe
 
     def as_args(arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -2243,12 +2281,23 @@ def main() -> int:
             f" {plain['events_s']:.1f} events/s, p50={plain['p50_us']:.1f}us"
             f" p99={plain['p99_us']:.1f}us ({card})")
 
-    def serve_run(label, argv, expect=None):
+    def routes_equal(report, label):
+        """Every served event bitwise equal to serve_events on the same
+        deployment; the plain loop's rate."""
+        res, plain = plain_rate(report)
+        for (route, got), sv in zip(report.served.results.items(),
+                                    report.servables):
+            leaves_equal(serve.stack_results(got), res[sv.name][0],
+                         f"{label} {sv.name}")
+        return plain
+
+    def serve_run(label, argv, expect=None, equal=routes_equal):
         """``serve.run(argv)`` (``python -m repro_torch.launch.serve``),
-        its output into the log; every event held bitwise against
-        serve_events on the same deployment, released once and in order,
-        the lanes captured before traffic only; then the counted and
-        profiled run of a fresh service on the same deployment."""
+        its output into the log; every event held bitwise against the
+        plain loop on the same deployment (``equal``), released once and
+        in order, the lanes captured before traffic only; then the
+        counted and profiled run of a fresh service on the same
+        deployment."""
         buf = io.StringIO()
         try:
             with redirect_stdout(buf):
@@ -2262,13 +2311,9 @@ def main() -> int:
         n = sum(len(v) for v in report.served.results.values())
         released_once_in_order(report.served, report.summary, label, n)
         lanes_captured_before_traffic(report.captures, label)
-        res, plain = plain_rate(report)
-        for (route, got), sv in zip(report.served.results.items(),
-                                    report.servables):
-            leaves_equal(serve.stack_results(got), res[sv.name][0],
-                         f"{label} {sv.name}")
+        plain = equal(report, label)
         say(f"[service {label}] {n} events answered once each, in "
-            "submission order, bitwise equal to serve_events on the same "
+            "submission order, bitwise equal to the plain loop on the same "
             "deployment; every lane captured before traffic and nothing "
             "during it")
         routed = {(None if len(report.servables) == 1 else sv.name):
@@ -2276,13 +2321,14 @@ def main() -> int:
         with redirect_stdout(io.StringIO()):   # its chaos line, again
             fk = serve.fault_kwargs(report.args)
         launches, idle = profiled(label, lambda: serve.build_service(
-            report.args, report.servables, **fk), routed, expect)
+            report.args, report.servables,
+            monitor=serve.monitor_config(report.args), **fk), routed, expect)
         row(label, report.served, report.summary, plain, idle, launches)
         return report
 
     # (a) the default run: warm-trained mixed, design point 3, one
     # replica, the streaming loop, 512 events
-    serve_run("default", [], mixed_launches)
+    default_report = serve_run("default", [], mixed_launches)
     # (b) two replicas, each policy; (c) the deadline loop
     for policy in ("round_robin", "least_loaded"):
         serve_run(f"replicas 2 {policy}", ["--replicas", "2", "--policy",
@@ -2346,7 +2392,238 @@ def main() -> int:
     say(f"phase 10 done at {time.perf_counter() - t_start:.1f}s "
         f"({time.perf_counter() - t10:.1f}s)")
 
-    # 11. the kernel line and the result -----------------------------------
+    # 11. the rest of the serve entry point: buckets and the monitor -----
+    t11 = time.perf_counter()
+    phase11 = {}
+
+    def medians(label, runs, rounds=5):
+        """Each of ``runs`` (name -> a call returning a row of events_s,
+        p50_us, p99_us and more) ``rounds`` times in turns (a b b a a b
+        ...), and the median of each number."""
+        seen = {name: [] for name in runs}
+        order = list(runs)
+        for r in range(rounds):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                seen[name].append(runs[name]())
+        out = {}
+        for name, rows_ in seen.items():
+            med = {k: float(np.median([x[k] for x in rows_]))
+                   for k in rows_[0]}
+            out[name] = {**med, "runs": rows_}
+            more = "".join(f"; {k} {v:.4g}" for k, v in med.items()
+                           if k not in ("events_s", "p50_us", "p99_us"))
+            say(f"[{label}] {name}: {med['events_s']:.1f} events/s, p50="
+                f"{med['p50_us']:.1f}us p99={med['p99_us']:.1f}us (medians of "
+                f"{rounds} in turns; runs "
+                f"{[round(x['events_s'], 1) for x in rows_]} events/s{more})"
+                f" ({card})")
+        return out
+
+    def timed_service(make_svc, routed, truths=None):
+        """A fresh service's run over ``routed``: events/s, p50, p99, the
+        garbage collector's runs during it, and the monitor taps' host
+        time (µs a batch, and their share of the run's wall time)."""
+        svc = make_svc()
+        try:
+            gc0 = sum(g["collections"] for g in gc.get_stats())
+            tap_s.clear()
+            served = serve.submit_all(svc, routed, truths)
+            svc.drain()
+            gcs = sum(g["collections"] for g in gc.get_stats()) - gc0
+            s_ = svc.stats.summary()
+        finally:
+            svc.close()
+        n = sum(len(v) for v in served.results.values())
+        if served.failed or served.order != list(range(n)):
+            fail(f"a timed service run: {served.failed} failed or out of "
+                 "order")
+        return {"events_s": n / served.elapsed_s, "p50_us": s_["p50_us"],
+                "p99_us": s_["p99_us"], "batches": s_["batches"],
+                "gc_runs": gcs,
+                "tap_us_per_batch": (sum(tap_s) / len(tap_s) * 1e6
+                                     if tap_s else 0.0),
+                "tap_share": sum(tap_s) / served.elapsed_s}
+
+    # the monitor taps' own host time, measured around each call
+    from repro_torch.serving.replica import ReplicaEngine
+    tap_s: list[float] = []
+    real_tap = ReplicaEngine._tap
+
+    def timed_tap(self, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_tap(self, *a, **kw)
+        finally:
+            tap_s.append(time.perf_counter() - t)
+    ReplicaEngine._tap = timed_tap
+
+    def quiet_faults(args):
+        with redirect_stdout(io.StringIO()):   # its chaos line, again
+            return serve.fault_kwargs(args)
+
+    # (g) occupancy buckets: the bucketed deployment's plain loop
+    def bucket_loop(call, feeds, width):
+        """The plain loop over a bucketed deployment: DISPATCH events a
+        call, each call's results on the host before the next; each
+        event's outputs at its own bucket's width (``width``); and
+        events/s, p50 and p99 µs (dispatch to host)."""
+        n = len(feeds["hits"])
+        per_event, lat = [], []
+        t0 = time.perf_counter()
+        for s0 in range(0, n, DISPATCH):
+            t = time.perf_counter()
+            out = call({k: v[s0:s0 + DISPATCH] for k, v in feeds.items()})
+            dt = time.perf_counter() - t
+            for i in range(len(out["cps"]["trigger"])):
+                per_event.append({k: ({c: a[i] for c, a in v.items()}
+                                      if k == "cps" else
+                                      v[i, :width[s0 + i]])
+                                  for k, v in out.items()})
+                lat.append(dt)
+        elapsed = time.perf_counter() - t0
+        return per_event, {"events_s": n / elapsed,
+                           "p50_us": float(np.percentile(lat, 50) * 1e6),
+                           "p99_us": float(np.percentile(lat, 99) * 1e6)}
+
+    def buckets_equal(bpipe, results, feeds, label):
+        """Every served event bitwise equal to the same BucketedPipeline
+        in the plain captured loop and to its plain-substituted
+        deployment; the plain loop's rate."""
+        width = [bpipe.classify(int(o)) for o in
+                 np.count_nonzero(feeds["mask"] > 0, axis=1)]
+        plain_ev, rate = bucket_loop(bpipe, feeds, width)
+        with substituted(plain_fns):
+            sub_ev, _ = bucket_loop(bpipe.run_eager, feeds, width)
+        for what, want_ev in (("the plain captured loop", plain_ev),
+                              ("the plain-substituted deployment", sub_ev)):
+            for i, (got, want) in enumerate(zip(results, want_ev,
+                                                strict=True)):
+                g_, w_ = dict(leaves(got)), dict(leaves(want))
+                bad = sorted(k for k in w_
+                             if not np.array_equal(g_.get(k), w_[k]))
+                if set(g_) != set(w_) or bad:
+                    fail(f"[{label}] event {i} (bucket {width[i]}) differs "
+                         f"from {what}: {bad or sorted(set(g_) ^ set(w_))}")
+        say(f"[{label}] every event bitwise equal to the same "
+            "BucketedPipeline in the plain captured loop and to its "
+            "plain-substituted deployment; events per bucket "
+            f"{ {int(b): width.count(b) for b in sorted(set(width))} }")
+        return rate
+
+    # serve.run with --buckets on the warm-trained default
+    bk_report = serve_run(
+        "buckets", ["--buckets", *map(str, BUCKETS), "--bucket-microbatch",
+                    str(BUCKET_MICROBATCH)], mixed_launches,
+        lambda report, label: buckets_equal(
+            report.servables[0].pipe, report.served.results[None],
+            report.feeds["ccn"], label))
+    service_rows["buckets"]["buckets"] = bk_report.buckets
+    bpipe = bk_report.servables[0].pipe
+    # then events spread over the buckets (with_occupancy), on the same
+    # deployment through a fresh service
+    oc = generate(with_occupancy(gen_cfg, BUCKETS), 512, seed=7)
+    oc_feeds = {"hits": oc["feats"], "mask": oc["mask"]}
+    oc_n = len(oc_feeds["hits"])
+
+    def bucket_service():
+        return serve.build_service(bk_report.args, bk_report.servables,
+                                   **quiet_faults(bk_report.args))
+    svc = bucket_service()
+    try:
+        bcap = svc.capture_summary()
+        served = serve.submit_all(svc, {None: oc_feeds})
+        svc.drain()
+        bsum = svc.stats.summary()
+        brows = svc.bucket_summary()
+        bcaps = svc.capture_summary()
+    finally:
+        svc.close()
+    released_once_in_order(served, bsum, "buckets occupancy", oc_n)
+    lanes_captured_before_traffic(bcaps, "buckets occupancy")
+    if bcap != bcaps or len(bcaps) != len(BUCKETS):
+        fail(f"[buckets occupancy] captures {bcap} -> {bcaps}")
+    if any(r["completed"] != r["submitted"] for r in brows):
+        fail(f"[buckets occupancy] buckets {brows}")
+    bk_plain = buckets_equal(bpipe, served.results[None], oc_feeds,
+                             "buckets occupancy")
+    b_launch, b_idle = profiled("buckets occupancy", bucket_service,
+                                {None: oc_feeds}, mixed_launches)
+    row("buckets occupancy", served, bsum, bk_plain, b_idle, b_launch)
+    service_rows["buckets occupancy"]["buckets"] = brows
+    # the bucketed service against the padded default on the same events,
+    # and the two deployments' plain loops (no service threads)
+    oc_routed = {None: oc_feeds}
+    oc_width = [bpipe.classify(int(o)) for o in
+                np.count_nonzero(oc_feeds["mask"] > 0, axis=1)]
+    dflt_pipe = default_report.servables[0].pipe
+
+    def padded_plain():
+        _, lat, elapsed = serve.serve_events(dflt_pipe, oc_feeds)
+        return {"events_s": oc_n / elapsed,
+                "p50_us": float(np.percentile(lat, 50) * 1e6),
+                "p99_us": float(np.percentile(lat, 99) * 1e6)}
+    phase11["buckets_vs_padded"] = medians("buckets vs padded", {
+        "bucketed service": lambda: timed_service(bucket_service,
+                                                  oc_routed),
+        "padded default service": lambda: timed_service(
+            lambda: serve.build_service(
+                default_report.args, default_report.servables,
+                **quiet_faults(default_report.args)), oc_routed),
+        "bucketed plain loop": lambda: bucket_loop(bpipe, oc_feeds,
+                                                   oc_width)[1],
+        "padded default plain loop": padded_plain})
+    phase11["buckets_vs_padded"]["bucket_rows"] = brows
+
+    # (h) the monitor: the default run with --monitor-port 0 and
+    # --event-display
+    disp_path = OUT / "event_display.json"
+    mon_report = serve_run("monitored", ["--monitor-port", "0",
+                                         "--event-display", str(disp_path)],
+                           mixed_launches)
+    live, snap = mon_report.live_snapshot, mon_report.monitor
+    results_ = mon_report.served.results[None]
+    trig = [bool(r["cps"]["trigger"]) for r in results_]
+    if live is None or live["events"] != mon_report.summary["completed"]:
+        fail(f"[monitored] /snapshot {live} against completed "
+             f"{mon_report.summary['completed']}")
+    if snap["trigger_rate"] != sum(trig) / len(trig) or \
+            snap["events"] != len(results_):
+        fail(f"[monitored] snapshot trigger rate {snap['trigger_rate']} of "
+             f"{snap['events']} events, the released results' "
+             f"{sum(trig) / len(trig)} of {len(results_)}")
+    try:
+        shown = json.loads(disp_path.read_text())
+    except (OSError, ValueError) as e:
+        fail(f"[monitored] the event display file: {e}")
+    if shown != mon_report.displays or not shown:
+        fail("[monitored] the event display file holds other records than "
+             "the run wrote")
+    say(f"[monitored] /snapshot events={live['events']} = completed; "
+        f"trigger rate {snap['trigger_rate']} = the released results'; "
+        f"efficiency {snap['efficiency']}, fake rate {snap['fake_rate']}; "
+        f"{len(shown)} display records parsed")
+    mon_args = mon_report.args
+    mon_truth = {None: mon_report.truth["ccn"]}
+    mon_routed = {None: mon_report.feeds["ccn"]}
+    phase11["monitor_on_off"] = medians("monitor on vs off", {
+        "monitor on": lambda: timed_service(lambda: serve.build_service(
+            mon_args, mon_report.servables,
+            monitor=serve.monitor_config(mon_args),
+            **quiet_faults(mon_args)), mon_routed, mon_truth),
+        "monitor off": lambda: timed_service(lambda: serve.build_service(
+            mon_args, mon_report.servables, **quiet_faults(mon_args)),
+            mon_routed)})
+    ReplicaEngine._tap = real_tap
+    phase11["monitor_snapshot"] = {k: v for k, v in snap.items()
+                                   if k != "serving"}
+    (OUT / "phase11.json").write_text(json.dumps(phase11, indent=1,
+                                                 default=str))
+    (OUT / "service.json").write_text(json.dumps(service_rows, indent=1,
+                                                 default=str))
+    say(f"phase 11 done at {time.perf_counter() - t_start:.1f}s "
+        f"({time.perf_counter() - t11:.1f}s)")
+
+    # 12. the kernel line and the result -----------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)
@@ -2362,6 +2639,11 @@ def main() -> int:
     # the default run, the routes' and the ragged path's kernels
     home["fused_dense_int8"].append("service default")
     home["gravnet_block_int8"].append("service default")
+    # and phase 11's: the bucketed runs and the monitored default
+    for run_ in ("service buckets", "service buckets occupancy",
+                 "service monitored"):
+        home["fused_dense_int8"].append(run_)
+        home["gravnet_block_int8"].append(run_)
     home["fused_dense"] += ["service routes", "service ragged"]
     home["edge_aggregate"].append("service routes")
     home["knn_build"].append("service ragged")

@@ -31,6 +31,14 @@ reference; a bf16 dense has no kernel in the port and raises.
 aggregations are the ``knn_build``/``knn_aggregate`` kernel pair with
 segment masking, and whose CPS scatters the packed rows back per event.
 
+``deploy_bucketed`` emits the occupancy-bucketed path: a
+:class:`BucketedPipeline` of one batch-packed executable per bucket of
+hits (``n_hits`` = the bucket, calibrated on its own cut of the
+calibration batch); an event runs on the smallest bucket that fits its
+non-zero hits. ``resource_report``, ``model_throughput`` and
+``model_latency`` are the reference's design-flow report, on its cost
+model (modelled TPU v5e or CPU figures, not the H100's).
+
 The edge-based GNNs (``models/gnn/``: GatedGCN, GraphSAGE) deploy
 through the same flow, fp: their graphs' ``gather_edge``, ``eltwise``
 and ``batchnorm`` ops run in plain PyTorch (the reference's XLA
@@ -77,6 +85,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import threading
 from typing import Any, NamedTuple
 
@@ -90,7 +99,8 @@ from repro_torch.core.op_registry import LANE
 from repro_torch.core.passes.fusion import fuse
 from repro_torch.core.passes.kernel_opt import kernel_optimize
 from repro_torch.core.passes.mapping import map_templates
-from repro_torch.core.passes.parallelize import Requirements, parallelize
+from repro_torch.core.passes.parallelize import (Requirements, op_cost,
+                                                  parallelize, segment_time)
 from repro_torch.core.passes.partition import partition, segments
 from repro_torch.core.passes.ragged import raggedize
 from repro_torch.core.passes.verify import verify
@@ -101,9 +111,11 @@ from repro_torch.data.ragged import (RaggedBatch, bin_pack, pack_events,
                                      unpack_binned)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import mesh as hw
 
-__all__ = ["CompiledPipeline", "InFlight", "Lane", "QTensor", "RaggedLane",
-           "RaggedPipeline", "Requirements", "deploy"]
+__all__ = ["BucketedPipeline", "CompiledPipeline", "InFlight", "Lane",
+           "QTensor", "RaggedLane", "RaggedPipeline", "Requirements",
+           "deploy", "deploy_bucketed"]
 
 
 class QTensor(NamedTuple):
@@ -602,7 +614,9 @@ class CompiledPipeline:
     ``batch > 1`` pins a batch-packed executable: ``batch`` events per
     chunk, each segment running the whole chunk at once (no P-chunking).
     ``backend`` names the kernels' route for the tuning layer: "cuda"
-    (the hand-written kernels) or "cpu" (their plain versions).
+    (the hand-written kernels) or "cpu" (their plain versions). ``req``
+    is the deployment's ``Requirements``, which the design flow's report
+    (``resource_report``) reads.
 
     On ``cuda`` a call replays each chunk's captured CUDA graphs (one
     per chunk under ``fuse_pipeline``, else one per segment), capturing
@@ -611,8 +625,9 @@ class CompiledPipeline:
     """
 
     def __init__(self, graph: Graph, device: torch.device, *,
-                 batch: int = 1):
+                 batch: int = 1, req: Requirements | None = None):
         self.device = device
+        self.req = req
         self.backend = backend_of(device)
         self.graph = graph.clone()
         for op in self.graph:   # weights move to the device once
@@ -787,6 +802,51 @@ class CompiledPipeline:
             _tree_copy(out, part, i)
         return _tree_map(lambda a: a[:b], out) if total > b else out
 
+    # reporting ---------------------------------------------------------------
+    def resource_report(self):
+        """The design flow's Table-I analogue, per segment: FLOPs,
+        activation and weight bytes per event, the working set and its
+        share of a TPU v5e core's VMEM, and the modelled seconds per step.
+        These are the reference's cost model (``passes/parallelize.py``'s
+        ``op_cost`` and ``segment_time`` on ``req.platform``'s "tpu" or
+        "cpu" constants, ``launch/mesh.py``'s ``VMEM_BYTES``), kept so
+        that the port reports what the reference reports: modelled
+        figures, not measurements of the H100."""
+        n = self.req.n_hits
+        rows = []
+        for seg in self.segments:
+            ops_ = [self.graph[o] for o in seg["ops"]]
+            p = ops_[0].attrs_opt.get("P", 1)
+            fl = by = wb = 0.0
+            for op in ops_:
+                f_, a_, w_ = op_cost(op, n)
+                fl += f_
+                by += a_
+                wb += w_
+            vmem = wb + p * by
+            rows.append({
+                "segment": seg["id"], "target": seg["target"], "P": p,
+                "ops": len(ops_), "flops_per_event": fl,
+                "act_bytes_per_event": by, "weight_bytes": wb,
+                "vmem_working_set": vmem,
+                "vmem_util": vmem / hw.VMEM_BYTES,
+                "time_s_per_step": segment_time(ops_, n, p,
+                                                self.req.platform),
+            })
+        return rows
+
+    def model_throughput(self):
+        """Events/s of the modelled pipeline (``resource_report``)."""
+        total = 0.0
+        for r in self.resource_report():
+            chunks = max(1, self.microbatch // r["P"])
+            total += chunks * r["time_s_per_step"]
+        return self.microbatch / total if total else float("inf")
+
+    def model_latency(self):
+        """Modelled seconds of one step through every segment."""
+        return sum(r["time_s_per_step"] for r in self.resource_report())
+
 
 # ----------------------------------------------------------------- deploy ----
 def backend_of(device: torch.device) -> str:
@@ -865,7 +925,7 @@ def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
                             tuning_cache=tuning_cache,
                             backend=backend_of(device))
     g.meta["n_hits"] = req.n_hits   # nodes per graph of edge_aggregate
-    pipe = CompiledPipeline(g, device, batch=batch)
+    pipe = CompiledPipeline(g, device, batch=batch, req=req)
     if mixed:
         pipe.calibrate(calibration_feeds)
     if ragged:
@@ -873,6 +933,204 @@ def deploy(model_graph: Graph, req: Requirements, *, calibration_feeds=None,
                               capacity=req.n_hits,
                               example_feeds=calibration_feeds)
     return pipe
+
+
+# ----------------------------------------------------- bucketed deployment ----
+def _cut_hits(feeds: dict, n: int) -> dict:
+    """Slice (or zero-pad) every feed's hit axis (axis 1) to exactly
+    ``n`` rows; numpy stays numpy, a tensor a tensor. Events are
+    energy-sorted upstream (``data/belle2``), so an overflow slice keeps
+    the hardest hits. Already-cut feeds (the serving dispatch path:
+    ``submit`` cuts per event) pass through untouched, so the hot path
+    pays no copy."""
+    out = {}
+    for key, v in feeds.items():
+        if v.shape[1] == n:
+            out[key] = v
+        elif v.shape[1] > n:
+            out[key] = v[:, :n]
+        elif isinstance(v, torch.Tensor):
+            out[key] = torch.cat([v, v.new_zeros(
+                (v.shape[0], n - v.shape[1], *v.shape[2:]))], dim=1)
+        else:
+            pw = [(0, 0)] * v.ndim
+            pw[1] = (0, n - v.shape[1])
+            out[key] = np.pad(np.asarray(v), pw)
+    return out
+
+
+def _take(v, idxs):
+    """Rows ``idxs`` of a numpy array or a tensor."""
+    if isinstance(v, torch.Tensor):
+        return v[torch.as_tensor(idxs, device=v.device)]
+    return np.asarray(v)[np.asarray(idxs)]
+
+
+def _host_np(v):
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _reassemble(parts, b_total):
+    """One tree of numpy arrays, each event's rows at its index: ``parts``
+    is ``[(idxs, tree)]``, per bucket; a per-hit axis (axis 1) narrower
+    than the widest part is zero-padded to it."""
+    tree0 = parts[0][1]
+    if isinstance(tree0, dict):
+        return {k: _reassemble([(i, t[k]) for i, t in parts], b_total)
+                for k in tree0}
+    arrs = [(idxs, _host_np(a)) for idxs, a in parts]
+    widest = max(a.shape[1] if a.ndim >= 2 else 0 for _, a in arrs)
+    buf = None
+    for idxs, a in arrs:
+        if a.ndim >= 2 and a.shape[1] < widest:
+            pw = [(0, 0)] * a.ndim
+            pw[1] = (0, widest - a.shape[1])
+            a = np.pad(a, pw)
+        if buf is None:
+            buf = np.zeros((b_total, *a.shape[1:]), a.dtype)
+        buf[np.asarray(idxs)] = a
+    return buf
+
+
+class _BucketFn:
+    """One bucket's serving callable (``BucketedPipeline.infer_fns``):
+    feeds cut to the bucket, then one call of its executable; ``lane``
+    gives a serving replica its own lane of that executable, which takes
+    feeds the service has already cut (``submit``)."""
+
+    def __init__(self, pipe: CompiledPipeline, bucket: int):
+        self.pipe, self.bucket = pipe, bucket
+        self.microbatch = pipe.microbatch
+
+    def __call__(self, feeds):
+        return self.pipe(_cut_hits(feeds, self.bucket))
+
+    def lane(self, device=None) -> "Lane":
+        return self.pipe.lane(device)
+
+
+class BucketedPipeline:
+    """Occupancy-bucketed, batch-packed deployment (``deploy_bucketed``).
+
+    One ``CompiledPipeline`` per (bucket, microbatch) pair: events are
+    classified by non-zero hit count and run through the smallest
+    bucket executable that fits them (overflow → largest bucket), so
+    low-occupancy events stop paying the full-detector launch.
+    ``__call__`` reproduces the single-pipeline API — it classifies a
+    feed batch, packs each bucket's events into ``microbatch``-wide
+    launches, and reassembles results in submission order, as numpy
+    (per-hit output heads are zero-padded up to the widest bucket used
+    so the batch stacks); ``run_eager`` does the same without capture.
+    Serving integrates through ``infer_fns()`` + ``classify()`` (see
+    ``serving.ShardedTriggerService(buckets=…)``, where each replica of
+    bucket b serves through a lane of ``pipes[b]``).
+    """
+
+    def __init__(self, pipes: dict[int, CompiledPipeline], *,
+                 microbatch: int, mask_feed: str = "mask",
+                 example_feeds: dict | None = None):
+        if not pipes:
+            raise ValueError("BucketedPipeline: no bucket executables")
+        self.pipes = {b: pipes[b] for b in sorted(pipes)}
+        self.buckets = tuple(sorted(pipes))
+        self.microbatch = microbatch
+        first = self.pipes[self.buckets[0]]
+        self.device, self.backend = first.device, first.backend
+        self.mask_feed = mask_feed
+        # example feeds (the calibration batch) drive the warm-up
+        self._example = example_feeds
+
+    # ------------------------------------------------------- classification --
+    def classify(self, occupancy: int) -> int:
+        from repro_torch.serving.router import pick_bucket_sorted
+        return pick_bucket_sorted(occupancy, self.buckets)
+
+    def _occupancies(self, feeds):
+        return np.count_nonzero(_host_np(feeds[self.mask_feed]) > 0, axis=1)
+
+    # --------------------------------------------------------------- infer --
+    def __call__(self, feeds):
+        return self._run(feeds, eager=False)
+
+    def run_eager(self, feeds):
+        """A call whose bucket executables run without capture
+        (``CompiledPipeline.run_eager``)."""
+        return self._run(feeds, eager=True)
+
+    def _run(self, feeds, *, eager: bool):
+        occ = self._occupancies(feeds)
+        groups: dict[int, list[int]] = {}
+        for i, o in enumerate(occ):
+            groups.setdefault(self.classify(int(o)), []).append(i)
+        parts = []
+        for bucket, idxs in sorted(groups.items()):
+            pipe = self.pipes[bucket]
+            run = pipe.run_eager if eager else pipe
+            sub = {k: _take(v, idxs) for k, v in feeds.items()}
+            parts.append((idxs, run(_cut_hits(sub, bucket))))
+        return _reassemble(parts, occ.shape[0])
+
+    # ------------------------------------------------------------- serving --
+    def infer_fns(self) -> dict:
+        """{bucket: infer_fn} for the serving layer; each fn expects
+        feeds already cut to its bucket's hit count (the service slices
+        on submit; others are cut) and runs one batch-packed launch, and
+        its ``lane(device)`` is a lane of the bucket's executable."""
+        return {b: _BucketFn(self.pipes[b], b) for b in self.buckets}
+
+    def warmup_one(self, bucket: int) -> int:
+        """One call of a bucket's (bucket, microbatch) executable on the
+        example feeds, which on the card captures its chunk shape (the
+        shape its lanes capture for themselves); returns 1 when warmed,
+        0 with no example feeds (without them, on the card, call the
+        bucket's pipe once at the serving width before serving)."""
+        if self._example is None:
+            return 0
+        ex = {k: v[:self.microbatch] for k, v in self._example.items()}
+        # CompiledPipeline pads any batch up to the microbatch multiple,
+        # so a short example still runs the served shape
+        self.pipes[bucket](_cut_hits(ex, bucket))
+        return 1
+
+    def warmup(self) -> int:
+        """Warm every (bucket, microbatch) executable
+        (:meth:`warmup_one`); returns the number warmed."""
+        return sum(self.warmup_one(b) for b in self.buckets)
+
+    # ----------------------------------------------------------- reporting --
+    def resource_report(self):
+        """Each bucket's :meth:`CompiledPipeline.resource_report`
+        (modelled figures)."""
+        return {b: p.resource_report() for b, p in self.pipes.items()}
+
+
+def deploy_bucketed(model_graph: Graph, req: Requirements, *,
+                    buckets=(32, 64, 128), microbatch: int = 8,
+                    calibration_feeds=None, tuning_cache=None,
+                    fuse_gravnet_block: bool = True,
+                    fuse_int8: bool = True, device=None) -> BucketedPipeline:
+    """Run the design flow once per occupancy bucket, on ``device``.
+
+    Each bucket b gets its own batch-packed executable deployed at
+    ``n_hits=b`` and ``batch=microbatch`` (kernel bindings, tuning keys,
+    and precision calibration all see the bucket's true shape).
+    ``calibration_feeds`` are cut to each bucket's hit count, so int8
+    activation scales are calibrated on the occupancy tier they will
+    serve; they are also the example feeds the warm-up runs on."""
+    bs = sorted(set(int(b) for b in buckets))
+    if not bs or bs[0] <= 0:
+        raise ValueError(f"invalid buckets {buckets!r}")
+    pipes = {}
+    for b in bs:
+        req_b = dataclasses.replace(req, n_hits=b)
+        calib_b = None if calibration_feeds is None \
+            else _cut_hits(calibration_feeds, b)
+        pipes[b] = deploy(model_graph, req_b, calibration_feeds=calib_b,
+                          tuning_cache=tuning_cache, batch=microbatch,
+                          fuse_gravnet_block=fuse_gravnet_block,
+                          fuse_int8=fuse_int8, device=device)
+    return BucketedPipeline(pipes, microbatch=microbatch,
+                            example_feeds=calibration_feeds)
 
 
 # ------------------------------------------------------ ragged deployment ----
@@ -1010,6 +1268,11 @@ class RaggedPipeline:
         self(self.warmup_feeds())
         return 1
 
+    def resource_report(self):
+        """The inner executable's report
+        (:meth:`CompiledPipeline.resource_report`: modelled figures)."""
+        return self.pipe.resource_report()
+
 
 # ------------------------------------------------------------------ lanes ----
 class InFlight(NamedTuple):
@@ -1086,7 +1349,7 @@ class Lane:
         device = pipe.device if device is None else torch.device(device)
         base = pipe if _same_device(device, pipe.device) else \
             CompiledPipeline(pipe.graph, device, batch=pipe.microbatch
-                             if pipe.batch_packed else 1)
+                             if pipe.batch_packed else 1, req=pipe.req)
         run = copy.copy(base)       # the weights, plans and bindings
         run._ex = _Executor(base._ex.cfg, base._ex.max_events,
                             base._ex.n_hits)

@@ -5,13 +5,15 @@ The constants are copied from ``repro/launch/mesh.py`` without its JAX
 mesh builders. They describe a TPU v5e chip: the design flow's cost
 model ranks P choices with them (or with the CPU constants in
 ``passes/parallelize.py``) so that the port picks the reference's P
-and micro-batch. They are not a description of the H100; an H100 cost
-table is later work.
+and micro-batch, and ``CompiledPipeline.resource_report`` reports the
+reference's modelled working set against ``VMEM_BYTES``. They are not
+a description of the H100; an H100 cost table is later work.
 """
 import torch
 
 PEAK_FLOPS_BF16 = 197e12      # per chip, FLOP/s
 HBM_BW = 819e9                # per chip, B/s
+VMEM_BYTES = 128 * 1024 * 1024  # the working-set limit resource_report uses
 
 
 def replica_devices(n_replicas: int):

@@ -56,12 +56,33 @@ Runs on ``cuda`` unless ``--device cpu`` is given. Each route is first
 called once at the serving width (events of seed 99), which on ``cuda``
 captures its chunk shapes as CUDA graphs (``core/pipeline.py``); then
 every replica's lane captures those shapes for itself, before traffic,
-and nothing is captured under traffic (checked). Occupancy buckets
-(``--buckets``, and with them the bucketed deployment's tuning branch),
-the monitor (``--monitor-port``, ``--event-display``) and
-``--bench-out`` are not ported. The padding-free ragged path has no
-flag, as in the reference: ``build_pipeline(..., ragged=True, batch=8)``
-deploys it and ``ShardedTriggerService(ragged=...)`` serves it.
+and nothing is captured under traffic (checked). The padding-free ragged
+path has no flag, as in the reference: ``build_pipeline(...,
+ragged=True, batch=8)`` deploys it and
+``ShardedTriggerService(ragged=...)`` serves it.
+
+``ccn`` alone also takes the reference's demonstrator flags:
+
+- ``--buckets N ...`` deploys one batch-packed executable per occupancy
+  bucket (``deploy_bucketed``, ``--bucket-microbatch`` events a launch,
+  default 8) and serves them through ``ShardedTriggerService(buckets=)``:
+  each event goes to the smallest bucket that fits its non-zero hits,
+  each bucket's replicas on lanes of its executable, each bucket called
+  once before its lanes capture. ``--tune`` then searches every bucket's
+  graph at ``batch=microbatch``, as the reference's bucketed branch does;
+- ``--monitor-port PORT`` (0: any free port) serves the live monitor
+  over HTTP on localhost (``/snapshot``, ``/events``, ``/``), and after
+  serving checks that ``/snapshot`` counts the events the service
+  completed (``SystemExit`` otherwise); ``--event-display PATH`` writes
+  the first ``--event-display-n`` events' display records as JSON. Either
+  turns the service's monitor on (one ``TriggerMonitor`` a replica on the
+  detector's grid, ``display_n = max(n, 64)``) and submits each event's
+  truth bit with it; without them the run takes the path it takes
+  without a monitor.
+
+Any other ``--model`` selection takes ``--bench-out PATH``: the run's
+events/s, latency and per-route rows as JSON, the reference's
+multi-model stats.
 
 ``serve_routes`` and ``serve_events`` are the plain captured in-order
 loop (one dispatch of each route in turn, each dispatch's results on
@@ -72,7 +93,9 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import json
 import time
+import urllib.request
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -81,14 +104,17 @@ import torch
 from repro_torch.core import caloclusternet as ccn
 from repro_torch.core.condensation import condensation_loss
 from repro_torch.core.graph_ir import export_graph
-from repro_torch.core.pipeline import Requirements, deploy
+from repro_torch.core.pipeline import (BucketedPipeline, Requirements,
+                                       deploy, deploy_bucketed)
 from repro_torch.data.belle2 import Belle2Config, current_detector, generate
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import gatedgcn, graphsage
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_warmup)
 from repro_torch.optim.adamw import tree_map
-from repro_torch.serving import POLICIES, FaultPlan, ShardedTriggerService
+from repro_torch.serving import (POLICIES, FaultPlan, MonitorServer,
+                                 ShardedTriggerService, event_display,
+                                 write_display)
 from repro_torch.tuning import (TuningCache, autotune_graph,
                                 graph_kernel_problems, make_warmup)
 
@@ -104,6 +130,10 @@ TRAIN_STEPS = 40
 WINDOW_S = 2e-3
 #: its bound on the wait for one event's result, seconds
 RESULT_TIMEOUT_S = 120
+#: its bucketed path's default launch width
+BUCKET_MICROBATCH = 8
+#: the fewest display records its monitor keeps
+MIN_DISPLAY_N = 64
 
 
 def detector_configs(detector: str):
@@ -128,7 +158,7 @@ def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
                    ragged: bool = False, tuning_cache=None,
                    target_throughput: float = TARGET_THROUGHPUT,
                    tpu_native_gravnet: bool = False, params=None,
-                   device=None):
+                   buckets=None, device=None):
     """CaloClusterNet weights ``params`` (default: random from seed 0),
     exported and deployed as repro/launch/serve.py deploys it (its CPU
     cost constants, so the design flow picks the same P and
@@ -136,7 +166,9 @@ def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
     ``target_throughput`` and ``tpu_native_gravnet`` are the
     ``Requirements``'; ``batch``, ``ragged`` and ``tuning_cache`` are
     ``deploy``'s: ``ragged=True`` returns the padding-free
-    ``RaggedPipeline`` with ``batch`` bins per launch."""
+    ``RaggedPipeline`` with ``batch`` bins per launch. ``buckets``
+    (occupancy caps) returns ``deploy_bucketed``'s ``BucketedPipeline``
+    instead, ``batch`` events a launch of each bucket."""
     if params is None:
         params = ccn.init(torch.Generator().manual_seed(0), cfg)
     req = Requirements(design_point=design_point, platform="cpu",
@@ -144,7 +176,14 @@ def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
                        target_throughput=target_throughput,
                        max_latency_s=2e-3,
                        tpu_native_gravnet=tpu_native_gravnet)
-    return deploy(export_graph("caloclusternet", params, cfg), req,
+    graph = export_graph("caloclusternet", params, cfg)
+    if buckets:
+        return deploy_bucketed(graph, req, buckets=buckets, microbatch=batch,
+                               calibration_feeds=calibration_feeds(gen_cfg),
+                               tuning_cache=tuning_cache,
+                               fuse_gravnet_block=fuse_gravnet_block,
+                               fuse_int8=fuse_int8, device=device)
+    return deploy(graph, req,
                   calibration_feeds=calibration_feeds(gen_cfg),
                   tuning_cache=tuning_cache,
                   fuse_gravnet_block=fuse_gravnet_block,
@@ -258,8 +297,11 @@ def _ccn_servable(args, cfg=None, tuning_cache=None,
                   params=None) -> Servable:
     """CaloClusterNet of ``--detector`` (or ``cfg`` on that detector's
     events) under ``--precision``, with weights ``params`` (default:
-    random from seed 0)."""
+    random from seed 0); under ``--buckets`` a ``BucketedPipeline`` of
+    ``--bucket-microbatch`` events a launch."""
     det_cfg, gen_cfg = detector_configs(args.detector)
+    bucket_kw = (dict(buckets=args.buckets, batch=args.bucket_microbatch)
+                 if args.buckets else {})
     pipe = build_pipeline(cfg or det_cfg, gen_cfg,
                           design_point=args.design_point,
                           precision=args.precision,
@@ -268,7 +310,7 @@ def _ccn_servable(args, cfg=None, tuning_cache=None,
                           tuning_cache=tuning_cache,
                           target_throughput=args.target_throughput,
                           tpu_native_gravnet=args.tpu_native_gravnet,
-                          params=params, device=args.device)
+                          params=params, device=args.device, **bucket_kw)
 
     def events(n, seed):
         ev = generate(gen_cfg, n, seed=seed)
@@ -337,11 +379,28 @@ def _tune_and_rebind(cache, args, problems, redeploy):
 
 
 def cache_hits(pipe, cache) -> tuple[int, int]:
-    """(problems of ``pipe``'s graph that ``cache`` holds, problems)."""
+    """(problems of ``pipe``'s graph that ``cache`` holds, problems); of
+    every bucket's graph at its launch width for a ``BucketedPipeline``."""
+    if isinstance(pipe, BucketedPipeline):
+        parts = [cache_hits(p, cache) for p in pipe.pipes.values()]
+        return sum(h for h, _ in parts), sum(n for _, n in parts)
     g = pipe.graph
     keys = graph_kernel_problems(g, n_rows=g.meta["n_hits"],
-                                 backend=pipe.backend)
+                                 backend=pipe.backend,
+                                 batch=pipe.microbatch
+                                 if pipe.batch_packed else 1)
     return sum(k in cache for k in keys), len(keys)
+
+
+def tuning_problems(pipe) -> list:
+    """The (graph, n_rows, batch, backend) problems ``--tune`` searches:
+    the graph at one event's shapes, or, for a ``BucketedPipeline``, every
+    bucket's graph at its launch width (the reference's bucketed
+    branch)."""
+    if isinstance(pipe, BucketedPipeline):
+        return [(p.graph, b, pipe.microbatch, p.backend)
+                for b, p in pipe.pipes.items()]
+    return [(pipe.graph, pipe.graph.meta["n_hits"], 1, pipe.backend)]
 
 
 # ---------------------------------------------------------------- serving ----
@@ -447,21 +506,41 @@ def print_chaos(ft: dict, failed: int) -> None:
 
 def service_width(servables) -> int:
     """The service's micro-batch: ``max(pipe.microbatch, 16)`` for ccn
-    alone, ``max(8, *microbatches)`` over several routes."""
+    alone (a bucketed ccn: its launch width), ``max(8, *microbatches)``
+    over several routes."""
     if [sv.name for sv in servables] == ["ccn"]:
-        return max(servables[0].pipe.microbatch, MIN_SERVE_BATCH)
+        pipe = servables[0].pipe
+        if isinstance(pipe, BucketedPipeline):
+            return pipe.microbatch
+        return max(pipe.microbatch, MIN_SERVE_BATCH)
     return max(MIN_ROUTES_BATCH, *(sv.pipe.microbatch for sv in servables))
 
 
-def build_service(args, servables, *, warmup_fn=None, **fault_kw):
+def monitor_config(args):
+    """The service's ``monitor=`` of the reference: on the detector's
+    grid, keeping ``max(--event-display-n, 64)`` display records, when
+    ``--monitor-port`` or ``--event-display`` is given; else False."""
+    if args.monitor_port is None and not args.event_display:
+        return False
+    return {"detector": detector_configs(args.detector)[1],
+            "display_n": max(args.event_display_n, MIN_DISPLAY_N)}
+
+
+def build_service(args, servables, *, warmup_fn=None, monitor=False,
+                  **fault_kw):
     """The reference's service over the deployed routes: ccn alone as
-    ``infer_fn``, several routes as ``routes=``; each replica serves
-    through a lane of its route's pipeline, captured at construction."""
+    ``infer_fn`` (a bucketed ccn as ``buckets=``), several routes as
+    ``routes=``; each replica serves through a lane of its route's (its
+    bucket's) pipeline, captured at construction."""
     kw = dict(n_replicas=args.replicas, microbatch=service_width(servables),
               window_s=WINDOW_S, hedge_after_s=None, policy=args.policy,
-              loop=args.loop, warmup_fn=warmup_fn, **fault_kw)
+              loop=args.loop, warmup_fn=warmup_fn, monitor=monitor,
+              **fault_kw)
     if [sv.name for sv in servables] == ["ccn"]:
-        return ShardedTriggerService(servables[0].pipe, **kw)
+        pipe = servables[0].pipe
+        if isinstance(pipe, BucketedPipeline):
+            return ShardedTriggerService(buckets=pipe, **kw)
+        return ShardedTriggerService(pipe, **kw)
     return ShardedTriggerService(routes={sv.name: sv.pipe
                                          for sv in servables}, **kw)
 
@@ -477,14 +556,15 @@ class Served(NamedTuple):
     elapsed_s: float
 
 
-def submit_all(svc, feeds: dict) -> Served:
+def submit_all(svc, feeds: dict, truths: dict | None = None) -> Served:
     """Submit every event of ``feeds`` (route name, or None for a service
     without routes, to stacked numpy feeds) to ``svc``, one event of each
     route in turn, as the reference interleaves its routes' streams; then
     wait for every future, each for at most ``RESULT_TIMEOUT_S``. A
     callback on each future records when it resolved: registered before
     the next event is submitted, so the recorded order is the release
-    order."""
+    order. ``truths`` (route to one truth bit per event) go to
+    ``submit(truth=)``, for a monitored service."""
     counts = {r: len(next(iter(f.values()))) for r, f in feeds.items()}
     stamp = itertools.count()
     resolved: list[tuple[int, int]] = []
@@ -494,7 +574,10 @@ def submit_all(svc, feeds: dict) -> Served:
         for route, f in feeds.items():
             if i >= counts[route]:
                 continue
-            fut = svc.submit({k: v[i] for k, v in f.items()}, route=route)
+            truth = None if truths is None or truths.get(route) is None \
+                else bool(truths[route][i])
+            fut = svc.submit({k: v[i] for k, v in f.items()}, route=route,
+                             truth=truth)
             fut.add_done_callback(lambda _f, n=len(futs): resolved.append(
                 (next(stamp), n)))
             futs.append((route, fut))
@@ -523,8 +606,11 @@ class Report(NamedTuple):
     """One serve run, for callers that check it (``chip_smoke.py``):
     the parsed arguments, the deployed routes, each route's served feeds
     and trigger truth, what :func:`submit_all` saw, the service's
-    summary, its lanes' captures (``capture_summary``) and the fault
-    tolerance summary."""
+    summary, its lanes' captures (``capture_summary``), the fault
+    tolerance summary, the per-bucket rows (``bucket_summary``, empty
+    without buckets), the monitor's snapshot and ``/snapshot``'s answer
+    (None without a monitor, without ``--monitor-port``), and the event
+    display records written (None without ``--event-display``)."""
     args: argparse.Namespace
     servables: list
     feeds: dict
@@ -533,6 +619,10 @@ class Report(NamedTuple):
     summary: dict
     captures: list
     fault_tolerance: dict
+    buckets: list
+    monitor: dict | None
+    live_snapshot: dict | None
+    displays: list | None
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -608,12 +698,49 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="autotune every route's kernel problems before "
                          "serving; winners are saved to --tuning-cache "
                          "when given")
+    ap.add_argument("--buckets", type=int, nargs="+", default=None,
+                    metavar="N_HITS",
+                    help="ccn alone: occupancy buckets (e.g. 32 64 128): "
+                         "one batch-packed executable per bucket, each "
+                         "event dispatched to the smallest bucket that fits "
+                         "its non-zero hit count")
+    ap.add_argument("--bucket-microbatch", type=int,
+                    default=BUCKET_MICROBATCH, metavar="B",
+                    help="events each bucket executable packs per launch "
+                         f"(default {BUCKET_MICROBATCH})")
+    ap.add_argument("--monitor-port", type=int, default=None,
+                    metavar="PORT",
+                    help="ccn alone: serve the live monitor over HTTP on "
+                         "localhost at this port (0 = any free port): "
+                         "/snapshot JSON, /events NDJSON tail, / the event "
+                         "display")
+    ap.add_argument("--event-display", default=None, metavar="PATH",
+                    help="ccn alone: write a JSON event display (the "
+                         "detector's grid) of the first --event-display-n "
+                         "events")
+    ap.add_argument("--event-display-n", type=int, default=16, metavar="N",
+                    help="events in the --event-display file (default 16)")
+    ap.add_argument("--bench-out", default=None, metavar="PATH",
+                    help="any --model selection but ccn alone: write the "
+                         "run's per-route serving stats as JSON")
     args = ap.parse_args(argv)
     if args.events < len(args.model):
         ap.error(f"--events {args.events} leaves a route of "
                  f"{args.model} without events")
     if args.replicas < 1:
         ap.error("--replicas must be at least 1")
+    single = args.model == ["ccn"]
+    demo = [f for f, on in (("--buckets", args.buckets),
+                            ("--monitor-port", args.monitor_port is not None),
+                            ("--event-display", args.event_display)) if on]
+    if demo and not single:
+        ap.error(f"{', '.join(demo)} serve(s) --model ccn alone, as in the "
+                 "reference")
+    if args.bench_out and single:
+        ap.error("--bench-out writes the stats of a --model selection other "
+                 "than ccn alone, as in the reference")
+    if args.bucket_microbatch < 1 or (args.buckets and min(args.buckets) < 1):
+        ap.error("--buckets and --bucket-microbatch must be positive")
     return args
 
 
@@ -621,7 +748,8 @@ def deploy_routes(args, cache=None) -> list:
     """Every ``--model`` route deployed (ccn alone warm-trained first,
     ``--tune`` searched and rebound), each called once at the serving
     width on events of seed 99 (on ``cuda`` this captures its chunk
-    shapes for the lanes to copy)."""
+    shapes for the lanes to copy); a bucketed ccn is not called here,
+    the service's warm-up calls each bucket."""
     single = args.model == ["ccn"]
     trained = None
     if single and args.train_steps > 0:
@@ -640,10 +768,8 @@ def deploy_routes(args, cache=None) -> list:
     for m in args.model:
         sv = servable(m)
         if args.tune:
-            g = sv.pipe.graph
-            fresh = _tune_and_rebind(
-                cache, args, [(g, g.meta["n_hits"], 1, sv.pipe.backend)],
-                lambda m=m: servable(m))
+            fresh = _tune_and_rebind(cache, args, tuning_problems(sv.pipe),
+                                     lambda m=m: servable(m))
             if fresh is not None:
                 sv = fresh
         servables.append(sv)
@@ -651,16 +777,24 @@ def deploy_routes(args, cache=None) -> list:
     for sv in servables:
         pipe = sv.pipe
         precision = args.precision if sv.name == "ccn" else "fp"
-        print(f"[serve] deployed {sv.name}: design point "
-              f"{args.design_point}, {precision} on {pipe.device} "
-              f"({device_name(pipe.device)}): segments={len(pipe.segments)} "
-              f"microbatch={pipe.microbatch} blocks="
-              f"{sum(op.op_type == 'gravnet_block' for op in pipe.graph)}")
+        where = (f"design point {args.design_point}, {precision} on "
+                 f"{pipe.device} ({device_name(pipe.device)})")
+        if isinstance(pipe, BucketedPipeline):
+            # each bucket is called once by the service's warm-up
+            print(f"[serve] deployed {sv.name}: {where}: buckets="
+                  f"{pipe.buckets} microbatch={pipe.microbatch} (one "
+                  "batch-packed executable per bucket)")
+        else:
+            print(f"[serve] deployed {sv.name}: {where}: segments="
+                  f"{len(pipe.segments)} microbatch={pipe.microbatch} "
+                  "blocks="
+                  f"{sum(op.op_type == 'gravnet_block' for op in pipe.graph)}")
         if cache is not None:
             hits, n_keys = cache_hits(pipe, cache)
             print(f"[serve] route {sv.name}: {hits} of {n_keys} kernel "
                   "problems bound from the tuning cache")
-        pipe(sv.events(width, 99)[0])
+        if not isinstance(pipe, BucketedPipeline):
+            pipe(sv.events(width, 99)[0])
     if not single:
         print(f"[serve] routes {[sv.name for sv in servables]}: "
               f"microbatch={width}")
@@ -675,18 +809,29 @@ def run(argv=None) -> Report:
     """The command line's run: deploy, build the service, serve every
     event through it, print the reference's lines; returns the
     :class:`Report`. Raises ``SystemExit`` when the release order is not
-    the submission order, when a lane captured under traffic, or when,
-    without injected faults, an event went unanswered."""
+    the submission order, when a lane captured under traffic, when,
+    without injected faults, an event went unanswered, or when the live
+    ``/snapshot`` does not count the events the service completed."""
     args = parse_args(argv)
     cache = load_tuning_cache(args)
     servables = deploy_routes(args, cache)
-    dev = servables[0].pipe.device
-    warmup_fn = (make_warmup(cache, backend=servables[0].pipe.backend)
-                 if cache is not None and len(cache) else None)
+    pipe0 = servables[0].pipe
+    bucketed = isinstance(pipe0, BucketedPipeline)
+    dev = pipe0.device
+    # a bucketed service warms each bucket itself, as the reference's does
+    warmup_fn = (make_warmup(cache, backend=pipe0.backend)
+                 if cache is not None and len(cache) and not bucketed
+                 else None)
+    monitor = monitor_config(args)
     fk = fault_kwargs(args)
-    svc = build_service(args, servables, warmup_fn=warmup_fn, **fk)
+    svc = build_service(args, servables, warmup_fn=warmup_fn,
+                        monitor=monitor, **fk)
+    server = None
     try:
-        if warmup_fn is not None:
+        if bucketed:
+            print(f"[serve] bucket executables warmed at startup: "
+                  f"{sum(r.warmed for r in svc.replicas)}")
+        elif warmup_fn is not None:
             print(f"[serve] replicas warmed "
                   f"{sum(r.warmed for r in svc.replicas)} cached kernel "
                   "shape(s) at startup")
@@ -694,20 +839,36 @@ def run(argv=None) -> Report:
         print("[serve] lanes captured before traffic: " + ", ".join(
             f"replica {c['replica_id']} {c['captured_at_start']}"
             for c in start))
+        if args.monitor_port is not None:
+            server = MonitorServer.for_service(svc, port=args.monitor_port)
+            print(f"[serve] monitor live at {server.url} "
+                  "(/snapshot, /events, / = event display)")
         feeds, truth = {}, {}
         for i, sv in enumerate(servables):
             n = args.events // len(servables) + (
                 i < args.events % len(servables))
             feeds[sv.name], truth[sv.name] = sv.events(n, 7 + i)
-        routed = {(None if args.model == ["ccn"] else name): f
+        single = args.model == ["ccn"]
+        routed = {(None if single else name): f
                   for name, f in feeds.items()}
-        served = submit_all(svc, routed)
+        served = submit_all(svc, routed,
+                            {None: truth["ccn"]} if monitor else None)
         svc.drain()
         summary = svc.stats.summary()
         route_rows = svc.route_summary()
+        bucket_rows = svc.bucket_summary()
         captures = svc.capture_summary()
         ft = svc.fault_tolerance_summary()
+        snap = svc.monitor_snapshot() if monitor else None
+        live = None
+        if server is not None:
+            # the live endpoint, read back over HTTP on localhost
+            with urllib.request.urlopen(f"{server.url}/snapshot",
+                                        timeout=10) as r:
+                live = json.load(r)
     finally:
+        if server is not None:
+            server.close()
         svc.close()
     total = sum(len(v) for v in served.results.values())
     dt = served.elapsed_s
@@ -729,6 +890,10 @@ def run(argv=None) -> Report:
         print(f"[serve]   route {row['route']}: {row['submitted']} "
               f"submitted, {row['completed']} completed, {row['batches']} "
               f"batches, {row['padded_events']} padded")
+    for row in bucket_rows:
+        print(f"[serve]   bucket n_hits<={row['bucket']}: "
+              f"{row['submitted']} events, {row['batches']} batches, "
+              f"{row['padded_events']} padded")
     in_order = served.order == list(range(total))
     for (route, res), sv in zip(served.results.items(), servables):
         answered = sum(r is not None for r in res)
@@ -744,6 +909,42 @@ def run(argv=None) -> Report:
     print(f"[serve] lanes captured during traffic: {during}")
     if fk["faults"] is not None:
         print_chaos(ft, served.failed)
+    if snap is not None:
+        def f3(x):      # snapshot stats are None when undefined (e.g.
+            return "n/a" if x is None else f"{x:.3f}"   # one-class truth)
+
+        print(f"[serve] monitor: {snap['events']} events, "
+              f"trigger_rate={f3(snap['trigger_rate'])}, "
+              f"efficiency={f3(snap['efficiency'])}, "
+              f"fake_rate={f3(snap['fake_rate'])}, "
+              f"rate={snap['rate_ev_s']:,.0f} ev/s (windowed)")
+    if live is not None:
+        ok = live["events"] == summary["completed"]
+        print(f"[serve] /snapshot events={live['events']} vs stats "
+              f"completed={summary['completed']} -> "
+              f"{'MATCH' if ok else 'MISMATCH'}")
+    disp = None
+    if args.event_display:
+        gen_cfg = detector_configs(args.detector)[1]
+        disp = [event_display(r["cps"], event_id=i, detector=gen_cfg,
+                              truth=bool(truth["ccn"][i]))
+                for i, r in enumerate(
+                    served.results[None][:args.event_display_n])
+                if r is not None]
+        write_display(args.event_display, disp)
+        print(f"[serve] event display ({len(disp)} events) -> "
+              f"{args.event_display}")
+    if args.bench_out:
+        bench = {"events": args.events, "elapsed_s": dt, "loop": args.loop,
+                 "throughput_ev_s": total / dt,
+                 "p50_us": summary["p50_us"], "p99_us": summary["p99_us"],
+                 "routes": {row["route"]: {k: v for k, v in row.items()
+                                           if k != "route"}
+                            for row in route_rows},
+                 "released_nonzero": total > 0}
+        with open(args.bench_out, "w") as f:
+            json.dump(bench, f, indent=2)
+        print(f"[serve] multi-model stats -> {args.bench_out}")
     if not in_order:
         raise SystemExit("results were released out of submission order")
     if during:
@@ -752,8 +953,10 @@ def run(argv=None) -> Report:
     if fk["faults"] is None and served.failed:
         raise SystemExit(f"{served.failed} of {total} events went "
                          "unanswered without injected faults")
+    if live is not None and live["events"] != summary["completed"]:
+        raise SystemExit("monitor snapshot disagrees with serving stats")
     return Report(args, servables, feeds, truth, served, summary, captures,
-                  ft)
+                  ft, bucket_rows, snap, live, disp)
 
 
 def main(argv=None):

@@ -32,10 +32,10 @@ its own captured chunk graphs, its own executor, and pinned host rings in
 the streaming loop. A jitted JAX function may be shared by every replica;
 the port's captured chunk may not (its static feeds and outputs would be
 overwritten by another thread's replay), hence the lanes. A plain
-callable is shared as in the reference. Not ported: the monitor
-(``monitor=``, ``monitor_snapshot``, ``event_displays``) and a
-``BucketedPipeline`` as ``buckets=`` (the port has no bucketed
-deployment); both raise ``NotImplementedError``.
+callable is shared as in the reference. A ``BucketedPipeline`` as
+``buckets=`` gives each replica of bucket b a lane of the bucket's own
+executable, on feeds ``submit`` has cut to b hits. The monitor
+(``monitor=``) reads the CPS outputs the replicas bring to the host.
 """
 from __future__ import annotations
 
@@ -46,21 +46,13 @@ from concurrent.futures import Future
 import numpy as np
 
 from repro_torch.serving.health import BreakerConfig, ReplicaHealth
+from repro_torch.serving.monitor import MonitorSnapshot, TriggerMonitor
 from repro_torch.serving.replica import (EventTiming, InOrderReleaser,
                                          ReplicaEngine, ServingStats,
                                          ShedError)
 from repro_torch.serving.router import (POLICIES, Router, event_occupancy,
                                         pick_bucket_sorted)
 from repro_torch.serving.streaming import LOOPS, StreamingReplicaEngine
-
-#: where the parts that are not ported yet are queued
-_MONITOR_TODO = ("the serving monitor (monitor=, monitor_snapshot, "
-                 "event_displays) is not ported: ROADMAP.md queue 1, 'The "
-                 "monitor, the monitor server and the event display'")
-_BUCKETS_TODO = ("a BucketedPipeline as buckets= is not ported (the port has "
-                 "no deploy_bucketed): ROADMAP.md queue 1, 'Bucketed "
-                 "deployment and the design flow's report'; pass a "
-                 "{n_hits: infer_fn} dict")
 
 __all__ = ["AggregateStats", "ServingStats", "ShardedTriggerService",
            "ShedError", "TriggerServingEngine", "POLICIES", "LOOPS"]
@@ -165,9 +157,10 @@ class ShardedTriggerService:
     dim, and must be pure (hedging re-executes).  Pass one callable
     shared by every replica, or a list of N callables (e.g. per-device
     executables). A deployed pipeline (anything with a ``lane``
-    method: ``CompiledPipeline``, ``RaggedPipeline``), as ``infer_fn``,
-    a ``routes=`` or bucket value or ``ragged=``, is not shared: each
-    replica serves through ``pipe.lane(device)``, a lane of its own.
+    method: ``CompiledPipeline``, ``RaggedPipeline``, the bucket
+    callables of a ``BucketedPipeline``), as ``infer_fn``, a ``routes=``
+    or bucket value or ``ragged=``, is not shared: each replica serves
+    through ``pipe.lane(device)``, a lane of its own.
 
     ``devices``: ``"auto"`` places replica i on card ``i % n_cards``
     when more than one card is visible (see
@@ -177,19 +170,27 @@ class ShardedTriggerService:
     replicas, one lane each); a list pins replicas explicitly.
 
     Warm-up, before any replica takes traffic, one replica after
-    another: each lane captures every chunk shape it serves
-    (``Lane.warmup``; a capture fails if another thread calls CUDA
-    meanwhile, and nothing is captured under traffic). This runs once
-    per *lane*, where the reference warms once per distinct device: its
-    jit cache is per device, the port's captures are per lane. Then
-    ``warmup_fn``, an optional no-arg callable — pass
+    another: first ``warmup_fn``, an optional no-arg callable — pass
     ``repro_torch.tuning.make_warmup(cache)`` to replay every kernel
-    shape the tuning cache knows about — runs once per distinct
-    device, as in the reference. A failing warm-up raises (the
-    reference swallows it): the port carries no failed capture on.
+    shape the tuning cache knows about — once per distinct device, as
+    in the reference; then each lane captures every chunk shape it
+    serves (``Lane.warmup``; a capture fails if another thread calls
+    CUDA meanwhile, and nothing is captured under traffic). The lanes
+    warm once per *lane*, where the reference warms once per distinct
+    device: its jit cache is per device, the port's captures are per
+    lane. A failing warm-up raises (the reference swallows it): the
+    port carries no failed capture on.
 
-    ``monitor``: the reference's opt-in monitoring is not ported; a
-    truthy value raises ``NotImplementedError``.
+    ``monitor``: opt-in real-time monitoring (paper §III-B's
+    visualization pipeline). ``True`` attaches one ``TriggerMonitor``
+    per replica, fed one O(1) ``record_raw`` per completed micro-batch
+    by its batch loop once the batch's outputs are on the host — the
+    hot loop never blocks on aggregation, which runs vectorized on the
+    reader's thread; a dict is forwarded to each ``TriggerMonitor``
+    (e.g. ``{"window": 8192, "detector": cfg}``). Read the fleet view
+    with ``monitor_snapshot()`` / ``event_displays()``, and pass
+    ``truth=`` to ``submit`` to get online truth-matched efficiency /
+    fake-rate in the snapshot.
 
     ``loop``: the replica hot-loop flavor. ``"deadline"`` (default —
     the original behavior, bit-for-bit) launches a micro-batch when it
@@ -202,8 +203,11 @@ class ShardedTriggerService:
 
     ``buckets``: occupancy-bucketed dispatch (paper-adjacent: size the
     datapath to per-event occupancy instead of the detector maximum).
-    Pass a ``{n_hits: infer_fn}`` dict (a ``BucketedPipeline`` raises:
-    not ported). Each bucket gets its own group of
+    Pass a ``core.pipeline.BucketedPipeline`` (each bucket's replicas
+    serve through lanes of its batch-packed executable, and its
+    ``warmup_one`` runs for each bucket group before the group's lanes
+    capture) or a ``{n_hits: infer_fn}`` dict. Each bucket gets its own
+    group of
     ``n_replicas`` replicas behind its own router; ``submit`` counts an
     event's non-zero hits (``mask_feed``), slices its feeds to the
     smallest bucket that fits (overflow falls back to the largest —
@@ -249,8 +253,6 @@ class ShardedTriggerService:
                  shed: bool = False):
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
-        if monitor:
-            raise NotImplementedError(_MONITOR_TODO)
         if loop not in LOOPS:
             raise ValueError(f"unknown replica loop {loop!r}; expected "
                              f"one of {LOOPS}")
@@ -279,6 +281,7 @@ class ShardedTriggerService:
         engine_cls = StreamingReplicaEngine if loop == "streaming" \
             else ReplicaEngine
         self.mask_feed = mask_feed
+        bucket_warmups = None
         route_warmups = None
         self.routes = ()
         self.ragged = ragged is not None
@@ -320,8 +323,18 @@ class ShardedTriggerService:
                     "bucketed services route all traffic through the "
                     "bucket executables")
             if hasattr(buckets, "infer_fns"):     # BucketedPipeline
-                raise NotImplementedError(_BUCKETS_TODO)
-            bucket_fns = {int(b): fn for b, fn in dict(buckets).items()}
+                bucket_fns = buckets.infer_fns()
+                if warmup_fn is None and hasattr(buckets, "warmup_one"):
+                    # each bucket group warms ONLY its own executable
+                    # (once per distinct device), before its lanes
+                    # capture the shape that call captured
+                    bucket_warmups = {
+                        b: (lambda _b=b: buckets.warmup_one(_b))
+                        for b in bucket_fns}
+                elif warmup_fn is None and hasattr(buckets, "warmup"):
+                    warmup_fn = buckets.warmup
+            else:
+                bucket_fns = {int(b): fn for b, fn in dict(buckets).items()}
             if not bucket_fns:
                 raise ValueError("buckets must name at least one bucket")
             self.buckets = tuple(sorted(bucket_fns))
@@ -354,7 +367,19 @@ class ShardedTriggerService:
         self._seq = 0
         self._seq_lock = threading.Lock()
         self._releaser = InOrderReleaser(self._on_release)
-        if route_warmups is not None:
+        if monitor:
+            mkw = dict(monitor) if isinstance(monitor, dict) else {}
+            self.monitors = [TriggerMonitor(**mkw)
+                             for _ in range(total)]
+        else:
+            self.monitors = []
+        # seq -> truth bit for in-flight events (monitoring only);
+        # written by submit, consumed by the replica batch loops.
+        self._truth: dict[int, bool] = {}
+        if bucket_warmups is not None:
+            warmup_fns = [bucket_warmups[b]
+                          for b in self.buckets for _ in range(n_replicas)]
+        elif route_warmups is not None:
             warmup_fns = [route_warmups[r]
                           for r in self.routes for _ in range(n_replicas)]
         else:
@@ -367,7 +392,8 @@ class ShardedTriggerService:
             if self.max_retries > 0 else None
         self.replicas = []
         warmed = set()   # (device, warmup identity): the tuning cache's
-        #                  kernel shapes warm once per device
+        #                  kernel shapes warm once per device, and bucket
+        #                  groups warm per bucket
         try:
             for i, (fn, dev) in enumerate(zip(infer_fns, devices)):
                 key = (dev, id(warmup_fns[i]))
@@ -383,7 +409,12 @@ class ShardedTriggerService:
                                window_s=window_s, queue_depth=queue_depth,
                                hedge_after_s=hedge_after_s, device=dev,
                                replica_id=i, inflight=inflight,
-                               warmup_fn=wf, faults=faults,
+                               warmup_fn=wf,
+                               monitor=self.monitors[i]
+                               if self.monitors else None,
+                               truth_map=self._truth
+                               if self.monitors else None,
+                               faults=faults,
                                health=self.healths[i]
                                if self.healths else None,
                                on_batch_failure=on_batch_failure,
@@ -471,8 +502,10 @@ class ShardedTriggerService:
         dispatches to (optional when only one route is configured).
         Ordering is still global across routes.
 
-        ``truth``: the reference's ground-truth bit for its monitor,
-        which is not ported; accepted and unused.
+        ``truth``: optional ground-truth trigger bit; with monitoring
+        enabled it is matched against the model's decision when the
+        batch completes, feeding the snapshot's online efficiency /
+        fake-rate.
 
         ``deadline_s``: optional per-event latency budget measured
         from this submit; an event still undispatched when it expires
@@ -520,6 +553,9 @@ class ShardedTriggerService:
                 replica = self._route_routers[route].pick(idx)
             else:
                 replica = self.router.pick(seq)
+        if truth is not None and self.monitors:
+            self._truth[seq] = bool(truth)   # before enqueue: release
+            #                      can only happen after the enqueue.
         fut: Future = Future()
         if deadline_s is not None:
             # stamped on the future (always the item tuple's last
@@ -531,6 +567,9 @@ class ShardedTriggerService:
     # ----------------------------------------------------------- release ----
     def _on_release(self, seq: int, outcome, timing: EventTiming,
                     fut: Future):
+        # monitoring does NOT happen here: the replica batch loop has
+        # already record_raw()ed this event, so the serialized release
+        # stage stays monitoring-free.
         if self.max_retries:
             with self._retry_lock:
                 self._retry_counts.pop(seq, None)
@@ -590,14 +629,25 @@ class ShardedTriggerService:
     # -------------------------------------------------------- monitoring ----
     @property
     def monitoring(self) -> bool:
-        return False
+        return bool(self.monitors)
 
-    def monitor_snapshot(self):
-        raise NotImplementedError(_MONITOR_TODO)
+    def monitor_snapshot(self) -> MonitorSnapshot:
+        """Fleet-level monitoring snapshot, pooled across the
+        per-replica monitors."""
+        if not self.monitors:
+            raise RuntimeError(
+                "monitoring is off; construct the service with "
+                "monitor=True")
+        snap = MonitorSnapshot.merge(self.monitors)
+        # fault-path counters ride along so the /snapshot HTTP payload
+        # (monitor_server.py) exposes shed/retry/breaker state too
+        snap["serving"] = self.fault_tolerance_summary()
+        return snap
 
     def fault_tolerance_summary(self) -> dict:
         """Shed / retried / failed-over counters plus per-replica
-        breaker state — the fault-path view."""
+        breaker state — the fault-path view (also embedded in
+        ``monitor_snapshot()`` under ``"serving"``)."""
         states = {str(i): h.state()
                   for i, h in (self.healths or {}).items()}
         return {
@@ -616,7 +666,13 @@ class ShardedTriggerService:
         }
 
     def event_displays(self, n: int | None = None) -> list[dict]:
-        raise NotImplementedError(_MONITOR_TODO)
+        """Most recent event-display records across all replicas, in
+        submission order."""
+        if n is not None and n <= 0:
+            return []
+        recs = [r for m in self.monitors for r in m.displays()]
+        recs.sort(key=lambda r: r["event"])
+        return recs if n is None else recs[-n:]
 
     def capture_summary(self) -> list[dict]:
         """Per replica: the chunk shapes its lane captured in its warm-up

@@ -259,12 +259,11 @@ class ReplicaEngine:
                  microbatch: int, window_s: float = 1e-3,
                  queue_depth: int = 1024, hedge_after_s: float | None = None,
                  device=None, replica_id: int = 0, inflight: int = 2,
-                 warmup_fn=None, faults=None, health=None,
-                 on_batch_failure=None, shed: bool = False):
+                 warmup_fn=None, monitor=None, truth_map=None,
+                 faults=None, health=None, on_batch_failure=None,
+                 shed: bool = False):
         # an infer_fn that is this replica's own lane of a deployed
         # pipeline (Lane / RaggedLane) captures before traffic below.
-        # The reference's monitor tap (``monitor``, ``truth_map``) is not
-        # ported.
         # chaos wrapping happens here — before either loop flavor sees
         # ``self._infer`` — so deadline and streaming dispatch inject
         # at the same point.  ``health`` is this lane's ReplicaHealth
@@ -281,6 +280,12 @@ class ReplicaEngine:
         self._on_batch_failure = on_batch_failure
         self.shed = bool(shed)
         self._releaser = releaser
+        # optional per-replica TriggerMonitor: fed one record_raw per
+        # completed micro-batch (vectorized, off the per-event path);
+        # truth_map is the service-level {seq: truth} side channel,
+        # consumed here so in-flight entries can't outlive their batch.
+        self._monitor = monitor
+        self._truth_map = truth_map
         self.microbatch = microbatch
         self.window = window_s
         self.hedge_after = hedge_after_s
@@ -289,19 +294,21 @@ class ReplicaEngine:
         self.replica_id = replica_id
         self.stats = ServingStats(replica_id=replica_id)
         # warm-up runs BEFORE the batcher thread starts accepting work:
-        # the lane captures every chunk shape it serves (the first real
-        # event must never pay a capture, and a capture fails if another
-        # thread calls CUDA meanwhile), then ``warmup_fn`` (e.g. replaying
-        # tuning-cache winners). A failing warm-up raises.
-        self.lane = infer_fn if isinstance(infer_fn, (Lane, RaggedLane)) \
-            else None
-        self.captured = self.lane.warmup() if self.lane is not None else 0
+        # first ``warmup_fn`` (e.g. replaying tuning-cache winners, or a
+        # bucket's first call at its serving shape, which its lanes then
+        # capture), then the lane captures every chunk shape it serves
+        # (the first real event must never pay a capture, and a capture
+        # fails if another thread calls CUDA meanwhile). A failing
+        # warm-up raises.
         self.warmed = 0
         if warmup_fn is not None:
             with (torch.cuda.device(self.device) if self.device is not None
                   else contextlib.nullcontext()):
                 out = warmup_fn()
             self.warmed = int(out) if isinstance(out, int) else 1
+        self.lane = infer_fn if isinstance(infer_fn, (Lane, RaggedLane)) \
+            else None
+        self.captured = self.lane.warmup() if self.lane is not None else 0
         self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
         self._stop = threading.Event()
         self._count_lock = threading.Lock()
@@ -480,6 +487,8 @@ class ReplicaEngine:
         now = time.perf_counter()
         for it in items:
             seq, t_submit, fut = it[0], it[1], it[-1]
+            if self._truth_map is not None:
+                self._truth_map.pop(seq, None)
             t_collect = it[2] if len(it) == 5 else now
             timing = EventTiming(self.replica_id, t_submit, t_collect,
                                  now, now)
@@ -521,11 +530,32 @@ class ReplicaEngine:
         leaves, tdef = tree_flatten(out)
         np_leaves = [host_array(l) for l in leaves]
         t_done = time.perf_counter()
+        if self._monitor is not None:
+            self._tap(tree_unflatten(tdef, np_leaves), items, t_done,
+                      copy=False)
         for i, (seq, t_submit, t_collect, _, fut) in enumerate(items):
             res = tree_unflatten(tdef, [l[i] for l in np_leaves])
             timing = EventTiming(self.replica_id, t_submit, t_collect,
                                  t_dispatch, t_done)
             self._releaser.complete(seq, ("ok", res), timing, fut)
+
+    def _tap(self, out, items, t_done, *, copy: bool):
+        """The monitor's one O(1) ``record_raw`` for a completed batch:
+        its CPS subtree as host arrays (``out`` holds the leaves on the
+        host already), copied when ``copy`` (the streaming loop's output
+        ring is refilled while the record waits to be folded). The truth
+        pops stay here, not in the deferred fold, so the side channel
+        stays bounded by the events in flight even if no reader ever
+        drains; staging the full result or the items would pin inputs
+        and futures."""
+        truths = [self._truth_map.pop(it[0], None) for it in items] \
+            if self._truth_map else None
+        cps = out.get("cps", out) if isinstance(out, dict) else None
+        rec = {k: np.array(v) if copy else v for k, v in cps.items()
+               if not isinstance(v, dict)} \
+            if isinstance(cps, dict) else None
+        self._monitor.record_raw(
+            rec, [(it[0], it[1]) for it in items], t_done, truths)
 
     def _place(self, feeds):
         """A plain callable of a replica pinned to a device gets its feeds
@@ -557,6 +587,8 @@ class ReplicaEngine:
             return
         t_done = time.perf_counter()
         for seq, t_submit, t_collect, _, fut in remaining:
+            if self._truth_map is not None:
+                self._truth_map.pop(seq, None)
             timing = EventTiming(self.replica_id, t_submit, t_collect,
                                  t_dispatch, t_done)
             self._releaser.complete(seq, ("err", exc), timing, fut)

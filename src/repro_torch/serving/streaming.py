@@ -41,8 +41,10 @@ overlapped stages:
              nothing synchronizes the card on the hot path;
   harvest  — a dedicated thread polls completed launch futures in FIFO
              order, waits for their results to land in the host
-             **output ring** (the D2H stage), and hands each event to
-             the shared ``InOrderReleaser``.
+             **output ring** (the D2H stage), taps the monitor (with
+             copies: the ring's slot is refilled before the monitor
+             folds its record), and hands each event to the shared
+             ``InOrderReleaser``.
 
 Stage overlap: while launch k computes, launch k+1 assembles in the
 next input-ring slot and launch k-1 drains through the output ring —
@@ -53,8 +55,9 @@ by the time the launcher cycles back to a slot (``inflight + 1``
 launches later) its previous occupant has been harvested.
 
 Global in-order release, per-bucket routing (each bucket group's
-replicas own their own rings), and the lane's warm-up and tuning-cache
-warm-up all behave exactly as in the deadline loop.
+replicas own their own rings), the ``record_raw`` monitor tap, and the
+lane's warm-up and tuning-cache warm-up all behave exactly as in the
+deadline loop.
 Hedged dispatch is deadline-only: the streaming loop keeps the
 pipeline full instead of re-dispatching stragglers.
 """
@@ -92,8 +95,9 @@ class StreamingReplicaEngine(ReplicaEngine):
                  window_s: float = 1e-3, queue_depth: int = 1024,
                  hedge_after_s: float | None = None, device=None,
                  replica_id: int = 0, inflight: int = 2,
-                 warmup_fn=None, faults=None, health=None,
-                 on_batch_failure=None, shed: bool = False):
+                 warmup_fn=None, monitor=None, truth_map=None,
+                 faults=None, health=None, on_batch_failure=None,
+                 shed: bool = False):
         if hedge_after_s is not None:
             raise ValueError(
                 "hedge_after_s is a deadline-loop feature; the "
@@ -105,7 +109,8 @@ class StreamingReplicaEngine(ReplicaEngine):
                          window_s=window_s, queue_depth=queue_depth,
                          hedge_after_s=None, device=device,
                          replica_id=replica_id, inflight=inflight,
-                         warmup_fn=warmup_fn, faults=faults,
+                         warmup_fn=warmup_fn, monitor=monitor,
+                         truth_map=truth_map, faults=faults,
                          health=health,
                          on_batch_failure=on_batch_failure, shed=shed)
 
@@ -306,6 +311,10 @@ class StreamingReplicaEngine(ReplicaEngine):
             self._health.record_success()
         host = [host_array(l) for l in leaves]
         t_done = time.perf_counter()
+        if self._monitor is not None:
+            # copies, not views: the output-ring slot is reused while
+            # the monitor's staged record is folded lazily much later.
+            self._tap(tree_unflatten(tdef, host), items, t_done, copy=True)
         for i, (seq, t_submit, t_collect, _, fut) in enumerate(items):
             # per-event copies: futures outlive the ring slot's next
             # reuse.

@@ -395,9 +395,9 @@ def test_serve_warm_up_captures_each_route(models, monkeypatch, capsys):
         return [(f.captured, f.replayed) for f in fakes], [
             (c.captured, c.replayed) for f in fakes for c in f.forks]
 
-    def submit_all(svc, feeds):
+    def submit_all(svc, feeds, *rest):
         before = state()
-        out = real_submit(svc, feeds)
+        out = real_submit(svc, feeds, *rest)
         calls.append((before, state()))
         return out
 

@@ -5,6 +5,7 @@ answers each as the plain in-order loop does; the plain loop
 (``serve_routes``/``serve_events``) returns each event's result in
 submission order (equal to one direct call of the pipeline over all
 events)."""
+import json
 import os
 import subprocess
 import sys
@@ -347,3 +348,136 @@ def test_submit_all_interleaves_routes_and_records_release_order():
     assert [float(r["y"]) for r in served.results["a"]] == [0.0, 2.0, 4.0]
     assert [float(r["y"]) for r in served.results["b"]] == [20.0, 22.0]
     assert [s[1][0] for s in seen if s[0] == "a"] == [0.0, 1.0, 2.0]
+
+
+# ------------------------------------- the monitor, buckets, bench-out ----
+def _run(*flags):
+    return serve.run(["--device", "cpu", "--detector", "current",
+                      "--train-steps", "0", *flags])
+
+
+def test_default_run_has_no_monitor(monkeypatch):
+    """Without the monitor flags the service is built without a monitor
+    and no truth bit is submitted: the default run's path."""
+    made = []
+    real = serve.ShardedTriggerService
+
+    def spy(*a, **kw):
+        made.append(kw.get("monitor"))
+        return real(*a, **kw)
+    monkeypatch.setattr(serve, "ShardedTriggerService", spy)
+    report = _run("--events", "8")
+    assert made == [False]
+    assert (report.monitor, report.live_snapshot, report.displays,
+            report.buckets) == (None, None, None, [])
+
+
+def test_cli_monitor_port_and_event_display(tmp_path, capsys):
+    """``--monitor-port 0 --event-display``: the live ``/snapshot`` counts
+    the completed events, the monitor's trigger rate is the served
+    decisions', and the display file holds the first
+    ``--event-display-n`` events' records on the current detector's
+    grid, each with its truth bit."""
+    path = tmp_path / "display.json"
+    report = _run("--events", "20", "--monitor-port", "0",
+                  "--event-display", str(path), "--event-display-n", "5")
+    out = capsys.readouterr().out
+    assert "monitor live at http://127.0.0.1:" in out
+    assert "/snapshot events=20 vs stats completed=20 -> MATCH" in out
+    assert f"event display (5 events) -> {path}" in out
+    live, snap = report.live_snapshot, report.monitor
+    assert live["events"] == snap["events"] == 20
+    assert live["truth_events"] == 20
+    trig = [bool(r["cps"]["trigger"]) for r in report.served.results[None]]
+    assert snap["trigger_rate"] == sum(trig) / len(trig)
+    recs = json.loads(path.read_text())
+    assert recs == report.displays and [r["event"] for r in recs] == \
+        list(range(5))
+    truth = report.truth["ccn"]
+    for r in recs:
+        assert r["grid"] == [24, 24] and r["truth"] == bool(truth[r["event"]])
+    _same_as_plain_loop(report, 20)
+
+
+@pytest.mark.parametrize("loop", ["streaming", "deadline"])
+def test_cli_buckets(loop, capsys):
+    """``--buckets 8 16 32``: one executable per bucket, each warmed once
+    before traffic, each event on the smallest bucket that fits its hits,
+    answered as the bucketed deployment's eager call answers it."""
+    report = _run("--events", "16", "--buckets", "8", "16", "32",
+                  "--loop", loop)
+    out = capsys.readouterr().out
+    assert "buckets=(8, 16, 32) microbatch=8" in out
+    assert "bucket executables warmed at startup: 3" in out
+    assert "answered=16 in-order=True" in out
+    (sv,) = report.servables
+    bpipe = sv.pipe
+    feeds = report.feeds["ccn"]
+    occ = np.count_nonzero(feeds["mask"] > 0, axis=1)
+    want_rows = {b: int(sum(bpipe.classify(int(o)) == b for o in occ))
+                 for b in bpipe.buckets}
+    assert {r["bucket"]: r["submitted"] for r in report.buckets} == want_rows
+    assert all(r["completed"] == r["submitted"] for r in report.buckets)
+    for b, n in want_rows.items():
+        if n:
+            assert f"bucket n_hits<={b}: {n} events" in out
+    want = bpipe.run_eager(feeds)
+    for i, r in enumerate(report.served.results[None]):
+        b = bpipe.classify(int(occ[i]))
+        assert_bitwise(r["beta"], want["beta"][i, :b], context=str(i))
+        for k in ("n_clusters", "trigger", "cluster_valid"):
+            assert_bitwise(r["cps"][k], want["cps"][k][i], context=k)
+
+
+def test_cli_bench_out(tmp_path, capsys):
+    path = tmp_path / "bench.json"
+    _run("--events", "12", "--model", "gatedgcn", "graphsage",
+         "--bench-out", str(path))
+    assert f"multi-model stats -> {path}" in capsys.readouterr().out
+    bench = json.loads(path.read_text())
+    assert bench["events"] == 12 and bench["released_nonzero"]
+    assert bench["throughput_ev_s"] > 0 and bench["loop"] == "streaming"
+    assert sorted(bench["routes"]) == ["gatedgcn", "graphsage"]
+    for row in bench["routes"].values():
+        assert row["submitted"] == row["completed"] == 6
+
+
+def test_cli_bucketed_tune_then_cache(tmp_path, capsys):
+    """The bucketed ``--tune`` searches every bucket's graph at the launch
+    width and saves the cache; a run on that cache alone binds every
+    bucket's problems without searching."""
+    cache = tmp_path / "tc.json"
+    flags = ("--events", "8", "--buckets", "8", "16", "32",
+             "--tuning-cache", str(cache))
+    _run(*flags, "--tune")
+    out = capsys.readouterr().out
+    assert "autotuned" in out and cache.exists()
+    report = _run(*flags)
+    out = capsys.readouterr().out
+    assert "autotuned" not in out
+    (sv,) = report.servables
+    hits, n_keys = serve.cache_hits(sv.pipe, serve.TuningCache.load(
+        str(cache)))
+    assert hits == n_keys > 0
+    assert f"route ccn: {n_keys} of {n_keys} kernel problems bound" in out
+    problems = serve.tuning_problems(sv.pipe)
+    assert [(nr, bt) for _, nr, bt, _ in problems] == [(8, 8), (16, 8),
+                                                       (32, 8)]
+
+
+@pytest.mark.parametrize("flags", [
+    ("--model", "gatedgcn", "--buckets", "8"),
+    ("--model", "ccn", "graphsage", "--monitor-port", "0"),
+    ("--model", "graphsage", "--event-display", "x.json"),
+    ("--bench-out", "x.json"),
+    ("--buckets", "0", "8"),
+    ("--bucket-microbatch", "0")])
+def test_cli_refuses_flags_off_their_path(flags):
+    """The demonstrator's flags serve ccn alone and ``--bench-out`` the
+    other selections, as in the reference; sizes must be positive."""
+    with pytest.raises(SystemExit):
+        serve.parse_args(list(flags))
+    args = serve.parse_args([])
+    assert (args.buckets, args.bucket_microbatch, args.monitor_port,
+            args.event_display, args.event_display_n, args.bench_out) == (
+        None, 8, None, None, 16, None)

@@ -573,20 +573,24 @@ def test_services_of_both_packages_report_alike():
                 svc.close()
 
 
-def test_monitor_and_bucketed_pipeline_are_not_ported():
-    class Bucketed:
-        def infer_fns(self):
-            return {8: _echo}
-    with pytest.raises(NotImplementedError, match="monitor"):
-        _svc(port_serving, _echo, monitor=True)
-    with pytest.raises(NotImplementedError, match="Bucketed deployment"):
-        port_serving.ShardedTriggerService(buckets=Bucketed(), microbatch=1,
-                                           devices=None)
-    svc = _svc(port_serving, _echo)
-    try:
-        assert not svc.monitoring
-        for call in (svc.monitor_snapshot, svc.event_displays):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                call()
-    finally:
-        svc.close()
+def test_monitoring_off_reads_as_the_reference():
+    """Without ``monitor=``, both packages' services refuse a snapshot
+    with a ``RuntimeError``, read ``monitoring`` false and give no event
+    display, and ``MonitorServer.for_service`` refuses them."""
+    def report(pkg):
+        svc = _svc(pkg, _echo)
+        try:
+            fut = svc.submit(_ev(3), truth=True)
+            out = _outcomes([fut])
+            with pytest.raises(RuntimeError, match="monitoring is off"):
+                svc.monitor_snapshot()
+            with pytest.raises(RuntimeError, match="no monitors"):
+                pkg.MonitorServer.for_service(svc)
+            return (svc.monitoring, svc.event_displays(),
+                    svc.event_displays(4), svc.event_displays(0), out,
+                    svc.fault_tolerance_summary())
+        finally:
+            svc.close()
+    ref, port = _both(report)
+    assert port == ref
+    assert port[:4] == (False, [], [], [])
