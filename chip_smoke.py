@@ -190,7 +190,38 @@ Phases, each of which exits non-zero when it fails:
     results', the display file parses, and events/s and p50/p99 with the
     monitor on and off in turns (medians of 5, with the taps' own host
     time and the garbage collector's runs; ``phase11.json``);
-12. print ``{"kernels": [...]}`` with every kernel of the port, then
+12. training on the card (``repro_torch.launch.train``, each step one
+    CUDA graph): (a) the driver, ``train.run(["--arch",
+    "caloclusternet", "--steps", "60", "--ckpt-every", "20",
+    "--inject-failure-at", "30", ...])``: it must resume from checkpoint
+    20 at step 30, leave checkpoints 20, 40 and 60 on disk (every leaf's
+    crc32 verified on restore, 60 equal to the final state), and give
+    finite losses; its loss on 1024 held-out events must fall (the
+    per-batch means of the first and last 10 steps are printed: at 16
+    events a batch they are noise); then twice without the failure, the
+    step-60 parameters' largest difference against the interrupted run
+    printed beside that between the two uninterrupted runs; (b)
+    CaloClusterNet at full width (128 hits, d_hidden 64) at 1024 events
+    a step of the upgrade generator through ``train.build_step``: 30
+    captured steps (finite losses, the held-out loss falling), steps/s,
+    events/s, TFLOP/s of the model's FLOPs, peak memory and the idle
+    share under the profiler; 5 captured steps against eager ones, each
+    from the eager run's state (loss, parameters and moments within the
+    float32 row); one step's loss and gradients on the card against the
+    CPU at 32 events (a batch whose kNN selections agree on both), within
+    the float32 row; (c) GatedGCN 16 × 70 and GraphSAGE 2 × 128 on
+    ``powerlaw_graph(2708, 10556, d_feat=1433)`` (full_graph_sm's size),
+    20 captured ``gnn_common.train_step`` steps each, and GraphSAGE on
+    minibatch_lg's sampled batches (``NeighborSampler`` fanout 15-10, 32
+    groups of 32 seeds, one pass) from a graph of Reddit's 232,965 nodes
+    with its edges cut to a mean in-degree of 10, 10 steps: losses
+    finite, the loss on the graph (or a held-out sample) falling, steps/s,
+    peak memory, one step's loss and gradients against the CPU within the
+    float32 row; ``edge_aggregate`` bitwise against its plain version at
+    every shape these steps launch it with (d 1433 and 602, E 10556, 480
+    and 4800), and its launches from a counted run (one step of each: 2 ×
+    16 + 2 + 3) join the kernel line's; ``training.json``;
+13. print ``{"kernels": [...]}`` with every kernel of the port, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -202,6 +233,7 @@ import gc
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -244,6 +276,18 @@ CHECK_BUCKETS = (8, 16, 32, 64, 128)  # the bucketed int8 pair's checks
 BUCKETS = (32, 64, 128)         # phase 11's occupancy buckets
 BUCKET_MICROBATCH = 8           # events a launch of each bucket
 PROFILE_MARGIN_S = 0.02         # idle time at each edge of a profiled window
+PROFILE_SENTINELS = 1024        # kernels at each edge of a counted call
+TRAIN_BATCH = 1024              # condensation_train's batch
+TRAIN_STEPS = 30                # captured full-width CaloClusterNet steps
+TRAIN_DISTINCT = 6              # distinct batches they cycle over
+HELD_OUT_SEED = 10 ** 6         # the held-out events' seed
+FULL_GRAPH_STEPS = 20           # captured full_graph_sm steps a GNN
+SAMPLED_STEPS = 10              # captured minibatch_lg steps
+GNN_TRAIN_SEED = 0
+# minibatch_lg's graph: Reddit's 232,965 nodes, its edges cut to a mean
+# in-degree of 10 (host generation in seconds; the sampled step's shapes
+# do not depend on the edge count)
+REDDIT_NODES, REDDIT_EDGES = 232965, 2329650
 
 KERNELS = {
     "fused_dense": {
@@ -659,6 +703,12 @@ def main() -> int:
                  for n in wrappers}
     flash_rx = re.compile(r"flash_attention_kernel<\w+, (\d+), (\d+),")
 
+    def sentinels():
+        """PROFILE_SENTINELS tiny kernels no counter counts, then a sync."""
+        for _ in range(PROFILE_SENTINELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+
     def counted(call, warm, label):
         """The main path's counted run: ``call()`` under torch.profiler,
         every counter at 0 just before it (a step of ``warm()`` first,
@@ -676,13 +726,19 @@ def main() -> int:
             torch.cuda.synchronize()
             prof.step()
             # a margin at each edge of the active window: a kernel that
-            # ran just past its start was once dropped as before it
+            # ran just past its start was once dropped as before it; and
+            # sentinel kernels on both sides of the call, since the
+            # tracer has lost the first or the last records of a window
+            # (a served chunk's first dense; the last third of a GatedGCN
+            # chunk), which are then the sentinels'
             time.sleep(PROFILE_MARGIN_S)
+            sentinels()
             reset_counts()
             out = call()
             torch.cuda.synchronize()
             counters = read_counts()
             by_blocks = dict(flash_attention_cuda.launches_by_blocks)
+            sentinels()
             time.sleep(PROFILE_MARGIN_S)
             prof.step()
         seen = dict.fromkeys(wrappers, 0)
@@ -2623,7 +2679,463 @@ def main() -> int:
     say(f"phase 11 done at {time.perf_counter() - t_start:.1f}s "
         f"({time.perf_counter() - t11:.1f}s)")
 
-    # 12. the kernel line and the result -----------------------------------
+    # 12. training on the card ---------------------------------------------
+    t12 = time.perf_counter()
+    from repro_torch import configs as arch_configs
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import gnn_common
+    from repro_torch.configs import graphsage_reddit as sage_arch
+    from repro_torch.core.condensation import condensation_loss
+    from repro_torch.data.graphs import NeighborSampler, powerlaw_graph
+    from repro_torch.launch import train
+    from repro_torch.nn.layers import dense_apply
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.step import CompiledStep, value_and_grad
+    training = {"card": card}
+    ccn_arch = arch_configs.get_arch("caloclusternet")
+    row = f"{ATOL:g} + {RTOL:g}·|want|"
+
+    def tree_diff(a, b):
+        """The largest |a - b| over the leaves of two trees."""
+        return max(float((x.double() - y.double()).abs().max())
+                   for (_, x), (_, y) in zip(ckpt.flatten(a),
+                                             ckpt.flatten(b), strict=True))
+
+    def within_row(label, got, want):
+        """Every leaf of ``got`` finite and within the float32 row of the
+        same leaf of ``want``; returns the largest |err|."""
+        worst = 0.0
+        for (name, g), (_, w) in zip(ckpt.flatten(got), ckpt.flatten(want),
+                                     strict=True):
+            g64, w64 = g.detach().double().cpu(), w.detach().double().cpu()
+            err = (g64 - w64).abs()
+            if not bool(torch.isfinite(g64).all()) or bool(
+                    (err > ATOL + RTOL * w64.abs()).any()):
+                fail(f"[{label}] {name}: max|err| {err.max().item():.3e} "
+                     f"at |want| up to {w64.abs().max().item():.3e}, "
+                     f"{int((err > ATOL + RTOL * w64.abs()).sum())} of "
+                     f"{err.numel()} outside the float32 row ({row})")
+            worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        return worst
+
+    def grads_close(label, card_t, cpu_t, truth):
+        """Each leaf of the card's gradients within the float32 row of the
+        CPU's; where a leaf is not, its distance from the float64 result
+        at most twice the CPU's float32 distance from it over the whole
+        model, plus the row's atol: through 16 layers float32 itself does
+        not hold the row (the CPU's float32 gradients leave it against
+        float64, on other leaves than the card's). Returns the largest
+        |card - cpu|, the CPU's largest float32 error and the leaves the
+        second rule decided."""
+        leaves = list(zip(ckpt.flatten(card_t), ckpt.flatten(cpu_t),
+                          ckpt.flatten(truth), strict=True))
+        e_cpu = max(float((c.double().cpu() - t_.double().cpu()).abs()
+                          .max()) for _, (_, c), (_, t_) in leaves)
+        worst, widened = 0.0, []
+        for (name, g), (_, c), (_, t_) in leaves:
+            g64, c64, t64 = (x.detach().double().cpu() for x in (g, c, t_))
+            if not bool(torch.isfinite(g64).all()):
+                fail(f"[{label}] {name}: non-finite gradients")
+            err = (g64 - c64).abs()
+            worst = max(worst, float(err.max()))
+            if bool((err <= ATOL + RTOL * c64.abs()).all()):
+                continue
+            e_card = float((g64 - t64).abs().max())
+            if e_card > 2 * e_cpu + ATOL:
+                fail(f"[{label}] {name}: max|card - cpu| {err.max():.3e} "
+                     f"outside the float32 row, and its max|err| against "
+                     f"float64 {e_card:.3e} above twice the CPU's largest "
+                     f"float32 error {e_cpu:.3e} + {ATOL:g}")
+            widened.append((name, e_card))
+        return worst, e_cpu, widened
+
+    def on(tree, device, dtype=None):
+        return ckpt.unflatten(tree, iter(
+            t.to(device, dtype) if dtype is not None
+            and t.is_floating_point() else t.to(device)
+            for _, t in ckpt.flatten(tree)))
+
+    @contextmanager
+    def float64_aggregate():
+        """edge_aggregate's CPU route computing in float64 (its plain
+        version computes in float32): the GNNs' float64 gradients."""
+        saved = ref.edge_aggregate_ref
+
+        def f64(messages, dst, mask, *, n_nodes, reduce="sum"):
+            b_, e_, d_ = messages.shape
+            key = dst.long()
+            ok = (key >= 0) & (key < n_nodes)
+            idx = torch.where(ok, key, 0)
+            w = torch.where(ok, mask.double(), 0.0)
+            out = torch.zeros((b_, n_nodes, d_), dtype=torch.float64)
+            out = out.scatter_add(1, idx[..., None].expand(b_, e_, d_),
+                                  messages.double() * w[..., None])
+            if reduce == "mean":
+                cnt = torch.zeros((b_, n_nodes), dtype=torch.float64
+                                  ).scatter_add(1, idx, w)
+                out = out / torch.clamp_min(cnt, 1.0)[..., None]
+            return out
+        ref.edge_aggregate_ref = f64
+        try:
+            yield
+        finally:
+            ref.edge_aggregate_ref = saved
+
+    def held_out_loss(cfg_, params, feeds_):
+        with torch.no_grad():
+            out = ccn.apply(params, feeds_["feats"], feeds_["mask"], cfg_)
+            return float(condensation_loss(
+                out, {k: feeds_[k] for k in ("object_id", "energy", "cls")},
+                feeds_["mask"], k_max=cfg_.k_max)[0])
+
+    def ccn_batch(gen_, n, seed, device=dev):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in generate(gen_, n, seed=seed).items()
+                if k != "trigger_truth"}
+
+    # (a) the driver: a failure injected at step 30 of 60, resumed from
+    # checkpoint 20; then twice without it
+    def driver(tag, extra):
+        ck = OUT / "ckpt" / tag
+        shutil.rmtree(ck, ignore_errors=True)
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            rep = train.run(["--arch", "caloclusternet", "--steps", "60",
+                             "--ckpt-every", "20", *extra,
+                             "--ckpt-dir", str(ck)])
+        LOG.append(buf.getvalue())
+        if rep.device.type != dev.type or not rep.captured:
+            fail(f"[train driver {tag}] ran on {rep.device}, captured "
+                 f"{rep.captured}")
+        losses_ = [v for _, v in rep.losses]
+        if not np.isfinite(losses_).all():
+            fail(f"[train driver {tag}] non-finite losses {losses_}")
+        return rep, ck
+
+    rep_f, ck_f = driver("failure", ["--inject-failure-at", "30"])
+    if rep_f.resumes != [(30, 20)] or rep_f.final_step != 60:
+        fail(f"[train driver] resumed {rep_f.resumes}, ended at step "
+             f"{rep_f.final_step}: want [(30, 20)], 60")
+    on_disk = sorted(p.name for p in ck_f.iterdir())
+    if rep_f.checkpoints != [20, 40, 60] or on_disk != [
+            f"step_{s:08d}" for s in (20, 40, 60)]:
+        fail(f"[train driver] checkpoints {rep_f.checkpoints}, on disk "
+             f"{on_disk}")
+    final = {"p": rep_f.params, "o": rep_f.opt}
+    for st in (20, 40, 60):
+        try:    # every leaf's crc32 verified
+            got, got_step = ckpt.restore(str(ck_f), st, final)
+        except (IOError, KeyError) as e:
+            fail(f"[train driver] checkpoint {st}: {e}")
+        if got_step != st:
+            fail(f"[train driver] checkpoint {st} says step {got_step}")
+    if tree_diff(got, final) != 0.0:
+        fail("[train driver] checkpoint 60 differs from the final state")
+    cfg_s = ccn_arch.smoke_config()
+    gen_s = Belle2Config(n_crystals=576, grid=(24, 24), n_hits=cfg_s.n_hits,
+                         noise_rate=4.0)
+    held_s = ccn_batch(gen_s, 1024, HELD_OUT_SEED)
+    init_s = train.build_step("caloclusternet", ccn_arch, cfg_s,
+                              device=dev)[1](0)
+    l_init, l_end = (held_out_loss(cfg_s, p_, held_s)
+                     for p_ in (init_s, rep_f.params))
+    if not l_end < l_init:
+        fail(f"[train driver] held-out loss {l_init:.5f} -> {l_end:.5f} "
+             "after 60 steps: not falling")
+    fl = [v for _, v in rep_f.losses]
+    rep_a, _ = driver("whole a", [])
+    rep_b, _ = driver("whole b", [])
+    d_fail = tree_diff(rep_f.params, rep_a.params)
+    d_spread = tree_diff(rep_a.params, rep_b.params)
+    training["driver"] = {
+        "resumes": rep_f.resumes, "checkpoints": rep_f.checkpoints,
+        "losses": rep_f.losses, "held_out_loss": [l_init, l_end],
+        "first10_mean": float(np.mean(fl[:10])),
+        "last10_mean": float(np.mean(fl[-10:])),
+        "steps_per_s": [r.steps_per_s for r in (rep_f, rep_a, rep_b)],
+        "max_param_diff_failure_vs_whole": d_fail,
+        "max_param_diff_whole_vs_whole": d_spread}
+    say(f"[train driver] caloclusternet smoke config, 60 steps of 16 "
+        f"events, captured: failure injected at 30, resumed from 20, "
+        f"checkpoints {rep_f.checkpoints} on disk (crc verified); losses "
+        f"finite, per-batch mean of the first 10 {np.mean(fl[:10]):.5f}, "
+        f"last 10 {np.mean(fl[-10:]):.5f}; held-out loss (1024 events of "
+        f"seed {HELD_OUT_SEED}) {l_init:.5f} -> {l_end:.5f}; step-60 "
+        f"parameters' max|diff| against an uninterrupted run {d_fail:.3e}, "
+        f"between two uninterrupted runs {d_spread:.3e}; "
+        f"{rep_a.steps_per_s:.1f} steps/s with host data ({card})")
+
+    # (b) CaloClusterNet at full width (condensation_train's shape)
+    cfg_f = ccn_arch.full_config()
+    step_f, init_f, _, ocfg_f = train.build_step(
+        "caloclusternet", ccn_arch, cfg_f, device=dev)
+    batches_f = [ccn_batch(gen_cfg, TRAIN_BATCH, 1000 + i)
+                 for i in range(TRAIN_DISTINCT)]
+    held_f = ccn_batch(gen_cfg, TRAIN_BATCH, HELD_OUT_SEED)
+    p0 = init_f(0)
+    o0 = adamw_init(p0, ocfg_f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_f = torch.cuda.memory_allocated()
+    stepper = CompiledStep(step_f, p0, o0, device=dev)
+    t = time.perf_counter()
+    m = stepper(batches_f[0])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    f_losses, f_ms = [m["loss"].clone()], []
+    for i in range(1, TRAIN_STEPS):
+        t = time.perf_counter()
+        m = stepper(batches_f[i % TRAIN_DISTINCT])
+        torch.cuda.synchronize()
+        f_ms.append((time.perf_counter() - t) * 1e3)
+        f_losses.append(m["loss"].clone())
+    f_losses = [float(x) for x in f_losses]
+    peak_f = torch.cuda.max_memory_allocated()
+    l0, l1 = (held_out_loss(cfg_f, p_, held_f) for p_ in (p0,
+                                                          stepper.params))
+    if not np.isfinite(f_losses).all() or not l1 < l0:
+        fail(f"[train ccn] losses {f_losses}, held-out {l0} -> {l1}")
+    med_ms = float(np.median(f_ms))
+    tflops = ccn_arch._flops(cfg_f, TRAIN_BATCH) * 3 / (med_ms * 1e-3) / 1e12
+    busy_f, _, wall_f = idle_share(
+        lambda: stepper(batches_f[0]),
+        f"captured train steps of {TRAIN_BATCH} events", "_train_ccn")
+    # captured against eager, teacher-forced from the eager run's state
+    pe, oe = init_f(0), adamw_init(init_f(0), ocfg_f)
+    ce_err = 0.0
+    for i in range(5):
+        b_ = batches_f[i % TRAIN_DISTINCT]
+        stepper.load(pe, oe)
+        mc = stepper(b_)
+        pe, oe, me = step_f(pe, oe, b_)
+        ce_err = max(ce_err, within_row(
+            f"train ccn captured vs eager, step {i + 1}",
+            {"loss": mc["loss"], "p": stepper.params, "o": stepper.opt},
+            {"loss": me["loss"], "p": pe, "o": oe}))
+    # the card against the CPU: one step's loss and gradients at 32
+    # events, on a batch whose kNN selections agree on both devices
+    cpu = torch.device("cpu")
+
+    def selections(p_, b_):
+        """The kNN neighbours of each valid hit at each GravNet block,
+        along this device's forward."""
+        with torch.no_grad():
+            x = torch.relu(dense_apply(p_["enc1"], b_["feats"]))
+            x = torch.relu(dense_apply(p_["enc2"], x))
+            seg = torch.where(b_["mask"] > 0, 0, -1).to(torch.int32)
+            out = []
+            for i in range(cfg_f.n_gravnet_blocks):
+                s = dense_apply(p_[f"gn{i}_s"], x)
+                f = dense_apply(p_[f"gn{i}_flr"], x)
+                idx, d2 = ref.knn_build_ref(s, seg, k=cfg_f.k)
+                real = (b_["mask"][..., None] > 0) & (d2 < 5e29)
+                out.append(torch.where(real, idx, -1).cpu())
+                agg = ref.gravnet_cell_ref(s, f, b_["mask"], k=cfg_f.k,
+                                           scale=cfg_f.potential_scale)
+                x = torch.relu(dense_apply(p_[f"gn{i}_out"],
+                                           torch.cat([x, agg], dim=-1)))
+            return out
+
+    p_cpu = on(pe, cpu)
+    for seed in range(2000, 2020):
+        b32 = ccn_batch(gen_cfg, 32, seed)
+        b32_cpu = on(b32, cpu)
+        if all(torch.equal(a_, c_) for a_, c_ in zip(
+                selections(pe, b32), selections(p_cpu, b32_cpu))):
+            break
+    else:
+        fail("[train ccn] no batch of seeds 2000-2019 whose kNN selections "
+             "agree on the card and the CPU")
+
+    def ccn_loss(b_):
+        def lf(p_):
+            out = ccn.apply(p_, b_["feats"], b_["mask"], cfg_f)
+            return condensation_loss(
+                out, {k: b_[k] for k in ("object_id", "energy", "cls")},
+                b_["mask"], k_max=cfg_f.k_max)
+        return lf
+    (lc, _), gc_ = value_and_grad(ccn_loss(b32), pe)
+    (lcpu, _), gcpu = value_and_grad(ccn_loss(b32_cpu), p_cpu)
+    cpu_err = within_row("train ccn card vs cpu",
+                         {"loss": lc, "grads": gc_},
+                         {"loss": lcpu, "grads": gcpu})
+    training["ccn_full"] = {
+        "config": repr(cfg_f), "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+        "capture_s": capture_s, "losses": f_losses,
+        "held_out_loss": [l0, l1], "step_ms": f_ms,
+        "steps_per_s": 1e3 / med_ms,
+        "events_per_s": TRAIN_BATCH * 1e3 / med_ms, "tflops": tflops,
+        "peak_bytes": peak_f, "step_peak_bytes": peak_f - base_f,
+        "idle_share": 1 - busy_f / wall_f if busy_f > 0 else None,
+        "captured_vs_eager_max_err": ce_err,
+        "card_vs_cpu_seed": seed, "card_vs_cpu_max_err": cpu_err}
+    say(f"[train ccn] full width ({cfg_f.n_hits} hits, d_hidden "
+        f"{cfg_f.d_hidden}) at {TRAIN_BATCH} events a step, one CUDA graph "
+        f"(captured in {capture_s:.2f}s): {TRAIN_STEPS} steps, loss "
+        f"{f_losses[0]:.5f} -> {f_losses[-1]:.5f}, held-out {l0:.5f} -> "
+        f"{l1:.5f}; median {med_ms:.3f} ms a step = {1e3 / med_ms:.1f} "
+        f"steps/s, {TRAIN_BATCH * 1e3 / med_ms:.0f} events/s, "
+        f"{tflops:.3f} TFLOP/s of the model's FLOPs (_flops x 3); peak "
+        f"{peak_f / 2**30:.3f} GiB allocated ({(peak_f - base_f) / 2**30:.3f} "
+        "above what was allocated before the capture); captured vs eager "
+        "over 5 teacher-forced "
+        f"steps max|err| {ce_err:.3e}, card vs CPU (32 events of seed "
+        f"{seed}) loss and gradients max|err| {cpu_err:.3e}, both within "
+        f"{row} ({card})")
+
+    # (c) the GNNs at their published widths: full_graph_sm's size, and
+    # minibatch_lg sampled on a Reddit-sized graph
+    gsm = gnn_common.SHAPES["full_graph_sm"]
+    g_np = powerlaw_graph(gsm["n"], gsm["e"], d_feat=gsm["d_feat"],
+                          n_classes=gsm["classes"], seed=GNN_TRAIN_SEED)
+    g_dev = {k: torch.from_numpy(v).to(dev) for k, v in g_np.items()}
+    gated_arch = arch_configs.get_arch("gatedgcn")
+    sage_cfg = sage_arch.full_config("full_graph_sm")
+    sampled_cfg = sage_arch.full_config("minibatch_lg")
+    t = time.perf_counter()
+    big = powerlaw_graph(REDDIT_NODES, REDDIT_EDGES, d_feat=602,
+                         n_classes=41, seed=GNN_TRAIN_SEED)
+    sampler = NeighborSampler(big["edge_index"], REDDIT_NODES, big["nodes"],
+                              big["labels"], fanouts=sampled_cfg.sample_sizes,
+                              seed=GNN_TRAIN_SEED)
+    seed_rng = np.random.default_rng(GNN_TRAIN_SEED)
+    group_n = gnn_common.GROUPS * gnn_common.SEEDS_PER_GROUP
+
+    def sampled_batch():
+        seeds_ = seed_rng.choice(REDDIT_NODES, size=group_n, replace=False)
+        return sage_arch.stack_groups(
+            [sampler.sample(s_) for s_ in
+             seeds_.reshape(gnn_common.GROUPS, -1)], device=dev)
+    s_batches = [sampled_batch() for _ in range(SAMPLED_STEPS)]
+    s_held = sampled_batch()
+    gen_s_s = time.perf_counter() - t
+    del big
+    gnn_runs = {
+        "gatedgcn full_graph_sm": (
+            gatedgcn, gated_arch.full_config("full_graph_sm"), {},
+            [g_dev] * FULL_GRAPH_STEPS, g_dev, 11),
+        "graphsage full_graph_sm": (
+            graphsage, sage_cfg, {}, [g_dev] * FULL_GRAPH_STEPS, g_dev, 12),
+        "graphsage minibatch_lg": (
+            graphsage, sampled_cfg, {"sampled": True}, s_batches, s_held,
+            13)}
+    steppers, gnn_rows = {}, {}
+    for label, (model, gcfg, lkw, gbatches, held, pseed) in \
+            gnn_runs.items():
+        p0 = on(model.init(torch.Generator().manual_seed(pseed), gcfg), dev)
+        o0 = adamw_init(p0, gnn_common.OCFG)
+
+        def lf(p_, b_, model=model, gcfg=gcfg, lkw=lkw):
+            loss_, met = model.loss_fn(p_, b_, gcfg, **lkw)
+            return loss_.mean(), {k: v.mean() for k, v in met.items()}
+        # edge_aggregate at this model's shapes, bitwise against its plain
+        # version (one launch of each shape and reduction)
+        calls = []
+
+        def rec(*args, **kw):
+            calls.append((args, kw))
+            return plain_fns["edge_aggregate"](*args, **kw)
+        with substituted({"edge_aggregate": rec}), torch.no_grad():
+            lf(p0, gbatches[0])
+        seen = set()
+        for pos, (args, kw) in enumerate(calls):
+            key = (tuple(args[0].shape), kw["n_nodes"], kw.get("reduce"))
+            if key not in seen:
+                seen.add(key)
+                check("train gnn", pos, args[0].shape[0], "edge_aggregate",
+                      list(args), kw)
+        # the card against the CPU: one step's loss and gradients (and
+        # the float64 gradients, where float32 cannot hold the row)
+        (lc, _), gc_ = value_and_grad(lambda p_: lf(p_, gbatches[0]), p0)
+        (lcpu, _), gcpu = value_and_grad(
+            lambda p_: lf(p_, on(gbatches[0], cpu)), on(p0, cpu))
+        with float64_aggregate():
+            _, g64_ = value_and_grad(
+                lambda p_: lf(p_, on(gbatches[0], cpu, torch.float64)),
+                on(p0, cpu, torch.float64))
+        within_row(f"train {label} card vs cpu", {"loss": lc},
+                   {"loss": lcpu})
+        g_err, e_cpu, widened = grads_close(f"train {label} card vs cpu",
+                                            gc_, gcpu, g64_)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        st_ = CompiledStep(gnn_common.train_step(model, gcfg, **lkw), p0, o0,
+                           device=dev)
+        t = time.perf_counter()
+        m = st_(gbatches[0])
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t
+        g_losses, g_ms = [m["loss"].clone()], []
+        for b_ in gbatches[1:]:
+            t = time.perf_counter()
+            m = st_(b_)
+            torch.cuda.synchronize()
+            g_ms.append((time.perf_counter() - t) * 1e3)
+            g_losses.append(m["loss"].clone())
+        g_losses = [float(x) for x in g_losses]
+        with torch.no_grad():
+            h0, h1 = (float(lf(p_, held)[0]) for p_ in (p0, st_.params))
+        if not np.isfinite(g_losses).all() or not h1 < h0:
+            fail(f"[train {label}] losses {g_losses}, evaluated {h0} -> {h1}")
+        med = float(np.median(g_ms))
+        gnn_rows[label] = {
+            "config": repr(gcfg), "steps": len(gbatches),
+            "capture_s": cap_s, "losses": g_losses,
+            "evaluated_loss": [h0, h1], "step_ms": g_ms,
+            "steps_per_s": 1e3 / med,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "step_peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "edge_aggregate_per_step": st_.launches.get(
+                "edge_aggregate_cuda", 0),
+            "card_vs_cpu_max_err": g_err,
+            "cpu_f32_vs_f64_max_err": e_cpu,
+            "card_vs_cpu_widened": widened}
+        steppers[label] = (st_, gbatches[0])
+        say(f"[train {label}] {len(gbatches)} captured steps (captured in "
+            f"{cap_s:.2f}s): loss {g_losses[0]:.5f} -> {g_losses[-1]:.5f}, "
+            f"{'held-out sample' if lkw else 'graph'} loss {h0:.5f} -> "
+            f"{h1:.5f}; median {med:.3f} ms a step = {1e3 / med:.1f} "
+            f"steps/s; peak {gnn_rows[label]['peak_bytes'] / 2**30:.3f} GiB "
+            f"allocated ({gnn_rows[label]['step_peak_bytes'] / 2**30:.3f} "
+            "above what was allocated before the step's capture); "
+            f"{gnn_rows[label]['edge_aggregate_per_step']} edge_aggregate a "
+            f"step; card vs CPU: loss within {row}, gradients max|err| "
+            f"{g_err:.3e}, " + (
+                f"{len(widened)} leaves outside the row, each no further "
+                "from float64 than twice the CPU's largest float32 error "
+                f"{e_cpu:.2e} (" + ", ".join(f"{n} {a:.2e}"
+                                             for n, a in widened[:4])
+                + (" ..." if len(widened) > 4 else "") + ")"
+                if widened else "every leaf within the row") + f" ({card})")
+
+    def gnn_steps():
+        for st_, b_ in steppers.values():
+            st_(b_)
+    _, launches, _ = counted(gnn_steps, gnn_steps, "train gnn")
+    path_launches["train gnn"] = launches
+    want_launch = dict.fromkeys(wrappers, 0)
+    want_launch["edge_aggregate"] = 2 * 16 + 2 + 3
+    if launches != want_launch:
+        fail(f"[train gnn] launch counts {launches} != {want_launch}")
+    training["gnn"] = gnn_rows
+    training["gnn_counted_launches"] = launches
+    training["sampled_graph"] = {"nodes": REDDIT_NODES, "edges": REDDIT_EDGES,
+                                 "host_generation_s": gen_s_s}
+    training["phase_s"] = time.perf_counter() - t12
+    (OUT / "training.json").write_text(json.dumps(training, indent=1,
+                                                  default=str))
+    say(f"[train] driver resumed and checkpointed; ccn full width "
+        f"{training['ccn_full']['steps_per_s']:.1f} steps/s; gatedgcn "
+        f"{gnn_rows['gatedgcn full_graph_sm']['steps_per_s']:.1f}, graphsage "
+        f"{gnn_rows['graphsage full_graph_sm']['steps_per_s']:.1f}, sampled "
+        f"{gnn_rows['graphsage minibatch_lg']['steps_per_s']:.1f} steps/s; "
+        f"one counted step of each GNN: {launches['edge_aggregate']} "
+        f"edge_aggregate launches ({card})")
+    say(f"phase 12 done at {time.perf_counter() - t_start:.1f}s "
+        f"({time.perf_counter() - t12:.1f}s)")
+
+    # 13. the kernel line and the result -----------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)
@@ -2645,7 +3157,7 @@ def main() -> int:
         home["fused_dense_int8"].append(run_)
         home["gravnet_block_int8"].append(run_)
     home["fused_dense"] += ["service routes", "service ragged"]
-    home["edge_aggregate"].append("service routes")
+    home["edge_aggregate"] += ["service routes", "train gnn"]
     home["knn_build"].append("service ragged")
     home["knn_aggregate"].append("service ragged")
     line = []

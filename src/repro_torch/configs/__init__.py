@@ -1,0 +1,49 @@
+"""Architecture registry: ``--arch <id>`` resolution for the training
+driver and the tests. Counterpart of ``repro/configs/__init__.py``: the
+reference's 11 ids (10 assigned archs and the paper's own), of which
+the port has CaloClusterNet, GatedGCN and GraphSAGE; the others raise
+``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
+
+The reference's ``all_cells`` and each module's ``cell()`` and
+``PARAM_RULES`` are mesh sharding specs for its dry-run tools; they
+wait for those tools (``ROADMAP.md`` queue 1 item 7).
+"""
+from __future__ import annotations
+
+import importlib
+
+_MODULES = {
+    "yi-9b": "repro_torch.configs.yi_9b",
+    "granite-34b": "repro_torch.configs.granite_34b",
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "llama4-maverick-400b-a17b":
+        "repro_torch.configs.llama4_maverick_400b_a17b",
+    "dimenet": "repro_torch.configs.dimenet",
+    "gatedgcn": "repro_torch.configs.gatedgcn",
+    "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
+    "nequip": "repro_torch.configs.nequip",
+    "mind": "repro_torch.configs.mind",
+    "caloclusternet": "repro_torch.configs.caloclusternet",
+}
+
+ASSIGNED = [a for a in _MODULES if a != "caloclusternet"]
+
+#: ids not ported yet -> their item of ROADMAP.md queue 1
+NOT_PORTED = {
+    **dict.fromkeys(["yi-9b", "granite-34b", "olmo-1b",
+                     "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"],
+                    "item 4 (the LM transformer)"),
+    "mind": "item 5 (MIND recsys)",
+    **dict.fromkeys(["dimenet", "nequip"], "item 6 (DimeNet and NequIP)"),
+}
+
+
+def get_arch(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; have {list(_MODULES)}")
+    if arch_id in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet: ROADMAP.md queue 1 "
+            f"{NOT_PORTED[arch_id]}")
+    return importlib.import_module(_MODULES[arch_id])

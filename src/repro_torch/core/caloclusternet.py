@@ -6,10 +6,11 @@ Counterpart of ``repro/core/caloclusternet.py``:
   per-hit heads: β, cluster coords (2), energy, class logits (3)
   → CPS (condensation point selection) → ≤ k_max clusters + trigger bit.
 
-- ``init`` / ``CaloClusterNet``: the parameters (a dict of ``{"w", "b"}``
-  dense params, ``w`` in the ``(d_in, d_out)`` layout) and the eager
-  forward, the counterpart of ``apply``. Its GravNet aggregation is the
-  kernel's own cell schedule (``kernels/ref.py:gravnet_cell_ref``).
+- ``init`` / ``apply`` / ``CaloClusterNet``: the parameters (a dict of
+  ``{"w", "b"}`` dense params, ``w`` in the ``(d_in, d_out)`` layout),
+  the eager forward as a function of them, and the module around it.
+  Its GravNet aggregation is the kernel's own cell schedule
+  (``kernels/ref.py:gravnet_cell_ref``).
 - ``cps``: condensation point selection, exact to the reference's
   sequential greedy loop but vectorized over events and over hits.
 - ``to_graph``: the dataflow-IR export the deployment flow consumes.
@@ -26,7 +27,7 @@ from torch import nn
 
 from repro_torch.core.graph_ir import Graph, Operator, register_exporter
 from repro_torch.kernels.ref import gravnet_cell_ref
-from repro_torch.nn.layers import Dense, dense_init
+from repro_torch.nn.layers import Dense, dense_apply, dense_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +84,7 @@ def init(gen: torch.Generator, cfg: CCNConfig) -> dict:
 
 # ----------------------------------------------------------------- model ----
 class CaloClusterNet(nn.Module):
-    """The eager forward (``ccn.apply``): feats (B,N,d_in), mask (B,N)
+    """The eager forward (:func:`apply`): feats (B,N,d_in), mask (B,N)
     -> {beta_logit (B,N), coords (B,N,2), energy (B,N),
     cls_logits (B,N,n_classes)}."""
 
@@ -94,24 +95,35 @@ class CaloClusterNet(nn.Module):
             {name: Dense(p["w"], p.get("b")) for name, p in params.items()})
 
     def forward(self, feats, mask):
-        cfg, L = self.cfg, self.layers
-        x = torch.relu(L["enc1"](feats))
-        x = torch.relu(L["enc2"](x))
-        for i in range(cfg.n_gravnet_blocks):
-            s = L[f"gn{i}_s"](x)
-            flr = L[f"gn{i}_flr"](x)
-            agg = gravnet_cell_ref(s, flr, mask, k=cfg.k,
-                                   scale=cfg.potential_scale)
-            x = torch.relu(L[f"gn{i}_out"](torch.cat([x, agg], dim=-1)))
-        x = torch.relu(L["dec1"](x))
-        x = torch.relu(L["dec2"](x))
-        out = {h: L[f"head_{h}"](x) for h in cfg.head_dims}
-        return {
-            "beta_logit": out["beta"][..., 0],
-            "coords": out["coords"],
-            "energy": out["energy"][..., 0],
-            "cls_logits": out["cls"],
-        }
+        # the Parameters themselves (not .data), so that a caller that
+        # sets requires_grad gets gradients through the layers
+        return apply({name: dict(layer.named_parameters())
+                      for name, layer in self.layers.items()},
+                     feats, mask, self.cfg)
+
+
+def apply(params, feats, mask, cfg: CCNConfig):
+    """The forward as a function of the parameter dict (the reference's
+    ``apply``), differentiable in every leaf of ``params``."""
+    def dense(name, x):
+        return dense_apply(params[name], x)
+    x = torch.relu(dense("enc1", feats))
+    x = torch.relu(dense("enc2", x))
+    for i in range(cfg.n_gravnet_blocks):
+        s = dense(f"gn{i}_s", x)
+        flr = dense(f"gn{i}_flr", x)
+        agg = gravnet_cell_ref(s, flr, mask, k=cfg.k,
+                               scale=cfg.potential_scale)
+        x = torch.relu(dense(f"gn{i}_out", torch.cat([x, agg], dim=-1)))
+    x = torch.relu(dense("dec1", x))
+    x = torch.relu(dense("dec2", x))
+    out = {h: dense(f"head_{h}", x) for h in cfg.head_dims}
+    return {
+        "beta_logit": out["beta"][..., 0],
+        "coords": out["coords"],
+        "energy": out["energy"][..., 0],
+        "cls_logits": out["cls"],
+    }
 
 
 # ------------------------------------------------------------------- CPS ----

@@ -7,7 +7,11 @@ CUDA tensor to the hand-written kernel, which raises on what it does
 not take. There is no backend switch and no fallback. The kernels mask
 ragged shapes themselves, so no wrapper pads, except
 :func:`flash_attention`, which pads S and T to its blocks as the
-reference's wrapper does.
+reference's wrapper does. :func:`edge_aggregate_batched` (and
+:func:`edge_aggregate`) carry a gradient in their messages, the
+training path's: the forward is the kernel, the backward a gather in
+plain PyTorch (:func:`edge_aggregate_grad`), as the reference's gradient
+is XLA's transpose of its segment sum.
 """
 from __future__ import annotations
 
@@ -227,17 +231,68 @@ def edge_aggregate_batched(messages, edge_index, n_nodes, edge_mask=None, *,
     messages:(B,E,d) f32, edge_index:(B,2,E) int (src, dst),
     edge_mask:(B,E)|None -> (B, n_nodes, d); each graph's edges reach
     only its own nodes, and a dst outside [0, n_nodes) contributes
-    nothing."""
+    nothing. Differentiable in ``messages`` (:class:`_EdgeAggregate`);
+    ``edge_mask`` is data and may not require a gradient."""
     bsz, e, _ = messages.shape
+    if edge_mask is not None and edge_mask.requires_grad:
+        raise ValueError("edge_aggregate: edge_mask is data; it has no "
+                         "gradient (detach it)")
     dst = edge_index[:, 1].to(torch.int32).contiguous()
     mask = (torch.ones((bsz, e), dtype=torch.float32,
                        device=messages.device) if edge_mask is None
             else edge_mask.to(torch.float32).contiguous())
+    if messages.requires_grad and torch.is_grad_enabled():
+        return _EdgeAggregate.apply(messages, dst, mask, n_nodes, reduce)
+    return _edge_aggregate_route(messages, dst, mask, n_nodes, reduce)
+
+
+def _edge_aggregate_route(messages, dst, mask, n_nodes, reduce):
     if messages.device.type == "cpu":
         return _ref.edge_aggregate_ref(messages, dst, mask, n_nodes=n_nodes,
                                        reduce=reduce)
     return edge_aggregate_cuda(messages, dst, mask, n_nodes=n_nodes,
                                reduce=reduce)
+
+
+def edge_aggregate_grad(g, dst, mask, n_nodes, reduce="sum"):
+    """The gradient of :func:`edge_aggregate_batched` in its messages, in
+    plain PyTorch: for edge e, ``mask[e]·g[dst[e]]`` (``sum``), with g
+    divided first by the destination's masked in-degree, at least 1
+    (``mean``); 0 where dst lies outside [0, n_nodes). g:(B,n,d),
+    dst:(B,E) int, mask:(B,E) f32 -> (B,E,d). A gather, as the
+    reference's gradient is (XLA's transpose of ``segment_sum``); the
+    in-degree of ``mean`` is a scatter of the masks, exact in any order
+    for 0/1 masks."""
+    bsz, e = dst.shape
+    key = dst.long()
+    valid = (key >= 0) & (key < n_nodes)
+    idx = torch.where(valid, key, 0)
+    w = torch.where(valid, mask.float(), 0.0)
+    if reduce == "mean":
+        cnt = torch.zeros((bsz, n_nodes), dtype=torch.float32,
+                          device=g.device).scatter_add_(1, idx, w)
+        g = g / torch.clamp_min(cnt, 1.0)[..., None]
+    ge = torch.gather(g, 1, idx[..., None].expand(bsz, e, g.shape[-1]))
+    return ge * w[..., None]
+
+
+class _EdgeAggregate(torch.autograd.Function):
+    """:func:`edge_aggregate_batched` with a gradient in its messages:
+    the forward is the kernel on ``cuda`` (its plain version on the
+    CPU), the backward :func:`edge_aggregate_grad`; no gradient to dst
+    or the mask."""
+
+    @staticmethod
+    def forward(ctx, messages, dst, mask, n_nodes, reduce):
+        ctx.save_for_backward(dst, mask)
+        ctx.n_nodes, ctx.reduce = n_nodes, reduce
+        return _edge_aggregate_route(messages, dst, mask, n_nodes, reduce)
+
+    @staticmethod
+    def backward(ctx, g):
+        dst, mask = ctx.saved_tensors
+        return (edge_aggregate_grad(g, dst, mask, ctx.n_nodes, ctx.reduce),
+                None, None, None, None)
 
 
 def edge_aggregate(messages, edge_index, n_nodes, edge_mask=None, *,

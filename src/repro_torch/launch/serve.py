@@ -112,6 +112,7 @@ from repro_torch.models.gnn import gatedgcn, graphsage
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_warmup)
 from repro_torch.optim.adamw import tree_map
+from repro_torch.optim.step import value_and_grad
 from repro_torch.serving import (POLICIES, FaultPlan, MonitorServer,
                                  ShardedTriggerService, event_display,
                                  write_display)
@@ -204,25 +205,18 @@ def train_batch(gen_cfg, n: int, seed: int, device=None) -> dict:
 def train_step(params, opt, batch, *, cfg: ccn.CCNConfig,
                ocfg: AdamWConfig, lr):
     """One step of the warm-training: the condensation loss of
-    ``CaloClusterNet.forward`` on ``batch``, its gradients by autograd,
+    ``ccn.apply`` on ``batch``, its gradients by autograd,
     one AdamW update at rate ``lr``. Returns (new params, new optimizer
     state, loss); ``params`` and ``opt`` are left as they are."""
-    model = ccn.CaloClusterNet(params, cfg)
-    leaves = {name: {key: getattr(model.layers[name], key) for key in p}
-              for name, p in params.items()}
-    flat = [t for p in leaves.values() for t in p.values()]
-    for t in flat:
-        t.requires_grad_(True)
-    out = model(batch["feats"], batch["mask"])
-    labels = {k: batch[k] for k in ("object_id", "energy", "cls")}
-    loss, _ = condensation_loss(out, labels, batch["mask"],
-                                k_max=cfg.k_max)
-    it = iter(torch.autograd.grad(loss, flat))
-    grads = {name: {key: next(it) for key in p}
-             for name, p in leaves.items()}
+    def loss_fn(p):
+        out = ccn.apply(p, batch["feats"], batch["mask"], cfg)
+        labels = {k: batch[k] for k in ("object_id", "energy", "cls")}
+        return condensation_loss(out, labels, batch["mask"],
+                                 k_max=cfg.k_max)
+    (loss, _), grads = value_and_grad(loss_fn, params)
     new_params, new_opt, _ = adamw_update(grads, opt, params, lr=lr,
                                           cfg=ocfg)
-    return new_params, new_opt, loss.detach()
+    return new_params, new_opt, loss
 
 
 def warm_train(cfg: ccn.CCNConfig, gen_cfg, steps: int, *, device=None):

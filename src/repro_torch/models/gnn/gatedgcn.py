@@ -1,8 +1,8 @@
 """GatedGCN (Bresson & Laurent, arXiv:1711.07553; benchmarking-gnns
 arXiv:2003.00982 config: 16 layers, d_hidden=70, gated aggregator).
 
-Counterpart of ``repro/models/gnn/gatedgcn.py`` (config, init, apply,
-export; the loss waits for the training slice). Layer (with edge
+Counterpart of ``repro/models/gnn/gatedgcn.py`` (config, init, apply
+with its node and graph readouts, export, loss). Layer (with edge
 features, residual, batch-norm as in benchmarking-gnns):
     ê_ij = A h_i + B h_j + C e_ij
     e'_ij = e_ij + ReLU(BN(ê_ij))
@@ -30,6 +30,7 @@ class GatedGCNConfig:
     d_in: int = 1433
     d_edge_in: int = 1
     n_classes: int = 7
+    readout: str = "node"      # 'node' (classification) | 'graph'
     transform_then_gather: bool = False
     # A/B/V are linear, so transforming per node (3·N·d²) then gathering
     # equals gathering then transforming per edge (3·E·d²), and is cheaper
@@ -56,7 +57,8 @@ def init(gen: torch.Generator, cfg: GatedGCNConfig) -> dict:
 
 def apply(params, graph, cfg: GatedGCNConfig):
     """Eager forward of one graph (a dict of tensors, see
-    ``models/gnn/common.py``) -> per-node logits."""
+    ``models/gnn/common.py``) -> per-node logits, or for
+    ``readout='graph'`` the logits of the masked mean over nodes."""
     nodes, ei = graph["nodes"], graph["edge_index"]
     nm, em = graph["node_mask"], graph["edge_mask"]
     n = nodes.shape[0]
@@ -84,6 +86,9 @@ def apply(params, graph, cfg: GatedGCNConfig):
         msg = C.scatter_sum(eta * vj, ei, n, em)
         h = h + torch.relu(C.masked_batchnorm(
             dense_apply(lp["U"], h) + msg, nm))
+    if cfg.readout == "graph":
+        pooled = (h * nm[:, None]).sum(0) / torch.clamp_min(nm.sum(), 1.0)
+        return dense_apply(params["head"], pooled)
     return dense_apply(params["head"], h)
 
 
@@ -93,7 +98,12 @@ def to_graph(params, cfg: GatedGCNConfig) -> Graph:
     gathers, two ``edge_aggregate`` sums (``l{i}_denom``, ``l{i}_agg``),
     ``eltwise`` gate algebra and ``batchnorm``, in the
     gather-then-transform topology (mathematically the same as
-    ``transform_then_gather``)."""
+    ``transform_then_gather``). Only ``readout='node'`` deploys: graph
+    pooling has no IR op, as in the reference."""
+    if cfg.readout != "node":
+        raise ValueError(
+            f"gatedgcn export supports readout='node' only, "
+            f"got {cfg.readout!r}")
     g = Graph()
     dh = cfg.d_hidden
 
@@ -164,6 +174,23 @@ def to_graph(params, cfg: GatedGCNConfig) -> Graph:
     g.validate()
     g.meta["config"] = cfg
     return g
+
+
+def loss_fn(params, graph, cfg: GatedGCNConfig):
+    """(loss, {"loss", "acc"}): the cross-entropy of ``graph["labels"]``
+    over the valid nodes (times ``train_mask`` where the graph has one),
+    or for ``readout='graph'`` of its one label."""
+    logits = apply(params, graph, cfg)
+    labels = graph["labels"].long()
+    if cfg.readout == "graph":     # graph-level classification
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -logp[labels]
+        acc = (logits.argmax(-1) == labels).float()
+        return loss, {"loss": loss, "acc": acc}
+    nm = graph["node_mask"]
+    if "train_mask" in graph:
+        nm = nm * graph["train_mask"]
+    return C.masked_ce(logits, labels, nm)
 
 
 register_exporter("gatedgcn", to_graph)

@@ -1,13 +1,18 @@
 """GraphSAGE (Hamilton et al., arXiv:1706.02216): mean aggregator,
-2 layers, d_hidden=128 (the Reddit config).
+2 layers, d_hidden=128, neighbour sampling 25-10 (the Reddit config).
 
-Counterpart of the full-graph mode of ``repro/models/gnn/graphsage.py``
-(config, init, apply, export). The sampled-minibatch mode and the loss
-wait for the training slice.
+Counterpart of ``repro/models/gnn/graphsage.py``: config, init, export,
+and two modes sharing the same parameters:
+- full graph (``apply``): message passing over a (padded) edge list;
+- sampled minibatch (``apply_sampled``): the fixed-fanout layered
+  subgraph of ``data/graphs.NeighborSampler`` (targets first, then the
+  fanout frontiers), processed layer by layer as in the paper; a batch
+  of such subgraphs (a leading group axis on every array) runs as one.
 """
 from __future__ import annotations
 
 import dataclasses
+from itertools import accumulate
 
 import torch
 
@@ -23,6 +28,7 @@ class GraphSAGEConfig:
     d_hidden: int = 128
     d_in: int = 602
     n_classes: int = 41
+    sample_sizes: tuple = (25, 10)
     normalize: bool = True
 
 
@@ -44,14 +50,18 @@ def init(gen: torch.Generator, cfg: GraphSAGEConfig) -> dict:
             "head": dense_init(gen, cfg.d_hidden, cfg.n_classes)}
 
 
-def _sage_layer(lp, h, ei, n, nm, em, *, normalize):
-    neigh = C.scatter_mean(C.gather_src(h, ei), ei, n, em)
+def _combine(lp, h, neigh, normalize):
     z = dense_apply(lp["w"], torch.cat([h, neigh], dim=-1),
                     activation=torch.relu)
     if normalize:
         z = z / torch.clamp_min(
             torch.linalg.vector_norm(z, dim=-1, keepdim=True), 1e-6)
-    return z * nm[:, None]
+    return z
+
+
+def _sage_layer(lp, h, ei, n, nm, em, *, normalize):
+    neigh = C.scatter_mean(C.gather_src(h, ei), ei, n, em)
+    return _combine(lp, h, neigh, normalize) * nm[:, None]
 
 
 def apply(params, graph, cfg: GraphSAGEConfig):
@@ -63,6 +73,57 @@ def apply(params, graph, cfg: GraphSAGEConfig):
     for lp in params["layers"]:
         h = _sage_layer(lp, h, ei, n, nm, em, normalize=cfg.normalize)
     return dense_apply(params["head"], h)
+
+
+def apply_sampled(params, batch, cfg: GraphSAGEConfig):
+    """Sampled-minibatch mode -> the targets' logits. batch:
+      feats   (..., N_total, d_in): every frontier's node features, in
+              the layered layout
+      edges   per layer a (..., 2, E_l): frontier l+1 -> frontier l
+      labels  (..., n0): the targets' labels (n0 gives the sizes)
+    Frontier l occupies [off_l, off_l + n_l); layer l aggregates
+    frontier l+1 into frontier l, the neighbour mean through the
+    ``edge_aggregate`` kernel (no mask: ``msum / max(cnt, 1)``)."""
+    sizes = cfg_frontier_sizes(cfg, batch["labels"].shape[-1])
+    h = batch["feats"]
+    for lp in params["layers"]:
+        offs = list(accumulate(sizes, initial=0))
+        new_h = []
+        for f in range(len(sizes) - 1):   # frontiers shrink by one a layer
+            ei = batch["edges"][f]          # src in frontier f+1, dst in f
+            seg = h[..., offs[f]:offs[f] + sizes[f], :]
+            local = torch.stack([ei[..., 0, :], ei[..., 1, :] - offs[f]],
+                                dim=-2)
+            neigh = C.scatter_mean(C.gather_src(h, ei), local, sizes[f])
+            new_h.append(_combine(lp, seg, neigh, cfg.normalize))
+        h = torch.cat(new_h, dim=-2)
+        sizes = sizes[:len(new_h)]
+    return dense_apply(params["head"], h[..., :sizes[0], :])
+
+
+def cfg_frontier_sizes(cfg: GraphSAGEConfig, batch_nodes: int):
+    """(n0, n0·s0, n0·s0·s1, ...): the frontier sizes of ``batch_nodes``
+    targets under ``cfg.sample_sizes``."""
+    sizes = [batch_nodes]
+    for f in cfg.sample_sizes:
+        sizes.append(sizes[-1] * f)
+    return tuple(sizes)
+
+
+def loss_fn(params, graph, cfg: GraphSAGEConfig, *, sampled=False):
+    """(loss, {"loss", "acc"}): the cross-entropy over the valid nodes
+    (times ``train_mask`` where the graph has one), or with ``sampled``
+    over the targets of a sampled batch (one per group of a batch of
+    them)."""
+    if sampled:
+        logits = apply_sampled(params, graph, cfg)
+        nm = logits.new_ones(logits.shape[:-1])
+    else:
+        logits = apply(params, graph, cfg)
+        nm = graph["node_mask"]
+        if "train_mask" in graph:
+            nm = nm * graph["train_mask"]
+    return C.masked_ce(logits, graph["labels"], nm)
 
 
 def to_graph(params, cfg: GraphSAGEConfig) -> Graph:
