@@ -221,7 +221,47 @@ Phases, each of which exits non-zero when it fails:
     every shape these steps launch it with (d 1433 and 602, E 10556, 480
     and 4800), and its launches from a counted run (one step of each: 2 ×
     16 + 2 + 3) join the kernel line's; ``training.json``;
-13. print ``{"kernels": [...]}`` with every kernel of the port, then
+13. the LM transformer and MIND recsys (``models/transformer.py``,
+    ``models/recsys.py``; they reach no kernel of the port, and the
+    phase fails if a launch counter moves): (a) every LM smoke config
+    (olmo-1b, yi-9b, granite-34b, granite-moe-1b-a400m,
+    llama4-maverick-400b-a17b) and MIND's on the card against the CPU,
+    one set of weights drawn on the CPU and moved across, within the
+    float32 row: forward (the MoE configs under einsum and scatter
+    dispatch), ``loss_fn`` and its gradients, ``prefill``, eight
+    ``decode_step``s with the f32 cache and with the int8 cache (its
+    entries equal but for flips by one where the CPU's quotient lies
+    within ``HALF_TOL`` of a half; the logits held to the bfloat16 row
+    where a flip happened), MIND's loss, gradients and
+    ``score_candidates`` (shared and per-user); (b) olmo-1b at full
+    width (``full_config()``, random weights drawn on the card):
+    ``prefill`` at B 4, S 2048, then 64 ``decode_step``s into a bf16
+    cache of 2112 and again into an int8 cache (the prefill's k/v
+    quantized), the last decode logits within the bfloat16 row of a
+    ``forward`` of the whole sequence (argmax equal wherever the top-2
+    margin exceeds the row), the int8 cache's within
+    ``INT8_LOGIT_BOUND`` of the bf16 cache's; prefill ms and tokens/s,
+    decode ms a step and tokens/s, peak memory; (c) granite-moe-1b-a400m
+    at full width, the same prefill and decodes, and on each layer's MoE
+    input from the prefill the einsum dispatch (one group of all 8192
+    tokens) against the scatter dispatch within the bfloat16 row with
+    the same count of dropped assignments; (d) training: olmo-1b at full
+    width at B 4, S 1024 (``train_4k``'s 256 × 4096 cut to one card),
+    ``train.build_step``'s step captured as one CUDA graph, its first
+    step within the float32 row of the eager step from the same state,
+    10 steps of ``lm_stream`` batches with the held-out loss falling, ms
+    a step, tokens/s, TFLOP/s of ``model_flops(training=True)``, peak
+    memory and the idle share; ``train.run`` on olmo-1b and mind (smoke
+    configs, 30 steps, checkpoints every 10, a failure at 15 resumed
+    from 10, checkpoints crc-verified, olmo-1b's held-out loss falling)
+    and once without the failure; (e) MIND at full width
+    (``full_config()``): ``serve_p99`` (B 512, 1024 candidates each) and
+    ``retrieval_cand`` (one user, 10⁶ shared candidates, top 100) on the
+    card against the CPU (the top-k indices equal wherever neighbours
+    are apart), ms a call and users/s, and 5 captured train steps of
+    8192 users (``train_batch``'s 65536 cut: the in-batch logits are B ×
+    B); ``lm_recsys.json``;
+14. print ``{"kernels": [...]}`` with every kernel of the port, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -581,6 +621,611 @@ def shape_of(name, args, kw):
 
 
 # ----------------------------------------------------------------- main ----
+# ------------------------------------------- phase 13: LM and recsys ----
+LM_SMOKE_ARCHS = ("olmo-1b", "yi-9b", "granite-34b", "granite-moe-1b-a400m",
+                  "llama4-maverick-400b-a17b")
+LM_PREFILL = (4, 2048)          # (B, S) of the full-width prefills
+LM_DECODE_STEPS = 64            # decode steps after each prefill
+LM_CACHE = 2112                 # their cache length: S + 64
+LM_TRAIN = (4, 1024)            # olmo-1b's train step: train_4k's B 256,
+                                # S 4096 cut to one card and the time limit
+LM_TRAIN_STEPS = 10
+DRIVER_STEPS = 30               # the driver runs of olmo-1b and mind
+HALF_TOL = 1e-3                 # the int8 cache's flip rule
+INT8_LOGIT_BOUND = 0.25         # max|Δlogit|, int8 cache against bf16:
+                                # a per-token quantization step of k and v
+                                # moves logits of a few units by hundredths
+MIND_SERVE = (512, 1024)        # serve_p99: users, candidates each
+MIND_RETRIEVAL = (1, 1_000_000, 100)   # retrieval_cand: users, shared
+                                       # candidates, top k
+MIND_TRAIN_BATCH = 8192         # train_batch's 65536 cut: the in-batch
+                                # logits are B x B
+MIND_TRAIN_STEPS = 5
+TIE_REL = 1e-5                  # neighbours this close (relative) may swap
+
+
+def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
+    """Phase 13: the LM transformer and MIND on the card (module
+    docstring, item 13). Returns the phase's record."""
+    import dataclasses
+
+    from repro_torch import configs as arch_configs
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.data.recsys import mind_batch
+    from repro_torch.launch import train
+    from repro_torch.models import recsys as rec
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.step import CompiledStep, value_and_grad
+    cpu = torch.device("cpu")
+    out = {"card": card}
+    row = f"{ATOL:g} + {RTOL:g}·|want|"
+    brow = f"{BF16_ATOL:g} + {BF16_RTOL:g}·|want|"
+
+    def on(tree, device):
+        return ckpt.unflatten(tree, iter(t.to(device)
+                                         for _, t in ckpt.flatten(tree)))
+
+    def within(label, got, want, rtol=RTOL, atol=ATOL):
+        """Every leaf of ``got`` finite and within (atol, rtol) of the
+        same leaf of ``want`` (compared in float64 on ``got``'s device);
+        returns the largest |err|."""
+        worst = 0.0
+        for (name, g), (_, w) in zip(ckpt.flatten(got), ckpt.flatten(want),
+                                     strict=True):
+            g64 = g.detach().double()
+            w64 = w.detach().to(g64.device).double()
+            err = (g64 - w64).abs()
+            bad = err > atol + rtol * w64.abs()
+            if not bool(torch.isfinite(g64).all()) or bool(bad.any()):
+                fail(f"[{label}] {name}: max|err| {err.max().item():.3e} at "
+                     f"|want| up to {w64.abs().max().item():.3e}, "
+                     f"{int(bad.sum())} of {err.numel()} outside {atol:g} + "
+                     f"{rtol:g}·|want|")
+            worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        return worst
+
+    def int8_flips(label, got, want, f32_cache):
+        """The card's int8 cache against the CPU's: every entry equal but
+        a flip by one where the CPU's quotient k/scale (its float32
+        cache's k over its int8 cache's scale) lies within HALF_TOL of a
+        half-integer; the scales within the float32 row. Returns the
+        flips."""
+        flips = 0
+        for n in ("k", "v"):
+            within(f"{label} {n}_scale", got[f"{n}_scale"],
+                   want[f"{n}_scale"])
+            g = got[n].cpu().to(torch.int32)
+            w = want[n].to(torch.int32)
+            quot = f32_cache[n].double().abs() / want[f"{n}_scale"].double(
+                )[..., None].clamp_min(1e-30)
+            near = (quot - quot.floor() - 0.5).abs() < HALF_TOL
+            diff = g != w
+            if bool(((g - w).abs() > 1).any()) or bool((diff & ~near).any()):
+                fail(f"[{label}] int8 {n}: {int(diff.sum())} entries differ, "
+                     f"{int((diff & ~near).sum())} of them away from a half")
+            flips += int(diff.sum())
+        return flips
+
+    def share(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    def timed(fn, sync=True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        if sync:
+            torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    # (a) every LM smoke config and MIND's on the card against the CPU,
+    # one set of weights drawn on the CPU and moved across
+    smoke = {}
+    for i, arch in enumerate(LM_SMOKE_ARCHS):
+        cfg = arch_configs.get_arch(arch).smoke_config()
+        p_cpu = tr.init_params(torch.Generator().manual_seed(100 + i), cfg)
+        p_dev = on(p_cpu, dev)
+        toks = torch.from_numpy(lm_batch(cfg.vocab, 2, 16, seed=i,
+                                         step=0)["tokens"])
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+        b_dev = on(batch, dev)
+        errs = {}
+        with torch.no_grad():
+            errs["forward"] = within(
+                f"{arch} forward", tr.forward(p_dev, b_dev["tokens"], cfg),
+                tr.forward(p_cpu, toks, cfg))
+            if cfg.moe is not None:
+                for disp in ("einsum", "scatter"):
+                    c_ = dataclasses.replace(cfg, moe=dataclasses.replace(
+                        cfg.moe, dispatch=disp))
+                    errs[f"moe_{disp}"] = within(
+                        f"{arch} forward, {disp} dispatch",
+                        tr.forward(p_dev, b_dev["tokens"], c_),
+                        tr.forward(p_cpu, toks, c_))
+            lg_d, c_d = tr.prefill(p_dev, b_dev["tokens"], cfg)
+            lg_c, c_c = tr.prefill(p_cpu, toks, cfg)
+            errs["prefill"] = within(f"{arch} prefill", (lg_d, c_d),
+                                     (lg_c, c_c))
+        (l_d, m_d), g_d = value_and_grad(
+            lambda p: tr.loss_fn(p, b_dev, cfg), p_dev)
+        (l_c, m_c), g_c = value_and_grad(
+            lambda p: tr.loss_fn(p, batch, cfg), p_cpu)
+        errs["loss_grads"] = within(f"{arch} loss and gradients",
+                                    (l_d, m_d, g_d), (l_c, m_c, g_c))
+        caches = {}
+        with torch.no_grad():
+            for int8 in (False, True):
+                c_ = dataclasses.replace(cfg, kv_cache_int8=int8)
+                cd = tr.init_cache(c_, 2, 16, device=dev)
+                cc = tr.init_cache(c_, 2, 16, device=cpu)
+                logits = []
+                for t in range(8):
+                    ld_, cd = tr.decode_step(p_dev, cd, b_dev["tokens"][
+                        :, t:t + 1], c_)
+                    lc_, cc = tr.decode_step(p_cpu, cc, toks[:, t:t + 1], c_)
+                    logits.append((ld_, lc_))
+                caches[int8] = (cd, cc)
+                kind = "int8" if int8 else "f32"
+                if not int8:
+                    errs["decode"] = within(
+                        f"{arch} 8 decode steps",
+                        ([d for d, _ in logits], cd),
+                        ([c for _, c in logits], cc))
+                    continue
+                flips = int8_flips(f"{arch} int8 cache", cd, cc,
+                                   caches[False][1])
+                # a flip moves a cached k or v by one step of its scale:
+                # then the logits are held to the bfloat16 row
+                tol = (RTOL, ATOL) if flips == 0 else (BF16_RTOL, BF16_ATOL)
+                errs["decode_int8"] = within(
+                    f"{arch} 8 decode steps, {kind} cache",
+                    [d for d, _ in logits], [c for _, c in logits], *tol)
+                errs["int8_flips"] = flips
+        smoke[arch] = errs
+        say(f"[lm smoke {arch}] card vs CPU max|err|: " + ", ".join(
+            f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in errs.items()) + f" (float32 row {row}) ({card})")
+    m_cfg = arch_configs.get_arch("mind").smoke_config()
+    mp_cpu = rec.init(torch.Generator().manual_seed(110), m_cfg)
+    mp_dev = on(mp_cpu, dev)
+    raw = mind_batch(n_items=m_cfg.n_items, n_user_tags=m_cfg.n_user_tags,
+                     hist_len=m_cfg.hist_len, tag_bag=m_cfg.tag_bag,
+                     batch=16, seed=5, step=0)
+    mb = {k: torch.from_numpy(v) for k, v in raw.items()}
+    mb_dev = on(mb, dev)
+    (ml_d, mm_d), mg_d = value_and_grad(
+        lambda p: rec.loss_fn(p, mb_dev, m_cfg), mp_dev)
+    (ml_c, mm_c), mg_c = value_and_grad(
+        lambda p: rec.loss_fn(p, mb, m_cfg), mp_cpu)
+    m_errs = {"loss_grads": within("mind smoke loss and gradients",
+                                   (ml_d, mm_d, mg_d), (ml_c, mm_c, mg_c))}
+    with torch.no_grad():
+        for shared in (True, False):
+            cands = (torch.arange(m_cfg.n_items, dtype=torch.int32) if shared
+                     else torch.from_numpy(np.random.default_rng(6).integers(
+                         0, m_cfg.n_items, (16, 40)).astype(np.int32)))
+            m_errs["scores_" + ("shared" if shared else "per_user")] = \
+                within(f"mind smoke score_candidates shared={shared}",
+                       rec.score_candidates(mp_dev, {**mb_dev, "cand_ids":
+                                                     cands.to(dev)}, m_cfg),
+                       rec.score_candidates(mp_cpu, {**mb, "cand_ids": cands},
+                                            m_cfg))
+    smoke["mind"] = m_errs
+    say(f"[mind smoke] card vs CPU max|err|: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in m_errs.items()) + f" (float32 row {row}) "
+        f"({card})")
+    out["smoke"] = smoke
+
+    # (b), (c) olmo-1b and granite-moe-1b-a400m at full width: a prefill,
+    # then decode steps into the cache
+    B, S = LM_PREFILL
+
+    def prefill_decode(arch, seed, moe_inputs=None):
+        cfg = arch_configs.get_arch(arch).full_config()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = tr.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+        seq = torch.from_numpy(lm_batch(cfg.vocab, B, S + LM_DECODE_STEPS,
+                                        seed=seed, step=0)["tokens"]).to(dev)
+        r = {"config": repr(cfg)}
+        with torch.no_grad():
+            tr.prefill(params, seq[:, :S], cfg)          # warm-up
+            if moe_inputs is not None:
+                saved = tr._moe_einsum
+
+                def rec_moe(x, lp, cfg_):
+                    moe_inputs.append((x, lp))
+                    return saved(x, lp, cfg_)
+                tr._moe_einsum = rec_moe
+            try:
+                (lg_pf, cache_pf), pf_ms = timed(
+                    lambda: tr.prefill(params, seq[:, :S], cfg))
+            finally:
+                if moe_inputs is not None:
+                    tr._moe_einsum = saved
+            # its host time spreads between calls: the median of 3
+            pf_ms = float(np.median([pf_ms] + [timed(lambda: tr.prefill(
+                params, seq[:, :S], cfg))[1] for _ in range(2)]))
+            r["prefill_ms"] = pf_ms
+            r["prefill_tokens_per_s"] = B * S / pf_ms * 1e3
+
+            def decode(cfg_):
+                c = tr.init_cache(cfg_, B, LM_CACHE, device=dev)
+                if cfg_.kv_cache_int8:
+                    for n in ("k", "v"):
+                        q, sc = tr.quantize_kv(cache_pf[n])
+                        c[n][:, :, :S] = q
+                        c[f"{n}_scale"][:, :, :S] = sc
+                else:
+                    c["k"][:, :, :S] = cache_pf["k"]
+                    c["v"][:, :, :S] = cache_pf["v"]
+                c["pos"].fill_(S)
+                tr.decode_step(params, c, seq[:, S:S + 1], cfg_)   # warm-up
+
+                def run():
+                    cc, lg = c, None
+                    for t in range(LM_DECODE_STEPS):
+                        lg, cc = tr.decode_step(params, cc, seq[
+                            :, S + t:S + t + 1], cfg_)
+                    return lg, cc
+                (lg, cc), ms = timed(run)
+                if not cfg_.kv_cache_int8:
+                    # where a decode step's time goes
+                    tok = seq[:, S + LM_DECODE_STEPS - 1:S + LM_DECODE_STEPS]
+                    busy, _, wall = idle_share(
+                        lambda: tr.decode_step(params, c, tok, cfg_),
+                        f"{arch} decode steps", f"_decode_{arch}")
+                    r["decode_idle_share"] = (1 - busy / wall if busy > 0
+                                              else None)
+                return lg, cc, ms / LM_DECODE_STEPS
+            lg16, c16, d16_ms = decode(cfg)
+            lg8, c8, d8_ms = decode(dataclasses.replace(cfg,
+                                                        kv_cache_int8=True))
+        r.update(decode_ms_per_step=d16_ms, decode_tokens_per_s=B / d16_ms
+                 * 1e3, decode_int8_ms_per_step=d8_ms,
+                 decode_int8_tokens_per_s=B / d8_ms * 1e3)
+        d8 = float((lg8 - lg16).abs().max())
+        r["int8_vs_bf16_cache_max_abs_dlogit"] = d8
+        r["max_abs_logit"] = float(lg16.abs().max())
+        if not (bool(torch.isfinite(lg8).all()) and d8 <= INT8_LOGIT_BOUND):
+            fail(f"[{arch}] int8 cache's last logits max|Δ| {d8:.4f} against "
+                 f"the bf16 cache's, bound {INT8_LOGIT_BOUND}")
+        if int(c16["pos"][0, 0]) != S + LM_DECODE_STEPS:
+            fail(f"[{arch}] cache at {int(c16['pos'][0, 0])}")
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return cfg, params, seq, lg16, r
+
+    cfg_o, params_o, seq_o, lg_o, r_o = prefill_decode("olmo-1b", 200)
+    # the last decode logits against a forward of the whole sequence in
+    # bf16, and against one in f32 compute (the same weights): through 16
+    # bf16 layers the bf16 forward itself leaves the bfloat16 row of the
+    # f32 one on a few logits, so a decode logit outside the row of the
+    # bf16 forward must lie no further from the f32 forward than twice
+    # the bf16 forward's largest distance from it (phase 12's rule for
+    # gradients, with f32 compute as the truth)
+    full = dataclasses.replace(cfg_o, attn_mode="full")
+    with torch.no_grad():
+        x, _ = tr.forward(params_o, seq_o, full)
+        lg_f = (x[:, -1] @ params_o["lm_head"].to(cfg_o.compute_dtype)
+                ).float()
+        x, _ = tr.forward(params_o, seq_o, dataclasses.replace(
+            full, compute_dtype=torch.float32))
+        lg_t = x[:, -1] @ params_o["lm_head"]
+    del x
+    err = (lg_o - lg_f).abs()
+    outside = err > BF16_ATOL + BF16_RTOL * lg_f.abs()
+    e_fwd = float((lg_f - lg_t).abs().max())
+    e_dec = (lg_o - lg_t).abs()
+    r_o.update(decode_vs_forward_max_abs_err=float(err.max()),
+               decode_outside_bf16_row=int(outside.sum()),
+               bf16_forward_vs_f32_max_abs_err=e_fwd,
+               decode_vs_f32_forward_max_abs_err=float(e_dec.max()))
+    if bool((e_dec[outside] > 2 * e_fwd).any()):
+        fail(f"[olmo-1b] last decode logits against the forward: "
+             f"{int(outside.sum())} outside the bfloat16 row ({brow}), "
+             f"max|err| against the f32 forward there "
+             f"{float(e_dec[outside].max()):.4f} above twice the bf16 "
+             f"forward's {e_fwd:.4f}")
+    top2 = lg_f.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > BF16_ATOL + BF16_RTOL * top2[:, 0].abs()
+    same = lg_o.argmax(-1) == lg_f.argmax(-1)
+    r_o["argmax_clear_rows"] = int(clear.sum())
+    if bool((clear & ~same).any()):
+        fail(f"[olmo-1b] argmax differs on a row whose top-2 margin exceeds "
+             f"the bfloat16 row: {same.tolist()}, clear {clear.tolist()}")
+    out["olmo_full"] = r_o
+    say(f"[olmo-1b full width] prefill B={B} S={S} ({cfg_o.attn_mode}, "
+        f"{S // min(cfg_o.block_q, S)} q chunks): "
+        f"{r_o['prefill_ms']:.2f} ms, {r_o['prefill_tokens_per_s']:.0f} "
+        f"tokens/s; {LM_DECODE_STEPS} decode steps into a cache of "
+        f"{LM_CACHE}: bf16 cache {r_o['decode_ms_per_step']:.3f} ms a step, "
+        f"{r_o['decode_tokens_per_s']:.1f} tokens/s; int8 cache "
+        f"{r_o['decode_int8_ms_per_step']:.3f} ms, "
+        f"{r_o['decode_int8_tokens_per_s']:.1f} tokens/s, its last logits "
+        f"max|Δ| {r_o['int8_vs_bf16_cache_max_abs_dlogit']:.4f} against the "
+        f"bf16 cache's (bound {INT8_LOGIT_BOUND}; logits up to "
+        f"{r_o['max_abs_logit']:.2f}); last decode logits against a bf16 "
+        f"forward of all {S + LM_DECODE_STEPS} tokens max|err| "
+        f"{r_o['decode_vs_forward_max_abs_err']:.4f}, "
+        f"{r_o['decode_outside_bf16_row']} of {lg_o.numel()} outside the "
+        f"bfloat16 row ({brow}), each no further from the f32 forward than "
+        f"twice the bf16 forward's {e_fwd:.4f} (decode: "
+        f"{r_o['decode_vs_f32_forward_max_abs_err']:.4f}); argmax equal on "
+        f"the {r_o['argmax_clear_rows']} of {B} rows with a clear top-2 "
+        f"margin; decode idle share {share(r_o['decode_idle_share'])}; peak "
+        f"{r_o['peak_gib']:.3f} GiB ({card})")
+
+    # (d) olmo-1b training at full width, LM_TRAIN (B, S); the state
+    # starts from (b)'s weights
+    mod_o = arch_configs.get_arch("olmo-1b")
+    step_o, _, _, ocfg = train.build_step("olmo-1b", mod_o, cfg_o, device=dev)
+    tb, ts = LM_TRAIN
+    lm_train = [{k: torch.from_numpy(v).to(dev) for k, v in lm_batch(
+        cfg_o.vocab, tb, ts, seed=300, step=i).items()}
+        for i in range(LM_TRAIN_STEPS)]
+    held = {k: torch.from_numpy(v).to(dev) for k, v in lm_batch(
+        cfg_o.vocab, tb, ts, seed=HELD_OUT_SEED, step=0).items()}
+    del seq_o, lg_o, lg_f, lg_t
+    opt0 = adamw_init(params_o, ocfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the eager step from the initial state, kept on the host
+    p1, o1, m_e = step_o(params_o, opt0, lm_train[0])
+    eager1 = on({"loss": m_e["loss"], "p": p1, "o": o1}, cpu)
+    del p1, o1, m_e
+    stepper = CompiledStep(step_o, params_o, opt0, device=dev)
+    with torch.no_grad():
+        h0 = float(tr.loss_fn(params_o, held, cfg_o)[0])
+    del params_o, opt0
+    m1, cap_ms = timed(lambda: stepper(lm_train[0]))
+    ce_err = within("olmo-1b train captured vs eager, step 1",
+                    {"loss": m1["loss"], "p": stepper.params,
+                     "o": stepper.opt}, eager1)
+    del eager1
+    losses, step_ms = [float(m1["loss"])], []
+    for b_ in lm_train[1:]:
+        m_, ms = timed(lambda: stepper(b_))
+        step_ms.append(ms)
+        losses.append(float(m_["loss"]))
+    with torch.no_grad():
+        h1 = float(tr.loss_fn(stepper.params, held, cfg_o)[0])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.isfinite(losses).all() or not h1 < h0:
+        fail(f"[olmo-1b train] losses {losses}, held-out {h0} -> {h1}")
+    med = float(np.median(step_ms))
+    flops = tr.model_flops(cfg_o, tb, ts, training=True)
+    busy, _, wall = idle_share(lambda: stepper(lm_train[1]),
+                               "captured olmo-1b train steps", "_train_lm")
+    out["olmo_train"] = {
+        "batch": tb, "seq": ts, "steps": LM_TRAIN_STEPS,
+        "capture_ms": cap_ms, "losses": losses, "held_out_loss": [h0, h1],
+        "step_ms": step_ms, "ms_per_step": med,
+        "tokens_per_s": tb * ts / med * 1e3,
+        "model_tflops": flops / (med * 1e-3) / 1e12, "peak_gib": peak,
+        "idle_share": 1 - busy / wall if busy > 0 else None,
+        "captured_vs_eager_max_err": ce_err}
+    say(f"[olmo-1b train full width] B={tb} S={ts} (train_4k's 256 x 4096 "
+        f"cut to one card), one CUDA graph a step (first step with its "
+        f"capture {cap_ms:.0f} ms): loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"held-out {h0:.4f} -> {h1:.4f}; median {med:.2f} ms a step, "
+        f"{tb * ts / med * 1e3:.0f} tokens/s, "
+        f"{out['olmo_train']['model_tflops']:.1f} TFLOP/s of "
+        f"model_flops(training=True); peak {peak:.3f} GiB; idle share "
+        f"{share(out['olmo_train']['idle_share'])}; captured vs eager (step 1) "
+        f"max|err| {ce_err:.3e} within {row} ({card})")
+    del stepper, lm_train, held
+    torch.cuda.empty_cache()
+
+    moe_inputs = []
+    cfg_g, params_g, seq_g, _, r_g = prefill_decode(
+        "granite-moe-1b-a400m", 201, moe_inputs)
+    del seq_g
+    # einsum against scatter dispatch on each layer's MoE input from the
+    # prefill, the einsum over one group of all its tokens (so both queue
+    # the same tokens for the same capacity)
+    one = dataclasses.replace(cfg_g, moe=dataclasses.replace(
+        cfg_g.moe, group_size=B * S))
+    sc = dataclasses.replace(cfg_g, moe=dataclasses.replace(
+        cfg_g.moe, dispatch="scatter"))
+    worst, drops, drops_cfg = 0.0, [], []
+    with torch.no_grad():
+        for li, (x, lp) in enumerate(moe_inputs):
+            ye, _ = tr._moe_einsum(x, lp, one)
+            ys, _ = tr._moe_scatter(x, lp, sc)
+            worst = max(worst, within(
+                f"granite-moe layer {li} einsum vs scatter", ye, ys,
+                BF16_RTOL, BF16_ATOL))
+            de, ds = int(tr.moe_dropped(x, lp, one)), int(
+                tr.moe_dropped(x, lp, sc))
+            if de != ds:
+                fail(f"[granite-moe] layer {li}: einsum drops {de}, scatter "
+                     f"{ds}")
+            drops.append(de)
+            drops_cfg.append(int(tr.moe_dropped(x, lp, cfg_g)))
+    r_g.update(einsum_vs_scatter_max_abs_err=worst, dropped=drops,
+               dropped_groups_of_512=drops_cfg)
+    out["granite_moe_full"] = r_g
+    say(f"[granite-moe-1b-a400m full width] prefill B={B} S={S}: "
+        f"{r_g['prefill_ms']:.2f} ms, {r_g['prefill_tokens_per_s']:.0f} "
+        f"tokens/s; decode bf16 cache {r_g['decode_ms_per_step']:.3f} ms a "
+        f"step ({r_g['decode_tokens_per_s']:.1f} tokens/s), int8 cache "
+        f"{r_g['decode_int8_ms_per_step']:.3f} ms, last logits max|Δ| "
+        f"{r_g['int8_vs_bf16_cache_max_abs_dlogit']:.4f}; einsum vs scatter "
+        f"dispatch over {len(moe_inputs)} layers' inputs ({B * S} tokens, "
+        f"one group) max|err| {worst:.4f} within {brow}, dropped "
+        f"assignments equal on both: {sum(drops)} of "
+        f"{len(drops) * B * S * cfg_g.moe.top_k} (in the config's groups of "
+        f"{cfg_g.moe.group_size}: {sum(drops_cfg)}); decode idle share "
+        f"{share(r_g['decode_idle_share'])}; peak {r_g['peak_gib']:.3f} GiB "
+        f"({card})")
+    del params_g, moe_inputs
+    torch.cuda.empty_cache()
+
+    # (d) the driver on olmo-1b and mind: a failure injected and resumed
+    drivers = {}
+    for arch in ("olmo-1b", "mind"):
+        runs = {}
+        for tag, extra in (("failure", ["--inject-failure-at", "15"]),
+                           ("whole", [])):
+            ck = OUT / "ckpt" / f"{arch}_{tag}"
+            shutil.rmtree(ck, ignore_errors=True)
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                rep = train.run(["--arch", arch, "--steps", str(DRIVER_STEPS),
+                                 "--ckpt-every", "10", *extra,
+                                 "--ckpt-dir", str(ck)])
+            LOG.append(buf.getvalue())
+            if rep.device.type != dev.type or not rep.captured or not \
+                    np.isfinite([v for _, v in rep.losses]).all():
+                fail(f"[train driver {arch} {tag}] on {rep.device}, captured "
+                     f"{rep.captured}, losses {rep.losses}")
+            runs[tag] = (rep, ck)
+        rep, ck = runs["failure"]
+        if rep.resumes != [(15, 10)] or rep.checkpoints != [10, 20, 30]:
+            fail(f"[train driver {arch}] resumed {rep.resumes}, checkpoints "
+                 f"{rep.checkpoints}")
+        final = {"p": rep.params, "o": rep.opt}
+        for st in (10, 20, 30):
+            try:    # every leaf's crc32 verified
+                got, got_step = ckpt.restore(str(ck), st, final)
+            except (IOError, KeyError) as e:
+                fail(f"[train driver {arch}] checkpoint {st}: {e}")
+        if max(float((a.double() - b.double()).abs().max()) for (_, a), (_, b)
+               in zip(ckpt.flatten(got), ckpt.flatten(final))) != 0.0:
+            fail(f"[train driver {arch}] checkpoint 30 differs from the "
+                 "final state")
+        mod = arch_configs.get_arch(arch)
+        scfg = mod.smoke_config()
+        _, init_s, to_batch, _ = train.build_step(arch, mod, scfg, device=dev)
+        held_raw = next(train.make_data_stream(arch, mod, scfg, 64,
+                                               HELD_OUT_SEED, 0))
+        loss_of = (tr.loss_fn if mod.FAMILY == "lm" else rec.loss_fn)
+        with torch.no_grad():
+            hl = [float(loss_of(p_, to_batch(held_raw), scfg)[0])
+                  for p_ in (init_s(0), rep.params)]
+        if arch == "olmo-1b" and not hl[1] < hl[0]:
+            fail(f"[train driver {arch}] held-out loss {hl} not falling")
+        d_fail = max(float((a.double() - b.double()).abs().max())
+                     for (_, a), (_, b) in zip(
+                         ckpt.flatten(rep.params),
+                         ckpt.flatten(runs["whole"][0].params)))
+        drivers[arch] = {"resumes": rep.resumes,
+                         "checkpoints": rep.checkpoints,
+                         "losses": rep.losses, "held_out_loss": hl,
+                         "steps_per_s": [r_.steps_per_s for r_, _ in
+                                         runs.values()],
+                         "max_param_diff_failure_vs_whole": d_fail}
+        say(f"[train driver {arch}] smoke config, {DRIVER_STEPS} captured "
+            f"steps of 16: failure at 15 resumed from 10, checkpoints "
+            f"{rep.checkpoints} crc-verified, the last equal to the final "
+            f"state; losses finite ({rep.losses[0][1]:.4f} -> "
+            f"{rep.losses[-1][1]:.4f}); held-out loss (64 of seed "
+            f"{HELD_OUT_SEED}) {hl[0]:.5f} -> {hl[1]:.5f}; step-30 parameters' "
+            f"max|diff| against an uninterrupted run {d_fail:.3e}; "
+            f"{runs['whole'][0].steps_per_s:.1f} steps/s ({card})")
+    out["drivers"] = drivers
+
+    # (e) MIND at full width: serve_p99, retrieval_cand, captured steps
+    mcfg = arch_configs.get_arch("mind").full_config()
+    mp_cpu = rec.init(torch.Generator().manual_seed(120), mcfg)
+    mp = on(mp_cpu, dev)
+
+    def users(b, seed):
+        return {k: torch.from_numpy(v) for k, v in mind_batch(
+            n_items=mcfg.n_items, n_user_tags=mcfg.n_user_tags,
+            hist_len=mcfg.hist_len, tag_bag=mcfg.tag_bag, batch=b,
+            seed=seed, step=0).items() if k != "target"}
+
+    def per_call(fn, reps=20):
+        fn()
+        ms = []
+        for _ in range(reps):
+            _, t_ = timed(fn)
+            ms.append(t_)
+        return float(np.median(ms))
+    mind = {}
+    ub, uc = MIND_SERVE
+    u = users(ub, 400)
+    u["cand_ids"] = torch.from_numpy(np.random.default_rng(401).integers(
+        0, mcfg.n_items, (ub, uc)).astype(np.int32))
+    u_dev = on(u, dev)
+    with torch.no_grad():
+        s_dev = rec.score_candidates(mp, u_dev, mcfg)
+        s_cpu = rec.score_candidates(mp_cpu, u, mcfg)
+        e_p99 = within("mind serve_p99 card vs CPU", s_dev, s_cpu)
+        ms = per_call(lambda: rec.score_candidates(mp, u_dev, mcfg))
+    mind["serve_p99"] = {"batch": ub, "cands": uc, "max_abs_err": e_p99,
+                         "ms_per_call": ms, "users_per_s": ub / ms * 1e3}
+    rb, rc, rk = MIND_RETRIEVAL
+    r_ = users(rb, 402)
+    r_["cand_ids"] = torch.arange(rc, dtype=torch.int32)
+    r_dev = on(r_, dev)
+    with torch.no_grad():
+        v_dev, i_dev = rec.serve_topk(mp, r_dev, mcfg, k=rk)
+        v_cpu, i_cpu = rec.serve_topk(mp_cpu, r_, mcfg, k=rk)
+        e_ret = within("mind retrieval_cand top-k values", v_dev, v_cpu)
+        vc = v_cpu.double()
+        apart = (vc[:, 1:] - vc[:, :-1]).abs() > TIE_REL * torch.maximum(
+            vc[:, 1:].abs(), vc[:, :-1].abs())
+        sep = torch.ones_like(vc, dtype=torch.bool)
+        sep[:, 1:] &= apart
+        sep[:, :-1] &= apart
+        if not torch.equal(i_dev.cpu()[sep], i_cpu[sep]):
+            fail("[mind retrieval_cand] top-k indices differ where the "
+                 "CPU's neighbours are apart")
+        ms_r = per_call(lambda: rec.serve_topk(mp, r_dev, mcfg, k=rk))
+    mind["retrieval_cand"] = {
+        "batch": rb, "cands": rc, "topk": rk, "max_abs_err": e_ret,
+        "indices_held": int(sep.sum()), "ms_per_call": ms_r,
+        "users_per_s": rb / ms_r * 1e3}
+    del mp_cpu
+    mod_m = arch_configs.get_arch("mind")
+    step_m, _, to_batch_m, ocfg_m = train.build_step("mind", mod_m, mcfg,
+                                                     device=dev)
+    t = time.perf_counter()
+    m_batches = [to_batch_m(mind_batch(
+        n_items=mcfg.n_items, n_user_tags=mcfg.n_user_tags,
+        hist_len=mcfg.hist_len, tag_bag=mcfg.tag_bag,
+        batch=MIND_TRAIN_BATCH, seed=403, step=i))
+        for i in range(MIND_TRAIN_STEPS)]
+    gen_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st_m = CompiledStep(step_m, mp, adamw_init(mp, ocfg_m), device=dev)
+    m_, cap_ms = timed(lambda: st_m(m_batches[0]))
+    m_losses, m_ms = [float(m_["loss"])], []
+    for b_ in m_batches[1:]:
+        m_, ms_ = timed(lambda: st_m(b_))
+        m_ms.append(ms_)
+        m_losses.append(float(m_["loss"]))
+    if not np.isfinite(m_losses).all():
+        fail(f"[mind train] losses {m_losses}")
+    med_m = float(np.median(m_ms))
+    mind["train"] = {"batch": MIND_TRAIN_BATCH, "steps": MIND_TRAIN_STEPS,
+                     "batches_made_s": gen_s, "capture_ms": cap_ms,
+                     "losses": m_losses, "ms_per_step": med_m,
+                     "users_per_s": MIND_TRAIN_BATCH / med_m * 1e3,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    out["mind_full"] = mind
+    say(f"[mind full width] {mcfg.n_items} items x {mcfg.embed_dim}, "
+        f"{mcfg.n_user_tags} tags, K {mcfg.n_interests}, H {mcfg.hist_len}: "
+        f"serve_p99 (B {ub}, {uc} candidates each) {ms:.3f} ms a call, "
+        f"{ub / ms * 1e3:.0f} users/s, card vs CPU max|err| {e_p99:.2e}; "
+        f"retrieval_cand (1 user, {rc} shared candidates, top {rk}) "
+        f"{ms_r:.3f} ms a call, values max|err| {e_ret:.2e}, indices equal "
+        f"at the {int(sep.sum())} of {rk} places apart from their "
+        f"neighbours; {MIND_TRAIN_STEPS} captured train steps of "
+        f"{MIND_TRAIN_BATCH} users (65536 cut: the in-batch logits are B x "
+        f"B; batches made ahead in {gen_s:.1f}s): {med_m:.3f} ms a step, "
+        f"{MIND_TRAIN_BATCH / med_m * 1e3:.0f} users/s, loss "
+        f"{m_losses[0]:.4f} -> {m_losses[-1]:.4f}; peak "
+        f"{mind['train']['peak_gib']:.3f} GiB ({card})")
+    del st_m, mp
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (no "
@@ -3135,7 +3780,20 @@ def main() -> int:
     say(f"phase 12 done at {time.perf_counter() - t_start:.1f}s "
         f"({time.perf_counter() - t12:.1f}s)")
 
-    # 13. the kernel line and the result -----------------------------------
+    # 13. the LM transformer and MIND recsys on the card ------------------
+    t13 = time.perf_counter()
+    counts_before = kops.launch_counts()
+    lm_rec = lm_and_recsys(torch, np, dev, card, idle_share)
+    if kops.launch_counts() != counts_before:
+        fail("phase 13 launched a kernel of the port: the LM and MIND "
+             "paths reach none")
+    lm_rec["phase_s"] = time.perf_counter() - t13
+    (OUT / "lm_recsys.json").write_text(json.dumps(lm_rec, indent=1,
+                                                   default=str))
+    say(f"phase 13 done at {time.perf_counter() - t_start:.1f}s "
+        f"({lm_rec['phase_s']:.1f}s)")
+
+    # 14. the kernel line and the result -----------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)

@@ -30,13 +30,8 @@ _MODULES = {
 ASSIGNED = [a for a in _MODULES if a != "caloclusternet"]
 
 #: ids not ported yet -> their item of ROADMAP.md queue 1
-NOT_PORTED = {
-    **dict.fromkeys(["yi-9b", "granite-34b", "olmo-1b",
-                     "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"],
-                    "item 4 (the LM transformer)"),
-    "mind": "item 5 (MIND recsys)",
-    **dict.fromkeys(["dimenet", "nequip"], "item 6 (DimeNet and NequIP)"),
-}
+NOT_PORTED = dict.fromkeys(["dimenet", "nequip"],
+                           "item 6 (DimeNet and NequIP)")
 
 
 def get_arch(arch_id: str):

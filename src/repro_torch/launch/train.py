@@ -12,11 +12,12 @@ Counterpart of ``repro/launch/train.py``, on the card unless
   supervision loop with failure injection + restore-and-resume (the
   restore copies into the captured step's buffers).
 
-For the paper's own architecture (caloclusternet) this trains the
-object-condensation loss on the synthetic Belle II generator, at the
-arch's smoke config, as the reference does. The LM and recsys families
-are not ported yet (``ROADMAP.md`` queue 1 items 4 and 5); a GNN arch
-has no generic stream, as in the reference (``configs/gnn_common`` and
+Each arch trains at its smoke config, as the reference does: the paper's
+own architecture (caloclusternet) the object-condensation loss on the
+synthetic Belle II generator, the five LMs the chunked cross-entropy on
+the synthetic token stream (``data/lm.py``, 64 tokens a row), MIND the
+in-batch sampled softmax on ``data/recsys.py``'s users. A GNN arch has no
+generic stream, as in the reference (``configs/gnn_common`` and
 ``configs/graphsage_reddit`` hold their steps).
 """
 from __future__ import annotations
@@ -38,21 +39,18 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_warmup)
 from repro_torch.optim.step import CompiledStep, value_and_grad
 
-_NOT_PORTED = {"lm": "item 4 (the LM transformer)",
-               "recsys": "item 5 (MIND recsys)"}
-
-
-def _refuse(family: str):
-    raise NotImplementedError(f"the {family} family is not ported yet: "
-                              f"ROADMAP.md queue 1 {_NOT_PORTED[family]}")
-
-
 def make_data_stream(arch: str, mod, smoke_cfg, batch: int, seed: int,
                      start_step: int):
     """The arch's seeded batch stream from ``start_step`` on (batch t of
     a stream resumed at s is batch s + t of an unbroken one)."""
-    if mod.FAMILY in _NOT_PORTED:
-        _refuse(mod.FAMILY)
+    if mod.FAMILY == "lm":
+        from repro_torch.data.lm import lm_stream
+        return lm_stream(smoke_cfg.vocab, batch, 64, seed=seed,
+                         start_step=start_step)
+    if mod.FAMILY == "recsys":
+        from repro_torch.data.recsys import mind_stream
+        return mind_stream(smoke_cfg, batch, seed=seed,
+                           start_step=start_step)
     if mod.FAMILY == "trigger":
         from repro_torch.data.belle2 import Belle2Config, event_stream
         gen = Belle2Config(n_crystals=576, grid=(24, 24),
@@ -69,30 +67,46 @@ def build_step(arch: str, mod, cfg, device=None):
     ``init_params(seed)`` (random weights from a ``torch.Generator``, on
     the device), ``to_batch(raw)`` (a stream's numpy batch as tensors on
     the device) and the AdamW config."""
-    if mod.FAMILY in _NOT_PORTED:
-        _refuse(mod.FAMILY)
-    if mod.FAMILY != "trigger":
-        raise ValueError(mod.FAMILY)
-    from repro_torch.core import caloclusternet as ccn
-    from repro_torch.core.condensation import condensation_loss
     from repro_torch.optim.adamw import tree_map
     dev = resolve_device(device)
     ocfg = AdamWConfig()
     lr = cosine_warmup(peak_lr=3e-4, warmup_steps=20, total_steps=2000)
 
-    def loss_fn(p, b):
-        out = ccn.apply(p, b["feats"], b["mask"], cfg)
-        labels = {"object_id": b["object_id"], "energy": b["energy"],
-                  "cls": b["cls"]}
-        return condensation_loss(out, labels, b["mask"], k_max=cfg.k_max)
+    if mod.FAMILY == "lm":
+        from repro_torch.models import transformer as tr
+
+        def loss_fn(p, b):
+            return tr.loss_fn(p, b, cfg, None)
+        init = tr.init_params
+        keys = ("tokens", "labels")
+    elif mod.FAMILY == "recsys":
+        from repro_torch.models import recsys as rec
+
+        def loss_fn(p, b):
+            return rec.loss_fn(p, b, cfg)
+        init = rec.init
+        keys = ("behav_ids", "behav_mask", "tag_ids", "target")
+    elif mod.FAMILY == "trigger":
+        from repro_torch.core import caloclusternet as ccn
+        from repro_torch.core.condensation import condensation_loss
+
+        def loss_fn(p, b):
+            out = ccn.apply(p, b["feats"], b["mask"], cfg)
+            labels = {"object_id": b["object_id"], "energy": b["energy"],
+                      "cls": b["cls"]}
+            return condensation_loss(out, labels, b["mask"],
+                                     k_max=cfg.k_max)
+        init = ccn.init
+        keys = ("feats", "mask", "object_id", "energy", "cls")
+    else:
+        raise ValueError(mod.FAMILY)
 
     def init_params(seed: int):
         return tree_map(lambda t: t.to(dev),
-                        ccn.init(torch.Generator().manual_seed(seed), cfg))
+                        init(torch.Generator().manual_seed(seed), cfg))
 
     def to_batch(raw):
-        return {k: torch.from_numpy(v).to(dev) for k, v in raw.items()
-                if k != "trigger_truth"}
+        return {k: torch.from_numpy(raw[k]).to(dev) for k in keys}
 
     def step(params, opt_state, batch):
         (loss, metrics), grads = value_and_grad(

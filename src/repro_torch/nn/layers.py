@@ -1,8 +1,12 @@
-"""Dense layer in the reference's ``(d_in, d_out)`` weight layout.
+"""Dense layer in the reference's ``(d_in, d_out)`` weight layout, the
+norms of ``repro/nn/layers.py``, and a top-k that breaks ties as
+``jax.lax.top_k`` does.
 
 ``repro/nn/layers.py`` keeps ``w`` as ``(d_in, d_out)`` and computes
 ``x @ w + b``; the port keeps that layout (not ``nn.Linear``'s
 ``(out, in)``) so that weights move between the packages unchanged.
+The variances are population variances (``jnp.var``), hence
+``correction=0``.
 """
 from __future__ import annotations
 
@@ -27,6 +31,41 @@ def dense_apply(params, x, *, activation=None):
     if activation is not None:
         y = activation(y)
     return y
+
+
+def layernorm_apply(params, x, *, eps: float = 1e-5):
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y * params["scale"] + params["bias"]
+
+
+def rmsnorm_apply(params, x, *, eps: float = 1e-6):
+    """RMSNorm computed in f32 whatever the activation dtype, the result
+    cast back to it."""
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def nonparametric_layernorm(x, *, eps: float = 1e-5):
+    """OLMo-style LayerNorm with no learnable affine parameters, in
+    f32."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def top_k(x, k: int):
+    """(values, indices) of the ``k`` largest entries along the last
+    axis, in descending order, ties broken lower index first as
+    ``jax.lax.top_k`` breaks them (``torch.topk`` promises no order on
+    ties): a stable descending sort keeps equal entries in index
+    order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 class Dense(nn.Module):

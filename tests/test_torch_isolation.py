@@ -198,3 +198,27 @@ def test_tuning_entry_points_without_cuda_raise():
               {"bq": 16, "bk": 16})
     with pytest.warns(RuntimeWarning, match="CUDA is not available"):
         assert warm_from_cache(cache) == 0
+
+
+def test_lm_and_recsys_entry_points_without_cuda_raise(tmp_path):
+    """The LM and MIND entry points follow the rule: asked for no device
+    on a host without CUDA, they raise instead of running on the CPU."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tr
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid")
+    assert {"repro_torch.models.transformer", "repro_torch.models.recsys",
+            "repro_torch.nn.jax_prng", "repro_torch.data.lm",
+            "repro_torch.data.recsys", "repro_torch.configs.mind",
+            "repro_torch.configs.lm_common"} <= set(_modules())
+    olmo = configs.get_arch("olmo-1b")
+    for call in (lambda: tr.init_cache(olmo.smoke_config(), 1, 8),
+                 lambda: olmo.smoke_run(),
+                 lambda: configs.get_arch("mind").smoke_run()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for arch in ("olmo-1b", "mind"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.run(["--arch", arch, "--steps", "1",
+                       "--ckpt-dir", str(tmp_path / arch)])

@@ -9,7 +9,11 @@ stand-in capture backend (capture records, replay re-runs into the
 same buffers), which catches a restore that rebinds the step's buffers
 instead of copying into them; and the refusals (no CUDA without
 ``--device cpu``, a failed capture, a batch of another shape, the archs
-not ported yet).
+not ported yet). The LM and recsys families (olmo-1b,
+granite-moe-1b-a400m, mind): one step of the port's driver from the
+reference's step-0 checkpoint against the reference's step (within the
+float32 row, leaf by leaf), and a failure injected bitwise equal to an
+uninterrupted run.
 """
 import contextlib
 import io
@@ -45,12 +49,12 @@ def _run(argv, **kw):
         return ttrain.run(["--device", "cpu", "--arch", ARCH, *argv], **kw)
 
 
-def _reference_step0(ckpt_dir, seed=0):
+def _reference_step0(ckpt_dir, seed=0, arch=ARCH):
     """The reference driver's state at step 0 (init from PRNGKey(seed)),
     saved as its checkpoint 0."""
-    mod = jconfigs.get_arch(ARCH)
+    mod = jconfigs.get_arch(arch)
     cfg = mod.smoke_config()
-    step, init_params, to_batch, ocfg = jtrain.build_step(ARCH, mod, cfg)
+    step, init_params, to_batch, ocfg = jtrain.build_step(arch, mod, cfg)
     params = init_params(jax.random.PRNGKey(seed))
     opt = jadamw_init(params, ocfg)
     jmgr.save(ckpt_dir, 0, {"p": params, "o": opt})
@@ -69,18 +73,23 @@ def _fields(cfg, ref):
 
 # ------------------------------------------------------------ registry ----
 def test_registry_ids_and_refusals():
+    """9 of the reference's 11 ids resolve; only DimeNet and NequIP
+    (item 6) still raise. The LM configs' fields are compared with their
+    dtypes mapped in ``test_torch_lm_configs.py``."""
     assert list(tconfigs._MODULES) == list(jconfigs._MODULES)
     assert tconfigs.ASSIGNED == jconfigs.ASSIGNED
-    for arch_id in ("caloclusternet", "gatedgcn", "graphsage-reddit"):
+    ported = [a for a in tconfigs._MODULES if a not in ("dimenet",
+                                                        "nequip")]
+    assert len(ported) == 9
+    for arch_id in ported:
         mod = tconfigs.get_arch(arch_id)
         ref = jconfigs.get_arch(arch_id)
         assert (mod.ARCH_ID, mod.FAMILY, list(mod.SHAPES)) == \
             (ref.ARCH_ID, ref.FAMILY, list(ref.SHAPES))
-        assert _fields(mod.smoke_config(), ref.smoke_config())
-    for arch_id, item in (("yi-9b", "item 4"), ("olmo-1b", "item 4"),
-                          ("mind", "item 5"), ("dimenet", "item 6"),
-                          ("nequip", "item 6")):
-        with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+        if mod.FAMILY != "lm":
+            assert _fields(mod.smoke_config(), ref.smoke_config())
+    for arch_id in ("dimenet", "nequip"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
             tconfigs.get_arch(arch_id)
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_arch("resnet")
@@ -120,7 +129,10 @@ def test_gnn_configs_match_reference():
                         "out.cls_logits": (8, 16, 3), "cps.trigger": (8,)}),
     ("gatedgcn", {"loss": (), "logits": (32, 3), "metrics.acc": ()}),
     ("graphsage-reddit", {"loss": (), "loss_full": (),
-                          "metrics.acc": ()})])
+                          "metrics.acc": ()}),
+    ("olmo-1b", {"loss": (), "logits": (2, 128)}),
+    ("mind", {"loss": (), "scores": (16, 300),
+              "metrics.in_batch_acc": ()})])
 def test_smoke_runs(arch_id, shapes):
     """Each config's ``smoke_run`` on the CPU gives finite values of the
     reference's shapes (its weights drawn from a ``torch.Generator``)."""
@@ -134,8 +146,8 @@ def test_smoke_runs(arch_id, shapes):
 
 
 def test_unported_families_and_gnn_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _run(["--arch", "yi-9b", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        _run(["--arch", "dimenet", "--ckpt-dir", str(tmp_path)])
     with pytest.raises(ValueError, match="gnn"):
         _run(["--arch", "gatedgcn", "--ckpt-dir", str(tmp_path)])
 
@@ -220,6 +232,48 @@ def test_reference_driver_checkpoint_resumed_by_port(tmp_path, monkeypatch):
         else:
             assert_close(g.numpy(), w.numpy(), dtype="float32",
                          context=name)
+
+
+# ---------------------------------------- the LM and recsys families ----
+NEW_ARCHS = ["olmo-1b", "granite-moe-1b-a400m", "mind"]
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_family_one_step_from_reference(arch, tmp_path):
+    """The port's driver resumes the reference's step-0 checkpoint of an
+    LM or MIND and steps once: its loss, parameters and moments within
+    the float32 row of the reference step's, leaf by leaf."""
+    ck = str(tmp_path)
+    mod, cfg, jstep, jto_batch, params, opt = _reference_step0(ck,
+                                                               arch=arch)
+    rep = _run(["--arch", arch, "--steps", "1", "--ckpt-every", "1",
+                "--ckpt-dir", ck])
+    assert rep.start == 0 and rep.checkpoints == [1]
+    stream = jtrain.make_data_stream(arch, mod, cfg, 16, 0, 0)
+    jp, jo, m = jstep(params, opt, jto_batch(next(stream)))
+    assert_close(rep.losses[0][1], float(m["loss"]), dtype="float32")
+    want = {"p": jp, "o": jo}
+    got, step = tmgr.restore(ck, 1, jax.tree_util.tree_map(
+        lambda a: torch.zeros(a.shape), want), device="cpu")
+    assert step == 1
+    for (name, g), (_, w) in zip(_leaves(got), _leaves(want)):
+        assert g.dtype == w.dtype, name
+        assert_close(g, w, dtype="float32", context=name)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_family_failure_equals_uninterrupted(arch, tmp_path):
+    argv = ["--arch", arch, "--steps", "4", "--ckpt-every", "2",
+            "--batch", "4"]
+    broken = _run([*argv, "--inject-failure-at", "3",
+                   "--ckpt-dir", str(tmp_path / "a")])
+    whole = _run([*argv, "--ckpt-dir", str(tmp_path / "b")])
+    assert broken.resumes == [(3, 2)]
+    assert [s for s, _ in broken.losses] == [1, 2, 3, 3, 4]
+    assert all(np.isfinite(v) for _, v in broken.losses)
+    for a, b in zip(tmgr.flatten({"p": broken.params, "o": broken.opt}),
+                    tmgr.flatten({"p": whole.params, "o": whole.opt})):
+        assert torch.equal(a[1], b[1]), a[0]
 
 
 # ------------------------------------------------ failure injection ----
