@@ -248,7 +248,10 @@ Phases, each of which exits non-zero when it fails:
     the same count of dropped assignments; (d) training: olmo-1b at full
     width at B 4, S 1024 (``train_4k``'s 256 × 4096 cut to one card),
     ``train.build_step``'s step captured as one CUDA graph, its first
-    step within the float32 row of the eager step from the same state,
+    step within the float32 row of the eager step from the same state
+    (the schedule's rate is 0 there: the moments) and its last step
+    within the row of an eager step teacher-forced from the captured
+    state (the parameters' update, which must move some beyond the row),
     10 steps of ``lm_stream`` batches with the held-out loss falling, ms
     a step, tokens/s, TFLOP/s of ``model_flops(training=True)``, peak
     memory and the idle share; ``train.run`` on olmo-1b and mind (smoke
@@ -260,7 +263,8 @@ Phases, each of which exits non-zero when it fails:
     card against the CPU (the top-k indices equal wherever neighbours
     are apart), ms a call and users/s, and 5 captured train steps of
     8192 users (``train_batch``'s 65536 cut: the in-batch logits are B ×
-    B); ``lm_recsys.json``;
+    B), the first and the last held against eager steps as olmo-1b's;
+    ``lm_recsys.json``;
 14. print ``{"kernels": [...]}`` with every kernel of the port, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -719,6 +723,29 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
             torch.cuda.synchronize()
         return r, (time.perf_counter() - t) * 1e3
 
+    def teacher_forced(label, step_fn, stepper, batch):
+        """The captured step on ``batch`` against the eager step from the
+        same state (the stepper's, taken before it steps): loss,
+        parameters and moments within the float32 row. The parameters
+        whose eager update the row can see are counted and must not be
+        none, so a captured step that left the state unchanged fails
+        (cosine_warmup gives step 1 a rate of 0: this is held at a later
+        step). Returns (metrics, ms, max|err|, moved, of)."""
+        p_e, o_e, m_e = step_fn(stepper.params, stepper.opt, batch)
+        moved = of = 0
+        for (_, a), (_, b) in zip(ckpt.flatten(p_e),
+                                  ckpt.flatten(stepper.params)):
+            moved += int(((a - b).abs() > ATOL + RTOL * b.abs()).sum())
+            of += b.numel()
+        eager = on({"loss": m_e["loss"], "p": p_e, "o": o_e}, cpu)
+        del p_e, o_e, m_e
+        m, ms = timed(lambda: stepper(batch))
+        err = within(label, {"loss": m["loss"], "p": stepper.params,
+                             "o": stepper.opt}, eager)
+        if moved == 0:
+            fail(f"[{label}] the eager step moved no parameter beyond {row}")
+        return m, ms, err, moved, of
+
     # (a) every LM smoke config and MIND's on the card against the CPU,
     # one set of weights drawn on the CPU and moved across
     smoke = {}
@@ -984,10 +1011,15 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
                      "o": stepper.opt}, eager1)
     del eager1
     losses, step_ms = [float(m1["loss"])], []
-    for b_ in lm_train[1:]:
+    for b_ in lm_train[1:-1]:
         m_, ms = timed(lambda: stepper(b_))
         step_ms.append(ms)
         losses.append(float(m_["loss"]))
+    m_, ms, tf_err, moved, of = teacher_forced(
+        f"olmo-1b train captured vs eager, step {LM_TRAIN_STEPS}", step_o,
+        stepper, lm_train[-1])
+    step_ms.append(ms)
+    losses.append(float(m_["loss"]))
     with torch.no_grad():
         h1 = float(tr.loss_fn(stepper.params, held, cfg_o)[0])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1004,7 +1036,9 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
         "tokens_per_s": tb * ts / med * 1e3,
         "model_tflops": flops / (med * 1e-3) / 1e12, "peak_gib": peak,
         "idle_share": 1 - busy / wall if busy > 0 else None,
-        "captured_vs_eager_max_err": ce_err}
+        "captured_vs_eager_max_err": ce_err,
+        "captured_vs_eager_last_step_max_err": tf_err,
+        "params_moved_beyond_row_last_step": [moved, of]}
     say(f"[olmo-1b train full width] B={tb} S={ts} (train_4k's 256 x 4096 "
         f"cut to one card), one CUDA graph a step (first step with its "
         f"capture {cap_ms:.0f} ms): loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
@@ -1012,8 +1046,10 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
         f"{tb * ts / med * 1e3:.0f} tokens/s, "
         f"{out['olmo_train']['model_tflops']:.1f} TFLOP/s of "
         f"model_flops(training=True); peak {peak:.3f} GiB; idle share "
-        f"{share(out['olmo_train']['idle_share'])}; captured vs eager (step 1) "
-        f"max|err| {ce_err:.3e} within {row} ({card})")
+        f"{share(out['olmo_train']['idle_share'])}; captured vs eager "
+        f"max|err| step 1 (lr 0: the moments) {ce_err:.3e}, step "
+        f"{LM_TRAIN_STEPS} (teacher-forced; {moved} of {of} parameters "
+        f"moved beyond the row) {tf_err:.3e}, within {row} ({card})")
     del stepper, lm_train, held
     torch.cuda.empty_cache()
 
@@ -1089,7 +1125,7 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
         for st in (10, 20, 30):
             try:    # every leaf's crc32 verified
                 got, got_step = ckpt.restore(str(ck), st, final)
-            except (IOError, KeyError) as e:
+            except (IOError, KeyError, ValueError) as e:
                 fail(f"[train driver {arch}] checkpoint {st}: {e}")
         if max(float((a.double() - b.double()).abs().max()) for (_, a), (_, b)
                in zip(ckpt.flatten(got), ckpt.flatten(final))) != 0.0:
@@ -1192,19 +1228,37 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
     gen_s = time.perf_counter() - t
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    st_m = CompiledStep(step_m, mp, adamw_init(mp, ocfg_m), device=dev)
+    # the eager step from the initial state, then the captured steps; the
+    # first held against it (lr 0: the moments), the last teacher-forced
+    opt_m = adamw_init(mp, ocfg_m)
+    p1, o1, m_e = step_m(mp, opt_m, m_batches[0])
+    eager1 = on({"loss": m_e["loss"], "p": p1, "o": o1}, cpu)
+    del p1, o1, m_e
+    st_m = CompiledStep(step_m, mp, opt_m, device=dev)
+    del opt_m
     m_, cap_ms = timed(lambda: st_m(m_batches[0]))
+    m_err1 = within("mind train captured vs eager, step 1",
+                    {"loss": m_["loss"], "p": st_m.params, "o": st_m.opt},
+                    eager1)
+    del eager1
     m_losses, m_ms = [float(m_["loss"])], []
-    for b_ in m_batches[1:]:
+    for b_ in m_batches[1:-1]:
         m_, ms_ = timed(lambda: st_m(b_))
         m_ms.append(ms_)
         m_losses.append(float(m_["loss"]))
+    m_, ms_, m_err, m_moved, m_of = teacher_forced(
+        f"mind train captured vs eager, step {MIND_TRAIN_STEPS}", step_m,
+        st_m, m_batches[-1])
+    m_ms.append(ms_)
+    m_losses.append(float(m_["loss"]))
     if not np.isfinite(m_losses).all():
         fail(f"[mind train] losses {m_losses}")
     med_m = float(np.median(m_ms))
     mind["train"] = {"batch": MIND_TRAIN_BATCH, "steps": MIND_TRAIN_STEPS,
                      "batches_made_s": gen_s, "capture_ms": cap_ms,
                      "losses": m_losses, "ms_per_step": med_m,
+                     "captured_vs_eager_max_err": [m_err1, m_err],
+                     "params_moved_beyond_row_last_step": [m_moved, m_of],
                      "users_per_s": MIND_TRAIN_BATCH / med_m * 1e3,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     out["mind_full"] = mind
@@ -1219,7 +1273,10 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
         f"{MIND_TRAIN_BATCH} users (65536 cut: the in-batch logits are B x "
         f"B; batches made ahead in {gen_s:.1f}s): {med_m:.3f} ms a step, "
         f"{MIND_TRAIN_BATCH / med_m * 1e3:.0f} users/s, loss "
-        f"{m_losses[0]:.4f} -> {m_losses[-1]:.4f}; peak "
+        f"{m_losses[0]:.6f} -> {m_losses[-1]:.6f}; captured vs eager "
+        f"max|err| step 1 {m_err1:.3e}, step {MIND_TRAIN_STEPS} "
+        f"(teacher-forced; {m_moved} of {m_of} parameters moved beyond the "
+        f"row) {m_err:.3e}, within {row}; peak "
         f"{mind['train']['peak_gib']:.3f} GiB ({card})")
     del st_m, mp
     torch.cuda.empty_cache()

@@ -116,16 +116,23 @@ def restore(ckpt_dir: str, step: int, like_tree, *, mesh=None,
     structure; its leaves name the device). Each leaf comes back as a
     tensor on the device of ``like_tree``'s leaf where that is a tensor,
     else on ``device`` (None: the card). Returns (tree, step); raises
-    ``IOError`` on a checksum mismatch."""
+    ``IOError`` on a checksum mismatch and ``ValueError`` when the
+    checkpoint lacks a leaf of ``like_tree``."""
     if mesh is not None or shardings is not None:
         raise NotImplementedError(_NO_MESH)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    leaves = flatten(like_tree)
+    missing = [name for name, _ in leaves if name not in by_path]
+    if missing:
+        raise ValueError(f"{d} holds no leaf {missing[0]!r} ({len(missing)} "
+                         f"of {len(leaves)} missing): a checkpoint of "
+                         "another model; give this run its own ckpt_dir")
     fallback = None
     out = []
-    for name, like in flatten(like_tree):
+    for name, like in leaves:
         e = by_path[name]
         arr = np.load(os.path.join(d, e["file"]))
         if verify:

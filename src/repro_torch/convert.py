@@ -26,34 +26,6 @@ from repro_torch.models.gnn import gatedgcn, graphsage
 from repro_torch.optim.adamw import BLOCK
 
 
-def _dense(p, d_in, d_out, path, dev) -> dict:
-    """One dense's ``{"w": (d_in, d_out), "b": (d_out,)}`` as tensors
-    on ``dev``."""
-    if not isinstance(p, dict) or set(p) != {"w", "b"}:
-        got = sorted(p) if isinstance(p, dict) else type(p).__name__
-        raise ValueError(f"{path}: params {got}, want ['b', 'w']")
-    out = {}
-    for key, shape in (("w", (d_in, d_out)), ("b", (d_out,))):
-        a = np.asarray(p[key])
-        if a.shape != shape:
-            raise ValueError(f"{path}/{key}: shape {a.shape}, want {shape}")
-        out[key] = torch.from_numpy(
-            np.array(a, dtype=np.float32)).to(dev)   # a writable copy
-    return out
-
-
-def from_jax_params(params_np: dict, cfg: CCNConfig, device=None) -> dict:
-    """The port's parameter dict for ``cfg`` from the JAX package's,
-    on ``device``. Raises on a missing, extra or misshapen array."""
-    dev = resolve_device(device)
-    want = param_shapes(cfg)
-    if set(params_np) != set(want):
-        raise ValueError(f"layers {sorted(set(params_np) ^ set(want))} "
-                         "are missing or unexpected")
-    return {name: _dense(params_np[name], *shape, name, dev)
-            for name, shape in want.items()}
-
-
 def _q8_state(p, n, path, dev) -> dict:
     """One q8-packed moment ``{"q": int8 (nb*256,), "scale": f32 (nb,)}``
     of a parameter with ``n`` values."""
@@ -70,80 +42,6 @@ def _q8_state(p, n, path, dev) -> dict:
                 np.array(scale, dtype=np.float32)).to(dev)}
 
 
-def from_jax_adamw_state(state_np: dict, cfg, device=None) -> dict:
-    """The port's AdamW state (``repro_torch.optim.adamw``) for ``cfg``
-    (CaloClusterNet, a transformer or MIND) from the JAX package's, as
-    numpy: ``m`` and ``v`` shaped like the params (f32) or, for
-    ``quantize_states``, q8-packed per parameter (``{"q", "scale"}``),
-    and ``step``. Raises on a missing, extra or misshapen array."""
-    dev = resolve_device(device)
-    if set(state_np) != {"m", "v", "step"}:
-        raise ValueError(f"state keys {sorted(state_np)}, want "
-                         "['m', 'step', 'v']")
-    out = {"step": torch.tensor(int(np.asarray(state_np["step"])),
-                                dtype=torch.int32, device=dev)}
-    if not isinstance(cfg, CCNConfig):
-        shapes = _tree_shapes(cfg)
-        for mom in ("m", "v"):
-            out[mom] = _array_tree(state_np[mom], shapes, mom, dev,
-                                   torch.float32, moments=True)
-        return out
-    want = param_shapes(cfg)
-    for mom in ("m", "v"):
-        tree = state_np[mom]
-        if set(tree) != set(want):
-            raise ValueError(f"{mom}: layers {sorted(set(tree) ^ set(want))}"
-                             " are missing or unexpected")
-        out[mom] = {}
-        for name, (d_in, d_out) in want.items():
-            leaf = tree[name]
-            first = leaf.get("w") if isinstance(leaf, dict) else None
-            if isinstance(first, dict):          # q8-packed moments
-                out[mom][name] = {
-                    key: _q8_state(leaf.get(key), n, f"{mom}/{name}/{key}",
-                                   dev)
-                    for key, n in (("w", d_in * d_out), ("b", d_out))}
-            else:
-                out[mom][name] = _dense(leaf, d_in, d_out, f"{mom}/{name}",
-                                        dev)
-    return out
-
-
-def _dense_tree(tree, shapes, path, dev):
-    """Walk ``shapes`` (dicts and lists whose leaves are (d_in, d_out))
-    and ``tree`` (the same structure, each leaf a dense's params)
-    together; raise where they differ."""
-    if isinstance(shapes, tuple):
-        return _dense(tree, *shapes, path, dev)
-    if isinstance(shapes, list):
-        if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
-            raise ValueError(f"{path}: want a list of {len(shapes)}")
-        return [_dense_tree(t, s, f"{path}/{i}", dev)
-                for i, (t, s) in enumerate(zip(tree, shapes))]
-    if not isinstance(tree, dict) or set(tree) != set(shapes):
-        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
-        raise ValueError(f"{path or 'params'}: keys {got}, want "
-                         f"{sorted(shapes)}")
-    return {k: _dense_tree(tree[k], s, f"{path}/{k}".lstrip("/"), dev)
-            for k, s in shapes.items()}
-
-
-def from_jax_gnn_params(params_np: dict, cfg, device=None) -> dict:
-    """The port's parameter tree of a GatedGCN or GraphSAGE for ``cfg``
-    from the JAX package's (numpy leaves), on ``device``: GatedGCN's
-    ``embed_h``, ``embed_e``, ``head`` and ``layers[i].{A,B,Ce,U,V}``,
-    GraphSAGE's ``layers[i].w`` and ``head``, each dense
-    ``{"w": (d_in, d_out), "b": (d_out,)}``. Raises on a missing, extra
-    or misshapen array."""
-    models = {gatedgcn.GatedGCNConfig: gatedgcn,
-              graphsage.GraphSAGEConfig: graphsage}
-    if type(cfg) not in models:
-        raise TypeError(f"no GNN parameter layout for {type(cfg).__name__}")
-    return _dense_tree(params_np, models[type(cfg)].param_shapes(cfg), "",
-                       resolve_device(device))
-
-
-# --------------------------------------------------- trees of arrays ----
 def _tensor(a, dtype, dev) -> torch.Tensor:
     """A writable tensor copy of array ``a`` on ``dev``, in ``dtype``
     (None: the array's own); a bfloat16 array keeps its bits."""
@@ -156,10 +54,10 @@ def _tensor(a, dtype, dev) -> torch.Tensor:
 
 
 def _array_tree(tree, shapes, path, dev, dtype, moments=False):
-    """Walk ``shapes`` (dicts whose leaves are shape tuples) and
-    ``tree`` (the same dicts, arrays at the leaves, or for ``moments``
-    also q8-packed ``{"q", "scale"}`` leaves) together; raise where they
-    differ."""
+    """Walk ``shapes`` (dicts and lists whose leaves are shape tuples)
+    and ``tree`` (the same structure, arrays at the leaves, or for
+    ``moments`` also q8-packed ``{"q", "scale"}`` leaves) together;
+    raise where they differ."""
     if isinstance(shapes, tuple):
         if moments and isinstance(tree, dict):
             return _q8_state(tree, int(np.prod(shapes)), path, dev)
@@ -167,21 +65,86 @@ def _array_tree(tree, shapes, path, dev, dtype, moments=False):
         if a.shape != shapes:
             raise ValueError(f"{path}: shape {a.shape}, want {shapes}")
         return _tensor(a, dtype, dev)
+    if isinstance(shapes, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
+            raise ValueError(f"{path}: want a list of {len(shapes)}")
+        return [_array_tree(t, s, f"{path}/{i}", dev, dtype, moments)
+                for i, (t, s) in enumerate(zip(tree, shapes))]
     if not isinstance(tree, dict) or set(tree) != set(shapes):
         got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
-        raise ValueError(f"{path or 'params'}: keys {got}, want "
+        raise ValueError(f"{path or 'top level'}: params keys {got}, want "
                          f"{sorted(shapes)}")
     return {k: _array_tree(tree[k], s, f"{path}/{k}".lstrip("/"), dev,
                            dtype, moments)
             for k, s in shapes.items()}
 
 
+def _dense_shapes(shapes):
+    """A tree of denses' (d_in, d_out) (dicts and lists) as the shapes
+    of their arrays: each leaf becomes ``{"w": (d_in, d_out), "b":
+    (d_out,)}``."""
+    if isinstance(shapes, tuple):
+        return {"w": shapes, "b": shapes[1:]}
+    if isinstance(shapes, list):
+        return [_dense_shapes(s) for s in shapes]
+    return {k: _dense_shapes(s) for k, s in shapes.items()}
+
+
+_GNNS = {gatedgcn.GatedGCNConfig: gatedgcn,
+         graphsage.GraphSAGEConfig: graphsage}
+
+
 def _tree_shapes(cfg) -> dict:
+    """The shapes of ``cfg``'s parameter tree, as :func:`_array_tree`
+    walks them."""
+    if isinstance(cfg, CCNConfig):
+        return _dense_shapes(param_shapes(cfg))
+    if type(cfg) in _GNNS:
+        return _dense_shapes(_GNNS[type(cfg)].param_shapes(cfg))
     if isinstance(cfg, transformer.TransformerConfig):
         return transformer.abstract_params(cfg)
     if isinstance(cfg, recsys.MINDConfig):
         return recsys.param_shapes(cfg)
     raise TypeError(f"no parameter layout for {type(cfg).__name__}")
+
+
+def from_jax_params(params_np: dict, cfg: CCNConfig, device=None) -> dict:
+    """The port's parameter dict for ``cfg`` from the JAX package's,
+    f32 on ``device``. Raises on a missing, extra or misshapen array."""
+    return _array_tree(params_np, _dense_shapes(param_shapes(cfg)), "",
+                       resolve_device(device), torch.float32)
+
+
+def from_jax_adamw_state(state_np: dict, cfg, device=None) -> dict:
+    """The port's AdamW state (``repro_torch.optim.adamw``) for ``cfg``
+    (CaloClusterNet, a GNN, a transformer or MIND) from the JAX
+    package's, as numpy: ``m`` and ``v`` shaped like the params (f32)
+    or, for ``quantize_states``, q8-packed per parameter (``{"q",
+    "scale"}``), and ``step``. Raises on a missing, extra or misshapen
+    array."""
+    dev = resolve_device(device)
+    if set(state_np) != {"m", "v", "step"}:
+        raise ValueError(f"state keys {sorted(state_np)}, want "
+                         "['m', 'step', 'v']")
+    shapes = _tree_shapes(cfg)
+    out = {mom: _array_tree(state_np[mom], shapes, mom, dev, torch.float32,
+                            moments=True) for mom in ("m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(state_np["step"])),
+                               dtype=torch.int32, device=dev)
+    return out
+
+
+def from_jax_gnn_params(params_np: dict, cfg, device=None) -> dict:
+    """The port's parameter tree of a GatedGCN or GraphSAGE for ``cfg``
+    from the JAX package's (numpy leaves), on ``device``: GatedGCN's
+    ``embed_h``, ``embed_e``, ``head`` and ``layers[i].{A,B,Ce,U,V}``,
+    GraphSAGE's ``layers[i].w`` and ``head``, each dense
+    ``{"w": (d_in, d_out), "b": (d_out,)}``. Raises on a missing, extra
+    or misshapen array."""
+    if type(cfg) not in _GNNS:
+        raise TypeError(f"no GNN parameter layout for {type(cfg).__name__}")
+    return _array_tree(params_np, _tree_shapes(cfg), "",
+                       resolve_device(device), torch.float32)
 
 
 def from_jax_lm_params(params_np: dict, cfg, device=None) -> dict:

@@ -166,6 +166,14 @@ def test_checkpoint_corruption_detected(tmp_path):
         tmgr.restore(str(tmp_path), 1, tree)
 
 
+def test_checkpoint_of_another_tree_refused(tmp_path):
+    tmgr.save(str(tmp_path), 1, {"w": torch.ones((4, 4))})
+    with pytest.raises(ValueError, match="holds no leaf 'embed'"):
+        tmgr.restore(str(tmp_path), 1, {"embed": np.zeros((4, 4)),
+                                        "w": np.zeros((4, 4))},
+                     device="cpu")
+
+
 def test_checkpoint_manager_rotation_and_async(tmp_path):
     mgr = CheckpointManager(str(tmp_path), keep=2, async_=True)
     tree = {"w": torch.ones((8,))}

@@ -31,6 +31,18 @@ _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads in this module (and in the LM, MIND and
+    driver test modules that import it): the suite runs six workers on
+    the host's cores, and torch's default of one thread per core then
+    stalls every small op at its barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(compute="float32", moe=None, **kw):
     """The same config in both packages."""
     base = dict(name="t", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,

@@ -3,12 +3,6 @@ granite_34b, granite_moe_1b_a400m, llama4_maverick_400b_a17b}.py``),
 ``configs/lm_common.py`` and ``data/lm.py`` against the JAX package's, on
 the CPU.
 
-- Each arch's ``smoke_lm`` (one AdamW train step and one decode step)
-  from the reference's params and tokens (``PRNGKey(seed)``, carried
-  across by ``convert.from_jax_lm_params``): the loss and the decode
-  logits within the float32 row, the summed |Δparams| of the step within
-  ``DELTA_RTOL`` of the reference's (a parameter whose gradient is near
-  zero steps by ``g / (|g| + eps)``, which the last bits of g decide).
 - The configs field for field, the dtypes mapped; ``SHAPES``;
   ``opt_config``; the cells refused naming their queue item.
 - ``lm_batch`` and ``lm_stream`` byte-equal to the reference's.
@@ -16,7 +10,13 @@ the CPU.
   (``convert.from_jax_kv_cache``); its q8 AdamW state after one step
   (``opt_config(quantize=True)``, llama4-maverick's) steps on in the port
   (``convert.from_jax_adamw_state``): parameters and moments within the
-  float32 row, a q8 moment's int8 values within one step of a rounding.
+  float32 row, a q8 moment's int8 values within one step of a rounding
+  (in ``test_torch_lm_moe_smoke.py``, beside llama4-maverick's
+  ``smoke_lm``, whose reference compiles the same ops).
+
+Each arch's ``smoke_lm`` against the reference's is in
+``test_torch_lm_smoke.py`` (the dense archs) and
+``test_torch_lm_moe_smoke.py`` (the MoE archs).
 """
 import jax
 import jax.numpy as jnp
@@ -24,25 +24,20 @@ import numpy as np
 import pytest
 import torch
 from _numerics import assert_close
+from test_torch_lm import _two_threads  # noqa: F401 (autouse)
 
 from repro import configs as jconfigs
 from repro.configs import lm_common as jlm
 from repro.data.lm import lm_batch as jlm_batch
 from repro.models import transformer as jtr
-from repro.optim import adamw_init as jadamw_init
-from repro.optim import adamw_update as jadamw_update
 from repro_torch import configs as tconfigs
 from repro_torch import convert
-from repro_torch.checkpoint.manager import flatten
 from repro_torch.configs import lm_common as tlm
 from repro_torch.data.lm import lm_batch, lm_stream
 from repro_torch.models import transformer as ttr
-from repro_torch.optim import adamw_update as tadamw_update
-from repro_torch.optim.step import value_and_grad
 
 LM_ARCHS = ["olmo-1b", "yi-9b", "granite-34b", "granite-moe-1b-a400m",
             "llama4-maverick-400b-a17b"]
-DELTA_RTOL = 1e-4
 _DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -90,25 +85,6 @@ def test_lm_common():
                "cost_cells"):
         with pytest.raises(NotImplementedError, match="item 7"):
             getattr(tlm, fn)("olmo-1b", cfg)
-
-
-@pytest.mark.parametrize("arch", LM_ARCHS)
-def test_smoke_lm_matches_reference(arch):
-    ref, mod = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
-    jcfg, tcfg = ref.smoke_config(), mod.smoke_config()
-    want = jlm.smoke_lm(jcfg, seed=0)
-    key = jax.random.PRNGKey(0)
-    params = convert.from_jax_lm_params(jax.tree_util.tree_map(
-        np.asarray, jtr.init_params(key, jcfg)), tcfg, device="cpu")
-    toks = torch.from_numpy(np.array(
-        jax.random.randint(key, (2, 16), 0, jcfg.vocab)))
-    got = tlm.smoke_lm(tcfg, 0, "cpu", params=params, tokens=toks)
-    assert_close(got["loss"].numpy(), np.asarray(want["loss"]),
-                 dtype="float32", context="loss")
-    assert_close(got["logits"].numpy(), np.asarray(want["logits"]),
-                 dtype="float32", context="logits")
-    assert got["params_delta"] == pytest.approx(want["params_delta"],
-                                                rel=DELTA_RTOL)
 
 
 def test_smoke_run_draws_its_own_weights():
@@ -159,43 +135,3 @@ def test_kv_cache_converter_continues_the_reference_prefill():
     with pytest.raises(ValueError, match="want"):
         convert.from_jax_kv_cache({"k": np.zeros((1, 2, 3, 4, 5))}, tcfg,
                                   device="cpu")
-
-
-def test_adamw_q8_state_converts_and_steps():
-    """llama4-maverick's cells train with q8 AdamW moments
-    (``opt_config(quantize=True)``): the reference's state after one
-    step, carried across by ``convert.from_jax_adamw_state``, steps on in
-    the port as in the reference (parameters and moments within the
-    float32 row; a q8 moment's int8 values within one step)."""
-    arch = "llama4-maverick-400b-a17b"
-    jcfg = jconfigs.get_arch(arch).smoke_config()
-    tcfg = tconfigs.get_arch(arch).smoke_config()
-    ocfg_j = jlm.opt_config(jcfg, quantize=True)
-    ocfg_t = tlm.opt_config(tcfg, quantize=True)
-    jp = jtr.init_params(jax.random.PRNGKey(5), jcfg)
-    toks = np.random.default_rng(6).integers(0, jcfg.vocab, (2, 16)
-                                             ).astype(np.int32)
-    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    grad = jax.grad(lambda p: jtr.loss_fn(p, jb, jcfg)[0])
-    jo = jadamw_init(jp, ocfg_j)
-    jp, jo, _ = jadamw_update(grad(jp), jo, jp, lr=1e-3, cfg=ocfg_j)
-    tp = convert.from_jax_lm_params(jax.tree_util.tree_map(np.asarray, jp),
-                                    tcfg, device="cpu")
-    to = convert.from_jax_adamw_state(jax.tree_util.tree_map(np.asarray, jo),
-                                      tcfg, device="cpu")
-    assert set(to["m"]["layers"]["wq"]) == {"q", "scale"}
-    jp2, jo2, _ = jadamw_update(grad(jp), jo, jp, lr=1e-3,
-                                 cfg=ocfg_j)
-    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    _, tg = value_and_grad(lambda p: ttr.loss_fn(p, tb, tcfg), tp)
-    tp2, to2, _ = tadamw_update(tg, to, tp, lr=1e-3, cfg=ocfg_t)
-    jleaves = dict(flatten(jax.tree_util.tree_map(np.asarray,
-                                                  {"p": jp2, "o": jo2})))
-    for name, t in flatten({"p": tp2, "o": to2}):
-        want = jleaves[name]
-        if t.dtype == torch.int8:
-            assert np.abs(t.numpy().astype(np.int32)
-                          - want.astype(np.int32)).max() <= 1, name
-        else:
-            assert_close(t.numpy(), want, dtype="float32", context=name)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from _numerics import assert_bitwise, assert_close
+from test_torch_lm import _two_threads  # noqa: F401 (autouse)
 
 from repro.configs import mind as jmind
 from repro.data.recsys import mind_batch as jmind_batch

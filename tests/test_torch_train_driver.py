@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 from _numerics import assert_close
+from test_torch_lm import _two_threads  # noqa: F401 (autouse)
 
 from repro import configs as jconfigs
 from repro.checkpoint import manager as jmgr
@@ -274,6 +275,16 @@ def test_new_family_failure_equals_uninterrupted(arch, tmp_path):
     for a, b in zip(tmgr.flatten({"p": broken.params, "o": broken.opt}),
                     tmgr.flatten({"p": whole.params, "o": whole.opt})):
         assert torch.equal(a[1], b[1]), a[0]
+
+
+def test_another_archs_checkpoint_dir_refused(tmp_path):
+    """A run resumes what its ``--ckpt-dir`` holds; a checkpoint of
+    another arch there is refused by name, not a bare KeyError."""
+    _run(["--steps", "1", "--ckpt-every", "1", "--batch", "2",
+          "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="another model"):
+        _run(["--arch", "mind", "--steps", "2", "--batch", "2",
+              "--ckpt-dir", str(tmp_path)])
 
 
 # ------------------------------------------------ failure injection ----
