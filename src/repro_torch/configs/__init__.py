@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the training
 driver and the tests. Counterpart of ``repro/configs/__init__.py``: the
-reference's 11 ids (10 assigned archs and the paper's own), of which
-the port has CaloClusterNet, GatedGCN and GraphSAGE; the others raise
-``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
+reference's 11 ids (10 assigned archs and the paper's own), every one
+ported: the five LMs, MIND, the four GNNs (DimeNet, GatedGCN,
+GraphSAGE, NequIP) and CaloClusterNet.
 
 The reference's ``all_cells`` and each module's ``cell()`` and
 ``PARAM_RULES`` are mesh sharding specs for its dry-run tools; they
@@ -29,16 +29,8 @@ _MODULES = {
 
 ASSIGNED = [a for a in _MODULES if a != "caloclusternet"]
 
-#: ids not ported yet -> their item of ROADMAP.md queue 1
-NOT_PORTED = dict.fromkeys(["dimenet", "nequip"],
-                           "item 6 (DimeNet and NequIP)")
-
 
 def get_arch(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; have {list(_MODULES)}")
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: ROADMAP.md queue 1 "
-            f"{NOT_PORTED[arch_id]}")
     return importlib.import_module(_MODULES[arch_id])

@@ -7,7 +7,8 @@ that dict with numpy leaves, as
 ``jax.tree_util.tree_map(np.asarray, params)`` gives it — numpy is the
 hand-off, so this module imports no JAX. The edge-based GNNs' nested
 trees (lists of layers of dense params) convert the same way
-(:func:`from_jax_gnn_params`), and so does the reference's AdamW state,
+(:func:`from_jax_gnn_params`; DimeNet's and NequIP's too), and so does
+the reference's AdamW state,
 plain or q8-packed (:func:`from_jax_adamw_state`). The LM transformer's
 tree (:func:`from_jax_lm_params`: per-layer leaves stacked on a leading
 axis), its KV cache (:func:`from_jax_kv_cache`) and MIND's tree
@@ -22,7 +23,7 @@ import torch
 from repro_torch.core.caloclusternet import CCNConfig, param_shapes
 from repro_torch.device import resolve_device
 from repro_torch.models import recsys, transformer
-from repro_torch.models.gnn import gatedgcn, graphsage
+from repro_torch.models.gnn import dimenet, gatedgcn, graphsage, nequip
 from repro_torch.optim.adamw import BLOCK
 
 
@@ -92,6 +93,9 @@ def _dense_shapes(shapes):
 
 _GNNS = {gatedgcn.GatedGCNConfig: gatedgcn,
          graphsage.GraphSAGEConfig: graphsage}
+#: the geometric GNNs, whose trees mix denses with and without a bias
+#: and raw arrays: their ``param_shapes`` give every array's shape
+_GEOMETRIC = {dimenet.DimeNetConfig: dimenet, nequip.NequIPConfig: nequip}
 
 
 def _tree_shapes(cfg) -> dict:
@@ -101,6 +105,8 @@ def _tree_shapes(cfg) -> dict:
         return _dense_shapes(param_shapes(cfg))
     if type(cfg) in _GNNS:
         return _dense_shapes(_GNNS[type(cfg)].param_shapes(cfg))
+    if type(cfg) in _GEOMETRIC:
+        return _GEOMETRIC[type(cfg)].param_shapes(cfg)
     if isinstance(cfg, transformer.TransformerConfig):
         return transformer.abstract_params(cfg)
     if isinstance(cfg, recsys.MINDConfig):
@@ -135,13 +141,16 @@ def from_jax_adamw_state(state_np: dict, cfg, device=None) -> dict:
 
 
 def from_jax_gnn_params(params_np: dict, cfg, device=None) -> dict:
-    """The port's parameter tree of a GatedGCN or GraphSAGE for ``cfg``
-    from the JAX package's (numpy leaves), on ``device``: GatedGCN's
-    ``embed_h``, ``embed_e``, ``head`` and ``layers[i].{A,B,Ce,U,V}``,
-    GraphSAGE's ``layers[i].w`` and ``head``, each dense
-    ``{"w": (d_in, d_out), "b": (d_out,)}``. Raises on a missing, extra
-    or misshapen array."""
-    if type(cfg) not in _GNNS:
+    """The port's parameter tree of a GatedGCN, GraphSAGE, DimeNet or
+    NequIP for ``cfg`` from the JAX package's (numpy leaves), on
+    ``device``: GatedGCN's ``embed_h``, ``embed_e``, ``head`` and
+    ``layers[i].{A,B,Ce,U,V}``, GraphSAGE's ``layers[i].w`` and
+    ``head``, each dense ``{"w": (d_in, d_out), "b": (d_out,)}``;
+    DimeNet's and NequIP's trees as their ``param_shapes`` give them
+    (DimeNet's raw ``w_bil``, NequIP's ``self``/``skip`` dicts keyed
+    ``l{l}p{parity}``, denses with no ``b`` where the reference's have
+    none). Raises on a missing, extra or misshapen array."""
+    if type(cfg) not in _GNNS and type(cfg) not in _GEOMETRIC:
         raise TypeError(f"no GNN parameter layout for {type(cfg).__name__}")
     return _array_tree(params_np, _tree_shapes(cfg), "",
                        resolve_device(device), torch.float32)

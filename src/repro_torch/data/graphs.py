@@ -1,11 +1,10 @@
-"""Synthetic graph data: the power-law generator and the CSR neighbour
-sampler of GraphSAGE's minibatch training.
+"""Synthetic graph data: the power-law, geometric and molecule
+generators, DimeNet's triplet builder and the CSR neighbour sampler of
+GraphSAGE's minibatch training. All outputs are padded to static budgets
+with masks.
 
-Counterpart of the part of ``repro/data/graphs.py`` that GatedGCN and
-GraphSAGE train on, numpy only: the same ``rng`` calls in the same
-order, so the same seed gives the same bytes. The geometric and
-molecule generators and DimeNet's triplet builder wait for DimeNet and
-NequIP (``ROADMAP.md`` queue 1 item 6).
+Counterpart of ``repro/data/graphs.py``, numpy only: the same ``rng``
+calls in the same order, so the same seed gives the same bytes.
 """
 from __future__ import annotations
 
@@ -32,6 +31,81 @@ def powerlaw_graph(n_nodes: int, n_edges: int, *, d_feat: int,
             "labels": labels,
             "node_mask": np.ones(n_nodes, np.float32),
             "edge_mask": np.ones(n_edges, np.float32)}
+
+
+def geometric_graph(n_nodes: int, *, cutoff: float, box: float,
+                    n_species: int, seed: int, max_edges: int):
+    """Random atoms in a box, their radius graph (the ``max_edges``
+    shortest pairs where more lie within ``cutoff``), and a synthetic
+    smooth energy."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, box, size=(n_nodes, 3)).astype(np.float32)
+    d2 = ((pos[:, None] - pos[None, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    src, dst = np.nonzero(d2 < cutoff ** 2)
+    if src.size > max_edges:
+        keep = np.argsort(d2[src, dst])[:max_edges]
+        src, dst = src[keep], dst[keep]
+    e = src.size
+    ei = np.zeros((2, max_edges), np.int32)
+    ei[0, :e], ei[1, :e] = src, dst
+    em = np.zeros(max_edges, np.float32)
+    em[:e] = 1.0
+    species = rng.integers(0, n_species, size=n_nodes).astype(np.int32)
+    # smooth synthetic energy: pairwise morse-ish + species offsets
+    d = np.sqrt(d2[src, dst])
+    energy = float(np.exp(-d).sum() * 0.5 + 0.1 * species.sum())
+    return {"positions": pos, "species": species, "edge_index": ei,
+            "node_mask": np.ones(n_nodes, np.float32), "edge_mask": em,
+            "energy": np.float32(energy)}
+
+
+def build_triplets(edge_index, edge_mask, *, max_triplets: int):
+    """(kj_edge, ji_edge) pairs of edges k->j, j->i with k != i, edge
+    j->i in order and its k->j edges in order, cut at ``max_triplets``;
+    padded with edge 0 and mask 0."""
+    src, dst = edge_index
+    e = int(edge_mask.sum())
+    by_dst: dict[int, list[int]] = {}
+    for eid in range(e):
+        by_dst.setdefault(int(dst[eid]), []).append(eid)
+    kj, ji = [], []
+    for eid in range(e):
+        j = int(src[eid])           # edge j->i
+        for kj_e in by_dst.get(j, ()):
+            if int(src[kj_e]) != int(dst[eid]):
+                kj.append(kj_e)
+                ji.append(eid)
+                if len(kj) >= max_triplets:
+                    break
+        if len(kj) >= max_triplets:
+            break
+    t = len(kj)
+    trips = np.zeros((2, max_triplets), np.int32)
+    trips[0, :t] = kj
+    trips[1, :t] = ji
+    tm = np.zeros(max_triplets, np.float32)
+    tm[:t] = 1.0
+    return trips, tm
+
+
+def molecule_batch(batch: int, *, n_nodes: int, max_edges: int,
+                   max_triplets: int, n_species: int, seed: int,
+                   with_triplets: bool):
+    """``batch`` geometric graphs (cutoff 1.6 in a box of 3, graph i of
+    seed ``seed * 10007 + i``), with DimeNet's triplets where asked,
+    stacked on a leading axis."""
+    gs = []
+    for i in range(batch):
+        g = geometric_graph(n_nodes, cutoff=1.6, box=3.0,
+                            n_species=n_species, seed=seed * 10007 + i,
+                            max_edges=max_edges)
+        if with_triplets:
+            g["triplets"], g["triplet_mask"] = build_triplets(
+                g["edge_index"], g["edge_mask"],
+                max_triplets=max_triplets)
+        gs.append(g)
+    return {k: np.stack([g[k] for g in gs]) for k in gs[0]}
 
 
 class NeighborSampler:

@@ -57,15 +57,16 @@ def init(gen: torch.Generator, cfg: GatedGCNConfig) -> dict:
 
 def apply(params, graph, cfg: GatedGCNConfig):
     """Eager forward of one graph (a dict of tensors, see
-    ``models/gnn/common.py``) -> per-node logits, or for
+    ``models/gnn/common.py``), or of a batch of them on a leading axis,
+    each with its own batch-norm statistics -> per-node logits, or for
     ``readout='graph'`` the logits of the masked mean over nodes."""
     nodes, ei = graph["nodes"], graph["edge_index"]
     nm, em = graph["node_mask"], graph["edge_mask"]
-    n = nodes.shape[0]
+    n = nodes.shape[-2]
     h = dense_apply(params["embed_h"], nodes)
     edges = graph.get("edges")
     if edges is None:
-        edges = h.new_ones((ei.shape[1], cfg.d_edge_in))
+        edges = h.new_ones((*ei.shape[:-2], ei.shape[-1], cfg.d_edge_in))
     e = dense_apply(params["embed_e"], edges)
     for lp in params["layers"]:
         if cfg.transform_then_gather:
@@ -80,14 +81,15 @@ def apply(params, graph, cfg: GatedGCNConfig):
                     + dense_apply(lp["Ce"], e))
             vj = dense_apply(lp["V"], hj)
         e = e + torch.relu(C.masked_batchnorm(ehat, em))
-        sig = torch.sigmoid(ehat) * em[:, None]
+        sig = torch.sigmoid(ehat) * em[..., None]
         denom = C.scatter_sum(sig, ei, n) + 1e-6
         eta = sig / C.gather_dst(denom, ei)
         msg = C.scatter_sum(eta * vj, ei, n, em)
         h = h + torch.relu(C.masked_batchnorm(
             dense_apply(lp["U"], h) + msg, nm))
     if cfg.readout == "graph":
-        pooled = (h * nm[:, None]).sum(0) / torch.clamp_min(nm.sum(), 1.0)
+        pooled = (h * nm[..., None]).sum(-2) / torch.clamp_min(
+            nm.sum(-1), 1.0)[..., None]
         return dense_apply(params["head"], pooled)
     return dense_apply(params["head"], h)
 
@@ -179,13 +181,21 @@ def to_graph(params, cfg: GatedGCNConfig) -> Graph:
 def loss_fn(params, graph, cfg: GatedGCNConfig):
     """(loss, {"loss", "acc"}): the cross-entropy of ``graph["labels"]``
     over the valid nodes (times ``train_mask`` where the graph has one),
-    or for ``readout='graph'`` of its one label."""
+    or for ``readout='graph'`` of its label. A graph readout indexes the
+    graph's log-probabilities by whatever labels the graph carries, as
+    the reference's ``logp[labels]`` does: one per graph gives one loss,
+    one per node (the ``molecule`` shape's labels) one loss per node."""
     logits = apply(params, graph, cfg)
     labels = graph["labels"].long()
     if cfg.readout == "graph":     # graph-level classification
         logp = torch.log_softmax(logits.float(), dim=-1)
-        loss = -logp[labels]
-        acc = (logits.argmax(-1) == labels).float()
+        pred = logits.argmax(-1)
+        if labels.ndim < logp.ndim:      # one label a graph
+            loss = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        else:                            # labels per node: logp[labels]
+            loss = -torch.gather(logp, -1, labels)
+            pred = pred[..., None]
+        acc = (pred == labels).float()
         return loss, {"loss": loss, "acc": acc}
     nm = graph["node_mask"]
     if "train_mask" in graph:

@@ -61,15 +61,16 @@ def _combine(lp, h, neigh, normalize):
 
 def _sage_layer(lp, h, ei, n, nm, em, *, normalize):
     neigh = C.scatter_mean(C.gather_src(h, ei), ei, n, em)
-    return _combine(lp, h, neigh, normalize) * nm[:, None]
+    return _combine(lp, h, neigh, normalize) * nm[..., None]
 
 
 def apply(params, graph, cfg: GraphSAGEConfig):
     """Full-graph mode: per-node logits of one graph (a dict of tensors,
-    see ``models/gnn/common.py``)."""
+    see ``models/gnn/common.py``), or of a batch of them on a leading
+    axis."""
     h, ei = graph["nodes"], graph["edge_index"]
     nm, em = graph["node_mask"], graph["edge_mask"]
-    n = h.shape[0]
+    n = h.shape[-2]
     for lp in params["layers"]:
         h = _sage_layer(lp, h, ei, n, nm, em, normalize=cfg.normalize)
     return dense_apply(params["head"], h)

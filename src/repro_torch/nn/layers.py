@@ -1,6 +1,6 @@
 """Dense layer in the reference's ``(d_in, d_out)`` weight layout, the
-norms of ``repro/nn/layers.py``, and a top-k that breaks ties as
-``jax.lax.top_k`` does.
+MLP built of them, the norms of ``repro/nn/layers.py``, and a top-k that
+breaks ties as ``jax.lax.top_k`` does.
 
 ``repro/nn/layers.py`` keeps ``w`` as ``(d_in, d_out)`` and computes
 ``x @ w + b``; the port keeps that layout (not ``nn.Linear``'s
@@ -24,6 +24,12 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
+def dense_shape(d_in: int, d_out: int, *, bias: bool = True) -> dict:
+    """The array shapes of :func:`dense_init`'s params."""
+    return {"w": (d_in, d_out), "b": (d_out,)} if bias else {
+        "w": (d_in, d_out)}
+
+
 def dense_apply(params, x, *, activation=None):
     y = x @ params["w"]
     if "b" in params:
@@ -31,6 +37,20 @@ def dense_apply(params, x, *, activation=None):
     if activation is not None:
         y = activation(y)
     return y
+
+
+def mlp_init(gen: torch.Generator, dims) -> list:
+    """dims = [d_in, h1, ..., d_out] -> a list of dense params."""
+    return [dense_init(gen, a, b) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def mlp_apply(params, x, *, activation=torch.relu):
+    """The denses in turn, ``activation`` after each but the last (relu
+    by default, as the reference's), nothing after the last."""
+    for i, p in enumerate(params):
+        x = dense_apply(p, x, activation=activation
+                        if i < len(params) - 1 else None)
+    return x
 
 
 def layernorm_apply(params, x, *, eps: float = 1e-5):

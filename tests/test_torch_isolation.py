@@ -222,3 +222,22 @@ def test_lm_and_recsys_entry_points_without_cuda_raise(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             train.run(["--arch", arch, "--steps", "1",
                        "--ckpt-dir", str(tmp_path / arch)])
+
+
+def test_geometric_entry_points_without_cuda_raise():
+    """DimeNet's and NequIP's entry points and the molecule batch follow
+    the rule: asked for no device on a host without CUDA, they raise
+    instead of running on the CPU."""
+    from repro_torch import configs
+    from repro_torch.configs import gnn_common
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is valid")
+    assert {"repro_torch.models.gnn.dimenet", "repro_torch.models.gnn.nequip",
+            "repro_torch.models.gnn.sph", "repro_torch.configs.dimenet",
+            "repro_torch.configs.nequip"} <= set(_modules())
+    for call in (lambda: configs.get_arch("dimenet").smoke_run(),
+                 lambda: configs.get_arch("nequip").smoke_run(),
+                 lambda: gnn_common.molecule_graphs("nequip", seed=0,
+                                                    batch=2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -14,6 +14,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 from _numerics import assert_bitwise
+from test_torch_lm import _two_threads  # noqa: F401 (autouse)
 
 from repro_torch.data.belle2 import current_detector, generate
 from repro_torch.launch import serve
@@ -22,7 +23,10 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def _run_cli(*flags):
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    # two intra-op threads in the subprocess too (unless the caller set
+    # its own): the suite runs six workers on the host's cores
+    env = {"OMP_NUM_THREADS": "2", **os.environ,
+           "PYTHONPATH": str(REPO / "src")}
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device",
          "cpu", "--detector", "current", "--events", "16", *flags],
@@ -50,7 +54,11 @@ def test_cli_answers_every_event():
     (("--no-fuse-gravnet-block",), "blocks=0"),
     (("--precision", "fp", "--no-fuse-int8"), "blocks=2")])
 def test_cli_design_points_and_escape_hatches(flags, want):
-    assert want in _serve_cli(*flags)
+    """Each flag selects its deployment. The flags are about what is
+    deployed, not about training: ``--train-steps 0`` serves the random
+    weights (warm training is held by ``test_cli_answers_every_event``
+    and ``test_default_run_warm_trains_then_serves_the_trained_weights``)."""
+    assert want in _serve_cli("--train-steps", "0", *flags)
 
 
 @pytest.mark.parametrize("models", [("gatedgcn", "graphsage"),

@@ -8,9 +8,9 @@ resumed by the port's driver; the captured step driven through a
 stand-in capture backend (capture records, replay re-runs into the
 same buffers), which catches a restore that rebinds the step's buffers
 instead of copying into them; and the refusals (no CUDA without
-``--device cpu``, a failed capture, a batch of another shape, the archs
-not ported yet). The LM and recsys families (olmo-1b,
-granite-moe-1b-a400m, mind): one step of the port's driver from the
+``--device cpu``, a failed capture, a batch of another shape, the GNN
+family, which has no generic stream in either driver). The LM and recsys
+families (olmo-1b, granite-moe-1b-a400m, mind): one step of the port's driver from the
 reference's step-0 checkpoint against the reference's step (within the
 float32 row, leaf by leaf), and a failure injected bitwise equal to an
 uninterrupted run.
@@ -74,15 +74,15 @@ def _fields(cfg, ref):
 
 # ------------------------------------------------------------ registry ----
 def test_registry_ids_and_refusals():
-    """9 of the reference's 11 ids resolve; only DimeNet and NequIP
-    (item 6) still raise. The LM configs' fields are compared with their
-    dtypes mapped in ``test_torch_lm_configs.py``."""
+    """All 11 of the reference's ids resolve (DimeNet's and NequIP's
+    smoke configs field for field); an unknown id raises. The LM
+    configs' fields are compared with their dtypes mapped in
+    ``test_torch_lm_configs.py``."""
     assert list(tconfigs._MODULES) == list(jconfigs._MODULES)
     assert tconfigs.ASSIGNED == jconfigs.ASSIGNED
-    ported = [a for a in tconfigs._MODULES if a not in ("dimenet",
-                                                        "nequip")]
-    assert len(ported) == 9
-    for arch_id in ported:
+    assert not hasattr(tconfigs, "NOT_PORTED")
+    assert len(tconfigs._MODULES) == 11
+    for arch_id in tconfigs._MODULES:
         mod = tconfigs.get_arch(arch_id)
         ref = jconfigs.get_arch(arch_id)
         assert (mod.ARCH_ID, mod.FAMILY, list(mod.SHAPES)) == \
@@ -90,8 +90,11 @@ def test_registry_ids_and_refusals():
         if mod.FAMILY != "lm":
             assert _fields(mod.smoke_config(), ref.smoke_config())
     for arch_id in ("dimenet", "nequip"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            tconfigs.get_arch(arch_id)
+        mod = tconfigs.get_arch(arch_id)
+        assert mod.smoke_config().__dict__ == \
+            jconfigs.get_arch(arch_id).smoke_config().__dict__
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            mod.cell("molecule")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_arch("resnet")
 
@@ -106,7 +109,7 @@ def test_ccn_config_flops_match_reference():
 
 
 def test_gnn_configs_match_reference():
-    for arch_id in ("gatedgcn", "graphsage-reddit"):
+    for arch_id in ("gatedgcn", "graphsage-reddit", "dimenet", "nequip"):
         mod, ref = tconfigs.get_arch(arch_id), jconfigs.get_arch(arch_id)
         for shape in ref.SHAPES:
             cfg, rcfg = mod.full_config(shape), ref.full_config(shape)
@@ -133,7 +136,9 @@ def test_gnn_configs_match_reference():
                           "metrics.acc": ()}),
     ("olmo-1b", {"loss": (), "logits": (2, 128)}),
     ("mind", {"loss": (), "scores": (16, 300),
-              "metrics.in_batch_acc": ()})])
+              "metrics.in_batch_acc": ()}),
+    ("dimenet", {"loss": (), "metrics.energy": ()}),
+    ("nequip", {"loss": (), "forces": (20, 3), "metrics.energy": ()})])
 def test_smoke_runs(arch_id, shapes):
     """Each config's ``smoke_run`` on the CPU gives finite values of the
     reference's shapes (its weights drawn from a ``torch.Generator``)."""
@@ -147,10 +152,14 @@ def test_smoke_runs(arch_id, shapes):
 
 
 def test_unported_families_and_gnn_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _run(["--arch", "dimenet", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(ValueError, match="gnn"):
-        _run(["--arch", "gatedgcn", "--ckpt-dir", str(tmp_path)])
+    """The driver refuses every GNN arch with the reference's ValueError
+    for the gnn family (neither driver has a GNN stream)."""
+    for arch in ("dimenet", "nequip", "gatedgcn"):
+        with pytest.raises(ValueError, match="gnn"):
+            _run(["--arch", arch, "--ckpt-dir", str(tmp_path / arch)])
+        with pytest.raises(ValueError, match="gnn"):
+            jtrain.make_data_stream(arch, jconfigs.get_arch(arch), None, 1,
+                                    0, 0)
 
 
 def test_default_device_without_cuda_raises(tmp_path):
