@@ -295,7 +295,39 @@ Phases, each of which exits non-zero when it fails:
     128 at E 10,556, and the molecule batches), and one counted step of
     each run (``GEO_LAUNCHES``), which joins the kernel line's launches;
     ``geometric.json``;
-15. print ``{"kernels": [...]}`` with every kernel of the port, then
+15. the multi-device tools (``dist/sharding.py``, ``configs/base.py``,
+    ``optim/compress.py``, ``checkpoint/manager.py``'s restore onto a
+    mesh) on a (1, 1) ("data", "model") mesh over a world of one (NCCL,
+    ``launch/mesh.make_host_mesh``): (a) every cell of
+    ``configs.all_cells(include_paper=True)``: ``make_step(mesh)`` on the
+    arguments placed by ``resolve_shardings`` (weights from a seed, data
+    in each leaf's range, CaloClusterNet's events generated) against
+    ``make_step(None)`` on the same tensors, every output bitwise, with
+    deterministic scatter-adds; the cuts: LM training at B 4, S 1024,
+    prefill at B 4, S 2048, decode_32k at B 4 with a cache of 2112,
+    long_500k at B 1 with 32768; yi-9b, granite-34b and
+    llama4-maverick at their smoke widths (with their full configs'
+    attention and loss chunks); MIND's train_batch at 8192;
+    DimeNet's ``minibatch_lg`` at half of its triplets
+    (``CELL_DIMENET_TRIPLETS``); ``ogb_products`` on the dry-run's fake
+    mesh only (``CELL_FAKE_ONLY``: memory); every other cell at full
+    size; ms a call of both; the GNN cells' ``edge_aggregate``
+    launches (one GNN cell's run counted under the profiler) join the
+    kernel line's; (b) the decode cells of olmo-1b and
+    granite-moe-1b-a400m at full width (``lm_common.CapturedDecode``: one
+    CUDA graph a step, the cache its static buffer written in place): a
+    2048-token prefill at B 4, then 64 steps replayed from one capture
+    into a cache of 32768 (decode_32k's, B 128 cut to 4) and of 2112, bf16
+    and int8, logits of every step and the cache bitwise equal to 64
+    eager ``decode_step``s (at 2112, phase 13's own: the phase takes over
+    its tokens and prefill and makes its weights again from their seed);
+    ms a step and tokens/s of both, the idle share of both (bf16; the
+    eager one at 2112 phase 13's), peak memory; (c) ``compressed_tree_psum`` over
+    the one-rank world, 3 rounds of error feedback on olmo-1b's smoke
+    gradients, bitwise against its math in plain PyTorch; (d) phase 12's
+    driver checkpoint restored with ``mesh=`` and ``shardings=``, byte
+    for byte the plain restore; ``cells.json``;
+16. print ``{"kernels": [...]}`` with every kernel of the port, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -679,9 +711,13 @@ MIND_TRAIN_STEPS = 5
 TIE_REL = 1e-5                  # neighbours this close (relative) may swap
 
 
-def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
+def lm_and_recsys(torch, np, dev, card, idle_share, decoded) -> dict:
     """Phase 13: the LM transformer and MIND on the card (module
-    docstring, item 13). Returns the phase's record."""
+    docstring, item 13). Returns the phase's record. Fills ``decoded``
+    with what phase 15's decode cells are held against, by arch: the
+    weights' seed, the tokens, the prefill's cache, and per cache dtype
+    ("bf16", "int8") the logits of each of the 64 eager decode steps,
+    the cache after them and their ms a step."""
     import dataclasses
 
     from repro_torch import configs as arch_configs
@@ -880,6 +916,7 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
     B, S = LM_PREFILL
 
     def prefill_decode(arch, seed, moe_inputs=None):
+        decoded[arch] = {"seed": seed}
         cfg = arch_configs.get_arch(arch).full_config()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -892,9 +929,9 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
             if moe_inputs is not None:
                 saved = tr._moe_einsum
 
-                def rec_moe(x, lp, cfg_):
+                def rec_moe(x, lp, cfg_, mesh=None):
                     moe_inputs.append((x, lp))
-                    return saved(x, lp, cfg_)
+                    return saved(x, lp, cfg_, mesh)
                 tr._moe_einsum = rec_moe
             try:
                 (lg_pf, cache_pf), pf_ms = timed(
@@ -907,6 +944,7 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
                 params, seq[:, :S], cfg))[1] for _ in range(2)]))
             r["prefill_ms"] = pf_ms
             r["prefill_tokens_per_s"] = B * S / pf_ms * 1e3
+            decoded[arch].update(seq=seq, cache_pf=cache_pf)
 
             def decode(cfg_):
                 c = tr.init_cache(cfg_, B, LM_CACHE, device=dev)
@@ -921,13 +959,18 @@ def lm_and_recsys(torch, np, dev, card, idle_share) -> dict:
                 c["pos"].fill_(S)
                 tr.decode_step(params, c, seq[:, S:S + 1], cfg_)   # warm-up
 
+                lgs = []
+
                 def run():
                     cc, lg = c, None
                     for t in range(LM_DECODE_STEPS):
                         lg, cc = tr.decode_step(params, cc, seq[
                             :, S + t:S + t + 1], cfg_)
+                        lgs.append(lg)
                     return lg, cc
                 (lg, cc), ms = timed(run)
+                decoded[arch]["int8" if cfg_.kv_cache_int8 else "bf16"] = (
+                    lgs, cc, ms / LM_DECODE_STEPS)
                 if not cfg_.kv_cache_int8:
                     # where a decode step's time goes
                     tok = seq[:, S + LM_DECODE_STEPS - 1:S + LM_DECODE_STEPS]
@@ -1650,6 +1693,559 @@ def geometric_gnns(torch, np, dev, card, h) -> tuple[dict, dict]:
     if launches != want:
         fail(f"[geometric gnn] launch counts {launches} != {want}")
     rec["counted_launches"] = launches
+    return rec, launches
+
+
+# ------------------------------------ phase 15: the multi-device tools ----
+# (a) every cell's step on a one-card mesh: the cuts (module docstring,
+# item 15); every other cell at its full size, ogb_products only on the
+# fake mesh of the dry-run
+CELL_LM_TRAIN = (4, 1024)       # phase 13's train cut of train_4k
+CELL_LM_PREFILL = (4, 2048)     # phase 13's prefill of prefill_32k
+CELL_LM_DECODE = (4, 2112)      # phase 13's decode of decode_32k
+CELL_LM_LONG = (1, 32768)       # long_500k's 524288-token cache cut
+CELL_SMOKE_ARCHS = ("yi-9b", "granite-34b", "llama4-maverick-400b-a17b")
+CELL_MIND_TRAIN = 8192          # phase 13's train_batch cut
+# cells whose step and its twin would not fit the card in 60 GiB: on
+# the dry-run's fake mesh only
+CELL_FAKE_ONLY = {
+    "ogb_products": "one graph of 61.9 M edges: a per-edge tensor at "
+                    "GatedGCN's d 70 is 17.3 GB, GraphSAGE's first gather "
+                    "(d 100) 24.8 GB",
+}
+# DimeNet's minibatch_lg at half of its 2,097,152 triplets: its 6 blocks
+# keep a (T, b.h) product of T x 8 x 128 x 4 B each; a quarter of the
+# triplets peaked at 25.1 GiB on the H100 over the step, its warm-up and
+# its twin, so half stays under 60 GiB and the full count does not
+CELL_DIMENET_TRIPLETS = 1048576
+# the GNN cell whose mesh step the profiler counts too (the cheapest)
+CELL_COUNTED = "graphsage-reddit:molecule"
+# (b) the captured decode cells: decode_32k's B 128 cut to 4, the caches
+DECODE_CELL_CACHES = (32768, LM_CACHE)
+DECODE_CELL_ARCHS = ("olmo-1b", "granite-moe-1b-a400m")
+COMPRESS_ROUNDS = 3
+
+
+def _cell_inputs(torch, np, dev, arch_id, mod, cell, cfg, seed,
+                 feeds=None):
+    """Inputs of ``cell`` on the card: the model's weights from a seeded
+    generator, AdamW's zero state, and data in each leaf's valid range
+    (token and item ids, node and edge indices without self-loops, 0/1
+    masks with a tenth off, labels below the class count), or ``feeds``
+    (generated events, cut to the cell's batch)."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs.base import sds
+    from repro_torch.optim import adamw_init
+    gen = torch.Generator(dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    abstract = cell.abstract_args()
+
+    def ints(hi, shape):
+        return torch.from_numpy(rng.integers(0, hi, shape).astype(
+            np.int32)).to(dev)
+
+    def data(path, s):
+        key = path.split("/")[-1] if not path.split("/")[-1].isdigit() \
+            else path.split("/")[-2]
+        shape = s.shape
+        if s.dtype == torch.float32 and key.endswith("mask"):
+            return (torch.rand(shape, generator=gen, device=dev)
+                    < 0.9).float()
+        if key in ("tokens", "labels") and mod.FAMILY == "lm":
+            return ints(cfg.vocab, shape)
+        if mod.FAMILY == "recsys":
+            hi = {"behav_ids": cfg.n_items, "target": cfg.n_items,
+                  "cand_ids": cfg.n_items, "tag_ids": cfg.n_user_tags}
+            return ints(hi[key], shape)
+        if key == "edge_index":
+            n = abstract[2]["node_mask"].shape[-1] if "node_mask" in \
+                abstract[2] else None
+            src = rng.integers(0, n, (*shape[:-2], shape[-1]))
+            dst = (src + 1 + rng.integers(0, n - 1, src.shape)) % n
+            return torch.from_numpy(np.stack([src, dst], -2).astype(
+                np.int32)).to(dev)
+        if key == "triplets":
+            e = abstract[2]["edge_mask"].shape[-1]
+            kj = rng.integers(0, e, (*shape[:-2], shape[-1]))
+            ji = (kj + 1 + rng.integers(0, e - 1, kj.shape)) % e
+            return torch.from_numpy(np.stack([kj, ji], -2).astype(
+                np.int32)).to(dev)
+        if key == "edges":        # graphsage's sampled frontiers
+            from itertools import accumulate
+            f = int(path.split("/")[-1])
+            sizes = mod.model.cfg_frontier_sizes(
+                cfg, abstract[2]["labels"].shape[-1])
+            offs = list(accumulate(sizes, initial=0))
+            src = rng.integers(offs[f + 1], offs[f + 1] + sizes[f + 1],
+                               (shape[0], shape[-1]))
+            dst = rng.integers(offs[f], offs[f] + sizes[f],
+                               (shape[0], shape[-1]))
+            return torch.from_numpy(np.stack([src, dst], -2).astype(
+                np.int32)).to(dev)
+        if key == "positions":
+            n = shape[-2]
+            box = float(n) ** (1 / 3) * 1.6
+            return torch.rand(shape, generator=gen, device=dev) * box
+        if key == "species":
+            return ints(cfg.n_species, shape)
+        if key == "labels":
+            return ints(max(getattr(cfg, "n_classes", 2), 2), shape)
+        if s.dtype == torch.float32:
+            return torch.randn(shape, generator=gen, device=dev)
+        fail(f"[cells] {arch_id}:{cell.shape} input {path} {s}: no rule")
+
+    if mod.FAMILY == "lm":
+        from repro_torch.models import transformer as tr
+        params = tr.init_params(gen, cfg)
+    elif mod.FAMILY == "recsys":
+        from repro_torch.models import recsys as rec
+        params = rec.init(gen, cfg)
+    else:
+        if arch_id == "caloclusternet":
+            from repro_torch.core import caloclusternet as model
+        else:
+            model = mod.model
+        cpu_p = model.init(torch.Generator().manual_seed(seed), cfg)
+        params = ckpt.unflatten(cpu_p, iter(t.to(dev) for _, t in
+                                            ckpt.flatten(cpu_p)))
+    args = [params]
+    rest = list(abstract[1:])
+    if cell.kind == "train":
+        from repro_torch.configs import gnn_common, lm_common
+        ocfg = (lm_common.opt_config(
+            cfg, quantize=arch_id.startswith("llama4"))
+            if mod.FAMILY == "lm" else getattr(mod, "OCFG", gnn_common.OCFG))
+        args.append(adamw_init(params, ocfg))
+        rest = rest[1:]
+    for tree in rest:
+        if feeds is not None:
+            args.append({k: feeds[k][:tree[k].shape[0]].to(dev)
+                         for k in tree})
+            continue
+        if isinstance(tree, sds):
+            args.append(data("tokens", tree))
+            continue
+        if cell.kind == "decode" and "pos" in tree:
+            from repro_torch.models import transformer as tr
+            b, t = tree["k"].shape[1], tree["k"].shape[2]
+            c = tr.init_cache(cfg, b, t, device=dev)
+            c["k"].copy_(torch.randn(c["k"].shape, generator=gen,
+                                     device=dev))
+            c["v"].copy_(torch.randn(c["v"].shape, generator=gen,
+                                     device=dev))
+            c["pos"].fill_(t - 8)
+            args.append(c)
+            continue
+        named = ckpt.flatten(tree)
+        args.append(ckpt.unflatten(tree, iter(data(p, s) for p, s in named)))
+    return tuple(args)
+
+
+def multi_device(torch, np, dev, card, h) -> tuple[dict, dict]:
+    """Phase 15: the multi-device tools on one card (module docstring,
+    item 15). ``h`` holds ``counted``, ``idle_share``, ``wrappers``,
+    ``reset_counts``, ``read_counts``, ``decoded`` (phase 13's decode
+    runs, ``lm_and_recsys``) and ``eager_decode_idle_share`` (phase 13's
+    idle share of the eager decode_step at B 4 x LM_CACHE, by arch).
+    Returns the phase's record and the GNN cells' kernel launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs as arch_configs
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import lm_common
+    from repro_torch.configs.base import distribute, sds
+    from repro_torch.dist.sharding import specs_from_rules
+    from repro_torch.launch.mesh import destroy_host_mesh, make_host_mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.adamw import opt_state_specs, tree_map
+    from repro_torch.optim.compress import (compressed_tree_psum,
+                                            error_feedback_init)
+    from repro_torch.optim.step import value_and_grad
+    rec = {"card": card}
+
+    def local(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+
+    def same(label, got, want):
+        """Every leaf of ``got`` (DTensors read locally) bitwise equal to
+        the same leaf of ``want``; a NaN equals a NaN. Returns the
+        leaves compared."""
+        g_l, w_l = ckpt.flatten(got), ckpt.flatten(want)
+        if [n for n, _ in g_l] != [n for n, _ in w_l]:
+            fail(f"[{label}] trees differ: {[n for n, _ in g_l][:5]} vs "
+                 f"{[n for n, _ in w_l][:5]}")
+        for (name, g), (_, w) in zip(g_l, w_l):
+            g = local(g)
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"[{label}] {name}: {tuple(g.shape)} {g.dtype} against "
+                     f"{tuple(w.shape)} {w.dtype}")
+            eq = g == w
+            if g.is_floating_point():
+                eq = eq | (torch.isnan(g) & torch.isnan(w))
+            if not bool(eq.all()):
+                d = (g.double() - w.double()).abs()
+                fail(f"[{label}] {name}: {int((~eq).sum())} of {g.numel()} "
+                     f"entries differ, max|Δ| {float(d.nan_to_num().max()):.3e}")
+        return len(g_l)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    mesh = make_host_mesh(dev)
+    if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo") \
+            or tuple(mesh.shape) != (1, 1):
+        fail(f"[cells] host mesh {mesh}, backend {dist.get_backend()}")
+    try:
+        # (a) every cell on the one-card mesh ------------------------------
+        cells, launches = [], dict.fromkeys(h.wrappers, 0)
+        deterministic = torch.are_deterministic_algorithms_enabled()
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        # the backward's scatter-adds (index_add_, index_put_) take their
+        # sorted, deterministic forms: the step and its twin then differ
+        # only if the mesh path changes the arithmetic (new tensors are
+        # not filled: every kernel writes its whole output)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        t_a = time.perf_counter()
+        gnn_counted = None
+        from repro_torch.data.belle2 import Belle2Config, generate
+        from repro_torch.launch.serve import detector_configs
+        ccn_feeds = {v: {k: torch.from_numpy(a) for k, a in generate(
+            g_, 4096, seed=77).items() if k != "trigger_truth"}
+            for v, g_ in (("upgrade", Belle2Config()),
+                          ("current", detector_configs("current")[1]))}
+        for i, (arch_id, shape, mod) in enumerate(
+                arch_configs.all_cells(include_paper=True)):
+            t_cell = time.perf_counter()
+            why = CELL_FAKE_ONLY.get(shape) or CELL_FAKE_ONLY.get(
+                f"{arch_id}:{shape}")
+            if why:
+                cells.append({"cell": f"{arch_id}:{shape}",
+                              "reduced": f"fake mesh only: {why}"})
+                continue
+            reduced = None
+            if mod.FAMILY == "lm":
+                smoke = arch_id in CELL_SMOKE_ARCHS
+                # the smoke config's widths with the full config's
+                # attention and loss chunks (the smoke config's q chunks
+                # of 8 make 128 a layer at S 1024)
+                cfg = (dataclasses.replace(
+                    mod.smoke_config(), block_q=mod.full_config().block_q,
+                    loss_chunk=mod.full_config().loss_chunk) if smoke
+                    else mod.full_config())
+                b, s = {"train_4k": CELL_LM_TRAIN,
+                        "prefill_32k": CELL_LM_PREFILL,
+                        "decode_32k": CELL_LM_DECODE,
+                        "long_500k": CELL_LM_LONG}[shape]
+                if shape == "train_4k":
+                    cell = lm_common.train_cell(
+                        arch_id, cfg, batch=b, seq=s,
+                        quantize_opt=arch_id.startswith("llama4"))
+                elif shape == "prefill_32k":
+                    cell = lm_common.prefill_cell(arch_id, cfg, batch=b,
+                                                  seq=s)
+                else:
+                    cell = lm_common.decode_cell(arch_id, cfg, shape,
+                                                 batch=b, seq=s)
+                reduced = (f"B {b}, S {s}" + (" at smoke width" if smoke
+                                             else ""))
+            elif arch_id == "mind" and shape == "train_batch":
+                cfg = mod.full_config()
+                cell = mod._train_cell(cfg, CELL_MIND_TRAIN)
+                reduced = f"B {CELL_MIND_TRAIN} (the logits are B x B)"
+            elif (arch_id, shape) == ("dimenet", "minibatch_lg"):
+                from repro_torch.configs import gnn_common
+                cfg = mod.full_config(shape)
+                meta = dict(gnn_common.SHAPES[shape],
+                            trip=CELL_DIMENET_TRIPLETS)
+                g = gnn_common.graph_sds(meta, geometric=True,
+                                         triplets=True)
+                cell = gnn_common.make_train_cell(
+                    arch_id, shape, mod.model, cfg, g,
+                    gnn_common.graph_specs(g, edge_dp=True),
+                    model_flops=mod._flops(meta, cfg))
+                reduced = (f"{CELL_DIMENET_TRIPLETS:,} of "
+                           f"{gnn_common.SHAPES[shape]['trip']:,} triplets")
+            else:
+                cell = mod.cell(shape)
+                cfg = (mod.full_config(shape) if mod.FAMILY == "gnn" else
+                       mod.full_config(mod._META[shape]["variant"])
+                       if arch_id == "caloclusternet" else mod.full_config())
+            torch.cuda.reset_peak_memory_stats()
+            t_in = time.perf_counter()
+            args = _cell_inputs(
+                torch, np, dev, arch_id, mod, cell, cfg, seed=1000 + i,
+                feeds=ccn_feeds[mod._META[shape]["variant"]]
+                if arch_id == "caloclusternet" else None)
+            t_in = time.perf_counter() - t_in
+            dargs = distribute(args, cell.resolve_shardings(mesh))
+            step_m, step_p = cell.make_step(mesh), cell.make_step(None)
+            grad = torch.enable_grad if cell.kind == "train" else \
+                torch.no_grad
+            with grad():
+                step_m(*dargs)                              # warm-up
+                h.reset_counts()
+                got, ms = timed(lambda: step_m(*dargs))
+                used = {k: v for k, v in h.read_counts().items() if v}
+                want, plain_ms = timed(lambda: step_p(*args))
+            n = same(f"cell {arch_id}:{shape}", got, want)
+            for k, v in used.items():
+                launches[k] = launches.get(k, 0) + v
+            if f"{arch_id}:{shape}" == CELL_COUNTED:
+                # the profiler's count of one GNN cell's mesh step
+                with grad():
+                    _, seen, _ = h.counted(lambda: step_m(*dargs),
+                                           lambda: step_m(*dargs),
+                                           f"cell {arch_id}:{shape}")
+                gnn_counted = {k: v for k, v in seen.items() if v}
+            cells.append({"cell": f"{arch_id}:{shape}", "kind": cell.kind,
+                          "reduced": reduced, "leaves": n, "ms": ms,
+                          "plain_ms": plain_ms, "launches": used,
+                          "bitwise": True, "inputs_s": t_in,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30,
+                          "wall_s": time.perf_counter() - t_cell})
+            say(f"[cell {arch_id}:{shape}] one-card mesh step {ms:.3f} ms, "
+                f"mesh=None {plain_ms:.3f} ms, {n} outputs bitwise equal"
+                + (f"; reduced: {reduced}" if reduced else "")
+                + (f"; launches {used}" if used else ""))
+            del args, dargs, got, want, step_m, step_p
+            torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(deterministic)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        rec["cells"] = cells
+        rec["cells_s"] = time.perf_counter() - t_a
+        if not gnn_counted:
+            fail(f"[cells] {CELL_COUNTED} was not counted under the profiler")
+        rec["gnn_cell_counted"] = gnn_counted
+        if launches.get("edge_aggregate", 0) == 0:
+            fail("[cells] the GNN cells launched no edge_aggregate")
+        ran = [c for c in cells if "ms" in c]
+        say(f"[cells] {len(ran)} of {len(cells)} cells run on the one-card "
+            f"mesh, each bitwise equal to its mesh=None step "
+            f"({rec['cells_s']:.1f}s; {len(cells) - len(ran)} on the fake "
+            f"mesh only); kernel launches {launches} ({card})")
+
+        # (b) the captured decode cells -----------------------------------
+        B, S = LM_PREFILL
+        decode = {}
+        t_b = time.perf_counter()
+        with torch.no_grad():
+            setup_s = {}
+            for arch_id in DECODE_CELL_ARCHS:
+                # phase 13's weights (made again from their seed), tokens
+                # and prefill; at LM_CACHE its 64 eager decode_steps from
+                # that prefill are the ones held against
+                t_setup = time.perf_counter()
+                ho = h.decoded[arch_id]
+                cfg = arch_configs.get_arch(arch_id).full_config()
+                params = tr.init_params(
+                    torch.Generator(dev).manual_seed(ho["seed"]), cfg)
+                seq, cache_pf = ho["seq"], ho["cache_pf"]
+                torch.cuda.synchronize()
+                setup_s[arch_id] = time.perf_counter() - t_setup
+                for t_len in DECODE_CELL_CACHES:
+                    for int8 in (False, True):
+                        cfg_ = dataclasses.replace(cfg, kv_cache_int8=int8)
+                        tag = (f"{arch_id} decode B {B} cache {t_len} "
+                               f"{'int8' if int8 else 'bf16'}")
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        c = tr.init_cache(cfg_, B, t_len, device=dev)
+                        if int8:
+                            for n in ("k", "v"):
+                                q, sc = tr.quantize_kv(cache_pf[n])
+                                c[n][:, :, :S] = q
+                                c[f"{n}_scale"][:, :, :S] = sc
+                        else:
+                            c["k"][:, :, :S] = cache_pf["k"]
+                            c["v"][:, :, :S] = cache_pf["v"]
+                        c["pos"].fill_(S)
+                        phase13 = t_len == LM_CACHE
+                        if not phase13:
+                            eager_c = {k: v.clone() for k, v in c.items()}
+                        t_cfg = time.perf_counter()
+                        cap = lm_common.CapturedDecode(params, c, cfg_)
+                        toks = [seq[:, S + t:S + t + 1]
+                                for t in range(LM_DECODE_STEPS)]
+                        (lg0,), cap_first_ms = timed(
+                            lambda: (cap(toks[0]).clone(),))
+                        if not cap.captured:
+                            fail(f"[{tag}] not captured on the card")
+
+                        def replays():
+                            return [cap(tk).clone() for tk in toks[1:]]
+                        cap_lg, cap_ms = timed(replays)
+                        cap_lg = [lg0] + cap_lg
+                        cap_peak = torch.cuda.max_memory_allocated()
+
+                        if phase13:
+                            eag_lg, eag_c, eag_step_ms = ho[
+                                "int8" if int8 else "bf16"]
+                        else:
+                            held = [eager_c]
+                            del eager_c
+
+                            def eager():
+                                # the old cache freed as each step
+                                # returns its copy: two caches at a time
+                                out_ = []
+                                for tk in toks:
+                                    lg, held[0] = tr.decode_step(
+                                        params, held[0], tk, cfg_)
+                                    out_.append(lg)
+                                return out_, held.pop()
+                            (eag_lg, eag_c), eag_ms = timed(eager)
+                            eag_step_ms = eag_ms / LM_DECODE_STEPS
+                        for t, (a, b_) in enumerate(zip(cap_lg, eag_lg)):
+                            same(f"{tag} step {t} logits", a, b_)
+                        same(f"{tag} cache", c, eag_c)
+                        if int(c["pos"][0, 0]) != S + LM_DECODE_STEPS:
+                            fail(f"[{tag}] cache at {int(c['pos'][0, 0])}")
+                        r = {"steps": LM_DECODE_STEPS,
+                             "capture_and_first_ms": cap_first_ms,
+                             "captured_ms_per_step":
+                                 cap_ms / (LM_DECODE_STEPS - 1),
+                             "eager_ms_per_step": eag_step_ms,
+                             "eager_from": "phase 13" if phase13 else
+                             "phase 15",
+                             "peak_gib": torch.cuda.max_memory_allocated()
+                             / 2 ** 30,
+                             "captured_peak_gib": cap_peak / 2 ** 30,
+                             "cache_gib": sum(v.numel() * v.element_size()
+                                              for v in c.values()) / 2 ** 30}
+                        r["captured_tokens_per_s"] = \
+                            B / r["captured_ms_per_step"] * 1e3
+                        r["eager_tokens_per_s"] = \
+                            B / r["eager_ms_per_step"] * 1e3
+                        del eag_c, eag_lg
+                        r["steps_s"] = time.perf_counter() - t_cfg
+                        if not int8:
+                            # where a step's time goes: the captured step
+                            # (the static cache past its end clamps the
+                            # write to its last row) and the eager one
+                            tk = toks[-1]
+                            busy, _, wall = h.idle_share(
+                                lambda: cap(tk), f"{tag} captured steps",
+                                f"_cell_{arch_id}_{t_len}_captured")
+                            r["captured_idle_share"] = (
+                                1 - busy / wall if busy > 0 else None)
+                            if t_len == LM_CACHE:
+                                # phase 13 profiled this eager decode_step
+                                # at this shape (bf16 cache of LM_CACHE,
+                                # B 4); at 32768 the eager step is
+                                # device-bound too (the captured one's
+                                # idle share and the two times say it)
+                                r["eager_idle_share"] = \
+                                    h.eager_decode_idle_share[arch_id]
+                                r["eager_idle_share_from"] = "phase 13"
+                            r["profile_s"] = (time.perf_counter() - t_cfg
+                                              - r["steps_s"])
+                        decode[tag] = r
+                        say(f"[{tag}] {LM_DECODE_STEPS} steps replayed "
+                            f"from one captured step, logits and cache "
+                            f"bitwise equal to {LM_DECODE_STEPS} eager "
+                            f"decode_steps ({r['eager_from']}'s): captured "
+                            f"{r['captured_ms_per_step']:.3f} ms a step "
+                            f"({r['captured_tokens_per_s']:.1f} tokens/s), "
+                            f"eager {r['eager_ms_per_step']:.3f} ms "
+                            f"({r['eager_tokens_per_s']:.1f} tokens/s); "
+                            f"idle share captured "
+                            f"{r.get('captured_idle_share')}, eager "
+                            f"{r.get('eager_idle_share')}; cache "
+                            f"{r['cache_gib']:.3f} GiB, peak "
+                            f"{r['peak_gib']:.3f} GiB ({card})")
+                        del cap, c
+                        torch.cuda.empty_cache()
+                del params, cache_pf
+                torch.cuda.empty_cache()
+        rec["decode_cells"] = decode
+        rec["decode_setup_s"] = setup_s
+        rec["decode_cells_s"] = time.perf_counter() - t_b
+
+        # (c) the compressed all-reduce over the one-rank world -----------
+        cfg = arch_configs.get_arch("olmo-1b").smoke_config()
+        params = tr.init_params(torch.Generator(dev).manual_seed(5), cfg)
+        toks = torch.randint(0, cfg.vocab, (2, 16), device=dev,
+                             generator=torch.Generator(dev).manual_seed(6),
+                             dtype=torch.int32)
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+        _, grads = value_and_grad(lambda p: tr.loss_fn(p, batch, cfg),
+                                  params)
+        err = error_feedback_init(grads)
+        err_p = error_feedback_init(grads)
+        for r_ in range(COMPRESS_ROUNDS):
+            g = tree_map(lambda v: v * (r_ + 1), grads)
+            out, err = compressed_tree_psum(g, err, dist.group.WORLD, 1)
+            # its math in plain PyTorch: with one rank the MAX and SUM
+            # reductions are the rank's own values
+            flat_p = []
+            for (_, x), (_, e) in zip(ckpt.flatten(g), ckpt.flatten(err_p)):
+                xf = x.to(torch.float32) + e
+                one = torch.full((), 127.0, device=dev)
+                scale = torch.clamp_min(torch.amax(torch.abs(xf)),
+                                        1e-12) / one
+                q = torch.clamp(torch.round(xf / scale), -127, 127)
+                flat_p.append((q.to(torch.int32).to(torch.float32) * scale
+                               / torch.full((), 1.0, device=dev),
+                               xf - q * scale))
+            want_o = ckpt.unflatten(g, iter(o for o, _ in flat_p))
+            err_p = ckpt.unflatten(g, iter(e for _, e in flat_p))
+            same(f"compressed_tree_psum round {r_}", out, want_o)
+            same(f"compressed_tree_psum round {r_} error feedback", err,
+                 err_p)
+        rec["compress"] = {"rounds": COMPRESS_ROUNDS,
+                           "leaves": len(ckpt.flatten(grads)),
+                           "bitwise": True}
+        say(f"[compress] compressed_tree_psum over the one-rank NCCL world, "
+            f"{COMPRESS_ROUNDS} rounds of error feedback on olmo-1b's smoke "
+            f"gradients ({len(ckpt.flatten(grads))} leaves): bitwise equal "
+            f"to its math in plain PyTorch on the card")
+
+        # (d) phase 12's driver checkpoint restored onto the mesh ----------
+        ck = OUT / "ckpt" / "failure"
+        manifest = json.loads((ck / f"step_{60:08d}" /
+                               "manifest.json").read_text())
+        like: dict = {}
+        for e in manifest["leaves"]:
+            node = like
+            parts = e["path"].split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = sds(tuple(e["shape"]), torch.float32)
+        ccn_arch = arch_configs.get_arch("caloclusternet")
+        pspecs = specs_from_rules(like["p"], ccn_arch.PARAM_RULES)
+        shard = {"p": pspecs, "o": opt_state_specs(pspecs, ccn_arch.OCFG)}
+        plain, st = ckpt.restore(str(ck), 60, like, device=dev)
+        on_mesh, st_m = ckpt.restore(str(ck), 60, like, mesh=mesh,
+                                     shardings=shard)
+        n_bytes = 0
+        for (name, a), (_, b_) in zip(ckpt.flatten(on_mesh),
+                                      ckpt.flatten(plain)):
+            if not isinstance(a, DTensor) or a.device_mesh is not mesh:
+                fail(f"[restore] {name} is not on the mesh")
+            ha = a.to_local().cpu().numpy()
+            hb = b_.cpu().numpy()
+            if ha.dtype != hb.dtype or ha.tobytes() != hb.tobytes():
+                fail(f"[restore] {name}: the bytes differ")
+            n_bytes += ha.nbytes
+        if st != st_m or st != 60:
+            fail(f"[restore] steps {st} {st_m}")
+        rec["restore"] = {"leaves": len(ckpt.flatten(plain)),
+                          "bytes": n_bytes, "step": st}
+        say(f"[restore] phase 12's driver checkpoint (step 60, "
+            f"{rec['restore']['leaves']} leaves, {n_bytes} bytes) restored "
+            f"onto the one-card mesh with shardings: byte for byte the "
+            f"plain restore")
+    finally:
+        destroy_host_mesh()
     return rec, launches
 
 
@@ -4261,7 +4857,8 @@ def main() -> int:
     # 13. the LM transformer and MIND recsys on the card ------------------
     t13 = time.perf_counter()
     counts_before = kops.launch_counts()
-    lm_rec = lm_and_recsys(torch, np, dev, card, idle_share)
+    decoded = {}
+    lm_rec = lm_and_recsys(torch, np, dev, card, idle_share, decoded)
     if kops.launch_counts() != counts_before:
         fail("phase 13 launched a kernel of the port: the LM and MIND "
              "paths reach none")
@@ -4286,7 +4883,23 @@ def main() -> int:
     say(f"phase 14 done at {time.perf_counter() - t_start:.1f}s "
         f"({geo['phase_s']:.1f}s)")
 
-    # 15. the kernel line and the result -----------------------------------
+    # 15. the multi-device tools on the card --------------------------------
+    t15 = time.perf_counter()
+    md, launches = multi_device(torch, np, dev, card, SimpleNamespace(
+        counted=counted, idle_share=idle_share, wrappers=wrappers,
+        reset_counts=reset_counts, read_counts=read_counts,
+        decoded=decoded, eager_decode_idle_share={
+            "olmo-1b": lm_rec["olmo_full"]["decode_idle_share"],
+            "granite-moe-1b-a400m":
+                lm_rec["granite_moe_full"]["decode_idle_share"]}))
+    decoded.clear()
+    path_launches["cells"] = launches
+    md["phase_s"] = time.perf_counter() - t15
+    (OUT / "cells.json").write_text(json.dumps(md, indent=1, default=str))
+    say(f"phase 15 done at {time.perf_counter() - t_start:.1f}s "
+        f"({md['phase_s']:.1f}s)")
+
+    # 16. the kernel line and the result -----------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)
@@ -4309,7 +4922,7 @@ def main() -> int:
         home["gravnet_block_int8"].append(run_)
     home["fused_dense"] += ["service routes", "service ragged"]
     home["edge_aggregate"] += ["service routes", "train gnn",
-                               "geometric gnn"]
+                               "geometric gnn", "cells"]
     home["knn_build"].append("service ragged")
     home["knn_aggregate"].append("service ragged")
     line = []

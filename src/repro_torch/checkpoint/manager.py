@@ -21,8 +21,10 @@ down to its two leaves.
 copy, device to host; on the card this orders the snapshot after every
 step enqueued before it) and writes the files on a background thread.
 ``CheckpointManager`` rotates the last ``keep`` checkpoints and verifies
-checksums on restore. The reference's elastic restore onto a mesh
-(``mesh=``, ``shardings=``) waits for the multi-device tools.
+checksums on restore. ``restore(..., mesh=, shardings=)`` is the
+reference's elastic restore: each leaf comes back as a DTensor on the
+mesh, every rank reading the ``.npy`` and keeping its own slice (the
+counterpart of ``device_put`` of a host array).
 """
 from __future__ import annotations
 
@@ -36,10 +38,6 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-
-_NO_MESH = ("restore onto a mesh (mesh=, shardings=) waits for the "
-            "multi-device tools: ROADMAP.md queue 1 item 7")
-
 
 def flatten(tree, prefix: str = "") -> list:
     """[(path, leaf)] in the reference's order: dict keys sorted, list
@@ -115,11 +113,12 @@ def restore(ckpt_dir: str, step: int, like_tree, *, mesh=None,
     """Load checkpoint ``step`` shaped like ``like_tree`` (the same
     structure; its leaves name the device). Each leaf comes back as a
     tensor on the device of ``like_tree``'s leaf where that is a tensor,
-    else on ``device`` (None: the card). Returns (tree, step); raises
+    else on ``device`` (None: the card). With ``shardings`` (a matching
+    tree of ``dist.sharding.NamedSharding`` or specs, resolved on
+    ``mesh``) a leaf comes back as a DTensor on its sharding's mesh,
+    this rank holding its own slice. Returns (tree, step); raises
     ``IOError`` on a checksum mismatch and ``ValueError`` when the
     checkpoint lacks a leaf of ``like_tree``."""
-    if mesh is not None or shardings is not None:
-        raise NotImplementedError(_NO_MESH)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -130,15 +129,20 @@ def restore(ckpt_dir: str, step: int, like_tree, *, mesh=None,
         raise ValueError(f"{d} holds no leaf {missing[0]!r} ({len(missing)} "
                          f"of {len(leaves)} missing): a checkpoint of "
                          "another model; give this run its own ckpt_dir")
+    shard_flat = (_sharding_leaves(shardings, mesh)
+                  if shardings is not None else [None] * len(leaves))
     fallback = None
     out = []
-    for name, like in leaves:
+    for (name, like), shd in zip(leaves, shard_flat):
         e = by_path[name]
         arr = np.load(os.path.join(d, e["file"]))
         if verify:
             crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
             if crc != e["crc"]:
                 raise IOError(f"checksum mismatch for {name} in {d}")
+        if shd is not None:
+            out.append(_place(arr, shd))
+            continue
         if isinstance(like, torch.Tensor):
             dev = like.device
         else:
@@ -146,6 +150,36 @@ def restore(ckpt_dir: str, step: int, like_tree, *, mesh=None,
             dev = fallback
         out.append(torch.from_numpy(arr).to(dev))
     return unflatten(like_tree, iter(out)), manifest["step"]
+
+
+def _sharding_leaves(shardings, mesh) -> list:
+    """The shardings tree's leaves in :func:`flatten`'s order, each a
+    ``NamedSharding`` (a spec resolved on ``mesh``) or None."""
+    from repro_torch.dist.sharding import (NamedSharding, P,
+                                           logical_to_physical)
+
+    def walk(tree):
+        if tree is None or isinstance(tree, NamedSharding):
+            return [tree]
+        if isinstance(tree, P):
+            if mesh is None:
+                raise ValueError("a spec in shardings needs a mesh")
+            return [NamedSharding(mesh, logical_to_physical(tree, mesh))]
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in walk(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for t in tree for x in walk(t)]
+        raise TypeError(f"not a sharding: {tree!r}")
+    return walk(shardings)
+
+
+def _place(arr: np.ndarray, shd):
+    """The host array as a DTensor on ``shd``: this rank's slice, cut
+    from its own copy (no rank sends anything)."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh = shd.mesh
+    t = torch.from_numpy(arr).to(mesh.device_type)
+    return distribute_tensor(t, mesh, shd.placements, src_data_rank=None)
 
 
 class CheckpointManager:

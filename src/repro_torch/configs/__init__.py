@@ -4,9 +4,8 @@ reference's 11 ids (10 assigned archs and the paper's own), every one
 ported: the five LMs, MIND, the four GNNs (DimeNet, GatedGCN,
 GraphSAGE, NequIP) and CaloClusterNet.
 
-The reference's ``all_cells`` and each module's ``cell()`` and
-``PARAM_RULES`` are mesh sharding specs for its dry-run tools; they
-wait for those tools (``ROADMAP.md`` queue 1 item 7).
+Each module's ``cell(shape)`` gives a ``configs.base.Cell``;
+:func:`all_cells` walks them in the reference's order.
 """
 from __future__ import annotations
 
@@ -34,3 +33,12 @@ def get_arch(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; have {list(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id])
+
+
+def all_cells(include_paper: bool = False):
+    """Yield every (arch, shape, module) — 40 assigned (+3 paper)."""
+    ids = list(ASSIGNED) + (["caloclusternet"] if include_paper else [])
+    for arch_id in ids:
+        mod = get_arch(arch_id)
+        for shape in mod.SHAPES:
+            yield arch_id, shape, mod

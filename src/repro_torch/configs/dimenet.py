@@ -2,8 +2,7 @@
 n_radial=6 [arXiv:2003.03123; unverified]. Geometric arch: every shape
 carries synthetic positions/species; triplet budgets per gnn_common.
 
-Counterpart of ``repro/configs/dimenet.py`` without its cells
-(``ROADMAP.md`` queue 1 item 7)."""
+Counterpart of ``repro/configs/dimenet.py``."""
 import torch
 
 from repro_torch.configs import gnn_common as G
@@ -12,6 +11,7 @@ from repro_torch.models.gnn import dimenet as model
 ARCH_ID = "dimenet"
 FAMILY = "gnn"
 SHAPES = list(G.SHAPES)
+TRIPLETS = True
 
 
 def full_config(shape="full_graph_sm"):
@@ -35,9 +35,19 @@ def _flops(meta, cfg):
 
 
 def cell(shape):
-    raise NotImplementedError("the DimeNet cells are mesh sharding specs "
-                              "for the multi-device tools: ROADMAP.md "
-                              "queue 1 item 7")
+    meta = G.SHAPES[shape]
+    cfg = full_config(shape)
+    if shape == "molecule":
+        b = meta["batch"]
+        g = G.graph_sds(meta, geometric=True, triplets=TRIPLETS, batch=b)
+        specs = G.graph_specs(g, batch=True)
+        return G.make_batched_train_cell(
+            ARCH_ID, model, cfg, g, specs,
+            model_flops=_flops(meta, cfg) * b)
+    g = G.graph_sds(meta, geometric=True, triplets=TRIPLETS)
+    specs = G.graph_specs(g, edge_dp=True)
+    return G.make_train_cell(ARCH_ID, shape, model, cfg, g, specs,
+                             model_flops=_flops(meta, cfg))
 
 
 def smoke_run(seed=0, device=None):

@@ -1,11 +1,11 @@
 """gatedgcn [gnn]: n_layers=16 d_hidden=70 aggregator=gated
 [arXiv:2003.00982; paper].
 
-Counterpart of ``repro/configs/gatedgcn.py`` without its cells
-(``ROADMAP.md`` queue 1 item 7)."""
+Counterpart of ``repro/configs/gatedgcn.py``."""
 import torch
 
 from repro_torch.configs import gnn_common as G
+from repro_torch.configs.base import sds
 from repro_torch.models.gnn import gatedgcn as model
 
 ARCH_ID = "gatedgcn"
@@ -32,6 +32,24 @@ def _flops(meta, cfg):
     per_layer = 2.0 * d * d * (4 * e + n) + 10.0 * e * d
     emb = 2.0 * n * cfg.d_in * d
     return 3.0 * (cfg.n_layers * per_layer + emb)  # fwd+bwd
+
+
+def cell(shape):
+    meta = G.SHAPES[shape]
+    cfg = full_config(shape)
+    if shape == "molecule":
+        b = meta["batch"]
+        g = G.graph_sds(meta, geometric=False, triplets=False, batch=b)
+        g["labels"] = sds((b,), torch.int32)  # graph-level labels
+        specs = G.graph_specs(g, batch=True)
+        return G.make_batched_train_cell(
+            ARCH_ID, model, cfg, g, specs,
+            model_flops=_flops(meta, cfg) * b)
+
+    g = G.graph_sds(meta, geometric=False, triplets=False)
+    specs = G.graph_specs(g, edge_dp=True)
+    return G.make_train_cell(ARCH_ID, shape, model, cfg, g, specs,
+                             model_flops=_flops(meta, cfg))
 
 
 def smoke_run(seed=0, device=None):

@@ -1,11 +1,11 @@
 """Shared train steps of the GNN architectures.
 
 Counterpart of ``repro/configs/gnn_common.py``: its shape table, the
-sampler grouping, the optimizer, the body of ``make_train_cell``'s step
-(:func:`train_step`) and of ``make_batched_train_cell``'s
-(:func:`batched_train_step`, the ``molecule`` shape's), with no mesh,
-and the molecule shape's data (:func:`molecule_graphs`). The cells and
-their sharding specs wait for ``ROADMAP.md`` queue 1 item 7.
+sampler grouping, the optimizer, the abstract graphs and their specs
+(edge-sharded: 1D partitioning, or batch-sharded), the cells
+(:func:`make_train_cell`, :func:`make_batched_train_cell`), their steps
+(:func:`train_step`, :func:`batched_train_step`, the ``molecule``
+shape's) and the molecule shape's data (:func:`molecule_graphs`).
 
 The reference batches the molecule shape with ``jax.vmap``; the port's
 models take the leading batch axis themselves (each graph's gathers
@@ -27,10 +27,17 @@ Shapes (assigned):
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
-from repro_torch.optim import AdamWConfig, adamw_update, cosine_warmup
+from repro_torch.configs.base import Cell, eval_shape, sds, shapes_of
+from repro_torch.dist.sharding import DP, P, specs_from_rules
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               cosine_warmup)
+from repro_torch.optim.adamw import opt_state_specs
 from repro_torch.optim.step import value_and_grad
 
 GROUPS = 32          # minibatch_lg sampler groups
@@ -69,6 +76,90 @@ def train_step(model, cfg, **loss_kw):
             grads, opt_state, params, lr=LR(opt_state["step"]), cfg=OCFG)
         return new_p, new_s, {**metrics, **aux}
     return step
+
+
+def graph_sds(meta, *, geometric: bool, triplets: bool, batch=None):
+    n, e = meta["n"], meta["e"]
+    lead = () if batch is None else (batch,)
+    g = {
+        "edge_index": sds((*lead, 2, e), torch.int32),
+        "node_mask": sds((*lead, n), torch.float32),
+        "edge_mask": sds((*lead, e), torch.float32),
+    }
+    if geometric:
+        g["positions"] = sds((*lead, n, 3), torch.float32)
+        g["species"] = sds((*lead, n), torch.int32)
+        g["energy"] = sds(lead, torch.float32)
+    else:
+        g["nodes"] = sds((*lead, n, meta["d_feat"]), torch.float32)
+        g["labels"] = sds((*lead, n), torch.int32)
+    if triplets:
+        g["triplets"] = sds((*lead, 2, meta["trip"]), torch.int32)
+        g["triplet_mask"] = sds((*lead, meta["trip"]), torch.float32)
+    return g
+
+
+def graph_specs(g, *, edge_dp=True, batch=False):
+    """Edge-sharded (1D partitioning) or batch-sharded specs."""
+    specs = {}
+    for k, v in g.items():
+        if batch:
+            specs[k] = P(DP, *([None] * (len(v.shape) - 1)))
+        elif not edge_dp:
+            specs[k] = P(*([None] * len(v.shape)))
+        elif k in ("edge_index", "triplets"):
+            specs[k] = P(None, DP)
+        elif k in ("edge_mask", "triplet_mask"):
+            specs[k] = P(DP)
+        else:
+            specs[k] = P(*([None] * len(v.shape)))
+    return specs
+
+
+def abstract_params(model, cfg):
+    return shapes_of(model.init(torch.Generator().manual_seed(0), cfg))
+
+
+@functools.cache
+def state_trees(model, cfg):
+    """(params, AdamW state, their specs) of ``model`` at ``cfg`` as
+    abstract trees; made once a (model, config)."""
+    params = abstract_params(model, cfg)
+    opt = eval_shape(lambda p: adamw_init(p, OCFG), params)
+    pspecs = specs_from_rules(params, model.PARAM_RULES)
+    return params, opt, pspecs, opt_state_specs(pspecs, OCFG)
+
+
+def make_train_cell(arch, shape, model, cfg, abstract_graph, gspecs,
+                    loss_kw=None, model_flops=0.0):
+    """Generic GNN train cell: loss -> grads -> AdamW
+    (:func:`train_step`)."""
+    loss_kw = loss_kw or {}
+
+    def make_step(mesh):
+        return train_step(model, cfg, **loss_kw)
+
+    def abstract_args():
+        params, opt, _, _ = state_trees(model, cfg)
+        return (params, opt, abstract_graph)
+
+    def spec_args():
+        _, _, pspecs, ospecs = state_trees(model, cfg)
+        return (pspecs, ospecs, gspecs)
+
+    return Cell(arch=arch, shape=shape, kind="train", make_step=make_step,
+                abstract_args=abstract_args, spec_args=spec_args,
+                model_flops=model_flops)
+
+
+def make_batched_train_cell(arch, model, cfg, abstract_graphs, gspecs,
+                            model_flops=0.0):
+    """molecule shape: a batch of small graphs on a leading axis
+    (:func:`batched_train_step`)."""
+    cell = make_train_cell(arch, "molecule", model, cfg, abstract_graphs,
+                           gspecs, model_flops=model_flops)
+    return dataclasses.replace(
+        cell, make_step=lambda mesh: batched_train_step(model, cfg))
 
 
 # The ``molecule`` step ``step(params, opt_state, graphs)`` is the same

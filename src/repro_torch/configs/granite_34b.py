@@ -3,8 +3,7 @@ vocab=49152 — llama-arch, code [arXiv:2405.04324; hf].
 (granite-34b-code uses non-gated GELU MLP — d_ff=24576 is the full
 expansion.)
 
-Counterpart of ``repro/configs/granite_34b.py``; ``cell()``
-(a mesh Cell) waits for ``ROADMAP.md`` queue 1 item 7."""
+Counterpart of ``repro/configs/granite_34b.py``."""
 import torch
 
 from repro_torch.configs import lm_common

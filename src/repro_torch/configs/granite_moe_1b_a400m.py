@@ -2,8 +2,7 @@
 vocab=49155, MoE 32 experts top-8
 [hf:ibm-granite/granite-3.0-1b-a400m-base].
 
-Counterpart of ``repro/configs/granite_moe_1b_a400m.py``; ``cell()``
-(a mesh Cell) waits for ``ROADMAP.md`` queue 1 item 7."""
+Counterpart of ``repro/configs/granite_moe_1b_a400m.py``."""
 import torch
 
 from repro_torch.configs import lm_common

@@ -1,10 +1,9 @@
 """graphsage-reddit [gnn]: n_layers=2 d_hidden=128 aggregator=mean
 sample_sizes=25-10 [arXiv:1706.02216; paper].
 
-Counterpart of ``repro/configs/graphsage_reddit.py`` without its cells
-(``ROADMAP.md`` queue 1 item 7). minibatch_lg uses the real layered
-neighbour sampler (``data/graphs.NeighborSampler``) with the assigned
-fanout 15-10, grouped 32×32 seeds; :func:`sampled_train_step` is the
+Counterpart of ``repro/configs/graphsage_reddit.py``. minibatch_lg uses
+the real layered neighbour sampler (``data/graphs.NeighborSampler``)
+with the assigned fanout 15-10, grouped 32×32 seeds; :func:`sampled_train_step` is the
 step of the reference's ``_sampled_cell``, the groups batched into one
 pass (one ``edge_aggregate`` launch per layer and frontier for all of
 them)."""
@@ -12,6 +11,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import gnn_common as G
+from repro_torch.configs.base import Cell, sds
+from repro_torch.dist.sharding import DP, P
 from repro_torch.models.gnn import graphsage as model
 
 ARCH_ID = "graphsage-reddit"
@@ -52,6 +53,53 @@ def _flops_sampled(meta, cfg, groups, seeds):
         fl += 2.0 * active * 2 * din * d
         din = d
     return 3.0 * groups * fl
+
+
+def cell(shape):
+    meta = G.SHAPES[shape]
+    cfg = full_config(shape)
+    if shape == "minibatch_lg":
+        return _sampled_cell(cfg, meta)
+    if shape == "molecule":
+        b = meta["batch"]
+        g = G.graph_sds(meta, geometric=False, triplets=False, batch=b)
+        specs = G.graph_specs(g, batch=True)
+        return G.make_batched_train_cell(
+            ARCH_ID, model, cfg, g, specs,
+            model_flops=_flops(meta, cfg) * b)
+    g = G.graph_sds(meta, geometric=False, triplets=False)
+    specs = G.graph_specs(g, edge_dp=True)
+    return G.make_train_cell(ARCH_ID, shape, model, cfg, g, specs,
+                             model_flops=_flops(meta, cfg))
+
+
+def _sampled_cell(cfg, meta):
+    groups, seeds = G.GROUPS, G.SEEDS_PER_GROUP
+    sizes = model.cfg_frontier_sizes(cfg, seeds)     # (32, 480, 4800)
+    ntot = sum(sizes)
+
+    def abstract_args():
+        params, opt, _, _ = G.state_trees(model, cfg)
+        batch = {
+            "feats": sds((groups, ntot, cfg.d_in), torch.float32),
+            "edges": [sds((groups, 2, sizes[i] * cfg.sample_sizes[i]),
+                          torch.int32) for i in range(len(sizes) - 1)],
+            "labels": sds((groups, seeds), torch.int32),
+        }
+        return (params, opt, batch)
+
+    def spec_args():
+        _, _, pspecs, ospecs = G.state_trees(model, cfg)
+        bspecs = {"feats": P(DP, None, None),
+                  "edges": [P(DP, None, None)] * (len(sizes) - 1),
+                  "labels": P(DP, None)}
+        return (pspecs, ospecs, bspecs)
+
+    mf = _flops_sampled(meta, cfg, groups, seeds)
+    return Cell(arch=ARCH_ID, shape="minibatch_lg", kind="train",
+                make_step=lambda mesh: sampled_train_step(cfg),
+                abstract_args=abstract_args, spec_args=spec_args,
+                model_flops=mf)
 
 
 def sampled_train_step(cfg):

@@ -3,8 +3,7 @@ d_ff=8192 vocab=202048, MoE 128 experts top-1 + 1 shared expert
 [hf:meta-llama/Llama-4; unverified]. Its cells train with int8-quantized
 Adam moments (``lm_common.opt_config(quantize=True)``).
 
-Counterpart of ``repro/configs/llama4_maverick_400b_a17b.py``; ``cell()``
-(a mesh Cell) waits for ``ROADMAP.md`` queue 1 item 7."""
+Counterpart of ``repro/configs/llama4_maverick_400b_a17b.py``."""
 import torch
 
 from repro_torch.configs import lm_common

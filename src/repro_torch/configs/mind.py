@@ -1,17 +1,23 @@
 """mind [recsys]: embed_dim=64 n_interests=4 capsule_iters=3
 interaction=multi-interest [arXiv:1904.08030; unverified].
 
-Counterpart of ``repro/configs/mind.py``; ``cell()`` (a mesh Cell) waits
-for ``ROADMAP.md`` queue 1 item 7.
+Counterpart of ``repro/configs/mind.py``.
 
 Shapes: train_batch B=65,536 (in-batch sampled softmax), serve_p99 B=512
 (online re-rank, 1,024 candidates each), serve_bulk B=262,144 (offline
 scoring, 128 candidates each), retrieval_cand B=1 vs 1,000,000 candidates
 (single batched matmul + top-k, never a loop)."""
+import functools
+
 import torch
 
+from repro_torch.configs.base import Cell, eval_shape, sds
+from repro_torch.dist.sharding import DP, P, map_leaves, specs_from_rules
 from repro_torch.models import recsys as model
-from repro_torch.optim import AdamWConfig, cosine_warmup
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               cosine_warmup)
+from repro_torch.optim.adamw import opt_state_specs
+from repro_torch.optim.step import value_and_grad
 
 ARCH_ID = "mind"
 FAMILY = "recsys"
@@ -59,10 +65,101 @@ def _serve_flops(cfg, b, c):
     return 2.0 * b * k * c * d + user_tower
 
 
+def _user_feed(cfg, b):
+    return {
+        "behav_ids": sds((b, cfg.hist_len), torch.int32),
+        "behav_mask": sds((b, cfg.hist_len), torch.float32),
+        "tag_ids": sds((b, cfg.tag_bag), torch.int32),
+    }
+
+
+def _user_specs(cfg, b):
+    bp = P(DP, None) if b > 1 else P(None, None)
+    return {"behav_ids": bp, "behav_mask": bp, "tag_ids": bp}
+
+
+@functools.cache
+def abstract_params(cfg):
+    """The parameter tree as :class:`sds` records (f32)."""
+    return map_leaves(lambda shape: sds(shape, torch.float32),
+                      model.param_shapes(cfg),
+                      is_leaf=lambda x: isinstance(x, tuple))
+
+
+@functools.cache
+def _opt_tree(cfg):
+    return eval_shape(lambda p: adamw_init(p, OCFG), abstract_params(cfg))
+
+
 def cell(shape):
-    raise NotImplementedError("the MIND cells are mesh sharding specs for "
-                              "the multi-device tools: ROADMAP.md queue 1 "
-                              "item 7")
+    cfg = full_config()
+    meta = _META[shape]
+    b = meta["batch"]
+    if shape == "train_batch":
+        return _train_cell(cfg, b)
+    return _serve_cell(cfg, shape, meta)
+
+
+def train_step(cfg):
+    """``step(params, opt_state, batch)``: the in-batch softmax loss ->
+    gradients -> AdamW at ``LR(step)``."""
+    def step(params, opt_state, batch):
+        (loss, metrics), grads = value_and_grad(
+            lambda p: model.loss_fn(p, batch, cfg), params)
+        new_p, new_s, aux = adamw_update(
+            grads, opt_state, params, lr=LR(opt_state["step"]), cfg=OCFG)
+        return new_p, new_s, {**metrics, **aux}
+    return step
+
+
+def _train_cell(cfg, b):
+    def abstract_args():
+        params = abstract_params(cfg)
+        opt = _opt_tree(cfg)
+        batch = dict(_user_feed(cfg, b), target=sds((b,), torch.int32))
+        return (params, opt, batch)
+
+    def spec_args():
+        pspecs = specs_from_rules(abstract_params(cfg), model.PARAM_RULES)
+        ospecs = opt_state_specs(pspecs, OCFG)
+        bspecs = dict(_user_specs(cfg, b), target=P(DP))
+        return (pspecs, ospecs, bspecs)
+
+    return Cell(arch=ARCH_ID, shape="train_batch", kind="train",
+                make_step=lambda mesh: train_step(cfg),
+                abstract_args=abstract_args, spec_args=spec_args,
+                model_flops=_train_flops(cfg, b))
+
+
+def _serve_cell(cfg, shape, meta):
+    b, c = meta["batch"], meta["cands"]
+    shared = meta.get("shared_cands", False)
+    topk = meta.get("topk")
+
+    def make_step(mesh):
+        def step(params, batch):
+            if topk:
+                # int32 indices, as ``lax.top_k``'s
+                vals, idx = model.serve_topk(params, batch, cfg, k=topk)
+                return vals, idx.to(torch.int32)
+            return model.score_candidates(params, batch, cfg)
+        return step
+
+    def abstract_args():
+        batch = _user_feed(cfg, b)
+        batch["cand_ids"] = sds((c,) if shared else (b, c), torch.int32)
+        return (abstract_params(cfg), batch)
+
+    def spec_args():
+        pspecs = specs_from_rules(abstract_params(cfg), model.PARAM_RULES)
+        bspecs = _user_specs(cfg, b)
+        bspecs["cand_ids"] = P(DP) if shared else (
+            P(DP, None) if b > 1 else P(None, None))
+        return (pspecs, bspecs)
+
+    return Cell(arch=ARCH_ID, shape=shape, kind="serve",
+                make_step=make_step, abstract_args=abstract_args,
+                spec_args=spec_args, model_flops=_serve_flops(cfg, b, c))
 
 
 def smoke_run(seed=0, device=None):

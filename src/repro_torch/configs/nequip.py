@@ -1,8 +1,7 @@
 """nequip [gnn]: n_layers=5 d_hidden=32 l_max=2 n_rbf=8 cutoff=5
 equivariance=E(3)-tensor-product [arXiv:2101.03164; paper].
 
-Counterpart of ``repro/configs/nequip.py`` without its cells
-(``ROADMAP.md`` queue 1 item 7)."""
+Counterpart of ``repro/configs/nequip.py``."""
 import torch
 
 from repro_torch.configs import gnn_common as G
@@ -11,6 +10,7 @@ from repro_torch.models.gnn import nequip as model
 ARCH_ID = "nequip"
 FAMILY = "gnn"
 SHAPES = list(G.SHAPES)
+TRIPLETS = False
 
 
 def full_config(shape="full_graph_sm"):
@@ -34,9 +34,19 @@ def _flops(meta, cfg):
 
 
 def cell(shape):
-    raise NotImplementedError("the NequIP cells are mesh sharding specs "
-                              "for the multi-device tools: ROADMAP.md "
-                              "queue 1 item 7")
+    meta = G.SHAPES[shape]
+    cfg = full_config(shape)
+    if shape == "molecule":
+        b = meta["batch"]
+        g = G.graph_sds(meta, geometric=True, triplets=TRIPLETS, batch=b)
+        specs = G.graph_specs(g, batch=True)
+        return G.make_batched_train_cell(
+            ARCH_ID, model, cfg, g, specs,
+            model_flops=_flops(meta, cfg) * b)
+    g = G.graph_sds(meta, geometric=True, triplets=TRIPLETS)
+    specs = G.graph_specs(g, edge_dp=True)
+    return G.make_train_cell(ARCH_ID, shape, model, cfg, g, specs,
+                             model_flops=_flops(meta, cfg))
 
 
 def smoke_run(seed=0, device=None):

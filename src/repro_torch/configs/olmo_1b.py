@@ -2,8 +2,7 @@
 — non-parametric LayerNorm, non-gated SwiGLU-free MLP
 [arXiv:2402.00838; hf].
 
-Counterpart of ``repro/configs/olmo_1b.py``; ``cell()``
-(a mesh Cell) waits for ``ROADMAP.md`` queue 1 item 7."""
+Counterpart of ``repro/configs/olmo_1b.py``."""
 import torch
 
 from repro_torch.configs import lm_common

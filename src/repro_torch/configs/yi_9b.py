@@ -1,8 +1,7 @@
 """yi-9b [dense]: 48L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000
 — llama-arch GQA [arXiv:2403.04652; hf].
 
-Counterpart of ``repro/configs/yi_9b.py``; ``cell()``
-(a mesh Cell) waits for ``ROADMAP.md`` queue 1 item 7."""
+Counterpart of ``repro/configs/yi_9b.py``."""
 import torch
 
 from repro_torch.configs import lm_common

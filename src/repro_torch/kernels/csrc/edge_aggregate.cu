@@ -49,6 +49,14 @@
 //      its own (-fmad=false), the count likewise; mean divides by
 //      max(count, 1).
 // kernels/ref.py:edge_aggregate_ref replays that order.
+//
+// A launch takes at most the edges whose sort fits in shared memory
+// (kernels/edge_aggregate.py:max_edges). A longer edge list is walked in
+// chunks of consecutive edges, one launch each: every launch after the
+// first starts each sum from the output the one before wrote
+// (accumulate), so every sum keeps its order over all E edges; mean
+// over chunks is the chunked sum over the chunked count, divided once
+// by the wrapper.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -143,14 +151,15 @@ __device__ inline void load_p(float (&v)[P], const float* p) {
 template <int P, typename Src>
 __device__ inline void walk(const int* perm, const float* km,
                             const int* tab, Src src, float* out, int d,
-                            int rows, int cols, int mean) {
+                            int rows, int cols, int mean, int accumulate) {
   const int per_row = cols / P;
   for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
     const int r = idx / per_row;
     const int c = (idx - r * per_row) * P;
+    float* o = out + (long long)r * d + c;
     float acc[P], cnt = 0.0f;
 #pragma unroll
-    for (int j = 0; j < P; ++j) acc[j] = 0.0f;
+    for (int j = 0; j < P; ++j) acc[j] = accumulate ? o[j] : 0.0f;
     const int hi = tab[(r + 1) * kWarps];
     for (int p = tab[r * kWarps]; p < hi; p += 4) {
       float v[4][P], m[4];
@@ -171,7 +180,6 @@ __device__ inline void walk(const int* perm, const float* km,
         }
       }
     }
-    float* o = out + (long long)r * d + c;
 #pragma unroll
     for (int j = 0; j < P; ++j) o[j] = mean ? acc[j] / fmaxf(cnt, 1.0f) : acc[j];
   }
@@ -181,8 +189,9 @@ __global__ void __launch_bounds__(kThreads)
 edge_aggregate_kernel(const float* __restrict__ msg,
                       const int* __restrict__ dst,
                       const float* __restrict__ mask,
-                      float* __restrict__ out, int e_count, int n, int d,
-                      int bm, int cw, int staged, int mean) {
+                      float* __restrict__ out, int e_count, int e_stride,
+                      int n, int d, int bm, int cw, int staged, int mean,
+                      int accumulate) {
   extern __shared__ float4 smem4[];
   int* tab = reinterpret_cast<int*>(smem4);               // 64*W + 4
   float* ms = reinterpret_cast<float*>(tab + kMaxRows * kWarps + 4);
@@ -195,9 +204,9 @@ edge_aggregate_kernel(const float* __restrict__ msg,
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * bm, c0 = blockIdx.x * cw;
   const int rows = min(bm, n - row0), cols = min(cw, d - c0);
-  const float* msg_b = msg + (long long)b * e_count * d + c0;
-  const int* dst_b = dst + (long long)b * e_count;
-  const float* mask_b = mask + (long long)b * e_count;
+  const float* msg_b = msg + (long long)b * e_stride * d + c0;
+  const int* dst_b = dst + (long long)b * e_stride;
+  const float* mask_b = mask + (long long)b * e_stride;
 
   // 1. one round trip: keys and masks, the message slice
   for (int e = tid; e < e_count; e += kThreads) {
@@ -246,15 +255,19 @@ edge_aggregate_kernel(const float* __restrict__ msg,
   if (staged) {
     auto src = [ms, cw](int e) { return ms + e * cw; };
     if (d % 2 == 0)
-      walk<2>(perm, km, tab, src, out_b, d, rows, cols, mean);
+      walk<2>(perm, km, tab, src, out_b, d, rows, cols, mean,
+              accumulate);
     else
-      walk<1>(perm, km, tab, src, out_b, d, rows, cols, mean);
+      walk<1>(perm, km, tab, src, out_b, d, rows, cols, mean,
+              accumulate);
   } else {
     auto src = [msg_b, d](int e) { return msg_b + (long long)e * d; };
     if (d % 2 == 0)
-      walk<2>(perm, km, tab, src, out_b, d, rows, cols, mean);
+      walk<2>(perm, km, tab, src, out_b, d, rows, cols, mean,
+              accumulate);
     else
-      walk<1>(perm, km, tab, src, out_b, d, rows, cols, mean);
+      walk<1>(perm, km, tab, src, out_b, d, rows, cols, mean,
+              accumulate);
   }
 }
 
@@ -266,16 +279,20 @@ extern "C" long long edge_aggregate_smem_bytes(int e, int cw, int staged) {
 }
 
 // msg:(B,e,d) f32, dst:(B,e) i32, mask:(B,e) f32 -> out:(B,n,d) f32;
-// all contiguous. bm <= 64 rows and cw columns per CTA (cw even where d
-// is);
-// staged != 0 stages each CTA's message slice in shared memory. mean != 0
-// divides by the masked in-degree.
+// the e edges of graph b start at msg + b*e_stride*d, dst + b*e_stride
+// and mask + b*e_stride (e_stride >= e: a chunk of a longer list), rows
+// of d contiguous. bm <= 64 rows and cw columns per CTA (cw even where d
+// is); staged != 0 stages each CTA's message slice in shared memory.
+// mean != 0 divides by the masked in-degree; accumulate != 0 starts each
+// sum from out (mean must then be 0).
 extern "C" int edge_aggregate_f32(const float* msg, const int* dst,
                                   const float* mask, float* out, int B,
-                                  int e, int n, int d, int bm, int cw,
-                                  int staged, int mean, void* stream) {
+                                  int e, int e_stride, int n, int d, int bm,
+                                  int cw, int staged, int mean,
+                                  int accumulate, void* stream) {
   if (B <= 0 || n <= 0 || d <= 0) return (int)cudaGetLastError();
-  if (bm <= 0 || bm > kMaxRows || cw <= 0 || (d % 2 == 0 && cw % 2 != 0))
+  if (bm <= 0 || bm > kMaxRows || cw <= 0 || (d % 2 == 0 && cw % 2 != 0) ||
+      e_stride < e || (mean && accumulate))
     return (int)cudaErrorInvalidValue;
   const long long smem = edge_aggregate_smem_bytes(e, cw, staged);
   if (smem > 48 * 1024) {
@@ -286,7 +303,8 @@ extern "C" int edge_aggregate_f32(const float* msg, const int* dst,
   }
   const dim3 grid((d + cw - 1) / cw, (n + bm - 1) / bm, B);
   edge_aggregate_kernel<<<grid, kThreads, (size_t)smem,
-                          (cudaStream_t)stream>>>(msg, dst, mask, out, e, n,
-                                                  d, bm, cw, staged, mean);
+                          (cudaStream_t)stream>>>(
+      msg, dst, mask, out, e, e_stride, n, d, bm, cw, staged, mean,
+      accumulate);
   return (int)cudaGetLastError();
 }

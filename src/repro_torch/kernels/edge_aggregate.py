@@ -8,7 +8,9 @@ messages with the event's destinations and masks in one round trip,
 counting-sorts the edges by destination with all its warps, and walks
 each row's segment in shared memory; the plain version is
 ``kernels/ref.py:edge_aggregate_ref``. :func:`plan` picks the CTA's
-rows and columns.
+rows and columns. An edge list longer than one launch takes
+(:func:`max_edges`) is walked in chunks of consecutive edges, each
+launch continuing the sums the one before left in the output.
 """
 from __future__ import annotations
 
@@ -60,7 +62,8 @@ def staged(e: int, cw: int) -> bool:
 
 
 def max_edges() -> int:
-    """The largest edge count one launch takes."""
+    """The largest edge count one launch takes (a longer list is walked
+    in chunks of this many edges)."""
     return (_build.SMEM_LIMIT - smem_bytes(0, 1, False)) // 16
 
 
@@ -71,7 +74,7 @@ def _library():
         lib.edge_aggregate_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.edge_aggregate_smem_bytes.restype = ctypes.c_longlong
         fn = lib.edge_aggregate_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -89,9 +92,10 @@ def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum"):
     messages:(B,E,d) f32, dst:(B,E) int32, mask:(B,E) f32 ->
     (B, n_nodes, d): per node, ``mask[e]·msg[e]`` summed over its edges
     in increasing e (``mean`` divides by the masked in-degree, at least
-    1); a dst outside [0, n_nodes) contributes nothing. Raises on an
-    edge count whose shared-memory plan exceeds the card's 227 KB. Adds
-    one to ``edge_aggregate_cuda.launches`` per launch."""
+    1); a dst outside [0, n_nodes) contributes nothing. E past
+    :func:`max_edges` takes one launch a chunk (``mean`` then sums the
+    messages and the masks by chunks and divides once). Adds one to
+    ``edge_aggregate_cuda.launches`` per launch."""
     if reduce not in ("sum", "mean"):
         raise ValueError(f"edge_aggregate_cuda: reduce={reduce!r}")
     if messages.ndim != 3 or dst.shape != messages.shape[:2] \
@@ -100,24 +104,44 @@ def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum"):
                          f"{tuple(messages.shape)}, dst {tuple(dst.shape)}, "
                          f"mask {tuple(mask.shape)} are not (B, E, d), "
                          "(B, E), (B, E)")
-    bsz, e, d = messages.shape
     _build.check_cuda("edge_aggregate_cuda", [messages, dst, mask],
                       [torch.float32, torch.int32, torch.float32])
+    n_nodes = int(n_nodes)
+    if messages.shape[1] <= max_edges():
+        return _launches(messages, dst, mask, n_nodes, reduce == "mean")
+    out = _launches(messages, dst, mask, n_nodes, False)
+    if reduce == "mean":
+        ones = torch.ones(dst.shape + (1,), dtype=torch.float32,
+                          device=messages.device)
+        cnt = _launches(ones, dst, mask, n_nodes, False)
+        out = out / torch.clamp_min(cnt, 1.0)
+    return out
+
+
+def _launches(messages, dst, mask, n_nodes, mean):
+    """The kernel over the edges in chunks of at most :func:`max_edges`,
+    in order, each launch after the first accumulating into the output
+    (``mean`` only where one launch takes them all)."""
+    bsz, e, d = messages.shape
     lib = _library()
-    bm, cw = plan(int(n_nodes), d, bsz)
-    stage = staged(e, cw)
-    _build.check_smem("edge_aggregate_cuda", smem_bytes(e, cw, stage),
-                      f"E={e}")
+    bm, cw = plan(n_nodes, d, bsz)
+    step = max_edges()
     out = torch.empty((bsz, n_nodes, d), dtype=torch.float32,
                       device=messages.device)
     with torch.cuda.device(messages.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.edge_aggregate_f32(messages.data_ptr(), dst.data_ptr(),
-                                      mask.data_ptr(), out.data_ptr(), bsz,
-                                      e, int(n_nodes), d, bm, cw, int(stage),
-                                      int(reduce == "mean"), stream)
-    _build.check(code, "edge_aggregate")
-    edge_aggregate_cuda.launches += 1
+        for e0 in range(0, max(e, 1), step):
+            ec = min(step, e - e0)
+            stage = staged(ec, cw)
+            _build.check_smem("edge_aggregate_cuda",
+                              smem_bytes(ec, cw, stage), f"E={ec}")
+            code = lib.edge_aggregate_f32(
+                messages.data_ptr() + 4 * e0 * d, dst.data_ptr() + 4 * e0,
+                mask.data_ptr() + 4 * e0, out.data_ptr(), bsz, ec, e,
+                n_nodes, d, bm, cw, int(stage), int(mean), int(e0 > 0),
+                stream)
+            _build.check(code, "edge_aggregate")
+            edge_aggregate_cuda.launches += 1
     return out
 
 

@@ -75,6 +75,9 @@ EDGE_CASES = {
     "every_edge_masked": (8, 256, 16, "masked"),
     "every_dst_out_of_range": (16, 256, 128, "out_of_range"),
     "largest_e": (1, None, 16, "random"),
+    # past two launches' worth of edges (a launch takes 14,399 on the
+    # H100): three chunks, each continuing the sums of the one before
+    "past_one_launch": (2, 30000, 70, "random"),
 }
 #: nodes per graph of the edge cases: the serve routes' graphs
 EDGE_NODES = 64

@@ -237,6 +237,10 @@ def edge_aggregate_batched(messages, edge_index, n_nodes, edge_mask=None, *,
     if edge_mask is not None and edge_mask.requires_grad:
         raise ValueError("edge_aggregate: edge_mask is data; it has no "
                          "gradient (detach it)")
+    from repro_torch.dist.sharding import is_distributed
+    if is_distributed(messages, edge_index, edge_mask):
+        return _edge_aggregate_sharded(messages, edge_index, n_nodes,
+                                       edge_mask, reduce)
     dst = edge_index[:, 1].to(torch.int32).contiguous()
     mask = (torch.ones((bsz, e), dtype=torch.float32,
                        device=messages.device) if edge_mask is None
@@ -246,7 +250,87 @@ def edge_aggregate_batched(messages, edge_index, n_nodes, edge_mask=None, *,
     return _edge_aggregate_route(messages, dst, mask, n_nodes, reduce)
 
 
+def _edge_aggregate_sharded(messages, edge_index, n_nodes, edge_mask,
+                            reduce):
+    """:func:`edge_aggregate_batched` of DTensors, run on each device's
+    shards (the kernel takes raw pointers). The graphs (dim 0) and the
+    message features (dim 2) keep their sharding. Edges sharded over
+    some mesh dims (1D edge partitioning) leave each device a partial
+    node sum over its edges: the output is ``Partial`` there, reduced
+    by DTensor where it is next read (the all-reduce XLA's partitioner
+    adds to a scatter-add of sharded updates); ``mean`` divides the
+    reduced sums by the reduced in-degrees."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(x.device_mesh for x in (messages, edge_index, edge_mask)
+                if isinstance(x, DTensor))
+
+    def dt(x):
+        return x if isinstance(x, DTensor) else DTensor.from_local(
+            x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    messages = dt(messages)
+    edge_mask = dt(torch.ones(messages.shape[:2], dtype=torch.float32,
+                              device=messages.device)
+                   if edge_mask is None else edge_mask)
+    dst = dt(edge_index)[:, 1]
+    mpl, dpl, opl = [], [], []
+    for m, pl in enumerate(messages.placements):
+        if isinstance(pl, Shard) and pl.dim in (0, 1, 2) and (
+                messages.shape[pl.dim] % mesh.size(m) == 0):
+            mpl.append(pl)
+            dpl.append(pl if pl.dim < 2 else Replicate())
+            opl.append(Partial() if pl.dim == 1 else pl)
+        else:
+            mpl.append(Replicate())
+            dpl.append(Replicate())
+            opl.append(Replicate())
+    edge_sharded = any(p == Shard(1) for p in mpl)
+    local_reduce = "sum" if edge_sharded else reduce
+
+    def local(msg, dst_l, mask_l):
+        ei = torch.stack([dst_l, dst_l], dim=1)
+        return edge_aggregate_batched(msg, ei, n_nodes, mask_l,
+                                      reduce=local_reduce)
+
+    def run(msg, plc):
+        return local_map(local, out_placements=(tuple(opl),),
+                         in_placements=(plc, tuple(dpl), tuple(dpl)),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            msg, dst, edge_mask)
+    out = run(messages, tuple(mpl))
+    if reduce == "mean" and edge_sharded:
+        # the masked in-degree: the sum of each edge's mask (times 1)
+        ones = torch.ones_like(edge_mask)[..., None]
+        deg = run(ones, tuple(p if p != Shard(2) else Replicate()
+                              for p in dpl))
+        out = out / torch.clamp_min(deg, 1.0)
+    return out
+
+
+def _edge_aggregate_traced(messages, dst, mask, n_nodes, reduce):
+    """The segment sum as one scatter-add, the reference's ``xla`` path,
+    for fake tensors (a dry-run's: the plain version's loop runs to the
+    largest in-degree, a value fake tensors do not hold)."""
+    bsz, e, d = messages.shape
+    key = dst.long()
+    valid = (key >= 0) & (key < n_nodes)
+    idx = torch.where(valid, key, 0)
+    w = torch.where(valid, mask.float(), 0.0)
+    acc = torch.zeros((bsz, n_nodes, d), dtype=torch.float32,
+                      device=messages.device).scatter_add_(
+        1, idx[..., None].expand(bsz, e, d), w[..., None] * messages.float())
+    if reduce == "mean":
+        cnt = torch.zeros((bsz, n_nodes), dtype=torch.float32,
+                          device=messages.device).scatter_add_(1, idx, w)
+        acc = acc / torch.clamp_min(cnt, 1.0)[..., None]
+    return acc
+
+
 def _edge_aggregate_route(messages, dst, mask, n_nodes, reduce):
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(messages):
+        return _edge_aggregate_traced(messages, dst, mask, n_nodes, reduce)
     if messages.device.type == "cpu":
         return _ref.edge_aggregate_ref(messages, dst, mask, n_nodes=n_nodes,
                                        reduce=reduce)

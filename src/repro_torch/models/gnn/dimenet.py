@@ -34,6 +34,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import DP, TP, P, reshape
 from repro_torch.models.gnn import common as C
 from repro_torch.nn.init import normal_init
 from repro_torch.nn.layers import (dense_apply, dense_init, dense_shape,
@@ -130,6 +131,14 @@ def _segment_sum(x, idx, n: int):
     return out.reshape(*lead, n, x.shape[-1])
 
 
+# logical sharding specs of the parameters (``dist/sharding.py``)
+PARAM_RULES = [
+    (r"blocks/.*/w", P(DP, TP)),
+    (r"embed_", P(DP, TP)),
+    (r"out_", P(DP, None)),
+]
+
+
 def apply(params, graph, cfg: DimeNetConfig):
     """graph: ``species`` (N,) int (or ``nodes`` (N, d_in)),
     ``positions`` (N, 3), ``edge_index`` (2, E), ``triplets`` (2, T)
@@ -177,8 +186,9 @@ def apply(params, graph, cfg: DimeNetConfig):
         tk = C._gather(x_kj, t_kj)                             # (.., T, H)
         s8 = dense_apply(bp["w_sbf"], sbf)                     # (.., T, b)
         w_bil = bp["w_bil"]
-        outer = (s8[..., :, None] * tk[..., None, :]).flatten(-2)
-        inter = outer @ w_bil.reshape(-1, w_bil.shape[-1])
+        outer = s8[..., :, None] * tk[..., None, :]
+        outer = reshape(outer, *outer.shape[:-2], -1)
+        inter = outer @ reshape(w_bil, -1, w_bil.shape[-1])
         inter = inter * tm[..., None]
         agg = _segment_sum(inter, t_ji, n_edges)               # (.., E, H)
         m = m + act(dense_apply(bp["w_out1"], x_ji + agg))

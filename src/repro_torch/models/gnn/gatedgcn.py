@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.graph_ir import Graph, Operator, register_exporter
+from repro_torch.dist.sharding import DP, TP, P
 from repro_torch.models.gnn import common as C
 from repro_torch.nn.layers import dense_apply, dense_init
 
@@ -53,6 +54,14 @@ def init(gen: torch.Generator, cfg: GatedGCNConfig) -> dict:
             "head": dense_init(gen, dh, cfg.n_classes),
             "layers": [{m: dense_init(gen, dh, dh) for m in _MATS}
                        for _ in range(cfg.n_layers)]}
+
+
+# logical sharding specs of the parameters (``dist/sharding.py``)
+PARAM_RULES = [
+    (r"embed_h/w", P(DP, TP)),
+    (r"layers/.*/w", P(DP, TP)),
+    (r"head/w", P(DP, None)),
+]
 
 
 def apply(params, graph, cfg: GatedGCNConfig):

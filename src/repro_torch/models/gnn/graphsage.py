@@ -17,6 +17,7 @@ from itertools import accumulate
 import torch
 
 from repro_torch.core.graph_ir import Graph, Operator, register_exporter
+from repro_torch.dist.sharding import DP, TP, P
 from repro_torch.models.gnn import common as C
 from repro_torch.nn.layers import dense_apply, dense_init
 
@@ -62,6 +63,13 @@ def _combine(lp, h, neigh, normalize):
 def _sage_layer(lp, h, ei, n, nm, em, *, normalize):
     neigh = C.scatter_mean(C.gather_src(h, ei), ei, n, em)
     return _combine(lp, h, neigh, normalize) * nm[..., None]
+
+
+# logical sharding specs of the parameters (``dist/sharding.py``)
+PARAM_RULES = [
+    (r"layers/.*/w", P(DP, TP)),
+    (r"head/w", P(DP, None)),
+]
 
 
 def apply(params, graph, cfg: GraphSAGEConfig):

@@ -29,6 +29,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import DP, TP, P, einsum, reshape
 from repro_torch.models.gnn import common as C
 from repro_torch.models.gnn.sph import intertwiner, intertwiner_tensor, \
     real_sph
@@ -117,8 +118,17 @@ def init(gen: torch.Generator, cfg: NequIPConfig) -> dict:
 
 def _mix(x, w):
     """``einsum("nmi,mk->nki", x, w)``: channel mixing of x:(..., N, m,
-    2l+1) by w:(m, k), one matmul."""
-    return torch.matmul(w.t(), x)
+    2l+1) by w:(m, k), one matmul (on the shards of DTensors)."""
+    return einsum("mk,...mi->...ki", w, x,
+                  local=lambda w_, x_: torch.matmul(w_.t(), x_))
+
+
+# logical sharding specs of the parameters (``dist/sharding.py``)
+PARAM_RULES = [
+    (r"layers/.*/w", P(DP, TP)),
+    (r"readout", P(DP, None)),
+    (r"embed_z/w", P(DP, TP)),
+]
 
 
 def apply(params, graph, cfg: NequIPConfig):
@@ -146,7 +156,7 @@ def apply(params, graph, cfg: NequIPConfig):
     n_edges = d.shape[-1]
     for lp in params["layers"]:
         w_all = mlp_apply(lp["radial"], rbf, activation=F.silu)
-        w_all = w_all.reshape(*lead, n_edges, len(paths), m) \
+        w_all = reshape(w_all, *lead, n_edges, len(paths), m) \
             * env[..., None, None]
         msg = {}
         for pi, (l1, p1, l2, l3, p3) in enumerate(paths):

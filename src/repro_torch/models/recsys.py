@@ -14,16 +14,15 @@ n_interests=4, capsule_iters=3, multi-interest interaction. Pipeline:
   → retrieval scoring: max over interests of capsule·candidate
       (one user against 10⁶ candidates is one batched product).
 
-``PARAM_RULES`` (mesh sharding specs) waits for ``ROADMAP.md`` queue 1
-item 7.
+``PARAM_RULES`` are the reference's logical sharding specs.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.dist.sharding import DP, TP, P, embedding
 from repro_torch.nn import jax_prng
 from repro_torch.nn.init import normal_init
 from repro_torch.nn.layers import dense_apply, dense_init, top_k
@@ -62,12 +61,22 @@ def init(gen: torch.Generator, cfg: MINDConfig) -> dict:
     }
 
 
+# logical sharding specs of the parameters (``dist/sharding.py``)
+PARAM_RULES = [
+    (r"item_emb", P(TP, None)),
+    (r"tag_emb", P(TP, None)),
+    (r"bilinear_s", P(None, None)),
+    (r"proj/w", P(DP, TP)),
+]
+
+
 # ---------------------------------------------------------- embedding bag ----
 def _lookup(table, ids):
     """``table`` rows at ``ids``; F.embedding, whose gradient sums each
     row's lookups in a fixed order (an indexing's accumulating backward
-    on the CPU does not)."""
-    return F.embedding(ids.to(torch.long), table)
+    on the CPU does not); on DTensors, on each shard
+    (``dist.sharding.embedding``)."""
+    return embedding(table, ids)
 
 
 def embedding_bag(table, ids, *, weights=None, segment_ids=None,
@@ -110,8 +119,12 @@ def routing_init(k: int, h: int, device) -> torch.Tensor:
     the host)."""
     key = (k, h, str(torch.device(device)))
     if key not in _ROUTING_INIT:
-        _ROUTING_INIT[key] = torch.from_numpy(jax_prng.normal(
-            jax_prng.prng_key(17), (1, k, h))).to(device)
+        # host arithmetic on real tensors, also when a fake or
+        # distributed run is tracing the caller
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            _ROUTING_INIT[key] = torch.from_numpy(jax_prng.normal(
+                jax_prng.prng_key(17), (1, k, h))).to(device)
     return _ROUTING_INIT[key]
 
 
@@ -161,10 +174,8 @@ def label_aware_attention(u, target_e, cfg: MINDConfig):
 def loss_fn(params, batch, cfg: MINDConfig, mesh=None):
     """In-batch sampled softmax. batch: behav_ids (B,H), behav_mask,
     tag_ids (B,tag_bag), target (B,). Returns (loss, {'loss',
-    'in_batch_acc'})."""
-    if mesh is not None:
-        raise NotImplementedError("a mesh waits for the multi-device "
-                                  "tools: ROADMAP.md queue 1 item 7")
+    'in_batch_acc'}). ``mesh`` is taken and unused, as the reference's
+    is."""
     u = user_capsules(params, batch, cfg)
     tgt = _lookup(params["item_emb"], batch["target"])           # (B,D)
     uv = label_aware_attention(u, tgt, cfg)                      # (B,D)

@@ -14,10 +14,15 @@ is a Python loop over the stacked leaves; ``remat`` is
 functions on tensors; nothing here launches a kernel of the port (the
 attention is an einsum softmax, as in the reference).
 
-The mesh arguments, ``cache_specs`` and ``PARAM_RULES`` are sharding
-specs for the multi-device tools (``ROADMAP.md`` queue 1 item 7): only
-``mesh=None`` is taken. With one device the reference's attention
-sharding branches reduce to its first, which is what runs here.
+Sharding: ``PARAM_RULES`` and :func:`cache_specs` are the reference's
+logical specs. With a ``mesh`` (a ``DeviceMesh``, the arguments DTensors
+placed on it) the reference's ``with_sharding_constraint`` points
+become ``redistribute`` (:func:`_cst`), including its attention policy
+by the model axis' extent and ``seq_parallel``; the einsums, the
+embedding lookup and the loss's pick of the labels' logits (the
+vocabulary split) run on local shards (``dist.sharding``), and so does
+the decode's cache write (:func:`_update`). With plain tensors none of
+this runs.
 """
 from __future__ import annotations
 
@@ -30,13 +35,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.dist.sharding import (DP, TP, P, axis_sizes, constrain,
+                                       einsum, embedding, is_distributed,
+                                       reshape, shard_index)
 from repro_torch.nn.init import truncated_normal
 from repro_torch.nn.layers import (nonparametric_layernorm, rmsnorm_apply,
                                    top_k)
-
-_NO_MESH = ("a mesh (sharding constraints, cache_specs, PARAM_RULES) "
-            "waits for the multi-device tools: ROADMAP.md queue 1 item 7")
-
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -70,8 +74,8 @@ class TransformerConfig:
     remat: bool = True
     remat_policy: str = "full"      # 'full' | 'dots' (save the matrix
                                     # products, recompute the rest)
-    seq_parallel: bool = False      # a sharding option (item 7); no
-                                    # effect on one device
+    seq_parallel: bool = False      # shard the residual stream's seq dim
+                                    # over tp between blocks
     unroll_layers: bool = False     # the reference's lowering option;
                                     # the layers are a Python loop here
     loss_chunk: int = 1024          # CE computed in seq chunks
@@ -82,11 +86,6 @@ class TransformerConfig:
     @property
     def dh(self) -> int:
         return self.d_head or self.d_model // self.n_heads
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
 
 
 # ------------------------------------------------------------------ params ----
@@ -151,6 +150,28 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig) -> dict:
     return walk(abstract_params(cfg))
 
 
+PARAM_RULES = [
+    (r"embed", P(TP, DP)),
+    (r"lm_head", P(DP, TP)),
+    (r"final_norm", P()),
+    (r"(attn|ffn)_norm", P(None)),
+    (r"layers/w[qkv]$", P(None, DP, TP)),
+    (r"layers/wo", P(None, TP, DP)),
+    (r"layers/w_(gate|up)", P(None, DP, TP)),
+    (r"layers/w_down", P(None, TP, DP)),
+    (r"layers/router", P(None, DP, None)),
+    (r"layers/moe_(gate|up)", P(None, TP, DP, None)),
+    (r"layers/moe_down", P(None, TP, None, DP)),
+    (r"layers/sh_(gate|up)", P(None, DP, TP)),
+    (r"layers/sh_down", P(None, TP, DP)),
+]
+
+
+def _cst(x, mesh, *axes):
+    """``with_sharding_constraint`` with logical axis names."""
+    return constrain(x, mesh, *axes)
+
+
 # --------------------------------------------------------------- attention ----
 def _rope(x, positions, theta):
     """x: (..., S, H, Dh); positions: (..., S)."""
@@ -177,8 +198,8 @@ def _attn_chunk(q, k, v, q_off, *, causal, lengths=None):
     ``q_off`` is the absolute position of q[0] (causal masking);
     ``lengths`` (B,) masks a KV cache during decode."""
     dh = q.shape[-1]
-    scores = torch.einsum("bqkgd,btkd->bkgqt", q.to(torch.float32),
-                          k.to(torch.float32))
+    scores = einsum("bqkgd,btkd->bkgqt", q.to(torch.float32),
+                    k.to(torch.float32))
     scores = scores / math.sqrt(dh)
     t_idx = torch.arange(k.shape[1], device=q.device)
     if causal:
@@ -189,7 +210,7 @@ def _attn_chunk(q, k, v, q_off, *, causal, lengths=None):
         lm = t_idx[None, :] < lengths[:, None]               # (B, T)
         scores = torch.where(lm[:, None, None, None], scores, -1e30)
     p = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bkgqt,btkd->bqkgd", p, v)
+    return einsum("bkgqt,btkd->bqkgd", p, v)
 
 
 def attention(q, k, v, cfg: TransformerConfig, *, causal=True, q_off=0,
@@ -291,16 +312,16 @@ def _shared(x, lp, cfg):
 
 def _experts(xe, lp, cfg):
     """The experts' MLPs over their buffers (..., E, C, D)."""
-    up = torch.einsum("...ecd,edf->...ecf", xe, lp["moe_up"])
+    up = einsum("...ecd,edf->...ecf", xe, lp["moe_up"])
     if cfg.gated_mlp:
-        gate = torch.einsum("...ecd,edf->...ecf", xe, lp["moe_gate"])
+        gate = einsum("...ecd,edf->...ecf", xe, lp["moe_gate"])
         h = _act(cfg)(gate) * up
     else:
         h = _act(cfg)(up)
-    return torch.einsum("...ecf,efd->...ecd", h, lp["moe_down"])
+    return einsum("...ecf,efd->...ecd", h, lp["moe_down"])
 
 
-def _moe_einsum(x, lp, cfg: TransformerConfig):
+def _moe_einsum(x, lp, cfg: TransformerConfig, mesh=None):
     """GShard-style einsum dispatch. x: (T, D) -> (T, D), aux. The
     reference maps its group function over the groups; here the groups
     are a leading batch axis (the same math per group). The dispatch and
@@ -316,11 +337,11 @@ def _moe_einsum(x, lp, cfg: TransformerConfig):
     probs, topv, topi = _route(xg, lp, k)                     # (G, gs, ·)
     oh, pos, keep = _einsum_slots(topi, e, cap)
     posh = _one_hot(pos, cap)                                 # (G,gs,k,C)
-    disp = torch.einsum("gske,gskc->gsec", oh, posh * keep[..., None])
-    comb = disp * torch.einsum("gsk,gske->gse", topv * keep, oh)[..., None]
-    xe = torch.einsum("gsec,gsd->gecd", disp.to(cfg.compute_dtype), xg)
+    disp = einsum("gske,gskc->gsec", oh, posh * keep[..., None])
+    comb = disp * einsum("gsk,gske->gse", topv * keep, oh)[..., None]
+    xe = einsum("gsec,gsd->gecd", disp.to(cfg.compute_dtype), xg)
     ye = _experts(xe, lp, cfg)                                # (G,E,C,D)
-    out = torch.einsum("gsec,gecd->gsd", comb.to(cfg.compute_dtype), ye)
+    out = einsum("gsec,gecd->gsd", comb.to(cfg.compute_dtype), ye)
     # aux load-balancing loss (Switch): mean(prob_e * frac_e) * E
     frac = oh.sum(2).mean(1)                                  # (G, E)
     aux = ((probs.mean(1) * frac).sum(-1) * e).mean()
@@ -330,7 +351,7 @@ def _moe_einsum(x, lp, cfg: TransformerConfig):
     return y, aux
 
 
-def _moe_scatter(x, lp, cfg: TransformerConfig):
+def _moe_scatter(x, lp, cfg: TransformerConfig, mesh=None):
     """Sort/scatter dispatch: O(T·k·D) data movement, no dispatch
     einsum FLOPs. A token beyond an expert's capacity adds zeros to the
     last slot of the last expert (``index_put_`` accumulating), as the
@@ -390,7 +411,10 @@ def _update(c, u, p, in_place):
     """``jax.lax.dynamic_update_slice`` of ``u`` (B,s,...) into ``c``
     (B,T,...) at row ``p`` (B,) of each batch entry, the start clamped
     to [0, T - s] so that the update fits. ``p`` stays on the device
-    (no host sync). A copy of ``c`` unless ``in_place``."""
+    (no host sync). A copy of ``c`` unless ``in_place``. A DTensor
+    cache is written on each shard (:func:`_update_sharded`)."""
+    if is_distributed(c):
+        return _update_sharded(c, u, p, in_place)
     b, s = u.shape[:2]
     start = torch.clamp(p, 0, c.shape[1] - s).to(torch.long)
     rows = start[:, None] + torch.arange(s, device=c.device)
@@ -398,6 +422,42 @@ def _update(c, u, p, in_place):
     out = c if in_place else c.clone()
     out[bidx, rows] = u.to(c.dtype)
     return out
+
+
+def _update_sharded(c, u, p, in_place):
+    """:func:`_update` on the local shards of a DTensor cache ``c``
+    (B,T,...): the update and positions follow its batch sharding; where
+    T is sharded (``seq_shard``), each shard writes the rows it holds
+    (its offset from the mesh coordinate) and no others."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = c.device_mesh
+    cpl = tuple(c.placements)
+    upl = tuple(Replicate() if pl == Shard(1) else pl for pl in cpl)
+    ppl = tuple(pl if pl == Shard(0) else Replicate() for pl in cpl)
+    t_dims = [m for m, pl in enumerate(cpl) if pl == Shard(1)]
+
+    def local(cl, ul, pl_):
+        if not t_dims:
+            return _update(cl, ul, pl_, in_place)
+        shard = shard_index(mesh, t_dims)
+        t_loc = cl.shape[1]
+        b, s = ul.shape[:2]
+        start = torch.clamp(pl_, 0, t_loc * math.prod(mesh.size(m) for m in
+                                                      t_dims) - s)
+        rows = (start[:, None] + torch.arange(s, device=cl.device)
+                - shard * t_loc).to(torch.long)
+        held = (rows >= 0) & (rows < t_loc)
+        rows = torch.clamp(rows, 0, t_loc - 1)
+        bidx = torch.arange(b, device=cl.device)[:, None]
+        out = cl if in_place else cl.clone()
+        held = held.reshape(*held.shape, *([1] * (ul.ndim - 2)))
+        out[bidx, rows] = torch.where(held, ul.to(cl.dtype), out[bidx, rows])
+        return out
+
+    return local_map(local, out_placements=(cpl,),
+                     in_placements=(cpl, upl, ppl), device_mesh=mesh,
+                     redistribute_inputs=True)(c, u, p)
 
 
 def layer_fwd(lp, x, cfg: TransformerConfig, mesh=None, *, positions=None,
@@ -408,7 +468,6 @@ def layer_fwd(lp, x, cfg: TransformerConfig, mesh=None, *, positions=None,
     'pos' (B,) for decode. Returns (y, aux, new_cache); with
     ``cache_in_place`` the update is written into the cache's tensors
     (``decode_step`` hands it fresh copies)."""
-    _no_mesh(mesh)
     b, s, d = x.shape
     kv, dh = cfg.n_kv_heads, cfg.dh
     g = cfg.n_heads // kv
@@ -420,11 +479,45 @@ def layer_fwd(lp, x, cfg: TransformerConfig, mesh=None, *, positions=None,
                                  device=x.device)[None, :]
 
     h = _norm(lp, "attn", xc, cfg)
-    q = (h @ lp["wq"]).reshape(b, s, kv, g, dh)
-    k = (h @ lp["wk"]).reshape(b, s, kv, dh)
-    v = (h @ lp["wv"]).reshape(b, s, kv, dh)
-    q = _rope(q.reshape(b, s, kv * g, dh), positions,
-              cfg.rope_theta).reshape(b, s, kv, g, dh)
+    q = reshape(h @ lp["wq"], b, s, kv, g, dh)
+    k = reshape(h @ lp["wk"], b, s, kv, dh)
+    v = reshape(h @ lp["wv"], b, s, kv, dh)
+    # Attention-internal sharding policy (the reference's):
+    #   decode (s==1): shard d_head — consistent with the cache specs.
+    #   prefill/train: kv-shard if divisible; else group-shard; else
+    #     repeat kv to flat heads (H=kv·g) when that divides; else
+    #     replicate attention internals over tp.
+    tp_n = max(axis_sizes(mesh).get("model", 1)
+               if mesh is not None else 1, 1)
+    flat_g = None
+    if cache is not None or s == 1:
+        q = _cst(q, mesh, DP, None, None, None, TP)
+        k = _cst(k, mesh, DP, None, None, TP)
+        v = _cst(v, mesh, DP, None, None, TP)
+    elif kv % tp_n == 0:
+        q = _cst(q, mesh, DP, None, TP, None, None)
+        k = _cst(k, mesh, DP, None, TP, None)
+        v = _cst(v, mesh, DP, None, TP, None)
+    elif g % tp_n == 0:
+        q = _cst(q, mesh, DP, None, None, TP, None)
+        k = _cst(k, mesh, DP, None, None, None)
+        v = _cst(v, mesh, DP, None, None, None)
+    elif (kv * g) % tp_n == 0:
+        # flat-head form: repeat kv, attend as MHA sharded on H
+        flat_g = g
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+        q = q.reshape(b, s, kv * g, 1, dh)
+        kv, g = kv * g, 1
+        q = _cst(q, mesh, DP, None, TP, None, None)
+        k = _cst(k, mesh, DP, None, TP, None)
+        v = _cst(v, mesh, DP, None, TP, None)
+    else:
+        q = _cst(q, mesh, DP, None, None, None, None)
+        k = _cst(k, mesh, DP, None, None, None)
+        v = _cst(v, mesh, DP, None, None, None)
+    q = reshape(_rope(reshape(q, b, s, kv * g, dh), positions,
+                       cfg.rope_theta), b, s, kv, g, dh)
     k = _rope(k, positions, cfg.rope_theta)
 
     new_cache = None
@@ -452,9 +545,14 @@ def layer_fwd(lp, x, cfg: TransformerConfig, mesh=None, *, positions=None,
     else:
         o = attention(q, k, v, cfg, causal=True, mode=attn_mode)
         if return_kv:
-            new_cache = (k, v)       # post-RoPE, the decode convention
-    o = o.reshape(b, s, kv * g * dh)
+            # post-RoPE k/v, the decode convention; under the flat-head
+            # repeat, the unrepeated kv heads (every flat_g-th)
+            new_cache = ((k[:, :, ::flat_g], v[:, :, ::flat_g]) if flat_g
+                         else (k, v))
+    o = reshape(o, b, s, kv * g * dh)
     xc = xc + (o @ lp["wo"])
+    xc = _cst(xc, mesh, DP, TP if cfg.seq_parallel and s > 1 else None,
+              None)
 
     h = _norm(lp, "ffn", xc, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -464,12 +562,15 @@ def layer_fwd(lp, x, cfg: TransformerConfig, mesh=None, *, positions=None,
             ff = _act(cfg)(h @ lp["w_gate"]) * up
         else:
             ff = _act(cfg)(up)
+        ff = _cst(ff, mesh, DP, None, TP)
         y = ff @ lp["w_down"]
     else:
         fn = _moe_scatter if cfg.moe.dispatch == "scatter" else _moe_einsum
-        y2d, aux = fn(h.reshape(b * s, d), lp, cfg)
+        y2d, aux = fn(h.reshape(b * s, d), lp, cfg, mesh)
         y = y2d.reshape(b, s, d)
     xc = xc + y
+    xc = _cst(xc, mesh, DP, TP if cfg.seq_parallel and s > 1 else None,
+              None)
     return xc.to(x.dtype), aux, new_cache
 
 
@@ -492,8 +593,7 @@ def _final_norm(params, x, cfg):
 def _embed(params, tokens, cfg):
     # F.embedding: its gradient sums each row's tokens in a fixed order
     # (an indexing's accumulating backward on the CPU does not)
-    return F.embedding(tokens.to(torch.long), params["embed"]).to(
-        cfg.compute_dtype)
+    return embedding(params["embed"], tokens).to(cfg.compute_dtype)
 
 
 def _remat_context(cfg):
@@ -508,14 +608,14 @@ def _remat_context(cfg):
 
 def forward(params, tokens, cfg: TransformerConfig, mesh=None):
     """tokens: (B,S) -> final hidden states (B,S,D) + aux loss."""
-    _no_mesh(mesh)
     x = _embed(params, tokens, cfg)
+    x = _cst(x, mesh, DP, TP if cfg.seq_parallel else None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     ctx = _remat_context(cfg)
 
     def body(lp, x):
-        y, a, _ = layer_fwd(lp, x, cfg)
+        y, a, _ = layer_fwd(lp, x, cfg, mesh)
         return y, a
 
     for lp in _layers(params, cfg.n_layers):
@@ -544,24 +644,53 @@ def loss_fn(params, batch, cfg: TransformerConfig, mesh=None):
         xb = x[:, c * ck:(c + 1) * ck]
         yb = labels[:, c * ck:(c + 1) * ck]
         logits = (xb @ head).to(torch.float32)
+        logits = _cst(logits, mesh, DP, None, TP)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yb[..., None])[..., 0]
+        gold = _gold(logits, yb)
         tot = tot + (logz - gold).sum()
     ce = tot / (b * s)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def _gold(logits, labels):
+    """``logits`` (B,c,V) at ``labels`` (B,c). A DTensor sharded on V
+    is picked on each shard (the label's row where the shard holds it,
+    zero elsewhere: a ``Partial`` sum over those mesh dims)."""
+    if not is_distributed(logits):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    lpl = tuple(logits.placements)
+    v_dims = [m for m, pl in enumerate(lpl) if pl == Shard(2)]
+    ypl = tuple(pl if pl in (Shard(0), Shard(1)) else Replicate()
+                for pl in lpl)
+    opl = tuple(Partial() if m in v_dims else ypl[m]
+                for m in range(len(lpl)))
+
+    def local(lg, y):
+        y = y - shard_index(mesh, v_dims) * lg.shape[-1]
+        held = (y >= 0) & (y < lg.shape[-1])
+        picked = torch.gather(lg, -1, torch.clamp(y, 0, lg.shape[-1] - 1
+                                                  )[..., None])[..., 0]
+        return torch.where(held, picked, torch.zeros_like(picked))
+
+    return local_map(local, out_placements=(opl,), in_placements=(lpl, ypl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        logits, labels)
 
 
 def prefill(params, tokens, cfg: TransformerConfig, mesh=None):
     """Process a full prompt: returns (last-position logits (B,V) f32,
     cache), the cache's k/v stacked over layers, (L, B, S, Kv, Dh) in
     the compute dtype, ready for ``decode_step``."""
-    _no_mesh(mesh)
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
+    x = _cst(x, mesh, DP, None, None)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
     ks, vs = [], []
     for lp in _layers(params, cfg.n_layers):
-        x, _, (k, v) = layer_fwd(lp, x, cfg, positions=positions,
+        x, _, (k, v) = layer_fwd(lp, x, cfg, mesh, positions=positions,
                                  return_kv=True)
         ks.append(k)
         vs.append(v)
@@ -574,6 +703,16 @@ def prefill(params, tokens, cfg: TransformerConfig, mesh=None):
 
 
 # ------------------------------------------------------------------ decode ----
+def cache_specs(cfg: TransformerConfig, *, seq_shard: bool = False):
+    """Specs for the KV cache. ``seq_shard=True`` shards the sequence
+    axis over dp (flash-decoding style; for long_500k batch=1)."""
+    if seq_shard:
+        kvspec = P(None, None, DP, TP, None)
+    else:
+        kvspec = P(None, DP, None, TP, None)
+    return {"k": kvspec, "v": kvspec, "pos": P(None, None)}
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype=None, device=None):
     """An empty cache on ``device`` (None: the card; ``"cpu"`` asks for
@@ -604,20 +743,38 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 def decode_step(params, cache, tokens, cfg: TransformerConfig, mesh=None):
     """tokens: (B, 1) -> (logits (B,V) f32, new_cache). The cache given
     is left as it is: its k/v (and scales) are copied once and each
-    layer writes its token into its slice of the copy."""
-    _no_mesh(mesh)
+    layer writes its token into its slice of the copy
+    (:func:`decode_step_in_place` writes into the cache given)."""
+    new = {n: t.clone() for n, t in cache.items() if n != "pos"}
+    new["pos"] = cache["pos"]
+    logits, new["pos"] = _decode(params, new, tokens, cfg, mesh)
+    return logits, new
+
+
+def decode_step_in_place(params, cache, tokens, cfg: TransformerConfig):
+    """:func:`decode_step` with the cache updated in place (its k/v and
+    scales written, its 'pos' tensor advanced): the captured decode
+    cell's step, which keeps the cache as its static buffer. Returns the
+    logits (B,V) f32."""
+    logits, pos = _decode(params, cache, tokens, cfg, None)
+    cache["pos"].copy_(pos)
+    return logits
+
+
+def _decode(params, cache, tokens, cfg, mesh):
+    """The decode's layers, each writing its token into ``cache``'s k/v
+    in place: (logits, the advanced 'pos')."""
     x = _embed(params, tokens, cfg)                   # (B,1,D)
     positions = cache["pos"][0][:, None]              # (B,1) absolute pos
-    new = {n: t.clone() for n, t in cache.items() if n != "pos"}
     for i, lp in enumerate(_layers(params, cfg.n_layers)):
-        ci = {n: t[i] for n, t in new.items()}
+        ci = {n: t[i] for n, t in cache.items() if n != "pos"}
         ci["pos"] = cache["pos"][i]
-        x, _, _ = layer_fwd(lp, x, cfg, positions=positions, cache=ci,
-                            cache_in_place=True)
-    new["pos"] = cache["pos"] + tokens.shape[1]
+        x, _, _ = layer_fwd(lp, x, cfg, mesh, positions=positions,
+                            cache=ci, cache_in_place=True)
+    new_pos = cache["pos"] + tokens.shape[1]
     x = _final_norm(params, x, cfg)
     logits = x[:, 0] @ params["lm_head"].to(cfg.compute_dtype)
-    return logits.to(torch.float32), new
+    return logits.to(torch.float32), new_pos
 
 
 def layer_decode(lp, x, cache_l, cfg: TransformerConfig, mesh=None):

@@ -1,5 +1,5 @@
 """Optimizers and schedules; counterpart of ``repro/optim`` (gradient
-compression is not ported)."""
+compression in ``optim/compress.py``)."""
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import cosine_warmup
 

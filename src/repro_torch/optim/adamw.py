@@ -15,6 +15,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_distributed
+
 BLOCK = 256
 
 
@@ -56,6 +58,8 @@ def tree_leaves(tree) -> list:
 
 # ------------------------------------------------------- int8 block quant ----
 def _q8_pack(x):
+    if is_distributed(x):
+        return _q8_sharded(_q8_pack, x, like=x)
     flat = x.reshape(-1).to(torch.float32)
     n = flat.numel()
     nb = -(-n // BLOCK)
@@ -67,6 +71,8 @@ def _q8_pack(x):
 
 
 def _q8_unpack(s, shape):
+    if is_distributed(s["q"], s["scale"]):
+        return _q8_sharded(lambda t: _q8_unpack(t, shape), s)
     n = 1
     for d in shape:
         n *= d
@@ -74,6 +80,38 @@ def _q8_unpack(s, shape):
     flat = (s["q"].reshape(nb, BLOCK).to(torch.float32)
             * s["scale"][:, None]).reshape(-1)[:n]
     return flat.reshape(shape)
+
+
+def _q8_sharded(fn, tree, like=None):
+    """``fn`` (the q8 pack or unpack) on DTensors: the blocks of a
+    flattened tensor straddle its shards, so the inputs are gathered and
+    ``fn`` runs on each device's whole copy; a packed state is then
+    split on its only dim over the mesh dims that split ``like``'s first
+    sharded dim (``opt_state_specs``: a local slice), an unpacked one
+    left replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    leaves = [tree] if isinstance(tree, DTensor) else list(tree.values())
+    mesh = leaves[0].device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def whole(t):
+        return t.redistribute(mesh, rep).to_local()
+    out = fn(whole(tree) if isinstance(tree, DTensor)
+             else {k: whole(v) for k, v in tree.items()})
+    if like is None:
+        return DTensor.from_local(out, mesh, rep, run_check=False)
+    dims = [pl.dim for pl in like.placements if isinstance(pl, Shard)]
+    split = [Shard(0) if dims and pl == Shard(min(dims)) else Replicate()
+             for pl in like.placements]
+    packed = {}
+    for k, v in out.items():
+        t = DTensor.from_local(v, mesh, rep, run_check=False)
+        n = 1
+        for m, pl in enumerate(split):
+            n *= mesh.size(m) if pl == Shard(0) else 1
+        packed[k] = t.redistribute(mesh, split) if v.shape[0] % n == 0 \
+            else t
+    return packed
 
 
 # ------------------------------------------------------------- optimizer ----
@@ -137,3 +175,19 @@ def adamw_update(grads, state, params, *, lr, cfg: AdamWConfig):
         return tree_map(lambda o: o[i], out)
     return part(0), {"m": part(1), "v": part(2), "step": step}, \
         {"grad_norm": gn}
+
+
+def opt_state_specs(param_specs, cfg: AdamWConfig):
+    """Partition specs (``dist.sharding.P``) mirroring the optimizer
+    state tree: the moments as the params, or under q8 each flat
+    ``{"q", "scale"}`` pair sharded on its only dim by the param's first
+    sharded axis (if any)."""
+    from repro_torch.dist.sharding import P, map_leaves
+    if cfg.quantize_states:
+        def qspec(ps):
+            first = next((a for a in ps if a is not None), None)
+            return {"q": P(first), "scale": P(first)}
+        m = map_leaves(qspec, param_specs)
+    else:
+        m = param_specs
+    return {"m": m, "v": m, "step": P()}

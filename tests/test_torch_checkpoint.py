@@ -189,16 +189,36 @@ def test_checkpoint_manager_rotation_and_async(tmp_path):
 
 
 def test_checkpoint_mesh_restore_refused(tmp_path):
-    """The reference's elastic restore onto a mesh waits for the
-    multi-device tools."""
-    tree = {"w": torch.arange(16.0).reshape(4, 4)}
+    """The reference's elastic restore onto a mesh, as
+    ``tests/test_substrates.py`` holds it: saved replicated, restored
+    with a spec (and with a ``NamedSharding``) onto a mesh of one (gloo),
+    the bytes as saved; a leaf given no sharding comes back plain."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import destroy_host_mesh, make_host_mesh
+    tree = {"w": torch.arange(16.0).reshape(4, 4), "b": torch.ones(3)}
     tmgr.save(str(tmp_path), 3, tree)
     assert latest_step(str(tmp_path)) == 3
-    for kw in ({"mesh": object()}, {"shardings": {"w": None}}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            tmgr.restore(str(tmp_path), 3, tree, **kw)
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            CheckpointManager(str(tmp_path)).restore_latest(tree, **kw)
+    mesh = make_host_mesh("cpu")
+    try:
+        for shw in (P("data", None), NamedSharding(mesh, P(None, "model"))):
+            specs = {"w": shw, "b": None}
+            out, step = tmgr.restore(str(tmp_path), 3, tree, mesh=mesh,
+                                     shardings=specs)
+            assert step == 3 and isinstance(out["w"], DTensor)
+            assert out["w"].device_mesh is mesh
+            assert torch.equal(out["w"].full_tensor(), tree["w"])
+            assert not isinstance(out["b"], DTensor)
+            assert torch.equal(out["b"], tree["b"])
+            got, _ = CheckpointManager(str(tmp_path)).restore_latest(
+                tree, mesh=mesh, shardings=specs)
+            assert torch.equal(got["w"].to_local(), tree["w"])
+        with pytest.raises(ValueError, match="needs a mesh"):
+            tmgr.restore(str(tmp_path), 3, tree,
+                         shardings={"w": P(None, None), "b": None})
+    finally:
+        destroy_host_mesh()
 
 
 def test_snapshot_isolated_from_later_writes(tmp_path):

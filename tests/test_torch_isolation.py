@@ -58,6 +58,24 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
     assert not _FORBIDDEN.findall(src), path
 
 
+def test_multi_device_modules_are_covered():
+    """The sharding, the cells, the dry-run and its analysis, the
+    compressed all-reduce and the meshes are modules of the port, so the
+    import and source checks above hold them too; importing them starts
+    no process group."""
+    assert {"repro_torch.dist", "repro_torch.dist.sharding",
+            "repro_torch.configs.base", "repro_torch.launch.analysis",
+            "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.optim.compress"} <= set(_modules())
+    code = ("import torch.distributed as dist\n"
+            "import repro_torch.launch.dryrun, repro_torch.optim.compress\n"
+            "import repro_torch.dist.sharding, repro_torch.configs.base\n"
+            "assert not dist.is_initialized()\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_every_kernel_source_has_its_note():
     """Each CUDA source names the Pallas function it replaces and what
     bounds it on the card."""

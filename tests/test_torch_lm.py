@@ -384,7 +384,30 @@ def test_model_flops_equal():
 
 
 def test_a_mesh_is_refused():
+    """A mesh is taken: on a world of one (gloo) every placement is
+    replicated, the attention takes ``mesh=None``'s branch, and the
+    forward of DTensors equals the plain forward bitwise."""
+    from repro_torch.configs.base import distribute
+    from repro_torch.dist.sharding import (NamedSharding,
+                                           logical_to_physical, map_leaves,
+                                           specs_from_rules)
+    from repro_torch.launch.mesh import destroy_host_mesh, make_host_mesh
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttr.forward({}, torch.zeros((1, 4), dtype=torch.int32), tcfg,
-                    mesh=object())
+    params = ttr.init_params(torch.Generator().manual_seed(0), tcfg)
+    toks = torch.randint(0, tcfg.vocab, (2, 8),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    want, _ = ttr.forward(params, toks, tcfg)
+    mesh = make_host_mesh("cpu")
+    try:
+        shard = map_leaves(
+            lambda s: NamedSharding(mesh, logical_to_physical(s, mesh)),
+            specs_from_rules(params, ttr.PARAM_RULES))
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            got, _ = ttr.forward(distribute(params, shard), toks, tcfg,
+                                 mesh=mesh)
+        assert torch.equal(got.full_tensor(), want)
+    finally:
+        destroy_host_mesh()

@@ -4,7 +4,8 @@ granite_34b, granite_moe_1b_a400m, llama4_maverick_400b_a17b}.py``),
 the CPU.
 
 - The configs field for field, the dtypes mapped; ``SHAPES``;
-  ``opt_config``; the cells refused naming their queue item.
+  ``opt_config``; each cell builder's cells (name, kind, MODEL_FLOPS;
+  ``test_torch_cells.py`` holds them leaf for leaf).
 - ``lm_batch`` and ``lm_stream`` byte-equal to the reference's.
 - The converters: the reference's prefill cache decodes on in the port
   (``convert.from_jax_kv_cache``); its q8 AdamW state after one step
@@ -71,20 +72,41 @@ def test_configs_match_reference(arch):
                                   training=args[2]) == \
             jtr.model_flops(ref.full_config(), args[0], args[1],
                             training=args[2])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mod.cell("train_4k")
+    for shape in mod.SHAPES:
+        cell, want = mod.cell(shape), ref.cell(shape)
+        assert (cell.name, cell.kind, cell.model_flops) == \
+            (want.name, want.kind, want.model_flops)
+
+
+def _same(cell, want):
+    assert (cell.arch, cell.shape, cell.kind, cell.model_flops) == \
+        (want.arch, want.shape, want.kind, want.model_flops)
 
 
 def test_lm_common():
     assert tlm.SHAPES == jlm.SHAPES
     cfg = tconfigs.get_arch("olmo-1b").full_config()
+    jcfg = jconfigs.get_arch("olmo-1b").full_config()
     for q in (False, True):
         assert tlm.opt_config(cfg, quantize=q).__dict__ == \
             jlm.opt_config(None, quantize=q).__dict__
-    for fn in ("train_cell", "prefill_cell", "decode_cell", "cells_for",
-               "cost_cells"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            getattr(tlm, fn)("olmo-1b", cfg)
+    _same(tlm.train_cell("olmo-1b", cfg, batch=8, seq=512),
+          jlm.train_cell("olmo-1b", jcfg, batch=8, seq=512))
+    _same(tlm.prefill_cell("olmo-1b", cfg),
+          jlm.prefill_cell("olmo-1b", jcfg))
+    _same(tlm.decode_cell("olmo-1b", cfg, "long_500k"),
+          jlm.decode_cell("olmo-1b", jcfg, "long_500k"))
+    got, want = tlm.cells_for("olmo-1b", cfg), jlm.cells_for("olmo-1b", jcfg)
+    assert list(got) == list(want)
+    for shape in got:
+        _same(got[shape](), want[shape]())
+    (c, L), (jc, jL) = (tlm.cost_cells("olmo-1b", cfg, "train_4k"),
+                        jlm.cost_cells("olmo-1b", jcfg, "train_4k"))
+    assert L == jL == 16 and sorted(c) == sorted(jc) == [2, 4]
+    for lred in (2, 4):
+        _same(c[lred], jc[lred])
+        assert _fields(tlm._cost_cfg(cfg, lred)) == _mapped(
+            jlm._cost_cfg(jcfg, lred))
 
 
 def test_smoke_run_draws_its_own_weights():

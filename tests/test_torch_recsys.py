@@ -244,8 +244,10 @@ def test_config_matches_reference():
         meta = tmind._META[shape]
         assert tmind._serve_flops(cfg, meta["batch"], meta["cands"]) == \
             jmind.cell(shape).model_flops
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmind.cell("serve_p99")
+    for shape in tmind.SHAPES:
+        cell, want = tmind.cell(shape), jmind.cell(shape)
+        assert (cell.name, cell.kind, cell.model_flops) == \
+            (want.name, want.kind, want.model_flops)
 
 
 def test_smoke_run(setup):

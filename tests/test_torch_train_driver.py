@@ -93,8 +93,10 @@ def test_registry_ids_and_refusals():
         mod = tconfigs.get_arch(arch_id)
         assert mod.smoke_config().__dict__ == \
             jconfigs.get_arch(arch_id).smoke_config().__dict__
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            mod.cell("molecule")
+        cell, ref = mod.cell("molecule"), jconfigs.get_arch(arch_id).cell(
+            "molecule")
+        assert (cell.name, cell.kind, cell.model_flops) == \
+            (ref.name, ref.kind, ref.model_flops)
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_arch("resnet")
 
