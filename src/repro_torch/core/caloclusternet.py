@@ -9,14 +9,15 @@ Counterpart of ``repro/core/caloclusternet.py``:
 - ``init`` / ``apply`` / ``CaloClusterNet``: the parameters (a dict of
   ``{"w", "b"}`` dense params, ``w`` in the ``(d_in, d_out)`` layout),
   the eager forward as a function of them, and the module around it.
-  Its GravNet aggregation is the kernel's own cell schedule
-  (``kernels/ref.py:gravnet_cell_ref``).
+  ``CCNConfig.gravnet_impl`` picks its GravNet aggregation: ``"topk"``
+  (the default, the reference's top-k + gather oracle,
+  ``kernels/ref.py:gravnet_aggregate_topk_ref``) or ``"onehot"`` (the
+  kernels' own cell schedule, ``gravnet_cell_ref``);
+  ``compute_dtype="bf16"`` runs the forward on bf16 feats and
+  parameters (the reference's bf16 serving activations).
 - ``cps``: condensation point selection, exact to the reference's
   sequential greedy loop but vectorized over events and over hits.
 - ``to_graph``: the dataflow-IR export the deployment flow consumes.
-
-The reference's ``gravnet_impl`` and ``compute_dtype`` options (the
-top-k oracle, bf16 serving activations) are not ported.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.graph_ir import Graph, Operator, register_exporter
-from repro_torch.kernels.ref import gravnet_cell_ref
+from repro_torch.kernels.ref import (gravnet_aggregate_ref,
+                                     gravnet_aggregate_topk_ref)
 from repro_torch.nn.layers import Dense, dense_apply, dense_init
 
 
@@ -47,6 +49,8 @@ class CCNConfig:
     t_beta: float = 0.3
     t_dist: float = 0.5         # min distance between condensation points
     e_trigger: float = 0.1      # GeV threshold on cluster energy
+    gravnet_impl: str = "topk"  # 'topk' (gather) | 'onehot' (the cell)
+    compute_dtype: str = "f32"  # 'f32' | 'bf16' (serving activations)
 
     @property
     def head_dims(self):
@@ -102,9 +106,34 @@ class CaloClusterNet(nn.Module):
                      feats, mask, self.cfg)
 
 
+def aggregate(s, f, mask, cfg: CCNConfig):
+    """The GravNet aggregation of ``cfg.gravnet_impl``, in f32 and cast
+    to f's dtype: ``"topk"`` the reference's top-k + gather oracle,
+    ``"onehot"`` the kernels' cell (iterated argmin with knockout)."""
+    if cfg.gravnet_impl == "topk":
+        return gravnet_aggregate_topk_ref(s, f, mask, k=cfg.k,
+                                          scale=cfg.potential_scale)
+    if cfg.gravnet_impl == "onehot":
+        return gravnet_aggregate_ref(s, f, mask, k=cfg.k,
+                                     scale=cfg.potential_scale).to(f.dtype)
+    raise ValueError(f"gravnet_impl {cfg.gravnet_impl!r}: 'topk' or "
+                     "'onehot'")
+
+
 def apply(params, feats, mask, cfg: CCNConfig):
     """The forward as a function of the parameter dict (the reference's
-    ``apply``), differentiable in every leaf of ``params``."""
+    ``apply``), differentiable in every leaf of ``params``. Under
+    ``compute_dtype="bf16"`` the feats and every parameter are cast to
+    bf16 and the denses run in bf16 (the mask and the aggregation's
+    arithmetic stay f32)."""
+    if cfg.compute_dtype == "bf16":
+        feats = feats.to(torch.bfloat16)
+        params = {name: {k: t.to(torch.bfloat16) for k, t in p.items()}
+                  for name, p in params.items()}
+    elif cfg.compute_dtype != "f32":
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: 'f32' or "
+                         "'bf16'")
+
     def dense(name, x):
         return dense_apply(params[name], x)
     x = torch.relu(dense("enc1", feats))
@@ -112,8 +141,7 @@ def apply(params, feats, mask, cfg: CCNConfig):
     for i in range(cfg.n_gravnet_blocks):
         s = dense(f"gn{i}_s", x)
         flr = dense(f"gn{i}_flr", x)
-        agg = gravnet_cell_ref(s, flr, mask, k=cfg.k,
-                               scale=cfg.potential_scale)
+        agg = aggregate(s, flr, mask, cfg)
         x = torch.relu(dense(f"gn{i}_out", torch.cat([x, agg], dim=-1)))
     x = torch.relu(dense("dec1", x))
     x = torch.relu(dense("dec2", x))

@@ -69,10 +69,10 @@ eager: the CPU (the kernels' plain versions, nothing to capture),
 ``run_chunk`` and ``run_eager`` (calibration, the tests, a deployment
 with the plain versions substituted on the card, whose
 ``edge_aggregate`` reads its loop length back to the host), and the
-ragged path's bin packing on the host. Fused blocks, padded or ragged,
-whose output dense reads the aggregate alone (``concat_x=False``; no
-graph of CaloClusterNet has one) are refused with
-``NotImplementedError``.
+ragged path's bin packing on the host. A fused block, padded or
+ragged, whose output dense reads the aggregate alone (``concat_x=False``:
+the fusion pass's form for an S/F → aggregate → dense chain without a
+concat) runs the same kernels in that form.
 
 The serving layer (``repro_torch/serving/``) runs a deployment from
 several threads at once, which a capture's static buffers do not allow:
@@ -308,24 +308,20 @@ class _Executor:
         quantized kernel with its baked scales for a calibrated int8
         block, the f32 kernel otherwise. A raggedized block (its mask
         input carries segment ids) runs the ragged chain instead: the
-        S/F denses, knn_build, knn_aggregate and the output dense."""
-        if not op.attrs.get("concat_x", True):
-            raise NotImplementedError(
-                f"{op.name}: a gravnet_block whose output dense reads the "
-                "aggregate alone (concat_x=False) is not ported; the port's "
-                "kernels compute act(concat(x, agg) @ wo + bo)")
+        S/F denses, knn_build, knn_aggregate and the output dense. The
+        output dense reads concat(x, agg), or agg alone where the op's
+        ``concat_x`` is false."""
         p, a = op.params, op.attrs
+        kw = dict(k=a["k"], scale=a["scale"],
+                  activation=a.get("activation", "none"),
+                  concat_x=a.get("concat_x", True))
         if a.get("ragged"):
             x, segids = vals
             return kops.gravnet_block_ragged(
                 _as_fp(x)[..., :p["ws"].shape[0]].contiguous(), segids,
-                p["ws"], p["bs"], p["wf"], p["bf"], p["wo"], p["bo"],
-                k=a["k"], scale=a["scale"],
-                activation=a.get("activation", "none"))
+                p["ws"], p["bs"], p["wf"], p["bf"], p["wo"], p["bo"], **kw)
         x, mask = vals
         xf = _as_fp(x)[..., :p["ws"].shape[0]].contiguous()  # lane128
-        kw = dict(k=a["k"], scale=a["scale"],
-                  activation=a.get("activation", "none"))
         if prec == "int8" and "ws_q" in p:
             return kops.gravnet_block_int8_batched(
                 xf, mask, p["ws_q"], p["bs"], p["wf_q"], p["bf"], p["wo_q"],

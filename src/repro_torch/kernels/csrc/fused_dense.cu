@@ -32,11 +32,14 @@
 // Numerics: full f32, no TF32, no tensor cores, no FMA (-fmad=false):
 // each output sums its K products in order k = 0..K-1 from 0, each
 // product and each sum rounded on its own, then adds the bias and applies
-// the activation — the order of the plain version
+// the activation (activation.cuh) — the order of the plain version
 // (kernels/ref.py:fused_dense_ref), which therefore reproduces this
-// kernel's bits.
+// kernel's bits under none and relu; gelu and silu round as CUDA's tanhf
+// and expf do, within the float32 row of it.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "activation.cuh"
 
 namespace {
 
@@ -117,7 +120,7 @@ template <int TR, int TC, int TY, int TX>
 __global__ void __launch_bounds__(TX * TY)
 fused_dense_kernel(const float* __restrict__ x, long long ldx,
                    const float* __restrict__ w, const float* __restrict__ b,
-                   float* __restrict__ y, int M, int K, int N, int relu,
+                   float* __restrict__ y, int M, int K, int N, int act,
                    int vx, int vw) {
   constexpr int BM = TR * TY, BN = TC * TX, NT = TX * TY;
   extern __shared__ float4 smem4[];
@@ -202,8 +205,8 @@ fused_dense_kernel(const float* __restrict__ x, long long ldx,
       if (c >= cols) continue;
       float v = acc[i][j];
       if (b != nullptr) v += b[col0 + c];
-      if (relu) v = v > 0.0f ? v : 0.0f;
-      y[(long long)(row0 + r) * N + col0 + c] = v;
+      y[(long long)(row0 + r) * N + col0 + c] =
+          repro_torch::activate(v, act);
     }
   }
 }
@@ -227,7 +230,7 @@ int copy_width(const void* p, long long ld, int len) {
 
 template <int TR, int TC, int TY, int TX>
 int launch(const float* x, long long ldx, const float* w, const float* b,
-           float* y, int M, int K, int N, int relu, cudaStream_t stream) {
+           float* y, int M, int K, int N, int act, cudaStream_t stream) {
   constexpr int BM = TR * TY, BN = TC * TX;
   auto kern = fused_dense_kernel<TR, TC, TY, TX>;
   const long long smem = 4 * smem_floats(BM, BN, K);
@@ -238,7 +241,7 @@ int launch(const float* x, long long ldx, const float* w, const float* b,
   }
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   kern<<<grid, TX * TY, (size_t)smem, stream>>>(
-      x, ldx, w, b, y, M, K, N, relu, copy_width(x, ldx, K),
+      x, ldx, w, b, y, M, K, N, act, copy_width(x, ldx, K),
       copy_width(w, N, N));
   return (int)cudaGetLastError();
 }
@@ -255,8 +258,8 @@ extern "C" long long fused_dense_smem_bytes(int variant, int K) {
 
 // x:(M,K) with row stride ldx >= K (any, for one row) and unit column
 // stride, w:(K,N), b:(N,) or null, y:(M,N); all f32, w, b and y
-// contiguous, on the device of `stream`. act: 0 = none, 1 = relu.
-// variant: the tile (kTiles).
+// contiguous, on the device of `stream`. act: 0 = none, 1 = relu,
+// 2 = gelu, 3 = silu (activation.cuh). variant: the tile (kTiles).
 extern "C" int fused_dense_f32(const float* x, long long ldx, const float* w,
                                const float* b, float* y, int M, int K, int N,
                                int act, int variant, void* stream) {

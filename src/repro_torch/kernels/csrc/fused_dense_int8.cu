@@ -2,6 +2,7 @@
 //
 //   acc = x_q @ w_q                       (int8 x int8 -> exact int32)
 //   y   = act(acc * (x_scale * w_scale[c]) + b[c])          (f32)
+//   act: none, relu, gelu or silu (activation.cuh)
 //   out = y, or clip(rint(y / out_scale), -127, 127) as int8
 //
 // Replaces: repro/kernels/fused_dense.py — fused_dense_int8_pallas (its
@@ -37,10 +38,14 @@
 // w_scale[c], y = (float)acc * scale, y + b, the activation, then
 // rint(y / out_scale) (ties to even; the quotient rounded as the IEEE
 // division rounds it, int8_quant.cuh) clamped to +-127 — and the build's
-// -fmad=false keeps the product and the bias add apart.
+// -fmad=false keeps the product and the bias add apart. Under gelu and
+// silu the activation rounds as CUDA's tanhf and expf do: the f32 output
+// is then within the float32 row of the plain version, and a requantized
+// one may sit a step away where y lies by a rounding at a half step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "activation.cuh"
 #include "int8_quant.cuh"
 #include "mma_s8.cuh"
 
@@ -68,7 +73,7 @@ fused_dense_int8_kernel(const int8_t* __restrict__ x,
                         const int8_t* __restrict__ w,
                         const float* __restrict__ b,
                         const float* __restrict__ w_scale, float x_scale,
-                        void* __restrict__ y, int M, int K, int N, int relu,
+                        void* __restrict__ y, int M, int K, int N, int act,
                         int out_int8, float out_scale) {
   __shared__ __align__(16) int8_t xs[BM * LDX];
   __shared__ __align__(16) int8_t wsm[KC * BN];
@@ -147,7 +152,7 @@ fused_dense_int8_kernel(const int8_t* __restrict__ x,
     const int jj = e & 1;
     v[e] = (float)acc[e] * sc[jj];
     if (b != nullptr) v[e] = v[e] + bias[jj];
-    if (relu) v[e] = v[e] > 0.0f ? v[e] : 0.0f;
+    v[e] = repro_torch::activate(v[e], act);
     q[e] = quotient(v[e], rd);
     ok = ok && quotient_exact(v[e], q[e]);
   }
@@ -171,7 +176,7 @@ fused_dense_int8_kernel(const int8_t* __restrict__ x,
 
 // x:(M,K) int8, w:(K,N) int8, b:(N,) f32 or null, w_scale:(N,) f32,
 // y:(M,N) f32 (out_int8 = 0) or int8 (out_int8 = 1); contiguous, on the
-// device of `stream`. act: 0 = none, 1 = relu.
+// device of `stream`. act: 0 = none, 1 = relu, 2 = gelu, 3 = silu.
 extern "C" int fused_dense_int8(const int8_t* x, const int8_t* w,
                                 const float* b, const float* w_scale,
                                 float x_scale, void* y, int M, int K, int N,

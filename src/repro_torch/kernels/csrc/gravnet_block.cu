@@ -7,6 +7,8 @@
 //   S = x @ Ws + bs, F = x @ Wf + bf           (all n rows of the event)
 //   agg = GravNet cell over the event           (gravnet_cell_reg.cuh)
 //   y = act(concat(x, agg) @ Wo + bo)           (the CTA's query rows)
+//   or, with concat_x = 0, y = act(agg @ Wo + bo): Wo is (2 d_f, d_out)
+//   act: none, relu, gelu or silu (activation.cuh)
 //
 // Bound on this card: arithmetic, narrowly. At the fp path's shape,
 // x (2,128,64), k = 8, d_s = 4, d_f = 22, the block needs about 5.1 M
@@ -59,12 +61,15 @@
 // Both are scalar f32 in the plain version's order with products and
 // sums rounded separately (-fmad=false), no TF32 and no tensor cores: a
 // chain of dependent steps gains nothing from them, and they would cost
-// the bitwise contract. kernels/ref.py:gravnet_block_ref reproduces both.
+// the bitwise contract. kernels/ref.py:gravnet_block_ref reproduces both
+// under none and relu; under gelu and silu the last step rounds as
+// CUDA's tanhf and expf do (the float32 row).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "activation.cuh"
 #include "gravnet_cell.cuh"
 #include "gravnet_cell_reg.cuh"
 
@@ -90,9 +95,10 @@ struct Layout {     // offsets, in floats, into dynamic shared memory; each
   int xs, s, f, msk, ws, wf, wo, bs, bf, bo, h, total;
 };
 
+// cx: the columns of x in a row of h, dh (concat_x) or 0
 __host__ __device__ inline Layout layout(int n, int dh, int ds, int df,
-                                         int dout) {
-  const int dcat = dh + 2 * df;
+                                         int dout, int cx) {
+  const int dcat = cx + 2 * df;
   Layout L;
   L.ldx = round4(dh) + 4;   // float4 rows, a thread's rows on other banks
   L.ldws = round4(ds);
@@ -220,10 +226,10 @@ gravnet_block_kernel(const float* __restrict__ x,
                      const float* __restrict__ wo,
                      const float* __restrict__ bo, float* __restrict__ y,
                      int n, int dh, int ds, int df, int dout, int k,
-                     float scale, int relu, int bm) {
+                     float scale, int act, int cx, int bm) {
   extern __shared__ __align__(16) float smem[];
-  const int dcat = dh + 2 * df;
-  const Layout L = layout(n, dh, ds, df, dout);
+  const int dcat = cx + 2 * df;
+  const Layout L = layout(n, dh, ds, df, dout, cx);
   float* const xs = smem + L.xs;
   float* const S = smem + L.s;
   float* const F = smem + L.f;
@@ -290,20 +296,20 @@ gravnet_block_kernel(const float* __restrict__ x,
   __syncthreads();
 
   // 3. one warp per query row: the cell, then the row's h = concat(x_i,
-  // [sum / k, max]) into shared memory
+  // [sum / k, max]) (without x_i when cx = 0) into shared memory
   if (warp < rows) {
     float sum[kMaxDfPerLane], mx[kMaxDfPerLane];
     repro_torch::regcell::cell_row<CPL>(row0 + warp, n, ds, df, k, scale,
                                         S, F, msk, sum, mx);
     float* const hrow = H + warp * L.ldh;
     const float* const xrow = xs + (row0 + warp) * L.ldx;
-    for (int q = lane; q < dh; q += 32) hrow[q] = xrow[q];
+    for (int q = lane; q < cx; q += 32) hrow[q] = xrow[q];
 #pragma unroll
     for (int u = 0; u < kMaxDfPerLane; ++u) {
       const int c = lane + 32 * u;
       if (c < df) {
-        hrow[dh + c] = sum[u] / (float)k;
-        hrow[dh + df + c] = mx[u];
+        hrow[cx + c] = sum[u] / (float)k;
+        hrow[cx + df + c] = mx[u];
       }
     }
   }
@@ -325,11 +331,9 @@ gravnet_block_kernel(const float* __restrict__ x,
     for (int i = 0; i < kOutRows; ++i) {
 #pragma unroll
       for (int j = 0; j < kOutCols; ++j) {
-        if (r0 + i < rows && c0 + j < dout) {
-          float v = acc[i][j] + Bo[c0 + j];
-          if (relu) v = v > 0.0f ? v : 0.0f;
-          y[((size_t)event * n + row0 + r0 + i) * dout + c0 + j] = v;
-        }
+        if (r0 + i < rows && c0 + j < dout)
+          y[((size_t)event * n + row0 + r0 + i) * dout + c0 + j] =
+              repro_torch::activate(acc[i][j] + Bo[c0 + j], act);
       }
     }
   }
@@ -352,8 +356,8 @@ struct SharedLayout {     // offsets, in floats, into dynamic shared memory
 
 __host__ __device__ inline SharedLayout shared_layout(int n, int dh, int ds,
                                                       int df, int dout,
-                                                      int bm) {
-  const int dcat = dh + 2 * df;
+                                                      int bm, int cx) {
+  const int dcat = cx + 2 * df;
   SharedLayout L;
   int o = 0;
   L.xs = o;  o += n * dh;
@@ -383,12 +387,12 @@ gravnet_block_shared_kernel(const float* __restrict__ x,
                             const float* __restrict__ wo,
                             const float* __restrict__ bo,
                             float* __restrict__ y, int n, int dh, int ds,
-                            int df, int dout, int k, float scale, int relu,
-                            int bm) {
+                            int df, int dout, int k, float scale, int act,
+                            int cx, int bm) {
   extern __shared__ float smem_shared[];
   float* const smem = smem_shared;
-  const int dcat = dh + 2 * df;
-  const SharedLayout L = shared_layout(n, dh, ds, df, dout, bm);
+  const int dcat = cx + 2 * df;
+  const SharedLayout L = shared_layout(n, dh, ds, df, dout, bm, cx);
   float* xs = smem + L.xs;
   float* S = smem + L.s;
   float* F = smem + L.f;
@@ -449,26 +453,27 @@ gravnet_block_shared_kernel(const float* __restrict__ x,
                                   msk, d2row, agg + r * 2 * df);
   __syncthreads();
 
-  // epilogue: y = act(concat(x_i, agg_i) @ Wo + bo)
+  // epilogue: y = act(concat(x_i, agg_i) @ Wo + bo), or act(agg_i @ Wo
+  // + bo) when cx = 0
   for (int e = tid; e < rows * dout; e += kSharedThreads) {
     const int r = e / dout, c = e % dout;
     const int i = row0 + r;
     float acc = 0.0f;
     int kk = 0;
-    for (int q = 0; q < dh; ++q, ++kk) acc += xs[i * dh + q] * Wo[kk * dout + c];
+    for (int q = 0; q < cx; ++q, ++kk) acc += xs[i * dh + q] * Wo[kk * dout + c];
     for (int q = 0; q < 2 * df; ++q, ++kk)
       acc += agg[r * 2 * df + q] * Wo[kk * dout + c];
-    float v = acc + Bo[c];
-    if (relu) v = v > 0.0f ? v : 0.0f;
-    y[((size_t)event * n + i) * dout + c] = v;
+    y[((size_t)event * n + i) * dout + c] =
+        repro_torch::activate(acc + Bo[c], act);
   }
 }
 
 // Whether a launch of bm query rows a CTA runs the register cell (else
 // the first version): kernels/gravnet_block.py:plan's rule.
-bool register_cell(int n, int dh, int ds, int df, int dout, int bm) {
+bool register_cell(int n, int dh, int ds, int df, int dout, int bm,
+                   int cx) {
   return bm >= 1 && bm <= kMaxRows && n <= kMaxHits && df <= kMaxDf &&
-         4LL * layout(n, dh, ds, df, dout).total <= kSmemLimit;
+         4LL * layout(n, dh, ds, df, dout, cx).total <= kSmemLimit;
 }
 
 template <typename Kernel>
@@ -476,7 +481,8 @@ int launch(Kernel kernel, int threads, long long smem, int B, int n,
            int bm, cudaStream_t stream, const float* x, const float* mask,
            const float* ws, const float* bs, const float* wf,
            const float* bf, const float* wo, const float* bo, float* y,
-           int dh, int ds, int df, int dout, int k, float scale, int act) {
+           int dh, int ds, int df, int dout, int k, float scale, int act,
+           int cx) {
   // The opt-in above 48 KB holds per device, so it is set on every such
   // launch (a cheap call) rather than cached for the process.
   if (smem > 48 * 1024) {
@@ -487,25 +493,60 @@ int launch(Kernel kernel, int threads, long long smem, int B, int n,
   dim3 grid((n + bm - 1) / bm, B);
   kernel<<<grid, threads, (size_t)smem, stream>>>(
       x, mask, ws, bs, wf, bf, wo, bo, y, n, dh, ds, df, dout, k, scale, act,
-      bm);
+      cx, bm);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Bytes of dynamic shared memory one CTA of bm query rows needs at these
-// shapes, on the path that gravnet_block_f32 takes for them.
+// shapes, on the path that gravnet_block_f32_ex takes for them.
 extern "C" long long gravnet_block_smem_bytes(int n, int dh, int ds, int df,
-                                              int dout, int bm) {
-  if (register_cell(n, dh, ds, df, dout, bm))
-    return 4LL * layout(n, dh, ds, df, dout).total;
-  return 4LL * shared_layout(n, dh, ds, df, dout, bm).total;
+                                              int dout, int bm,
+                                              int concat_x) {
+  const int cx = concat_x ? dh : 0;
+  if (register_cell(n, dh, ds, df, dout, bm, cx))
+    return 4LL * layout(n, dh, ds, df, dout, cx).total;
+  return 4LL * shared_layout(n, dh, ds, df, dout, bm, cx).total;
 }
 
 // x:(B,n,dh) mask:(B,n) ws:(dh,ds) bs:(ds,) wf:(dh,df) bf:(df,)
-// wo:(dh+2df,dout) bo:(dout,) -> y:(B,n,dout); all f32, contiguous. bm
-// query rows per CTA: at most 16 runs the register cell where the shape
-// allows (register_cell), else the first version.
+// wo:(dh+2df,dout), or (2df,dout) when concat_x = 0, bo:(dout,) ->
+// y:(B,n,dout); all f32, contiguous. act: 0 = none, 1 = relu, 2 = gelu,
+// 3 = silu. bm query rows per CTA: at most 16 runs the register cell
+// where the shape allows (register_cell), else the first version.
+extern "C" int gravnet_block_f32_ex(const float* x, const float* mask,
+                                    const float* ws, const float* bs,
+                                    const float* wf, const float* bf,
+                                    const float* wo, const float* bo,
+                                    float* y, int B, int n, int dh, int ds,
+                                    int df, int dout, int k, float scale,
+                                    int act, int concat_x, int bm,
+                                    void* stream) {
+  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (bm < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int cx = concat_x ? dh : 0;
+  const long long smem =
+      gravnet_block_smem_bytes(n, dh, ds, df, dout, bm, concat_x);
+  if (!register_cell(n, dh, ds, df, dout, bm, cx))
+    return launch(gravnet_block_shared_kernel, kSharedThreads, smem, B, n,
+                  bm, st, x, mask, ws, bs, wf, bf, wo, bo, y, dh, ds, df,
+                  dout, k, scale, act, cx);
+#define REPRO_LAUNCH(CPL)                                                 \
+  return launch(gravnet_block_kernel<CPL>, kThreads, smem, B, n, bm, st, \
+                x, mask, ws, bs, wf, bf, wo, bo, y, dh, ds, df, dout, k,  \
+                scale, act, cx)
+  if (n <= 32) REPRO_LAUNCH(1);
+  if (n <= 64) REPRO_LAUNCH(2);
+  if (n <= 128) REPRO_LAUNCH(4);
+  if (n <= 256) REPRO_LAUNCH(8);
+  REPRO_LAUNCH(16);
+#undef REPRO_LAUNCH
+}
+
+// The entry of the sources before the concat_x option: the block with
+// concat(x, agg), as kernels/phase_split.py and source_ab.py call it.
 extern "C" int gravnet_block_f32(const float* x, const float* mask,
                                  const float* ws, const float* bs,
                                  const float* wf, const float* bf,
@@ -513,22 +554,6 @@ extern "C" int gravnet_block_f32(const float* x, const float* mask,
                                  int B, int n, int dh, int ds, int df,
                                  int dout, int k, float scale, int act,
                                  int bm, void* stream) {
-  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (bm < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const long long smem = gravnet_block_smem_bytes(n, dh, ds, df, dout, bm);
-  if (!register_cell(n, dh, ds, df, dout, bm))
-    return launch(gravnet_block_shared_kernel, kSharedThreads, smem, B, n,
-                  bm, st, x, mask, ws, bs, wf, bf, wo, bo, y, dh, ds, df,
-                  dout, k, scale, act);
-#define REPRO_LAUNCH(CPL)                                                 \
-  return launch(gravnet_block_kernel<CPL>, kThreads, smem, B, n, bm, st, \
-                x, mask, ws, bs, wf, bf, wo, bo, y, dh, ds, df, dout, k,  \
-                scale, act)
-  if (n <= 32) REPRO_LAUNCH(1);
-  if (n <= 64) REPRO_LAUNCH(2);
-  if (n <= 128) REPRO_LAUNCH(4);
-  if (n <= 256) REPRO_LAUNCH(8);
-  REPRO_LAUNCH(16);
-#undef REPRO_LAUNCH
+  return gravnet_block_f32_ex(x, mask, ws, bs, wf, bf, wo, bo, y, B, n, dh,
+                              ds, df, dout, k, scale, act, 1, bm, stream);
 }

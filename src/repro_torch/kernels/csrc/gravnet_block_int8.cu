@@ -11,7 +11,10 @@
 //   agg = GravNet cell over the event                (gravnet_cell_reg.cuh)
 //   agg = clip(rint(agg / agg_scale), +-127) * agg_scale   (int8 grid)
 //   hq  = clip(rint(concat(x, agg) / h_scale), +-127)      (int8)
+//         (or of agg alone, concat_x = 0: Wo_q is (2 d_f, d_out))
 //   y   = act((hq @ Wo_q) * (h_scale * wo_scale[c]) + bo)  (f32)
+//   out = y, or clip(rint(y / out_scale), +-127)      (int8, out_int8)
+//   act: none, relu, gelu or silu (activation.cuh)
 //
 // Bound on this card: latency. At the main path's shape, x (2,128,64),
 // k = 8, d_s = 4, d_f = 22, the launch moves about 141 KB (42 ns at
@@ -50,17 +53,19 @@
 // 16: n up to 32, 64, 128, 256 or 512); the widths and k are arguments.
 // The int32 sums are exact in any order, and every f32 step keeps the reference's order of
 // rounded operations (-fmad=false), so the kernel equals its plain
-// version (kernels/ref.py:gravnet_block_int8_ref) bitwise: each division
-// (the quantizations, the snap, the mean's / k) rounds as the IEEE
-// division does, and rounding is half to even. The three activation
-// scales are float arguments, as the reference bakes them as constants.
-// The int8 output form of the reference (out_scale) is not ported: no
-// path of the reference uses it.
+// version (kernels/ref.py:gravnet_block_int8_ref) bitwise under none and
+// relu: each division (the quantizations, the snap, the mean's / k, the
+// int8 output's / out_scale) rounds as the IEEE division does, and
+// rounding is half to even. Under gelu and silu the last step rounds as
+// CUDA's tanhf and expf do (the float32 row; an int8 output a step away
+// at most). The activation scales are float arguments, as the reference
+// bakes them as constants.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "activation.cuh"
 #include "gravnet_cell_reg.cuh"
 #include "int8_quant.cuh"
 #include "mma_s8.cuh"
@@ -94,9 +99,10 @@ struct Layout {     // byte offsets into dynamic shared memory
   int total;
 };
 
+// cx: the columns of x in a row of h, dh (concat_x) or 0
 __host__ __device__ inline Layout layout(int n, int dh, int ds, int df,
-                                         int dout, int bm) {
-  const int dcat = dh + 2 * df;
+                                         int dout, int bm, int cx) {
+  const int dcat = cx + 2 * df;
   Layout L;
   L.ldx = round_up(dh, 32) + 16;
   L.ldh = round_up(dcat, 32) + 16;
@@ -173,11 +179,12 @@ __device__ inline void transpose(int8_t* wt, int ld, const int8_t* w, int K,
 // 1.0 / (double)s of the launch's divisors (int8_quant.cuh), rounded on
 // the host
 struct Recips {
-  double x, h, agg, k;
+  double x, h, agg, k, out;
 };
 
 // One warp's row of hq: h = concat(x_i, agg_i snapped to the agg_scale
-// grid), quantized with h_scale; agg_i = [sum / k, max] from the cell.
+// grid), without x_i when cx = 0, quantized with h_scale; agg_i =
+// [sum / k, max] from the cell.
 // With kDivide the divisions are f32 divisions, else int8_quant.cuh's
 // quotients; returns false where a quotient fell outside their range (the
 // caller then writes the row again with kDivide).
@@ -185,7 +192,7 @@ template <bool kDivide>
 __device__ inline bool write_h_row(int8_t* __restrict__ hrow,
                                    const float* __restrict__ xrow,
                                    const float (&sum)[kMaxDfPerLane],
-                                   const float (&mx)[kMaxDfPerLane], int dh,
+                                   const float (&mx)[kMaxDfPerLane], int cx,
                                    int df, int k, float agg_scale,
                                    float h_scale, const Recips& rc) {
   bool ok = true;
@@ -200,15 +207,15 @@ __device__ inline bool write_h_row(int8_t* __restrict__ hrow,
            agg_scale;
   };
   const int lane = threadIdx.x & 31;
-  for (int q = lane; q < dh; q += 32)
+  for (int q = lane; q < cx; q += 32)
     hrow[q] = round_clip_s8(div(xrow[q], h_scale, rc.h));
 #pragma unroll
   for (int u = 0; u < kMaxDfPerLane; ++u) {
     const int c = lane + 32 * u;
     if (c < df) {
       const float mean = div(sum[u], (float)k, rc.k);
-      hrow[dh + c] = round_clip_s8(div(snap(mean), h_scale, rc.h));
-      hrow[dh + df + c] = round_clip_s8(div(snap(mx[u]), h_scale, rc.h));
+      hrow[cx + c] = round_clip_s8(div(snap(mean), h_scale, rc.h));
+      hrow[cx + df + c] = round_clip_s8(div(snap(mx[u]), h_scale, rc.h));
     }
   }
   return ok;
@@ -223,12 +230,13 @@ gravnet_block_int8_kernel(
     const int8_t* __restrict__ wf, const float* __restrict__ bf,
     const int8_t* __restrict__ wo, const float* __restrict__ bo,
     const float* __restrict__ ws_scale, const float* __restrict__ wf_scale,
-    const float* __restrict__ wo_scale, float* __restrict__ y, int n,
+    const float* __restrict__ wo_scale, void* __restrict__ y, int n,
     int dh, int ds, int df, int dout, int k, float scale, float x_scale,
-    float agg_scale, float h_scale, int relu, int bm, Recips rc) {
+    float agg_scale, float h_scale, float out_scale, int act, int cx,
+    int out_int8, int bm, Recips rc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int dcat = dh + 2 * df;
-  const Layout L = layout(n, dh, ds, df, dout, bm);
+  const int dcat = cx + 2 * df;
+  const Layout L = layout(n, dh, ds, df, dout, bm, cx);
   int8_t* const xq = reinterpret_cast<int8_t*>(smem + L.xq);
   int8_t* const hq = reinterpret_cast<int8_t*>(smem + L.hq);
   int8_t* const WsfT = reinterpret_cast<int8_t*>(smem + L.wsft);
@@ -369,16 +377,17 @@ gravnet_block_int8_kernel(
   __syncthreads();
 
   // 4. one warp per query row: the cell, then the row's h = concat(x_i,
-  // agg_i snapped to its int8 grid), quantized into hq
+  // agg_i snapped to its int8 grid) (agg_i alone when cx = 0), quantized
+  // into hq
   for (int r = warp; r < rows; r += kWarps) {
     float sum[kMaxDfPerLane], mx[kMaxDfPerLane];
     repro_torch::regcell::cell_row<CPL>(row0 + r, n, ds, df, k, scale, S,
                                         F, msk, sum, mx);
     int8_t* hrow = hq + r * L.ldh;
     const float* xrow = xs + r * dh;
-    if (!write_h_row<false>(hrow, xrow, sum, mx, dh, df, k, agg_scale,
+    if (!write_h_row<false>(hrow, xrow, sum, mx, cx, df, k, agg_scale,
                             h_scale, rc))
-      write_h_row<true>(hrow, xrow, sum, mx, dh, df, k, agg_scale, h_scale,
+      write_h_row<true>(hrow, xrow, sum, mx, cx, df, k, agg_scale, h_scale,
                         rc);
   }
   // hq's rows past `rows` and columns dcat .. 32-padded stay unwritten,
@@ -386,7 +395,9 @@ gravnet_block_int8_kernel(
   __syncthreads();
 
   // 5. y = act((hq_i @ Wo_q) * (h_scale * wo_scale[c]) + bo) on the int8
-  // tensor cores: the CTA's rows by 8 output columns per warp
+  // tensor cores: the CTA's rows by 8 output columns per warp; with
+  // out_int8, y / out_scale rounded to int8 (the division itself where
+  // int8_quant.cuh's quotient is out of its range)
   for (int nt = warp; nt < (dout + 7) / 8; nt += kWarps) {
     int acc[4] = {0, 0, 0, 0};
     for (int k0 = 0; k0 < kh; k0 += 32) {
@@ -402,9 +413,16 @@ gravnet_block_int8_kernel(
       for (int jj = 0; jj < 2; ++jj) {
         const int c = 8 * nt + 2 * t + jj;
         if (r >= rows || c >= dout) continue;
-        float v = (float)acc[2 * h + jj] * (h_scale * Wos[c]) + Bo[c];
-        if (relu) v = v > 0.0f ? v : 0.0f;
-        y[((size_t)event * n + row0 + r) * dout + c] = v;
+        const float v = repro_torch::activate(
+            (float)acc[2 * h + jj] * (h_scale * Wos[c]) + Bo[c], act);
+        const size_t o = ((size_t)event * n + row0 + r) * dout + c;
+        if (out_int8) {
+          float q = quotient(v, rc.out);
+          if (!quotient_exact(v, q)) q = v / out_scale;
+          static_cast<int8_t*>(y)[o] = round_clip_s8(q);
+        } else {
+          static_cast<float*>(y)[o] = v;
+        }
       }
     }
   }
@@ -414,10 +432,11 @@ template <int CPL>
 int launch(const float* x, const float* mask, const int8_t* ws,
            const float* bs, const int8_t* wf, const float* bf,
            const int8_t* wo, const float* bo, const float* ws_scale,
-           const float* wf_scale, const float* wo_scale, float* y, int B,
+           const float* wf_scale, const float* wo_scale, void* y, int B,
            int n, int dh, int ds, int df, int dout, int k, float scale,
-           float x_scale, float agg_scale, float h_scale, int act, int bm,
-           long long smem, cudaStream_t stream) {
+           float x_scale, float agg_scale, float h_scale, float out_scale,
+           int act, int cx, int out_int8, int bm, long long smem,
+           cudaStream_t stream) {
   auto kernel = gravnet_block_int8_kernel<CPL>;
   // The opt-in above 48 KB holds per device, so it is set on every such
   // launch (a cheap call) rather than cached for the process.
@@ -427,11 +446,13 @@ int launch(const float* x, const float* mask, const int8_t* ws,
     if (err != cudaSuccess) return (int)err;
   }
   const Recips rc = {1.0 / (double)x_scale, 1.0 / (double)h_scale,
-                     1.0 / (double)agg_scale, 1.0 / (double)(float)k};
+                     1.0 / (double)agg_scale, 1.0 / (double)(float)k,
+                     1.0 / (double)out_scale};
   dim3 grid((n + bm - 1) / bm, B);
   kernel<<<grid, kThreads, (size_t)smem, stream>>>(
       x, mask, ws, bs, wf, bf, wo, bo, ws_scale, wf_scale, wo_scale, y, n,
-      dh, ds, df, dout, k, scale, x_scale, agg_scale, h_scale, act, bm, rc);
+      dh, ds, df, dout, k, scale, x_scale, agg_scale, h_scale, out_scale,
+      act, cx, out_int8, bm, rc);
   return (int)cudaGetLastError();
 }
 
@@ -439,14 +460,48 @@ int launch(const float* x, const float* mask, const int8_t* ws,
 
 // Bytes of dynamic shared memory one CTA needs at these shapes.
 extern "C" long long gravnet_block_int8_smem_bytes(int n, int dh, int ds,
-                                                   int df, int dout, int bm) {
-  return (long long)layout(n, dh, ds, df, dout, bm).total;
+                                                   int df, int dout, int bm,
+                                                   int concat_x) {
+  return (long long)layout(n, dh, ds, df, dout, bm, concat_x ? dh : 0).total;
 }
 
-// x:(B,n,dh) f32, mask:(B,n) f32, ws:(dh,ds) wf:(dh,df) wo:(dh+2df,dout)
-// int8, bs/bf/bo and the *_scale vectors f32 of their output widths ->
-// y:(B,n,dout) f32; all contiguous. bm query rows per CTA, 1 <= bm <= 16;
-// n <= 512 and df <= 128 (the cell's registers), else cudaErrorInvalidValue.
+// x:(B,n,dh) f32, mask:(B,n) f32, ws:(dh,ds) wf:(dh,df) int8, wo int8
+// (dh+2df,dout), or (2df,dout) when concat_x = 0, bs/bf/bo and the
+// *_scale vectors f32 of their output widths -> y:(B,n,dout), f32, or
+// int8 requantized with out_scale when out_int8 = 1; all contiguous.
+// act: 0 = none, 1 = relu, 2 = gelu, 3 = silu. bm query rows per CTA,
+// 1 <= bm <= 16; n <= 512 and df <= 128 (the cell's registers), else
+// cudaErrorInvalidValue.
+extern "C" int gravnet_block_int8_ex(
+    const float* x, const float* mask, const int8_t* ws, const float* bs,
+    const int8_t* wf, const float* bf, const int8_t* wo, const float* bo,
+    const float* ws_scale, const float* wf_scale, const float* wo_scale,
+    void* y, int B, int n, int dh, int ds, int df, int dout, int k,
+    float scale, float x_scale, float agg_scale, float h_scale, int act,
+    int concat_x, int out_int8, float out_scale, int bm, void* stream) {
+  if (bm < 1 || bm > kMaxRows || n > kMaxHits || df > 32 * kMaxDfPerLane)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  const long long smem = gravnet_block_int8_smem_bytes(n, dh, ds, df, dout,
+                                                       bm, concat_x);
+  const int cx = concat_x ? dh : 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_LAUNCH(CPL)                                                  \
+  return launch<CPL>(x, mask, ws, bs, wf, bf, wo, bo, ws_scale, wf_scale,  \
+                     wo_scale, y, B, n, dh, ds, df, dout, k, scale,        \
+                     x_scale, agg_scale, h_scale, out_scale, act, cx,      \
+                     out_int8, bm, smem, st)
+  if (n <= 32) REPRO_LAUNCH(1);
+  if (n <= 64) REPRO_LAUNCH(2);
+  if (n <= 128) REPRO_LAUNCH(4);
+  if (n <= 256) REPRO_LAUNCH(8);
+  REPRO_LAUNCH(16);
+#undef REPRO_LAUNCH
+}
+
+// The entry of the sources before the concat_x and out_int8 options: the
+// block over concat(x, agg) with an f32 output, as kernels/phase_split.py
+// calls it.
 extern "C" int gravnet_block_int8(
     const float* x, const float* mask, const int8_t* ws, const float* bs,
     const int8_t* wf, const float* bf, const int8_t* wo, const float* bo,
@@ -454,20 +509,8 @@ extern "C" int gravnet_block_int8(
     float* y, int B, int n, int dh, int ds, int df, int dout, int k,
     float scale, float x_scale, float agg_scale, float h_scale, int act,
     int bm, void* stream) {
-  if (bm < 1 || bm > kMaxRows || n > kMaxHits || df > 32 * kMaxDfPerLane)
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
-  const long long smem = gravnet_block_int8_smem_bytes(n, dh, ds, df, dout,
-                                                       bm);
-  const cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_LAUNCH(CPL)                                                  \
-  return launch<CPL>(x, mask, ws, bs, wf, bf, wo, bo, ws_scale, wf_scale,  \
-                     wo_scale, y, B, n, dh, ds, df, dout, k, scale,        \
-                     x_scale, agg_scale, h_scale, act, bm, smem, st)
-  if (n <= 32) REPRO_LAUNCH(1);
-  if (n <= 64) REPRO_LAUNCH(2);
-  if (n <= 128) REPRO_LAUNCH(4);
-  if (n <= 256) REPRO_LAUNCH(8);
-  REPRO_LAUNCH(16);
-#undef REPRO_LAUNCH
+  return gravnet_block_int8_ex(x, mask, ws, bs, wf, bf, wo, bo, ws_scale,
+                               wf_scale, wo_scale, y, B, n, dh, ds, df, dout,
+                               k, scale, x_scale, agg_scale, h_scale, act, 1,
+                               0, 1.0f, bm, stream);
 }

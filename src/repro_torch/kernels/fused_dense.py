@@ -21,7 +21,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ACT = {None: 0, "none": 0, "linear": 0, "relu": 1}
+#: the epilogues' activation codes (``csrc/activation.cuh``): gelu in its
+#: tanh form (``jax.nn.gelu``'s default), silu as x·sigmoid(x)
+_ACT = {None: 0, "none": 0, "linear": 0, "relu": 1, "gelu": 2, "silu": 3}
 #: the f32 kernel's tiles, by variant (``csrc/fused_dense.cu:kTiles``):
 #: (TR, TC, TY, TX), a thread's block of TR x TC outputs and the CTA's
 #: TY x TX threads, so a CTA computes a (TR·TY) x (TC·TX) output tile
@@ -117,8 +119,7 @@ def _kernel_int8():
 
 def act_code(activation) -> int:
     if activation not in _ACT:
-        raise NotImplementedError(
-            f"activation {activation!r}: only 'none' and 'relu' are ported")
+        raise ValueError(f"unknown activation {activation!r}")
     return _ACT[activation]
 
 

@@ -11,7 +11,13 @@ kernels at B = 1). The CUDA sources are ``csrc/gravnet_block.cu`` and
 with the shared-memory cell of ``csrc/gravnet_cell.cuh``), the second
 with int8 tensor-core products; the plain versions are
 ``kernels/ref.py:gravnet_block_ref`` and ``gravnet_block_int8_ref``.
-:func:`plan` picks the f32 block's rows per CTA and its cell.
+:func:`plan` picks the f32 block's rows per CTA and its cell. Both
+blocks take the reference's forms: the output dense over concat(x, agg)
+or, with ``concat_x=False``, over agg alone; the activations of
+``fused_dense.act_code``; the int8 block's output f32 or requantized to
+int8 (``out_int8``, ``out_scale``). The C entries with every form are
+``gravnet_block_f32_ex`` and ``gravnet_block_int8_ex``; the sources'
+earlier entries stay for the tools that call them.
 """
 from __future__ import annotations
 
@@ -43,16 +49,21 @@ def _round4(v: int) -> int:
     return (v + 3) & ~3
 
 
+def _dcat(dh: int, df: int, concat_x: bool) -> int:
+    """The output dense's K: concat(x, agg), or agg alone."""
+    return (dh if concat_x else 0) + 2 * df
+
+
 def smem_bytes(n: int, dh: int, ds: int, df: int, dout: int, bm: int,
-               cell: str) -> int:
+               cell: str, concat_x: bool = True) -> int:
     """Shared memory of one CTA of the f32 block (the formulas of the
     source's ``layout`` and ``shared_layout``). ``register``: x in rows
     padded to 4 floats plus 4 (and to a multiple of 4 rows), S, F, the
     mask, the weights in rows padded to 4 floats, the biases and 16 rows
     of h, each 16-byte aligned; ``shared``: the first design's x, S, F,
     |s|², mask, weights, bm rows of the aggregate and 8 warps' distance
-    rows."""
-    dcat = dh + 2 * df
+    rows. Wo and h are (dh + 2·df) wide, 2·df without ``concat_x``."""
+    dcat = _dcat(dh, df, concat_x)
     if cell == "register":
         return 4 * (_round4(n) * (_round4(dh) + 4)
                     + _round4(n * ds) + _round4(n * df) + _round4(n)
@@ -63,7 +74,8 @@ def smem_bytes(n: int, dh: int, ds: int, df: int, dout: int, bm: int,
                 + dcat * dout + dout + bm * 2 * df + 8 * n)
 
 
-def plan(n: int, dh: int, ds: int, df: int, dout: int) -> tuple[int, str]:
+def plan(n: int, dh: int, ds: int, df: int, dout: int,
+         concat_x: bool = True) -> tuple[int, str]:
     """(bm, cell) of an f32 block launch at these widths: 16 query rows a
     CTA on the register cell wherever it takes the shape (n <= 512, d_f
     <= 128) and its shared memory fits the card, else the first design's
@@ -71,7 +83,8 @@ def plan(n: int, dh: int, ds: int, df: int, dout: int) -> tuple[int, str]:
     the same rule to the bm it is given."""
     bm = min(n, BM)
     if n <= MAX_HITS and df <= MAX_DF and smem_bytes(
-            n, dh, ds, df, dout, bm, "register") <= _build.SMEM_LIMIT:
+            n, dh, ds, df, dout, bm, "register",
+            concat_x) <= _build.SMEM_LIMIT:
         return bm, "register"
     return min(n, BM_SHARED), "shared"
 
@@ -80,42 +93,45 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("gravnet_block")
-        lib.gravnet_block_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.gravnet_block_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.gravnet_block_smem_bytes.restype = ctypes.c_longlong
-        fn = lib.gravnet_block_f32
+        fn = lib.gravnet_block_f32_ex
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def library_smem_bytes(n: int, dh: int, ds: int, df: int, dout: int,
-                       bm: int) -> int:
+                       bm: int, concat_x: bool = True) -> int:
     """The built library's own answer for :func:`smem_bytes` on the path
     it takes at this bm."""
-    return int(_library().gravnet_block_smem_bytes(n, dh, ds, df, dout, bm))
+    return int(_library().gravnet_block_smem_bytes(n, dh, ds, df, dout, bm,
+                                                   int(concat_x)))
 
 
 def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
-                       activation="relu"):
+                       activation="relu", concat_x=True):
     """One fused GravNet block on the card for a micro-batch:
-    act(concat(x, agg) @ wo + bo).
+    act(concat(x, agg) @ wo + bo), or act(agg @ wo + bo) without
+    ``concat_x``.
 
     x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out). ws:(dh,ds) bs:(ds,)
-    wf:(dh,df) bf:(df,) wo:(dh+2df, d_out) bo:(d_out,). Raises on
-    a shape whose shared-memory plan (:func:`plan`) exceeds the card's
-    227 KB. Adds one to ``gravnet_block_cuda.launches`` per launch."""
+    wf:(dh,df) bf:(df,) wo:(dh+2df, d_out) (or (2df, d_out)) bo:(d_out,).
+    Raises on a shape whose shared-memory plan (:func:`plan`) exceeds
+    the card's 227 KB. Adds one to ``gravnet_block_cuda.launches`` per
+    launch."""
     act = act_code(activation)
     if x.ndim != 3:
         raise ValueError(f"gravnet_block_cuda: x {tuple(x.shape)} is not "
                          "(B, N, d_hidden)")
     bsz, n, dh = x.shape
     ds, df = ws.shape[1], wf.shape[1]
-    dcat, dout = wo.shape
+    dout = wo.shape[1]
     want = {"mask": (bsz, n), "ws": (dh, ds), "bs": (ds,), "wf": (dh, df),
-            "bf": (df,), "wo": (dh + 2 * df, dout),
+            "bf": (df,), "wo": (_dcat(dh, df, concat_x), dout),
             "bo": (dout,)}
     got = {"mask": mask, "ws": ws, "bs": bs, "wf": wf, "bf": bf, "wo": wo,
            "bo": bo}
@@ -132,9 +148,9 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
         raise TypeError("gravnet_block_cuda takes float32 operands")
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_block_cuda takes contiguous operands")
-    bm, cell = plan(n, dh, ds, df, dout)
+    bm, cell = plan(n, dh, ds, df, dout, concat_x)
     lib = _library()
-    smem = smem_bytes(n, dh, ds, df, dout, bm, cell)
+    smem = smem_bytes(n, dh, ds, df, dout, bm, cell, concat_x)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"gravnet_block_cuda: n={n}, d_hidden={dh}, d_f={df}, "
@@ -143,9 +159,9 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
     y = torch.empty((bsz, n, dout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.gravnet_block_f32(
+        code = lib.gravnet_block_f32_ex(
             *(t.data_ptr() for t in ops), y.data_ptr(), bsz, n, dh, ds, df,
-            dout, int(k), float(scale), act, bm, stream)
+            dout, int(k), float(scale), act, int(concat_x), bm, stream)
     _build.check(code, "gravnet_block")
     gravnet_block_cuda.launches += 1
     return y
@@ -158,12 +174,12 @@ def _library_int8():
     global _lib_int8
     if _lib_int8 is None:
         lib = _build.load("gravnet_block_int8")
-        lib.gravnet_block_int8_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.gravnet_block_int8_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.gravnet_block_int8_smem_bytes.restype = ctypes.c_longlong
-        fn = lib.gravnet_block_int8
+        fn = lib.gravnet_block_int8_ex
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib_int8 = lib
     return _lib_int8
@@ -171,16 +187,20 @@ def _library_int8():
 
 def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
                             wf_scale, wo_scale, *, x_scale, agg_scale,
-                            h_scale, k=8, scale=10.0, activation="relu"):
+                            h_scale, k=8, scale=10.0, activation="relu",
+                            concat_x=True, out_int8=False, out_scale=1.0):
     """One quantized GravNet block on the card for a micro-batch:
     quantize x with ``x_scale``, int8 S/F dots, the f32 cell, snap the
-    aggregate to ``agg_scale``'s grid, quantize concat(x, agg) with
-    ``h_scale``, int8 output dot with dequant, bias and activation.
+    aggregate to ``agg_scale``'s grid, quantize concat(x, agg) (agg
+    alone without ``concat_x``) with ``h_scale``, int8 output dot with
+    dequant, bias and activation, and with ``out_int8`` the output
+    requantized as ``clip(round(y / out_scale), ±127)``.
 
-    x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out) f32. ws_q:(dh,ds)
-    wf_q:(dh,df) wo_q:(dh+2df, d_out) int8; bs, bf, bo and the
-    per-channel ``*_scale`` vectors f32 of the matching output widths.
-    The three activation scales are Python floats, passed as float32.
+    x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out) f32 (int8 with
+    ``out_int8``). ws_q:(dh,ds) wf_q:(dh,df) wo_q:(dh+2df, d_out) (or
+    (2df, d_out)) int8; bs, bf, bo and the per-channel ``*_scale``
+    vectors f32 of the matching output widths. The activation scales
+    are Python floats, passed as float32.
     Raises on more than 512 hits, on d_f above 128 (the cell's
     registers) and on a shape whose shared-memory plan exceeds the
     card's 227 KB. Adds one to ``gravnet_block_int8_cuda.launches`` per
@@ -193,7 +213,8 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
     ds, df = ws_q.shape[1], wf_q.shape[1]
     dout = wo_q.shape[1]
     want = {"mask": (bsz, n), "ws_q": (dh, ds), "bs": (ds,),
-            "wf_q": (dh, df), "bf": (df,), "wo_q": (dh + 2 * df, dout),
+            "wf_q": (dh, df), "bf": (df,),
+            "wo_q": (_dcat(dh, df, concat_x), dout),
             "bo": (dout,), "ws_scale": (ds,), "wf_scale": (df,),
             "wo_scale": (dout,)}
     got = {"mask": mask, "ws_q": ws_q, "bs": bs, "wf_q": wf_q, "bf": bf,
@@ -221,19 +242,22 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
             f"most {MAX_HITS} hits and d_f <= {MAX_DF}")
     bm = min(n, BM_INT8)
     lib = _library_int8()
-    smem = lib.gravnet_block_int8_smem_bytes(n, dh, ds, df, dout, bm)
+    smem = lib.gravnet_block_int8_smem_bytes(n, dh, ds, df, dout, bm,
+                                             int(concat_x))
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"gravnet_block_int8_cuda: n={n}, d_hidden={dh}, d_f={df}, "
             f"d_out={dout}, bm={bm} needs {smem} B of shared memory "
             f"> {_build.SMEM_LIMIT} B")
-    y = torch.empty((bsz, n, dout), dtype=torch.float32, device=x.device)
+    y = torch.empty((bsz, n, dout), device=x.device,
+                    dtype=torch.int8 if out_int8 else torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.gravnet_block_int8(
+        code = lib.gravnet_block_int8_ex(
             *(t.data_ptr() for t in ops), y.data_ptr(), bsz, n, dh, ds, df,
             dout, int(k), float(scale), float(x_scale), float(agg_scale),
-            float(h_scale), act, bm, stream)
+            float(h_scale), act, int(concat_x), int(out_int8),
+            float(out_scale), bm, stream)
     _build.check(code, "gravnet_block_int8")
     gravnet_block_int8_cuda.launches += 1
     return y

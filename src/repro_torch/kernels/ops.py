@@ -162,55 +162,58 @@ def knn_aggregate(f, idx, d2, *, scale=10.0):
 
 
 def gravnet_block_ragged(x, segids, ws, bs, wf, bf, wo, bo, *, k=8,
-                         scale=10.0, activation="relu"):
+                         scale=10.0, activation="relu", concat_x=True):
     """One GravNet block over bin-packed events: S/F projections
     (``fused_dense``), the segment-masked kNN graph (``knn_build``),
     the aggregation over it (``knn_aggregate``), then the output dense
-    of concat(x, agg). x:(B,N,dh) packed hidden activations,
-    segids:(B,N) int event ids (−1 padding) -> (B,N,d_out), the
-    padding rows zeroed."""
+    of concat(x, agg), or of agg alone without ``concat_x``.
+    x:(B,N,dh) packed hidden activations, segids:(B,N) int event ids
+    (−1 padding) -> (B,N,d_out), the padding rows zeroed."""
     s = fused_dense_batched(x, ws, bs, activation="none")
     f = fused_dense_batched(x, wf, bf, activation="none")
     idx, d2 = knn_build_batched(s, segids, k=k)
     agg = knn_aggregate_batched(f, idx, d2, scale=scale)
-    h = torch.cat([x, agg], dim=-1)
+    h = torch.cat([x, agg], dim=-1) if concat_x else agg
     y = fused_dense_batched(h.contiguous(), wo, bo, activation=activation)
     return y * (segids >= 0).to(y.dtype)[..., None]
 
 
 def gravnet_block_batched(x, mask, ws, bs, wf, bf, wo, bo, *, k=8,
-                          scale=10.0, activation="relu"):
+                          scale=10.0, activation="relu", concat_x=True):
     """One fused GravNet block over a micro-batch, one launch.
-    x:(B,N,dh), mask:(B,N) -> (B,N,d_out) = act(concat(x, agg) @ wo + bo);
-    neighbours are chosen within each event only."""
+    x:(B,N,dh), mask:(B,N) -> (B,N,d_out) = act(concat(x, agg) @ wo + bo),
+    or act(agg @ wo + bo) without ``concat_x``; neighbours are chosen
+    within each event only."""
+    kw = dict(k=k, scale=scale, activation=activation, concat_x=concat_x)
     if x.device.type == "cpu":
-        return _ref.gravnet_block_ref(x, mask, ws, bs, wf, bf, wo, bo, k=k,
-                                      scale=scale, activation=activation)
-    return gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, k=k,
-                              scale=scale, activation=activation)
+        return _ref.gravnet_block_ref(x, mask, ws, bs, wf, bf, wo, bo, **kw)
+    return gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, **kw)
 
 
-def gravnet_block(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
-                  activation="relu"):
+def gravnet_block(x, mask, ws, bs, wf, bf, wo, bo, **kw):
     """One fused GravNet block for one event: the batched kernel at
-    B = 1. x:(N,dh), mask:(N,) -> (N,d_out)."""
+    B = 1. x:(N,dh), mask:(N,) -> (N,d_out); the keywords as
+    :func:`gravnet_block_batched`'s."""
     return gravnet_block_batched(x[None], mask[None], ws, bs, wf, bf, wo,
-                                 bo, k=k, scale=scale,
-                                 activation=activation)[0]
+                                 bo, **kw)[0]
 
 
 def gravnet_block_int8_batched(x, mask, ws_q, bs, wf_q, bf, wo_q, bo,
                                ws_scale, wf_scale, wo_scale, *, x_scale,
                                agg_scale, h_scale, k=8, scale=10.0,
-                               activation="relu"):
+                               activation="relu", concat_x=True,
+                               out_int8=False, out_scale=1.0):
     """One quantized GravNet block over a micro-batch, one launch.
-    x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out) f32; int8 weights with
-    per-channel scales, the three calibrated activation scales as
-    Python floats."""
+    x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out) f32, or int8 requantized
+    with ``out_scale`` when ``out_int8``; int8 weights with per-channel
+    scales, the calibrated activation scales as Python floats; the
+    output dense over concat(x, agg), or agg alone without
+    ``concat_x``."""
     args = (x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale, wf_scale,
             wo_scale)
     kw = dict(x_scale=x_scale, agg_scale=agg_scale, h_scale=h_scale, k=k,
-              scale=scale, activation=activation)
+              scale=scale, activation=activation, concat_x=concat_x,
+              out_int8=out_int8, out_scale=out_scale)
     if x.device.type == "cpu":
         return _ref.gravnet_block_int8_ref(*args, **kw)
     return gravnet_block_int8_cuda(*args, **kw)

@@ -14,7 +14,10 @@ sizes; every f32 step around them (dequantization, requantization by
 division, rounding half to even) keeps the kernels' order. The
 exception is ``flash_attention``, whose kernel runs on FMAs: its plain
 version keeps an order of its own, and the kernel is held to the
-float32 row against it.
+float32 row against it. The top-k oracle of the GravNet aggregation
+(``knn_topk_ref``, ``gravnet_aggregate_topk_ref``) is no kernel's plain
+version: it follows the JAX package's oracle, its distances' dots as one
+matrix product.
 """
 from __future__ import annotations
 
@@ -27,12 +30,19 @@ BIG = 1e30
 
 
 def _activate(y, activation):
+    """The epilogues' activation in f32: gelu in its tanh form
+    (``jax.nn.gelu``'s default), silu as x·sigmoid(x). The kernels' gelu
+    and silu round as CUDA's tanhf and expf do, so on them a plain
+    version holds its kernel to the float32 row, not to its bits."""
     if activation in (None, "none", "linear"):
         return y
     if activation == "relu":
         return torch.relu(y)
-    raise NotImplementedError(
-        f"activation {activation!r}: only 'none' and 'relu' are ported")
+    if activation == "gelu":
+        return F.gelu(y, approximate="tanh")
+    if activation == "silu":
+        return y * torch.sigmoid(y)
+    raise ValueError(f"unknown activation {activation!r}")
 
 
 def _dot_last(x, w):
@@ -170,6 +180,56 @@ def gravnet_aggregate_ref(s, f, mask, *, k=8, scale=10.0):
                             scale=scale)
 
 
+def knn_d2_ref(s, mask):
+    """The distances the top-k oracle selects from: ``|s_i|² + |s_j|² −
+    2·s_i·s_j`` over the rows of each event, the dots as one batched
+    matrix product (the JAX oracle's ``sf @ sf.T``), clamped at 0; self
+    and masked columns at 1e30. s:(B,n,ds), mask:(B,n) -> (B,n,n) f32."""
+    sf = s.float()
+    sq = (sf * sf).sum(dim=-1)
+    d2 = torch.clamp_min(sq[:, :, None] + sq[:, None, :]
+                         - 2.0 * torch.bmm(sf, sf.transpose(1, 2)), 0.0)
+    eye = torch.eye(sf.shape[1], dtype=torch.bool, device=s.device)
+    return torch.where((mask[:, None, :] <= 0) | eye, BIG, d2)
+
+
+def knn_topk_ref(s, mask, *, k=8):
+    """The k nearest valid rows of each row of its own event, by top-k
+    over :func:`knn_d2_ref`, ties to the lowest column as
+    ``lax.top_k``'s. An event of fewer than k rows pads its slots with
+    d2 = 1e30 and index 0. s:(B,n,ds), mask:(B,n) -> (d2:(B,n,k) f32,
+    idx:(B,n,k) int64)."""
+    from repro_torch.nn.layers import top_k
+    n = s.shape[1]
+    neg, idx = top_k(-knn_d2_ref(s, mask), min(k, n))
+    d2k = -neg
+    if k > n:
+        d2k = F.pad(d2k, (0, k - n), value=BIG)
+        idx = F.pad(idx, (0, k - n))
+    return d2k, idx
+
+
+def gravnet_aggregate_topk_ref(s, f, mask, *, k=8, scale=10.0):
+    """The JAX package's top-k + gather oracle of the GravNet aggregation
+    (``repro/kernels/ref.py:gravnet_aggregate_ref``), batched over
+    events: the neighbours of :func:`knn_topk_ref`, weights
+    ``exp(−scale·d²)`` on the valid slots, mean over k and max (0 where
+    no slot is valid). Differentiable; cast to f's dtype, as the
+    reference's is. s:(B,n,ds), f:(B,n,df), mask:(B,n) ->
+    (B, n, 2·df)."""
+    d2k, idx = knn_topk_ref(s, mask, k=k)
+    ff = f.float()
+    bsz, n, df = ff.shape
+    valid = d2k < BIG * 0.5
+    w = torch.where(valid, torch.exp(-scale * d2k), 0.0)
+    fk = torch.gather(ff, 1, idx.reshape(bsz, -1, 1).expand(-1, -1, df))
+    wf = w[..., None] * fk.reshape(bsz, n, k, df)
+    mean = torch.where(valid[..., None], wf, 0.0).sum(dim=2) / k
+    mx = torch.where(valid[..., None], wf, -BIG).amax(dim=2)
+    mx = torch.where(mx <= -BIG * 0.5, 0.0, mx)
+    return torch.cat([mean, mx], dim=-1).to(f.dtype)
+
+
 # ------------------------------------------------------------- ragged kNN ----
 def knn_build_ref(s, segids, *, k=8):
     """Segment-masked neighbour selection over bin-packed events (the
@@ -211,27 +271,31 @@ def knn_aggregate_ref(f, idx, d2, *, scale=10.0):
 
 # ---------------------------------------------------------- gravnet block ----
 def gravnet_block_ref(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
-                      activation="relu"):
+                      activation="relu", concat_x=True):
     """The fused GravNet block over a micro-batch: S/F projections -> the
-    cell over each whole event -> act(concat(x, agg) @ wo + bo).
+    cell over each whole event -> act(concat(x, agg) @ wo + bo), or
+    act(agg @ wo + bo) without ``concat_x`` (wo (2·df, d_out)).
     x:(B,N,dh), mask:(B,N) -> (B,N,d_out)."""
     xf = x.float()
     s = fused_dense_ref(xf, ws, bs, activation="none")
     f = fused_dense_ref(xf, wf, bf, activation="none")
     agg = gravnet_cell_ref(s, f, mask.float(), k=k, scale=scale)
-    h = torch.cat([xf, agg], dim=-1)
+    h = torch.cat([xf, agg], dim=-1) if concat_x else agg
     return fused_dense_ref(h, wo, bo, activation=activation).to(x.dtype)
 
 
 def gravnet_block_int8_ref(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
                            wf_scale, wo_scale, *, x_scale, agg_scale,
-                           h_scale, k=8, scale=10.0, activation="relu"):
+                           h_scale, k=8, scale=10.0, activation="relu",
+                           concat_x=True, out_int8=False, out_scale=1.0):
     """The quantized GravNet block over a micro-batch, in the kernel's
     order: quantize x with ``x_scale``; int8 S/F dots dequantized as
     ``acc·(x_scale·w_scale[c]) + b`` (no output snap); the f32 cell;
     snap ``agg`` to the ``agg_scale`` grid; quantize
-    ``h = concat(x, agg)`` with ``h_scale``; the int8 output dot with
-    dequant, bias and activation. x:(B,N,dh) f32 -> (B,N,d_out) f32."""
+    ``h = concat(x, agg)`` (``agg`` alone without ``concat_x``) with
+    ``h_scale``; the int8 output dot with dequant, bias and activation.
+    x:(B,N,dh) f32 -> (B,N,d_out) f32, or int8 ``clip(round(y /
+    out_scale), ±127)`` when ``out_int8``."""
     xf = x.float()
     xq = quantize_act(xf, x_scale)
     s = _dequant(_int_dot(xq, ws_q), bs, x_scale, ws_scale)
@@ -239,9 +303,11 @@ def gravnet_block_int8_ref(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
     agg = gravnet_cell_ref(s, f, mask.float(), k=k, scale=scale)
     agg = torch.clamp(torch.round(div_f32(agg, agg_scale)), -QMAX,
                       QMAX) * f32(agg_scale)
-    hq = quantize_act(torch.cat([xf, agg], dim=-1), h_scale)
+    hq = quantize_act(torch.cat([xf, agg], dim=-1) if concat_x else agg,
+                      h_scale)
     return fused_dense_int8_ref(hq, wo_q, bo, h_scale, wo_scale,
-                                activation=activation)
+                                activation=activation, out_int8=out_int8,
+                                out_scale=out_scale)
 
 
 # --------------------------------------------------------- edge aggregate ----

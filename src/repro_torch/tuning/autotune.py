@@ -194,14 +194,11 @@ def tune_gravnet_block(n: int, d_hidden: int, d_s: int, d_f: int,
     """Tune the fused GravNet block at one problem shape; ``dtype="int8"``
     tunes the quantized block under its own ``gravnet_block_int8`` key.
     The dims the key does not carry (d_s, d_out, activation, concat_x)
-    ride in the cached config so warm-up can replay the problem. The
-    port's block kernels compute act(concat(x, agg) @ wo + bo) only."""
+    ride in the cached config so warm-up can replay the problem; without
+    ``concat_x`` the output dense reads the aggregate alone."""
     from repro_torch.kernels import ops
-    if not concat_x:
-        raise NotImplementedError("the port's GravNet blocks take "
-                                  "concat_x=True only")
     r = _Inputs(seed, backend)
-    dcat = d_hidden + 2 * d_f
+    dcat = d_hidden + 2 * d_f if concat_x else 2 * d_f
     lead = (batch,) if batch > 1 else ()
     if dtype == "int8":
         ws = r.int8((d_hidden, d_s), 128)
@@ -218,7 +215,7 @@ def tune_gravnet_block(n: int, d_hidden: int, d_s: int, d_f: int,
         def call(cfg):
             return fn(x, mask, ws, bs, wf, bf, wo, bo, wss, wfs, wos,
                       x_scale=0.02, agg_scale=0.01, h_scale=0.02, k=k,
-                      activation=activation)
+                      activation=activation, concat_x=concat_x)
 
         cands = cand.gravnet_block_int8_candidates(
             n, d_hidden, d_f, d_out, concat_x=concat_x, batch=batch)
@@ -234,7 +231,7 @@ def tune_gravnet_block(n: int, d_hidden: int, d_s: int, d_f: int,
 
         def call(cfg):
             return fn(x, mask, ws, bs, wf, bf, wo, bo, k=k,
-                      activation=activation)
+                      activation=activation, concat_x=concat_x)
 
         cands = cand.gravnet_block_candidates(
             n, d_hidden, d_f, d_out, concat_x=concat_x, batch=batch)

@@ -66,12 +66,11 @@ def _replay(key, config) -> None:
         d_s = int(cfg.pop("d_s", 4))
         d_out = int(cfg.pop("d_out", 0))
         activation = cfg.pop("activation", "relu")
-        if not cfg.pop("concat_x", True):
-            raise NotImplementedError("the port's blocks take concat_x")
+        concat_x = bool(cfg.pop("concat_x", True))
         batch = shape[0] if len(shape) == 5 else 1
         n, dh, d_f, k = shape[-4:]
         d_out = d_out or dh
-        dcat = dh + 2 * d_f
+        dcat = dh + 2 * d_f if concat_x else 2 * d_f
         x = normal(batch, n, dh)
         mask = t(np.ones((batch, n)))
         if key.kernel == "gravnet_block_int8":
@@ -81,13 +80,13 @@ def _replay(key, config) -> None:
                 *(t(rng.uniform(1e-3, 5e-2, size=(m,)))
                   for m in (d_s, d_f, d_out)),
                 x_scale=0.02, agg_scale=0.01, h_scale=0.02, k=k,
-                activation=activation)
+                activation=activation, concat_x=concat_x)
         else:
             ops.gravnet_block_batched(
                 x, mask, normal(dh, d_s, scale=0.3), normal(d_s),
                 normal(dh, d_f, scale=0.3), normal(d_f),
                 normal(dcat, d_out, scale=0.3), normal(d_out), k=k,
-                activation=activation)
+                activation=activation, concat_x=concat_x)
     elif key.kernel == "edge_aggregate":
         reduce = cfg.pop("reduce", "sum")
         batch = shape[0] if len(shape) == 4 else 1

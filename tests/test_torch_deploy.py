@@ -200,19 +200,22 @@ def test_unfusable_block_runs_gravnet_aggregate(model, events):
                             ("beta", "coords", "energy", "cls", "tap"))
 
 
-def test_block_without_concat_raises(model):
+def test_block_without_concat_raises(model, events):
     """A fused block whose output dense reads the aggregate alone
-    (concat_x=False) has no kernel in the port: running it raises,
-    never falls back to a plain version."""
-    _, _, tcfg, tg = model
-    pipe = tdeploy(tg, TReq(**_req_kw(3, tcfg)), device="cpu")
-    blocks = [op for op in pipe.graph if op.op_type == "gravnet_block"]
-    assert blocks and all(op.attrs["concat_x"] for op in blocks)
-    blocks[0].attrs["concat_x"] = False
-    gen = tbelle2.current_detector()
-    ev = tbelle2.generate(gen, pipe.microbatch, seed=1)
-    with pytest.raises(NotImplementedError, match="concat_x"):
-        pipe({"hits": ev["feats"], "mask": ev["mask"]})
+    (concat_x=False) once raised here, having no kernel in the port; it
+    now runs the blocks' no-concat form and agrees with the reference
+    (the test keeps its name): the graph without its concat ops
+    (``test_torch_no_concat.no_concat_graph``), fp at design point 3."""
+    from test_torch_no_concat import no_concat_graph
+    jcfg, jg, tcfg, tg = model
+    jpipe = jdeploy(no_concat_graph(jg, jcfg.d_hidden),
+                    JReq(**_req_kw(3, jcfg)))
+    tpipe = tdeploy(no_concat_graph(tg, tcfg.d_hidden),
+                    TReq(**_req_kw(3, tcfg)), device="cpu")
+    blocks = [op for op in tpipe.graph if op.op_type == "gravnet_block"]
+    assert blocks and not any(op.attrs["concat_x"] for op in blocks)
+    _compare_with_reference(jpipe, tpipe, events,
+                            ("beta", "coords", "energy", "cls"))
 
 
 @pytest.mark.parametrize("dp", [1, 2, 3])
