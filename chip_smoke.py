@@ -354,7 +354,26 @@ Phases, each of which exits non-zero when it fails:
     selection the top-k of its own distances, each differing slot a near
     tie on the CPU's), ``n_clusters`` and ``trigger`` bitwise under f32,
     ms a call on the card; ``forms.json``;
-17. print ``{"kernels": [...]}`` with every kernel of the port, then
+17. the bf16 forms (``kernels/bf16_cases.py``): (a) every kernel's bf16
+    operand form (the int8 block: its x) at the path shapes (the fp
+    path's five denses and the attention dense (4096, 64) -> 192, both
+    blocks at x (2, 128, 64) and (8, 32, 64), the aggregation at 1 and
+    16 events, the kNN pair at 8 bins, the GatedGCN and GraphSAGE edge
+    shapes) and on the edge inputs (K 4, 70 and 257, a row-strided x,
+    600 hits, d_f 129, k 40, indices out of range, 30,000 edges over
+    three launches, subnormal and large values), bitwise with its plain
+    version with a bf16 and an f32 output (the int8 block f32 and int8),
+    and each kernel once from f32 operands into bf16; (b) each timed
+    beside its f32 form at the same shape, with its bound (2 bytes a
+    bf16 element) and, for the dense, ``addmm`` on the bf16 operands;
+    (c) one call of each under the profiler runs its kernel alone (the
+    30,000-edge mean its three launches), no conversion kernel; (d) a
+    deployed graph whose dense is tagged bf16, eager (one
+    ``fused_dense`` launch a micro-batch, bf16 x, w, b and output) and
+    captured, bitwise with the plain-substituted deployment; (e)
+    ``autotune`` and ``warm_from_cache`` on bf16 dense, GravNet and edge
+    problems, their operands bf16; ``bf16.json``;
+18. print ``{"kernels": [...]}`` with every kernel of the port, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
@@ -382,6 +401,7 @@ RTOL, ATOL = 1e-5, 1e-5
 BF16_RTOL, BF16_ATOL = 3e-2, 3e-2   # its bfloat16 row
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 RATES = {"f32": 67e12,          # H100 SXM, f32 outside the tensor cores
+         "bf16": 989e12,        # H100 SXM, bf16 tensor cores, dense
          "int8": 1979e12}       # H100 SXM, int8 tensor cores, dense
 SERVE_EVENTS = 256              # the main path
 FP_EVENTS = 64                  # the fp path of the first slice
@@ -578,20 +598,43 @@ class Timer:
 
 # ------------------------------------------------------------------ cost ----
 # Bytes and operations of one launch, each input read once and each
-# output written once. Operations are counted by type: products and sums
+# output written once, at each tensor's element size (a bf16 operand or
+# output 2 bytes an element). Operations are counted by type: products and sums
 # as one each, an argmin round as n compares per row, each round's exp,
 # each quantization's division and rounding, and each dequantization's
-# multiply as one f32 operation; int8 products and sums at the int8
-# tensor-core rate. The bound is the largest of the byte time and each
-# type's operation time.
+# multiply as one f32 operation; the products and sums of a matrix
+# product at the tensor-core rate of its operands' type (int8; bf16 for
+# the bf16 forms' denses and attention's q·k and p·v), all else at f32.
+# The bound is the largest of the byte time and each type's operation
+# time.
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
     t_b = nbytes / HBM_BYTES_PER_S
     t_o = max(n / RATES[kind] for kind, n in ops.items())
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
+def _ops(t, products, f32_ops):
+    """Operations by type: ``products`` (a matrix product's) at the
+    rate of ``t``'s type (bf16 or f32), ``f32_ops`` at f32."""
+    kind = "bf16" if t.element_size() == 2 else "f32"
+    ops = {"f32": f32_ops}
+    ops[kind] = ops.get(kind, 0.0) + products
+    return ops
+
+
 def _numel(*ts):
     return float(sum(t.numel() for t in ts if t is not None))
+
+
+def _nbytes(*ts):
+    return float(sum(t.numel() * t.element_size() for t in ts
+                     if t is not None))
+
+
+def _out_size(kw, t):
+    """Bytes an element of a kernel's float output: ``out_dtype``'s, by
+    default its input's."""
+    return float((kw.get("out_dtype") or t.dtype).itemsize)
 
 
 def _cell_ops(n, ds, df, k):
@@ -624,8 +667,8 @@ def cost(name, args, kw):
         t = k.shape[1]
         pairs = float(bh * (sum(min(r + 1, t) for r in range(s))
                             if kw.get("causal", True) else s * t))
-        return q.element_size() * (2.0 * _numel(q) + 2.0 * _numel(k)), {
-            "f32": pairs * (4.0 * d + 1.0)}
+        return q.element_size() * (2.0 * _numel(q) + 2.0 * _numel(k)), \
+            _ops(q, pairs * 4.0 * d, pairs)
     # the kNN pair's work depends on the packing: count the distances
     # and argmin rounds a real row needs against its own event's rows,
     # and the aggregation's valid slots, not the whole bin
@@ -635,7 +678,7 @@ def cost(name, args, kw):
         k = kw["k"]
         c = _segment_sizes(seg)
         cand = (c - 1).clamp_min(0)
-        nbytes = 4.0 * (_numel(s, seg) + 2.0 * b * n * k)
+        nbytes = _nbytes(s, seg) + 4.0 * 2.0 * b * n * k
         return nbytes, {"f32": float(((c > 0) * 2.0 * ds + cand * (
             2.0 * ds + 3.0) + k * cand).sum())}
     if name == "knn_aggregate":
@@ -643,7 +686,7 @@ def cost(name, args, kw):
         b, n, df = f.shape
         valid = float((d2 < 0.5e30).sum())
         rows = float((d2[..., 0] < 0.5e30).sum())
-        nbytes = 4.0 * (_numel(f, idx, d2) + b * n * 2 * df)
+        nbytes = _nbytes(f, idx, d2) + _out_size(kw, f) * b * n * 2 * df
         return nbytes, {"f32": valid * (2.0 + 3.0 * df) + rows * 2.0 * df}
     if name == "edge_aggregate":
         # only edges whose dst lies in [0, n) are summed
@@ -651,7 +694,7 @@ def cost(name, args, kw):
         b, e, d = msg.shape
         n = kw["n_nodes"]
         valid = float(((dst >= 0) & (dst < n)).sum())
-        nbytes = 4.0 * (_numel(msg, dst, mask) + b * n * d)
+        nbytes = _nbytes(msg, dst, mask) + _out_size(kw, msg) * b * n * d
         mean = kw.get("reduce", "sum") == "mean"
         return nbytes, {"f32": 2.0 * valid * d + (
             valid + b * n * d if mean else 0.0)}
@@ -660,8 +703,9 @@ def cost(name, args, kw):
         x, w, b = args[:3]
         m, kd = x.shape[0], _real_k(w)
         n = w.shape[1]
-        return 4.0 * ((m + n) * kd + _numel(b) + m * n), {
-            "f32": 2.0 * m * kd * n + act_ops * m * n}
+        return (x.element_size() * (m + n) * kd + _nbytes(b)
+                + _out_size(kw, x) * m * n), _ops(x, 2.0 * m * kd * n,
+                                                  act_ops * m * n)
     if name == "fused_dense_int8":
         x, w, b, _, ws = args[:5]
         m, kd = x.shape[0], _real_k(w)
@@ -676,7 +720,7 @@ def cost(name, args, kw):
         s, f, mask = args[:3]
         b, n, ds = s.shape
         df = f.shape[2]
-        nbytes = 4.0 * (_numel(s, f, mask) + b * n * 2 * df)
+        nbytes = _nbytes(s, f, mask) + _out_size(kw, f) * b * n * 2 * df
         return nbytes, {"f32": b * n * (2.0 * ds
                                         + _cell_ops(n, ds, df, kw["k"]))}
     x = args[0]
@@ -687,12 +731,13 @@ def cost(name, args, kw):
     if name == "gravnet_block":
         # the S/F prologue once per event (the kernel recomputes it in
         # each row block of an event; the repeat is not counted)
-        nbytes = 4.0 * (_numel(x, *args[1:8]) + b * n * dout)
-        return nbytes, {"f32": b * n * (2.0 * dh * (ds + df)
-                                        + _cell_ops(n, ds, df, kw["k"])
-                                        + (2.0 * dcat + act_ops) * dout)}
+        nbytes = _nbytes(x, *args[1:8]) + _out_size(kw, x) * b * n * dout
+        return nbytes, _ops(x, b * n * (2.0 * dh * (ds + df)
+                                        + 2.0 * dcat * dout),
+                            b * n * (_cell_ops(n, ds, df, kw["k"])
+                                     + act_ops * dout))
     out8 = kw.get("out_int8", False)
-    nbytes = (4.0 * _numel(x, args[1], bs, bf, bo, *args[8:11])
+    nbytes = (_nbytes(x, args[1], bs, bf, bo, *args[8:11])
               + _numel(ws, wf, wo) + (1.0 if out8 else 4.0) * b * n * dout)
     return nbytes, {
         "int8": b * n * (2.0 * dh * (ds + df) + 2.0 * dcat * dout),
@@ -730,6 +775,20 @@ def shape_of(name, args, kw):
                != "relu" else "")
             + (f" int8 out /{kw['out_scale']:g}" if kw.get("out_int8")
                else ""))
+
+
+def dtype_tag(name, args, kw):
+    """The bf16 forms' part of a launch's label: its float operands'
+    dtype and, where it is not theirs, its output's (empty for the f32
+    forms)."""
+    if name == "flash_attention":
+        return ""
+    x = args[0]
+    tag = " bf16" if str(x.dtype) == "torch.bfloat16" else ""
+    out = kw.get("out_dtype")
+    if out is not None and out != x.dtype:
+        tag += f" -> {str(out).rsplit('.', 1)[-1]}"
+    return tag
 
 
 # ----------------------------------------------------------------- main ----
@@ -2693,6 +2752,395 @@ def epilogue_forms(torch, np, dev, card, h) -> tuple[dict, dict]:
     return rec, launches
 
 
+# ----------------------------------------- phase 17: the bf16 forms ----
+# the executor's bf16-tagged dense: events of (rows, K) through one dense
+# of K -> N (GatedGCN's (256, 70) -> 70), 8 events a micro-batch
+BF16_EXEC_EVENTS, BF16_EXEC_ROWS, BF16_EXEC_K, BF16_EXEC_N = 32, 256, 70, 70
+BF16_EXEC_BATCH = 8
+
+
+def bf16_forms(torch, np, dev, card, h) -> dict:
+    """Phase 17: the kernels' bf16 operand and output forms. (a) every
+    form at the path shapes and on ``kernels/bf16_cases.py``'s inputs,
+    bitwise with its plain version with a bf16 and an f32 output (the
+    int8 block: f32 and int8), and each kernel once from f32 operands
+    into bf16; (b) each bf16 form timed beside its f32 form at the same
+    shape, with its bound (2 bytes a bf16 element) and, for the dense,
+    ``addmm`` on the bf16 operands; (c) one call of each kernel (and the
+    chunked edge sum) under the profiler: only its own kernel runs on
+    the card, no conversion; (d) a dense tagged bf16 through the
+    executor of a deployment, eager and captured, against the
+    plain-substituted deployment; (e) ``autotune`` and
+    ``warm_from_cache`` on bf16-keyed dense, GravNet and edge problems.
+    Returns the record."""
+    from repro_torch.core.graph_ir import Graph, Operator
+    from repro_torch.core.pipeline import Requirements, deploy
+    from repro_torch.core.quantization import activation_scale
+    from repro_torch.kernels import bf16_cases, f32_cases, int8_cases, ref
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.edge_aggregate import chunk_plan
+    from repro_torch.kernels.f32_cases import EDGE_NODES
+    from repro_torch.kernels.fused_dense import fused_dense_cuda
+    from repro_torch.tuning import TuningCache, autotune, warm_from_cache
+    cfg, check, timer = h.cfg, h.check, h.timer
+    bf16, f32 = torch.bfloat16, torch.float32
+    rec = {"card": card, "forms": []}
+    t0 = time.perf_counter()
+
+    def on(a, dt=f32):
+        """A numpy array (None passes) on the card in dt; float arrays
+        only are converted (on the host: exact on the bf16 grid)."""
+        if a is None:
+            return None
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return (x.to(dt) if x.is_floating_point() else x).to(dev)
+
+    def args_in(arrays, dt, keep=()):
+        """The arrays as kernel operands, floats in dt but those at the
+        positions of ``keep`` (masks, d2, the int8 block's weights and
+        scales), which stay as they are."""
+        return [on(a) if i in keep else on(a, dt)
+                for i, a in enumerate(arrays)]
+
+    def form(label, name, make, kw, outs=(None, f32)):
+        """A bf16 form: ``make(dtype)`` gives the operands with the float
+        ones in that dtype. Checked bitwise and timed with each output of
+        ``outs``; its f32 form timed at the same shape."""
+        args = make(bf16)
+        rows = []
+        for out in outs:
+            kw_ = dict(kw, **out) if isinstance(out, dict) else (
+                kw if out is None else dict(kw, out_dtype=out))
+            rows.append(check(f"bf16 {label}", 0, args[0].shape[0], name,
+                              args, kw_))
+        args32 = make(f32)
+        kw32 = dict(kw, **outs[0]) if isinstance(outs[0], dict) else kw
+        f32_ms = timer.device_ms(lambda: h.wrappers[name](*args32, **kw32),
+                                 200)
+        f32_bound, _ = bound(*cost(name, args32, kw32))
+        # the same function as a cast of the bf16 operands, then the f32
+        # form into the bf16 form's output dtype
+        kw_cast = dict(kw32) if outs[0] is not None or name == "knn_build" \
+            else dict(kw32, out_dtype=bf16)
+        cast_ms = timer.device_ms(lambda: h.wrappers[name](*[
+            a.float() if a is not None and a.dtype == bf16 else a
+            for a in args], **kw_cast), 200)
+        r = rows[0]
+        other = [x["ms"] for x in rows[1:]]
+        rec["forms"].append({
+            "form": label, "kernel": name, "shape": r["shape"],
+            "ms": r["ms"], "ms_other_out": other, "f32_form_ms": f32_ms,
+            "cast_then_f32_ms": cast_ms,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "f32_form_bound_ms": f32_bound, "plain_ms": r["plain_ms"],
+            "library_ms": r["library_ms"], "library": r["library"]})
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.5f}"
+        say(f"[bf16] {label}: {name} {r['shape']}: {r['ms']:.5f} ms (other "
+            f"out {' '.join(f'{v:.5f}' for v in other)}; the f32 form "
+            f"{f32_ms:.5f}; cast, then the f32 form {cast_ms:.5f}), bound {r['bound_ms']:.7f} ({r['bound_by']}; "
+            f"f32 form {f32_bound:.7f}), plain {r['plain_ms']:.5f}, "
+            f"library {lib} ({card})")
+
+    # (a), (b) at the path shapes
+    rng = np.random.default_rng(17)
+    rows = 2 * cfg.n_hits            # a chunk of the fp path
+    dh, ds, df = cfg.d_hidden, cfg.d_s, cfg.d_flr
+    dense_shapes = ((rows, cfg.d_in, dh), (rows, dh, dh), (rows, dh, dh),
+                    (rows, dh, cfg.d_decoder),
+                    (rows, cfg.d_decoder, sum(cfg.head_dims.values())),
+                    (4096, 64, 192))
+    for pos, (m, kd, n) in enumerate(dense_shapes):
+        x, w, b_ = (bf16_cases.bf16_values(a) for a in (
+            rng.normal(size=(m, kd)), rng.normal(size=(kd, n)) / np.sqrt(kd),
+            rng.normal(size=(n,)) * 0.1))
+        label = "attention dense" if pos == 5 else f"fp dense {pos}"
+        form(label, "fused_dense",
+             lambda dt, x=x, w=w, b_=b_: args_in((x, w, b_), dt),
+             {"activation": "relu"})
+    widths = dict(dh=dh, ds=ds, df=df, dout=dh)
+    for tag, bsz, n in (("fp chunk", 2, cfg.n_hits),
+                        ("current detector", 8, 32)):
+        ops_ = [bf16_cases.bf16_values(a) if i != 1 else a
+                for i, a in enumerate(f32_cases.block_inputs(
+                    bsz, n, **widths, seed=bsz, n_valid=n * 3 // 4, dup=2))]
+        form(f"block, {tag}", "gravnet_block",
+             lambda dt, o=ops_: args_in(o, dt, keep=(1,)), {"k": cfg.k})
+        q_ops, q_sc = int8_cases.block_inputs(bsz, n, **widths, seed=bsz,
+                                              n_valid=n * 3 // 4, dup=2)
+        q_ops = [bf16_cases.bf16_values(q_ops[0]), *q_ops[1:]]
+        y_max = float(ref.gravnet_block_int8_ref(
+            *args_in(q_ops, f32), **q_sc, k=cfg.k).abs().max())
+        form(f"int8 block x, {tag}", "gravnet_block_int8",
+             lambda dt, o=q_ops: args_in(o, dt, keep=range(1, 11)),
+             dict(q_sc, k=cfg.k),
+             outs=({}, {"out_int8": True,
+                        "out_scale": activation_scale(y_max)}))
+    for bsz in (1, 16):
+        agg_path = [bf16_cases.bf16_values(a) if i < 2 else a
+                    for i, a in enumerate(f32_cases.aggregate_inputs(
+                        bsz, cfg.n_hits, ds=ds, df=df, seed=bsz, n_valid=96,
+                        dup=2))]
+        form(f"aggregate, {bsz} event(s)", "gravnet_aggregate",
+             lambda dt, o=agg_path: args_in(o, dt, keep=(2,)), {"k": cfg.k})
+    s_, seg = f32_cases.knn_build_inputs(f32_cases.knn_path_bins(RAGGED_BINS),
+                                         cfg.n_hits, ds, cfg.k, "grid", 0,
+                                         seed=17)
+    s_ = bf16_cases.bf16_values(s_)
+    form("kNN build, 8 bins", "knn_build",
+         lambda dt: args_in((s_, seg), dt), {"k": cfg.k}, outs=(None,))
+    idx, d2 = ref.knn_build_ref(on(s_, bf16), on(seg), k=cfg.k)
+    kf, kidx = f32_cases.knn_aggregate_inputs(idx.cpu().numpy(), cfg.n_hits,
+                                              df, False, seed=17)
+    kf = bf16_cases.bf16_values(kf)
+    kd2 = d2.cpu().numpy()
+    form("kNN aggregate, 8 bins", "knn_aggregate",
+         lambda dt: args_in((kf, kidx, kd2), dt, keep=(1, 2)), {})
+    for tag, bsz, d, reduce in (("GatedGCN", 1, 70, "sum"),
+                                ("GraphSAGE", 8, 16, "mean"),
+                                ("GraphSAGE", 8, 128, "mean")):
+        msg, dst, mask = f32_cases.edge_inputs(bsz, 256, d, "random",
+                                               seed=d)
+        mask = (mask > 0).astype(np.float32)      # the routes' 0/1 masks
+        msg = bf16_cases.bf16_values(msg)
+        form(f"edge, {tag}", "edge_aggregate",
+             lambda dt, a=(msg, dst, mask): args_in(a, dt, keep=(1, 2)),
+             {"n_nodes": EDGE_NODES, "reduce": reduce})
+    # (a) on the edge inputs
+    for name in bf16_cases.DENSE_CASES:
+        x, w, b_, act = bf16_cases.dense_inputs(name, seed=len(name))
+        kd = w.shape[0]
+        form(f"dense {name}", "fused_dense",
+             lambda dt, x=x, w=w, b_=b_, kd=kd: [
+                 on(x, dt)[:, :kd], on(w, dt), on(b_, dt)],
+             {"activation": act})
+    for name in bf16_cases.GRAVNET_CASES:
+        block, agg, k = bf16_cases.gravnet_inputs(name, seed=len(name))
+        form(f"block {name}", "gravnet_block",
+             lambda dt, o=block: args_in(o, dt, keep=(1,)), {"k": k})
+        form(f"aggregate {name}", "gravnet_aggregate",
+             lambda dt, o=agg: args_in(o, dt, keep=(2,)), {"k": k})
+    for name in bf16_cases.KNN_CASES:
+        s_c, seg_c, k = bf16_cases.knn_build_inputs(name, seed=len(name))
+        form(f"kNN build {name}", "knn_build",
+             lambda dt, a=(s_c, seg_c): args_in(a, dt), {"k": k},
+             outs=(None,))
+        idx_c, d2_c = ref.knn_build_ref(on(s_c, bf16), on(seg_c), k=k)
+        f_c, idx_c = bf16_cases.knn_aggregate_inputs(
+            name, idx_c.cpu().numpy(), seed=len(name),
+            extreme=name == "occupancy_33_65_97")
+        form(f"kNN aggregate {name}", "knn_aggregate",
+             lambda dt, a=(f_c, idx_c, d2_c.cpu().numpy()): args_in(
+                 a, dt, keep=(1, 2)), {})
+    for name in bf16_cases.EDGE_CASES:
+        msg, dst, mask = bf16_cases.edge_inputs(name, seed=len(name))
+        for reduce in ("sum", "mean"):
+            form(f"edge {name} {reduce}", "edge_aggregate",
+                 lambda dt, a=(msg, dst, mask): args_in(a, dt, keep=(1, 2)),
+                 {"n_nodes": EDGE_NODES, "reduce": reduce})
+    # each kernel once from f32 operands into a bf16 output
+    x, w, b_ = (bf16_cases.bf16_values(a) for a in (
+        rng.normal(size=(rows, dh)), rng.normal(size=(dh, dh)) / 8,
+        rng.normal(size=(dh,))))
+    f32_to_bf16 = {
+        "fused_dense": ([x, w, b_], (), {"activation": "relu"}),
+        "gravnet_block": (f32_cases.block_inputs(2, cfg.n_hits, **widths,
+                                                 seed=5), (1,),
+                          {"k": cfg.k}),
+        "gravnet_aggregate": (f32_cases.aggregate_inputs(
+            2, cfg.n_hits, ds=ds, df=df, seed=5), (2,), {"k": cfg.k}),
+        "knn_aggregate": ([kf.astype(np.float32), kidx, kd2], (1, 2), {}),
+        "edge_aggregate": (list(f32_cases.edge_inputs(8, 256, 16, "random",
+                                                      seed=5)), (1, 2),
+                           {"n_nodes": EDGE_NODES}),
+    }
+    for name, (arrays, keep, kw) in f32_to_bf16.items():
+        check("f32 in, bf16 out", 0, arrays[0].shape[0], name,
+              args_in(arrays, f32, keep), dict(kw, out_dtype=bf16))
+    say(f"[bf16] every form bitwise with its plain version, both output "
+        f"dtypes ({len(rec['forms'])} forms) ({card})")
+
+    # (c) one call of each under the profiler: its kernel alone
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def device_records(call, host_ops=None):
+        """The names of the card's records of one warm ``call``, between
+        sentinel kernels; ``host_ops`` (a list) takes the host's."""
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            h.sentinels()
+            call()
+            torch.cuda.synchronize()
+            h.sentinels()
+        cuda = torch.autograd.DeviceType.CUDA
+        if host_ops is not None:
+            host_ops.extend(e.name for e in prof.events()
+                            if e.device_type != cuda)
+        return [e.name for e in prof.events() if e.device_type == cuda]
+
+    sleep_names = set(device_records(lambda: torch.cuda._sleep(1)))
+    msg30, dst30, mask30 = bf16_cases.edge_inputs("past_one_launch", seed=3)
+    e30 = msg30.shape[1]
+    only = [
+        ("fused_dense", [on(x, bf16)[:, :dh], on(w, bf16), on(b_, bf16)],
+         {}, 1),
+        ("gravnet_block", args_in(f32_cases.block_inputs(
+            2, cfg.n_hits, **widths, seed=6), bf16, keep=(1,)),
+         {"k": cfg.k}, 1),
+        ("gravnet_block_int8", args_in(q_ops, bf16, keep=range(1, 11)),
+         dict(q_sc, k=cfg.k), 1),
+        ("gravnet_aggregate", args_in(agg_path, bf16, keep=(2,)),
+         {"k": cfg.k}, 1),
+        ("knn_build", args_in((s_, seg), bf16), {"k": cfg.k}, 1),
+        ("knn_aggregate", args_in((kf, kidx, kd2), bf16, keep=(1, 2)), {},
+         1),
+        ("edge_aggregate", args_in((msg30, dst30, mask30), bf16,
+                                   keep=(1, 2)),
+         {"n_nodes": EDGE_NODES, "reduce": "mean"}, len(chunk_plan(e30))),
+    ]
+    rec["launches_only_its_kernel"] = {}
+    for name, args, kw, n_launch in only:
+        names = [n_ for n_ in device_records(
+            lambda: h.wrappers[name](*args, **kw)) if n_ not in sleep_names]
+        ours = [n_ for n_ in names if h.kernel_rx[name].search(n_)]
+        if len(ours) != n_launch or len(names) != n_launch:
+            fail(f"[bf16] one {name} call ran {names} on the card; want "
+                 f"{n_launch} launch(es) of its kernel and nothing else")
+        rec["launches_only_its_kernel"][name] = names
+    say(f"[bf16] under the profiler each call runs only its kernel on the "
+        f"card (the bf16 edge mean over {e30} edges: "
+        f"{len(chunk_plan(e30))} launches, f32 sums and counts carried, "
+        f"rounded once), no conversion kernel ({card})")
+
+    # (d) a dense tagged bf16 through the executor, eager and captured
+    g = Graph()
+    g.add(Operator(name="x", op_type="input", out_dim=BF16_EXEC_K,
+                   attrs={"feature": "x"}))
+    g.add(Operator(name="d", op_type="dense", inputs=["x"], params={
+        "w": torch.tensor(rng.normal(size=(BF16_EXEC_K, BF16_EXEC_N))
+                          / np.sqrt(BF16_EXEC_K), dtype=f32),
+        "b": torch.tensor(rng.normal(size=(BF16_EXEC_N,)) * 0.1,
+                          dtype=f32)},
+        out_dim=BF16_EXEC_N, attrs={"activation": "relu"}))
+    g.add(Operator(name="out", op_type="output", inputs=["d"],
+                   attrs={"head_names": ["y"]}, out_dim=BF16_EXEC_N))
+    req = Requirements(design_point=3, platform="cpu",
+                       precision_policy="fp", n_hits=BF16_EXEC_ROWS,
+                       target_throughput=1e3)
+
+    def tagged():
+        """The graph deployed on the card, its dense then tagged bf16
+        (before the first call captures it)."""
+        pipe = deploy(g, req, batch=BF16_EXEC_BATCH, device=dev)
+        denses = [op for op in pipe.graph
+                  if op.op_type in ("dense", "linear")]
+        for op in denses:
+            op.precision = "bf16"
+        return pipe, len(denses)
+
+    feeds = {"x": rng.normal(size=(BF16_EXEC_EVENTS, BF16_EXEC_ROWS,
+                                   BF16_EXEC_K)).astype(np.float32)}
+    pipe, n_dense = tagged()
+    seen = []
+
+    def recorder(x_, w_, b__=None, **kw):
+        y = fused_dense_cuda(x_, w_, b__, **kw)
+        seen.append((x_.dtype, w_.dtype, b__.dtype, y.dtype))
+        return y
+    with h.substituted({"fused_dense": recorder}):
+        pipe.run_eager(feeds)
+    if not seen or set(seen) != {(bf16,) * 4}:
+        fail(f"[bf16 executor] the dense's kernel calls took {set(seen)}")
+    n_mb = -(-BF16_EXEC_EVENTS // pipe.microbatch)
+    h.reset_counts()
+    eager = pipe.run_eager(feeds)
+    torch.cuda.synchronize()
+    launched = h.read_counts()
+    want = {**dict.fromkeys(launched, 0), "fused_dense": n_dense * n_mb}
+    if launched != want or n_dense != 1:
+        fail(f"[bf16 executor] launches {launched} over {n_mb} "
+             f"micro-batches of {n_dense} dense(s), want {want}")
+    # one warm micro-batch under the profiler: w and b were cast once, so
+    # its conversions are the two the graph asks for (x to bf16 at the
+    # dense, the dense's output to f32 at the output op)
+    mb_feeds = pipe._chunks(feeds)[2][0]
+    host_ops = []
+    mb_kernels = [n_ for n_ in device_records(
+        lambda: pipe.run_chunk(mb_feeds), host_ops) if n_ not in sleep_names]
+    casts = host_ops.count("aten::_to_copy")
+    ours = [n_ for n_ in mb_kernels if h.kernel_rx["fused_dense"].search(n_)]
+    if casts != 2 or len(ours) != 1:
+        fail(f"[bf16 executor] one micro-batch ran {casts} conversions "
+             f"and the device kernels {mb_kernels}; want 2 conversions "
+             "(x in, the output out) and one fused_dense launch")
+    captured = pipe(feeds)
+    torch.cuda.synchronize()
+    with h.substituted({"fused_dense": ref.fused_dense_ref}):
+        plain_pipe, _ = tagged()
+        plain = plain_pipe.run_eager(feeds)
+    for label, other in (("captured", captured), ("plain-substituted",
+                                                  plain)):
+        if not torch.equal(eager["y"], other["y"]):
+            fail(f"[bf16 executor] eager and {label} outputs differ: "
+                 f"max|err| {(eager['y'] - other['y']).abs().max():.3e}")
+    rec["executor"] = {"events": BF16_EXEC_EVENTS,
+                       "microbatch": pipe.microbatch,
+                       "launches": launched["fused_dense"],
+                       "microbatch_conversions": casts,
+                       "microbatch_kernels": mb_kernels,
+                       "captures": pipe.captures}
+    say(f"[bf16 executor] a dense tagged bf16 ({BF16_EXEC_EVENTS} events of "
+        f"({BF16_EXEC_ROWS}, {BF16_EXEC_K}) -> {BF16_EXEC_N}): bf16 x, w, b "
+        f"and output, {launched['fused_dense']} fused_dense launches for "
+        f"{n_mb} micro-batches, captured = eager = plain-substituted "
+        f"bitwise; a micro-batch runs {len(mb_kernels)} device kernels, of "
+        f"them {casts} conversions, w and b cast once ({card})")
+
+    # (e) the tuner and the warm-up on bf16 problems
+    tc = TuningCache()
+    spied = []
+    names = ("fused_dense", "gravnet_aggregate_batched",
+             "edge_aggregate_batched")
+    saved = {n_: getattr(kops, n_) for n_ in names}
+
+    def spy(n_):
+        def call(*a, **kw):
+            spied.append((n_, a[0].dtype))
+            return saved[n_](*a, **kw)
+        return call
+    try:
+        for n_ in names:
+            setattr(kops, n_, spy(n_))
+        autotune.tune_fused_dense(4096, 64, 192, dtype="bf16",
+                                  backend="cuda", cache=tc, iters=1)
+        autotune.tune_gravnet(cfg.n_hits, ds, df, cfg.k, batch=16,
+                              dtype="bf16", backend="cuda", cache=tc,
+                              iters=1)
+        autotune.tune_edge_aggregate(EDGE_NODES, 256, 16, batch=8,
+                                     reduce="mean", dtype="bf16",
+                                     backend="cuda", cache=tc, iters=1)
+        tuned = len(spied)
+        warmed = warm_from_cache(tc, backend="cuda")
+    finally:
+        for n_, fn in saved.items():
+            setattr(kops, n_, fn)
+    keys = sorted(k_.encode() for k_ in tc.entries())
+    if (warmed != 3 or len(keys) != 3 or any("|bf16|" not in k_ for k_ in keys)
+            or {d for _, d in spied} != {bf16}
+            or {n_ for n_, _ in spied[tuned:]} != set(names)):
+        fail(f"[bf16 tuning] keys {keys}, warmed {warmed}, operand dtypes "
+             f"{sorted(set(spied), key=str)}")
+    rec["tuning"] = {k_.encode(): {"us": e.us, "config": e.config}
+                     for k_, e in tc.entries().items()}
+    say(f"[bf16 tuning] {keys}: tuned and warmed on bf16 operands "
+        f"({', '.join(f'{e.us:.2f} us' for e in tc.entries().values())}) "
+        f"({card})")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (no "
@@ -2953,7 +3401,7 @@ def main() -> int:
         bf16 outputs; every element equal for the kernels of
         ``BITWISE``), every integer output (knn_build's idx) bitwise; then
         the times and the bound. ``splits`` in ``kw`` goes to the kernel
-        alone."""
+        alone. Returns the launch's row."""
         kern, plain = wrappers[name], plain_fns[name]
         inexact = kw.get("activation") in INEXACT
         bitwise = name in BITWISE and not inexact
@@ -2969,7 +3417,7 @@ def main() -> int:
         rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (RTOL, ATOL)
         gots = got if isinstance(got, tuple) else (got,)
         wants = want if isinstance(want, tuple) else (want,)
-        shape = shape_of(name, args, kw)
+        shape = shape_of(name, args, kw) + dtype_tag(name, args, kw)
         if name.startswith("knn"):
             b_, n_ = args[0].shape[:2]
             bm_, cell_ = (knn_mod.build_plan(n_, b_) if name == "knn_build"
@@ -3042,7 +3490,10 @@ def main() -> int:
                 msg.shape[0], device=dev)[:, None])[keep]
             acc = torch.zeros((msg.shape[0] * n, msg.shape[2]), device=dev)
             lib = None
-            if not mean:
+            if torch.bfloat16 in (msg.dtype, want.dtype):
+                lib_name = ("none in bf16 (index_add_ and index_reduce_ on "
+                            "bf16 accumulate in bf16)")
+            elif not mean:
                 wmsg = (mask[..., None] * msg)[keep]
 
                 def lib():
@@ -3116,6 +3567,7 @@ def main() -> int:
             f"plain_ms={plain_ms:.5f} library_ms="
             f"{'n/a' if lib_ms is None else f'{lib_ms:.5f}'} "
             f"bound_ms={b_ms:.7f} ({b_by})")
+        return row
 
     # (path, which kernels, event counts to check them at: one chunk of
     # the path, a 16-event dispatch, the 64-event calibration batch)
@@ -5350,7 +5802,20 @@ def main() -> int:
     say(f"phase 16 done at {time.perf_counter() - t_start:.1f}s "
         f"({time.perf_counter() - t16:.1f}s)")
 
-    # 17. the kernel line and the result -----------------------------------
+    # 17. the bf16 forms -----------------------------------------------------
+    bf16_rec = bf16_forms(torch, np, dev, card, SimpleNamespace(
+        cfg=cfg, check=check, timer=timer, wrappers=wrappers,
+        substituted=substituted, reset_counts=reset_counts,
+        read_counts=read_counts, sentinels=sentinels, kernel_rx=kernel_rx))
+    path_launches["bf16 executor"] = {
+        **dict.fromkeys(wrappers, 0),
+        "fused_dense": bf16_rec["executor"]["launches"]}
+    (OUT / "bf16.json").write_text(json.dumps(bf16_rec, indent=1,
+                                              default=str))
+    say(f"phase 17 done at {time.perf_counter() - t_start:.1f}s "
+        f"({bf16_rec['phase_s']:.1f}s)")
+
+    # 18. the kernel line and the result -----------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)
@@ -5383,6 +5848,8 @@ def main() -> int:
     home["gravnet_block_int8"].append("no-concat mixed")
     home["knn_build"].append("no-concat ragged")
     home["knn_aggregate"].append("no-concat ragged")
+    # and phase 17's bf16-tagged dense
+    home["fused_dense"].append("bf16 executor")
     line = []
     for name, meta in KERNELS.items():
         path = home[name][0]

@@ -115,7 +115,7 @@ def aggregate(s, f, mask, cfg: CCNConfig):
                                           scale=cfg.potential_scale)
     if cfg.gravnet_impl == "onehot":
         return gravnet_aggregate_ref(s, f, mask, k=cfg.k,
-                                     scale=cfg.potential_scale).to(f.dtype)
+                                     scale=cfg.potential_scale)
     raise ValueError(f"gravnet_impl {cfg.gravnet_impl!r}: 'topk' or "
                      "'onehot'")
 

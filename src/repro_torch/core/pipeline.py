@@ -23,7 +23,9 @@ every dense launches ``fused_dense_int8`` and every fused block
 ``gravnet_block_int8``, and an int8 activation travels between ops as a
 :class:`QTensor`. The boundary segments are tagged bf16 but hold only
 ``input``, ``cps`` and ``output``, which compute in f32 as in the
-reference; a bf16 dense has no kernel in the port and raises.
+reference; a dense tagged bf16 (a graph handed over with its tags) runs
+``fused_dense`` on bf16 x, w and b with a bf16 output, as the
+reference's does.
 
 ``deploy(..., ragged=True)`` (fp only) emits the padding-free path: a
 :class:`RaggedPipeline` that first-fit packs whole events into
@@ -124,11 +126,12 @@ class QTensor(NamedTuple):
     scale: float
 
 
-def _as_fp(v):
-    """The f32 value of an activation: a QTensor is dequantized."""
+def _as_fp(v, dtype=torch.float32):
+    """The value of an activation in ``dtype`` (f32 by default): a
+    QTensor is dequantized in f32 first."""
     if isinstance(v, QTensor):
-        return v.q.float() * f32(v.scale)
-    return v.float()
+        return (v.q.float() * f32(v.scale)).to(dtype)
+    return v.to(dtype)
 
 
 def _tree_map(fn, v):
@@ -172,6 +175,9 @@ class _Executor:
         # (edge_index, src, dst) as int64, per thread: concurrent callers
         # of one executor never see each other's edge lists
         self._local = threading.local()
+        # a bf16 dense's w and b in bf16, by op name: cast at its first
+        # call, again only when w or b is replaced or changed in place
+        self._bf16_wb = {}
 
     def run_op(self, op, vals, feeds, *, force_fp=False, record=None):
         """One op. ``force_fp`` runs an int8 op in f32 (calibration);
@@ -260,18 +266,33 @@ class _Executor:
                 op.params["w_scale"], activation=act, out_int8=emit8,
                 out_scale=out_scale).reshape(*xq.shape[:-1], -1)
             return QTensor(y, out_scale) if emit8 else y
-        # float path (fp, or an int8 op not calibrated yet)
+        # float path (fp or bf16, or an int8 op not calibrated yet); a
+        # bf16 dense runs the kernel on bf16 x, w and b into a bf16 output
         if prec == "bf16":
-            raise NotImplementedError(
-                f"{op.name}: a bf16 dense has no kernel in the port")
+            dt = torch.bfloat16
+            w, b = self._bf16_params(op.name, w, b)
+        else:
+            dt = torch.float32
         # a lane128-padded input: the dense reads its own K through the
         # row stride (a view, no copy) with the unpadded w
-        x = _as_fp(x).contiguous()
+        x = _as_fp(x, dt).contiguous()
         if x.shape[-1] > w.shape[0]:
             x = x[..., :w.shape[0]]
         if x.ndim == 3:   # row-packs the micro-batch into one launch
             return kops.fused_dense_batched(x, w, b, activation=act)
         return kops.fused_dense(x, w, b, activation=act)
+
+    def _bf16_params(self, name, w, b):
+        """``w`` and ``b`` in bf16, cast once and kept while both stay
+        the same tensors at the same version."""
+        bv = None if b is None else b._version
+        hit = self._bf16_wb.get(name)
+        if (hit is None or hit[0] is not w or hit[1] != w._version
+                or hit[2] is not b or hit[3] != bv):
+            hit = (w, w._version, b, bv, w.to(torch.bfloat16),
+                   None if b is None else b.to(torch.bfloat16))
+            self._bf16_wb[name] = hit
+        return hit[4], hit[5]
 
     def _gravnet(self, op, vals, prec):
         """The unfused aggregation, one launch for the micro-batch; an

@@ -137,6 +137,33 @@ def check_cuda(name: str, tensors, dtypes) -> None:
         raise ValueError(f"{name} takes contiguous operands")
 
 
+#: the C entries' dtype codes of float operands and outputs
+#: (``csrc/dtype_io.cuh``), by dtype name
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def io_dtypes(name: str, operands, out_dtype=None):
+    """(in code, out code, out dtype) of a launch whose float
+    ``operands`` share one dtype, float32 or bfloat16; ``out_dtype`` None
+    is theirs (the Pallas kernels' ``out_dtype or x.dtype``). Raises
+    ``TypeError`` on any other dtype or on operands of two dtypes."""
+    dtypes = {t.dtype for t in operands}
+    if len(dtypes) != 1 or _dtype_name(operands[0].dtype) not in DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16 operands of one "
+                        f"dtype (got {[t.dtype for t in operands]})")
+    in_dt = operands[0].dtype
+    out_dt = in_dt if out_dtype is None else out_dtype
+    if _dtype_name(out_dt) not in DTYPE_CODES:
+        raise TypeError(f"{name}: out_dtype must be float32 or bfloat16, "
+                        f"not {out_dt}")
+    return (DTYPE_CODES[_dtype_name(in_dt)], DTYPE_CODES[_dtype_name(out_dt)],
+            out_dt)
+
+
 def check_smem(name: str, smem: int, shape: str) -> None:
     """Raise when a launch's shared-memory plan exceeds :data:`SMEM_LIMIT`."""
     if smem > SMEM_LIMIT:

@@ -52,13 +52,25 @@
 //
 // A launch takes at most the edges whose sort fits in shared memory
 // (kernels/edge_aggregate.py:max_edges). A longer edge list is walked in
-// chunks of consecutive edges, one launch each: every launch after the
-// first starts each sum from the output the one before wrote
-// (accumulate), so every sum keeps its order over all E edges; mean
-// over chunks is the chunked sum over the chunked count, divided once
-// by the wrapper.
+// chunks of consecutive edges, one launch each
+// (edge_aggregate.py:chunk_plan): every launch but the last leaves its
+// f32 sums (and, for mean, its f32 counts) in a scratch buffer, every
+// launch after the first starts each sum (and count) from those the one
+// before left (carry), so every sum keeps its order over all E edges, and
+// the last launch alone writes the output, dividing a mean once and
+// rounding once.
+//
+// The bf16 forms (messages of type T, the output of type O): a bf16
+// message slice is staged by ordinary loads, each value widened exactly
+// into the same f32 shared memory (dtype_io.cuh), or read from device
+// memory and widened in the walk; the sums, the counts and the scratch
+// between chunks stay f32, and the output is rounded once where O is
+// bf16. Every form is bitwise with the plain version, which sums in f32
+// and rounds at the end.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype_io.cuh"
 
 namespace {
 
@@ -145,21 +157,50 @@ __device__ inline void load_p(float (&v)[P], const float* p) {
   }
 }
 
+template <int P>
+__device__ inline void load_p(float (&v)[P], const repro_torch::io::bf16* p) {
+  if constexpr (P == 2) {
+    const float2 t =
+        repro_torch::io::widen2(*reinterpret_cast<const uint32_t*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = repro_torch::io::widen(*p);
+  }
+}
+
 // Step 3: each (row, column group of P) of the CTA's tile sums its
 // segment in e order. src(e) is the address of edge e's first column of
-// this CTA's slice; the next columns follow it.
-template <int P, typename Src>
+// this CTA's slice; the next columns follow it. out and part are (B, n,
+// d), cnt_in and cnt_out (B, n), each indexed from the CTA's first row
+// and column (o0, r0) rather than through a pointer to it, so that they
+// keep the kernel's __restrict__ (a derived pointer that may be null
+// loses it, and an unstaged f32 walk's loads then stop overlapping: the
+// launch slows by more than half on the H100). LAST writes out (divided
+// by the count for mean), else the f32 sums go to part; either way the
+// counts go to cnt_out where it is given; CARRY starts from part and
+// cnt_in. Both are template flags (as run-time flags they cost the same
+// slowdown). A chunked call runs its first chunk as LAST into part with
+// no division, its middle ones CARRY, its last CARRY and LAST
+// (edge_aggregate.py): the kind it never takes, neither flag, showed the
+// same slowdown in f32.
+template <int P, bool CARRY, bool LAST, typename Src, typename O>
 __device__ inline void walk(const int* perm, const float* km,
-                            const int* tab, Src src, float* out, int d,
-                            int rows, int cols, int mean, int accumulate) {
+                            const int* tab, Src src, O* __restrict__ out,
+                            float* __restrict__ part,
+                            const float* __restrict__ cnt_in,
+                            float* __restrict__ cnt_out, long long o0,
+                            long long r0, int d, int rows, int cols,
+                            int mean) {
   const int per_row = cols / P;
   for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
     const int r = idx / per_row;
     const int c = (idx - r * per_row) * P;
-    float* o = out + (long long)r * d + c;
-    float acc[P], cnt = 0.0f;
+    const long long off = o0 + (long long)r * d + c;
+    float acc[P];
+    float cnt = CARRY && cnt_in != nullptr ? cnt_in[r0 + r] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < P; ++j) acc[j] = accumulate ? o[j] : 0.0f;
+    for (int j = 0; j < P; ++j) acc[j] = CARRY ? part[off + j] : 0.0f;
     const int hi = tab[(r + 1) * kWarps];
     for (int p = tab[r * kWarps]; p < hi; p += 4) {
       float v[4][P], m[4];
@@ -180,18 +221,52 @@ __device__ inline void walk(const int* perm, const float* km,
         }
       }
     }
+    if constexpr (LAST) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) o[j] = mean ? acc[j] / fmaxf(cnt, 1.0f) : acc[j];
+      for (int j = 0; j < P; ++j)
+        repro_torch::io::put(out + off + j,
+                             mean ? acc[j] / fmaxf(cnt, 1.0f) : acc[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j) part[off + j] = acc[j];
+    }
+    // every column group of the row writes the same count
+    if (cnt_out != nullptr) cnt_out[r0 + r] = cnt;
   }
 }
 
+// A bf16 message slice: ordinary loads, four vectors a thread in flight,
+// each value widened.
+__device__ inline void stage_msg(float* ms, int cw,
+                                 const repro_torch::io::bf16* g, int d,
+                                 int e, int cols) {
+  const repro_torch::io::Widen op[1] = {
+      {ms, cw, g, d, e, cols, repro_torch::io::bf16_width(g, d, cols)}};
+  repro_torch::io::widen_all(op, threadIdx.x, kThreads);
+}
+
+// An f32 message slice: cp.async copies of 16, 8 or 4 bytes.
+__device__ inline void stage_msg(float* ms, int cw, const float* g, int d,
+                                 int e, int cols) {
+  if (d % 4 == 0 && cw % 4 == 0)
+    stage<4>(ms, cw, g, d, e, cols);
+  else if (d % 2 == 0 && cw % 2 == 0)
+    stage<2>(ms, cw, g, d, e, cols);
+  else
+    stage<1>(ms, cw, g, d, e, cols);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <typename T, typename O, bool CARRY, bool LAST>
 __global__ void __launch_bounds__(kThreads)
-edge_aggregate_kernel(const float* __restrict__ msg,
+edge_aggregate_kernel(const T* __restrict__ msg,
                       const int* __restrict__ dst,
-                      const float* __restrict__ mask,
-                      float* __restrict__ out, int e_count, int e_stride,
-                      int n, int d, int bm, int cw, int staged, int mean,
-                      int accumulate) {
+                      const float* __restrict__ mask, O* __restrict__ out,
+                      float* __restrict__ part,
+                      const float* __restrict__ cnt_in,
+                      float* __restrict__ cnt_out, int e_count,
+                      int e_stride, int n, int d, int bm, int cw,
+                      int staged, int mean) {
   extern __shared__ float4 smem4[];
   int* tab = reinterpret_cast<int*>(smem4);               // 64*W + 4
   float* ms = reinterpret_cast<float*>(tab + kMaxRows * kWarps + 4);
@@ -204,7 +279,7 @@ edge_aggregate_kernel(const float* __restrict__ msg,
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * bm, c0 = blockIdx.x * cw;
   const int rows = min(bm, n - row0), cols = min(cw, d - c0);
-  const float* msg_b = msg + (long long)b * e_stride * d + c0;
+  const T* msg_b = msg + (long long)b * e_stride * d + c0;
   const int* dst_b = dst + (long long)b * e_stride;
   const float* mask_b = mask + (long long)b * e_stride;
 
@@ -215,15 +290,7 @@ edge_aggregate_kernel(const float* __restrict__ msg,
     key[e] = (v >= row0 && v < row0 + rows) ? v - row0 : -1;
     km[e] = m;
   }
-  if (staged) {
-    if (d % 4 == 0 && cw % 4 == 0)
-      stage<4>(ms, cw, msg_b, d, e_count, cols);
-    else if (d % 2 == 0 && cw % 2 == 0)
-      stage<2>(ms, cw, msg_b, d, e_count, cols);
-    else
-      stage<1>(ms, cw, msg_b, d, e_count, cols);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
+  if (staged) stage_msg(ms, cw, msg_b, d, e_count, cols);
   for (int i = tid; i < kMaxRows * kWarps + 4; i += kThreads) tab[i] = 0;
   __syncthreads();
 
@@ -251,23 +318,28 @@ edge_aggregate_kernel(const float* __restrict__ msg,
   __syncthreads();
 
   // 3. the segment walk
-  float* out_b = out + ((long long)b * n + row0) * d + c0;
+  const long long o0 = ((long long)b * n + row0) * d + c0;
+  const long long r0 = (long long)b * n + row0;
   if (staged) {
     auto src = [ms, cw](int e) { return ms + e * cw; };
     if (d % 2 == 0)
-      walk<2>(perm, km, tab, src, out_b, d, rows, cols, mean,
-              accumulate);
+      walk<2, CARRY, LAST>(perm, km, tab, src, out, part, cnt_in, cnt_out,
+                           o0, r0, d, rows, cols, mean);
     else
-      walk<1>(perm, km, tab, src, out_b, d, rows, cols, mean,
-              accumulate);
+      walk<1, CARRY, LAST>(perm, km, tab, src, out, part, cnt_in, cnt_out,
+                           o0, r0, d, rows, cols, mean);
   } else {
+    // column pairs where d is even and the messages lie at an even
+    // element (a contiguous view may start anywhere)
+    const bool pairs =
+        d % 2 == 0 && reinterpret_cast<uintptr_t>(msg) % (2 * sizeof(T)) == 0;
     auto src = [msg_b, d](int e) { return msg_b + (long long)e * d; };
-    if (d % 2 == 0)
-      walk<2>(perm, km, tab, src, out_b, d, rows, cols, mean,
-              accumulate);
+    if (pairs)
+      walk<2, CARRY, LAST>(perm, km, tab, src, out, part, cnt_in, cnt_out,
+                           o0, r0, d, rows, cols, mean);
     else
-      walk<1>(perm, km, tab, src, out_b, d, rows, cols, mean,
-              accumulate);
+      walk<1, CARRY, LAST>(perm, km, tab, src, out, part, cnt_in, cnt_out,
+                           o0, r0, d, rows, cols, mean);
   }
 }
 
@@ -278,33 +350,79 @@ extern "C" long long edge_aggregate_smem_bytes(int e, int cw, int staged) {
   return smem_words(e, cw, staged) * 4LL;
 }
 
-// msg:(B,e,d) f32, dst:(B,e) i32, mask:(B,e) f32 -> out:(B,n,d) f32;
-// the e edges of graph b start at msg + b*e_stride*d, dst + b*e_stride
-// and mask + b*e_stride (e_stride >= e: a chunk of a longer list), rows
-// of d contiguous. bm <= 64 rows and cw columns per CTA (cw even where d
-// is); staged != 0 stages each CTA's message slice in shared memory.
-// mean != 0 divides by the masked in-degree; accumulate != 0 starts each
-// sum from out (mean must then be 0).
-extern "C" int edge_aggregate_f32(const float* msg, const int* dst,
-                                  const float* mask, float* out, int B,
-                                  int e, int e_stride, int n, int d, int bm,
-                                  int cw, int staged, int mean,
-                                  int accumulate, void* stream) {
-  if (B <= 0 || n <= 0 || d <= 0) return (int)cudaGetLastError();
-  if (bm <= 0 || bm > kMaxRows || cw <= 0 || (d % 2 == 0 && cw % 2 != 0) ||
-      e_stride < e || (mean && accumulate))
-    return (int)cudaErrorInvalidValue;
+namespace {
+
+template <typename T, typename O, bool CARRY, bool LAST>
+int launch_io(const T* msg, const int* dst, const float* mask, O* out,
+              float* part, const float* cnt_in, float* cnt_out, int B,
+              int e, int e_stride, int n, int d, int bm, int cw, int staged,
+              int mean, cudaStream_t stream) {
   const long long smem = edge_aggregate_smem_bytes(e, cw, staged);
+  auto kernel = edge_aggregate_kernel<T, O, CARRY, LAST>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        edge_aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((d + cw - 1) / cw, (n + bm - 1) / bm, B);
-  edge_aggregate_kernel<<<grid, kThreads, (size_t)smem,
-                          (cudaStream_t)stream>>>(
-      msg, dst, mask, out, e, e_stride, n, d, bm, cw, staged, mean,
-      accumulate);
+  kernel<<<grid, kThreads, (size_t)smem, stream>>>(
+      msg, dst, mask, out, part, cnt_in, cnt_out, e, e_stride, n, d, bm, cw,
+      staged, mean);
   return (int)cudaGetLastError();
+}
+
+// The launch of a chunk's kind: (carry, last) as template flags.
+template <typename T, typename O>
+int launch_chunk(const T* msg, const int* dst, const float* mask, O* out,
+                 float* part, const float* cnt_in, float* cnt_out, int B,
+                 int e, int e_stride, int n, int d, int bm, int cw,
+                 int staged, int mean, int carry, int last,
+                 cudaStream_t st) {
+#define REPRO_CHUNK(C, L)                                                  \
+  return launch_io<T, O, C, L>(msg, dst, mask, out, part, cnt_in, cnt_out, \
+                               B, e, e_stride, n, d, bm, cw, staged, mean, \
+                               st)
+  if (last) {
+    if (carry) REPRO_CHUNK(true, true);
+    REPRO_CHUNK(false, true);
+  }
+  if (carry) REPRO_CHUNK(true, false);
+#undef REPRO_CHUNK
+  return (int)cudaErrorInvalidValue;   // a first chunk runs as last
+}
+
+}  // namespace
+
+// msg:(B,e,d) of the dtype in_dtype, dst:(B,e) i32, mask:(B,e) f32 ->
+// out:(B,n,d) of out_dtype (dtype_io.cuh: 0 = f32, 1 = bf16); the e
+// edges of graph b start at msg + b*e_stride*d, dst + b*e_stride and
+// mask + b*e_stride (e_stride >= e: a chunk of a longer list), rows of d
+// contiguous. bm <= 64 rows and cw columns per CTA (cw even where d is);
+// staged != 0 stages each CTA's message slice in shared memory. mean != 0
+// divides by the masked in-degree. A chunk: carry != 0 starts each sum
+// from part:(B,n,d) f32 and, for mean, each count from cnt_in:(B,n) f32;
+// last == 0 leaves the sums in part instead of writing out (carry must
+// then be set: a first chunk runs as last, into an f32 out); cnt_out, if
+// not null, receives the counts. out, part, cnt_in and cnt_out are four
+// buffers.
+extern "C" int edge_aggregate_ex(const void* msg, const int* dst,
+                                 const float* mask, void* out, float* part,
+                                 const float* cnt_in, float* cnt_out, int B,
+                                 int e, int e_stride, int n, int d, int bm,
+                                 int cw, int staged, int mean, int carry,
+                                 int last, int in_dtype, int out_dtype,
+                                 void* stream) {
+  if (B <= 0 || n <= 0 || d <= 0) return (int)cudaGetLastError();
+  if (bm <= 0 || bm > kMaxRows || cw <= 0 || (d % 2 == 0 && cw % 2 != 0) ||
+      e_stride < e || ((carry || !last) && part == nullptr) ||
+      (!last && !carry) || (mean && carry && cnt_in == nullptr) ||
+      (mean && !last && cnt_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  REPRO_DISPATCH_IO(in_dtype, out_dtype,
+                    return launch_chunk(static_cast<const T*>(msg), dst,
+                                        mask, static_cast<O*>(out), part,
+                                        cnt_in, cnt_out, B, e, e_stride, n,
+                                        d, bm, cw, staged, mean, carry,
+                                        last, st));
 }

@@ -36,10 +36,23 @@
 // (kernels/ref.py:fused_dense_ref), which therefore reproduces this
 // kernel's bits under none and relu; gelu and silu round as CUDA's tanhf
 // and expf do, within the float32 row of it.
+//
+// The bf16 forms (x, w and b of one type T, the output of type O; the
+// TPU kernel's bf16 x bf16 products accumulated in f32 and cast to
+// out_dtype): a bf16 x or w slab is staged by ordinary loads, each value
+// widened exactly into the same f32 slab (dtype_io.cuh), b widened where
+// it is added, and the result rounded once to bf16 where O is bf16 (round
+// to nearest even). The arithmetic between is the f32 form's, so every
+// form is bitwise with the plain version. A bf16 product on the tensor
+// cores would be faster at the attention dense and is not this kernel:
+// it sums in another order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "activation.cuh"
+#include "dtype_io.cuh"
 
 namespace {
 
@@ -116,11 +129,11 @@ __device__ inline float lane_of(const float4& a, int i) {
   return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
 }
 
-template <int TR, int TC, int TY, int TX>
+template <int TR, int TC, int TY, int TX, typename T, typename O>
 __global__ void __launch_bounds__(TX * TY)
-fused_dense_kernel(const float* __restrict__ x, long long ldx,
-                   const float* __restrict__ w, const float* __restrict__ b,
-                   float* __restrict__ y, int M, int K, int N, int act,
+fused_dense_kernel(const T* __restrict__ x, long long ldx,
+                   const T* __restrict__ w, const T* __restrict__ b,
+                   O* __restrict__ y, int M, int K, int N, int act,
                    int vx, int vw) {
   constexpr int BM = TR * TY, BN = TC * TX, NT = TX * TY;
   extern __shared__ float4 smem4[];
@@ -133,16 +146,24 @@ fused_dense_kernel(const float* __restrict__ x, long long ldx,
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
   const int rows = min(BM, M - row0), cols = min(BN, N - col0);
-  const float* xg = x + (long long)row0 * ldx;
-  const float* wg = w + col0;
+  const T* xg = x + (long long)row0 * ldx;
+  const T* wg = w + col0;
 
   // slab s into buffer s % 2: x rows [row0, +rows) x k [s*ks, +kt), w
   // rows k [s*ks, +kt) x columns [col0, +cols)
   auto load_slab = [&](int s) {
     float* xs = smem + (s & 1) * buf;
     const int k0 = s * ks, kt = min(ks, K - k0);
-    stage_v<NT>(vx, xs, lds, xg + k0, ldx, rows, kt);
-    stage_v<NT>(vw, xs + BM * lds, BN, wg + (long long)k0 * N, N, kt, cols);
+    if constexpr (std::is_same_v<T, float>) {
+      stage_v<NT>(vx, xs, lds, xg + k0, ldx, rows, kt);
+      stage_v<NT>(vw, xs + BM * lds, BN, wg + (long long)k0 * N, N, kt,
+                  cols);
+    } else {   // both slabs' loads in flight together, widened
+      const repro_torch::io::Widen op[2] = {
+          {xs, lds, xg + k0, ldx, rows, kt, vx},
+          {xs + BM * lds, BN, wg + (long long)k0 * N, N, kt, cols, vw}};
+      repro_torch::io::widen_all(op, threadIdx.x, NT);
+    }
     cp_async_commit();
   };
 
@@ -204,9 +225,9 @@ fused_dense_kernel(const float* __restrict__ x, long long ldx,
       const int c = tx * TC + j;
       if (c >= cols) continue;
       float v = acc[i][j];
-      if (b != nullptr) v += b[col0 + c];
-      y[(long long)(row0 + r) * N + col0 + c] =
-          repro_torch::activate(v, act);
+      if (b != nullptr) v += repro_torch::io::widen(b[col0 + c]);
+      repro_torch::io::put(y + (long long)(row0 + r) * N + col0 + c,
+                           repro_torch::activate(v, act));
     }
   }
 }
@@ -221,18 +242,22 @@ constexpr int kVariants = sizeof(kTiles) / sizeof(kTiles[0]);
 
 // The widest copy (4, 2 or 1 floats) that keeps every vector of a row
 // inside the row and every source address aligned to its size.
-int copy_width(const void* p, long long ld, int len) {
+int copy_width(const float* p, long long ld, int len) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
   for (int v = 4; v > 1; v /= 2)
     if (a % (4 * v) == 0 && ld % v == 0 && len % v == 0) return v;
   return 1;
 }
+// The same for bf16: 8, 4, 2 or 1 elements.
+int copy_width(const repro_torch::io::bf16* p, long long ld, int len) {
+  return repro_torch::io::bf16_width(p, ld, len);
+}
 
-template <int TR, int TC, int TY, int TX>
-int launch(const float* x, long long ldx, const float* w, const float* b,
-           float* y, int M, int K, int N, int act, cudaStream_t stream) {
+template <int TR, int TC, int TY, int TX, typename T, typename O>
+int launch(const T* x, long long ldx, const T* w, const T* b, O* y, int M,
+           int K, int N, int act, cudaStream_t stream) {
   constexpr int BM = TR * TY, BN = TC * TX;
-  auto kern = fused_dense_kernel<TR, TC, TY, TX>;
+  auto kern = fused_dense_kernel<TR, TC, TY, TX, T, O>;
   const long long smem = 4 * smem_floats(BM, BN, K);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -256,22 +281,41 @@ extern "C" long long fused_dense_smem_bytes(int variant, int K) {
   return 4 * smem_floats(t[0] * t[2], t[1] * t[3], K);
 }
 
+namespace {
+
+template <typename T, typename O>
+int launch_variant(const void* x, long long ldx, const void* w,
+                   const void* b, void* y, int M, int K, int N, int act,
+                   int variant, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* bt = static_cast<const T*>(b);
+  O* yt = static_cast<O*>(y);
+  switch (variant) {
+    case 0: return launch<1, 2, 8, 16>(xt, ldx, wt, bt, yt, M, K, N, act, s);
+    case 1: return launch<2, 2, 8, 16>(xt, ldx, wt, bt, yt, M, K, N, act, s);
+    case 2: return launch<2, 2, 16, 16>(xt, ldx, wt, bt, yt, M, K, N, act, s);
+    case 3: return launch<4, 4, 16, 16>(xt, ldx, wt, bt, yt, M, K, N, act, s);
+    case 4: return launch<1, 1, 16, 8>(xt, ldx, wt, bt, yt, M, K, N, act, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
 // x:(M,K) with row stride ldx >= K (any, for one row) and unit column
-// stride, w:(K,N), b:(N,) or null, y:(M,N); all f32, w, b and y
-// contiguous, on the device of `stream`. act: 0 = none, 1 = relu,
-// 2 = gelu, 3 = silu (activation.cuh). variant: the tile (kTiles).
-extern "C" int fused_dense_f32(const float* x, long long ldx, const float* w,
-                               const float* b, float* y, int M, int K, int N,
-                               int act, int variant, void* stream) {
+// stride, w:(K,N), b:(N,) or null, all of the dtype in_dtype; y:(M,N) of
+// out_dtype (dtype_io.cuh: 0 = f32, 1 = bf16); w, b and y contiguous, on
+// the device of `stream`. act: 0 = none, 1 = relu, 2 = gelu, 3 = silu
+// (activation.cuh). variant: the tile (kTiles).
+extern "C" int fused_dense_ex(const void* x, long long ldx, const void* w,
+                              const void* b, void* y, int M, int K, int N,
+                              int act, int variant, int in_dtype,
+                              int out_dtype, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   if (K < 0 || (M > 1 && ldx < K)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (variant) {
-    case 0: return launch<1, 2, 8, 16>(x, ldx, w, b, y, M, K, N, act, s);
-    case 1: return launch<2, 2, 8, 16>(x, ldx, w, b, y, M, K, N, act, s);
-    case 2: return launch<2, 2, 16, 16>(x, ldx, w, b, y, M, K, N, act, s);
-    case 3: return launch<4, 4, 16, 16>(x, ldx, w, b, y, M, K, N, act, s);
-    case 4: return launch<1, 1, 16, 8>(x, ldx, w, b, y, M, K, N, act, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  REPRO_DISPATCH_IO(in_dtype, out_dtype,
+                    return launch_variant<T, O>(x, ldx, w, b, y, M, K, N,
+                                                act, variant, s));
 }

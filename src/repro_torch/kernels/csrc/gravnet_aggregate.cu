@@ -38,9 +38,18 @@
 // gravnet_cell.cuh), a second hand-written path chosen by shape. Every sum runs in the plain version's order with
 // products and sums rounded separately (-fmad=false), so
 // kernels/ref.py:gravnet_aggregate_ref reproduces both.
+//
+// The bf16 forms (s and f of one type T, the output of type O): both
+// kernels stage a bf16 S and F by ordinary loads, each value widened
+// exactly into the same f32 shared memory (dtype_io.cuh), run the f32
+// cell unchanged and round each output once where O is bf16, so every
+// form is bitwise with the plain version.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "dtype_io.cuh"
 #include "gravnet_cell.cuh"
 #include "gravnet_cell_reg.cuh"
 
@@ -104,13 +113,12 @@ __device__ inline void stage_flat(float* s, const float* g, int count) {
 }
 
 // CPL: candidates per lane (n <= 32 CPL). bm warps a CTA.
-template <int CPL>
+template <int CPL, typename T, typename O>
 __global__ void __launch_bounds__(32 * kMaxRows)
-gravnet_aggregate_kernel(const float* __restrict__ s,
-                         const float* __restrict__ f,
+gravnet_aggregate_kernel(const T* __restrict__ s, const T* __restrict__ f,
                          const float* __restrict__ mask,
-                         float* __restrict__ out, int n, int ds, int df,
-                         int k, float scale, int bm) {
+                         O* __restrict__ out, int n, int ds, int df, int k,
+                         float scale, int bm) {
   extern __shared__ __align__(16) float smem[];
   const Layout L = layout(n, ds, df);
   float* const S = smem + L.s;
@@ -120,9 +128,17 @@ gravnet_aggregate_kernel(const float* __restrict__ s,
   const int event = blockIdx.y;
   const int i = blockIdx.x * bm + warp;
 
-  // staging, one round trip: S, F and the mask by cp.async
-  stage_flat(S, s + (size_t)event * n * ds, n * ds);
-  stage_flat(F, f + (size_t)event * n * df, n * df);
+  // staging, one round trip: S, F and the mask by cp.async (bf16: S and
+  // F by loads in flight together, widened)
+  if constexpr (std::is_same_v<T, float>) {
+    stage_flat(S, s + (size_t)event * n * ds, n * ds);
+    stage_flat(F, f + (size_t)event * n * df, n * df);
+  } else {
+    const repro_torch::io::Widen op[2] = {
+        repro_torch::io::flat(S, s + (size_t)event * n * ds, n * ds),
+        repro_torch::io::flat(F, f + (size_t)event * n * df, n * df)};
+    repro_torch::io::widen_all(op, threadIdx.x, blockDim.x);
+  }
   stage_flat(msk, mask + (size_t)event * n, n);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -132,13 +148,13 @@ gravnet_aggregate_kernel(const float* __restrict__ s,
     float sum[kMaxDfPerLane], mx[kMaxDfPerLane];
     repro_torch::regcell::cell_row<CPL>(i, n, ds, df, k, scale, S, F, msk,
                                         sum, mx);
-    float* const o = out + ((size_t)event * n + i) * 2 * df;
+    O* const o = out + ((size_t)event * n + i) * 2 * df;
 #pragma unroll
     for (int u = 0; u < kMaxDfPerLane; ++u) {
       const int c = lane + 32 * u;
       if (c < df) {
-        o[c] = sum[u] / (float)k;
-        o[df + c] = mx[u];
+        repro_torch::io::put(o + c, sum[u] / (float)k);
+        repro_torch::io::put(o + df + c, mx[u]);
       }
     }
   }
@@ -172,12 +188,13 @@ __host__ __device__ inline SharedLayout shared_layout(int n, int ds,
   return L;
 }
 
+template <typename T, typename O>
 __global__ void __launch_bounds__(kSharedThreads)
-gravnet_aggregate_shared_kernel(const float* __restrict__ s,
-                                const float* __restrict__ f,
+gravnet_aggregate_shared_kernel(const T* __restrict__ s,
+                                const T* __restrict__ f,
                                 const float* __restrict__ mask,
-                                float* __restrict__ out, int n, int ds,
-                                int df, int k, float scale, int bm) {
+                                O* __restrict__ out, int n, int ds, int df,
+                                int k, float scale, int bm) {
   extern __shared__ float smem_shared[];
   float* const smem = smem_shared;
   const SharedLayout L = shared_layout(n, ds, df);
@@ -193,9 +210,9 @@ gravnet_aggregate_shared_kernel(const float* __restrict__ s,
   const int rows = min(bm, n - row0);
 
   for (int e = tid; e < n * ds; e += kSharedThreads)
-    S[e] = s[(size_t)event * n * ds + e];
+    S[e] = repro_torch::io::widen(s[(size_t)event * n * ds + e]);
   for (int e = tid; e < n * df; e += kSharedThreads)
-    F[e] = f[(size_t)event * n * df + e];
+    F[e] = repro_torch::io::widen(f[(size_t)event * n * df + e]);
   for (int e = tid; e < n; e += kSharedThreads)
     msk[e] = mask[(size_t)event * n + e];
   __syncthreads();
@@ -212,17 +229,16 @@ gravnet_aggregate_shared_kernel(const float* __restrict__ s,
     const int i = row0 + r;
     repro_torch::gravnet_cell_row(i, n, ds, df, k, scale, S, sq, F, msk,
                                   d2row, agg);
-    float* o = out + ((size_t)event * n + i) * 2 * df;
-    for (int c = lane; c < 2 * df; c += 32) o[c] = agg[c];
+    O* o = out + ((size_t)event * n + i) * 2 * df;
+    for (int c = lane; c < 2 * df; c += 32) repro_torch::io::put(o + c, agg[c]);
     __syncwarp();   // the next row's cell rewrites agg
   }
 }
 
-template <typename Kernel>
+template <typename Kernel, typename T, typename O>
 int launch(Kernel kernel, int threads, long long smem, int B, int n,
-           int bm, cudaStream_t stream, const float* s, const float* f,
-           const float* mask, float* out, int ds, int df, int k,
-           float scale) {
+           int bm, cudaStream_t stream, const T* s, const T* f,
+           const float* mask, O* out, int ds, int df, int k, float scale) {
   // The opt-in above 48 KB holds per device, so it is set on every such
   // launch (a cheap call) rather than cached for the process.
   if (smem > 48 * 1024) {
@@ -239,35 +255,63 @@ int launch(Kernel kernel, int threads, long long smem, int B, int n,
 }  // namespace
 
 // Bytes of dynamic shared memory one CTA needs at these shapes, on the
-// path gravnet_aggregate_f32 takes for them with kernels/gravnet.py:plan's
+// path gravnet_aggregate_ex takes for them with kernels/gravnet.py:plan's
 // bm (the mirror of gravnet.smem_bytes).
 extern "C" long long gravnet_aggregate_smem_bytes(int n, int ds, int df) {
   return 4LL * (register_cell(n, df) ? layout(n, ds, df).total
                                      : shared_layout(n, ds, df).total);
 }
 
-// s:(B,n,ds) f:(B,n,df) mask:(B,n) -> out:(B,n,2df); all f32, contiguous.
-// bm query rows per CTA: at most 16 runs the register cell where the
-// shape allows (n <= 512, df <= 128), else the first version.
-extern "C" int gravnet_aggregate_f32(const float* s, const float* f,
-                                     const float* mask, float* out, int B,
-                                     int n, int ds, int df, int k,
-                                     float scale, int bm, void* stream) {
-  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (bm < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
+namespace {
+
+template <typename T, typename O>
+int launch_io(const T* s, const T* f, const float* mask, O* out, int B,
+              int n, int ds, int df, int k, float scale, int bm,
+              cudaStream_t st) {
   if (!register_cell(n, df) || bm > kMaxRows)
-    return launch(gravnet_aggregate_shared_kernel, kSharedThreads,
+    return launch(gravnet_aggregate_shared_kernel<T, O>, kSharedThreads,
                   4LL * shared_layout(n, ds, df).total, B, n, bm, st, s, f,
                   mask, out, ds, df, k, scale);
   const long long smem = 4LL * layout(n, ds, df).total;
-#define REPRO_LAUNCH(CPL)                                                \
-  return launch(gravnet_aggregate_kernel<CPL>, 32 * bm, smem, B, n, bm, \
-                st, s, f, mask, out, ds, df, k, scale)
+#define REPRO_LAUNCH(CPL)                                                   \
+  return launch(gravnet_aggregate_kernel<CPL, T, O>, 32 * bm, smem, B, n,  \
+                bm, st, s, f, mask, out, ds, df, k, scale)
   if (n <= 32) REPRO_LAUNCH(1);
   if (n <= 64) REPRO_LAUNCH(2);
   if (n <= 128) REPRO_LAUNCH(4);
   if (n <= 256) REPRO_LAUNCH(8);
   REPRO_LAUNCH(16);
 #undef REPRO_LAUNCH
+}
+
+}  // namespace
+
+// s:(B,n,ds) f:(B,n,df) of the dtype in_dtype, mask:(B,n) f32 ->
+// out:(B,n,2df) of out_dtype (dtype_io.cuh: 0 = f32, 1 = bf16); all
+// contiguous. bm query rows per CTA: at most 16 runs the register cell
+// where the shape allows (n <= 512, df <= 128), else the first version.
+extern "C" int gravnet_aggregate_ex(const void* s, const void* f,
+                                    const float* mask, void* out, int B,
+                                    int n, int ds, int df, int k,
+                                    float scale, int bm, int in_dtype,
+                                    int out_dtype, void* stream) {
+  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (bm < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  REPRO_DISPATCH_IO(in_dtype, out_dtype,
+                    return launch_io(static_cast<const T*>(s),
+                                     static_cast<const T*>(f), mask,
+                                     static_cast<O*>(out), B, n, ds, df, k,
+                                     scale, bm, st));
+}
+
+// The f32 form with the first versions' arguments, as
+// kernels/phase_split.py and source_ab.py call it.
+extern "C" int gravnet_aggregate_f32(const float* s, const float* f,
+                                     const float* mask, float* out, int B,
+                                     int n, int ds, int df, int k,
+                                     float scale, int bm, void* stream) {
+  return gravnet_aggregate_ex(s, f, mask, out, B, n, ds, df, k, scale, bm,
+                              repro_torch::io::kF32, repro_torch::io::kF32,
+                              stream);
 }

@@ -64,12 +64,19 @@
 // the bitwise contract. kernels/ref.py:gravnet_block_ref reproduces both
 // under none and relu; under gelu and silu the last step rounds as
 // CUDA's tanhf and expf do (the float32 row).
+//
+// The bf16 forms (x, the weights and the biases of one type T, the output
+// of type O): both kernels stage a bf16 operand by ordinary loads, each
+// value widened exactly into the same f32 shared memory (dtype_io.cuh),
+// and round each output once where O is bf16; the arithmetic is the f32
+// form's, so every form is bitwise with the plain version.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "activation.cuh"
+#include "dtype_io.cuh"
 #include "gravnet_cell.cuh"
 #include "gravnet_cell_reg.cuh"
 
@@ -215,18 +222,16 @@ __device__ inline void tile_dot(float (&acc)[TR][TC],
 }
 
 // CPL: candidates per lane (n <= 32 CPL).
-template <int CPL>
+template <int CPL, typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
-gravnet_block_kernel(const float* __restrict__ x,
+gravnet_block_kernel(const T* __restrict__ x,
                      const float* __restrict__ mask,
-                     const float* __restrict__ ws,
-                     const float* __restrict__ bs,
-                     const float* __restrict__ wf,
-                     const float* __restrict__ bf,
-                     const float* __restrict__ wo,
-                     const float* __restrict__ bo, float* __restrict__ y,
-                     int n, int dh, int ds, int df, int dout, int k,
-                     float scale, int act, int cx, int bm) {
+                     const T* __restrict__ ws, const T* __restrict__ bs,
+                     const T* __restrict__ wf, const T* __restrict__ bf,
+                     const T* __restrict__ wo, const T* __restrict__ bo,
+                     O* __restrict__ y, int n, int dh, int ds, int df,
+                     int dout, int k, float scale, int act, int cx,
+                     int bm) {
   extern __shared__ __align__(16) float smem[];
   const int dcat = cx + 2 * df;
   const Layout L = layout(n, dh, ds, df, dout, cx);
@@ -250,16 +255,32 @@ gravnet_block_kernel(const float* __restrict__ x,
 
   // 1. staging, one round trip: x, the mask, the weights and the biases
   // into shared memory by cp.async, in two groups: what S and F read,
-  // then Wo and bo, which land while S, F and the cell run
-  stage_rows(xs, L.ldx, x + (size_t)event * n * dh, dh, n, dh);
-  stage_rows(msk, 0, mask + (size_t)event * n, 0, 1, n);
-  stage_rows(Ws, L.ldws, ws, ds, dh, ds);
-  stage_rows(Wf, L.ldwf, wf, df, dh, df);
-  stage_rows(Bs, 0, bs, 0, 1, ds);
-  stage_rows(Bf, 0, bf, 0, 1, df);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  stage_rows(Wo, L.ldwo, wo, dout, dcat, dout);
-  stage_rows(Bo, 0, bo, 0, 1, dout);
+  // then Wo and bo, which land while S, F and the cell run (bf16: the
+  // mask by cp.async, the rest by loads in flight together, widened)
+  const T* const xe = x + (size_t)event * n * dh;
+  if constexpr (std::is_same_v<T, float>) {
+    stage_rows(xs, L.ldx, xe, dh, n, dh);
+    stage_rows(msk, 0, mask + (size_t)event * n, 0, 1, n);
+    stage_rows(Ws, L.ldws, ws, ds, dh, ds);
+    stage_rows(Wf, L.ldwf, wf, df, dh, df);
+    stage_rows(Bs, 0, bs, 0, 1, ds);
+    stage_rows(Bf, 0, bf, 0, 1, df);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    stage_rows(Wo, L.ldwo, wo, dout, dcat, dout);
+    stage_rows(Bo, 0, bo, 0, 1, dout);
+  } else {
+    stage_rows(msk, 0, mask + (size_t)event * n, 0, 1, n);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    using repro_torch::io::bf16_width;
+    using repro_torch::io::flat;
+    const repro_torch::io::Widen op[7] = {
+        {xs, L.ldx, xe, dh, n, dh, bf16_width(xe, dh, dh)},
+        {Ws, L.ldws, ws, ds, dh, ds, bf16_width(ws, ds, ds)},
+        {Wf, L.ldwf, wf, df, dh, df, bf16_width(wf, df, df)},
+        {Wo, L.ldwo, wo, dout, dcat, dout, bf16_width(wo, dout, dout)},
+        flat(Bs, bs, ds), flat(Bf, bf, df), flat(Bo, bo, dout)};
+    repro_torch::io::widen_all(op, tid, kThreads);
+  }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   __syncthreads();
@@ -332,8 +353,9 @@ gravnet_block_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < kOutCols; ++j) {
         if (r0 + i < rows && c0 + j < dout)
-          y[((size_t)event * n + row0 + r0 + i) * dout + c0 + j] =
-              repro_torch::activate(acc[i][j] + Bo[c0 + j], act);
+          repro_torch::io::put(
+              y + ((size_t)event * n + row0 + r0 + i) * dout + c0 + j,
+              repro_torch::activate(acc[i][j] + Bo[c0 + j], act));
       }
     }
   }
@@ -377,18 +399,18 @@ __host__ __device__ inline SharedLayout shared_layout(int n, int dh, int ds,
   return L;
 }
 
+template <typename T, typename O>
 __global__ void __launch_bounds__(kSharedThreads)
-gravnet_block_shared_kernel(const float* __restrict__ x,
+gravnet_block_shared_kernel(const T* __restrict__ x,
                             const float* __restrict__ mask,
-                            const float* __restrict__ ws,
-                            const float* __restrict__ bs,
-                            const float* __restrict__ wf,
-                            const float* __restrict__ bf,
-                            const float* __restrict__ wo,
-                            const float* __restrict__ bo,
-                            float* __restrict__ y, int n, int dh, int ds,
-                            int df, int dout, int k, float scale, int act,
-                            int cx, int bm) {
+                            const T* __restrict__ ws,
+                            const T* __restrict__ bs,
+                            const T* __restrict__ wf,
+                            const T* __restrict__ bf,
+                            const T* __restrict__ wo,
+                            const T* __restrict__ bo, O* __restrict__ y,
+                            int n, int dh, int ds, int df, int dout, int k,
+                            float scale, int act, int cx, int bm) {
   extern __shared__ float smem_shared[];
   float* const smem = smem_shared;
   const int dcat = cx + 2 * df;
@@ -411,18 +433,20 @@ gravnet_block_shared_kernel(const float* __restrict__ x,
   const int event = blockIdx.y;
   const int row0 = blockIdx.x * bm;
   const int rows = min(bm, n - row0);
-  const float* xe = x + (size_t)event * n * dh;
+  const T* xe = x + (size_t)event * n * dh;
+  using repro_torch::io::widen;
 
   // stage the event and the weights
-  for (int e = tid; e < n * dh; e += kSharedThreads) xs[e] = xe[e];
+  for (int e = tid; e < n * dh; e += kSharedThreads) xs[e] = widen(xe[e]);
   for (int e = tid; e < n; e += kSharedThreads)
     msk[e] = mask[(size_t)event * n + e];
-  for (int e = tid; e < dh * ds; e += kSharedThreads) Ws[e] = ws[e];
-  for (int e = tid; e < dh * df; e += kSharedThreads) Wf[e] = wf[e];
-  for (int e = tid; e < ds; e += kSharedThreads) Bs[e] = bs[e];
-  for (int e = tid; e < df; e += kSharedThreads) Bf[e] = bf[e];
-  for (int e = tid; e < dcat * dout; e += kSharedThreads) Wo[e] = wo[e];
-  for (int e = tid; e < dout; e += kSharedThreads) Bo[e] = bo[e];
+  for (int e = tid; e < dh * ds; e += kSharedThreads) Ws[e] = widen(ws[e]);
+  for (int e = tid; e < dh * df; e += kSharedThreads) Wf[e] = widen(wf[e]);
+  for (int e = tid; e < ds; e += kSharedThreads) Bs[e] = widen(bs[e]);
+  for (int e = tid; e < df; e += kSharedThreads) Bf[e] = widen(bf[e]);
+  for (int e = tid; e < dcat * dout; e += kSharedThreads)
+    Wo[e] = widen(wo[e]);
+  for (int e = tid; e < dout; e += kSharedThreads) Bo[e] = widen(bo[e]);
   __syncthreads();
 
   // prologue: S and F for every row of the event
@@ -463,8 +487,8 @@ gravnet_block_shared_kernel(const float* __restrict__ x,
     for (int q = 0; q < cx; ++q, ++kk) acc += xs[i * dh + q] * Wo[kk * dout + c];
     for (int q = 0; q < 2 * df; ++q, ++kk)
       acc += agg[r * 2 * df + q] * Wo[kk * dout + c];
-    y[((size_t)event * n + i) * dout + c] =
-        repro_torch::activate(acc + Bo[c], act);
+    repro_torch::io::put(y + ((size_t)event * n + i) * dout + c,
+                         repro_torch::activate(acc + Bo[c], act));
   }
 }
 
@@ -476,13 +500,12 @@ bool register_cell(int n, int dh, int ds, int df, int dout, int bm,
          4LL * layout(n, dh, ds, df, dout, cx).total <= kSmemLimit;
 }
 
-template <typename Kernel>
+template <typename Kernel, typename T, typename O>
 int launch(Kernel kernel, int threads, long long smem, int B, int n,
-           int bm, cudaStream_t stream, const float* x, const float* mask,
-           const float* ws, const float* bs, const float* wf,
-           const float* bf, const float* wo, const float* bo, float* y,
-           int dh, int ds, int df, int dout, int k, float scale, int act,
-           int cx) {
+           int bm, cudaStream_t stream, const T* x, const float* mask,
+           const T* ws, const T* bs, const T* wf, const T* bf, const T* wo,
+           const T* bo, O* y, int dh, int ds, int df, int dout, int k,
+           float scale, int act, int cx) {
   // The opt-in above 48 KB holds per device, so it is set on every such
   // launch (a cheap call) rather than cached for the process.
   if (smem > 48 * 1024) {
@@ -510,33 +533,31 @@ extern "C" long long gravnet_block_smem_bytes(int n, int dh, int ds, int df,
   return 4LL * shared_layout(n, dh, ds, df, dout, bm, cx).total;
 }
 
-// x:(B,n,dh) mask:(B,n) ws:(dh,ds) bs:(ds,) wf:(dh,df) bf:(df,)
-// wo:(dh+2df,dout), or (2df,dout) when concat_x = 0, bo:(dout,) ->
-// y:(B,n,dout); all f32, contiguous. act: 0 = none, 1 = relu, 2 = gelu,
-// 3 = silu. bm query rows per CTA: at most 16 runs the register cell
-// where the shape allows (register_cell), else the first version.
-extern "C" int gravnet_block_f32_ex(const float* x, const float* mask,
-                                    const float* ws, const float* bs,
-                                    const float* wf, const float* bf,
-                                    const float* wo, const float* bo,
-                                    float* y, int B, int n, int dh, int ds,
-                                    int df, int dout, int k, float scale,
-                                    int act, int concat_x, int bm,
-                                    void* stream) {
-  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (bm < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
+namespace {
+
+template <typename T, typename O>
+int launch_io(const void* const* w, const float* mask, void* y, int B,
+              int n, int dh, int ds, int df, int dout, int k, float scale,
+              int act, int concat_x, int bm, cudaStream_t st) {
+  const T* x = static_cast<const T*>(w[0]);
+  const T* ws = static_cast<const T*>(w[1]);
+  const T* bs = static_cast<const T*>(w[2]);
+  const T* wf = static_cast<const T*>(w[3]);
+  const T* bf = static_cast<const T*>(w[4]);
+  const T* wo = static_cast<const T*>(w[5]);
+  const T* bo = static_cast<const T*>(w[6]);
+  O* yt = static_cast<O*>(y);
   const int cx = concat_x ? dh : 0;
   const long long smem =
       gravnet_block_smem_bytes(n, dh, ds, df, dout, bm, concat_x);
   if (!register_cell(n, dh, ds, df, dout, bm, cx))
-    return launch(gravnet_block_shared_kernel, kSharedThreads, smem, B, n,
-                  bm, st, x, mask, ws, bs, wf, bf, wo, bo, y, dh, ds, df,
-                  dout, k, scale, act, cx);
-#define REPRO_LAUNCH(CPL)                                                 \
-  return launch(gravnet_block_kernel<CPL>, kThreads, smem, B, n, bm, st, \
-                x, mask, ws, bs, wf, bf, wo, bo, y, dh, ds, df, dout, k,  \
-                scale, act, cx)
+    return launch(gravnet_block_shared_kernel<T, O>, kSharedThreads, smem,
+                  B, n, bm, st, x, mask, ws, bs, wf, bf, wo, bo, yt, dh, ds,
+                  df, dout, k, scale, act, cx);
+#define REPRO_LAUNCH(CPL)                                                   \
+  return launch(gravnet_block_kernel<CPL, T, O>, kThreads, smem, B, n, bm, \
+                st, x, mask, ws, bs, wf, bf, wo, bo, yt, dh, ds, df, dout,  \
+                k, scale, act, cx)
   if (n <= 32) REPRO_LAUNCH(1);
   if (n <= 64) REPRO_LAUNCH(2);
   if (n <= 128) REPRO_LAUNCH(4);
@@ -545,8 +566,36 @@ extern "C" int gravnet_block_f32_ex(const float* x, const float* mask,
 #undef REPRO_LAUNCH
 }
 
-// The entry of the sources before the concat_x option: the block with
-// concat(x, agg), as kernels/phase_split.py and source_ab.py call it.
+}  // namespace
+
+// x:(B,n,dh) mask:(B,n) ws:(dh,ds) bs:(ds,) wf:(dh,df) bf:(df,)
+// wo:(dh+2df,dout), or (2df,dout) when concat_x = 0, bo:(dout,) ->
+// y:(B,n,dout); all contiguous, x, the weights and the biases of the
+// dtype in_dtype, the mask f32, y of out_dtype (dtype_io.cuh: 0 = f32,
+// 1 = bf16). act: 0 = none, 1 = relu, 2 = gelu, 3 = silu. bm query rows
+// per CTA: at most 16 runs the register cell where the shape allows
+// (register_cell), else the first version.
+extern "C" int gravnet_block_ex(const void* x, const float* mask,
+                                const void* ws, const void* bs,
+                                const void* wf, const void* bf,
+                                const void* wo, const void* bo, void* y,
+                                int B, int n, int dh, int ds, int df,
+                                int dout, int k, float scale, int act,
+                                int concat_x, int bm, int in_dtype,
+                                int out_dtype, void* stream) {
+  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (bm < 1) return (int)cudaErrorInvalidValue;
+  const void* const w[] = {x, ws, bs, wf, bf, wo, bo};
+  const cudaStream_t st = (cudaStream_t)stream;
+  REPRO_DISPATCH_IO(in_dtype, out_dtype,
+                    return launch_io<T, O>(w, mask, y, B, n, dh, ds, df,
+                                           dout, k, scale, act, concat_x,
+                                           bm, st));
+}
+
+// The entry of the sources before the concat_x option: the f32 block
+// with concat(x, agg), as kernels/phase_split.py and source_ab.py call
+// it.
 extern "C" int gravnet_block_f32(const float* x, const float* mask,
                                  const float* ws, const float* bs,
                                  const float* wf, const float* bf,
@@ -554,6 +603,8 @@ extern "C" int gravnet_block_f32(const float* x, const float* mask,
                                  int B, int n, int dh, int ds, int df,
                                  int dout, int k, float scale, int act,
                                  int bm, void* stream) {
-  return gravnet_block_f32_ex(x, mask, ws, bs, wf, bf, wo, bo, y, B, n, dh,
-                              ds, df, dout, k, scale, act, 1, bm, stream);
+  return gravnet_block_ex(x, mask, ws, bs, wf, bf, wo, bo, y, B, n, dh, ds,
+                          df, dout, k, scale, act, 1, bm,
+                          repro_torch::io::kF32, repro_torch::io::kF32,
+                          stream);
 }

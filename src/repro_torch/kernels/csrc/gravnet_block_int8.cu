@@ -60,12 +60,18 @@
 // CUDA's tanhf and expf do (the float32 row; an int8 output a step away
 // at most). The activation scales are float arguments, as the reference
 // bakes them as constants.
+//
+// x may be bf16 (the TPU kernel reads it as f32, x.astype(jnp.float32)):
+// it is loaded as bf16, 8 bytes a vector of 4, widened exactly
+// (dtype_io.cuh) and quantized and concatenated as the f32 x is, so the
+// form is bitwise with the plain version; the output stays f32 or int8.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "activation.cuh"
+#include "dtype_io.cuh"
 #include "gravnet_cell_reg.cuh"
 #include "int8_quant.cuh"
 #include "mma_s8.cuh"
@@ -221,11 +227,11 @@ __device__ inline bool write_h_row(int8_t* __restrict__ hrow,
   return ok;
 }
 
-// CPL: candidates per lane (n <= 32 CPL).
-template <int CPL>
+// CPL: candidates per lane (n <= 32 CPL). T: x's type, float or bf16.
+template <int CPL, typename T>
 __global__ void __launch_bounds__(kThreads)
 gravnet_block_int8_kernel(
-    const float* __restrict__ x, const float* __restrict__ mask,
+    const T* __restrict__ x, const float* __restrict__ mask,
     const int8_t* __restrict__ ws, const float* __restrict__ bs,
     const int8_t* __restrict__ wf, const float* __restrict__ bf,
     const int8_t* __restrict__ wo, const float* __restrict__ bo,
@@ -261,18 +267,20 @@ gravnet_block_int8_kernel(
   const int event = blockIdx.y;
   const int row0 = blockIdx.x * bm;
   const int rows = min(bm, n - row0);
-  const float* xe = x + (size_t)event * n * dh;
+  const T* xe = x + (size_t)event * n * dh;
 
   // 1. staging, one round trip: the weights, mask, biases and scales into
-  // shared memory by cp.async, x into registers (16-byte vectors)
-  const bool xvec = dh % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // shared memory by cp.async, x into registers (vectors of 4 values:
+  // 16 bytes of f32, 8 of bf16, widened)
+  const bool xvec = dh % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
   const int nxv = xvec ? n * dh / 4 : 0;
   float4 xr[kXV];
   auto load_x = [&](int base) {
 #pragma unroll
     for (int u = 0; u < kXV; ++u) {
       const int e = base + u * kThreads + tid;
-      if (e < nxv) xr[u] = __ldg(reinterpret_cast<const float4*>(xe) + e);
+      if (e < nxv) xr[u] = repro_torch::io::load4(xe, e);
     }
   };
   // quantizes the batch loaded at `base`, by f32 divisions when `divide`
@@ -333,7 +341,7 @@ gravnet_block_int8_kernel(
   if (!xvec) {
     for (int e = tid; e < n * dh; e += kThreads) {
       const int row = e / dh, col = e - row * dh;
-      const float v = xe[e];
+      const float v = repro_torch::io::widen(xe[e]);
       xq[row * L.ldx + col] = round_clip_s8(v / x_scale);
       const int r = row - row0;
       if (r >= 0 && r < rows) xs[r * dh + col] = v;
@@ -428,8 +436,8 @@ gravnet_block_int8_kernel(
   }
 }
 
-template <int CPL>
-int launch(const float* x, const float* mask, const int8_t* ws,
+template <int CPL, typename T>
+int launch(const T* x, const float* mask, const int8_t* ws,
            const float* bs, const int8_t* wf, const float* bf,
            const int8_t* wo, const float* bo, const float* ws_scale,
            const float* wf_scale, const float* wo_scale, void* y, int B,
@@ -437,7 +445,7 @@ int launch(const float* x, const float* mask, const int8_t* ws,
            float x_scale, float agg_scale, float h_scale, float out_scale,
            int act, int cx, int out_int8, int bm, long long smem,
            cudaStream_t stream) {
-  auto kernel = gravnet_block_int8_kernel<CPL>;
+  auto kernel = gravnet_block_int8_kernel<CPL, T>;
   // The opt-in above 48 KB holds per device, so it is set on every such
   // launch (a cheap call) rather than cached for the process.
   if (smem > 48 * 1024) {
@@ -465,27 +473,20 @@ extern "C" long long gravnet_block_int8_smem_bytes(int n, int dh, int ds,
   return (long long)layout(n, dh, ds, df, dout, bm, concat_x ? dh : 0).total;
 }
 
-// x:(B,n,dh) f32, mask:(B,n) f32, ws:(dh,ds) wf:(dh,df) int8, wo int8
-// (dh+2df,dout), or (2df,dout) when concat_x = 0, bs/bf/bo and the
-// *_scale vectors f32 of their output widths -> y:(B,n,dout), f32, or
-// int8 requantized with out_scale when out_int8 = 1; all contiguous.
-// act: 0 = none, 1 = relu, 2 = gelu, 3 = silu. bm query rows per CTA,
-// 1 <= bm <= 16; n <= 512 and df <= 128 (the cell's registers), else
-// cudaErrorInvalidValue.
-extern "C" int gravnet_block_int8_ex(
-    const float* x, const float* mask, const int8_t* ws, const float* bs,
-    const int8_t* wf, const float* bf, const int8_t* wo, const float* bo,
-    const float* ws_scale, const float* wf_scale, const float* wo_scale,
-    void* y, int B, int n, int dh, int ds, int df, int dout, int k,
-    float scale, float x_scale, float agg_scale, float h_scale, int act,
-    int concat_x, int out_int8, float out_scale, int bm, void* stream) {
-  if (bm < 1 || bm > kMaxRows || n > kMaxHits || df > 32 * kMaxDfPerLane)
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+namespace {
+
+template <typename T>
+int launch_x(const T* x, const float* mask, const int8_t* ws,
+             const float* bs, const int8_t* wf, const float* bf,
+             const int8_t* wo, const float* bo, const float* ws_scale,
+             const float* wf_scale, const float* wo_scale, void* y, int B,
+             int n, int dh, int ds, int df, int dout, int k, float scale,
+             float x_scale, float agg_scale, float h_scale, int act,
+             int concat_x, int out_int8, float out_scale, int bm,
+             cudaStream_t st) {
   const long long smem = gravnet_block_int8_smem_bytes(n, dh, ds, df, dout,
                                                        bm, concat_x);
   const int cx = concat_x ? dh : 0;
-  const cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_LAUNCH(CPL)                                                  \
   return launch<CPL>(x, mask, ws, bs, wf, bf, wo, bo, ws_scale, wf_scale,  \
                      wo_scale, y, B, n, dh, ds, df, dout, k, scale,        \
@@ -497,6 +498,38 @@ extern "C" int gravnet_block_int8_ex(
   if (n <= 256) REPRO_LAUNCH(8);
   REPRO_LAUNCH(16);
 #undef REPRO_LAUNCH
+}
+
+}  // namespace
+
+// x:(B,n,dh) of the dtype x_dtype (dtype_io.cuh: 0 = f32, 1 = bf16),
+// mask:(B,n) f32, ws:(dh,ds) wf:(dh,df) int8, wo int8 (dh+2df,dout), or
+// (2df,dout) when concat_x = 0, bs/bf/bo and the *_scale vectors f32 of
+// their output widths -> y:(B,n,dout), f32, or int8 requantized with
+// out_scale when out_int8 = 1; all contiguous. act: 0 = none, 1 = relu,
+// 2 = gelu, 3 = silu. bm query rows per CTA, 1 <= bm <= 16; n <= 512 and
+// df <= 128 (the cell's registers), else cudaErrorInvalidValue.
+extern "C" int gravnet_block_int8_ex(
+    const void* x, const float* mask, const int8_t* ws, const float* bs,
+    const int8_t* wf, const float* bf, const int8_t* wo, const float* bo,
+    const float* ws_scale, const float* wf_scale, const float* wo_scale,
+    void* y, int B, int n, int dh, int ds, int df, int dout, int k,
+    float scale, float x_scale, float agg_scale, float h_scale, int act,
+    int concat_x, int out_int8, float out_scale, int bm, int x_dtype,
+    void* stream) {
+  if (bm < 1 || bm > kMaxRows || n > kMaxHits || df > 32 * kMaxDfPerLane)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_X(T)                                                          \
+  return launch_x(static_cast<const T*>(x), mask, ws, bs, wf, bf, wo, bo,  \
+                  ws_scale, wf_scale, wo_scale, y, B, n, dh, ds, df, dout, \
+                  k, scale, x_scale, agg_scale, h_scale, act, concat_x,    \
+                  out_int8, out_scale, bm, st)
+  if (x_dtype == repro_torch::io::kF32) REPRO_X(float);
+  if (x_dtype == repro_torch::io::kBF16) REPRO_X(repro_torch::io::bf16);
+#undef REPRO_X
+  return (int)cudaErrorInvalidValue;
 }
 
 // The entry of the sources before the concat_x and out_int8 options: the
@@ -512,5 +545,5 @@ extern "C" int gravnet_block_int8(
   return gravnet_block_int8_ex(x, mask, ws, bs, wf, bf, wo, bo, ws_scale,
                                wf_scale, wo_scale, y, B, n, dh, ds, df, dout,
                                k, scale, x_scale, agg_scale, h_scale, act, 1,
-                               0, 1.0f, bm, stream);
+                               0, 1.0f, bm, repro_torch::io::kF32, stream);
 }

@@ -44,8 +44,15 @@
 // shape. Products and sums are rounded separately (-fmad=false), in the
 // plain version's order, so kernels/ref.py:knn_aggregate_ref reproduces
 // both.
+//
+// The bf16 forms (f of type T, the output of type O): the register path
+// reads each selected bf16 feature from device memory and widens it
+// exactly (dtype_io.cuh), the first version stages F widened into its f32
+// shared memory; both round each output once where O is bf16, so every
+// form is bitwise with the plain version.
 #include <cuda_runtime.h>
 
+#include "dtype_io.cuh"
 #include "gravnet_cell.cuh"
 #include "gravnet_cell_reg.cuh"
 
@@ -63,17 +70,17 @@ constexpr unsigned kAll = 0xffffffffu;
 __host__ __device__ inline bool register_path(int df) { return df <= kMaxDf; }
 
 // bm warps a CTA.
+template <typename T, typename O>
 __global__ void __launch_bounds__(32 * kMaxRows)
-knn_aggregate_kernel(const float* __restrict__ f,
-                     const int* __restrict__ idx,
-                     const float* __restrict__ d2, float* __restrict__ out,
+knn_aggregate_kernel(const T* __restrict__ f, const int* __restrict__ idx,
+                     const float* __restrict__ d2, O* __restrict__ out,
                      int n, int df, int k, float scale, int bm) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bin = blockIdx.y;
   const int i = blockIdx.x * bm + warp;
   // one warp per query row: its pairs, the selected rows, the outputs
   if (i < n) {
-    const float* const F = f + (size_t)bin * n * df;
+    const T* const F = f + (size_t)bin * n * df;
     const size_t o = ((size_t)bin * n + i) * k;
     float sum[kMaxDfPerLane], mx[kMaxDfPerLane];
 #pragma unroll
@@ -106,7 +113,8 @@ knn_aggregate_kernel(const float* __restrict__ f,
 #pragma unroll
           for (int u = 0; u < kMaxDfPerLane; ++u)
             fv[q][u] = (b + q < rounds && jt >= 0 && 32 * u < df)
-                           ? F[jt * df + min(lane + 32 * u, df - 1)]
+                           ? repro_torch::io::widen(
+                                 F[jt * df + min(lane + 32 * u, df - 1)])
                            : 0.0f;
         }
 #pragma unroll
@@ -124,13 +132,14 @@ knn_aggregate_kernel(const float* __restrict__ f,
         }
       }
     }
-    float* const y = out + ((size_t)bin * n + i) * 2 * df;
+    O* const y = out + ((size_t)bin * n + i) * 2 * df;
 #pragma unroll
     for (int u = 0; u < kMaxDfPerLane; ++u) {
       const int c = lane + 32 * u;
       if (c < df) {
-        y[c] = sum[u] / (float)k;
-        y[df + c] = mx[u] <= -kBig * 0.5f ? 0.0f : mx[u];
+        repro_torch::io::put(y + c, sum[u] / (float)k);
+        repro_torch::io::put(y + df + c,
+                             mx[u] <= -kBig * 0.5f ? 0.0f : mx[u]);
       }
     }
   }
@@ -161,11 +170,12 @@ __host__ __device__ inline SharedLayout shared_layout(int n, int df) {
   return L;
 }
 
+template <typename T, typename O>
 __global__ void __launch_bounds__(kSharedThreads)
-knn_aggregate_shared_kernel(const float* __restrict__ f,
+knn_aggregate_shared_kernel(const T* __restrict__ f,
                             const int* __restrict__ idx,
                             const float* __restrict__ d2,
-                            float* __restrict__ out, int n, int df, int k,
+                            O* __restrict__ out, int n, int df, int k,
                             float scale, int bm) {
   extern __shared__ float smem[];
   const SharedLayout L = shared_layout(n, df);
@@ -178,7 +188,7 @@ knn_aggregate_shared_kernel(const float* __restrict__ f,
   const int rows = min(bm, n - row0);
 
   for (int e = tid; e < n * df; e += kSharedThreads)
-    F[e] = f[(size_t)bin * n * df + e];
+    F[e] = repro_torch::io::widen(f[(size_t)bin * n * df + e]);
   for (int c = tid; c < df; c += kSharedThreads) F[n * df + c] = 0.0f;
   __syncthreads();
 
@@ -193,16 +203,39 @@ knn_aggregate_shared_kernel(const float* __restrict__ f,
       repro_torch::cell_accumulate(d2[o + t], F + row * df, df, scale, agg);
     }
     repro_torch::cell_finish(df, k, agg);
-    float* y = out + ((size_t)bin * n + i) * 2 * df;
-    for (int c = lane; c < 2 * df; c += 32) y[c] = agg[c];
+    O* y = out + ((size_t)bin * n + i) * 2 * df;
+    for (int c = lane; c < 2 * df; c += 32) repro_torch::io::put(y + c, agg[c]);
     __syncwarp();   // the next row's cell_init rewrites agg
   }
+}
+
+template <typename T, typename O>
+int launch_io(const T* f, const int* idx, const float* d2, O* out, int B,
+              int n, int df, int k, float scale, int bm, cudaStream_t st) {
+  dim3 grid((n + bm - 1) / bm, B);
+  if (register_path(df) && bm <= kMaxRows) {
+    knn_aggregate_kernel<T, O><<<grid, 32 * bm, 0, st>>>(f, idx, d2, out, n,
+                                                         df, k, scale, bm);
+    return (int)cudaGetLastError();
+  }
+  const long long smem = 4LL * shared_layout(n, df).total;
+  auto shared = knn_aggregate_shared_kernel<T, O>;
+  // The opt-in above 48 KB holds per device, so it is set on every such
+  // launch (a cheap call) rather than cached for the process.
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        shared, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  shared<<<grid, kSharedThreads, (size_t)smem, st>>>(f, idx, d2, out, n, df,
+                                                     k, scale, bm);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Bytes of dynamic shared memory one CTA needs at these shapes, on the
-// path knn_aggregate_f32 takes for them with
+// path knn_aggregate_ex takes for them with
 // kernels/knn_build.py:aggregate_plan's bm (the mirror of
 // knn_build.aggregate_smem_bytes): none on the register path.
 extern "C" long long knn_aggregate_smem_bytes(int n, int df) {
@@ -210,33 +243,30 @@ extern "C" long long knn_aggregate_smem_bytes(int n, int df) {
                            : 4LL * (long long)shared_layout(n, df).total;
 }
 
-// f:(B,n,df) f32, idx:(B,n,k) i32, d2:(B,n,k) f32 ->
-// out:(B,n,2df) f32; all contiguous. bm query rows per CTA: at most 16
-// runs the register path where the shape allows (df <= 128), else the
-// first version.
+// f:(B,n,df) of the dtype in_dtype, idx:(B,n,k) i32, d2:(B,n,k) f32 ->
+// out:(B,n,2df) of out_dtype (dtype_io.cuh: 0 = f32, 1 = bf16); all
+// contiguous. bm query rows per CTA: at most 16 runs the register path
+// where the shape allows (df <= 128), else the first version.
+extern "C" int knn_aggregate_ex(const void* f, const int* idx,
+                                const float* d2, void* out, int B, int n,
+                                int df, int k, float scale, int bm,
+                                int in_dtype, int out_dtype, void* stream) {
+  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (bm < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  REPRO_DISPATCH_IO(in_dtype, out_dtype,
+                    return launch_io(static_cast<const T*>(f), idx, d2,
+                                     static_cast<O*>(out), B, n, df, k,
+                                     scale, bm, st));
+}
+
+// The f32 form with the first versions' arguments, as
+// kernels/source_ab.py and phase_split.py call it.
 extern "C" int knn_aggregate_f32(const float* f, const int* idx,
                                  const float* d2, float* out, int B, int n,
                                  int df, int k, float scale, int bm,
                                  void* stream) {
-  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (bm < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid((n + bm - 1) / bm, B);
-  if (register_path(df) && bm <= kMaxRows) {
-    knn_aggregate_kernel<<<grid, 32 * bm, 0, st>>>(f, idx, d2, out, n, df,
-                                                    k, scale, bm);
-    return (int)cudaGetLastError();
-  }
-  const long long smem = 4LL * shared_layout(n, df).total;
-  // The opt-in above 48 KB holds per device, so it is set on every such
-  // launch (a cheap call) rather than cached for the process.
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_aggregate_shared_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  knn_aggregate_shared_kernel<<<grid, kSharedThreads, (size_t)smem, st>>>(
-      f, idx, d2, out, n, df, k, scale, bm);
-  return (int)cudaGetLastError();
+  return knn_aggregate_ex(f, idx, d2, out, B, n, df, k, scale, bm,
+                          repro_torch::io::kF32, repro_torch::io::kF32,
+                          stream);
 }

@@ -43,9 +43,18 @@
 // chosen by shape. Every sum runs in the plain version's order with
 // products and sums rounded separately (-fmad=false), so
 // kernels/ref.py:knn_build_ref reproduces both.
+//
+// The bf16 form (s bf16; idx int32 and d2 f32 as in the f32 form): both
+// kernels stage a bf16 S by ordinary loads, each value widened exactly
+// into the same f32 shared memory (dtype_io.cuh), so the selection and
+// its outputs are the f32 form's on the widened coordinates, bitwise
+// with the plain version.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "dtype_io.cuh"
 #include "gravnet_cell.cuh"
 #include "gravnet_cell_reg.cuh"
 
@@ -104,10 +113,10 @@ __device__ inline void stage_flat(T* s, const T* g, int count) {
     stage<1>(s, g, count);
 }
 
-// CPL: candidates per lane (n <= 32 CPL). bm warps a CTA.
-template <int CPL>
+// CPL: candidates per lane (n <= 32 CPL). bm warps a CTA. T: s's type.
+template <int CPL, typename T>
 __global__ void __launch_bounds__(32 * kMaxRows)
-knn_build_kernel(const float* __restrict__ s, const int* __restrict__ seg,
+knn_build_kernel(const T* __restrict__ s, const int* __restrict__ seg,
                  int* __restrict__ idx, float* __restrict__ d2, int n,
                  int ds, int k, int bm) {
   extern __shared__ __align__(16) float smem[];
@@ -118,8 +127,15 @@ knn_build_kernel(const float* __restrict__ s, const int* __restrict__ seg,
   const int bin = blockIdx.y;
   const int i = blockIdx.x * bm + warp;
 
-  // staging, one round trip: S and the segment ids by cp.async
-  stage_flat(S, s + (size_t)bin * n * ds, n * ds);
+  // staging, one round trip: S and the segment ids by cp.async (a bf16
+  // S by loads in flight, widened)
+  if constexpr (std::is_same_v<T, float>) {
+    stage_flat(S, s + (size_t)bin * n * ds, n * ds);
+  } else {
+    const repro_torch::io::Widen op[1] = {
+        repro_torch::io::flat(S, s + (size_t)bin * n * ds, n * ds)};
+    repro_torch::io::widen_all(op, threadIdx.x, blockDim.x);
+  }
   stage_flat(sg, seg + (size_t)bin * n, n);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -183,8 +199,9 @@ __host__ __device__ inline SharedLayout shared_layout(int n, int ds) {
   return L;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kSharedThreads)
-knn_build_shared_kernel(const float* __restrict__ s,
+knn_build_shared_kernel(const T* __restrict__ s,
                         const int* __restrict__ seg, int* __restrict__ idx,
                         float* __restrict__ d2, int n, int ds, int k,
                         int bm) {
@@ -202,7 +219,7 @@ knn_build_shared_kernel(const float* __restrict__ s,
   const int rows = min(bm, n - row0);
 
   for (int e = tid; e < n * ds; e += kSharedThreads)
-    S[e] = s[(size_t)bin * n * ds + e];
+    S[e] = repro_torch::io::widen(s[(size_t)bin * n * ds + e]);
   for (int e = tid; e < n; e += kSharedThreads) sg[e] = seg[(size_t)bin * n + e];
   __syncthreads();
   for (int j = tid; j < n; j += kSharedThreads) {
@@ -235,9 +252,9 @@ knn_build_shared_kernel(const float* __restrict__ s,
   }
 }
 
-template <typename Kernel>
+template <typename Kernel, typename T>
 int launch(Kernel kernel, int threads, long long smem, int B, int n,
-           int bm, cudaStream_t stream, const float* s, const int* seg,
+           int bm, cudaStream_t stream, const T* s, const int* seg,
            int* idx, float* d2, int ds, int k) {
   // The opt-in above 48 KB holds per device, so it is set on every such
   // launch (a cheap call) rather than cached for the process.
@@ -252,37 +269,59 @@ int launch(Kernel kernel, int threads, long long smem, int B, int n,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Bytes of dynamic shared memory one CTA needs at these shapes, on the
-// path knn_build_f32 takes for them with kernels/knn_build.py:build_plan's
-// bm (the mirror of knn_build.build_smem_bytes).
-extern "C" long long knn_build_smem_bytes(int n, int ds) {
-  return 4LL * (register_cell(n) ? layout(n, ds).total
-                                 : shared_layout(n, ds).total);
-}
-
-// s:(B,n,ds) f32, seg:(B,n) i32 -> idx:(B,n,k) i32, d2:(B,n,k) f32; all
-// contiguous. bm query rows per CTA: at most 16 runs the register cell
-// where the shape allows (n <= 512), else the first version.
-extern "C" int knn_build_f32(const float* s, const int* seg, int* idx,
-                             float* d2, int B, int n, int ds, int k, int bm,
-                             void* stream) {
-  if (B <= 0 || n <= 0 || k <= 0) return (int)cudaGetLastError();
-  if (bm < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
+template <typename T>
+int launch_s(const T* s, const int* seg, int* idx, float* d2, int B, int n,
+             int ds, int k, int bm, cudaStream_t st) {
   if (!register_cell(n) || bm > kMaxRows)
-    return launch(knn_build_shared_kernel, kSharedThreads,
+    return launch(knn_build_shared_kernel<T>, kSharedThreads,
                   4LL * shared_layout(n, ds).total, B, n, bm, st, s, seg,
                   idx, d2, ds, k);
   const long long smem = 4LL * layout(n, ds).total;
-#define REPRO_LAUNCH(CPL)                                                 \
-  return launch(knn_build_kernel<CPL>, 32 * bm, smem, B, n, bm, st, s, seg, \
-                idx, d2, ds, k)
+#define REPRO_LAUNCH(CPL)                                                  \
+  return launch(knn_build_kernel<CPL, T>, 32 * bm, smem, B, n, bm, st, s, \
+                seg, idx, d2, ds, k)
   if (n <= 32) REPRO_LAUNCH(1);
   if (n <= 64) REPRO_LAUNCH(2);
   if (n <= 128) REPRO_LAUNCH(4);
   if (n <= 256) REPRO_LAUNCH(8);
   REPRO_LAUNCH(16);
 #undef REPRO_LAUNCH
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory one CTA needs at these shapes, on the
+// path knn_build_ex takes for them with kernels/knn_build.py:build_plan's
+// bm (the mirror of knn_build.build_smem_bytes).
+extern "C" long long knn_build_smem_bytes(int n, int ds) {
+  return 4LL * (register_cell(n) ? layout(n, ds).total
+                                 : shared_layout(n, ds).total);
+}
+
+// s:(B,n,ds) of the dtype in_dtype (dtype_io.cuh: 0 = f32, 1 = bf16),
+// seg:(B,n) i32 -> idx:(B,n,k) i32, d2:(B,n,k) f32; all contiguous. bm
+// query rows per CTA: at most 16 runs the register cell where the shape
+// allows (n <= 512), else the first version.
+extern "C" int knn_build_ex(const void* s, const int* seg, int* idx,
+                            float* d2, int B, int n, int ds, int k, int bm,
+                            int in_dtype, void* stream) {
+  if (B <= 0 || n <= 0 || k <= 0) return (int)cudaGetLastError();
+  if (bm < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (in_dtype == repro_torch::io::kF32)
+    return launch_s(static_cast<const float*>(s), seg, idx, d2, B, n, ds, k,
+                    bm, st);
+  if (in_dtype == repro_torch::io::kBF16)
+    return launch_s(static_cast<const repro_torch::io::bf16*>(s), seg, idx,
+                    d2, B, n, ds, k, bm, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The f32 form with the first versions' arguments, as
+// kernels/source_ab.py and phase_split.py call it.
+extern "C" int knn_build_f32(const float* s, const int* seg, int* idx,
+                             float* d2, int B, int n, int ds, int k, int bm,
+                             void* stream) {
+  return knn_build_ex(s, seg, idx, d2, B, n, ds, k, bm,
+                      repro_torch::io::kF32, stream);
 }

@@ -1,4 +1,5 @@
-"""Hopper kernel: masked edge aggregation (segment sum / mean), f32.
+"""Hopper kernel: masked edge aggregation (segment sum / mean), f32 (or
+bf16 messages, widened by the kernel; the output f32 or bf16).
 
 Counterpart of ``repro/kernels/edge_aggregate.py``
 (``edge_aggregate_batched_pallas``; the per-graph
@@ -9,8 +10,10 @@ counting-sorts the edges by destination with all its warps, and walks
 each row's segment in shared memory; the plain version is
 ``kernels/ref.py:edge_aggregate_ref``. :func:`plan` picks the CTA's
 rows and columns. An edge list longer than one launch takes
-(:func:`max_edges`) is walked in chunks of consecutive edges, each
-launch continuing the sums the one before left in the output.
+(:func:`max_edges`) is walked in chunks of consecutive edges
+(:func:`chunk_plan`), each launch continuing the f32 sums and counts the
+one before left in a scratch buffer; the last launch alone writes the
+output, dividing a mean and rounding to bf16 once.
 """
 from __future__ import annotations
 
@@ -67,14 +70,27 @@ def max_edges() -> int:
     return (_build.SMEM_LIMIT - smem_bytes(0, 1, False)) // 16
 
 
+def chunk_plan(e: int, step: int | None = None
+               ) -> list[tuple[int, int, bool, bool]]:
+    """(first edge, edges, carry, last) of each launch over e edges in
+    chunks of ``step`` (:func:`max_edges`): one launch of all of them
+    (e = 0 included, which writes zeros) where they fit, else one a
+    chunk in order, each after the first carrying the sums (and counts)
+    the one before left, the last writing the output."""
+    step = step or max_edges()
+    starts = range(0, max(e, 1), step)
+    return [(e0, min(step, e - e0), i > 0, i == len(starts) - 1)
+            for i, e0 in enumerate(starts)]
+
+
 def _library():
     global _lib
     if _lib is None:
         lib = _build.load("edge_aggregate")
         lib.edge_aggregate_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.edge_aggregate_smem_bytes.restype = ctypes.c_longlong
-        fn = lib.edge_aggregate_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+        fn = lib.edge_aggregate_ex
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -86,16 +102,18 @@ def library_smem_bytes(e: int, cw: int, staged_: bool) -> int:
     return int(_library().edge_aggregate_smem_bytes(e, cw, int(staged_)))
 
 
-def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum"):
+def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum",
+                        out_dtype=None):
     """Masked segment sum (or mean) of edge messages into their
     destination nodes on the card, for a micro-batch of graphs.
-    messages:(B,E,d) f32, dst:(B,E) int32, mask:(B,E) f32 ->
-    (B, n_nodes, d): per node, ``mask[e]·msg[e]`` summed over its edges
-    in increasing e (``mean`` divides by the masked in-degree, at least
-    1); a dst outside [0, n_nodes) contributes nothing. E past
-    :func:`max_edges` takes one launch a chunk (``mean`` then sums the
-    messages and the masks by chunks and divides once). Adds one to
-    ``edge_aggregate_cuda.launches`` per launch."""
+    messages:(B,E,d) float32 or bfloat16, dst:(B,E) int32, mask:(B,E) f32
+    -> (B, n_nodes, d) of ``out_dtype`` (None: the messages' dtype): per
+    node, ``mask[e]·msg[e]`` summed in f32 over its edges in increasing e
+    (``mean`` divides by the masked in-degree, at least 1), rounded once;
+    a dst outside [0, n_nodes) contributes nothing. E past
+    :func:`max_edges` takes one launch a chunk (:func:`chunk_plan`; the
+    sums and counts carried in f32, the output written by the last).
+    Adds one to ``edge_aggregate_cuda.launches`` per launch."""
     if reduce not in ("sum", "mean"):
         raise ValueError(f"edge_aggregate_cuda: reduce={reduce!r}")
     if messages.ndim != 3 or dst.shape != messages.shape[:2] \
@@ -105,41 +123,49 @@ def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum"):
                          f"mask {tuple(mask.shape)} are not (B, E, d), "
                          "(B, E), (B, E)")
     _build.check_cuda("edge_aggregate_cuda", [messages, dst, mask],
-                      [torch.float32, torch.int32, torch.float32])
-    n_nodes = int(n_nodes)
-    if messages.shape[1] <= max_edges():
-        return _launches(messages, dst, mask, n_nodes, reduce == "mean")
-    out = _launches(messages, dst, mask, n_nodes, False)
-    if reduce == "mean":
-        ones = torch.ones(dst.shape + (1,), dtype=torch.float32,
-                          device=messages.device)
-        cnt = _launches(ones, dst, mask, n_nodes, False)
-        out = out / torch.clamp_min(cnt, 1.0)
-    return out
-
-
-def _launches(messages, dst, mask, n_nodes, mean):
-    """The kernel over the edges in chunks of at most :func:`max_edges`,
-    in order, each launch after the first accumulating into the output
-    (``mean`` only where one launch takes them all)."""
+                      [messages.dtype, torch.int32, torch.float32])
+    in_code, out_code, out_dtype = _build.io_dtypes(
+        "edge_aggregate_cuda", [messages], out_dtype)
     bsz, e, d = messages.shape
+    n_nodes = int(n_nodes)
+    mean = reduce == "mean"
     lib = _library()
     bm, cw = plan(n_nodes, d, bsz)
-    step = max_edges()
-    out = torch.empty((bsz, n_nodes, d), dtype=torch.float32,
-                      device=messages.device)
-    with torch.cuda.device(messages.device):
+    chunks = chunk_plan(e)
+    dev = messages.device
+    out = torch.empty((bsz, n_nodes, d), dtype=out_dtype, device=dev)
+    part = cnt = None
+    if len(chunks) > 1:
+        # the sums between chunks, in f32; for mean the counts, two
+        # buffers that the chunks take in turns (a launch reads one and
+        # writes the other)
+        part = torch.empty((bsz, n_nodes, d), dtype=torch.float32,
+                           device=dev)
+        if mean:
+            cnt = torch.empty((2, bsz, n_nodes), dtype=torch.float32,
+                              device=dev)
+    esz = messages.element_size()
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        for e0 in range(0, max(e, 1), step):
-            ec = min(step, e - e0)
+        for i, (e0, ec, carry, last) in enumerate(chunks):
             stage = staged(ec, cw)
             _build.check_smem("edge_aggregate_cuda",
                               smem_bytes(ec, cw, stage), f"E={ec}")
-            code = lib.edge_aggregate_f32(
-                messages.data_ptr() + 4 * e0 * d, dst.data_ptr() + 4 * e0,
-                mask.data_ptr() + 4 * e0, out.data_ptr(), bsz, ec, e,
-                n_nodes, d, bm, cw, int(stage), int(mean), int(e0 > 0),
-                stream)
+            # the first of several chunks runs as a last launch into the
+            # f32 scratch, undivided (csrc/edge_aggregate.cu: walk)
+            first = part is not None and not carry
+            code = lib.edge_aggregate_ex(
+                messages.data_ptr() + esz * e0 * d, dst.data_ptr() + 4 * e0,
+                mask.data_ptr() + 4 * e0,
+                (part if first else out).data_ptr(),
+                None if part is None or first else part.data_ptr(),
+                cnt[(i - 1) % 2].data_ptr() if cnt is not None and carry
+                else None,
+                cnt[i % 2].data_ptr() if cnt is not None and not last
+                else None,
+                bsz, ec, e, n_nodes, d, bm, cw, int(stage),
+                int(mean and not first), int(carry), int(last or first),
+                in_code, 0 if first else out_code, stream)
             _build.check(code, "edge_aggregate")
             edge_aggregate_cuda.launches += 1
     return out

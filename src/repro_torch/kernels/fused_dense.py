@@ -1,5 +1,5 @@
-"""Hopper kernels: fused dense = matmul + bias + activation, in f32 and
-in int8.
+"""Hopper kernels: fused dense = matmul + bias + activation, in f32 (or
+bf16 operands, summed in f32) and in int8.
 
 Counterpart of ``repro/kernels/fused_dense.py`` (``fused_dense_pallas``,
 ``fused_dense_batched_pallas``, ``fused_dense_int8_pallas``). The CUDA
@@ -11,7 +11,10 @@ TPU's matrix unit; on the card one tiled kernel serves both, its tile
 chosen from the shape by :func:`plan`, and the batched form row-packs
 its events into the same launch. The f32 kernel reads x through a row
 stride, so a row-strided view (the executor's own-K view of a
-lane-padded input) launches without a copy.
+lane-padded input) launches without a copy. It takes x, w and b in f32
+or all three in bf16, as the TPU kernel does (bf16 × bf16 summed in
+f32), and returns f32 or bf16 (``out_dtype``, by default x's): the
+kernel reads the bf16 operands as they lie and widens them itself.
 """
 from __future__ import annotations
 
@@ -75,7 +78,8 @@ def smem_bytes(variant: int, k: int) -> int:
     """Shared memory of one CTA at depth k: its x slab (tile rows at a
     row stride of K rounded up to 4, plus 4) and w slab (K x tile
     columns), one buffer of the whole K up to ``STAGE_K``, else two of
-    ``SLAB_K`` — the formula of the source's ``fused_dense_smem_bytes``."""
+    ``SLAB_K`` — the formula of the source's ``fused_dense_smem_bytes``.
+    Both forms stage f32 (a bf16 operand widened on its way in)."""
     bm, bn = tile(variant)
     ks = k if k <= STAGE_K else SLAB_K
     nbuf = 1 if k <= STAGE_K else 2
@@ -86,15 +90,15 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("fused_dense")
-        fn = lib.fused_dense_f32
+        fn = lib.fused_dense_ex
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.fused_dense_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.fused_dense_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
-    return _lib.fused_dense_f32
+    return _lib.fused_dense_ex
 
 
 def library_smem_bytes(variant: int, k: int) -> int:
@@ -132,21 +136,22 @@ def row_strided(x) -> bool:
                                                 or x.stride(0) >= kdim)
 
 
-def fused_dense_cuda(x, w, b=None, *, activation="relu"):
-    """act(x @ w + b) on the card. x:(M,K) w:(K,N) b:(N,)|None, f32 CUDA
-    tensors, w and b contiguous, x contiguous or row-strided
-    (:func:`row_strided`: a column slice of a contiguous matrix launches
-    without a copy) -> (M,N). The tile is :func:`plan`'s. Adds one to
-    ``fused_dense_cuda.launches`` per launch."""
+def fused_dense_cuda(x, w, b=None, *, activation="relu", out_dtype=None):
+    """act(x @ w + b) on the card. x:(M,K) w:(K,N) b:(N,)|None CUDA
+    tensors, all float32 or all bfloat16 (summed in f32 either way), w and
+    b contiguous, x contiguous or row-strided (:func:`row_strided`: a
+    column slice of a contiguous matrix launches without a copy) ->
+    (M,N) of ``out_dtype`` (float32 or bfloat16; None: x's dtype). The
+    tile is :func:`plan`'s. Adds one to ``fused_dense_cuda.launches`` per
+    launch."""
     act = act_code(activation)
     ops = [x, w] + ([] if b is None else [b])
     if any(not t.is_cuda for t in ops):
         raise ValueError("fused_dense_cuda takes CUDA tensors")
     if any(t.device != x.device for t in ops):
         raise ValueError("fused_dense_cuda: operands on different devices")
-    if any(t.dtype != torch.float32 for t in ops):
-        raise TypeError("fused_dense_cuda takes float32 operands "
-                        f"(got {[t.dtype for t in ops]})")
+    in_code, out_code, out_dtype = _build.io_dtypes("fused_dense_cuda", ops,
+                                                    out_dtype)
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fused_dense_cuda: x {tuple(x.shape)} @ w "
                          f"{tuple(w.shape)}")
@@ -162,13 +167,14 @@ def fused_dense_cuda(x, w, b=None, *, activation="relu"):
     variant = plan(m, n)
     _build.check_smem("fused_dense_cuda", smem_bytes(variant, kdim),
                       f"K={kdim}")
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(x.data_ptr(), x.stride(0) if m > 1 else kdim,
                   w.data_ptr(), None if b is None else b.data_ptr(),
-                  y.data_ptr(), m, kdim, n, act, variant, stream)
+                  y.data_ptr(), m, kdim, n, act, variant, in_code,
+                  out_code, stream)
     _build.check(code, "fused_dense")
     fused_dense_cuda.launches += 1
     return y

@@ -1,4 +1,5 @@
-"""Hopper kernel: the standalone GravNet kNN aggregation, f32.
+"""Hopper kernel: the standalone GravNet kNN aggregation, f32 (or bf16
+s and f, widened by the kernel; the output f32 or bf16).
 
 Counterpart of ``repro/kernels/gravnet.py``
 (``gravnet_aggregate_batched_pallas``; ``gravnet_aggregate_pallas`` is
@@ -69,9 +70,10 @@ def _library():
         lib = _build.load("gravnet_aggregate")
         lib.gravnet_aggregate_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.gravnet_aggregate_smem_bytes.restype = ctypes.c_longlong
-        fn = lib.gravnet_aggregate_f32
+        fn = lib.gravnet_aggregate_ex
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -82,12 +84,13 @@ def library_smem_bytes(n: int, ds: int, df: int) -> int:
     return int(_library().gravnet_aggregate_smem_bytes(n, ds, df))
 
 
-def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0):
+def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0, out_dtype=None):
     """GravNet aggregation on the card for a micro-batch.
-    s:(B,N,ds), f:(B,N,df), mask:(B,N) f32 -> (B,N,2·df) =
-    concat(mean, max) over each row's k nearest valid rows of its own
-    event. Raises on a shape whose shared-memory plan (:func:`plan`,
-    :func:`smem_bytes`) exceeds the card's 227 KB. Adds one to
+    s:(B,N,ds), f:(B,N,df) both float32 or both bfloat16, mask:(B,N) f32
+    -> (B,N,2·df) of ``out_dtype`` (None: f's dtype) = concat(mean, max)
+    over each row's k nearest valid rows of its own event. Raises on a
+    shape whose shared-memory plan (:func:`plan`, :func:`smem_bytes`)
+    exceeds the card's 227 KB. Adds one to
     ``gravnet_aggregate_cuda.launches`` per launch."""
     if s.ndim != 3 or f.ndim != 3:
         raise ValueError(f"gravnet_aggregate_cuda: s {tuple(s.shape)}, f "
@@ -102,8 +105,8 @@ def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0):
     if any(not t.is_cuda or t.device != s.device for t in ops):
         raise ValueError("gravnet_aggregate_cuda takes CUDA tensors on one "
                          "device")
-    if any(t.dtype != torch.float32 for t in ops):
-        raise TypeError("gravnet_aggregate_cuda takes float32 operands")
+    in_code, out_code, out_dtype = _build.io_dtypes(
+        "gravnet_aggregate_cuda", [s, f], out_dtype)
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_aggregate_cuda takes contiguous operands")
     lib = _library()
@@ -113,12 +116,12 @@ def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0):
         raise ValueError(f"gravnet_aggregate_cuda: n={n}, d_s={ds}, "
                          f"d_f={df} needs {smem} B of shared memory > "
                          f"{_build.SMEM_LIMIT} B")
-    y = torch.empty((bsz, n, 2 * df), dtype=torch.float32, device=s.device)
+    y = torch.empty((bsz, n, 2 * df), dtype=out_dtype, device=s.device)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.gravnet_aggregate_f32(
+        code = lib.gravnet_aggregate_ex(
             s.data_ptr(), f.data_ptr(), mask.data_ptr(), y.data_ptr(), bsz,
-            n, ds, df, int(k), float(scale), bm, stream)
+            n, ds, df, int(k), float(scale), bm, in_code, out_code, stream)
     _build.check(code, "gravnet_aggregate")
     gravnet_aggregate_cuda.launches += 1
     return y

@@ -15,9 +15,12 @@ with int8 tensor-core products; the plain versions are
 blocks take the reference's forms: the output dense over concat(x, agg)
 or, with ``concat_x=False``, over agg alone; the activations of
 ``fused_dense.act_code``; the int8 block's output f32 or requantized to
-int8 (``out_int8``, ``out_scale``). The C entries with every form are
-``gravnet_block_f32_ex`` and ``gravnet_block_int8_ex``; the sources'
-earlier entries stay for the tools that call them.
+int8 (``out_int8``, ``out_scale``); the f32 block's x, weights and
+biases in f32 or all in bf16 with its output f32 or bf16 (``out_dtype``,
+by default x's), and the int8 block's x in f32 or bf16, each read as it
+lies and widened by the kernel. The C entries with every form are
+``gravnet_block_ex`` and ``gravnet_block_int8_ex``; the sources' earlier
+entries stay for the tools that call them.
 """
 from __future__ import annotations
 
@@ -95,9 +98,9 @@ def _library():
         lib = _build.load("gravnet_block")
         lib.gravnet_block_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.gravnet_block_smem_bytes.restype = ctypes.c_longlong
-        fn = lib.gravnet_block_f32_ex
+        fn = lib.gravnet_block_ex
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_float] + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -113,13 +116,15 @@ def library_smem_bytes(n: int, dh: int, ds: int, df: int, dout: int,
 
 
 def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
-                       activation="relu", concat_x=True):
+                       activation="relu", concat_x=True, out_dtype=None):
     """One fused GravNet block on the card for a micro-batch:
     act(concat(x, agg) @ wo + bo), or act(agg @ wo + bo) without
     ``concat_x``.
 
-    x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out). ws:(dh,ds) bs:(ds,)
-    wf:(dh,df) bf:(df,) wo:(dh+2df, d_out) (or (2df, d_out)) bo:(d_out,).
+    x:(B,N,dh), mask:(B,N) -> (B,N,d_out) of ``out_dtype`` (float32 or
+    bfloat16; None: x's dtype). ws:(dh,ds) bs:(ds,) wf:(dh,df) bf:(df,)
+    wo:(dh+2df, d_out) (or (2df, d_out)) bo:(d_out,); x, the weights and
+    the biases all float32 or all bfloat16 (computed in f32).
     Raises on a shape whose shared-memory plan (:func:`plan`) exceeds
     the card's 227 KB. Adds one to ``gravnet_block_cuda.launches`` per
     launch."""
@@ -144,8 +149,8 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
     if any(not t.is_cuda or t.device != x.device for t in ops):
         raise ValueError("gravnet_block_cuda takes CUDA tensors on one "
                          "device")
-    if any(t.dtype != torch.float32 for t in ops):
-        raise TypeError("gravnet_block_cuda takes float32 operands")
+    in_code, out_code, out_dtype = _build.io_dtypes(
+        "gravnet_block_cuda", [x, ws, bs, wf, bf, wo, bo], out_dtype)
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_block_cuda takes contiguous operands")
     bm, cell = plan(n, dh, ds, df, dout, concat_x)
@@ -156,12 +161,13 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
             f"gravnet_block_cuda: n={n}, d_hidden={dh}, d_f={df}, "
             f"d_out={dout}, bm={bm} needs {smem} B of shared memory "
             f"> {_build.SMEM_LIMIT} B")
-    y = torch.empty((bsz, n, dout), dtype=torch.float32, device=x.device)
+    y = torch.empty((bsz, n, dout), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.gravnet_block_f32_ex(
+        code = lib.gravnet_block_ex(
             *(t.data_ptr() for t in ops), y.data_ptr(), bsz, n, dh, ds, df,
-            dout, int(k), float(scale), act, int(concat_x), bm, stream)
+            dout, int(k), float(scale), act, int(concat_x), bm, in_code,
+            out_code, stream)
     _build.check(code, "gravnet_block")
     gravnet_block_cuda.launches += 1
     return y
@@ -179,7 +185,8 @@ def _library_int8():
         fn = lib.gravnet_block_int8_ex
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                        + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib_int8 = lib
     return _lib_int8
@@ -196,9 +203,10 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
     dequant, bias and activation, and with ``out_int8`` the output
     requantized as ``clip(round(y / out_scale), ±127)``.
 
-    x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out) f32 (int8 with
-    ``out_int8``). ws_q:(dh,ds) wf_q:(dh,df) wo_q:(dh+2df, d_out) (or
-    (2df, d_out)) int8; bs, bf, bo and the per-channel ``*_scale``
+    x:(B,N,dh) float32 or bfloat16 (read as f32), mask:(B,N) ->
+    (B,N,d_out) f32 (int8 with ``out_int8``). ws_q:(dh,ds)
+    wf_q:(dh,df) wo_q:(dh+2df, d_out) (or (2df, d_out)) int8; bs, bf,
+    bo and the per-channel ``*_scale``
     vectors f32 of the matching output widths. The activation scales
     are Python floats, passed as float32.
     Raises on more than 512 hits, on d_f above 128 (the cell's
@@ -231,9 +239,10 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
         raise ValueError("gravnet_block_int8_cuda takes CUDA tensors on one "
                          "device")
     if any(t.dtype != (torch.int8 if nm.endswith("_q") else torch.float32)
-           for nm, t in zip(["x", *got], ops)):
+           for nm, t in zip(got, ops[1:])):
         raise TypeError("gravnet_block_int8_cuda takes int8 weights and "
-                        "float32 activations, biases and scales")
+                        "float32 biases and scales")
+    x_code, _, _ = _build.io_dtypes("gravnet_block_int8_cuda", [x])
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_block_int8_cuda takes contiguous operands")
     if n > MAX_HITS or df > MAX_DF:
@@ -257,7 +266,7 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
             *(t.data_ptr() for t in ops), y.data_ptr(), bsz, n, dh, ds, df,
             dout, int(k), float(scale), float(x_scale), float(agg_scale),
             float(h_scale), act, int(concat_x), int(out_int8),
-            float(out_scale), bm, stream)
+            float(out_scale), bm, x_code, stream)
     _build.check(code, "gravnet_block_int8")
     gravnet_block_int8_cuda.launches += 1
     return y

@@ -1,4 +1,5 @@
-"""Hopper kernels: the ragged path's kNN pair, f32.
+"""Hopper kernels: the ragged path's kNN pair, f32 (or bf16 s and f,
+widened by the kernels; the aggregation's output f32 or bf16).
 
 Counterpart of ``repro/kernels/knn_build.py``
 (``knn_build_batched_pallas`` and ``knn_aggregate_batched_pallas``; the
@@ -80,8 +81,8 @@ def _library_build():
         lib = _build.load("knn_build")
         lib.knn_build_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.knn_build_smem_bytes.restype = ctypes.c_longlong
-        fn = lib.knn_build_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        fn = lib.knn_build_ex
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib_build = lib
@@ -94,9 +95,10 @@ def _library_agg():
         lib = _build.load("knn_aggregate")
         lib.knn_aggregate_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.knn_aggregate_smem_bytes.restype = ctypes.c_longlong
-        fn = lib.knn_aggregate_f32
+        fn = lib.knn_aggregate_ex
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib_agg = lib
     return _lib_agg
@@ -114,7 +116,8 @@ def library_aggregate_smem_bytes(n: int, df: int) -> int:
 
 def knn_build_cuda(s, segids, *, k=8):
     """Segment-masked kNN selection on the card for a micro-batch of
-    bins. s:(B,N,ds) f32, segids:(B,N) int (−1 on padding) ->
+    bins. s:(B,N,ds) float32 or bfloat16 (the distances computed in f32
+    on its exact f32 values), segids:(B,N) int (−1 on padding) ->
     (idx:(B,N,k) int32, d2:(B,N,k) f32): per row, the k nearest rows of
     its own event, ties to the lowest column; a slot with no candidate
     left is (0, 1e30). Adds one to ``knn_build_cuda.launches`` per
@@ -127,8 +130,8 @@ def knn_build_cuda(s, segids, *, k=8):
         raise ValueError(f"knn_build_cuda: k={k}")
     bsz, n, ds = s.shape
     segids = segids.to(torch.int32).contiguous()
-    _build.check_cuda("knn_build_cuda", [s, segids],
-                      [torch.float32, torch.int32])
+    _build.check_cuda("knn_build_cuda", [s, segids], [s.dtype, torch.int32])
+    in_code, _, _ = _build.io_dtypes("knn_build_cuda", [s])
     lib = _library_build()
     bm, _ = build_plan(n, bsz)
     _build.check_smem("knn_build_cuda", build_smem_bytes(n, ds),
@@ -137,9 +140,9 @@ def knn_build_cuda(s, segids, *, k=8):
     d2 = torch.empty((bsz, n, k), dtype=torch.float32, device=s.device)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.knn_build_f32(s.data_ptr(), segids.data_ptr(),
-                                 idx.data_ptr(), d2.data_ptr(), bsz, n, ds,
-                                 int(k), bm, stream)
+        code = lib.knn_build_ex(s.data_ptr(), segids.data_ptr(),
+                                idx.data_ptr(), d2.data_ptr(), bsz, n, ds,
+                                int(k), bm, in_code, stream)
     _build.check(code, "knn_build")
     knn_build_cuda.launches += 1
     return idx, d2
@@ -148,11 +151,12 @@ def knn_build_cuda(s, segids, *, k=8):
 knn_build_cuda.launches = 0
 
 
-def knn_aggregate_cuda(f, idx, d2, *, scale=10.0):
+def knn_aggregate_cuda(f, idx, d2, *, scale=10.0, out_dtype=None):
     """Gaussian-potential mean/max over prebuilt neighbours on the card.
-    f:(B,N,df) f32, idx:(B,N,k) int32 (from knn_build; an index outside
-    [0, N) selects a row of zeros, as the TPU kernel's one-hot product
-    does), d2:(B,N,k) f32 -> (B,N,2·df). Adds one to
+    f:(B,N,df) float32 or bfloat16, idx:(B,N,k) int32 (from knn_build;
+    an index outside [0, N) selects a row of zeros, as the TPU kernel's
+    one-hot product does), d2:(B,N,k) f32 -> (B,N,2·df) of ``out_dtype``
+    (None: f's dtype), computed in f32. Adds one to
     ``knn_aggregate_cuda.launches`` per launch."""
     if f.ndim != 3 or idx.ndim != 3 or idx.shape[:2] != f.shape[:2] \
             or d2.shape != idx.shape:
@@ -163,17 +167,20 @@ def knn_aggregate_cuda(f, idx, d2, *, scale=10.0):
     if k < 1:
         raise ValueError("knn_aggregate_cuda: no neighbour slot")
     _build.check_cuda("knn_aggregate_cuda", [f, idx, d2],
-                      [torch.float32, torch.int32, torch.float32])
+                      [f.dtype, torch.int32, torch.float32])
+    in_code, out_code, out_dtype = _build.io_dtypes("knn_aggregate_cuda",
+                                                    [f], out_dtype)
     lib = _library_agg()
     bm, _ = aggregate_plan(n, bsz, df)
     _build.check_smem("knn_aggregate_cuda", aggregate_smem_bytes(n, df),
                       f"n={n}, d_f={df}")
-    y = torch.empty((bsz, n, 2 * df), dtype=torch.float32, device=f.device)
+    y = torch.empty((bsz, n, 2 * df), dtype=out_dtype, device=f.device)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.knn_aggregate_f32(f.data_ptr(), idx.data_ptr(),
-                                     d2.data_ptr(), y.data_ptr(), bsz, n,
-                                     df, k, float(scale), bm, stream)
+        code = lib.knn_aggregate_ex(f.data_ptr(), idx.data_ptr(),
+                                    d2.data_ptr(), y.data_ptr(), bsz, n,
+                                    df, k, float(scale), bm, in_code,
+                                    out_code, stream)
     _build.check(code, "knn_aggregate")
     knn_aggregate_cuda.launches += 1
     return y

@@ -7,7 +7,9 @@ CUDA tensor to the hand-written kernel, which raises on what it does
 not take. There is no backend switch and no fallback. The kernels mask
 ragged shapes themselves, so no wrapper pads, except
 :func:`flash_attention`, which pads S and T to its blocks as the
-reference's wrapper does. :func:`edge_aggregate_batched` (and
+reference's wrapper does. Float operands are float32 or bfloat16; the
+kernels compute in f32 and, as the reference's ops, return the input's
+dtype (the quantized block: f32 or int8). :func:`edge_aggregate_batched` (and
 :func:`edge_aggregate`) carry a gradient in their messages, the
 training path's: the forward is the kernel, the backward a gather in
 plain PyTorch (:func:`edge_aggregate_grad`), as the reference's gradient
@@ -129,7 +131,7 @@ def gravnet_aggregate(s, f, mask, *, k=8, scale=10.0):
 
 def knn_build_batched(s, segids, *, k=8):
     """Ragged kNN selection over a micro-batch of packed bins, one
-    launch. s:(B,N,ds) f32, segids:(B,N) int event ids (−1 padding) ->
+    launch. s:(B,N,ds), segids:(B,N) int event ids (−1 padding) ->
     (idx:(B,N,k) int32, d2:(B,N,k) f32): per row, the k nearest rows of
     its own event (ties to the lowest column, self excluded); a slot
     with no candidate left has d2 = 1e30 (consumers gate on d2)."""
@@ -231,8 +233,9 @@ def edge_aggregate_batched(messages, edge_index, n_nodes, edge_mask=None, *,
                            reduce="sum"):
     """Masked segment sum / mean of per-edge messages into their
     destination nodes over a micro-batch of graphs, one launch.
-    messages:(B,E,d) f32, edge_index:(B,2,E) int (src, dst),
-    edge_mask:(B,E)|None -> (B, n_nodes, d); each graph's edges reach
+    messages:(B,E,d), edge_index:(B,2,E) int (src, dst),
+    edge_mask:(B,E)|None -> (B, n_nodes, d) of the messages' dtype
+    (summed in f32); each graph's edges reach
     only its own nodes, and a dst outside [0, n_nodes) contributes
     nothing. Differentiable in ``messages`` (:class:`_EdgeAggregate`);
     ``edge_mask`` is data and may not require a gradient."""
@@ -327,7 +330,7 @@ def _edge_aggregate_traced(messages, dst, mask, n_nodes, reduce):
         cnt = torch.zeros((bsz, n_nodes), dtype=torch.float32,
                           device=messages.device).scatter_add_(1, idx, w)
         acc = acc / torch.clamp_min(cnt, 1.0)[..., None]
-    return acc
+    return acc.to(messages.dtype)
 
 
 def _edge_aggregate_route(messages, dst, mask, n_nodes, reduce):

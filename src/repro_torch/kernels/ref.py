@@ -14,7 +14,11 @@ sizes; every f32 step around them (dequantization, requantization by
 division, rounding half to even) keeps the kernels' order. The
 exception is ``flash_attention``, whose kernel runs on FMAs: its plain
 version keeps an order of its own, and the kernel is held to the
-float32 row against it. The top-k oracle of the GravNet aggregation
+float32 row against it. A plain version of a kernel that takes bf16
+operands widens them (exactly), computes in f32 and rounds its result
+once to ``out_dtype`` (by default the input's dtype), as the kernels'
+bf16 forms and the reference's ``out_dtype or x.dtype`` do. The top-k
+oracle of the GravNet aggregation
 (``knn_topk_ref``, ``gravnet_aggregate_topk_ref``) is no kernel's plain
 version: it follows the JAX package's oracle, its distances' dots as one
 matrix product.
@@ -56,12 +60,13 @@ def _dot_last(x, w):
 
 
 # ------------------------------------------------------------ fused dense ----
-def fused_dense_ref(x, w, b=None, *, activation="relu"):
-    """act(x @ w + b) in f32, cast back to x.dtype. x:(..., K) w:(K, N)."""
+def fused_dense_ref(x, w, b=None, *, activation="relu", out_dtype=None):
+    """act(x @ w + b) in f32, cast to ``out_dtype`` (None: x.dtype).
+    x:(..., K) w:(K, N)."""
     y = _dot_last(x.float(), w.float())
     if b is not None:
         y = y + b.float()
-    return _activate(y, activation).to(x.dtype)
+    return _activate(y, activation).to(out_dtype or x.dtype)
 
 
 def _int_dot(xq, wq):
@@ -172,12 +177,12 @@ def gravnet_cell_ref(s, f, mask, *, k=8, scale=10.0):
     return _aggregate(f, rounds(d2), k, scale, n)
 
 
-def gravnet_aggregate_ref(s, f, mask, *, k=8, scale=10.0):
+def gravnet_aggregate_ref(s, f, mask, *, k=8, scale=10.0, out_dtype=None):
     """The standalone GravNet aggregation over a micro-batch: the cell
-    fed S and F from memory. s:(B,n,ds), f:(B,n,df), mask:(B,n) ->
-    (B, n, 2·df) f32."""
+    fed S and F from memory, in f32. s:(B,n,ds), f:(B,n,df), mask:(B,n)
+    -> (B, n, 2·df) of ``out_dtype`` (None: f's dtype)."""
     return gravnet_cell_ref(s.float(), f.float(), mask.float(), k=k,
-                            scale=scale)
+                            scale=scale).to(out_dtype or f.dtype)
 
 
 def knn_d2_ref(s, mask):
@@ -253,12 +258,13 @@ def knn_build_ref(s, segids, *, k=8):
     return torch.stack(idx_cols, dim=2), torch.stack(d2_cols, dim=2)
 
 
-def knn_aggregate_ref(f, idx, d2, *, scale=10.0):
+def knn_aggregate_ref(f, idx, d2, *, scale=10.0, out_dtype=None):
     """Gaussian-potential mean/max over prebuilt neighbours (the
-    accumulation half of the cell), in slot order. f:(B,n,df) f32,
-    idx/d2:(B,n,k) -> (B, n, 2·df); a slot with d2 >= 0.5e30 weighs 0
-    and is left out of the max; a max that stays at −1e30 becomes 0; an
-    index outside [0, n) selects a row of zeros."""
+    accumulation half of the cell), in slot order, in f32. f:(B,n,df),
+    idx/d2:(B,n,k) -> (B, n, 2·df) of ``out_dtype`` (None: f's dtype); a
+    slot with d2 >= 0.5e30 weighs 0 and is left out of the max; a max
+    that stays at −1e30 becomes 0; an index outside [0, n) selects a row
+    of zeros."""
     bsz, n, k = idx.shape
     # an index outside [0, n) selects a row of zeros (the TPU kernel's
     # one-hot product): row n of the padded features
@@ -266,22 +272,24 @@ def knn_aggregate_ref(f, idx, d2, *, scale=10.0):
                                            dtype=torch.float32)], dim=1)
     idx = torch.where((idx >= 0) & (idx < n), idx, n).long()
     rounds = ((idx[..., t, None], d2[..., t].float()) for t in range(k))
-    return _aggregate(fz, rounds, k, scale, n)
+    return _aggregate(fz, rounds, k, scale, n).to(out_dtype or f.dtype)
 
 
 # ---------------------------------------------------------- gravnet block ----
 def gravnet_block_ref(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
-                      activation="relu", concat_x=True):
-    """The fused GravNet block over a micro-batch: S/F projections -> the
-    cell over each whole event -> act(concat(x, agg) @ wo + bo), or
-    act(agg @ wo + bo) without ``concat_x`` (wo (2·df, d_out)).
-    x:(B,N,dh), mask:(B,N) -> (B,N,d_out)."""
+                      activation="relu", concat_x=True, out_dtype=None):
+    """The fused GravNet block over a micro-batch, in f32: S/F
+    projections -> the cell over each whole event -> act(concat(x, agg)
+    @ wo + bo), or act(agg @ wo + bo) without ``concat_x`` (wo (2·df,
+    d_out)). x:(B,N,dh), mask:(B,N) -> (B,N,d_out) of ``out_dtype``
+    (None: x's dtype)."""
     xf = x.float()
     s = fused_dense_ref(xf, ws, bs, activation="none")
     f = fused_dense_ref(xf, wf, bf, activation="none")
     agg = gravnet_cell_ref(s, f, mask.float(), k=k, scale=scale)
     h = torch.cat([xf, agg], dim=-1) if concat_x else agg
-    return fused_dense_ref(h, wo, bo, activation=activation).to(x.dtype)
+    return fused_dense_ref(h, wo, bo, activation=activation,
+                           out_dtype=out_dtype or x.dtype)
 
 
 def gravnet_block_int8_ref(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
@@ -289,12 +297,12 @@ def gravnet_block_int8_ref(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
                            h_scale, k=8, scale=10.0, activation="relu",
                            concat_x=True, out_int8=False, out_scale=1.0):
     """The quantized GravNet block over a micro-batch, in the kernel's
-    order: quantize x with ``x_scale``; int8 S/F dots dequantized as
-    ``acc·(x_scale·w_scale[c]) + b`` (no output snap); the f32 cell;
-    snap ``agg`` to the ``agg_scale`` grid; quantize
+    order: quantize x (f32, or bf16 widened) with ``x_scale``; int8
+    S/F dots dequantized as ``acc·(x_scale·w_scale[c]) + b`` (no output
+    snap); the f32 cell; snap ``agg`` to the ``agg_scale`` grid; quantize
     ``h = concat(x, agg)`` (``agg`` alone without ``concat_x``) with
     ``h_scale``; the int8 output dot with dequant, bias and activation.
-    x:(B,N,dh) f32 -> (B,N,d_out) f32, or int8 ``clip(round(y /
+    x:(B,N,dh) f32 or bf16 -> (B,N,d_out) f32, or int8 ``clip(round(y /
     out_scale), ±127)`` when ``out_int8``."""
     xf = x.float()
     xq = quantize_act(xf, x_scale)
@@ -311,10 +319,12 @@ def gravnet_block_int8_ref(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
 
 
 # --------------------------------------------------------- edge aggregate ----
-def edge_aggregate_ref(messages, dst, mask, *, n_nodes, reduce="sum"):
+def edge_aggregate_ref(messages, dst, mask, *, n_nodes, reduce="sum",
+                       out_dtype=None):
     """Masked segment sum / mean of per-edge messages into their
-    destination nodes, in the kernel's order. messages:(B,E,d) f32,
-    dst:(B,E) int, mask:(B,E) f32 -> (B, n_nodes, d).
+    destination nodes, in the kernel's order, in f32. messages:(B,E,d),
+    dst:(B,E) int, mask:(B,E) f32 -> (B, n_nodes, d) of ``out_dtype``
+    (None: the messages' dtype), rounded once at the end.
 
     Each node sums ``mask[e]·msg[e]`` over its edges in increasing e,
     each product and sum rounded on its own; ``mean`` divides by
@@ -347,7 +357,7 @@ def edge_aggregate_ref(messages, dst, mask, *, n_nodes, reduce="sum"):
         cnt = cnt + torch.where(valid, torch.gather(mask, 1, edge), 0.0)
     if reduce == "mean":
         acc = acc / torch.clamp_min(cnt, 1.0)[..., None]
-    return acc
+    return acc.to(out_dtype or messages.dtype)
 
 
 # -------------------------------------------------------- flash attention ----

@@ -4,7 +4,9 @@ Counterpart of ``repro/tuning/autotune.py``. ``tune_*`` times one kernel
 family at one problem shape through the public ``kernels/ops.py``
 entry points (so padding and routing cost what a deployment's calls
 cost), on inputs made by ``numpy.random.default_rng(seed)`` as the
-reference makes them, and writes the winner into a ``TuningCache``.
+reference makes them, their float operands in the problem's dtype
+(``"bf16"`` or f32, :func:`float_dtype`), and writes the winner into a
+``TuningCache``.
 ``autotune_graph`` walks a deployed graph and tunes every problem its
 ops emit (``op_registry.tuning_problem``, the keys the binders look
 up), so a later ``deploy(..., tuning_cache=...)`` hits every entry.
@@ -109,18 +111,26 @@ def _search(call, cands, backend, iters):
             for cfg in cands]
 
 
-class _Inputs:
-    """numpy draws moved to the backend's device."""
+def float_dtype(dtype: str) -> torch.dtype:
+    """The float operands' dtype of a problem keyed ``dtype``: bfloat16
+    for ``"bf16"``, else float32 (the reference's ``_np_dtype``)."""
+    return torch.bfloat16 if dtype == "bf16" else torch.float32
 
-    def __init__(self, seed: int, backend: str):
+
+class _Inputs:
+    """numpy draws moved to the backend's device; ``normal`` in the
+    problem's float dtype (``fdt``)."""
+
+    def __init__(self, seed: int, backend: str, dtype: str = "float32"):
         self.rng = np.random.default_rng(seed)
         self.dev = device_of(backend)
+        self.fdt = float_dtype(dtype)
 
     def t(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.dev)
 
     def normal(self, shape, scale=1.0):
-        return self.t(self.rng.normal(size=shape) * scale)
+        return self.t(self.rng.normal(size=shape) * scale, self.fdt)
 
     def int8(self, shape, hi=127):
         return self.t(self.rng.integers(-127, hi, size=shape), torch.int8)
@@ -132,7 +142,7 @@ def tune_fused_dense(rows: int, d_in: int, d_out: int, *,
                      cache: TuningCache | None = None, iters: int = 5,
                      min_gain: float = MIN_GAIN, seed: int = 0) -> dict:
     from repro_torch.kernels import ops
-    r = _Inputs(seed, backend)
+    r = _Inputs(seed, backend, dtype)
     if dtype == "int8":
         x = r.int8((rows, d_in))
         w = r.int8((d_in, d_out))
@@ -143,9 +153,6 @@ def tune_fused_dense(rows: int, d_in: int, d_out: int, *,
             return ops.fused_dense_int8(x, w, b, 0.02, ws)
         cands = cand.fused_dense_int8_candidates(rows, d_in, d_out)
     else:
-        if dtype != "float32":
-            raise NotImplementedError(f"a {dtype} dense has no kernel in "
-                                      "the port")
         x = r.normal((rows, d_in))
         w = r.normal((d_in, d_out))
         b = r.normal((d_out,))
@@ -167,7 +174,7 @@ def tune_gravnet(n: int, d_s: int, d_f: int, k: int, *,
     """``batch > 1`` tunes the batched launch at (batch, n); batch=1
     keeps the per-event problem and key."""
     from repro_torch.kernels import ops
-    r = _Inputs(seed, backend)
+    r = _Inputs(seed, backend, dtype)
     lead = (batch,) if batch > 1 else ()
     s = r.normal((*lead, n, d_s))
     f = r.normal((*lead, n, d_f))
@@ -197,7 +204,7 @@ def tune_gravnet_block(n: int, d_hidden: int, d_s: int, d_f: int,
     ride in the cached config so warm-up can replay the problem; without
     ``concat_x`` the output dense reads the aggregate alone."""
     from repro_torch.kernels import ops
-    r = _Inputs(seed, backend)
+    r = _Inputs(seed, backend, dtype)
     dcat = d_hidden + 2 * d_f if concat_x else 2 * d_f
     lead = (batch,) if batch > 1 else ()
     if dtype == "int8":
@@ -252,7 +259,7 @@ def tune_edge_aggregate(n: int, e: int, d: int, *, reduce: str = "sum",
     """Tune the edge aggregation at one (n, e, d); ``reduce`` rides in the
     cached config for warm-up."""
     from repro_torch.kernels import ops
-    r = _Inputs(seed, backend)
+    r = _Inputs(seed, backend, dtype)
     lead = (batch,) if batch > 1 else ()
     msgs = r.normal((*lead, e, d))
     ei = r.t(r.rng.integers(0, n, size=(*lead, 2, e)), torch.int32)
@@ -294,7 +301,7 @@ def tune_knn_build(n: int, d_s: int, k: int, *, batch: int = 1,
     """Tune the ragged neighbour selection; ``n`` is the bin capacity,
     ``batch`` the bins per launch."""
     from repro_torch.kernels import ops
-    r = _Inputs(seed, backend)
+    r = _Inputs(seed, backend, dtype)
     if batch > 1:
         s = r.normal((batch, n, d_s))
         seg = r.t(_ragged_segids(r.rng, (batch, n)), torch.int32)
@@ -321,7 +328,7 @@ def tune_knn_aggregate(n: int, d_f: int, k: int, *, batch: int = 1,
     """Tune the ragged aggregation over representative knn_build outputs
     (``scale`` rides in the cached config for warm-up)."""
     from repro_torch.kernels import ops
-    r = _Inputs(seed, backend)
+    r = _Inputs(seed, backend, dtype)
     lead = (batch,) if batch > 1 else ()
     f = r.normal((*lead, n, d_f))
     idx = r.t(r.rng.integers(0, n, size=(*lead, n, k)), torch.int32)
@@ -347,11 +354,10 @@ def tune_flash_attention(bh: int, s: int, t: int, d: int, *,
     """Time the kept (bq, bk) plans at one (bh, s, t, d) problem, on
     q, k, v of ``dtype`` (``"bf16"`` or f32)."""
     from repro_torch.kernels import ops
-    r = _Inputs(seed, backend)
-    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
-    q = r.t(r.rng.normal(size=(bh, s, d)), dt)
-    k = r.t(r.rng.normal(size=(bh, t, d)), dt)
-    v = r.t(r.rng.normal(size=(bh, t, d)), dt)
+    r = _Inputs(seed, backend, dtype)
+    q = r.normal((bh, s, d))
+    k = r.normal((bh, t, d))
+    v = r.normal((bh, t, d))
 
     def call(cfg):
         return ops.flash_attention(q, k, v, causal=causal, **cfg)

@@ -21,24 +21,26 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch.tuning.autotune import device_of
+from repro_torch.tuning.autotune import device_of, float_dtype
 from repro_torch.tuning.cache import TuningCache
 
 
 def _replay(key, config) -> None:
     """One call of the cached winner ``config`` at ``key``'s problem, on
-    the device of ``key.backend``; the replay dims that ride in the
-    config (d_s, d_out, activation, concat_x, reduce, scale) are used,
-    every other entry is a launch knob."""
+    the device of ``key.backend``, its float operands in the key's dtype
+    (``"bf16"`` or f32); the replay dims that ride in the config (d_s,
+    d_out, activation, concat_x, reduce, scale) are used, every other
+    entry is a launch knob."""
     from repro_torch.kernels import ops
     rng = np.random.default_rng(0)
     dev = device_of(key.backend)
+    fdt = float_dtype(key.dtype)
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
     def normal(*shape, scale=1.0):
-        return t(rng.normal(size=shape) * scale)
+        return t(rng.normal(size=shape) * scale, fdt)
 
     def int8(*shape):
         return t(rng.integers(-127, 128, size=shape), torch.int8)
@@ -51,11 +53,9 @@ def _replay(key, config) -> None:
             ops.fused_dense_int8(int8(rows, d_in), int8(d_in, d_out),
                                  normal(d_out), 0.02,
                                  t(rng.uniform(1e-3, 5e-2, size=(d_out,))))
-        elif key.dtype == "float32":
+        else:
             ops.fused_dense(normal(rows, d_in), normal(d_in, d_out),
                             normal(d_out))
-        else:
-            raise NotImplementedError(f"a {key.dtype} dense has no kernel")
     elif key.kernel == "gravnet":
         batch = shape[0] if len(shape) == 5 else 1
         n, d_s, d_f, k = shape[-4:]
@@ -110,10 +110,8 @@ def _replay(key, config) -> None:
             t(rng.uniform(0.0, 4.0, size=(batch, n, k))), scale=scale)
     elif key.kernel == "flash_attention":
         bh, s, tt, d = shape
-        dt = torch.bfloat16 if key.dtype == "bf16" else torch.float32
-        ops.flash_attention(normal(bh, s, d).to(dt),
-                            normal(bh, tt, d).to(dt),
-                            normal(bh, tt, d).to(dt), **cfg)
+        ops.flash_attention(normal(bh, s, d), normal(bh, tt, d),
+                            normal(bh, tt, d), **cfg)
     else:
         raise ValueError(f"no replay for kernel {key.kernel!r}")
     if dev.type == "cuda":

@@ -350,6 +350,69 @@ def test_warm_up_replays_bf16_flash_keys_on_bf16(monkeypatch):
     assert sorted(map(str, seen)) == ["torch.bfloat16", "torch.float32"]
 
 
+#: a bf16 problem of each family the issue's mixed GraphSAGE and a
+#: bf16-tagged dense emit: (tune_* function, its shape, key function)
+BF16_PROBLEMS = {"fused_dense": ("tune_fused_dense", (16, 8, 4),
+                                 "fused_dense_key"),
+                 "edge_aggregate": ("tune_edge_aggregate", (9, 40, 6),
+                                    "edge_aggregate_key")}
+
+
+def _float_operand_spy(monkeypatch, name):
+    """Record the dtypes of every float operand and of the result of
+    each ``ops.<name>`` call (the edge sum's mask, data in f32, left
+    out)."""
+    from repro_torch.kernels import ops
+    seen = []
+    real = getattr(ops, name)
+
+    def spy(*a, **kw):
+        floats = a[:3] if name == "fused_dense" else a[:1]
+        out = real(*a, **kw)
+        seen.append(tuple(t.dtype for t in floats if t is not None)
+                    + (out.dtype,))
+        return out
+
+    monkeypatch.setattr(ops, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("kernel", sorted(BF16_PROBLEMS))
+def test_tune_times_bf16_problems_on_bf16_operands(kernel, monkeypatch):
+    """A problem keyed bf16 (``kernel_opt`` keys a bf16-tagged op's
+    problem so: GraphSAGE's ``l0_neigh`` under mixed) is timed on bf16
+    float operands into a bf16 result, as the reference draws them, and
+    filed under the reference's key; on 'cpu' the plain versions run
+    it."""
+    from repro_torch.tuning import autotune
+    fn, shape, key_fn = BF16_PROBLEMS[kernel]
+    seen = _float_operand_spy(monkeypatch, kernel)
+    cache = TuningCache()
+    getattr(autotune, fn)(*shape, dtype="bf16", backend="cpu", cache=cache,
+                          iters=1)
+    assert seen and set(seen) == {(torch.bfloat16,) * len(seen[0])}
+    key = getattr(tcache, key_fn)(*shape, "bf16", "cpu")
+    assert key.encode() == getattr(jcache, key_fn)(*shape, "bf16",
+                                                   "cpu").encode()
+    assert set(cache.entries()) == {key}
+
+
+@pytest.mark.parametrize("kernel", sorted(BF16_PROBLEMS))
+def test_warm_up_replays_bf16_problems_on_bf16(kernel, monkeypatch):
+    _, shape, key_fn = BF16_PROBLEMS[kernel]
+    # the replay runs an edge problem through the batched entry point
+    seen = _float_operand_spy(monkeypatch, kernel if kernel == "fused_dense"
+                              else "edge_aggregate_batched")
+    cache = TuningCache()
+    extras = {"reduce": "mean"} if kernel == "edge_aggregate" else {}
+    cache.put(getattr(tcache, key_fn)(*shape, "bf16", "cpu"), extras)
+    cache.put(getattr(tcache, key_fn)(*shape, "float32", "cpu"), extras)
+    assert warm_from_cache(cache) == 2
+    assert sorted(str(s[0]) for s in seen) == ["torch.bfloat16",
+                                               "torch.float32"]
+    assert all(len(set(s)) == 1 for s in seen)
+
+
 def test_tuning_backends_are_the_ports():
     assert device_of("cpu") == torch.device("cpu")
     for be in ("xla", "pallas", "pallas_interpret"):
