@@ -87,7 +87,7 @@ Phases, each of which exits non-zero when it fails:
    gatedgcn graphsage`` deploys them but at their published widths:
    GatedGCN 16 layers × 70 and GraphSAGE 2 layers × 128 (random weights
    from generator seeds 1 and 2) on the serve routes' graphs of 64 nodes
-   and 256 edges, design point 3, fp. Each serves 128 events (graphs of
+   and 256 edges, design point 3, fp. Each serves 64 events (graphs of
    seed 7, ``max(8, microbatch)`` per dispatch as the reference's
    service serves its GNN routes) with the counters at 0 just before:
    exactly 2 ``edge_aggregate`` per layer and chunk, the graph's
@@ -134,8 +134,8 @@ Phases, each of which exits non-zero when it fails:
    trip and ``warm_from_cache`` of every entry; the tuner's row: the
    bound (bq, bk)'s device time is at most the default's (the tuner
    times on the card's clock); then ``serve.main`` with
-   ``--tune --tuning-cache`` and again on the saved cache alone, which
-   binds every problem without searching;
+   ``--tune --tuning-cache --train-steps 0`` and again on the saved
+   cache alone, which binds every problem without searching;
 9. the whole-pipeline compile: on eight paths (the served default
    warm-trained, fp, fp at design point 1, mixed with
    ``fuse_int8=False``, ragged, GatedGCN, GraphSAGE, attention) the
@@ -163,7 +163,9 @@ Phases, each of which exits non-zero when it fails:
     each policy, (c) ``--loop deadline``, (d) ``--model gatedgcn
     graphsage``, (f) ``--replicas 2 --inject-faults
     'fail:p=1.0,replica=1' --max-retries 2`` (0 client-visible
-    failures), and (e) a ``ragged=`` service over the ragged deployment,
+    failures; (b), (c) and (f) serve the default's random weights,
+    ``--train-steps 0``: the service is under test, not the weights),
+    and (e) a ``ragged=`` service over the ragged deployment,
     16 events a launch. Every event released once, in submission order,
     every output bitwise equal to ``serve_events`` on the same deployment
     (the plain captured loop, timed right after it), each lane captured
@@ -373,8 +375,24 @@ Phases, each of which exits non-zero when it fails:
     captured, bitwise with the plain-substituted deployment; (e)
     ``autotune`` and ``warm_from_cache`` on bf16 dense, GravNet and edge
     problems, their operands bf16; ``bf16.json``;
-18. print ``{"kernels": [...]}`` with every kernel of the port, then
-    ``{"ok": true, "device": {...}}`` as the last line.
+18. the launch knobs (``tuning/candidates.py``): (a) every candidate of
+    every family at the path shapes (``KNOB_SHAPES``: the mixed and fp
+    chunks, the current detector's, the ragged bins, GatedGCN, GraphSAGE,
+    the attention dense, the GravNet and edge inputs past the register
+    cell) launched as asked (the wrapper's ``last_plan``), its shared
+    memory the library's, bitwise with its plain version (the int8 forms
+    with f32 and int8 out), its device ms beside the default's; (b)
+    ``autotune_graph`` on "cuda" over the mixed default, fp,
+    ``fuse_int8=False``, ragged, the current detector, GatedGCN and
+    GraphSAGE: each problem searched its whole list, a redeploy binds
+    and launches the winners, serves bitwise with the untuned
+    deployment captured and eager, events/s of both in turns (medians of
+    3); (c) the entries written before the knobs bind nothing and serve
+    bitwise; (d) ``serve --tune --tuning-cache`` then the saved cache
+    alone; ``knobs.json``;
+19. print ``{"kernels": [...]}`` with every kernel of the port (the int8
+    dense with each CTA tile's ms), then ``{"ok": true, "device":
+    {...}}`` as the last line.
 
 The script refuses to run without CUDA or outside a checkout. Long
 output (compiler logs, profiler tables) goes to ``chiprun_out/chip_smoke/``.
@@ -414,7 +432,7 @@ RAGGED_CHECK_BINS = (1, 8, 16)  # the kNN kernels' checks
 DISPATCH = 16                   # events per call of the serving loop on
                                 # the CaloClusterNet paths and attention:
                                 # max(microbatch, 16)
-GNN_EVENTS = 128                # the edge-based GNNs' served graphs
+GNN_EVENTS = 64                 # the edge-based GNNs' served graphs
 EDGE_WIDTHS = (16, 32, 70, 128)  # edge_aggregate's synthetic checks
 EDGE_BATCHES = (1, 8, 16)
 # flash_attention's (BH, S, T, D), causal: the reference's LM prefill
@@ -3141,6 +3159,405 @@ def bf16_forms(torch, np, dev, card, h) -> dict:
     return rec
 
 
+# ------------------------------------------ phase 18: the launch knobs ----
+#: the events each tuned and untuned deployment serves in phase 18 (b)
+KNOB_EVENTS = 64
+KNOB_ROUNDS = 3                 # events/s of both in turns: medians
+KNOB_REPS = 50                  # calls a candidate's device time averages
+#: the served paths' launch shapes (tests/test_torch_launch_knobs.py's):
+#: the mixed and fp chunks of 2 x 128 hits, the current detector's 8 x
+#: 32, the ragged 8 bins of 128, GatedGCN (1, 256, 70), GraphSAGE (8,
+#: 256, 16 and 128), the attention dense (4096, 64) -> 192, and the
+#: GravNet and edge inputs past the register cell (kernels/f32_cases.py:
+#: 600 hits at the smoke widths, d_f 129). Denses (rows, K, N); GravNet
+#: (events, n, ...); edges (graphs, nodes, edges, d, reduce).
+KNOB_SHAPES = {
+    "fused_dense": ((256, 4, 64), (256, 64, 64), (256, 64, 32), (256, 32, 7),
+                    (1024, 4, 64), (1024, 64, 22), (1024, 108, 64),
+                    (256, 70, 70), (256, 70, 140), (64, 70, 70),
+                    (512, 32, 128), (512, 256, 128), (512, 128, 5),
+                    (4096, 64, 192)),
+    "fused_dense_int8": ((256, 4, 64), (256, 64, 64), (256, 64, 32),
+                         (256, 32, 7)),
+    "gravnet_aggregate": ((1, 128, 4, 22), (2, 128, 4, 22), (8, 32, 4, 22),
+                          (1, 600, 3, 8), (2, 64, 4, 129)),
+    "gravnet_block": ((2, 128, 64, 4, 22, 64), (8, 32, 64, 4, 22, 64),
+                      (1, 600, 24, 3, 8, 24), (2, 64, 32, 4, 129, 32)),
+    "gravnet_block_int8": ((2, 128, 64, 4, 22, 64), (8, 32, 64, 4, 22, 64)),
+    "knn_build": ((8, 128, 4), (1, 600, 3)),
+    "knn_aggregate": ((8, 128, 22), (1, 128, 129)),
+    "edge_aggregate": ((1, 64, 256, 70, "sum"), (8, 64, 256, 16, "mean"),
+                       (8, 64, 256, 128, "mean"), (1, 600, 1000, 129, "sum")),
+}
+
+
+def launch_knobs(torch, np, dev, card, h) -> dict:
+    """Phase 18: every kernel's plan as a launch knob. (a) every candidate
+    of every family (``tuning/candidates.py``) at the path shapes of
+    ``KNOB_SHAPES``: the wrapper's ``last_plan`` is the knob, the
+    library's shared memory the Python formula's, the output its plain
+    version's bitwise (the int8 forms with f32 and int8 out), and its
+    device ms beside the default's; (b) ``autotune_graph`` on "cuda" over
+    the mixed default (warm-trained), fp, ``fuse_int8=False``, ragged,
+    the current detector and GatedGCN and GraphSAGE at their published
+    widths: every entry searched its family's whole list; a redeploy on
+    the cache binds the winners and its launches take them; its heads
+    and decisions, captured and eager, bitwise with the untuned
+    deployment's; the captured loop's events/s, tuned against untuned, in
+    turns (medians of 3, for information); (c) a cache of the entries
+    the tuner wrote before these knobs ({"bm": 128}, the dense's
+    reference blocks) binds nothing and serves bitwise with no cache;
+    (d) ``serve.main --tune --tuning-cache`` on the default route, then
+    on the saved cache alone. Returns the record."""
+    import warnings
+
+    from repro_torch.core.op_registry import (tuning_candidates,
+                                              tuning_problem)
+    from repro_torch.kernels import edge_aggregate as edge
+    from repro_torch.kernels import fused_dense as fd
+    from repro_torch.kernels import gravnet as gn
+    from repro_torch.kernels import gravnet_block as gb
+    from repro_torch.kernels import knn_build as kb
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.tuning import TuningCache, autotune_graph
+    from repro_torch.tuning import candidates as cand
+    from repro_torch.tuning.autotune import _launch, _ragged_segids
+    timer, wrappers = h.timer, h.wrappers
+    rec = {"card": card, "candidates": [], "paths": {}}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def normal(*shape, scale=1.0):
+        return t(rng.normal(size=shape) * scale)
+
+    def int8(*shape):
+        return t(rng.integers(-127, 128, size=shape), torch.int8)
+
+    def mask(*shape):
+        return t(rng.uniform(size=shape) < 0.85)
+
+    def scales(n):
+        return t(rng.uniform(1e-3, 2e-2, size=(n,)))
+
+    # (a) every candidate at the path shapes --------------------------------
+    def case(name, label, args, kw, cands, smem=None, outs=(None,)):
+        """Every candidate of one launch shape through the wrapper: the
+        plan it launched, its shared memory, its output bitwise against
+        the plain version's (each output form of ``outs``) and its device
+        ms; the first candidate is the default."""
+        wrapper, plain = wrappers[name], h.plain_fns[name]
+        row = {"name": name, "shape": label, "plans": []}
+        for out in outs:
+            kw_ = dict(kw, **(out or {}))
+            want = plain(*args, **kw_)
+            want = want if isinstance(want, tuple) else (want,)
+            for c in cands:
+                got = wrapper(*args, **kw_, **c)
+                got = got if isinstance(got, tuple) else (got,)
+                if wrapper.last_plan != c:
+                    fail(f"[knobs] {name} {label} {c}: launched "
+                         f"{wrapper.last_plan}")
+                if any(not torch.equal(g_, w_) for g_, w_ in zip(got, want)):
+                    fail(f"[knobs] {name} {label} {kw_} {c}: the output "
+                         "differs from the plain version's")
+                if smem is not None and smem(c)[0] != smem(c)[1]:
+                    fail(f"[knobs] {name} {label} {c}: shared memory "
+                         f"{smem(c)}, Python against the library")
+                if out is outs[0]:
+                    row["plans"].append({**c, "ms": timer.device_ms(
+                        lambda c=c: wrapper(*args, **kw_, **c),
+                        KNOB_REPS)})
+        d_ms = row["plans"][0]["ms"]
+        best = min(row["plans"], key=lambda p: p["ms"])
+        row["default_ms"], row["best"] = d_ms, best
+        rec["candidates"].append(row)
+        say(f"[knobs] {name} {label}: " + ", ".join(
+            "{}={:.5f}".format(",".join(str(v) for k, v in p.items()
+                                        if k != "ms"), p["ms"])
+            for p in row["plans"]) + f" ms (default first; best "
+            f"{best['ms'] / d_ms:.3f}x the default; {card})")
+
+    for m, k, n in KNOB_SHAPES["fused_dense"]:
+        case("fused_dense", f"({m},{k})->{n}",
+             (normal(m, k), normal(k, n), normal(n)), {"activation": "relu"},
+             cand.fused_dense_candidates(m, k, n),
+             lambda c, k=k: (fd.smem_bytes(fd.variant_of(1, 1, **c), k),
+                             fd.library_smem_bytes(
+                                 fd.variant_of(1, 1, **c), k)))
+    for m, k, n in KNOB_SHAPES["fused_dense_int8"]:
+        case("fused_dense_int8", f"({m},{k})->{n}",
+             (int8(m, k), int8(k, n), normal(n), 0.02, scales(n)),
+             {"activation": "relu"}, cand.fused_dense_int8_candidates(m, k, n),
+             outs=({"out_int8": True, "out_scale": 0.05}, {}))
+    for b, n, ds, df in KNOB_SHAPES["gravnet_aggregate"]:
+        case("gravnet_aggregate", f"({b},{n},{ds},{df})",
+             (normal(b, n, ds), normal(b, n, df), mask(b, n)),
+             {"k": 8 if n <= 128 else 4},
+             cand.gravnet_candidates(n, batch=b, d_f=df),
+             lambda c, n=n, ds=ds, df=df: (gn.smem_bytes(n, ds, df),
+                                           gn.library_smem_bytes(n, ds, df)))
+    for b, n, dh, ds, df, do in KNOB_SHAPES["gravnet_block"]:
+        case("gravnet_block", f"({b},{n},{dh}) d_f {df}",
+             (normal(b, n, dh), mask(b, n), normal(dh, ds, scale=0.3),
+              normal(ds), normal(dh, df, scale=0.3), normal(df),
+              normal(dh + 2 * df, do, scale=0.3), normal(do)),
+             {"k": 8 if n <= 128 else 4, "activation": "relu"},
+             cand.gravnet_block_candidates(n, dh, df, do, d_s=ds, batch=b),
+             lambda c, a=(n, dh, ds, df, do): (
+                 gb.smem_bytes(*a, c["bm"], gb.plan(*a, True, **c)[1]),
+                 gb.library_smem_bytes(*a, c["bm"])))
+    for b, n, dh, ds, df, do in KNOB_SHAPES["gravnet_block_int8"]:
+        case("gravnet_block_int8", f"({b},{n},{dh})",
+             (normal(b, n, dh), mask(b, n), int8(dh, ds), normal(ds),
+              int8(dh, df), normal(df), int8(dh + 2 * df, do), normal(do),
+              scales(ds), scales(df), scales(do)),
+             {"x_scale": 0.03, "agg_scale": 0.02, "h_scale": 0.03, "k": 8,
+              "activation": "relu"},
+             cand.gravnet_block_int8_candidates(n, dh, df, do, d_s=ds,
+                                                batch=b),
+             lambda c, a=(n, dh, ds, df, do): (
+                 gb.int8_smem_bytes(*a, c["bm"]),
+                 gb.library_int8_smem_bytes(*a, c["bm"])),
+             outs=({}, {"out_int8": True, "out_scale": 0.05}))
+    for b, n, ds in KNOB_SHAPES["knn_build"]:
+        case("knn_build", f"({b},{n},{ds})",
+             (normal(b, n, ds), t(_ragged_segids(rng, (b, n)), torch.int32)),
+             {"k": 8 if n <= 128 else 4}, cand.knn_build_candidates(n, batch=b),
+             lambda c, n=n, ds=ds: (kb.build_smem_bytes(n, ds),
+                                    kb.library_build_smem_bytes(n, ds)))
+    for b, n, df in KNOB_SHAPES["knn_aggregate"]:
+        idx, d2 = ref.knn_build_ref(normal(b, n, 4), t(
+            _ragged_segids(rng, (b, n)), torch.int32), k=8)
+        case("knn_aggregate", f"({b},{n},{df})", (normal(b, n, df), idx, d2),
+             {"scale": 10.0},
+             cand.knn_aggregate_candidates(n, batch=b, d_f=df),
+             lambda c, n=n, df=df: (kb.aggregate_smem_bytes(n, df),
+                                    kb.library_aggregate_smem_bytes(n, df)))
+    for b, n, e, d, red in KNOB_SHAPES["edge_aggregate"]:
+        ec = min(e, edge.max_edges())
+        case("edge_aggregate", f"({b},{e},{d}) {red} into {n}",
+             (normal(b, e, d), t(rng.integers(0, n, size=(b, e)),
+                                 torch.int32), mask(b, e)),
+             {"n_nodes": n, "reduce": red},
+             cand.edge_aggregate_candidates(n, e, d=d, batch=b),
+             lambda c, ec=ec: (
+                 edge.smem_bytes(ec, c["bn"], edge.staged(ec, c["bn"])),
+                 edge.library_smem_bytes(ec, c["bn"],
+                                         edge.staged(ec, c["bn"]))))
+    n_plans = sum(len(r["plans"]) for r in rec["candidates"])
+    rec["int8_tiles"] = {
+        r["shape"]: {f"{p['bm']}x{p['bn']}": p["ms"] for p in r["plans"]}
+        for r in rec["candidates"] if r["name"] == "fused_dense_int8"}
+    say(f"[knobs] (a) {n_plans} candidates at {len(rec['candidates'])} "
+        f"launch shapes: each launched as asked, bitwise with its plain "
+        f"version, its shared memory the Python formula's "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    # (b) the tuner on the card over the served paths ----------------------
+    def problems(pipe):
+        """(graph, n_rows, batch, {key: op}) of a deployment, as
+        ``serve.cache_hits`` reads them."""
+        inner = getattr(pipe, "pipe", pipe)
+        g = inner.graph
+        n_rows = g.meta["n_hits"]
+        batch = inner.microbatch if inner.batch_packed else 1
+        ops_ = {}
+        for op in g:
+            key = tuning_problem(op, n_rows=n_rows, backend="cuda",
+                                 batch=batch)
+            if key is not None:
+                ops_.setdefault(key, op)
+        return g, n_rows, batch, ops_
+
+    # the wrappers a family's bound knob reaches (a raggedized block: the
+    # kNN pair)
+    def reached(key, op):
+        if key.kernel == "fused_dense":
+            return ("fused_dense_int8",) if key.dtype == "int8" \
+                else ("fused_dense",)
+        if key.kernel == "gravnet_block" and op.attrs.get("ragged"):
+            return ("knn_build", "knn_aggregate")
+        return {"gravnet": ("gravnet_aggregate",)}.get(key.kernel,
+                                                       (key.kernel,))
+
+    def launched_knobs(pipe, feeds):
+        """{wrapper: {knobs}} that one eager pass of ``feeds`` hands the
+        wrappers, each launch checked to take what it was handed."""
+        seen = {n: set() for n in wrappers}
+
+        def recorder(n):
+            real = wrappers[n]
+
+            def call(*a, **kw):
+                out = real(*a, **kw)
+                knobs = {k: v for k, v in kw.items()
+                         if k in ("bm", "bn") and v is not None}
+                if knobs:
+                    if real.last_plan != knobs:
+                        fail(f"[knobs] {n} was handed {knobs}, launched "
+                             f"{real.last_plan}")
+                    seen[n].add(tuple(sorted(knobs.items())))
+                return out
+            return call
+        with h.substituted({n: recorder(n) for n in wrappers
+                            if n != "flash_attention"}):
+            pipe.run_eager(feeds)
+        torch.cuda.synchronize()
+        return seen
+
+    def served(pipe, feeds, eager=False):
+        res, _, elapsed = serve.serve_events(Eager(pipe) if eager else pipe,
+                                             feeds)
+        return dict(h.leaves(res)), elapsed
+
+    t_b = time.perf_counter()
+    for label, (pipe, redeploy, feeds) in h.knob_paths.items():
+        t_p = time.perf_counter()
+        g, n_rows, batch, ops_ = problems(pipe)
+        cache = TuningCache()
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            n_tuned = autotune_graph(g, n_rows=n_rows, backend="cuda",
+                                     cache=cache, batch=batch, verbose=True)
+        for line in buf.getvalue().splitlines():
+            say(f"  {line}")
+        if n_tuned != len(ops_) or set(cache.entries()) != set(ops_):
+            fail(f"[knobs {label}] tuned {n_tuned} of {len(ops_)} problems")
+        want = {n: set() for n in wrappers}
+        winners = {}
+        for key, op in ops_.items():
+            e = cache.entry(key)
+            # the list the tuner searched: at the events a launch takes
+            # (a dense's rows carry them already)
+            events, _ = _launch(g, key, n_rows=n_rows, backend="cuda",
+                                batch=batch)
+            full = tuning_candidates(op, n_rows=n_rows, batch=(
+                batch if key.kernel == "fused_dense" else events))
+            if e.candidates != len(full):
+                fail(f"[knobs {label}] {key.encode()} searched "
+                     f"{e.candidates} of its {len(full)} candidates")
+            knobs = {k: v for k, v in e.config.items() if k in ("bm", "bn")}
+            winners[key.encode()] = {"config": e.config, "us": e.us,
+                                     "default_us": e.default_us,
+                                     "candidates": e.candidates,
+                                     "default": full[0], "events": events}
+            for w in reached(key, op):
+                want[w].add(tuple(sorted(knobs.items())))
+        tpipe = redeploy(cache)
+        _, _, _, tops = problems(tpipe)
+        for key, op in tops.items():
+            cfg_ = cache.lookup(key)
+            bound_ = {k: op.attrs_opt.get(k) for k in cfg_
+                      if k in ("bm", "bn", "bq", "bk")}
+            if bound_ != {k: cfg_[k] for k in bound_} or (
+                    key.kernel == "fused_dense"
+                    and not op.attrs_opt.get("tuned")):
+                fail(f"[knobs {label}] {op.name} binds {op.attrs_opt}, the "
+                     f"cache's winner is {cfg_}")
+        one = {k: v[:tpipe.microbatch] for k, v in feeds.items()}
+        seen = launched_knobs(tpipe, one)
+        if seen != want:
+            fail(f"[knobs {label}] the launches took {seen}, the winners "
+                 f"are {want}")
+        base, _ = served(pipe, feeds)
+        for mode in ("captured", "eager"):
+            got, _ = served(tpipe, feeds, eager=mode == "eager")
+            diff = sorted(k for k in base
+                          if not np.array_equal(base[k], got.get(k)))
+            if set(got) != set(base) or diff:
+                fail(f"[knobs {label}] the tuned deployment ({mode}) differs "
+                     f"from the untuned one: {diff}")
+        n_ev = len(next(iter(feeds.values())))
+        rates = {"untuned": [], "tuned": []}
+        for _ in range(KNOB_ROUNDS):
+            for which, p in (("untuned", pipe), ("tuned", tpipe)):
+                rates[which].append(n_ev / served(p, feeds)[1])
+        med = {k: float(np.median(v)) for k, v in rates.items()}
+        nondefault = {k: w for k, w in winners.items()
+                      if {kk: w["config"].get(kk) for kk in w["default"]}
+                      != w["default"]}
+        rec["paths"][label] = {"problems": winners, "events": n_ev,
+                               "events_s": med, "runs": rates,
+                               "non_default": sorted(nondefault),
+                               "phase_s": time.perf_counter() - t_p}
+        say(f"[knobs {label}] autotune_graph searched every candidate of "
+            f"{len(ops_)} problems; {len(nondefault)} non-default winners "
+            f"{ {k: w['config'] for k, w in nondefault.items()} }; the "
+            f"redeploy binds and launches them; captured and eager bitwise "
+            f"with the untuned deployment over {n_ev} events; events/s "
+            f"untuned {med['untuned']:.1f}, tuned {med['tuned']:.1f} "
+            f"(medians of {KNOB_ROUNDS}, in turns; {card}) "
+            f"({time.perf_counter() - t_p:.1f}s)")
+    say(f"[knobs] (b) done ({time.perf_counter() - t_b:.1f}s)")
+
+    # (c) a cache written before the knobs ----------------------------------
+    pipe, redeploy, feeds = h.knob_paths["mixed default"]
+    g, n_rows, batch, ops_ = problems(pipe)
+    stale = TuningCache()
+    for key in ops_:
+        stale.put(key, {"bm": min(n_rows, 128)} if key.kernel != "fused_dense"
+                  else {"variant": "looped", "bm": 128, "bn": 128,
+                        "bk": 512})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        spipe = redeploy(stale)
+    n_warn = sum("binds nothing" in str(w.message) for w in caught)
+    if n_warn != len(stale) or [sorted(op.attrs_opt.items()) for op in
+                                problems(spipe)[0]] != [
+            sorted(op.attrs_opt.items()) for op in g]:
+        fail(f"[knobs stale] {n_warn} warnings for {len(stale)} stale "
+             "entries, or the bindings differ from no cache's")
+    base, _ = served(pipe, feeds)
+    got, _ = served(spipe, feeds)
+    if any(not np.array_equal(base[k], got.get(k)) for k in base):
+        fail("[knobs stale] the deployment on the stale cache differs from "
+             "the untuned one")
+    rec["stale"] = {"entries": len(stale), "warnings": n_warn}
+    say(f"[knobs] (c) a cache of the {len(stale)} entries written before "
+        f"the knobs ({{'bm': 128}}, the dense's reference blocks) binds "
+        f"nothing ({n_warn} warnings) and serves bitwise with no cache")
+
+    # (d) the serve entry point: tune and save, then bind from the file ----
+    path = OUT / "knobs_serve_tuning_cache.json"
+    path.unlink(missing_ok=True)
+    outs = []
+    for extra in (["--tune"], []):
+        buf = io.StringIO()
+        try:
+            with redirect_stdout(buf):
+                rc = serve.main(extra + ["--tuning-cache", str(path),
+                                         "--train-steps", "0", "--events",
+                                         str(KNOB_EVENTS)])
+        except SystemExit as e:
+            rc = e.code
+        for line in buf.getvalue().splitlines():
+            say(f"  {line}")
+        if rc != 0 or f"answered={KNOB_EVENTS} in-order=True" \
+                not in buf.getvalue():
+            fail(f"[knobs serve] {' '.join(extra)}: exit {rc}")
+        outs.append(buf.getvalue())
+    saved = TuningCache.load(path)
+    n_saved = len(saved)
+    if (not re.search(r"autotuned [1-9]\d* kernel problem", outs[0])
+            or "autotuned" in outs[1] or "[tune]" in outs[1]
+            or f"{n_saved} of {n_saved} kernel problems bound" not in outs[1]
+            or any(e.candidates < 2 for e in saved.entries().values())):
+        fail("[knobs serve] --tune must search every candidate and save, "
+             "the run on the saved cache bind every problem without "
+             "searching")
+    rec["serve"] = {k.encode(): e.to_json()
+                    for k, e in saved.entries().items()}
+    say(f"[knobs] (d) serve --tune searched {n_saved} problems' whole lists "
+        f"and saved them; the run on the saved cache bound all of them "
+        f"without searching")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (no "
@@ -4597,6 +5014,7 @@ def main() -> int:
         try:
             with redirect_stdout(buf):
                 rc = serve.main(extra + ["--tuning-cache", str(serve_cache),
+                                         "--train-steps", "0",
                                          "--events", str(ATTN_EVENTS)])
         except SystemExit as e:
             rc = e.code
@@ -4961,16 +5379,20 @@ def main() -> int:
     # replica, the streaming loop, 512 events
     default_report = serve_run("default", [], mixed_launches)
     # (b) two replicas, each policy; (c) the deadline loop
+    # on the default's random weights: the service is under test here
     for policy in ("round_robin", "least_loaded"):
         serve_run(f"replicas 2 {policy}", ["--replicas", "2", "--policy",
-                                           policy], mixed_launches)
-    serve_run("deadline loop", ["--loop", "deadline"], mixed_launches)
+                                           policy, "--train-steps", "0"],
+                  mixed_launches)
+    serve_run("deadline loop", ["--loop", "deadline", "--train-steps", "0"],
+              mixed_launches)
     # (d) the GNN routes
     serve_run("routes", ["--model", "gatedgcn", "graphsage"])
     # (f) a dead lane: replica 1 fails every batch, failover to replica 0
     dead = serve_run("dead lane", ["--replicas", "2", "--inject-faults",
                                    "fail:p=1.0,replica=1", "--max-retries",
-                                   "2"], mixed_launches)
+                                   "2", "--train-steps", "0"],
+                     mixed_launches)
     ft = dead.fault_tolerance
     if dead.served.failed or not ft["failed_over"] or \
             dead.summary["per_replica"][1]["completed"]:
@@ -5815,7 +6237,36 @@ def main() -> int:
     say(f"phase 17 done at {time.perf_counter() - t_start:.1f}s "
         f"({bf16_rec['phase_s']:.1f}s)")
 
-    # 18. the kernel line and the result -----------------------------------
+    # 18. the launch knobs ---------------------------------------------------
+    kev = generate(gen_cfg, KNOB_EVENTS, seed=18)
+    cev_ = generate(cur_gen, KNOB_EVENTS, seed=18)
+
+    def first(feeds):
+        return {k: v[:KNOB_EVENTS] for k, v in feeds.items()}
+    kfeeds = {"hits": kev["feats"], "mask": kev["mask"]}
+    knob_paths = {
+        "mixed default": (pipes["mixed_trained"], lambda c: deploy(
+            params=trained, tuning_cache=c, **paths["mixed"]), kfeeds),
+        "fp": (pipes["fp"], lambda c: deploy(tuning_cache=c, **paths["fp"]),
+               kfeeds),
+        "mixed fuse_int8=False": (pipes["mixed_no_fuse_int8"], lambda c: deploy(
+            tuning_cache=c, **paths["mixed_no_fuse_int8"]), kfeeds),
+        "ragged": (pipes["ragged"], lambda c: deploy(
+            tuning_cache=c, **paths["ragged"]), first(rg_feeds)),
+        "current detector": (cur_pipe, lambda c: serve.build_pipeline(
+            cur_cfg, cur_gen, device=dev, tuning_cache=c),
+            {"hits": cev_["feats"], "mask": cev_["mask"]}),
+        **{gname: (pipes[gname], lambda c, gname=gname: serve.MODELS[gname](
+            card_args, gnn_cfgs[gname], tuning_cache=c).pipe,
+            first(gnn_feeds[gname])) for gname in ("gatedgcn", "graphsage")}}
+    knobs = launch_knobs(torch, np, dev, card, SimpleNamespace(
+        timer=timer, wrappers=wrappers, plain_fns=plain_fns,
+        substituted=substituted, leaves=leaves, knob_paths=knob_paths))
+    (OUT / "knobs.json").write_text(json.dumps(knobs, indent=1, default=str))
+    say(f"phase 18 done at {time.perf_counter() - t_start:.1f}s "
+        f"({knobs['phase_s']:.1f}s)")
+
+    # 19. the kernel line and the result -----------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)
@@ -5878,6 +6329,9 @@ def main() -> int:
         n_launch = sum(path_launches[p][name] for p in home[name])
         if n_launch == 0:
             fail(f"{name} was launched no time on its path {home[name]}")
+        if name == "fused_dense_int8":
+            # each CTA tile's device ms at the mixed path's shapes (phase 18)
+            meta = dict(meta, tiles=knobs["int8_tiles"])
         line.append({
             "name": name, **meta, "status": "ported",
             "launches": n_launch,

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any, Callable
 
 
@@ -39,6 +40,8 @@ class BindContext:
     batch: int = 1
     cache: Any = None        # repro_torch.tuning.cache.TuningCache | None
     backend: str = "cuda"    # the key's backend: 'cuda' | 'cpu'
+    # the keys whose stale entries this binding has warned of
+    warned: set = dataclasses.field(default_factory=set)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -467,12 +470,75 @@ def _eff_attention(op, n_rows, n_hits):
 # ========================================================================
 # kernel-opt binders + tuning-cache problem keys
 # ========================================================================
+def tuning_candidates(op, *, n_rows: int, batch: int = 1) -> list[dict]:
+    """The Hopper candidates of the launch knobs of the kernel this op
+    launches, at its shape (``tuning/candidates.py``), the kernel's own
+    plan first; [] for an op with no launch knob. A dense keyed int8
+    takes the int8 kernel's tiles, any other the f32 kernel's; a
+    raggedized GravNet block, which launches the kNN pair with its bm,
+    the rows both kNN kernels take."""
+    from repro_torch.core.passes.kernel_opt import (fused_dense_dtype,
+                                                    fused_dense_shape)
+    from repro_torch.tuning import candidates as cand
+    a, n = op.attrs, n_rows
+    if op.template == "fused_dense":
+        fam = (cand.fused_dense_int8_candidates
+               if fused_dense_dtype(op) == "int8"
+               else cand.fused_dense_candidates)
+        return fam(*fused_dense_shape(op, n_rows, batch))
+    t = op.op_type
+    if t == "gravnet_block" and a.get("ragged"):
+        return cand.gravnet_block_ragged_candidates(n, batch=batch,
+                                                    d_f=a["d_f"])
+    if t == "gravnet_block":
+        fam = (cand.gravnet_block_int8_candidates if op.precision == "int8"
+               else cand.gravnet_block_candidates)
+        return fam(n, a["d_hidden"], a["d_f"], op.out_dim or a["d_hidden"],
+                   d_s=a["d_s"], concat_x=a.get("concat_x", True),
+                   batch=batch)
+    if t == "gravnet_aggregate":
+        return cand.gravnet_candidates(n, batch=batch, d_f=a["d_f"])
+    if t == "knn_build":
+        return cand.knn_build_candidates(n, batch=batch)
+    if t == "knn_aggregate":
+        return cand.knn_aggregate_candidates(n, batch=batch, d_f=a["d_f"])
+    if t == "edge_aggregate":
+        return cand.edge_aggregate_candidates(n, _n_edges(op, n),
+                                              d=op.out_dim or 1, batch=batch)
+    if t == "attention":
+        return cand.flash_attention_candidates(n, n, op.out_dim or 128)
+    return []
+
+
+def _cached(op, ctx: BindContext, key):
+    """The cached config for ``key``, or None: on a miss (or no cache),
+    and for a stale entry, which on a ``"cuda"`` key is one that is not
+    among :func:`tuning_candidates` (such as the reference's ``{"bm":
+    128}`` defaults that caches before the launch knobs hold). A stale
+    entry binds nothing, so the kernel's own plan launches; it is warned
+    of once per key. ``"cpu"`` keys bind as the reference's do."""
+    from repro_torch.tuning.candidates import among
+    tuned = ctx.cache.lookup(key) if ctx.cache is not None else None
+    if tuned is None or ctx.backend != "cuda" or among(
+            tuned, tuning_candidates(op, n_rows=ctx.n_rows,
+                                     batch=ctx.batch)):
+        return tuned
+    if key not in ctx.warned:
+        ctx.warned.add(key)
+        warnings.warn(f"tuning cache entry {key.encode()} {tuned} is not "
+                      f"among the {key.kernel} plans at this shape; it "
+                      "binds nothing (the kernel's own plan launches)",
+                      RuntimeWarning, stacklevel=3)
+    return None
+
+
 def _bind_fused_dense(op, ctx: BindContext):
     """Variant selection / block shape for the fused_dense template
-    (cached winner > heuristic) — see passes/kernel_opt.py. On the card
-    one ``fused_dense`` kernel serves every variant, so the binding
-    changes the graph (and the reference's graph equality holds) but
-    not the launch."""
+    (cached winner > heuristic) — see passes/kernel_opt.py. A cached
+    winner's (bm, bn), one of the kernel's tiles, is what the executor
+    hands the card's kernel (only where ``tuned`` is set, as the
+    reference's executor does); the heuristic's variant and blocks are
+    annotations that keep the reference's graph and change no launch."""
     from repro_torch.core.passes.kernel_opt import (FLATTEN_DIM,
                                                     FLATTEN_ROWS,
                                                     _FUSED_DENSE_KNOBS,
@@ -481,8 +547,8 @@ def _bind_fused_dense(op, ctx: BindContext):
     if op.template != "fused_dense":
         return
     rows, d_in, d_out = fused_dense_shape(op, ctx.n_rows, ctx.batch)
-    tuned = None if ctx.cache is None else ctx.cache.lookup(
-        _key_fused_dense(op, ctx.n_rows, ctx.backend, ctx.batch))
+    tuned = _cached(op, ctx, _key_fused_dense(op, ctx.n_rows, ctx.backend,
+                                              ctx.batch))
     if tuned is not None:
         for knob in _FUSED_DENSE_KNOBS:
             if knob in tuned:
@@ -499,8 +565,9 @@ def _bind_fused_dense(op, ctx: BindContext):
 
 def _bind_cached(op, ctx, key, knobs):
     """Copy ``knobs`` of the cached winner for ``key`` into attrs_opt; a
-    miss (or no cache) leaves attrs_opt untouched."""
-    tuned = ctx.cache.lookup(key) if ctx.cache is not None else None
+    miss (or no cache), or a stale entry (:func:`_cached`), leaves
+    attrs_opt untouched."""
+    tuned = _cached(op, ctx, key)
     if tuned is not None:
         for knob in knobs:
             if knob in tuned:
@@ -508,14 +575,15 @@ def _bind_cached(op, ctx, key, knobs):
 
 
 def _bind_gravnet_aggregate(op, ctx: BindContext):
-    # cache-only: the kernel's own default is the heuristic
+    # cache-only: the kernel's own plan is the default
     _bind_cached(op, ctx, _key_gravnet_aggregate(op, ctx.n_rows, ctx.backend,
                                                  ctx.batch), ("bm",))
 
 
 def _bind_gravnet_block(op, ctx: BindContext):
     # cache-only (bm, bn, bk); an int8 block keys with its own
-    # gravnet_block_int8 family, so f32 and int8 winners never cross
+    # gravnet_block_int8 family, so f32 and int8 winners never cross;
+    # bn and bk (the reference's epilogue blocking) stay annotations
     _bind_cached(op, ctx, _key_gravnet_block(op, ctx.n_rows, ctx.backend,
                                              ctx.batch), ("bm", "bn", "bk"))
 
@@ -527,8 +595,9 @@ def _bind_attention(op, ctx: BindContext):
 
 
 def _bind_edge_aggregate(op, ctx: BindContext):
+    # cache-only (bm, bn); be (the reference's edge chunk) an annotation
     _bind_cached(op, ctx, _key_edge_aggregate(op, ctx.n_rows, ctx.backend,
-                                              ctx.batch), ("bm", "be"))
+                                              ctx.batch), ("bm", "bn", "be"))
 
 
 def _bind_knn_build(op, ctx: BindContext):

@@ -6,15 +6,21 @@ Counterpart of ``repro/core/passes/kernel_opt.py``, its four steps:
 1. **Kernel binding** through the registry (``op_registry.bind_kernels``):
    a small MXU dense binds the 'flattened' variant, a large one the
    'looped' variant with (bm, bn, bk) blocks. On the card one
-   ``fused_dense`` kernel serves both variants, so the binding changes
-   the graph (and the reference's graph equality holds) but not the
-   launch; it is kept for when the variants differ on the card. With a
+   ``fused_dense`` kernel serves both variants, so this heuristic
+   binding keeps the reference's graph but changes no launch. With a
    tuning cache (``repro_torch.tuning``), a cached winner for the exact
-   (kernel, shape, dtype, backend) problem beats the heuristic: the
-   dense's variant and blocks, the attention op's (bq, bk), which the
-   executor hands to the flash kernel, and the other kernels' knobs,
-   which their CUDA sources do not read yet. A miss keeps the heuristic,
-   so an empty cache binds exactly what no cache does.
+   (kernel, shape, dtype, backend) problem beats the heuristic, and the
+   executor hands its knobs to the kernel: a dense's tile (bm, bn), only
+   where the binding is ``tuned``, as in the reference; the GravNet and
+   kNN kernels' rows a CTA (bm), the blocks' too; the edge kernel's
+   (bm, bn) rows and columns; the attention op's (bq, bk). The
+   reference's knobs with no counterpart on the card stay annotations
+   that no launch reads: the dense's ``variant`` and ``bk``, the blocks'
+   epilogue ``bn`` and ``bk``, the edge kernel's ``be``. On ``"cuda"``
+   keys an entry that is not among its family's candidates at the shape
+   (``tuning/candidates.py``; a cache written before these knobs) binds
+   nothing, with a warning. A miss keeps the heuristic, so an empty
+   cache binds exactly what no cache does.
 2. **Retile cancellation**: adjacent retiles that undo each other are
    bypassed.
 3. **Int8 chain fusion**: inside an 8-bit partition, a dense whose

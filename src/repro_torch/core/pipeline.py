@@ -99,7 +99,8 @@ from repro_torch.core import caloclusternet as ccn
 from repro_torch.core.graph_ir import Graph
 from repro_torch.core.op_registry import LANE
 from repro_torch.core.passes.fusion import fuse
-from repro_torch.core.passes.kernel_opt import kernel_optimize
+from repro_torch.core.passes.kernel_opt import (fused_dense_dtype,
+                                                kernel_optimize)
 from repro_torch.core.passes.mapping import map_templates
 from repro_torch.core.passes.parallelize import (Requirements, op_cost,
                                                   parallelize, segment_time)
@@ -264,7 +265,8 @@ class _Executor:
             y = kops.fused_dense_int8(
                 xq.reshape(-1, xq.shape[-1]).contiguous(), wq, b, in_scale,
                 op.params["w_scale"], activation=act, out_int8=emit8,
-                out_scale=out_scale).reshape(*xq.shape[:-1], -1)
+                out_scale=out_scale, **self._dense_tile(op, int8=True)
+            ).reshape(*xq.shape[:-1], -1)
             return QTensor(y, out_scale) if emit8 else y
         # float path (fp or bf16, or an int8 op not calibrated yet); a
         # bf16 dense runs the kernel on bf16 x, w and b into a bf16 output
@@ -278,9 +280,23 @@ class _Executor:
         x = _as_fp(x, dt).contiguous()
         if x.shape[-1] > w.shape[0]:
             x = x[..., :w.shape[0]]
+        tile = self._dense_tile(op, int8=False)
         if x.ndim == 3:   # row-packs the micro-batch into one launch
-            return kops.fused_dense_batched(x, w, b, activation=act)
-        return kops.fused_dense(x, w, b, activation=act)
+            return kops.fused_dense_batched(x, w, b, activation=act, **tile)
+        return kops.fused_dense(x, w, b, activation=act, **tile)
+
+    @staticmethod
+    def _dense_tile(op, *, int8: bool) -> dict:
+        """A dense's (bm, bn), the tile of the kernel it launches, where
+        the binding was searched (``tuned``, as in the reference's
+        executor) for that kernel: the int8 kernel's for an op keyed
+        int8, the f32 kernel's for the others. Else none, so the
+        heuristic's blocks (annotations of the reference's graph) and an
+        int8 op's f32 run before its calibration launch the plan."""
+        if not op.attrs_opt.get("tuned") or (
+                fused_dense_dtype(op) == "int8") != int8:
+            return {}
+        return {"bm": op.attrs_opt.get("bm"), "bn": op.attrs_opt.get("bn")}
 
     def _bf16_params(self, name, w, b):
         """``w`` and ``b`` in bf16, cast once and kept while both stay
@@ -301,7 +317,8 @@ class _Executor:
         sf = _as_fp(s)[..., :op.attrs["d_s"]].contiguous()
         ff = _as_fp(f)[..., :op.attrs["d_f"]].contiguous()
         agg = kops.gravnet_aggregate_batched(sf, ff, mask, k=op.attrs["k"],
-                                             scale=op.attrs["scale"])
+                                             scale=op.attrs["scale"],
+                                             bm=op.attrs_opt.get("bm"))
         if prec == "int8" and "act_scale" in op.attrs:
             sc = f32(op.attrs["act_scale"])
             agg = torch.clamp(torch.round(agg / sc), -QMAX, QMAX) * sc
@@ -313,7 +330,8 @@ class _Executor:
         consumes."""
         s, segids = vals
         sf = _as_fp(s)[..., :op.attrs["d_s"]].contiguous()  # lane128
-        return kops.knn_build_batched(sf, segids, k=op.attrs["k"])
+        return kops.knn_build_batched(sf, segids, k=op.attrs["k"],
+                                      bm=op.attrs_opt.get("bm"))
 
     def _knn_aggregate(self, op, vals):
         """The aggregation over a knn_build's (idx, d2). The ragged path
@@ -322,7 +340,8 @@ class _Executor:
         f, (idx, d2) = vals
         ff = _as_fp(f)[..., :op.attrs["d_f"]].contiguous()
         return kops.knn_aggregate_batched(ff, idx, d2,
-                                          scale=op.attrs["scale"])
+                                          scale=op.attrs["scale"],
+                                          bm=op.attrs_opt.get("bm"))
 
     def _gravnet_block(self, op, vals, prec):
         """One fused GravNet block, one launch for the micro-batch: the
@@ -331,11 +350,13 @@ class _Executor:
         input carries segment ids) runs the ragged chain instead: the
         S/F denses, knn_build, knn_aggregate and the output dense. The
         output dense reads concat(x, agg), or agg alone where the op's
-        ``concat_x`` is false."""
+        ``concat_x`` is false. The bound ``bm`` goes to the block's kernel
+        (the ragged chain: to its kNN pair, as in the reference)."""
         p, a = op.params, op.attrs
         kw = dict(k=a["k"], scale=a["scale"],
                   activation=a.get("activation", "none"),
-                  concat_x=a.get("concat_x", True))
+                  concat_x=a.get("concat_x", True),
+                  bm=op.attrs_opt.get("bm"))
         if a.get("ragged"):
             x, segids = vals
             return kops.gravnet_block_ragged(
@@ -398,7 +419,8 @@ class _Executor:
         mf = _as_fp(msgs)[..., :op.out_dim].contiguous()
         n_nodes = int(op.attrs.get("n_nodes") or self.n_hits)
         return kops.edge_aggregate_batched(
-            mf, ei, n_nodes, mask, reduce=op.attrs.get("reduce", "sum"))
+            mf, ei, n_nodes, mask, reduce=op.attrs.get("reduce", "sum"),
+            bm=op.attrs_opt.get("bm"), bn=op.attrs_opt.get("bn"))
 
     def _eltwise(self, op, vals):
         """N-ary elementwise algebra; ``fn`` picks the operation."""

@@ -169,3 +169,16 @@ def check_smem(name: str, smem: int, shape: str) -> None:
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: {shape} needs {smem} B of shared "
                          f"memory > {SMEM_LIMIT} B")
+
+
+def check_rows(name: str, bm, cell: str, max_rows: int | None) -> int:
+    """``bm``, a CTA's query or destination rows that a caller asked for,
+    as an int: at least 1, and at most ``max_rows`` (the cell's
+    ``kMaxRows``; None: no such limit) on ``cell``; else ``ValueError``.
+    A launch knob never re-plans: a row count the cell cannot run is
+    refused, not moved to another cell."""
+    if isinstance(bm, bool) or int(bm) != bm or bm < 1 or (
+            max_rows is not None and bm > max_rows):
+        raise ValueError(f"{name}: bm={bm!r} rows a CTA; the {cell} cell "
+                         f"takes 1 to {max_rows or 'any number of'} rows")
+    return int(bm)

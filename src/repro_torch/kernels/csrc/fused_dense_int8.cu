@@ -18,14 +18,21 @@
 // transposed into words between two barriers; __dp4a) took 3.7-7.9 us
 // a launch, up to twice torch._int_mm's product alone.
 //
-// Design: 32x16 output tiles, one CTA of 4 warps each, every warp one
-// 16x8 tile of the int8 tensor cores (mma.sync m16n8k32, mma_s8.cuh):
-// 32 CTAs for a (256, K)->64 product. A narrow output (the merged
-// head's N = 7) keeps 8 CTAs for 256 rows: 16-row tiles, twice the
-// CTAs, measured slower. A CTA stages up to 128 of K in one
-// round trip: its 32 rows of x as 16-byte vectors where K is a multiple
-// of 16 (else words, else bytes), and its 16 columns of w as one 16-byte
-// vector per k where N is a multiple of 16 (else bytes), as w lies in
+// Design: 32x16 output tiles by default, one CTA of 4 warps each, every
+// warp one 16x8 tile of the int8 tensor cores (mma.sync m16n8k32,
+// mma_s8.cuh): 32 CTAs for a (256, K)->64 product. A narrow output (the
+// merged head's N = 7) keeps 8 CTAs for 256 rows: 16-row tiles, twice
+// the CTAs, measured slower. The CTA tile is a template parameter and
+// the C entry takes it as a code (kernels/fused_dense.py:INT8_TILES),
+// the tuner's knob: 0 = 32x16 (the default), 1 = 16x16 (twice the CTAs
+// of 2 warps, for shapes whose CTAs do not fill the card), 2 = 64x16
+// (half the CTAs of 8 warps, each w slab staged once for 64 rows) and
+// 3 = 32x32 (half the CTAs of 8 warps, each x slab staged once for 32
+// columns); a CTA runs (BM/16)(BN/8) warps, each one m16n8k32 tile. A
+// CTA stages up to 128 of K in one
+// round trip: its rows of x as 16-byte vectors where K is a multiple
+// of 16 (else words, else bytes), and its columns of w as 16-byte
+// vectors per k where N is a multiple of 16 (else bytes), as w lies in
 // device memory; the weights' fragments are gathered from there with
 // every k >= K and column >= N read as 0, which zero-pads K to the MMA's
 // depth of 32 (x's padding is never written: it meets those zeros). The
@@ -33,7 +40,7 @@
 // Any M, K, N: a longer K loops over 128-deep slices, rows and columns
 // past M and N are not stored (the merged head has N = 7). Integer sums
 // are exact in any order, so the accumulators equal the plain version's
-// (kernels/ref.py:fused_dense_int8_ref) bitwise. The epilogue keeps the
+// (kernels/ref.py:fused_dense_int8_ref) bitwise under every tile. The epilogue keeps the
 // reference's order of rounded f32 operations — scale = x_scale *
 // w_scale[c], y = (float)acc * scale, y + b, the activation, then
 // rint(y / out_scale) (ties to even; the quotient rounded as the IEEE
@@ -58,23 +65,26 @@ using repro_torch::quotient;
 using repro_torch::quotient_exact;
 using repro_torch::round_clip_s8;
 
-constexpr int BM = 32;          // rows of a CTA's tile
-constexpr int BN = 16;          // columns of a CTA's tile
 constexpr int KC = 128;         // depth staged per round trip
 constexpr int LDX = KC + 16;    // x tile's row stride: 16 mod 32 bytes
-constexpr int kThreads = 128;   // 4 warps: 2x2 MMA tiles of 16x8
 
 __device__ inline bool aligned(const void* p, int bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A CTA computes a BM x BN output tile: (BM/16)(BN/8) warps, each one
+// 16x8 MMA tile.
+template <int BM, int BN>
+__global__ void __launch_bounds__(32 * (BM / 16) * (BN / 8))
 fused_dense_int8_kernel(const int8_t* __restrict__ x,
                         const int8_t* __restrict__ w,
                         const float* __restrict__ b,
                         const float* __restrict__ w_scale, float x_scale,
                         void* __restrict__ y, int M, int K, int N, int act,
                         int out_int8, float out_scale) {
+  constexpr int kNT = BN / 8;                 // MMA tiles across a row
+  constexpr int kThreads = 32 * (BM / 16) * kNT;
+  static_assert(BM % 16 == 0 && BN % 16 == 0, "16-row, 16-column tiles");
   __shared__ __align__(16) int8_t xs[BM * LDX];
   __shared__ __align__(16) int8_t wsm[KC * BN];
   const int tid = threadIdx.x;
@@ -82,7 +92,7 @@ fused_dense_int8_kernel(const int8_t* __restrict__ x,
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int rows = min(BM, M - row0), cols = min(BN, N - col0);
-  const int mt = warp >> 1, nt = warp & 1;
+  const int mt = warp / kNT, nt = warp % kNT;
 
   // this lane's two output columns: scale and bias
   float sc[2], bias[2];
@@ -122,10 +132,13 @@ fused_dense_int8_kernel(const int8_t* __restrict__ x,
       }
     }
     const int8_t* wg = w + (size_t)kc * N + col0;
-    if (w16) {
-      for (int kk = tid; kk < kw; kk += kThreads)
-        *reinterpret_cast<int4*>(wsm + kk * BN) =
-            __ldg(reinterpret_cast<const int4*>(wg + (size_t)kk * N));
+    if (w16) {       // cols is a multiple of 16 where N is
+      const int per = cols / 16;
+      for (int e = tid; e < kw * per; e += kThreads) {
+        const int kk = e / per, v = e - kk * per;
+        *reinterpret_cast<int4*>(wsm + kk * BN + 16 * v) =
+            __ldg(reinterpret_cast<const int4*>(wg + (size_t)kk * N) + v);
+      }
     } else {
       for (int e = tid; e < kw * cols; e += kThreads) {
         const int kk = e / cols, c = e - kk * cols;
@@ -172,20 +185,43 @@ fused_dense_int8_kernel(const int8_t* __restrict__ x,
   }
 }
 
+template <int BM, int BN>
+void launch(const int8_t* x, const int8_t* w, const float* b,
+            const float* w_scale, float x_scale, void* y, int M, int K,
+            int N, int act, int out_int8, float out_scale,
+            cudaStream_t stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  fused_dense_int8_kernel<BM, BN>
+      <<<grid, 32 * (BM / 16) * (BN / 8), 0, stream>>>(
+          x, w, b, w_scale, x_scale, y, M, K, N, act, out_int8, out_scale);
+}
+
 }  // namespace
 
 // x:(M,K) int8, w:(K,N) int8, b:(N,) f32 or null, w_scale:(N,) f32,
 // y:(M,N) f32 (out_int8 = 0) or int8 (out_int8 = 1); contiguous, on the
-// device of `stream`. act: 0 = none, 1 = relu, 2 = gelu, 3 = silu.
-extern "C" int fused_dense_int8(const int8_t* x, const int8_t* w,
-                                const float* b, const float* w_scale,
-                                float x_scale, void* y, int M, int K, int N,
-                                int act, int out_int8, float out_scale,
-                                void* stream) {
+// device of `stream`. act: 0 = none, 1 = relu, 2 = gelu, 3 = silu. tile:
+// the CTA's output tile, 0 = 32x16, 1 = 16x16, 2 = 64x16, 3 = 32x32
+// (kernels/fused_dense.py:INT8_TILES); any other code is
+// cudaErrorInvalidValue.
+extern "C" int fused_dense_int8_ex(const int8_t* x, const int8_t* w,
+                                   const float* b, const float* w_scale,
+                                   float x_scale, void* y, int M, int K,
+                                   int N, int act, int out_int8,
+                                   float out_scale, int tile,
+                                   void* stream) {
+  if (tile < 0 || tile > 3) return (int)cudaErrorInvalidValue;
   if (M > 0 && N > 0) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    fused_dense_int8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        x, w, b, w_scale, x_scale, y, M, K, N, act, out_int8, out_scale);
+    const cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_TILE(CODE, BM_, BN_)                                          \
+  if (tile == CODE)                                                         \
+    launch<BM_, BN_>(x, w, b, w_scale, x_scale, y, M, K, N, act, out_int8, \
+                     out_scale, st);
+    REPRO_TILE(0, 32, 16)
+    REPRO_TILE(1, 16, 16)
+    REPRO_TILE(2, 64, 16)
+    REPRO_TILE(3, 32, 32)
+#undef REPRO_TILE
   }
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ messages with the event's destinations and masks in one round trip,
 counting-sorts the edges by destination with all its warps, and walks
 each row's segment in shared memory; the plain version is
 ``kernels/ref.py:edge_aggregate_ref``. :func:`plan` picks the CTA's
-rows and columns. An edge list longer than one launch takes
+rows and columns, or takes the caller's (``bm``, ``bn``, the tuner's
+knobs). An edge list longer than one launch takes
 (:func:`max_edges`) is walked in chunks of consecutive edges
 (:func:`chunk_plan`), each launch continuing the f32 sums and counts the
 one before left in a scratch buffer; the last launch alone writes the
@@ -34,19 +35,31 @@ FILL_CTAS = 132
 _lib = None
 
 
-def plan(n_nodes: int, d: int, bsz: int = 1) -> tuple[int, int]:
+def plan(n_nodes: int, d: int, bsz: int = 1, bm=None,
+         bn=None) -> tuple[int, int]:
     """(bm, cw): the destination rows and message columns of one CTA,
     which runs one (column block, row block, event): the smallest tile
     of :data:`TILES` (cut to n_nodes and d) whose CTAs fill the card at
     most once, else the largest. Measured on the H100 at the routes'
     shapes, a CTA's time is one chain of round trip, sort and walk that
     a smaller tile hardly shortens, while CTAs past one per SM queue.
-    cw is even where d is (the walk reads column pairs)."""
-    for bm, cw in TILES:
-        bm, cw = min(bm, n_nodes), min(cw, d)
-        if -(-d // cw) * -(-n_nodes // bm) * bsz <= FILL_CTAS:
+    cw is even where d is (the walk reads column pairs). A given ``bm``
+    (1 to :data:`BM` rows) or ``bn`` (the columns cw, even where d is)
+    replaces the plan's; ``ValueError`` on any other."""
+    for pbm, pcw in TILES:
+        pbm, pcw = min(pbm, n_nodes), min(pcw, d)
+        if -(-d // pcw) * -(-n_nodes // pbm) * bsz <= FILL_CTAS:
             break
-    return bm, cw
+    if bm is not None:
+        pbm = _build.check_rows("edge_aggregate", bm, "edge", BM)
+    if bn is not None:
+        if isinstance(bn, bool) or int(bn) != bn or bn < 1 or (
+                d % 2 == 0 and bn % 2):
+            raise ValueError(f"edge_aggregate: bn={bn!r} columns a CTA; "
+                             "the walk takes at least 1, an even number "
+                             f"where d ({d}) is even")
+        pcw = int(bn)
+    return pbm, pcw
 
 
 def smem_bytes(e: int, cw: int, staged: bool) -> int:
@@ -103,7 +116,7 @@ def library_smem_bytes(e: int, cw: int, staged_: bool) -> int:
 
 
 def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum",
-                        out_dtype=None):
+                        out_dtype=None, bm=None, bn=None):
     """Masked segment sum (or mean) of edge messages into their
     destination nodes on the card, for a micro-batch of graphs.
     messages:(B,E,d) float32 or bfloat16, dst:(B,E) int32, mask:(B,E) f32
@@ -113,7 +126,9 @@ def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum",
     a dst outside [0, n_nodes) contributes nothing. E past
     :func:`max_edges` takes one launch a chunk (:func:`chunk_plan`; the
     sums and counts carried in f32, the output written by the last).
-    Adds one to ``edge_aggregate_cuda.launches`` per launch."""
+    ``bm`` rows and ``bn`` columns a CTA, or :func:`plan`'s where None,
+    kept in ``edge_aggregate_cuda.last_plan``. Adds one to
+    ``edge_aggregate_cuda.launches`` per launch."""
     if reduce not in ("sum", "mean"):
         raise ValueError(f"edge_aggregate_cuda: reduce={reduce!r}")
     if messages.ndim != 3 or dst.shape != messages.shape[:2] \
@@ -130,7 +145,7 @@ def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum",
     n_nodes = int(n_nodes)
     mean = reduce == "mean"
     lib = _library()
-    bm, cw = plan(n_nodes, d, bsz)
+    bm, cw = plan(n_nodes, d, bsz, bm, bn)
     chunks = chunk_plan(e)
     dev = messages.device
     out = torch.empty((bsz, n_nodes, d), dtype=out_dtype, device=dev)
@@ -168,7 +183,9 @@ def edge_aggregate_cuda(messages, dst, mask, *, n_nodes, reduce="sum",
                 in_code, 0 if first else out_code, stream)
             _build.check(code, "edge_aggregate")
             edge_aggregate_cuda.launches += 1
+    edge_aggregate_cuda.last_plan = {"bm": bm, "bn": cw}
     return out
 
 
 edge_aggregate_cuda.launches = 0
+edge_aggregate_cuda.last_plan = None

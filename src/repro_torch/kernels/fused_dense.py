@@ -9,7 +9,10 @@ the plain versions are ``kernels/ref.py:fused_dense_ref`` and
 whole-operand cell, or a grid looped over K) were ways to fill the
 TPU's matrix unit; on the card one tiled kernel serves both, its tile
 chosen from the shape by :func:`plan`, and the batched form row-packs
-its events into the same launch. The f32 kernel reads x through a row
+its events into the same launch. A caller may name the tile instead
+(``bm``, ``bn``: :func:`variant_of`; the int8 kernel's among
+:data:`INT8_TILES`), the tuner's knob; a pair that is not a tile raises
+``ValueError``. The f32 kernel reads x through a row
 stride, so a row-strided view (the executor's own-K view of a
 lane-padded input) launches without a copy. It takes x, w and b in f32
 or all three in bf16, as the TPU kernel does (bf16 × bf16 summed in
@@ -43,6 +46,9 @@ MAX_CTAS = 3 * 132
 NARROW = 4
 #: the variants from the smallest tile to the largest
 BY_SIZE = (4, 0, 1, 2, 3)
+#: the int8 kernel's CTA tiles (rows, columns) by their code in
+#: ``csrc/fused_dense_int8.cu``; the first is the default
+INT8_TILES = ((32, 16), (16, 16), (64, 16), (32, 32))
 _lib = None
 _lib_int8 = None
 
@@ -72,6 +78,31 @@ def plan(m: int, n: int) -> int:
         return NARROW
     return next((v for v in BY_SIZE if ctas(v, m, n) <= MAX_CTAS),
                 BY_SIZE[-1])
+
+
+def variant_of(m: int, n: int, bm=None, bn=None) -> int:
+    """The variant of a (m, K) -> n launch: :func:`plan`'s where bm and
+    bn are None, else the one whose tile is bm x bn; raises
+    ``ValueError`` on a pair that is not a tile of :data:`TILES`."""
+    if bm is None and bn is None:
+        return plan(m, n)
+    tiles = [tile(v) for v in range(len(TILES))]
+    if (bm, bn) not in tiles:
+        raise ValueError(f"fused_dense: (bm, bn) = ({bm}, {bn}) is not a "
+                         f"tile of the kernel ({tiles})")
+    return tiles.index((bm, bn))
+
+
+def int8_tile_of(bm=None, bn=None) -> int:
+    """The code of the int8 kernel's tile bm x bn (None, None: the
+    default, 32 x 16); raises ``ValueError`` on a pair that is not one
+    of :data:`INT8_TILES`."""
+    if bm is None and bn is None:
+        return 0
+    if (bm, bn) not in INT8_TILES:
+        raise ValueError(f"fused_dense_int8: (bm, bn) = ({bm}, {bn}) is "
+                         f"not a tile of the kernel ({list(INT8_TILES)})")
+    return INT8_TILES.index((bm, bn))
 
 
 def smem_bytes(variant: int, k: int) -> int:
@@ -111,14 +142,15 @@ def _kernel_int8():
     global _lib_int8
     if _lib_int8 is None:
         lib = _build.load("fused_dense_int8")
-        fn = lib.fused_dense_int8
+        fn = lib.fused_dense_int8_ex
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float,
                                                 ctypes.c_void_p]
                        + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                               ctypes.c_int,
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib_int8 = lib
-    return _lib_int8.fused_dense_int8
+    return _lib_int8.fused_dense_int8_ex
 
 
 def act_code(activation) -> int:
@@ -136,14 +168,16 @@ def row_strided(x) -> bool:
                                                 or x.stride(0) >= kdim)
 
 
-def fused_dense_cuda(x, w, b=None, *, activation="relu", out_dtype=None):
+def fused_dense_cuda(x, w, b=None, *, activation="relu", out_dtype=None,
+                     bm=None, bn=None):
     """act(x @ w + b) on the card. x:(M,K) w:(K,N) b:(N,)|None CUDA
     tensors, all float32 or all bfloat16 (summed in f32 either way), w and
     b contiguous, x contiguous or row-strided (:func:`row_strided`: a
     column slice of a contiguous matrix launches without a copy) ->
     (M,N) of ``out_dtype`` (float32 or bfloat16; None: x's dtype). The
-    tile is :func:`plan`'s. Adds one to ``fused_dense_cuda.launches`` per
-    launch."""
+    tile is bm x bn, or :func:`plan`'s where both are None
+    (:func:`variant_of`), and is kept in ``fused_dense_cuda.last_plan``.
+    Adds one to ``fused_dense_cuda.launches`` per launch."""
     act = act_code(activation)
     ops = [x, w] + ([] if b is None else [b])
     if any(not t.is_cuda for t in ops):
@@ -164,7 +198,7 @@ def fused_dense_cuda(x, w, b=None, *, activation="relu", out_dtype=None):
     if b is not None and tuple(b.shape) != (n,):
         raise ValueError(f"fused_dense_cuda: bias {tuple(b.shape)} for "
                          f"{n} outputs")
-    variant = plan(m, n)
+    variant = variant_of(m, n, bm, bn)
     _build.check_smem("fused_dense_cuda", smem_bytes(variant, kdim),
                       f"K={kdim}")
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -176,20 +210,25 @@ def fused_dense_cuda(x, w, b=None, *, activation="relu", out_dtype=None):
                   y.data_ptr(), m, kdim, n, act, variant, in_code,
                   out_code, stream)
     _build.check(code, "fused_dense")
+    fused_dense_cuda.last_plan = dict(zip(("bm", "bn"), tile(variant)))
     fused_dense_cuda.launches += 1
     return y
 
 
 fused_dense_cuda.launches = 0
+fused_dense_cuda.last_plan = None
 
 
 def fused_dense_int8_cuda(x_q, w_q, b, x_scale, w_scale, *,
-                          activation="relu", out_int8=False, out_scale=1.0):
+                          activation="relu", out_int8=False, out_scale=1.0,
+                          bm=None, bn=None):
     """The quantized dense on the card: int8 x_q:(M,K) by int8 w_q:(K,N)
     into exact int32 sums, ``y = act(acc·(x_scale·w_scale[c]) + b)``,
     returned as f32, or requantized to int8 with ``out_scale`` when
     ``out_int8``. b:(N,) f32 or None, w_scale:(N,) f32; x_scale and
-    out_scale are Python floats, passed as float32. Adds one to
+    out_scale are Python floats, passed as float32. The CTA tile is bm x
+    bn of :data:`INT8_TILES` (None, None: 32 x 16; :func:`int8_tile_of`),
+    kept in ``fused_dense_int8_cuda.last_plan``. Adds one to
     ``fused_dense_int8_cuda.launches`` per launch."""
     act = act_code(activation)
     ops = [x_q, w_q, w_scale] + ([] if b is None else [b])
@@ -213,6 +252,7 @@ def fused_dense_int8_cuda(x_q, w_q, b, x_scale, w_scale, *,
         if t is not None and tuple(t.shape) != (n,):
             raise ValueError(f"fused_dense_int8_cuda: {nm} "
                              f"{tuple(t.shape)} for {n} outputs")
+    code_tile = int8_tile_of(bm, bn)
     y = torch.empty((m, n), dtype=torch.int8 if out_int8 else torch.float32,
                     device=x_q.device)
     fn = _kernel_int8()
@@ -221,10 +261,13 @@ def fused_dense_int8_cuda(x_q, w_q, b, x_scale, w_scale, *,
         code = fn(x_q.data_ptr(), w_q.data_ptr(),
                   None if b is None else b.data_ptr(), w_scale.data_ptr(),
                   float(x_scale), y.data_ptr(), m, kdim, n, act,
-                  int(out_int8), float(out_scale), stream)
+                  int(out_int8), float(out_scale), code_tile, stream)
     _build.check(code, "fused_dense_int8")
+    fused_dense_int8_cuda.last_plan = dict(zip(("bm", "bn"),
+                                               INT8_TILES[code_tile]))
     fused_dense_int8_cuda.launches += 1
     return y
 
 
 fused_dense_int8_cuda.launches = 0
+fused_dense_int8_cuda.last_plan = None

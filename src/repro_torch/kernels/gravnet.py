@@ -9,7 +9,8 @@ the same kernel at B = 1). The CUDA source is
 limits, the shared-memory cell ``csrc/gravnet_cell.cuh``); the plain
 version is ``kernels/ref.py:gravnet_aggregate_ref``. It runs where the
 GravNet block stays unfused. :func:`plan` picks the rows per CTA and
-the cell.
+the cell, or takes the caller's rows (``bm``, the tuner's knob) on the
+cell the shape runs.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from repro_torch.kernels.gravnet_block import BM_SHARED, MAX_DF, MAX_HITS
 
 #: query rows per CTA on the register cell, one per warp, smallest first
 ROWS = (4, 8, 16)
+#: the most rows a register-cell CTA takes (``csrc/*.cu:kMaxRows``)
+MAX_ROWS = ROWS[-1]
 #: CTAs that fill the card: one per SM of the H100
 FILL_CTAS = 132
 _lib = None
@@ -38,16 +41,32 @@ def fill_rows(n: int, bsz: int) -> int:
     return bm
 
 
-def plan(n: int, bsz: int = 1, df: int = 1) -> tuple[int, str]:
+def plan(n: int, bsz: int = 1, df: int = 1, bm=None) -> tuple[int, str]:
     """(bm, cell) of a launch over bsz events of n hits: on the register
     cell (n <= 512, d_f <= 128) the rows of :func:`fill_rows`. A CTA
     repeats only the staging of its event, so smaller CTAs cost nothing
     but launches past one per SM: 32 CTAs at one event of 128 hits, 8 at
     one of 32. Past the register cell, the first design's 32 rows on the
-    shared-memory cell."""
-    if n > MAX_HITS or df > MAX_DF:
-        return min(n, BM_SHARED), "shared"
-    return fill_rows(n, bsz), "register"
+    shared-memory cell. A given ``bm`` is taken on the same cell: 1 to
+    16 rows (``kMaxRows``) on the register cell, any on the other; else
+    ``ValueError``."""
+    return rows_on("gravnet_aggregate", n, bsz,
+                   "shared" if n > MAX_HITS or df > MAX_DF else "register",
+                   bm)
+
+
+def rows_on(name: str, n: int, bsz: int, cell: str,
+            bm=None) -> tuple[int, str]:
+    """(bm, cell) of a one-warp-a-row launch of ``name`` on ``cell``: a
+    given bm checked against the cell (``_build.check_rows``: at most
+    :data:`MAX_ROWS` on the register cell), else :func:`fill_rows` on the
+    register cell and the first design's 32 rows on the shared one."""
+    if bm is not None:
+        return _build.check_rows(name, bm, cell, MAX_ROWS
+                                 if cell == "register" else None), cell
+    if cell == "shared":
+        return min(n, BM_SHARED), cell
+    return fill_rows(n, bsz), cell
 
 
 def _round4(v: int) -> int:
@@ -84,11 +103,14 @@ def library_smem_bytes(n: int, ds: int, df: int) -> int:
     return int(_library().gravnet_aggregate_smem_bytes(n, ds, df))
 
 
-def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0, out_dtype=None):
+def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0, out_dtype=None,
+                           bm=None):
     """GravNet aggregation on the card for a micro-batch.
     s:(B,N,ds), f:(B,N,df) both float32 or both bfloat16, mask:(B,N) f32
     -> (B,N,2·df) of ``out_dtype`` (None: f's dtype) = concat(mean, max)
-    over each row's k nearest valid rows of its own event. Raises on a
+    over each row's k nearest valid rows of its own event; ``bm`` rows a
+    CTA, or :func:`plan`'s where None, kept in
+    ``gravnet_aggregate_cuda.last_plan``. Raises on a
     shape whose shared-memory plan (:func:`plan`, :func:`smem_bytes`)
     exceeds the card's 227 KB. Adds one to
     ``gravnet_aggregate_cuda.launches`` per launch."""
@@ -110,7 +132,7 @@ def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0, out_dtype=None):
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_aggregate_cuda takes contiguous operands")
     lib = _library()
-    bm, _ = plan(n, bsz, df)
+    bm, _ = plan(n, bsz, df, bm)
     smem = smem_bytes(n, ds, df)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"gravnet_aggregate_cuda: n={n}, d_s={ds}, "
@@ -123,8 +145,10 @@ def gravnet_aggregate_cuda(s, f, mask, *, k=8, scale=10.0, out_dtype=None):
             s.data_ptr(), f.data_ptr(), mask.data_ptr(), y.data_ptr(), bsz,
             n, ds, df, int(k), float(scale), bm, in_code, out_code, stream)
     _build.check(code, "gravnet_aggregate")
+    gravnet_aggregate_cuda.last_plan = {"bm": bm}
     gravnet_aggregate_cuda.launches += 1
     return y
 
 
 gravnet_aggregate_cuda.launches = 0
+gravnet_aggregate_cuda.last_plan = None

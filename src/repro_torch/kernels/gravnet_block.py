@@ -11,7 +11,9 @@ kernels at B = 1). The CUDA sources are ``csrc/gravnet_block.cu`` and
 with the shared-memory cell of ``csrc/gravnet_cell.cuh``), the second
 with int8 tensor-core products; the plain versions are
 ``kernels/ref.py:gravnet_block_ref`` and ``gravnet_block_int8_ref``.
-:func:`plan` picks the f32 block's rows per CTA and its cell. Both
+:func:`plan` picks the f32 block's rows per CTA and its cell,
+:func:`int8_plan` the int8 block's rows; either takes the caller's rows
+instead (``bm``, the tuner's knob) on the cell the shape runs. Both
 blocks take the reference's forms: the output dense over concat(x, agg)
 or, with ``concat_x=False``, over agg alone; the activations of
 ``fused_dense.act_code``; the int8 block's output f32 or requantized to
@@ -78,18 +80,67 @@ def smem_bytes(n: int, dh: int, ds: int, df: int, dout: int, bm: int,
 
 
 def plan(n: int, dh: int, ds: int, df: int, dout: int,
-         concat_x: bool = True) -> tuple[int, str]:
+         concat_x: bool = True, bm=None) -> tuple[int, str]:
     """(bm, cell) of an f32 block launch at these widths: 16 query rows a
     CTA on the register cell wherever it takes the shape (n <= 512, d_f
     <= 128) and its shared memory fits the card, else the first design's
     32 on the shared-memory cell. The source's ``register_cell`` applies
-    the same rule to the bm it is given."""
-    bm = min(n, BM)
+    the same rule to the bm it is given. A given ``bm`` is taken on the
+    same cell: 1 to 16 rows on the register cell, any whose shared
+    memory fits on the other; else ``ValueError``."""
     if n <= MAX_HITS and df <= MAX_DF and smem_bytes(
-            n, dh, ds, df, dout, bm, "register",
+            n, dh, ds, df, dout, BM, "register",
             concat_x) <= _build.SMEM_LIMIT:
-        return bm, "register"
-    return min(n, BM_SHARED), "shared"
+        if bm is None:
+            return min(n, BM), "register"
+        return _build.check_rows("gravnet_block", bm, "register", BM), \
+            "register"
+    if bm is None:
+        return min(n, BM_SHARED), "shared"
+    bm = _build.check_rows("gravnet_block", bm, "shared", None)
+    _build.check_smem("gravnet_block",
+                      smem_bytes(n, dh, ds, df, dout, bm, "shared", concat_x),
+                      f"bm={bm}")
+    return bm, "shared"
+
+
+def int8_smem_bytes(n: int, dh: int, ds: int, df: int, dout: int, bm: int,
+                    concat_x: bool = True) -> int:
+    """Shared memory of one CTA of the int8 block (the formula of the
+    source's ``layout``, in bytes): x and h quantized in rows padded to
+    32 bytes plus 16 (h: 16 rows), Ws and Wf, then Wo, transposed in
+    rows of 8; the weights as they lie, overlaid by S and F; bm rows of
+    x in f32, the mask, the biases and the scales."""
+    def up(v, m):
+        return (v + m - 1) // m * m
+    dcat = _dcat(dh, df, concat_x)
+    ldx, ldh = up(dh, 32) + 16, up(dcat, 32) + 16
+    o = (up(n, 16) * ldx + BM_INT8 * ldh + (up(ds, 8) + up(df, 8)) * ldx
+         + up(dout, 8) * ldh)
+    raw_end = o + up(dh * ds, 16) + up(dh * df, 16) + up(dcat * dout, 16)
+    sf_end = up(o + 4 * n * ds + 4 * n * df, 16)
+    return (max(raw_end, sf_end) + 4 * up(bm * dh, 4) + 4 * up(n, 4)
+            + 8 * (ds + df + dout))
+
+
+def int8_plan(n: int, dh: int, ds: int, df: int, dout: int,
+              concat_x: bool = True, bm=None) -> int:
+    """The int8 block's query rows a CTA: ``min(n, 16)``, or a given
+    ``bm`` of 1 to 16 (the source's ``kMaxRows``: one MMA row tile);
+    ``ValueError`` on any other, on more than 512 hits or d_f above 128
+    (the cell's registers) and on a shared-memory plan past the card's
+    227 KB."""
+    if n > MAX_HITS or df > MAX_DF:
+        raise ValueError(
+            f"gravnet_block_int8: n={n}, d_f={df}: the cell takes at most "
+            f"{MAX_HITS} hits and d_f <= {MAX_DF}")
+    bm = min(n, BM_INT8) if bm is None else _build.check_rows(
+        "gravnet_block_int8", bm, "register", BM_INT8)
+    _build.check_smem("gravnet_block_int8",
+                      int8_smem_bytes(n, dh, ds, df, dout, bm, concat_x),
+                      f"n={n}, d_hidden={dh}, d_f={df}, d_out={dout}, "
+                      f"bm={bm}")
+    return bm
 
 
 def _library():
@@ -116,7 +167,8 @@ def library_smem_bytes(n: int, dh: int, ds: int, df: int, dout: int,
 
 
 def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
-                       activation="relu", concat_x=True, out_dtype=None):
+                       activation="relu", concat_x=True, out_dtype=None,
+                       bm=None):
     """One fused GravNet block on the card for a micro-batch:
     act(concat(x, agg) @ wo + bo), or act(agg @ wo + bo) without
     ``concat_x``.
@@ -124,7 +176,9 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
     x:(B,N,dh), mask:(B,N) -> (B,N,d_out) of ``out_dtype`` (float32 or
     bfloat16; None: x's dtype). ws:(dh,ds) bs:(ds,) wf:(dh,df) bf:(df,)
     wo:(dh+2df, d_out) (or (2df, d_out)) bo:(d_out,); x, the weights and
-    the biases all float32 or all bfloat16 (computed in f32).
+    the biases all float32 or all bfloat16 (computed in f32). ``bm``
+    rows a CTA, or :func:`plan`'s where None, kept in
+    ``gravnet_block_cuda.last_plan``.
     Raises on a shape whose shared-memory plan (:func:`plan`) exceeds
     the card's 227 KB. Adds one to ``gravnet_block_cuda.launches`` per
     launch."""
@@ -153,7 +207,7 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
         "gravnet_block_cuda", [x, ws, bs, wf, bf, wo, bo], out_dtype)
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_block_cuda takes contiguous operands")
-    bm, cell = plan(n, dh, ds, df, dout, concat_x)
+    bm, cell = plan(n, dh, ds, df, dout, concat_x, bm)
     lib = _library()
     smem = smem_bytes(n, dh, ds, df, dout, bm, cell, concat_x)
     if smem > _build.SMEM_LIMIT:
@@ -169,11 +223,13 @@ def gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, *, k=8, scale=10.0,
             dout, int(k), float(scale), act, int(concat_x), bm, in_code,
             out_code, stream)
     _build.check(code, "gravnet_block")
+    gravnet_block_cuda.last_plan = {"bm": bm}
     gravnet_block_cuda.launches += 1
     return y
 
 
 gravnet_block_cuda.launches = 0
+gravnet_block_cuda.last_plan = None
 
 
 def _library_int8():
@@ -192,10 +248,18 @@ def _library_int8():
     return _lib_int8
 
 
+def library_int8_smem_bytes(n: int, dh: int, ds: int, df: int, dout: int,
+                            bm: int, concat_x: bool = True) -> int:
+    """The built library's own answer for :func:`int8_smem_bytes`."""
+    return int(_library_int8().gravnet_block_int8_smem_bytes(
+        n, dh, ds, df, dout, bm, int(concat_x)))
+
+
 def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
                             wf_scale, wo_scale, *, x_scale, agg_scale,
                             h_scale, k=8, scale=10.0, activation="relu",
-                            concat_x=True, out_int8=False, out_scale=1.0):
+                            concat_x=True, out_int8=False, out_scale=1.0,
+                            bm=None):
     """One quantized GravNet block on the card for a micro-batch:
     quantize x with ``x_scale``, int8 S/F dots, the f32 cell, snap the
     aggregate to ``agg_scale``'s grid, quantize concat(x, agg) (agg
@@ -208,7 +272,9 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
     wf_q:(dh,df) wo_q:(dh+2df, d_out) (or (2df, d_out)) int8; bs, bf,
     bo and the per-channel ``*_scale``
     vectors f32 of the matching output widths. The activation scales
-    are Python floats, passed as float32.
+    are Python floats, passed as float32. ``bm`` rows a CTA, or
+    :func:`int8_plan`'s where None, kept in
+    ``gravnet_block_int8_cuda.last_plan``.
     Raises on more than 512 hits, on d_f above 128 (the cell's
     registers) and on a shape whose shared-memory plan exceeds the
     card's 227 KB. Adds one to ``gravnet_block_int8_cuda.launches`` per
@@ -245,19 +311,8 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
     x_code, _, _ = _build.io_dtypes("gravnet_block_int8_cuda", [x])
     if any(not t.is_contiguous() for t in ops):
         raise ValueError("gravnet_block_int8_cuda takes contiguous operands")
-    if n > MAX_HITS or df > MAX_DF:
-        raise ValueError(
-            f"gravnet_block_int8_cuda: n={n}, d_f={df}: the cell takes at "
-            f"most {MAX_HITS} hits and d_f <= {MAX_DF}")
-    bm = min(n, BM_INT8)
+    bm = int8_plan(n, dh, ds, df, dout, concat_x, bm)
     lib = _library_int8()
-    smem = lib.gravnet_block_int8_smem_bytes(n, dh, ds, df, dout, bm,
-                                             int(concat_x))
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(
-            f"gravnet_block_int8_cuda: n={n}, d_hidden={dh}, d_f={df}, "
-            f"d_out={dout}, bm={bm} needs {smem} B of shared memory "
-            f"> {_build.SMEM_LIMIT} B")
     y = torch.empty((bsz, n, dout), device=x.device,
                     dtype=torch.int8 if out_int8 else torch.float32)
     with torch.cuda.device(x.device):
@@ -268,8 +323,10 @@ def gravnet_block_int8_cuda(x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale,
             float(h_scale), act, int(concat_x), int(out_int8),
             float(out_scale), bm, x_code, stream)
     _build.check(code, "gravnet_block_int8")
+    gravnet_block_int8_cuda.last_plan = {"bm": bm}
     gravnet_block_int8_cuda.launches += 1
     return y
 
 
 gravnet_block_int8_cuda.launches = 0
+gravnet_block_int8_cuda.last_plan = None

@@ -12,7 +12,8 @@ half); past the register cell's limits both run their first designs on
 the shared-memory cell of ``csrc/gravnet_cell.cuh``. The plain versions
 are ``kernels/ref.py:knn_build_ref`` and ``knn_aggregate_ref``.
 :func:`build_plan` and :func:`aggregate_plan` pick each launch's rows
-per CTA and its cell.
+per CTA and its cell, or take the caller's rows (``bm``, the tuner's
+knob) on the cell the shape runs.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gravnet import fill_rows
-from repro_torch.kernels.gravnet_block import BM_SHARED, MAX_DF, MAX_HITS
+from repro_torch.kernels.gravnet import rows_on
+from repro_torch.kernels.gravnet_block import MAX_DF, MAX_HITS
 
 _lib_build = None
 _lib_agg = None
@@ -32,25 +33,27 @@ def _round4(v: int) -> int:
     return (v + 3) & ~3
 
 
-def build_plan(n: int, bsz: int = 1) -> tuple[int, str]:
+def build_plan(n: int, bsz: int = 1, bm=None) -> tuple[int, str]:
     """(bm, cell) of a ``knn_build`` launch over bsz bins of n rows: on
     the register cell (n <= 512: 16 candidates a lane) the rows of
     ``gravnet.fill_rows``, one warp a row (8 rows, 128 CTAs at the
     ragged path's 8 bins of 128); past it the first design's 32 rows on
-    the shared-memory cell."""
-    if n > MAX_HITS:
-        return min(n, BM_SHARED), "shared"
-    return fill_rows(n, bsz), "register"
+    the shared-memory cell. A given ``bm`` is taken on the same cell (1
+    to 16 rows on the register cell), else ``ValueError``."""
+    return rows_on("knn_build", n, bsz,
+                 "shared" if n > MAX_HITS else "register", bm)
 
 
-def aggregate_plan(n: int, bsz: int = 1, df: int = 1) -> tuple[int, str]:
+def aggregate_plan(n: int, bsz: int = 1, df: int = 1,
+                   bm=None) -> tuple[int, str]:
     """(bm, cell) of a ``knn_aggregate`` launch over bsz bins of n rows
     and d_f columns: on the register path (d_f <= 128: 4 columns a lane;
     any n, since nothing is staged) the rows of ``gravnet.fill_rows``;
-    past it the first design's 32 rows on the shared-memory cell."""
-    if df > MAX_DF:
-        return min(n, BM_SHARED), "shared"
-    return fill_rows(n, bsz), "register"
+    past it the first design's 32 rows on the shared-memory cell. A
+    given ``bm`` is taken on the same path (1 to 16 rows on the
+    register path), else ``ValueError``."""
+    return rows_on("knn_aggregate", n, bsz,
+                 "shared" if df > MAX_DF else "register", bm)
 
 
 def build_smem_bytes(n: int, ds: int) -> int:
@@ -114,14 +117,15 @@ def library_aggregate_smem_bytes(n: int, df: int) -> int:
     return int(_library_agg().knn_aggregate_smem_bytes(n, df))
 
 
-def knn_build_cuda(s, segids, *, k=8):
+def knn_build_cuda(s, segids, *, k=8, bm=None):
     """Segment-masked kNN selection on the card for a micro-batch of
     bins. s:(B,N,ds) float32 or bfloat16 (the distances computed in f32
     on its exact f32 values), segids:(B,N) int (−1 on padding) ->
     (idx:(B,N,k) int32, d2:(B,N,k) f32): per row, the k nearest rows of
     its own event, ties to the lowest column; a slot with no candidate
-    left is (0, 1e30). Adds one to ``knn_build_cuda.launches`` per
-    launch."""
+    left is (0, 1e30). ``bm`` rows a CTA, or :func:`build_plan`'s where
+    None, kept in ``knn_build_cuda.last_plan``. Adds one to
+    ``knn_build_cuda.launches`` per launch."""
     if s.ndim != 3 or segids.shape != s.shape[:2]:
         raise ValueError(f"knn_build_cuda: s {tuple(s.shape)}, segids "
                          f"{tuple(segids.shape)} are not (B, N, ds), "
@@ -133,7 +137,7 @@ def knn_build_cuda(s, segids, *, k=8):
     _build.check_cuda("knn_build_cuda", [s, segids], [s.dtype, torch.int32])
     in_code, _, _ = _build.io_dtypes("knn_build_cuda", [s])
     lib = _library_build()
-    bm, _ = build_plan(n, bsz)
+    bm, _ = build_plan(n, bsz, bm)
     _build.check_smem("knn_build_cuda", build_smem_bytes(n, ds),
                       f"n={n}, d_s={ds}")
     idx = torch.empty((bsz, n, k), dtype=torch.int32, device=s.device)
@@ -144,19 +148,23 @@ def knn_build_cuda(s, segids, *, k=8):
                                 idx.data_ptr(), d2.data_ptr(), bsz, n, ds,
                                 int(k), bm, in_code, stream)
     _build.check(code, "knn_build")
+    knn_build_cuda.last_plan = {"bm": bm}
     knn_build_cuda.launches += 1
     return idx, d2
 
 
 knn_build_cuda.launches = 0
+knn_build_cuda.last_plan = None
 
 
-def knn_aggregate_cuda(f, idx, d2, *, scale=10.0, out_dtype=None):
+def knn_aggregate_cuda(f, idx, d2, *, scale=10.0, out_dtype=None, bm=None):
     """Gaussian-potential mean/max over prebuilt neighbours on the card.
     f:(B,N,df) float32 or bfloat16, idx:(B,N,k) int32 (from knn_build;
     an index outside [0, N) selects a row of zeros, as the TPU kernel's
     one-hot product does), d2:(B,N,k) f32 -> (B,N,2·df) of ``out_dtype``
-    (None: f's dtype), computed in f32. Adds one to
+    (None: f's dtype), computed in f32; ``bm`` rows a CTA, or
+    :func:`aggregate_plan`'s where None, kept in
+    ``knn_aggregate_cuda.last_plan``. Adds one to
     ``knn_aggregate_cuda.launches`` per launch."""
     if f.ndim != 3 or idx.ndim != 3 or idx.shape[:2] != f.shape[:2] \
             or d2.shape != idx.shape:
@@ -171,7 +179,7 @@ def knn_aggregate_cuda(f, idx, d2, *, scale=10.0, out_dtype=None):
     in_code, out_code, out_dtype = _build.io_dtypes("knn_aggregate_cuda",
                                                     [f], out_dtype)
     lib = _library_agg()
-    bm, _ = aggregate_plan(n, bsz, df)
+    bm, _ = aggregate_plan(n, bsz, df, bm)
     _build.check_smem("knn_aggregate_cuda", aggregate_smem_bytes(n, df),
                       f"n={n}, d_f={df}")
     y = torch.empty((bsz, n, 2 * df), dtype=out_dtype, device=f.device)
@@ -182,8 +190,10 @@ def knn_aggregate_cuda(f, idx, d2, *, scale=10.0, out_dtype=None):
                                     df, k, float(scale), bm, in_code,
                                     out_code, stream)
     _build.check(code, "knn_aggregate")
+    knn_aggregate_cuda.last_plan = {"bm": bm}
     knn_aggregate_cuda.launches += 1
     return y
 
 
 knn_aggregate_cuda.launches = 0
+knn_aggregate_cuda.last_plan = None

@@ -7,7 +7,14 @@ CUDA tensor to the hand-written kernel, which raises on what it does
 not take. There is no backend switch and no fallback. The kernels mask
 ragged shapes themselves, so no wrapper pads, except
 :func:`flash_attention`, which pads S and T to its blocks as the
-reference's wrapper does. Float operands are float32 or bfloat16; the
+reference's wrapper does. The launch knobs keep the reference's
+keyword names: ``bm`` (a CTA's query or destination rows; a dense's tile
+rows), ``bn`` (a dense's tile columns, the edge kernel's message
+columns), flash's ``bq`` and ``bk``. None is the kernel's own plan. A
+knob the kernel cannot run raises ``ValueError`` on either device (the
+plain versions ignore the knobs but check them, so a bad cached knob
+fails on the CPU as it would on the card). Float operands are float32
+or bfloat16; the
 kernels compute in f32 and, as the reference's ops, return the input's
 dtype (the quantized block: f32 or int8). :func:`edge_aggregate_batched` (and
 :func:`edge_aggregate`) carry a gradient in their messages, the
@@ -22,6 +29,11 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import edge_aggregate as _edge
+from repro_torch.kernels import fused_dense as _dense
+from repro_torch.kernels import gravnet as _gravnet
+from repro_torch.kernels import gravnet_block as _block
+from repro_torch.kernels import knn_build as _knn
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.edge_aggregate import edge_aggregate_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -80,116 +92,153 @@ def set_launch_counts(counts: dict) -> None:
                    if isinstance(k, tuple) and n})
 
 
-def fused_dense(x, w, b=None, *, activation="relu"):
-    """act(x @ w + b). x:(M,K) w:(K,N) b:(N,)|None -> (M,N)."""
+def _given(**knobs) -> dict:
+    """The launch knobs a caller gave (None is the kernel's own plan), as
+    the keywords of its wrapper: a call without knobs reaches the
+    wrapper, or whatever takes its place, as it did before the knobs."""
+    return {k: v for k, v in knobs.items() if v is not None}
+
+
+def _check_knobs(plan, *args, **knobs) -> None:
+    """Where a call runs a plain version, which ignores the launch knobs:
+    raise as the kernel's wrapper would on a knob it cannot run (its own
+    ``plan``), so that a bad knob fails on either device."""
+    if _given(**knobs):
+        plan(*args, **knobs)
+
+
+def fused_dense(x, w, b=None, *, activation="relu", bm=None, bn=None):
+    """act(x @ w + b). x:(M,K) w:(K,N) b:(N,)|None -> (M,N); (bm, bn)
+    one of the kernel's tiles (``fused_dense.variant_of``)."""
     if x.device.type == "cpu":
+        _check_knobs(_dense.variant_of, x.shape[0], w.shape[1], bm=bm, bn=bn)
         return _ref.fused_dense_ref(x, w, b, activation=activation)
-    return fused_dense_cuda(x, w, b, activation=activation)
+    return fused_dense_cuda(x, w, b, activation=activation,
+                            **_given(bm=bm, bn=bn))
 
 
-def fused_dense_batched(x, w, b=None, *, activation="relu"):
+def fused_dense_batched(x, w, b=None, *, activation="relu", bm=None,
+                        bn=None):
     """act(x @ w + b) over a micro-batch x:(B,M,K) in one launch: the
     events are row-packed into one (B·M, K) product (a dense couples no
     rows, so packing is exact), a view where x's rows lie at one stride,
     as in a column slice of a contiguous tensor."""
     bsz, m, kdim = x.shape
-    y = fused_dense(x.reshape(bsz * m, kdim), w, b, activation=activation)
+    y = fused_dense(x.reshape(bsz * m, kdim), w, b, activation=activation,
+                    bm=bm, bn=bn)
     return y.reshape(bsz, m, -1)
 
 
 def fused_dense_int8(x_q, w_q, b, x_scale, w_scale, *, activation="relu",
-                     out_int8=False, out_scale=1.0):
+                     out_int8=False, out_scale=1.0, bm=None, bn=None):
     """The quantized dense: act(x_q @ w_q · (x_scale·w_scale) + b), f32,
     or requantized to int8 with ``out_scale`` when ``out_int8``.
     x_q:(M,K) int8, w_q:(K,N) int8, b:(N,)|None, w_scale:(N,) ->
-    (M,N)."""
+    (M,N); (bm, bn) one of ``fused_dense.INT8_TILES``."""
     if x_q.device.type == "cpu":
+        _check_knobs(_dense.int8_tile_of, bm=bm, bn=bn)
         return _ref.fused_dense_int8_ref(x_q, w_q, b, x_scale, w_scale,
                                          activation=activation,
                                          out_int8=out_int8,
                                          out_scale=out_scale)
     return fused_dense_int8_cuda(x_q, w_q, b, x_scale, w_scale,
                                  activation=activation, out_int8=out_int8,
-                                 out_scale=out_scale)
+                                 out_scale=out_scale,
+                                 **_given(bm=bm, bn=bn))
 
 
-def gravnet_aggregate_batched(s, f, mask, *, k=8, scale=10.0):
+def gravnet_aggregate_batched(s, f, mask, *, k=8, scale=10.0, bm=None):
     """GravNet aggregation over a micro-batch, one launch.
     s:(B,N,ds), f:(B,N,df), mask:(B,N) -> (B,N,2·df) = concat(mean, max)
-    over each row's k nearest valid rows of its own event."""
+    over each row's k nearest valid rows of its own event; ``bm`` rows a
+    CTA (``gravnet.plan``)."""
     if s.device.type == "cpu":
+        _check_knobs(_gravnet.plan, s.shape[1], s.shape[0], f.shape[2],
+                     bm=bm)
         return _ref.gravnet_aggregate_ref(s, f, mask, k=k, scale=scale)
-    return gravnet_aggregate_cuda(s, f, mask, k=k, scale=scale)
+    return gravnet_aggregate_cuda(s, f, mask, k=k, scale=scale,
+                                  **_given(bm=bm))
 
 
-def gravnet_aggregate(s, f, mask, *, k=8, scale=10.0):
+def gravnet_aggregate(s, f, mask, *, k=8, scale=10.0, bm=None):
     """GravNet aggregation for one event: the batched kernel at B = 1.
     s:(N,ds), f:(N,df), mask:(N,) -> (N, 2·df)."""
     return gravnet_aggregate_batched(s[None], f[None], mask[None], k=k,
-                                     scale=scale)[0]
+                                     scale=scale, bm=bm)[0]
 
 
-def knn_build_batched(s, segids, *, k=8):
+def knn_build_batched(s, segids, *, k=8, bm=None):
     """Ragged kNN selection over a micro-batch of packed bins, one
     launch. s:(B,N,ds), segids:(B,N) int event ids (−1 padding) ->
     (idx:(B,N,k) int32, d2:(B,N,k) f32): per row, the k nearest rows of
     its own event (ties to the lowest column, self excluded); a slot
-    with no candidate left has d2 = 1e30 (consumers gate on d2)."""
+    with no candidate left has d2 = 1e30 (consumers gate on d2). ``bm``
+    rows a CTA (``knn_build.build_plan``)."""
     if s.device.type == "cpu":
+        _check_knobs(_knn.build_plan, s.shape[1], s.shape[0], bm=bm)
         return _ref.knn_build_ref(s, segids, k=k)
-    return knn_build_cuda(s, segids, k=k)
+    return knn_build_cuda(s, segids, k=k, **_given(bm=bm))
 
 
-def knn_build(s, segids, *, k=8):
+def knn_build(s, segids, *, k=8, bm=None):
     """Ragged kNN selection for one packed bin: the batched kernel at
     B = 1. s:(N,ds), segids:(N,) -> (idx:(N,k), d2:(N,k))."""
-    idx, d2 = knn_build_batched(s[None], segids[None], k=k)
+    idx, d2 = knn_build_batched(s[None], segids[None], k=k, bm=bm)
     return idx[0], d2[0]
 
 
-def knn_aggregate_batched(f, idx, d2, *, scale=10.0):
+def knn_aggregate_batched(f, idx, d2, *, scale=10.0, bm=None):
     """Gaussian-potential mean/max over built neighbours, one launch.
     f:(B,N,df), idx/d2:(B,N,k) from ``knn_build_batched`` ->
-    (B,N,2·df) — the GravNet cell's accumulation."""
+    (B,N,2·df) — the GravNet cell's accumulation; ``bm`` rows a CTA
+    (``knn_build.aggregate_plan``)."""
     if f.device.type == "cpu":
+        _check_knobs(_knn.aggregate_plan, f.shape[1], f.shape[0],
+                     f.shape[2], bm=bm)
         return _ref.knn_aggregate_ref(f, idx, d2, scale=scale)
-    return knn_aggregate_cuda(f, idx, d2, scale=scale)
+    return knn_aggregate_cuda(f, idx, d2, scale=scale, **_given(bm=bm))
 
 
-def knn_aggregate(f, idx, d2, *, scale=10.0):
+def knn_aggregate(f, idx, d2, *, scale=10.0, bm=None):
     """Aggregation for one packed bin: the batched kernel at B = 1.
     f:(N,df), idx/d2:(N,k) -> (N, 2·df)."""
     return knn_aggregate_batched(f[None], idx[None], d2[None],
-                                 scale=scale)[0]
+                                 scale=scale, bm=bm)[0]
 
 
 def gravnet_block_ragged(x, segids, ws, bs, wf, bf, wo, bo, *, k=8,
-                         scale=10.0, activation="relu", concat_x=True):
+                         scale=10.0, activation="relu", concat_x=True,
+                         bm=None):
     """One GravNet block over bin-packed events: S/F projections
     (``fused_dense``), the segment-masked kNN graph (``knn_build``),
     the aggregation over it (``knn_aggregate``), then the output dense
     of concat(x, agg), or of agg alone without ``concat_x``.
     x:(B,N,dh) packed hidden activations, segids:(B,N) int event ids
-    (−1 padding) -> (B,N,d_out), the padding rows zeroed."""
+    (−1 padding) -> (B,N,d_out), the padding rows zeroed. ``bm`` is the
+    kNN pair's rows a CTA, as in the reference."""
     s = fused_dense_batched(x, ws, bs, activation="none")
     f = fused_dense_batched(x, wf, bf, activation="none")
-    idx, d2 = knn_build_batched(s, segids, k=k)
-    agg = knn_aggregate_batched(f, idx, d2, scale=scale)
+    idx, d2 = knn_build_batched(s, segids, k=k, bm=bm)
+    agg = knn_aggregate_batched(f, idx, d2, scale=scale, bm=bm)
     h = torch.cat([x, agg], dim=-1) if concat_x else agg
     y = fused_dense_batched(h.contiguous(), wo, bo, activation=activation)
     return y * (segids >= 0).to(y.dtype)[..., None]
 
 
 def gravnet_block_batched(x, mask, ws, bs, wf, bf, wo, bo, *, k=8,
-                          scale=10.0, activation="relu", concat_x=True):
+                          scale=10.0, activation="relu", concat_x=True,
+                          bm=None):
     """One fused GravNet block over a micro-batch, one launch.
     x:(B,N,dh), mask:(B,N) -> (B,N,d_out) = act(concat(x, agg) @ wo + bo),
     or act(agg @ wo + bo) without ``concat_x``; neighbours are chosen
-    within each event only."""
+    within each event only. ``bm`` rows a CTA (``gravnet_block.plan``)."""
     kw = dict(k=k, scale=scale, activation=activation, concat_x=concat_x)
     if x.device.type == "cpu":
+        _check_knobs(_block.plan, x.shape[1], x.shape[2], ws.shape[1],
+                     wf.shape[1], wo.shape[1], concat_x, bm=bm)
         return _ref.gravnet_block_ref(x, mask, ws, bs, wf, bf, wo, bo, **kw)
-    return gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, **kw)
+    return gravnet_block_cuda(x, mask, ws, bs, wf, bf, wo, bo, **kw,
+                              **_given(bm=bm))
 
 
 def gravnet_block(x, mask, ws, bs, wf, bf, wo, bo, **kw):
@@ -204,21 +253,24 @@ def gravnet_block_int8_batched(x, mask, ws_q, bs, wf_q, bf, wo_q, bo,
                                ws_scale, wf_scale, wo_scale, *, x_scale,
                                agg_scale, h_scale, k=8, scale=10.0,
                                activation="relu", concat_x=True,
-                               out_int8=False, out_scale=1.0):
+                               out_int8=False, out_scale=1.0, bm=None):
     """One quantized GravNet block over a micro-batch, one launch.
     x:(B,N,dh) f32, mask:(B,N) -> (B,N,d_out) f32, or int8 requantized
     with ``out_scale`` when ``out_int8``; int8 weights with per-channel
     scales, the calibrated activation scales as Python floats; the
     output dense over concat(x, agg), or agg alone without
-    ``concat_x``."""
+    ``concat_x``; ``bm`` rows a CTA (``gravnet_block.int8_plan``)."""
     args = (x, mask, ws_q, bs, wf_q, bf, wo_q, bo, ws_scale, wf_scale,
             wo_scale)
     kw = dict(x_scale=x_scale, agg_scale=agg_scale, h_scale=h_scale, k=k,
               scale=scale, activation=activation, concat_x=concat_x,
               out_int8=out_int8, out_scale=out_scale)
     if x.device.type == "cpu":
+        _check_knobs(_block.int8_plan, x.shape[1], x.shape[2],
+                     ws_q.shape[1], wf_q.shape[1], wo_q.shape[1], concat_x,
+                     bm=bm)
         return _ref.gravnet_block_int8_ref(*args, **kw)
-    return gravnet_block_int8_cuda(*args, **kw)
+    return gravnet_block_int8_cuda(*args, **kw, **_given(bm=bm))
 
 
 def gravnet_block_int8(x, mask, *weights, **kw):
@@ -230,7 +282,7 @@ def gravnet_block_int8(x, mask, *weights, **kw):
 
 
 def edge_aggregate_batched(messages, edge_index, n_nodes, edge_mask=None, *,
-                           reduce="sum"):
+                           reduce="sum", bm=None, bn=None):
     """Masked segment sum / mean of per-edge messages into their
     destination nodes over a micro-batch of graphs, one launch.
     messages:(B,E,d), edge_index:(B,2,E) int (src, dst),
@@ -238,7 +290,8 @@ def edge_aggregate_batched(messages, edge_index, n_nodes, edge_mask=None, *,
     (summed in f32); each graph's edges reach
     only its own nodes, and a dst outside [0, n_nodes) contributes
     nothing. Differentiable in ``messages`` (:class:`_EdgeAggregate`);
-    ``edge_mask`` is data and may not require a gradient."""
+    ``edge_mask`` is data and may not require a gradient. ``bm`` rows and
+    ``bn`` message columns a CTA (``edge_aggregate.plan``)."""
     bsz, e, _ = messages.shape
     if edge_mask is not None and edge_mask.requires_grad:
         raise ValueError("edge_aggregate: edge_mask is data; it has no "
@@ -246,18 +299,20 @@ def edge_aggregate_batched(messages, edge_index, n_nodes, edge_mask=None, *,
     from repro_torch.dist.sharding import is_distributed
     if is_distributed(messages, edge_index, edge_mask):
         return _edge_aggregate_sharded(messages, edge_index, n_nodes,
-                                       edge_mask, reduce)
+                                       edge_mask, reduce, bm, bn)
     dst = edge_index[:, 1].to(torch.int32).contiguous()
     mask = (torch.ones((bsz, e), dtype=torch.float32,
                        device=messages.device) if edge_mask is None
             else edge_mask.to(torch.float32).contiguous())
     if messages.requires_grad and torch.is_grad_enabled():
-        return _EdgeAggregate.apply(messages, dst, mask, n_nodes, reduce)
-    return _edge_aggregate_route(messages, dst, mask, n_nodes, reduce)
+        return _EdgeAggregate.apply(messages, dst, mask, n_nodes, reduce, bm,
+                                    bn)
+    return _edge_aggregate_route(messages, dst, mask, n_nodes, reduce, bm,
+                                 bn)
 
 
 def _edge_aggregate_sharded(messages, edge_index, n_nodes, edge_mask,
-                            reduce):
+                            reduce, bm=None, bn=None):
     """:func:`edge_aggregate_batched` of DTensors, run on each device's
     shards (the kernel takes raw pointers). The graphs (dim 0) and the
     message features (dim 2) keep their sharding. Edges sharded over
@@ -297,7 +352,7 @@ def _edge_aggregate_sharded(messages, edge_index, n_nodes, edge_mask,
     def local(msg, dst_l, mask_l):
         ei = torch.stack([dst_l, dst_l], dim=1)
         return edge_aggregate_batched(msg, ei, n_nodes, mask_l,
-                                      reduce=local_reduce)
+                                      reduce=local_reduce, bm=bm, bn=bn)
 
     def run(msg, plc):
         return local_map(local, out_placements=(tuple(opl),),
@@ -333,15 +388,18 @@ def _edge_aggregate_traced(messages, dst, mask, n_nodes, reduce):
     return acc.to(messages.dtype)
 
 
-def _edge_aggregate_route(messages, dst, mask, n_nodes, reduce):
+def _edge_aggregate_route(messages, dst, mask, n_nodes, reduce, bm=None,
+                          bn=None):
     from torch._subclasses.fake_tensor import is_fake
     if is_fake(messages):
         return _edge_aggregate_traced(messages, dst, mask, n_nodes, reduce)
     if messages.device.type == "cpu":
+        _check_knobs(_edge.plan, n_nodes, messages.shape[2],
+                     messages.shape[0], bm=bm, bn=bn)
         return _ref.edge_aggregate_ref(messages, dst, mask, n_nodes=n_nodes,
                                        reduce=reduce)
     return edge_aggregate_cuda(messages, dst, mask, n_nodes=n_nodes,
-                               reduce=reduce)
+                               reduce=reduce, **_given(bm=bm, bn=bn))
 
 
 def edge_aggregate_grad(g, dst, mask, n_nodes, reduce="sum"):
@@ -373,26 +431,27 @@ class _EdgeAggregate(torch.autograd.Function):
     or the mask."""
 
     @staticmethod
-    def forward(ctx, messages, dst, mask, n_nodes, reduce):
+    def forward(ctx, messages, dst, mask, n_nodes, reduce, bm, bn):
         ctx.save_for_backward(dst, mask)
         ctx.n_nodes, ctx.reduce = n_nodes, reduce
-        return _edge_aggregate_route(messages, dst, mask, n_nodes, reduce)
+        return _edge_aggregate_route(messages, dst, mask, n_nodes, reduce,
+                                     bm, bn)
 
     @staticmethod
     def backward(ctx, g):
         dst, mask = ctx.saved_tensors
         return (edge_aggregate_grad(g, dst, mask, ctx.n_nodes, ctx.reduce),
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def edge_aggregate(messages, edge_index, n_nodes, edge_mask=None, *,
-                   reduce="sum"):
+                   reduce="sum", bm=None, bn=None):
     """Edge aggregation for one graph: the batched kernel at B = 1.
     messages:(E,d), edge_index:(2,E), edge_mask:(E,)|None ->
     (n_nodes, d)."""
     mask = None if edge_mask is None else edge_mask[None]
     return edge_aggregate_batched(messages[None], edge_index[None], n_nodes,
-                                  mask, reduce=reduce)[0]
+                                  mask, reduce=reduce, bm=bm, bn=bn)[0]
 
 
 def _pad_rows(x, block):

@@ -12,8 +12,12 @@ ops emit (``op_registry.tuning_problem``, the keys the binders look
 up), so a later ``deploy(..., tuning_cache=...)`` hits every entry.
 
 The backend names the device: ``"cuda"`` runs the hand-written kernels
-on the card, ``"cpu"`` their plain versions. The default candidate is
-measured first and dethroned only by a win of more than ``MIN_GAIN``.
+on the card, ``"cpu"`` their plain versions. Every family's candidates
+(``candidates.py``: the dense's and the edge kernel's tiles, the GravNet
+and kNN kernels' rows a CTA, flash's blocks) reach the kernel through
+the ``ops`` entry points' knobs. The default candidate, the plan the
+wrapper picks with no knob, is measured first and dethroned only by a
+win of more than ``MIN_GAIN``.
 On the card a candidate is timed on the card's clock: CUDA events around
 back-to-back calls, enqueued behind a sleep kernel that holds the card
 until the host has enqueued them all, so the events read the calls'
@@ -22,8 +26,7 @@ host clock would: a launch and its syncs outweigh a 30 µs kernel). The
 plain versions ignore every launch knob, so on ``"cpu"`` a search would
 time one program several times: there the default is measured alone,
 on the host clock as the reference does on ``"xla"``; its entry still
-tells warm-up which shapes the deployment launches. Of the kernels, only
-``flash_attention`` takes a knob yet (``candidates.py``).
+tells warm-up which shapes the deployment launches.
 """
 from __future__ import annotations
 
@@ -150,7 +153,7 @@ def tune_fused_dense(rows: int, d_in: int, d_out: int, *,
         ws = r.t(r.rng.uniform(1e-3, 5e-2, size=(d_out,)))
 
         def call(cfg):
-            return ops.fused_dense_int8(x, w, b, 0.02, ws)
+            return ops.fused_dense_int8(x, w, b, 0.02, ws, **cfg)
         cands = cand.fused_dense_int8_candidates(rows, d_in, d_out)
     else:
         x = r.normal((rows, d_in))
@@ -158,7 +161,7 @@ def tune_fused_dense(rows: int, d_in: int, d_out: int, *,
         b = r.normal((d_out,))
 
         def call(cfg):
-            return ops.fused_dense(x, w, b)
+            return ops.fused_dense(x, w, b, **cfg)
         cands = cand.fused_dense_candidates(rows, d_in, d_out)
     timed = _search(call, cands, backend, iters)
     key = fused_dense_key(rows, d_in, d_out, dtype, backend)
@@ -167,14 +170,18 @@ def tune_fused_dense(rows: int, d_in: int, d_out: int, *,
 
 # ---------------------------------------------------------------- gravnet ----
 def tune_gravnet(n: int, d_s: int, d_f: int, k: int, *,
-                 batch: int = 1, dtype: str = "float32",
-                 backend: str = "cuda", cache: TuningCache | None = None,
-                 iters: int = 5, min_gain: float = MIN_GAIN,
-                 seed: int = 0) -> dict:
+                 batch: int = 1, events: int | None = None,
+                 dtype: str = "float32", backend: str = "cuda",
+                 cache: TuningCache | None = None, iters: int = 5,
+                 min_gain: float = MIN_GAIN, seed: int = 0) -> dict:
     """``batch > 1`` tunes the batched launch at (batch, n); batch=1
-    keeps the per-event problem and key."""
+    keeps the per-event problem and key. ``events`` (:func:`_launch`) is
+    how many events a launch of the problem takes, where that is not
+    ``batch``."""
     from repro_torch.kernels import ops
     r = _Inputs(seed, backend, dtype)
+    key = gravnet_key(n, d_s, d_f, k, dtype, backend, batch=batch)
+    batch = events or batch      # the inputs: the events of a launch
     lead = (batch,) if batch > 1 else ()
     s = r.normal((*lead, n, d_s))
     f = r.normal((*lead, n, d_f))
@@ -183,18 +190,18 @@ def tune_gravnet(n: int, d_s: int, d_f: int, k: int, *,
         ops.gravnet_aggregate
 
     def call(cfg):
-        return fn(s, f, mask, k=k)
+        return fn(s, f, mask, k=k, **cfg)
 
-    timed = _search(call, cand.gravnet_candidates(n, batch=batch), backend,
-                    iters)
-    key = gravnet_key(n, d_s, d_f, k, dtype, backend, batch=batch)
+    timed = _search(call, cand.gravnet_candidates(n, batch=batch, d_f=d_f),
+                    backend, iters)
     return _finish(cache, key, timed, min_gain=min_gain)
 
 
 # ---------------------------------------------------------- gravnet block ----
 def tune_gravnet_block(n: int, d_hidden: int, d_s: int, d_f: int,
                        d_out: int, k: int, *, batch: int = 1,
-                       activation: str = "relu", concat_x: bool = True,
+                       events: int | None = None, activation: str = "relu",
+                       concat_x: bool = True, ragged: bool = False,
                        dtype: str = "float32", backend: str = "cuda",
                        cache: TuningCache | None = None, iters: int = 5,
                        min_gain: float = MIN_GAIN, seed: int = 0) -> dict:
@@ -202,10 +209,17 @@ def tune_gravnet_block(n: int, d_hidden: int, d_s: int, d_f: int,
     tunes the quantized block under its own ``gravnet_block_int8`` key.
     The dims the key does not carry (d_s, d_out, activation, concat_x)
     ride in the cached config so warm-up can replay the problem; without
-    ``concat_x`` the output dense reads the aggregate alone."""
+    ``concat_x`` the output dense reads the aggregate alone; ``events``
+    as :func:`tune_gravnet`'s. ``ragged`` tunes a raggedized block, the
+    chain of ``ops.gravnet_block_ragged`` over packed bins, whose knob is
+    its kNN pair's bm (f32: the ragged path is fp only)."""
     from repro_torch.kernels import ops
     r = _Inputs(seed, backend, dtype)
     dcat = d_hidden + 2 * d_f if concat_x else 2 * d_f
+    key = (gravnet_block_int8_key(n, d_hidden, d_f, k, backend, batch=batch)
+           if dtype == "int8" else
+           gravnet_block_key(n, d_hidden, d_f, k, dtype, backend, batch=batch))
+    batch = events or batch      # the inputs: the events of a launch
     lead = (batch,) if batch > 1 else ()
     if dtype == "int8":
         ws = r.int8((d_hidden, d_s), 128)
@@ -222,28 +236,38 @@ def tune_gravnet_block(n: int, d_hidden: int, d_s: int, d_f: int,
         def call(cfg):
             return fn(x, mask, ws, bs, wf, bf, wo, bo, wss, wfs, wos,
                       x_scale=0.02, agg_scale=0.01, h_scale=0.02, k=k,
-                      activation=activation, concat_x=concat_x)
+                      activation=activation, concat_x=concat_x, **cfg)
 
         cands = cand.gravnet_block_int8_candidates(
-            n, d_hidden, d_f, d_out, concat_x=concat_x, batch=batch)
-        key = gravnet_block_int8_key(n, d_hidden, d_f, k, backend,
-                                     batch=batch)
+            n, d_hidden, d_f, d_out, d_s=d_s, concat_x=concat_x,
+            batch=batch)
     else:
         ws, bs = r.normal((d_hidden, d_s), 0.3), r.normal((d_s,))
         wf, bf = r.normal((d_hidden, d_f), 0.3), r.normal((d_f,))
         wo, bo = r.normal((dcat, d_out), 0.3), r.normal((d_out,))
         x = r.normal((*lead, n, d_hidden))
-        mask = r.t(r.rng.uniform(size=(*lead, n)) < 0.8)
-        fn = ops.gravnet_block_batched if batch > 1 else ops.gravnet_block
+        if ragged:
+            seg = r.t(_ragged_segids(r.rng, (batch, n)), torch.int32)
 
-        def call(cfg):
-            return fn(x, mask, ws, bs, wf, bf, wo, bo, k=k,
-                      activation=activation, concat_x=concat_x)
+            def call(cfg):
+                return ops.gravnet_block_ragged(
+                    x if lead else x[None], seg, ws, bs, wf, bf, wo, bo,
+                    k=k, activation=activation, concat_x=concat_x, **cfg)
 
-        cands = cand.gravnet_block_candidates(
-            n, d_hidden, d_f, d_out, concat_x=concat_x, batch=batch)
-        key = gravnet_block_key(n, d_hidden, d_f, k, dtype, backend,
-                                batch=batch)
+            cands = cand.gravnet_block_ragged_candidates(n, batch=batch,
+                                                         d_f=d_f)
+        else:
+            mask = r.t(r.rng.uniform(size=(*lead, n)) < 0.8)
+            fn = ops.gravnet_block_batched if batch > 1 \
+                else ops.gravnet_block
+
+            def call(cfg):
+                return fn(x, mask, ws, bs, wf, bf, wo, bo, k=k,
+                          activation=activation, concat_x=concat_x, **cfg)
+
+            cands = cand.gravnet_block_candidates(
+                n, d_hidden, d_f, d_out, d_s=d_s, concat_x=concat_x,
+                batch=batch)
     timed = _search(call, cands, backend, iters)
     return _finish(cache, key, timed, min_gain=min_gain,
                    extras={"d_s": d_s, "d_out": d_out,
@@ -252,14 +276,16 @@ def tune_gravnet_block(n: int, d_hidden: int, d_s: int, d_f: int,
 
 # --------------------------------------------------------- edge aggregate ----
 def tune_edge_aggregate(n: int, e: int, d: int, *, reduce: str = "sum",
-                        batch: int = 1, dtype: str = "float32",
-                        backend: str = "cuda",
+                        batch: int = 1, events: int | None = None,
+                        dtype: str = "float32", backend: str = "cuda",
                         cache: TuningCache | None = None, iters: int = 5,
                         min_gain: float = MIN_GAIN, seed: int = 0) -> dict:
     """Tune the edge aggregation at one (n, e, d); ``reduce`` rides in the
-    cached config for warm-up."""
+    cached config for warm-up; ``events`` as :func:`tune_gravnet`'s."""
     from repro_torch.kernels import ops
     r = _Inputs(seed, backend, dtype)
+    key = edge_aggregate_key(n, e, d, dtype, backend, batch=batch)
+    batch = events or batch      # the inputs: the events of a launch
     lead = (batch,) if batch > 1 else ()
     msgs = r.normal((*lead, e, d))
     ei = r.t(r.rng.integers(0, n, size=(*lead, 2, e)), torch.int32)
@@ -267,11 +293,11 @@ def tune_edge_aggregate(n: int, e: int, d: int, *, reduce: str = "sum",
     fn = ops.edge_aggregate_batched if batch > 1 else ops.edge_aggregate
 
     def call(cfg):
-        return fn(msgs, ei, n, mask, reduce=reduce)
+        return fn(msgs, ei, n, mask, reduce=reduce, **cfg)
 
-    timed = _search(call, cand.edge_aggregate_candidates(n, e, batch=batch),
+    timed = _search(call, cand.edge_aggregate_candidates(n, e, d=d,
+                                                         batch=batch),
                     backend, iters)
-    key = edge_aggregate_key(n, e, d, dtype, backend, batch=batch)
     return _finish(cache, key, timed, min_gain=min_gain,
                    extras={"reduce": reduce})
 
@@ -312,7 +338,7 @@ def tune_knn_build(n: int, d_s: int, k: int, *, batch: int = 1,
         fn = ops.knn_build
 
     def call(cfg):
-        return fn(s, seg, k=k)
+        return fn(s, seg, k=k, **cfg)
 
     timed = _search(call, cand.knn_build_candidates(n, batch=batch),
                     backend, iters)
@@ -336,9 +362,10 @@ def tune_knn_aggregate(n: int, d_f: int, k: int, *, batch: int = 1,
     fn = ops.knn_aggregate_batched if batch > 1 else ops.knn_aggregate
 
     def call(cfg):
-        return fn(f, idx, d2, scale=scale)
+        return fn(f, idx, d2, scale=scale, **cfg)
 
-    timed = _search(call, cand.knn_aggregate_candidates(n, batch=batch),
+    timed = _search(call, cand.knn_aggregate_candidates(n, batch=batch,
+                                                        d_f=d_f),
                     backend, iters)
     key = knn_aggregate_key(n, d_f, k, dtype, backend, batch=batch)
     return _finish(cache, key, timed, min_gain=min_gain,
@@ -420,6 +447,26 @@ def _op_extras(g, key) -> dict:
     return {}
 
 
+def _launch(g, key, *, n_rows: int, backend: str,
+            batch: int) -> tuple[int, bool]:
+    """(events, ragged) of a launch of ``key``'s problem in the
+    deployment of ``g``: how many events it takes, the packed ``batch``
+    or, for a per-event key, the segment's P events (at most the
+    micro-batch: the executor's chunks), which the key does not carry;
+    and whether a raggedized GravNet block emits it. The tuner times the
+    problem so: the plans of the GravNet and edge kernels follow the
+    events of a launch, and a raggedized block runs the kNN pair."""
+    from repro_torch.core.op_registry import tuning_problem
+    mb = g.meta.get("parallelization", {}).get("microbatch") or 1
+    for op in g:
+        if tuning_problem(op, n_rows=n_rows, backend=backend,
+                          batch=batch) == key:
+            events = batch if batch > 1 else max(
+                1, min(op.attrs_opt.get("P", 1), mb))
+            return events, bool(op.attrs.get("ragged"))
+    return batch, False
+
+
 def autotune_graph(g, *, n_rows: int, backend: str, cache: TuningCache,
                    batch: int = 1, iters: int = 5,
                    min_gain: float = MIN_GAIN, force: bool = False,
@@ -435,21 +482,24 @@ def autotune_graph(g, *, n_rows: int, backend: str, cache: TuningCache,
                   iters=iters, min_gain=min_gain)
         shape = key.shape
         extras = _op_extras(g, key)
+        events, ragged = _launch(g, key, n_rows=n_rows, backend=backend,
+                                 batch=batch)
         if key.kernel == "fused_dense":
             tune_fused_dense(*shape, **kw)
         elif key.kernel == "gravnet":
             kb = shape[0] if len(shape) == 5 else 1
-            tune_gravnet(*shape[-4:], batch=kb, **kw)
+            tune_gravnet(*shape[-4:], batch=kb, events=events, **kw)
         elif key.kernel in ("gravnet_block", "gravnet_block_int8"):
             kb = shape[0] if len(shape) == 5 else 1
             n, dh, d_f, k = shape[-4:]
             tune_gravnet_block(n, dh, extras["d_s"], d_f, extras["d_out"],
-                               k, batch=kb, activation=extras["activation"],
+                               k, batch=kb, events=events, ragged=ragged,
+                               activation=extras["activation"],
                                concat_x=extras["concat_x"], **kw)
         elif key.kernel == "edge_aggregate":
             kb = shape[0] if len(shape) == 4 else 1
             tune_edge_aggregate(*shape[-3:], reduce=extras["reduce"],
-                                batch=kb, **kw)
+                                batch=kb, events=events, **kw)
         elif key.kernel == "knn_build":
             kb = shape[0] if len(shape) == 4 else 1
             tune_knn_build(*shape[-3:], batch=kb, **kw)

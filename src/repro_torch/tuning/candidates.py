@@ -1,31 +1,56 @@
 """Candidate launch configurations for the port's kernels.
 
 Counterpart of ``repro/tuning/candidates.py``. Every list starts with
-the **heuristic default**, the configuration the code picks without
-tuning; the autotuner switches away from it only on a measured win of
-more than ``autotune.MIN_GAIN``, so a noisy timing cannot make a
-deployment slower than untuned.
+the **default**, the plan the kernel's wrapper picks with no knob, in
+knob form, so the autotuner compares every candidate against today's
+launch and switches away from it only on a measured win of more than
+``autotune.MIN_GAIN``: a noisy timing cannot make a deployment slower
+than untuned. Then come the source's other plans that can run the
+shape, each once; none of them changes a result bit, since no knob here
+reorders an f32 sum (each output keeps its chain of adds, and integer
+sums are exact in any order).
 
-Of the port's CUDA sources, only ``csrc/flash_attention.cu`` takes a
-launch knob yet: its ``(bq, bk)`` blocks, which pick its tiles of query
-rows and keys (``kernels/flash_attention.py:plan_block``). They are
-searched over the kernel's own tiles, 32, 64 and 128, less every pair
-whose shared memory plan (``smem_bytes``, the source's
-``flash_attention_smem_bytes``) exceeds the card's 227 KB at the
-problem's head width, so no refused plan is ever launched. The other
-kernels (``fused_dense``, ``fused_dense_int8``, ``gravnet_aggregate``,
-``gravnet_block``, ``gravnet_block_int8``, ``edge_aggregate``,
-``knn_build``, ``knn_aggregate``) read no knob the binder writes, so
-their lists hold the default alone: a search would time one program
-several times. The defaults are the reference's, so a cache entry
-records what the binder writes. A PR that gives one of them a knob
-gives it a Hopper candidate space here.
+The Hopper spaces, by family (the reference's names where the meaning
+carries over: ``bm`` a CTA's query or destination rows, ``bn`` its
+output columns):
+
+- ``fused_dense``: (bm, bn), one of the f32 kernel's five tiles
+  (``kernels/fused_dense.py:TILES``: 16x8, 8x32, 16x32, 32x32, 64x64)
+  whose shared memory fits at the problem's K; ``fused_dense_int8``:
+  the int8 kernel's tiles (``INT8_TILES``: 32x16, 16x16, 64x16, 32x32);
+- ``gravnet``, ``knn_build``, ``knn_aggregate``: bm, 4, 8 or 16 rows
+  cut to n on the register cell, 8, 16 or 32 on the shared-memory cell
+  (``kernels/gravnet.py:plan``, ``knn_build.py:build_plan``,
+  ``aggregate_plan``);
+- ``gravnet_block``: bm, 4, 8 or 16 on the register cell, the first
+  design's 32 where the shape needs the shared-memory cell
+  (``gravnet_block.py:plan``); ``gravnet_block_int8``: 4, 8 or 16
+  (``int8_plan``); a raggedized block, which runs the kNN pair, the
+  rows both kNN kernels take;
+- ``edge_aggregate``: (bm, bn), the edge kernel's five (rows, columns)
+  tiles cut to (n, d) (``edge_aggregate.py:TILES``);
+- ``flash_attention``: (bq, bk), its tiles 32, 64 and 128, less every
+  pair whose shared memory plan (``flash_attention_smem_bytes``)
+  exceeds the card's 227 KB at the problem's head width.
+
+Every candidate passes its wrapper's own plan check, so no refused plan
+is ever launched. The reference's other knobs (the dense's ``variant``
+and ``bk``, the blocks' epilogue ``bn`` and ``bk``, the edge kernel's
+``be``) have no counterpart on the card and are searched nowhere here.
 """
 from __future__ import annotations
 
-from repro_torch.core.passes import kernel_opt as _ko
+from repro_torch.kernels import _build
+from repro_torch.kernels import edge_aggregate as _edge
+from repro_torch.kernels import fused_dense as _dense
+from repro_torch.kernels import gravnet as _gravnet
+from repro_torch.kernels import gravnet_block as _block
+from repro_torch.kernels import knn_build as _knn
 from repro_torch.kernels.flash_attention import PLAN_BLOCKS as _FLASH_TILES
 from repro_torch.kernels.flash_attention import fits as _flash_fits
+
+#: the rows a CTA of a one-warp-a-row kernel is searched over, by cell
+ROWS = {"register": _gravnet.ROWS, "shared": (8, 16, 32)}
 
 
 def _dedup_keep_order(cands: list[dict]) -> list[dict]:
@@ -38,80 +63,144 @@ def _dedup_keep_order(cands: list[dict]) -> list[dict]:
     return out
 
 
+def _runnable(cands: list[dict], plan) -> list[dict]:
+    """The candidates (the first, the default, kept) that ``plan(**c)``,
+    the wrapper's own check, does not refuse; without duplicates."""
+    out = cands[:1]
+    for c in cands[1:]:
+        try:
+            plan(**c)
+        except ValueError:
+            continue
+        out.append(c)
+    return _dedup_keep_order(out)
+
+
 def default_fused_dense(rows: int, d_in: int, d_out: int) -> dict:
-    """The untuned binding of ``op_registry._bind_fused_dense``."""
-    if rows <= _ko.FLATTEN_ROWS and max(d_in, d_out) <= _ko.FLATTEN_DIM:
-        return {"variant": "flattened"}
-    return {"variant": "looped",
-            "bm": _ko._pick_block(rows, 512),
-            "bn": _ko._pick_block(d_out, 512),
-            "bk": _ko._pick_block(d_in, 2048)}
+    """``fused_dense_cuda``'s tile without a knob (``fused_dense.plan``)."""
+    return dict(zip(("bm", "bn"), _dense.tile(_dense.plan(rows, d_out))))
 
 
 def fused_dense_candidates(rows: int, d_in: int, d_out: int) -> list[dict]:
-    return [default_fused_dense(rows, d_in, d_out)]
+    """The default, then every tile of the f32 kernel whose shared
+    memory fits at K = d_in."""
+    return _dedup_keep_order(
+        [default_fused_dense(rows, d_in, d_out)]
+        + [dict(zip(("bm", "bn"), _dense.tile(v)))
+           for v in _dense.BY_SIZE
+           if _dense.smem_bytes(v, d_in) <= _build.SMEM_LIMIT])
 
 
 def default_fused_dense_int8(rows: int, d_in: int, d_out: int) -> dict:
-    return {"variant": "looped", "bm": 128, "bn": 128, "bk": 512}
+    """``fused_dense_int8_cuda``'s tile without a knob: 32 x 16."""
+    return dict(zip(("bm", "bn"), _dense.INT8_TILES[0]))
 
 
 def fused_dense_int8_candidates(rows: int, d_in: int,
                                 d_out: int) -> list[dict]:
-    return [default_fused_dense_int8(rows, d_in, d_out)]
+    """The int8 kernel's tiles, the default first (its CTAs' shared
+    memory is static, 11 KB at most)."""
+    return [dict(zip(("bm", "bn"), t)) for t in _dense.INT8_TILES]
 
 
-def default_gravnet(n: int, batch: int = 1) -> dict:
-    return {"bm": min(n, 128)}
+def _rows_candidates(n: int, default: dict, cell: str, plan) -> list[dict]:
+    return _runnable([default] + [{"bm": min(b, n)} for b in ROWS[cell]],
+                     plan)
 
 
-def gravnet_candidates(n: int, *, batch: int = 1) -> list[dict]:
-    return [default_gravnet(n, batch)]
+def default_gravnet(n: int, batch: int = 1, *, d_f: int) -> dict:
+    return {"bm": _gravnet.plan(n, batch, d_f)[0]}
 
 
-def default_gravnet_block(n: int, batch: int = 1) -> dict:
-    return {"bm": min(n, 128)}
+def gravnet_candidates(n: int, *, batch: int = 1, d_f: int) -> list[dict]:
+    """The default, then 4, 8 or 16 rows a CTA cut to n on the register
+    cell, 8, 16 or 32 on the shared-memory cell."""
+    return _rows_candidates(
+        n, default_gravnet(n, batch, d_f=d_f),
+        _gravnet.plan(n, batch, d_f)[1],
+        lambda bm: _gravnet.plan(n, batch, d_f, bm))
+
+
+def default_gravnet_block(n: int, batch: int = 1, *, d_hidden: int,
+                          d_s: int, d_f: int, d_out: int,
+                          concat_x: bool = True) -> dict:
+    return {"bm": _block.plan(n, d_hidden, d_s, d_f, d_out, concat_x)[0]}
 
 
 def gravnet_block_candidates(n: int, d_hidden: int, d_f: int, d_out: int,
-                             *, concat_x: bool = True,
+                             *, d_s: int, concat_x: bool = True,
                              batch: int = 1) -> list[dict]:
-    return [default_gravnet_block(n, batch)]
+    """The default, then 4, 8 or 16 rows cut to n on the register cell;
+    where the shape needs the shared-memory cell, its 32 rows alone."""
+    default = default_gravnet_block(n, batch, d_hidden=d_hidden, d_s=d_s,
+                                    d_f=d_f, d_out=d_out, concat_x=concat_x)
+    if _block.plan(n, d_hidden, d_s, d_f, d_out, concat_x)[1] == "shared":
+        return [default]
+    return _rows_candidates(
+        n, default, "register",
+        lambda bm: _block.plan(n, d_hidden, d_s, d_f, d_out, concat_x, bm))
 
 
 def default_gravnet_block_int8(n: int, batch: int = 1) -> dict:
-    return {"bm": min(n, 128)}
+    return {"bm": min(n, _block.BM_INT8)}
 
 
 def gravnet_block_int8_candidates(n: int, d_hidden: int, d_f: int,
-                                  d_out: int, *, concat_x: bool = True,
+                                  d_out: int, *, d_s: int,
+                                  concat_x: bool = True,
                                   batch: int = 1) -> list[dict]:
-    return [default_gravnet_block_int8(n, batch)]
+    """The default, then 4, 8 or 16 rows cut to n whose shared memory
+    fits (the int8 block has one cell)."""
+    return _rows_candidates(
+        n, default_gravnet_block_int8(n, batch), "register",
+        lambda bm: _block.int8_plan(n, d_hidden, d_s, d_f, d_out, concat_x,
+                                    bm))
 
 
-def default_edge_aggregate(n: int, e: int, batch: int = 1) -> dict:
-    return {"bm": min(n, 128)}
+def gravnet_block_ragged_candidates(n: int, *, batch: int = 1,
+                                    d_f: int) -> list[dict]:
+    """A raggedized block launches the kNN pair (``ops.gravnet_block_
+    ragged``) with one bm: the rows both kNN kernels take,
+    ``knn_build``'s own plan first."""
+    agg = knn_aggregate_candidates(n, batch=batch, d_f=d_f)
+    return [c for c in knn_build_candidates(n, batch=batch) if c in agg]
 
 
-def edge_aggregate_candidates(n: int, e: int, *,
+def default_edge_aggregate(n: int, e: int, batch: int = 1, *,
+                           d: int) -> dict:
+    return dict(zip(("bm", "bn"), _edge.plan(n, d, batch)))
+
+
+def edge_aggregate_candidates(n: int, e: int, *, d: int,
                               batch: int = 1) -> list[dict]:
-    return [default_edge_aggregate(n, e, batch)]
+    """The default, then the kernel's (rows, columns) tiles cut to (n,
+    d)."""
+    return _runnable(
+        [default_edge_aggregate(n, e, batch, d=d)]
+        + [{"bm": min(bm, n), "bn": min(cw, d)} for bm, cw in _edge.TILES],
+        lambda bm, bn: _edge.plan(n, d, batch, bm, bn))
 
 
 def default_knn_build(n: int, batch: int = 1) -> dict:
-    return {"bm": min(n, 128)}
+    return {"bm": _knn.build_plan(n, batch)[0]}
 
 
 def knn_build_candidates(n: int, *, batch: int = 1) -> list[dict]:
-    return [default_knn_build(n, batch)]
+    return _rows_candidates(n, default_knn_build(n, batch),
+                            _knn.build_plan(n, batch)[1],
+                            lambda bm: _knn.build_plan(n, batch, bm))
 
 
-def default_knn_aggregate(n: int, batch: int = 1) -> dict:
-    return {"bm": min(n, 128)}
+def default_knn_aggregate(n: int, batch: int = 1, *, d_f: int) -> dict:
+    return {"bm": _knn.aggregate_plan(n, batch, d_f)[0]}
 
 
-def knn_aggregate_candidates(n: int, *, batch: int = 1) -> list[dict]:
-    return [default_knn_aggregate(n, batch)]
+def knn_aggregate_candidates(n: int, *, batch: int = 1,
+                             d_f: int) -> list[dict]:
+    return _rows_candidates(
+        n, default_knn_aggregate(n, batch, d_f=d_f),
+        _knn.aggregate_plan(n, batch, d_f)[1],
+        lambda bm: _knn.aggregate_plan(n, batch, d_f, bm))
 
 
 def default_flash_attention() -> dict:
@@ -131,3 +220,10 @@ def flash_attention_candidates(s: int, t: int, d: int, *,
             if _flash_fits(c["bq"], c["bk"], d):
                 cands.append(c)
     return _dedup_keep_order(cands)[:max_candidates]
+
+
+def among(config: dict, cands: list[dict]) -> bool:
+    """Whether ``config`` (a cached entry, which may carry replay dims
+    and the reference's annotations beside its knobs) names one of
+    ``cands``: every knob of some candidate equal."""
+    return any(all(config.get(k) == v for k, v in c.items()) for c in cands)

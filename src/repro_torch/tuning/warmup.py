@@ -30,7 +30,9 @@ def _replay(key, config) -> None:
     the device of ``key.backend``, its float operands in the key's dtype
     (``"bf16"`` or f32); the replay dims that ride in the config (d_s,
     d_out, activation, concat_x, reduce, scale) are used, every other
-    entry is a launch knob."""
+    entry is a launch knob, handed to the ``ops`` entry point as the
+    executor hands it (one the kernel does not take, or cannot run,
+    raises)."""
     from repro_torch.kernels import ops
     rng = np.random.default_rng(0)
     dev = device_of(key.backend)
@@ -52,16 +54,17 @@ def _replay(key, config) -> None:
         if key.dtype == "int8":
             ops.fused_dense_int8(int8(rows, d_in), int8(d_in, d_out),
                                  normal(d_out), 0.02,
-                                 t(rng.uniform(1e-3, 5e-2, size=(d_out,))))
+                                 t(rng.uniform(1e-3, 5e-2, size=(d_out,))),
+                                 **cfg)
         else:
             ops.fused_dense(normal(rows, d_in), normal(d_in, d_out),
-                            normal(d_out))
+                            normal(d_out), **cfg)
     elif key.kernel == "gravnet":
         batch = shape[0] if len(shape) == 5 else 1
         n, d_s, d_f, k = shape[-4:]
         ops.gravnet_aggregate_batched(normal(batch, n, d_s),
                                       normal(batch, n, d_f),
-                                      t(np.ones((batch, n))), k=k)
+                                      t(np.ones((batch, n))), k=k, **cfg)
     elif key.kernel in ("gravnet_block", "gravnet_block_int8"):
         d_s = int(cfg.pop("d_s", 4))
         d_out = int(cfg.pop("d_out", 0))
@@ -80,13 +83,13 @@ def _replay(key, config) -> None:
                 *(t(rng.uniform(1e-3, 5e-2, size=(m,)))
                   for m in (d_s, d_f, d_out)),
                 x_scale=0.02, agg_scale=0.01, h_scale=0.02, k=k,
-                activation=activation, concat_x=concat_x)
+                activation=activation, concat_x=concat_x, **cfg)
         else:
             ops.gravnet_block_batched(
                 x, mask, normal(dh, d_s, scale=0.3), normal(d_s),
                 normal(dh, d_f, scale=0.3), normal(d_f),
                 normal(dcat, d_out, scale=0.3), normal(d_out), k=k,
-                activation=activation, concat_x=concat_x)
+                activation=activation, concat_x=concat_x, **cfg)
     elif key.kernel == "edge_aggregate":
         reduce = cfg.pop("reduce", "sum")
         batch = shape[0] if len(shape) == 4 else 1
@@ -94,12 +97,13 @@ def _replay(key, config) -> None:
         ops.edge_aggregate_batched(
             normal(batch, e, d),
             t(rng.integers(0, n, size=(batch, 2, e)), torch.int32), n,
-            t(np.ones((batch, e))), reduce=reduce)
+            t(np.ones((batch, e))), reduce=reduce, **cfg)
     elif key.kernel == "knn_build":
         batch = shape[0] if len(shape) == 4 else 1
         n, d_s, k = shape[-3:]
         ops.knn_build_batched(normal(batch, n, d_s),
-                              t(np.zeros((batch, n)), torch.int32), k=k)
+                              t(np.zeros((batch, n)), torch.int32), k=k,
+                              **cfg)
     elif key.kernel == "knn_aggregate":
         scale = float(cfg.pop("scale", 10.0))
         batch = shape[0] if len(shape) == 4 else 1
@@ -107,7 +111,8 @@ def _replay(key, config) -> None:
         ops.knn_aggregate_batched(
             normal(batch, n, d_f),
             t(rng.integers(0, n, size=(batch, n, k)), torch.int32),
-            t(rng.uniform(0.0, 4.0, size=(batch, n, k))), scale=scale)
+            t(rng.uniform(0.0, 4.0, size=(batch, n, k))), scale=scale,
+            **cfg)
     elif key.kernel == "flash_attention":
         bh, s, tt, d = shape
         ops.flash_attention(normal(bh, s, d), normal(bh, tt, d),

@@ -294,10 +294,12 @@ def test_flash_candidates_keep_only_plans_that_fit():
         {"bq": 128, "bk": 128}, {"bq": 16, "bk": 16}]
     assert cand.flash_attention_candidates(64, 64, 160) == [
         {"bq": 128, "bk": 128}]
-    # the other families take no knob on the card yet: the default alone
-    assert cand.knn_build_candidates(128, batch=8) == [{"bm": 128}]
-    assert cand.gravnet_block_int8_candidates(128, 64, 22, 64) == [
-        {"bm": 128}]
+    # the other families: the wrapper's own plan first, then the rest of
+    # the source's rows a CTA (tests/test_torch_launch_knobs.py)
+    assert cand.knn_build_candidates(128, batch=8) == [
+        {"bm": 8}, {"bm": 4}, {"bm": 16}]
+    assert cand.gravnet_block_int8_candidates(128, 64, 22, 64, d_s=4) == [
+        {"bm": 16}, {"bm": 4}, {"bm": 8}]
 
 
 def test_tune_flash_attention_on_cpu():
