@@ -44,9 +44,12 @@ Phases, each of which exits non-zero when it fails:
 4. the main path, as ``python -m repro_torch.launch.serve
    --train-steps 0`` runs it: deploy the upgrade-width CaloClusterNet
    (random weights from a seed) at design point 3 under the **mixed**
-   policy, calibrated on the card, serve 256 events through the
-   in-order loop with every launch counter at 0, check 5
-   ``fused_dense_int8`` and 2 ``gravnet_block_int8`` launches per chunk
+   policy, at the P the design flow picks on the H100's cost model
+   (``Requirements.platform="h100"``, serve's target of 1e5 events/s
+   within 2 ms), calibrated on the card, serve 256 events through the
+   in-order loop with every launch counter at 0, check that each of the
+   5 int8 denses (``fused_dense_int8``) and 2 int8 blocks
+   (``gravnet_block_int8``) launches once per P-chunk of its segment,
    and no f32 dense, block or aggregate launch, and that the heads and
    trigger decisions equal bitwise those of the same deployment with the
    plain versions substituted, calibration included; print events/s,
@@ -145,8 +148,8 @@ Phases, each of which exits non-zero when it fails:
    eager, eager, captured, captured, eager) the events/s, latency
    p50/p99 and host wall per chunk of both, and their medians; the idle
    share of both for the served default and GatedGCN, with a profiler
-   cross-check that each replay runs the default's 5 ``fused_dense_int8``
-   and 2 ``gravnet_block_int8``; and CPS alone on one chunk's heads, its
+   cross-check that each replay runs the default's int8 denses and
+   blocks once per P-chunk; and CPS alone on one chunk's heads, its
    device time captured and eager (``capture.json``). Every phase above
    serves through the captures too; the plain-substituted and the
    recording runs go through ``run_eager``. A path's launch counts are
@@ -171,9 +174,9 @@ Phases, each of which exits non-zero when it fails:
     (the plain captured loop, timed right after it), each lane captured
     before traffic and nothing during it; then a fresh service on the
     same deployment serves the events once more as its counted run (the
-    profiler's kernel runs equal to the counters; on the mixed runs 5
-    ``fused_dense_int8`` and 2 ``gravnet_block_int8`` per chunk of every
-    launch that ran) and its idle share; events/s, p50/p99, the budget,
+    profiler's kernel runs equal to the counters; on the mixed runs the
+    int8 denses and blocks once per P-chunk of every launch that ran)
+    and its idle share; events/s, p50/p99, the budget,
     batches and padded events beside the plain loop's and phase 9's
     (``service.json``). The kernel line's launches add these runs';
 11. the rest of the serve entry point: (g) ``serve.run`` with
@@ -390,12 +393,28 @@ Phases, each of which exits non-zero when it fails:
     3); (c) the entries written before the knobs bind nothing and serve
     bitwise; (d) ``serve --tune --tuning-cache`` then the saved cache
     alone; ``knobs.json``;
-19. print ``{"kernels": [...]}`` with every kernel of the port (the int8
+19. the design flow's H100 model against the card
+    (``launch/h100_model.py``): the warm-trained default's graph and fp
+    at P = 1 to 64 and GatedGCN 16 x 70 at P = 1 to 16, each deployed at
+    that P, the modelled seconds a step beside the profiler's busy time
+    of one captured chunk and their ratio; the served default at the P
+    its model picked, failing where that ratio leaves [0.5, 2.0]; the P,
+    modelled events/s and latency at design points 1-3 under the paper's
+    targets (3e6 events/s, 10 µs); the served default at its P against
+    P = 2 in turns (events/s, p50/p99, medians of 3; ``model.json``);
+20. print ``{"kernels": [...]}`` with every kernel of the port (the int8
     dense with each CTA tile's ms), then ``{"ok": true, "device":
     {...}}`` as the last line.
 
-The script refuses to run without CUDA or outside a checkout. Long
-output (compiler logs, profiler tables) goes to ``chiprun_out/chip_smoke/``.
+The served default (phases 4, 4b, 9-11 and 18's "mixed default") is
+deployed as serve deploys it on the card, on the H100's model; every
+deployment that holds the kernels at the reference's chunk shapes (the
+other paths of phases 3 and 5-9, the current detector, the GNN routes
+at their published widths, phases 16-18's graphs) passes
+``platform="cpu"``, the reference's model, so that ``PERF.md``'s kernel
+table keeps its shapes. The script refuses to run without CUDA or
+outside a checkout. Long output (compiler logs, profiler tables) goes to
+``chiprun_out/chip_smoke/``.
 """
 from __future__ import annotations
 
@@ -417,10 +436,6 @@ OUT = ROOT / "chiprun_out" / "chip_smoke"
 # the float32 row of tests/_numerics.py: |got - want| <= ATOL + RTOL·|want|
 RTOL, ATOL = 1e-5, 1e-5
 BF16_RTOL, BF16_ATOL = 3e-2, 3e-2   # its bfloat16 row
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-RATES = {"f32": 67e12,          # H100 SXM, f32 outside the tensor cores
-         "bf16": 989e12,        # H100 SXM, bf16 tensor cores, dense
-         "int8": 1979e12}       # H100 SXM, int8 tensor cores, dense
 SERVE_EVENTS = 256              # the main path
 FP_EVENTS = 64                  # the fp path of the first slice
 SHORT_EVENTS = 16               # design point 1, and mixed without fuse_int8
@@ -626,8 +641,13 @@ class Timer:
 # The bound is the largest of the byte time and each type's operation
 # time.
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
-    t_b = nbytes / HBM_BYTES_PER_S
-    t_o = max(n / RATES[kind] for kind, n in ops.items())
+    # the H100 SXM datasheet's rates, as the design flow's model holds
+    # them: HBM, f32 outside the tensor cores, bf16 and int8 tensor cores
+    from repro_torch.launch import mesh as hw
+    rates = {"f32": hw.H100_PEAK_FLOPS_F32, "bf16": hw.H100_PEAK_FLOPS_BF16,
+             "int8": hw.H100_PEAK_OPS_INT8}
+    t_b = nbytes / hw.H100_HBM_BW
+    t_o = max(n / rates[kind] for kind, n in ops.items())
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
@@ -3558,6 +3578,94 @@ def launch_knobs(torch, np, dev, card, h) -> dict:
     return rec
 
 
+# ------------------------------ phase 19: the H100 model against the card ----
+# the ratio of the modelled to the measured device time of a chunk that the
+# served default's P must stay within
+MODEL_RATIO = (0.5, 2.0)
+MODEL_ROUNDS = 3        # in turns: new P, P = 2, P = 2, new P, ...
+
+
+def model_against_card(torch, np, dev, card, h) -> dict:
+    """The design flow's "h100" model (``core/passes/parallelize.py``)
+    against the card: (a) the warm-trained mixed default's graph and fp
+    at P = 1 to 64 and GatedGCN 16 x 70 at P = 1 to 16, each deployed at
+    a fixed P (``launch/h100_model.sweep``): the modelled seconds a step
+    beside the profiler's busy time of one captured chunk, and their
+    ratio; (b) the served default at the P its model picked: the same,
+    failing outside ``MODEL_RATIO``; (c) the P, modelled events/s and
+    latency at design points 1-3 under the paper's targets (3e6 events/s,
+    10 µs); (d) the served default at its P against P = 2 (the
+    reference's CPU model's pick) on the same weights and events, in
+    turns, events/s and p50/p99 (medians of ``MODEL_ROUNDS``)."""
+    from repro_torch.launch import h100_model, serve
+    t0 = time.perf_counter()
+    rec = {"card": card}
+    rows = h100_model.sweep(h100_model.served_paths(dev, params=h.trained),
+                            dev)
+    for r in rows:
+        say(f"[model] {r['path']} at P={r['P']}: modelled "
+            f"{r['model_ms']:.5f} ms a chunk, measured {r['measured_ms']:.5f}"
+            f" ms busy, ratio {r['ratio']:.3f} ({card})")
+    rec["sweep"] = rows
+    mt = h.served
+    par = mt.graph.meta["parallelization"]
+    feeds = {k: torch.from_numpy(np.ascontiguousarray(v[:mt.microbatch]))
+             .to(dev) for k, v in h.ccn_feeds.items()}
+    model_s = h100_model.modelled_s(mt)
+    meas_s = h100_model.chunk_busy_s(mt, feeds)
+    ratio = model_s / meas_s
+    rec["served"] = {"P_mxu": par["P_mxu"], "P_xla": par["P_xla"],
+                     "microbatch": mt.microbatch,
+                     "launches_per_chunk": h.chunk_launches(mt),
+                     "model_events_s": par["model_throughput_ev_s"],
+                     "model_ms": model_s * 1e3, "measured_ms": meas_s * 1e3,
+                     "ratio": ratio}
+    say(f"[model] the served default: P_mxu={par['P_mxu']} P_xla="
+        f"{par['P_xla']}, {mt.microbatch} events a chunk, modelled "
+        f"{model_s * 1e3:.5f} ms a chunk ({par['model_throughput_ev_s']:.1f}"
+        f" events/s), measured {meas_s * 1e3:.5f} ms busy, ratio "
+        f"{ratio:.3f} ({card})")
+    if not MODEL_RATIO[0] <= ratio <= MODEL_RATIO[1]:
+        fail(f"[model] the served default's modelled chunk is {ratio:.3f}x "
+             f"its measured one, outside {MODEL_RATIO}")
+    rec["design_points"] = h100_model.design_points(dev, params=h.trained)
+    for r in rec["design_points"]:
+        say(f"[model] design point {r['design_point']} at the paper's "
+            f"targets (3e6 events/s, 10 us): P_mxu={r['P_mxu']} P_xla="
+            f"{r['P_xla']}, modelled {r['model_events_s']:.1f} events/s, "
+            f"latency {r['model_latency_us']:.2f} us")
+    p2 = h.p2()
+    ev = {k: v for k, v in h.ccn_feeds.items()}
+    n = len(ev["hits"])
+    runs = {"new P": [], "P = 2": []}
+    for r in range(MODEL_ROUNDS):       # new, 2, 2, new, new, 2
+        order = (("new P", mt), ("P = 2", p2))
+        for name, pipe in (order if r % 2 == 0 else order[::-1]):
+            res, lat, elapsed = serve.serve_events(pipe, ev)
+            runs[name].append([n / elapsed, np.percentile(lat, 50) * 1e6,
+                               np.percentile(lat, 99) * 1e6])
+            if name == "new P":
+                new_res = res
+            else:
+                old_res = res
+    for k in ("trigger", "n_clusters", "cluster_valid"):
+        if not np.array_equal(new_res["cps"][k], old_res["cps"][k]):
+            fail(f"[model] cps {k} differs between the served default at "
+                 "its P and at P = 2")
+    rec["in_turns"] = {}
+    for name, v in runs.items():
+        med = np.median(np.array(v), axis=0).tolist()
+        rec["in_turns"][name] = {"events_s": med[0], "p50_us": med[1],
+                                 "p99_us": med[2], "runs": v}
+        say(f"[model] the served default at {name} "
+            f"({mt.microbatch if name == 'new P' else p2.microbatch} "
+            f"events a chunk): {med[0]:.1f} events/s, p50={med[1]:.1f}us "
+            f"p99={med[2]:.1f}us (medians of {len(v)} in turns, {n} "
+            f"events, the plain captured loop; {card})")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (no "
@@ -3744,6 +3852,23 @@ def main() -> int:
             + (f" {seen_blocks}" if seen_blocks else ""))
         return out, seen, seen_blocks
 
+    def chunk_launches(pipe):
+        """{kernel: launches} one chunk of a padded CaloClusterNet
+        deployment makes: each dense and block once per P-chunk of its
+        segment (microbatch / P; once in a batch-packed executable)."""
+        per = {}
+        for op in pipe.graph:
+            name = {"dense": "fused_dense", "linear": "fused_dense",
+                    "gravnet_block": "gravnet_block",
+                    "gravnet_aggregate": "gravnet_aggregate"}.get(op.op_type)
+            if name is None:
+                continue
+            if op.precision == "int8" and name != "gravnet_aggregate":
+                name += "_int8"
+            per[name] = per.get(name, 0) + (1 if pipe.batch_packed else (
+                pipe.microbatch // op.attrs_opt.get("P", pipe.microbatch)))
+        return per
+
     cfg = ccn.CCNConfig()
     gen_cfg = Belle2Config()
 
@@ -3751,22 +3876,29 @@ def main() -> int:
         pipe = serve.build_pipeline(cfg, gen_cfg, device=dev, **kw)
         shown = {k: v for k, v in kw.items() if k != "params"}
         weights = "trained" if kw.get("params") is not None else "random"
+        par = getattr(pipe, "pipe", pipe).graph.meta["parallelization"]
         say(f"deployed upgrade CaloClusterNet (n_hits={cfg.n_hits}, "
             f"d_hidden={cfg.d_hidden}, {weights} weights) {shown}: "
-            f"microbatch={pipe.microbatch}")
+            f"microbatch={pipe.microbatch} (P_mxu={par['P_mxu']}, "
+            f"P_xla={par['P_xla']} on the "
+            f"{getattr(pipe, 'pipe', pipe).req.platform} model)")
         return pipe
 
-    # the paths: (name, deploy kwargs)
+    # the paths: (name, deploy kwargs). "served" is the default as serve
+    # deploys it on the card: the P search on the H100's model; the others
+    # keep the reference's CPU model, so that they launch the kernels at
+    # the reference's chunk shapes (PERF.md's kernel table)
     paths = {
-        "mixed": dict(design_point=3, precision="mixed"),
-        "fp": dict(design_point=3, precision="fp"),
+        "served": dict(design_point=3, precision="mixed"),
+        "mixed": dict(design_point=3, precision="mixed", platform="cpu"),
+        "fp": dict(design_point=3, precision="fp", platform="cpu"),
         "mixed_no_fuse_int8": dict(design_point=3, precision="mixed",
-                                   fuse_int8=False),
-        "fp_dp1": dict(design_point=1, precision="fp"),
+                                   fuse_int8=False, platform="cpu"),
+        "fp_dp1": dict(design_point=1, precision="fp", platform="cpu"),
         "ragged": dict(design_point=3, precision="fp", ragged=True,
-                       batch=RAGGED_BINS),
+                       batch=RAGGED_BINS, platform="cpu"),
         "ragged_dp1": dict(design_point=1, precision="fp", ragged=True,
-                           batch=RAGGED_BINS),
+                           batch=RAGGED_BINS, platform="cpu"),
     }
     reset_counts()
     pipes = {name: deploy(**kw) for name, kw in paths.items()}
@@ -4021,12 +4153,14 @@ def main() -> int:
     # that stress their designs (kernels/int8_cases.py), bitwise
     cur_cfg, cur_gen = serve.detector_configs("current")
     cur_pipe = serve.build_pipeline(cur_cfg, cur_gen, device=dev,
-                                    design_point=3, precision="mixed")
+                                    design_point=3, precision="mixed",
+                                    platform="cpu")
     say(f"deployed current-detector CaloClusterNet (n_hits="
         f"{cur_cfg.n_hits}, mixed, design point 3): microbatch="
         f"{cur_pipe.microbatch}")
     cur_fp = serve.build_pipeline(cur_cfg, cur_gen, device=dev,
-                                  design_point=3, precision="fp")
+                                  design_point=3, precision="fp",
+                                  platform="cpu")
     for tag, pipe in (("mixed_current", cur_pipe), ("fp_current", cur_fp)):
         cur_calls, cur_per_chunk = record(
             pipe, serve.calibration_feeds(cur_gen))
@@ -4294,28 +4428,32 @@ def main() -> int:
 
     # 4. the main path on the card ----------------------------------------
     def serve_mixed(path, params=None):
-        """Serve SERVE_EVENTS events of a mixed path (weights ``params``,
-        default random from seed 0) with the counters at 0 just before:
-        5 fused_dense_int8 and 2 gravnet_block_int8 per chunk, no other
-        launch; calibration, heads and trigger decisions equal to the
-        same deployment with the plain versions substituted, CPS on the
-        card equal to CPS on the CPU. Returns (results, latencies,
-        elapsed, events)."""
+        """Serve SERVE_EVENTS events of the served default (weights
+        ``params``, default random from seed 0; P on the H100's model)
+        with the counters at 0 just before: each of the 5 int8 denses and
+        2 int8 blocks once per P-chunk of its segment, no other launch;
+        calibration, heads and trigger decisions equal to the same
+        deployment with the plain versions substituted, CPS on the card
+        equal to CPS on the CPU. Returns (results, latencies, elapsed,
+        events)."""
         res, lat, elapsed, launches, n_chunks, feeds, events = run_path(
             path, SERVE_EVENTS, seed=7)
         path_launches[path] = launches
+        per = chunk_launches(pipes[path])
         want = dict.fromkeys(wrappers, 0)
-        want.update(fused_dense_int8=5 * n_chunks,
-                    gravnet_block_int8=2 * n_chunks)
-        if launches != want:
-            fail(f"[{path}] launch counts {launches} != {want} (5 "
-                 f"fused_dense_int8 and 2 gravnet_block_int8 per chunk, no "
-                 f"fp dense, block or aggregate)")
+        want.update({n: c * n_chunks for n, c in per.items()})
+        if set(per) != {"fused_dense_int8", "gravnet_block_int8"} \
+                or launches != want:
+            fail(f"[{path}] launch counts {launches} != {want} ({per} per "
+                 f"chunk of {pipes[path].microbatch} events, no fp dense, "
+                 "block or aggregate)")
+        say(f"[{path}] {per} launches per chunk of "
+            f"{pipes[path].microbatch} events")
         pipe = pipes[path]
         with substituted(plain_fns):
             plain_pipe = serve.build_pipeline(cfg, gen_cfg, device=dev,
                                               params=params,
-                                              **paths["mixed"])
+                                              **paths["served"])
             plain_res, _, _ = serve.serve_events(Eager(plain_pipe), feeds)
         for op in pipe.graph:
             pop = plain_pipe.graph[op.name]
@@ -4353,8 +4491,8 @@ def main() -> int:
             f"({batch} events per dispatch, {card})")
         return res, lat, elapsed, feeds
 
-    res, lat, elapsed, feeds = serve_mixed("mixed")
-    pipe = pipes["mixed"]
+    res, lat, elapsed, feeds = serve_mixed("served")
+    pipe = pipes["served"]
     batch = max(pipe.microbatch, serve.MIN_SERVE_BATCH)
 
     def idle_share(serve_once, label, tag):
@@ -4456,8 +4594,8 @@ def main() -> int:
         f"{t_train:.1f}s (autograd through CaloClusterNet.forward, no "
         f"kernel): loss {loss_vals[0]:.4f} -> {loss_vals[-1]:.4f}")
     reset_counts()
-    pipes["mixed_trained"] = deploy(params=trained, **paths["mixed"])
-    serve_mixed("mixed_trained", params=trained)
+    pipes["served_trained"] = deploy(params=trained, **paths["served"])
+    serve_mixed("served_trained", params=trained)
     say(f"phase 4b done at {time.perf_counter() - t_start:.1f}s")
 
     # 5. the other paths ----------------------------------------------------
@@ -4591,7 +4729,8 @@ def main() -> int:
         "graphsage": graphsage.GraphSAGEConfig(n_layers=2, d_hidden=128,
                                                d_in=16, n_classes=5)}
     gnn_chunk_ms, gnn_feeds = {}, {}
-    card_args = serve.parse_args(["--device", "cuda"])
+    # the reference's CPU model, so the routes launch at its chunk shapes
+    card_args = serve.parse_args(["--device", "cuda", "--platform", "cpu"])
     cpu_args = serve.parse_args(["--device", "cpu"])
     for gname, gcfg in gnn_cfgs.items():
         route = serve.MODELS[gname](card_args, gcfg)
@@ -5123,31 +5262,34 @@ def main() -> int:
 
     cev = generate(gen_cfg, CAPTURE_EVENTS, seed=7)
     ccn_feeds = {"hits": cev["feats"], "mask": cev["mask"]}
-    # the served default (warm-trained) first, with the profiler's
-    # cross-check: its two kernels once per replay
-    captured_vs_eager("mixed_trained", pipes["mixed_trained"], ccn_feeds,
-                      DISPATCH)
-    mt = pipes["mixed_trained"]
-    disp = {k: v[:DISPATCH] for k, v in ccn_feeds.items()}
-    replays = 4 * DISPATCH // mt.microbatch
+    # the served default (warm-trained, at its P on the H100's model)
+    # first, with the profiler's cross-check: its two kernels as many
+    # times per replay as its segments' P-chunks launch them; a dispatch
+    # of its serving width, max(microbatch, 16)
+    mt = pipes["served_trained"]
+    mt_width = max(DISPATCH, mt.microbatch)
+    captured_vs_eager("served_trained", mt, ccn_feeds, mt_width)
+    disp = {k: v[:mt_width] for k, v in ccn_feeds.items()}
+    replays = 4 * mt_width // mt.microbatch
+    per_replay = chunk_launches(mt)
     idle = {}
     for mode, p in (("captured", mt), ("eager", Eager(mt))):
         busy, by_kernel, wall = idle_share(
             lambda p=p: serve.serve_events(p, disp),
-            f"{mode} dispatches of {DISPATCH} events (mixed, trained)",
-            f"_mixed_{mode}")
+            f"{mode} dispatches of {mt_width} events (the served default, "
+            "trained)", f"_mixed_{mode}")
         idle[mode] = {"busy_us": busy, "wall_us": wall,
                       "idle_share": 1 - busy / wall if busy else None}
         seen = {n_: sum(c for k, (_, c) in by_kernel.items()
                         if re.search(rf"(?<!\w){n_}_kernel(?!\w)", k))
                 for n_ in ("fused_dense_int8", "gravnet_block_int8")}
-        if mode == "captured" and seen != {"fused_dense_int8": 5 * replays,
-                                           "gravnet_block_int8": 2 * replays}:
-            fail(f"[mixed_trained] the profiler saw {seen} kernel runs over "
-                 f"{replays} replays, expected 5 and 2 per replay")
-        say(f"[mixed_trained] profiler, {mode}: {seen} kernel runs over "
+        if mode == "captured" and seen != {n_: c * replays for n_, c in
+                                           per_replay.items()}:
+            fail(f"[served_trained] the profiler saw {seen} kernel runs "
+                 f"over {replays} replays, expected {per_replay} per replay")
+        say(f"[served_trained] profiler, {mode}: {seen} kernel runs over "
             f"{replays} chunks")
-    capture_rows["mixed_trained"]["idle"] = idle
+    capture_rows["served_trained"]["idle"] = idle
     for path in ("fp", "fp_dp1", "mixed_no_fuse_int8"):
         captured_vs_eager(path, pipes[path], ccn_feeds, DISPATCH)
     captured_vs_eager("ragged", pipes["ragged"], rg_feeds, DISPATCH)
@@ -5300,11 +5442,14 @@ def main() -> int:
             svc.faults.counts()["fail"] if svc.faults is not None else 0)
 
     def mixed_launches(svc, launches, ran):
-        """5 fused_dense_int8 and 2 gravnet_block_int8 per chunk of every
-        launch that ran in the counted run, nothing else."""
-        chunks = ran * (svc.microbatch // svc.replicas[0].lane.microbatch)
+        """The int8 pair as many times per chunk as the lane's deployment
+        launches them (``chunk_launches``), per chunk of every launch that
+        ran in the counted run, nothing else."""
+        lane = svc.replicas[0].lane
+        chunks = ran * (svc.microbatch // lane.microbatch)
         want = dict.fromkeys(wrappers, 0)
-        want.update(fused_dense_int8=5 * chunks, gravnet_block_int8=2 * chunks)
+        want.update({n: c * chunks for n, c in
+                     chunk_launches(lane.parent).items()})
         return None if launches == want else f"expected {want}"
 
     def row(label, served, s_, plain, idle, launches):
@@ -5433,9 +5578,10 @@ def main() -> int:
         "events_s": RAGGED_EVENTS / relapsed,
         "p50_us": float(np.percentile(rlat, 50) * 1e6),
         "p99_us": float(np.percentile(rlat, 99) * 1e6)}, ridle, rlaunch)
-    ph9 = capture_rows["mixed_trained"]["captured"]
+    ph9 = capture_rows["served_trained"]["captured"]
     say(f"[service] phase 9's captured plain loop of the warm-trained "
-        f"default ({CAPTURE_EVENTS} events, {DISPATCH} per dispatch): "
+        f"default ({CAPTURE_EVENTS} events, "
+        f"{capture_rows['served_trained']['width']} per dispatch): "
         f"{ph9['events_s']:.1f} events/s, p50={ph9['p50_us']:.1f}us "
         f"p99={ph9['p99_us']:.1f}us; the service's default: "
         f"{service_rows['default']['events_s']:.1f} events/s ({card})")
@@ -6245,8 +6391,8 @@ def main() -> int:
         return {k: v[:KNOB_EVENTS] for k, v in feeds.items()}
     kfeeds = {"hits": kev["feats"], "mask": kev["mask"]}
     knob_paths = {
-        "mixed default": (pipes["mixed_trained"], lambda c: deploy(
-            params=trained, tuning_cache=c, **paths["mixed"]), kfeeds),
+        "mixed default": (pipes["served_trained"], lambda c: deploy(
+            params=trained, tuning_cache=c, **paths["served"]), kfeeds),
         "fp": (pipes["fp"], lambda c: deploy(tuning_cache=c, **paths["fp"]),
                kfeeds),
         "mixed fuse_int8=False": (pipes["mixed_no_fuse_int8"], lambda c: deploy(
@@ -6254,7 +6400,7 @@ def main() -> int:
         "ragged": (pipes["ragged"], lambda c: deploy(
             tuning_cache=c, **paths["ragged"]), first(rg_feeds)),
         "current detector": (cur_pipe, lambda c: serve.build_pipeline(
-            cur_cfg, cur_gen, device=dev, tuning_cache=c),
+            cur_cfg, cur_gen, device=dev, tuning_cache=c, platform="cpu"),
             {"hits": cev_["feats"], "mask": cev_["mask"]}),
         **{gname: (pipes[gname], lambda c, gname=gname: serve.MODELS[gname](
             card_args, gnn_cfgs[gname], tuning_cache=c).pipe,
@@ -6266,13 +6412,23 @@ def main() -> int:
     say(f"phase 18 done at {time.perf_counter() - t_start:.1f}s "
         f"({knobs['phase_s']:.1f}s)")
 
-    # 19. the kernel line and the result -----------------------------------
+    # 19. the design flow's H100 model against the card ------------------
+    model_rec = model_against_card(torch, np, dev, card, SimpleNamespace(
+        trained=trained, served=pipes["served_trained"], ccn_feeds=ccn_feeds,
+        p2=lambda: deploy(params=trained, **paths["mixed"]),
+        chunk_launches=chunk_launches))
+    (OUT / "model.json").write_text(json.dumps(model_rec, indent=1,
+                                               default=str))
+    say(f"phase 19 done at {time.perf_counter() - t_start:.1f}s "
+        f"({model_rec['phase_s']:.1f}s)")
+
+    # 20. the kernel line and the result -----------------------------------
     # each kernel's numbers per chunk (per launch of the ragged
     # executable) of the path it serves: its launches from that path's
     # run, its times at that path's micro-batch (bins)
     home = {"fused_dense": ["fp"], "gravnet_block": ["fp"],
-            "fused_dense_int8": ["mixed", "mixed_trained"],
-            "gravnet_block_int8": ["mixed", "mixed_trained"],
+            "fused_dense_int8": ["served", "served_trained"],
+            "gravnet_block_int8": ["served", "served_trained"],
             "gravnet_aggregate": ["mixed_no_fuse_int8", "fp_dp1"],
             "knn_build": ["ragged", "ragged_dp1"],
             "knn_aggregate": ["ragged", "ragged_dp1"],
@@ -6301,9 +6457,13 @@ def main() -> int:
     home["knn_aggregate"].append("no-concat ragged")
     # and phase 17's bf16-tagged dense
     home["fused_dense"].append("bf16 executor")
+    # the path whose phase-3 checks give a kernel's times: the int8
+    # pair's the mixed path at the reference's chunk of 2 events (its
+    # launches are the served default's)
+    rows_path = {"fused_dense_int8": "mixed", "gravnet_block_int8": "mixed"}
     line = []
     for name, meta in KERNELS.items():
-        path = home[name][0]
+        path = rows_path.get(name, home[name][0])
         mb = pipes[path].microbatch
         rows_ = [r for r in results[name]["per_launch"]
                  if r["path"] == path and r["events"] == mb]

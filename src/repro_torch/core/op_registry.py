@@ -9,9 +9,11 @@ port's graphs use: ``input``/``output``, ``linear``/``dense``,
 :class:`OpSpec` says whether the op's access pattern is regular
 (MXU-eligible), which template it maps to per target, how to infer its
 output feature dim, its analytic cost, how the kernel-opt pass binds its
-launch knobs and which tuning-cache key its launch has. The specs, cost
-formulas, binders and keys are the reference's, so the port's passes
-emit the reference's graphs and tuning problems: a cached winner
+launch knobs and which tuning-cache key its launch has; and, for the
+cost model's "h100" platform, the kernel launches a call costs on the
+card and the share of the SMs its hand kernel's launch fills. The specs,
+cost formulas, binders and keys are the reference's, so the port's
+passes emit the reference's graphs and tuning problems: a cached winner
 (``repro_torch.tuning``) beats the heuristic, and a miss keeps the
 heuristic binding, so an empty cache binds exactly what no cache does.
 The port's keys carry the backend ``"cuda"`` or ``"cpu"``, so entries
@@ -50,7 +52,14 @@ class OpSpec:
 
     ``infer(op, dims, g)``     -> output feature dim (verify pass)
     ``cost(op, n_hits, pb)``   -> (flops, act_bytes, weight_bytes)
-    ``mxu_eff(op, rows, n)``   -> fraction of MXU peak (matmuls only)
+    ``mxu_eff(op, rows, n)``   -> the reference's size factor of a matmul
+                                  (its "cpu" cost model, kept for parity)
+    ``launches(op)``           -> kernel launches the op costs on the card
+                                  per call (its "h100" cost model)
+    ``sm_fill(op, n, p)``      -> share of the card's SMs that the hand
+                                  kernel's launch over p events of n rows
+                                  fills; set exactly for the ops that
+                                  launch a hand kernel ("h100")
     ``bind(op, ctx)``          -> write launch knobs into op.attrs_opt
     ``tuning_key(op, n, be, b)``-> KernelKey | None (autotuner problems)
     ``int8_passthrough``       -> an int8 producer may hand this op its
@@ -64,6 +73,8 @@ class OpSpec:
     cost: Callable | None = None
     mxu_matmul: bool = False         # cost model treats it as a matmul
     mxu_eff: Callable | None = None
+    launches: Callable | int = 1     # kernel launches per call on the card
+    sm_fill: Callable | None = None  # a hand kernel's share of the SMs
     bind: Callable | None = None
     tuning_key: Callable | None = None
     int8_passthrough: bool = False   # int8 chain fusion may emit through it
@@ -448,8 +459,10 @@ def default_cost(op, n_hits, pb):
     return 0.0, n_hits * (op.out_dim or 1) * pb, 0.0
 
 
-# MXU-efficiency factors (fraction of systolic-array peak a matmul of
-# this size can use; consulted only for mxu-targeted matmul ops)
+# The reference's MXU-efficiency factors (the share of its 128x128
+# systolic array a matmul of this size uses; consulted only for
+# mxu-targeted matmul ops). The port's "cpu" cost model keeps them so that
+# it picks the reference's P; the "h100" model reads ``sm_fill`` instead.
 def _eff_dense(op, n_rows, n_hits):
     d_in = op.params["w"].shape[0] if op.params else 128
     d_out = op.out_dim or 128
@@ -465,6 +478,142 @@ def _eff_gravnet(op, n_rows, n_hits):
 def _eff_attention(op, n_rows, n_hits):
     d = op.out_dim or 128
     return (min(n_hits, 128) / 128.0) * (min(d, 128) / 128.0)
+
+
+# ========================================================================
+# the "h100" cost model's hooks: kernel launches per call, SM fill
+# ========================================================================
+# Launches per call as the profiler counts them on the card (NVIDIA H100
+# 80GB HBM3, 700.00 W; ``python -m repro_torch.launch.h100_model``): one
+# per hand-kernel call, none for a view (``slice``, a ``retile`` to the
+# compact layout) or a feed, and the plain PyTorch ops' own kernels. Not
+# counted: a third copy before some of GatedGCN's edge kernels.
+#: CPS's kernels per call (``core/caloclusternet.py:cps``: the sort and
+#: gathers, then k_max rounds of about 14 small ops over all events; the
+#: ragged path's scatter back to events adds 14 more)
+CPS_LAUNCHES = 152
+#: a masked batch normalization's kernels (``_Executor._batchnorm``)
+BATCHNORM_LAUNCHES = 15
+#: a raggedized block's chain (``ops.gravnet_block_ragged``): x's copy,
+#: the S and F denses, knn_build, knn_aggregate, the concat, the output
+#: dense, the padding mask and its product
+RAGGED_BLOCK_LAUNCHES = 9
+#: the edge kernel's call: the copy of its messages out of a lane-padded
+#: producer, and the kernel
+EDGE_AGGREGATE_LAUNCHES = 2
+
+
+def _launches_retile(op):
+    # to lane128: the padded buffer's fill and the copy into it; to the
+    # compact layout: a view
+    return 2 if op.attrs.get("to") == "lane128" else 0
+
+
+def _launches_cps(op):
+    return CPS_LAUNCHES + (14 if op.attrs.get("ragged") else 0)
+
+
+def _launches_eltwise(op):
+    fn = op.attrs.get("fn")
+    if fn in ("add", "mul"):
+        return max(1, len(op.inputs) - 1)
+    return 3 if fn == "l2norm" else 1   # l2norm: norm, clamp, division
+
+
+def _launches_gravnet_block(op):
+    return RAGGED_BLOCK_LAUNCHES if op.attrs.get("ragged") else 1
+
+
+#: an int8 dense's quantization of an f32 input (``quantize_act``: the
+#: scale's fill, the division, the rounding, the clamp and the cast)
+QUANTIZE_LAUNCHES = 5
+
+
+def _quantizes_input(g, op) -> bool:
+    """Whether the int8 dense ``op`` of graph ``g`` quantizes its input
+    on each call: its producer, past 8-bit passthrough ops, is no dense
+    that int8 chain fusion lets emit int8 (``kernel_opt.emits_int8``)."""
+    from repro_torch.core.passes.kernel_opt import emits_int8
+    if op.precision != "int8" or op.op_type not in ("dense", "linear"):
+        return False
+    src = g[op.inputs[0]]
+    while (src.op_type not in ("dense", "linear") and src.inputs
+           and src.precision == "int8" and require_spec(src).int8_passthrough):
+        src = g[src.inputs[0]]
+    return not emits_int8(g, src)
+
+
+def op_launches(op, g=None) -> int:
+    """Kernel launches one call of ``op`` costs on the card; given its
+    graph ``g``, an int8 dense that quantizes an f32 input counts that
+    quantization's kernels too."""
+    n = require_spec(op).launches
+    n = n(op) if callable(n) else n
+    if g is not None and _quantizes_input(g, op):
+        n += QUANTIZE_LAUNCHES
+    return n
+
+
+def _fill(ctas: int) -> float:
+    from repro_torch.launch.mesh import H100_SMS
+    return min(1.0, ctas / H100_SMS)
+
+
+def _fill_dense(op, n_hits, p):
+    # the kernel the executor launches for the p events row-packed
+    from repro_torch.core.passes.kernel_opt import fused_dense_dtype
+    from repro_torch.kernels import fused_dense as fd
+    m = n_hits * p
+    d_out = op.out_dim or 1
+    if fused_dense_dtype(op) == "int8":
+        bm, bn = fd.INT8_TILES[0]
+        return _fill(-(-m // bm) * -(-d_out // bn))
+    return _fill(fd.ctas(fd.plan(m, d_out), m, d_out))
+
+
+def _fill_gravnet_aggregate(op, n_hits, p):
+    from repro_torch.kernels import gravnet
+    bm, _ = gravnet.plan(n_hits, p, op.attrs.get("d_f", 1))
+    return _fill(-(-n_hits // bm) * p)
+
+
+def _fill_gravnet_block(op, n_hits, p):
+    from repro_torch.kernels import gravnet_block as gb
+    from repro_torch.kernels import knn_build
+    a = op.attrs
+    if a.get("ragged"):     # its chain's widest launch: the kNN pair
+        bm, _ = knn_build.build_plan(n_hits, p)
+    elif op.precision == "int8":
+        bm = min(n_hits, gb.BM_INT8)
+    else:
+        bm, _ = gb.plan(n_hits, a.get("d_hidden", 64), a.get("d_s", 4),
+                        a.get("d_f", 32), op.out_dim or a.get("d_hidden", 64),
+                        a.get("concat_x", True))
+    return _fill(-(-n_hits // bm) * p)
+
+
+def _fill_knn_build(op, n_hits, p):
+    from repro_torch.kernels import knn_build
+    bm, _ = knn_build.build_plan(n_hits, p)
+    return _fill(-(-n_hits // bm) * p)
+
+
+def _fill_knn_aggregate(op, n_hits, p):
+    from repro_torch.kernels import knn_build
+    bm, _ = knn_build.aggregate_plan(n_hits, p, op.attrs.get("d_f", 1))
+    return _fill(-(-n_hits // bm) * p)
+
+
+def _fill_edge_aggregate(op, n_hits, p):
+    from repro_torch.kernels import edge_aggregate as ea
+    d = op.out_dim or 1
+    bm, cw = ea.plan(n_hits, d, p)
+    return _fill(-(-d // cw) * -(-n_hits // bm) * p)
+
+
+def _fill_attention(op, n_hits, p):
+    from repro_torch.kernels import flash_attention as fa
+    return _fill(-(-n_hits // fa.plan_block(128)) * p)
 
 
 # ========================================================================
@@ -702,19 +851,19 @@ def _both(template: str) -> dict[str, str]:
 
 
 register_op(OpSpec(
-    "input", templates={"xla": "io"}, infer=_infer_input))
+    "input", templates={"xla": "io"}, infer=_infer_input, launches=0))
 register_op(OpSpec(
-    "output", templates={"xla": "io"}, infer=_infer_output))
+    "output", templates={"xla": "io"}, infer=_infer_output, launches=0))
 register_op(OpSpec(
     "linear", regular=True,
     templates={"mxu": "fused_dense", "xla": "xla_dense"},
     infer=_infer_dense, cost=_cost_dense, mxu_matmul=True,
-    mxu_eff=_eff_dense))
+    mxu_eff=_eff_dense, sm_fill=_fill_dense))
 register_op(OpSpec(
     "dense", regular=True,
     templates={"mxu": "fused_dense", "xla": "xla_dense"},
     infer=_infer_dense, cost=_cost_dense, mxu_matmul=True,
-    mxu_eff=_eff_dense, int8_passthrough=True))
+    mxu_eff=_eff_dense, sm_fill=_fill_dense, int8_passthrough=True))
 register_op(OpSpec(
     "relu", regular=True, templates=_both("xla_eltwise"),
     infer=_infer_same, cost=_cost_eltwise_like, int8_passthrough=True))
@@ -723,21 +872,23 @@ register_op(OpSpec(
     infer=_infer_concat, cost=_cost_eltwise_like, int8_passthrough=True))
 register_op(OpSpec(
     "slice", regular=True, templates=_both("xla_slice"),
-    infer=_infer_slice, cost=_cost_eltwise_like, int8_passthrough=True))
+    infer=_infer_slice, cost=_cost_eltwise_like, launches=0,
+    int8_passthrough=True))
 register_op(OpSpec(
     "retile", regular=True, templates=_both("xla_retile"),
-    infer=_infer_retile, cost=_cost_eltwise_like))
+    infer=_infer_retile, cost=_cost_eltwise_like,
+    launches=_launches_retile))
 register_op(OpSpec(
     "attention", regular=True,
     templates={"mxu": "flash_attention", "xla": "xla_attention"},
     infer=_infer_attention, cost=_cost_attention, mxu_matmul=True,
-    mxu_eff=_eff_attention, bind=_bind_attention,
+    mxu_eff=_eff_attention, sm_fill=_fill_attention, bind=_bind_attention,
     tuning_key=_key_attention))
 register_op(OpSpec(
     "gravnet_aggregate", tpu_native_regular=True,
     templates={"mxu": "gravnet_kernel", "xla": "xla_gravnet"},
     infer=_infer_gravnet_aggregate, cost=_cost_gravnet_aggregate,
-    mxu_matmul=True, mxu_eff=_eff_gravnet,
+    mxu_matmul=True, mxu_eff=_eff_gravnet, sm_fill=_fill_gravnet_aggregate,
     bind=_bind_gravnet_aggregate, tuning_key=_key_gravnet_aggregate))
 register_op(OpSpec(
     # the fused dense→aggregate→dense block carries the aggregation's
@@ -745,11 +896,12 @@ register_op(OpSpec(
     "gravnet_block", tpu_native_regular=True,
     templates={"mxu": "gravnet_block_kernel", "xla": "xla_gravnet_block"},
     infer=_infer_gravnet_block, cost=_cost_gravnet_block,
-    mxu_matmul=True, mxu_eff=_eff_gravnet,
+    mxu_matmul=True, mxu_eff=_eff_gravnet, launches=_launches_gravnet_block,
+    sm_fill=_fill_gravnet_block,
     bind=_bind_gravnet_block, tuning_key=_key_gravnet_block))
 register_op(OpSpec(
     "cps", templates=_both("xla_cps"),
-    infer=_infer_cps, cost=_cost_cps))
+    infer=_infer_cps, cost=_cost_cps, launches=_launches_cps))
 
 # --- the ragged, padding-free path (passes/ragged.py) -------------------
 # Both kNN ops classify like gravnet_aggregate. Their templates exchange
@@ -759,13 +911,13 @@ register_op(OpSpec(
     "knn_build", tpu_native_regular=True,
     templates={"mxu": "knn_build_kernel", "xla": "xla_knn_build"},
     infer=_infer_knn_build, cost=_cost_knn_build,
-    mxu_matmul=True, mxu_eff=_eff_gravnet,
+    mxu_matmul=True, mxu_eff=_eff_gravnet, sm_fill=_fill_knn_build,
     bind=_bind_knn_build, tuning_key=_key_knn_build))
 register_op(OpSpec(
     "knn_aggregate", tpu_native_regular=True,
     templates={"mxu": "knn_agg_kernel", "xla": "xla_knn_agg"},
     infer=_infer_knn_aggregate, cost=_cost_knn_aggregate,
-    mxu_matmul=True, mxu_eff=_eff_gravnet,
+    mxu_matmul=True, mxu_eff=_eff_gravnet, sm_fill=_fill_knn_aggregate,
     bind=_bind_knn_aggregate, tuning_key=_key_knn_aggregate))
 
 # --- edge-based message passing (GatedGCN / GraphSAGE) ------------------
@@ -783,10 +935,13 @@ register_op(OpSpec(
     templates={"mxu": "edge_aggregate_kernel",
                "xla": "xla_edge_aggregate"},
     infer=_infer_edge_aggregate, cost=_cost_edge_aggregate,
+    launches=EDGE_AGGREGATE_LAUNCHES, sm_fill=_fill_edge_aggregate,
     bind=_bind_edge_aggregate, tuning_key=_key_edge_aggregate))
 register_op(OpSpec(
     "eltwise", regular=True, templates=_both("xla_eltwise"),
-    infer=_infer_eltwise, cost=_cost_eltwise_like))
+    infer=_infer_eltwise, cost=_cost_eltwise_like,
+    launches=_launches_eltwise))
 register_op(OpSpec(
     "batchnorm", regular=True, templates=_both("xla_batchnorm"),
-    infer=_infer_batchnorm, cost=_cost_batchnorm))
+    infer=_infer_batchnorm, cost=_cost_batchnorm,
+    launches=BATCHNORM_LAUNCHES))

@@ -77,6 +77,17 @@ def fused_dense_dtype(op) -> str:
     return "float32"
 
 
+def emits_int8(g: Graph, op) -> bool:
+    """Whether int8 chain fusion lets ``op`` emit int8: an int8 dense
+    whose consumers are all int8 and declare an 8-bit passthrough."""
+    if op.precision != "int8" or op.op_type != "dense":
+        return False
+    succ = g.successors(op.name)
+    return bool(succ) and all(s.precision == "int8"
+                              and require_spec(s).int8_passthrough
+                              for s in succ)
+
+
 def kernel_optimize(g: Graph, *, n_rows: int = 128, batch: int = 1,
                     tuning_cache=None, backend: str = "cuda") -> Graph:
     """``n_rows`` is the per-event graph size, ``batch`` the packed
@@ -113,12 +124,7 @@ def kernel_optimize(g: Graph, *, n_rows: int = 128, batch: int = 1,
     # 3. int8 chain fusion: a dense may emit int8 straight into
     # consumers whose specs declare an 8-bit passthrough
     for op in g:
-        if op.precision != "int8" or op.op_type != "dense":
-            continue
-        succ = g.successors(op.name)
-        if succ and all(s.precision == "int8"
-                        and require_spec(s).int8_passthrough
-                        for s in succ):
+        if emits_int8(g, op):
             op.attrs_opt["emit_int8"] = True
 
     # 4. whole-pipeline compile: each chunk captured as one CUDA graph

@@ -38,8 +38,11 @@ segment masking, and whose CPS scatters the packed rows back per event.
 hits (``n_hits`` = the bucket, calibrated on its own cut of the
 calibration batch); an event runs on the smallest bucket that fits its
 non-zero hits. ``resource_report``, ``model_throughput`` and
-``model_latency`` are the reference's design-flow report, on its cost
-model (modelled TPU v5e or CPU figures, not the H100's).
+``model_latency`` are the reference's design-flow report, on the cost
+model of ``req.platform``: "h100", the card's (datasheet figures and
+three constants measured on an NVIDIA H100 80GB HBM3 at 700.00 W,
+``launch/mesh.py``), or "cpu", the reference's CPU constants. Modelled
+figures, not measurements.
 
 The edge-based GNNs (``models/gnn/``: GatedGCN, GraphSAGE) deploy
 through the same flow, fp: their graphs' ``gather_edge``, ``eltwise``
@@ -97,13 +100,14 @@ import torch.nn.functional as F
 
 from repro_torch.core import caloclusternet as ccn
 from repro_torch.core.graph_ir import Graph
-from repro_torch.core.op_registry import LANE
+from repro_torch.core.op_registry import LANE, op_launches
 from repro_torch.core.passes.fusion import fuse
 from repro_torch.core.passes.kernel_opt import (fused_dense_dtype,
                                                 kernel_optimize)
 from repro_torch.core.passes.mapping import map_templates
 from repro_torch.core.passes.parallelize import (Requirements, op_cost,
-                                                  parallelize, segment_time)
+                                                  parallelize, segment_time,
+                                                  sm_fill)
 from repro_torch.core.passes.partition import partition, segments
 from repro_torch.core.passes.ragged import raggedize
 from repro_torch.core.passes.verify import verify
@@ -351,17 +355,21 @@ class _Executor:
         S/F denses, knn_build, knn_aggregate and the output dense. The
         output dense reads concat(x, agg), or agg alone where the op's
         ``concat_x`` is false. The bound ``bm`` goes to the block's kernel
-        (the ragged chain: to its kNN pair, as in the reference)."""
+        (the ragged chain: to its kNN pair, as in the reference, and only
+        where one is bound: without it each kNN kernel runs its own
+        plan)."""
         p, a = op.params, op.attrs
         kw = dict(k=a["k"], scale=a["scale"],
                   activation=a.get("activation", "none"),
-                  concat_x=a.get("concat_x", True),
-                  bm=op.attrs_opt.get("bm"))
+                  concat_x=a.get("concat_x", True))
+        bm = op.attrs_opt.get("bm")
         if a.get("ragged"):
             x, segids = vals
             return kops.gravnet_block_ragged(
                 _as_fp(x)[..., :p["ws"].shape[0]].contiguous(), segids,
-                p["ws"], p["bs"], p["wf"], p["bf"], p["wo"], p["bo"], **kw)
+                p["ws"], p["bs"], p["wf"], p["bf"], p["wo"], p["bo"], **kw,
+                **({} if bm is None else {"bm": bm}))
+        kw["bm"] = bm
         x, mask = vals
         xf = _as_fp(x)[..., :p["ws"].shape[0]].contiguous()  # lane128
         if prec == "int8" and "ws_q" in p:
@@ -844,14 +852,18 @@ class CompiledPipeline:
     # reporting ---------------------------------------------------------------
     def resource_report(self):
         """The design flow's Table-I analogue, per segment: FLOPs,
-        activation and weight bytes per event, the working set and its
-        share of a TPU v5e core's VMEM, and the modelled seconds per step.
-        These are the reference's cost model (``passes/parallelize.py``'s
-        ``op_cost`` and ``segment_time`` on ``req.platform``'s "tpu" or
-        "cpu" constants, ``launch/mesh.py``'s ``VMEM_BYTES``), kept so
-        that the port reports what the reference reports: modelled
-        figures, not measurements of the H100."""
-        n = self.req.n_hits
+        activation and weight bytes per event, the working set (weights
+        plus P events' activations), and the modelled seconds per step
+        (``passes/parallelize.py``'s ``op_cost`` and ``segment_time`` on
+        ``req.platform``). On "h100" (the card's model, ``launch/mesh.py``'s
+        ``H100_*``) a row also reports ``l2_util``, the working set's
+        share of the card's L2, ``sm_fill``, the share of the SMs the
+        segment's widest hand-kernel launch fills at its P (0 where it
+        launches none), and ``launches``, the segment's kernel launches
+        per step. On "cpu" the rows hold the reference's keys and values
+        but ``vmem_util`` (a TPU core's VMEM, which the port does not
+        model). Modelled figures, not measurements."""
+        n, platform = self.req.n_hits, self.req.platform
         rows = []
         for seg in self.segments:
             ops_ = [self.graph[o] for o in seg["ops"]]
@@ -862,16 +874,23 @@ class CompiledPipeline:
                 fl += f_
                 by += a_
                 wb += w_
-            vmem = wb + p * by
-            rows.append({
-                "segment": seg["id"], "target": seg["target"], "P": p,
-                "ops": len(ops_), "flops_per_event": fl,
-                "act_bytes_per_event": by, "weight_bytes": wb,
-                "vmem_working_set": vmem,
-                "vmem_util": vmem / hw.VMEM_BYTES,
-                "time_s_per_step": segment_time(ops_, n, p,
-                                                self.req.platform),
-            })
+            row = {"segment": seg["id"], "target": seg["target"], "P": p,
+                   "ops": len(ops_), "flops_per_event": fl,
+                   "act_bytes_per_event": by, "weight_bytes": wb}
+            if platform == "h100":
+                fills = [sm_fill(op, n, p) for op in ops_]
+                row.update({
+                    "working_set": wb + p * by,
+                    "l2_util": (wb + p * by) / hw.H100_L2_BYTES,
+                    "sm_fill": max((f for f in fills if f is not None),
+                                   default=0.0),
+                    "launches": sum(op_launches(op, self.graph)
+                                    for op in ops_)})
+            else:
+                row["vmem_working_set"] = wb + p * by
+            row["time_s_per_step"] = segment_time(ops_, n, p, platform,
+                                                  self.graph)
+            rows.append(row)
         return rows
 
     def model_throughput(self):

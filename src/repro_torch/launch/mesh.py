@@ -1,16 +1,27 @@
-"""Meshes, hardware constants, and the serving layer's replica placement.
+"""Meshes, the H100's constants, and the serving layer's replica
+placement.
 
-The TPU v5e constants are copied from ``repro/launch/mesh.py``: the
-design flow's cost model ranks P choices with them (or with the CPU
-constants in ``passes/parallelize.py``) so that the port picks the
-reference's P and micro-batch, and ``CompiledPipeline.resource_report``
-reports the reference's modelled working set against ``VMEM_BYTES``.
-They describe a TPU chip, not the H100.
+The ``H100_*`` constants model the card the port runs on: the design
+flow's cost model (``core/passes/parallelize.py``, platform "h100")
+prices each op with them, ``CompiledPipeline.resource_report`` reports
+a segment's working set against the card's L2 and its launches' share of
+the SMs, and the dry-run's roofline (``launch/analysis.py``) uses the
+datasheet rates. Two kinds sit here, each with its source on its line:
 
-The ``H100_*`` constants are the roofline model of the dry-run
-(``launch/analysis.py``). They are datasheet figures, not measurements:
-a number the roofline gives is a model's, and a time on the card comes
-only from a run there.
+- datasheet figures of the NVIDIA H100 SXM5 80GB (NVIDIA H100 Tensor
+  Core GPU datasheet, SXM5 column, dense rates without sparsity): a
+  model's, not measurements;
+- three figures measured on the card by ``python -m
+  repro_torch.launch.h100_model`` (NVIDIA H100 80GB HBM3, power limit
+  700.00 W, as ``nvidia-smi --query-gpu=name,power.limit
+  --format=csv,noheader`` prints them): the device time one small plain
+  kernel launch costs inside a captured chunk, the same for a hand
+  kernel's launch, and the rate of the plain PyTorch ops that the
+  executor runs outside the hand kernels.
+
+A number the model gives is a model's; a time on the card comes only
+from a run there (``chip_smoke.py`` phase 19 holds the model against
+the card's busy time per chunk).
 
 The meshes are ``torch.distributed.device_mesh.DeviceMesh`` objects with
 the reference's axis names. :func:`make_production_mesh` needs a world
@@ -26,17 +37,44 @@ import socket
 
 import torch
 
-# TPU v5e hardware constants (the design flow's cost model).
-PEAK_FLOPS_BF16 = 197e12      # per chip, FLOP/s
-HBM_BW = 819e9                # per chip, B/s
-VMEM_BYTES = 128 * 1024 * 1024  # the working-set limit resource_report uses
-
-# NVIDIA H100 SXM5 80GB datasheet figures (the dry-run's roofline model).
-# Dense bf16 tensor-core peak, without sparsity: 989.4 TFLOP/s (NVIDIA
-# H100 Tensor Core GPU datasheet, SXM5 column).
+# NVIDIA H100 SXM5 80GB datasheet figures (NVIDIA H100 Tensor Core GPU
+# datasheet, SXM5 column, dense rates without sparsity, at 700 W).
+# Dense bf16 tensor-core peak: 989.4 TFLOP/s.
 H100_PEAK_FLOPS_BF16 = 989e12
-# HBM3 bandwidth of the SXM5 80GB part: 3.35 TB/s (same datasheet).
+# Dense int8 tensor-core peak: 1,979 TOPS (the int8 dense's mma.sync).
+H100_PEAK_OPS_INT8 = 1979e12
+# f32 outside the tensor cores: 67 TFLOP/s, an FMA counted as two
+# operations (132 SMs x 128 FP32 lanes x 2 x 1.98 GHz boost).
+H100_PEAK_FLOPS_F32 = 67e12
+# The f32 rate of the kernels built with -fmad=false (every source but
+# flash_attention.cu, kernels/_build.py): without FMA a multiply and an
+# add are two instructions, each one operation, at the same issue rate,
+# so half the datasheet's figure.
+H100_PEAK_FLOPS_F32_NO_FMA = H100_PEAK_FLOPS_F32 / 2
+# HBM3 bandwidth of the SXM5 80GB part: 3.35 TB/s.
 H100_HBM_BW = 3.35e12
+# Streaming multiprocessors of the SXM5 part: 132.
+H100_SMS = 132
+# L2 cache: 50 MB (the CUDA runtime reports 52,428,800 bytes on the card).
+H100_L2_BYTES = 50 * 1024 * 1024
+
+# Measured on the card (python -m repro_torch.launch.h100_model; NVIDIA
+# H100 80GB HBM3, 700.00 W): the profiler's busy time of one small
+# plain PyTorch kernel launch inside a captured CUDA graph (read
+# 1.4764953e-06 s).
+H100_LAUNCH_S = 1.4765e-6
+# Measured on the card (the same script and card): the busy time of one
+# hand-kernel launch at the smallest served shape, (128, 32) -> 7, f32
+# and int8 denses, inside a captured graph: the launch and a CTA's
+# staging round trip, which a plain elementwise kernel does not make
+# (read 2.4367430e-06 s).
+H100_KERNEL_LAUNCH_S = 2.4367e-6
+# Measured on the card (the same script and card): the f32 elements a
+# second that plain PyTorch elementwise ops (add, mul, where, sigmoid) run
+# at on large tensors, inside a captured graph: the rate the cost model
+# prices a plain op's counted operations at (read 2.6248410e+11).
+H100_PLAIN_FLOPS = 2.6248e11
+
 # The per-GPU link a 256-GPU mesh crosses between its 8-GPU nodes: one
 # 400 Gb/s NDR InfiniBand adapter per GPU (DGX H100 reference
 # architecture), 400e9 / 8 = 50 GB/s each way.

@@ -5,8 +5,10 @@ model named by ``--model`` (default ``ccn``) is a route of the
 serve-side registry ``MODELS``. A route deploys its model through the
 whole design flow (``core/pipeline.py:deploy``; the model joins through
 its ``core.graph_ir`` exporter, with ``--target-throughput`` and
-``--tpu-native-gravnet`` in its ``Requirements``) and makes its own
-synthetic events:
+``--tpu-native-gravnet`` in its ``Requirements``, whose cost-model
+platform follows the device: "h100" on ``cuda``, so the P search picks
+the micro-batch on the card's model, and "cpu", the reference's
+constants, on the CPU) and makes its own synthetic events:
 
 - ``ccn``: CaloClusterNet on synthetic Belle II events, CPS for the
   trigger bit, and a report of trigger efficiency / fake rate against
@@ -153,17 +155,26 @@ def calibration_feeds(gen_cfg) -> dict:
     return {"hits": calib["feats"], "mask": calib["mask"]}
 
 
+def platform_of(device=None) -> str:
+    """The design flow's cost-model platform for a deployment on
+    ``device``: "h100" on ``cuda`` (the card's model), "cpu" on the CPU
+    (the reference's constants, so the CPU picks the reference's P)."""
+    return "h100" if resolve_device(device).type == "cuda" else "cpu"
+
+
 def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
                    precision: str = "mixed", fuse_gravnet_block: bool = True,
                    fuse_int8: bool = True, batch: int = 1,
                    ragged: bool = False, tuning_cache=None,
                    target_throughput: float = TARGET_THROUGHPUT,
                    tpu_native_gravnet: bool = False, params=None,
-                   buckets=None, device=None):
+                   buckets=None, device=None, platform=None):
     """CaloClusterNet weights ``params`` (default: random from seed 0),
-    exported and deployed as repro/launch/serve.py deploys it (its CPU
-    cost constants, so the design flow picks the same P and
-    micro-batch; its calibration batch from ``gen_cfg``).
+    exported and deployed as repro/launch/serve.py deploys it (its
+    calibration batch from ``gen_cfg``, its 2 ms budget), with the cost
+    model of ``platform``: by default the device's (:func:`platform_of`:
+    the H100's on ``cuda``; on the CPU the reference's CPU constants, so
+    the design flow picks the reference's P and micro-batch).
     ``target_throughput`` and ``tpu_native_gravnet`` are the
     ``Requirements``'; ``batch``, ``ragged`` and ``tuning_cache`` are
     ``deploy``'s: ``ragged=True`` returns the padding-free
@@ -172,7 +183,8 @@ def build_pipeline(cfg: ccn.CCNConfig, gen_cfg, *, design_point: int = 3,
     instead, ``batch`` events a launch of each bucket."""
     if params is None:
         params = ccn.init(torch.Generator().manual_seed(0), cfg)
-    req = Requirements(design_point=design_point, platform="cpu",
+    req = Requirements(design_point=design_point,
+                       platform=platform or platform_of(device),
                        precision_policy=precision, n_hits=cfg.n_hits,
                        target_throughput=target_throughput,
                        max_latency_s=2e-3,
@@ -280,7 +292,8 @@ def _edge_events(d_in, d_edge_in=None):
 
 
 def _edge_req(args) -> Requirements:
-    return Requirements(design_point=args.design_point, platform="cpu",
+    return Requirements(design_point=args.design_point,
+                        platform=args.platform or platform_of(args.device),
                         precision_policy="fp", n_hits=_EDGE_N,
                         target_throughput=args.target_throughput,
                         max_latency_s=2e-3,
@@ -304,7 +317,8 @@ def _ccn_servable(args, cfg=None, tuning_cache=None,
                           tuning_cache=tuning_cache,
                           target_throughput=args.target_throughput,
                           tpu_native_gravnet=args.tpu_native_gravnet,
-                          params=params, device=args.device, **bucket_kw)
+                          params=params, device=args.device,
+                          platform=args.platform, **bucket_kw)
 
     def events(n, seed):
         ev = generate(gen_cfg, n, seed=seed)
@@ -644,8 +658,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="events in all, split over the routes")
     ap.add_argument("--target-throughput", type=float,
                     default=TARGET_THROUGHPUT,
-                    help="events/s target for the design flow's P search "
-                         "(CPU scale)")
+                    help="events/s target for the design flow's P search, "
+                         "on the cost model of the device (the H100's on "
+                         "cuda, the reference's CPU constants on the CPU)")
+    ap.add_argument("--platform", choices=["h100", "cpu"], default=None,
+                    help="the cost model the P search prices ops on "
+                         "(default: the device's, h100 on cuda and cpu on "
+                         "the CPU)")
     ap.add_argument("--tpu-native-gravnet", action="store_true",
                     help="partition the GravNet aggregation onto the "
                          "kernel target (Requirements.tpu_native_gravnet)")

@@ -26,7 +26,8 @@ output columns):
   design's 32 where the shape needs the shared-memory cell
   (``gravnet_block.py:plan``); ``gravnet_block_int8``: 4, 8 or 16
   (``int8_plan``); a raggedized block, which runs the kNN pair, the
-  rows both kNN kernels take;
+  rows both kNN kernels take, after ``{}`` (no knob) where the two
+  kernels' own plans differ;
 - ``edge_aggregate``: (bm, bn), the edge kernel's five (rows, columns)
   tiles cut to (n, d) (``edge_aggregate.py:TILES``);
 - ``flash_attention``: (bq, bk), its tiles 32, 64 and 128, less every
@@ -160,10 +161,16 @@ def gravnet_block_int8_candidates(n: int, d_hidden: int, d_f: int,
 def gravnet_block_ragged_candidates(n: int, *, batch: int = 1,
                                     d_f: int) -> list[dict]:
     """A raggedized block launches the kNN pair (``ops.gravnet_block_
-    ragged``) with one bm: the rows both kNN kernels take,
-    ``knn_build``'s own plan first."""
+    ragged``) with one bm: the untuned launch first, then the rows both
+    kNN kernels take. Where the two kernels' own plans agree (d_f <= 128:
+    both on the register cell) that common bm is the untuned launch;
+    where they differ (past d_f 128 the aggregation's shared-memory
+    cell), the untuned launch is ``{}``, no knob: each kernel runs its
+    own plan."""
+    build = knn_build_candidates(n, batch=batch)
     agg = knn_aggregate_candidates(n, batch=batch, d_f=d_f)
-    return [c for c in knn_build_candidates(n, batch=batch) if c in agg]
+    common = [c for c in build if c in agg]
+    return common if build[0] == agg[0] else [{}] + common
 
 
 def default_edge_aggregate(n: int, e: int, batch: int = 1, *,
@@ -225,5 +232,8 @@ def flash_attention_candidates(s: int, t: int, d: int, *,
 def among(config: dict, cands: list[dict]) -> bool:
     """Whether ``config`` (a cached entry, which may carry replay dims
     and the reference's annotations beside its knobs) names one of
-    ``cands``: every knob of some candidate equal."""
-    return any(all(config.get(k) == v for k, v in c.items()) for c in cands)
+    ``cands``: every knob the candidates name equal to some candidate's,
+    a knob the candidate leaves out absent from ``config`` (so ``{}``,
+    the untuned launch, names only an entry without those knobs)."""
+    knobs = {k for c in cands for k in c}
+    return any(all(config.get(k) == c.get(k) for k in knobs) for c in cands)

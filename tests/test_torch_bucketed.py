@@ -127,9 +127,23 @@ def test_bucket_deployments_equal_reference(bucketed):
         assert len(scales) > len(names)
 
 
+def assert_report_equal(t_rows, j_rows):
+    """The port's design-flow report rows (on the "cpu" model) equal the
+    reference's in every key both report: the reference's keys but
+    ``vmem_util``, a TPU core's VMEM share, which the port does not
+    model and must not report."""
+    assert len(t_rows) == len(j_rows)
+    for t, j in zip(t_rows, j_rows, strict=True):
+        assert "vmem_util" not in t
+        assert t == {k: v for k, v in j.items() if k != "vmem_util"}
+
+
 def test_reports_equal_reference(bucketed):
     _, jb, tb = bucketed
-    assert tb.resource_report() == jb.resource_report()
+    t_rep, j_rep = tb.resource_report(), jb.resource_report()
+    assert sorted(t_rep) == sorted(j_rep)
+    for b in j_rep:
+        assert_report_equal(t_rep[b], j_rep[b])
     for b in BUCKETS:
         assert tb.pipes[b].model_throughput() == \
             jb.pipes[b].model_throughput()
@@ -142,7 +156,7 @@ def test_ragged_report_equals_reference(ccn_graphs):
     jr = jpipeline.deploy(jg, JReq(**_req_kw(3)), batch=4, ragged=True)
     tr = tpipeline.deploy(tg, TReq(**_req_kw(3)), batch=4, ragged=True,
                           device="cpu")
-    assert tr.resource_report() == jr.resource_report()
+    assert_report_equal(tr.resource_report(), jr.resource_report())
     rows = tr.resource_report()
     assert rows and all(r["time_s_per_step"] > 0 for r in rows)
 
@@ -152,7 +166,7 @@ def test_compiled_report_equals_reference(dp, ccn_graphs):
     jg, tg = ccn_graphs
     jp = jpipeline.deploy(jg, JReq(**_req_kw(dp)))
     tp = tpipeline.deploy(tg, TReq(**_req_kw(dp)), device="cpu")
-    assert tp.resource_report() == jp.resource_report()
+    assert_report_equal(tp.resource_report(), jp.resource_report())
     assert tp.model_throughput() == jp.model_throughput()
     assert tp.model_latency() == jp.model_latency()
 

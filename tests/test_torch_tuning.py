@@ -536,3 +536,175 @@ def test_search_times_the_card_on_its_clock(monkeypatch):
     assert tautotune._search(called.append, cands, "cpu", 5) == [
         (cands[0], 1.0)]
     assert timers == ["host"] and called == cands[:1]
+
+
+# ------------------------------------------- every list starts untuned ----
+def _untuned_plans():
+    """(family, shape label, candidates, plan): ``plan(knobs)`` is what
+    the wrapper launches with those knobs (no knob: its own plan), so a
+    list's first candidate is the untuned launch where ``plan(first) ==
+    plan({})``. The raggedized block launches the kNN pair with one bm:
+    its plan is both kNN kernels' plans."""
+    from repro_torch.kernels import edge_aggregate as edge
+    from repro_torch.kernels import fused_dense as dense
+    from repro_torch.kernels import gravnet, gravnet_block, knn_build
+    from repro_torch.kernels.flash_attention import plan_block
+
+    def ragged(n, b, df):
+        return (f"ragged block n={n} bins={b} d_f={df}",
+                cand.gravnet_block_ragged_candidates(n, batch=b, d_f=df),
+                lambda c: (knn_build.build_plan(n, b, c.get("bm")),
+                           knn_build.aggregate_plan(n, b, df, c.get("bm"))))
+    rows = [(f"fused_dense {m}x{k}->{n}",
+             cand.fused_dense_candidates(m, k, n),
+             lambda c, m=m, n=n: dense.variant_of(m, n, c.get("bm"),
+                                                  c.get("bn")))
+            for m, k, n in ((256, 64, 64), (256, 32, 7), (4096, 64, 192),
+                            (1024, 108, 64))]
+    rows += [(f"fused_dense_int8 {m}x{k}->{n}",
+              cand.fused_dense_int8_candidates(m, k, n),
+              lambda c: dense.int8_tile_of(c.get("bm"), c.get("bn")))
+             for m, k, n in ((256, 64, 64), (256, 32, 7))]
+    rows += [(f"gravnet n={n} b={b} d_f={df}",
+              cand.gravnet_candidates(n, batch=b, d_f=df),
+              lambda c, n=n, b=b, df=df: gravnet.plan(n, b, df, c.get("bm")))
+             for n, b, df in ((128, 1, 22), (128, 16, 22), (600, 1, 22),
+                              (128, 1, 129))]
+    rows += [(f"gravnet_block n={n} d_hidden={dh} d_f={df}",
+              cand.gravnet_block_candidates(n, dh, df, dh, d_s=4, batch=b),
+              lambda c, n=n, dh=dh, df=df: gravnet_block.plan(
+                  n, dh, 4, df, dh, True, c.get("bm")))
+             for n, b, dh, df in ((128, 2, 64, 22), (32, 8, 64, 22),
+                                  (128, 1, 16, 129))]
+    rows += [(f"gravnet_block_int8 n={n}",
+              cand.gravnet_block_int8_candidates(n, 64, 22, 64, d_s=4),
+              lambda c, n=n: gravnet_block.int8_plan(n, 64, 4, 22, 64,
+                                                     True, c.get("bm")))
+             for n in (128, 32)]
+    rows += [(f"knn_build n={n} bins={b}",
+              cand.knn_build_candidates(n, batch=b),
+              lambda c, n=n, b=b: knn_build.build_plan(n, b, c.get("bm")))
+             for n, b in ((128, 1), (128, 8), (600, 1))]
+    rows += [(f"knn_aggregate n={n} bins={b} d_f={df}",
+              cand.knn_aggregate_candidates(n, batch=b, d_f=df),
+              lambda c, n=n, b=b, df=df: knn_build.aggregate_plan(
+                  n, b, df, c.get("bm")))
+             for n, b, df in ((128, 1, 22), (128, 8, 22), (128, 1, 129))]
+    rows += [(f"edge_aggregate n={n} e={e} d={d} b={b}",
+              cand.edge_aggregate_candidates(n, e, d=d, batch=b),
+              lambda c, n=n, d=d, b=b: edge.plan(n, d, b, c.get("bm"),
+                                                 c.get("bn")))
+             for n, e, d, b in ((64, 256, 70, 1), (256, 2048, 16, 8),
+                                (600, 1000, 129, 1))]
+    rows += [(f"flash_attention s={s} d={d}",
+              cand.flash_attention_candidates(s, s, d),
+              lambda c: (plan_block(c.get("bq", 128)),
+                         plan_block(c.get("bk", 128))))
+             for s, d in ((512, 64), (16, 8))]
+    rows += [ragged(128, b, df) for b in (1, 8) for df in (22, 129)]
+    return rows
+
+
+@pytest.mark.parametrize("case", range(len(_untuned_plans())),
+                         ids=[r[0] for r in _untuned_plans()])
+def test_every_candidate_list_starts_with_the_untuned_plan(case):
+    """Every family's list in ``tuning/candidates.py`` starts with the
+    launch its wrapper makes with no knob (``autotune._pick`` takes
+    ``timed[0]`` for it), the raggedized block at d_f 22 and 129 at 1
+    and 8 bins included: past d_f 128 its kNN pair's own plans differ,
+    and the list starts with ``{}``."""
+    _, cands, plan = _untuned_plans()[case]
+    assert cands and plan(cands[0]) == plan({})
+
+
+def test_ragged_block_candidates_at_the_paths_width_unchanged():
+    """At d_f 22, the ragged CaloClusterNet's width, both kNN plans agree,
+    so the common bm is the untuned launch and the list is what it was;
+    past d_f 128 the untuned launch ``{}`` leads, then the common rows."""
+    assert cand.gravnet_block_ragged_candidates(128, batch=8, d_f=22) == [
+        {"bm": 8}, {"bm": 4}, {"bm": 16}]
+    assert cand.gravnet_block_ragged_candidates(128, batch=1, d_f=22)[0] \
+        == {"bm": 4}
+    for b in (1, 8):
+        got = cand.gravnet_block_ragged_candidates(128, batch=b, d_f=129)
+        assert got[0] == {} and {"bm": 8} in got and {"bm": 16} in got
+    # {} names only an entry without a bm; a bm names its own candidate
+    ragged = cand.gravnet_block_ragged_candidates(128, batch=1, d_f=129)
+    assert cand.among({"d_s": 4, "d_out": 64}, ragged)
+    assert cand.among({"bm": 16}, ragged)
+    assert not cand.among({"bm": 128}, ragged)
+    assert not cand.among({}, cand.knn_build_candidates(128, batch=8))
+
+
+def test_ragged_tuner_times_the_untuned_launch_first(monkeypatch):
+    """Past d_f 128 the tuner's ``timed[0]`` on a raggedized block is the
+    untuned launch: its call hands the kNN pair no bm, so each kernel
+    runs its own plan (4 rows for the build at one bin, the first
+    design's 32 for the aggregation on its shared-memory cell)."""
+    from repro_torch.kernels import knn_build, ops
+    from repro_torch.tuning import autotune as tautotune
+    plans = []
+    real_build, real_agg = ops.knn_build_batched, ops.knn_aggregate_batched
+
+    def build(s, seg, **kw):
+        plans.append(("build", kw.get("bm"), knn_build.build_plan(
+            s.shape[1], s.shape[0], kw.get("bm"))[0]))
+        return real_build(s, seg, **kw)
+
+    def agg(f, idx, d2, **kw):
+        plans.append(("agg", kw.get("bm"), knn_build.aggregate_plan(
+            f.shape[1], f.shape[0], f.shape[2], kw.get("bm"))[0]))
+        return real_agg(f, idx, d2, **kw)
+
+    searched = []
+    real_search = tautotune._search
+
+    def search(call, cands, backend, iters):
+        searched.append(list(cands))
+        return real_search(call, cands, backend, iters)
+
+    monkeypatch.setattr(ops, "knn_build_batched", build)
+    monkeypatch.setattr(ops, "knn_aggregate_batched", agg)
+    monkeypatch.setattr(tautotune, "_search", search)
+    cache = TuningCache()
+    best = tautotune.tune_gravnet_block(128, 16, 4, 129, 16, 8, batch=1,
+                                        ragged=True, backend="cpu",
+                                        cache=cache, iters=1)
+    assert searched[0][0] == {} and "bm" not in best
+    assert plans and all(bm is None for _, bm, _ in plans)
+    assert {(k, p) for k, _, p in plans} == {("build", 4), ("agg", 32)}
+
+
+def test_executor_hands_the_ragged_block_no_bm_unless_bound():
+    """A raggedized block's kNN pair gets ``bm`` from the executor only
+    where one is bound: unbound (or bound to ``{}``) each kNN kernel runs
+    its own plan; a bound bm reaches both."""
+    from repro_torch.core import pipeline as tpipeline
+    from repro_torch.kernels import ops
+    cfg = tccn.CCNConfig(n_hits=32)
+    g = export_graph("caloclusternet", tccn.init(
+        torch.Generator().manual_seed(0), cfg), cfg)
+    req = TReq(design_point=3, platform="cpu", precision_policy="fp",
+               n_hits=32, target_throughput=1e5, max_latency_s=2e-3)
+    rp = tdeploy(g, req, batch=2, ragged=True, device="cpu")
+    ev = jbelle2.generate(jbelle2.current_detector(), 4, seed=3)
+    seen = []
+    real = ops.gravnet_block_ragged
+
+    def spy(*a, **kw):
+        seen.append(kw.get("bm", "absent"))
+        return real(*a, **kw)
+    blocks = [op for op in rp.pipe.graph if op.op_type == "gravnet_block"]
+    try:
+        tpipeline.kops.gravnet_block_ragged = spy
+        rp({"hits": ev["feats"], "mask": ev["mask"]})
+        assert seen and set(seen) == {"absent"}
+        seen.clear()
+        for op in blocks:
+            op.attrs_opt["bm"] = 8
+        rp({"hits": ev["feats"], "mask": ev["mask"]})
+        assert seen and set(seen) == {8}
+    finally:
+        tpipeline.kops.gravnet_block_ragged = real
+        for op in blocks:
+            op.attrs_opt.pop("bm", None)
